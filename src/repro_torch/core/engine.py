@@ -1,0 +1,413 @@
+"""Static-shape multi-round ADACUR engine, single device — port of
+``repro/core/engine.py`` (``engine_search`` and ``AdaCURRetriever``).
+
+The search runs eagerly in PyTorch over preallocated slabs: the anchor-id
+(B, k_i), exact-score (B, k_i), anchor-column (B, k_q, k_i) and
+incremental-pinv (B, k_i, k_q) buffers are allocated at their final size and
+round r fills slab ``[r·k_s, (r+1)·k_s)``; unfilled entries are exact zeros.
+Loop modes: ``unrolled`` (the full ``cfg.n_rounds``), ``fori`` (a runtime
+``n_rounds`` ≤ ``cfg.n_rounds``), the early-exit monitor, and — with
+``round_kernel="persistent"`` — the software-pipelined monitored loop in
+which round r+1's sample and round r's monitor share one payload sweep.
+
+With ``use_fused_topk`` every item-axis pass (round sampling, the early-exit
+monitor, rerank candidate selection) goes through ``approx_topk_op`` or
+``persistent_round_op``: the hand-written CUDA kernels for CUDA tensors,
+their plain versions for CPU tensors.  No (B, N) score matrix is formed on
+that path; round 0's random draw reads the (B, N) Gumbel field, as in the
+reference.  Every top-k is index-stable.
+
+The sharded engine, the ANNCUR/Rerank retrievers, anytime deadlines and
+candidate-subset search are later slices.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Callable, NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from ..configs.base import AdaCURConfig
+from ..kernels.approx_topk import quant
+from ..kernels.approx_topk.ops import approx_topk_op
+from ..kernels.approx_topk.persistent import persistent_round_op
+from ..kernels.approx_topk.select import NEG_INF, stable_topk
+from . import cur, prng, sampling
+from .adacur import AdaCURResult, ScoreFn
+
+
+def ce_call_plan(cfg: AdaCURConfig, rounds: Optional[int] = None) -> int:
+    """Exact CE calls per query for a run executing ``rounds`` rounds."""
+    k_i = cfg.budget_ce if not cfg.split_budget else cfg.k_anchor
+    k_s = k_i // cfg.n_rounds
+    r = cfg.n_rounds if rounds is None else rounds
+    if not 1 <= r <= cfg.n_rounds:
+        raise ValueError(f"rounds={r} outside [1, {cfg.n_rounds}]")
+    k_r = cfg.budget_ce - k_i if cfg.split_budget else 0
+    return k_s * r + k_r
+
+
+class EngineState(NamedTuple):
+    anchor_idx: torch.Tensor   # (B, k_i) int32, -1 in unfilled slots
+    c_test: torch.Tensor       # (B, k_i) exact CE scores, 0 unfilled
+    a_buf: torch.Tensor        # (B, k_q, k_i) anchor columns, 0 unfilled
+    p: torch.Tensor            # (B, k_i, k_q) incremental pinv, 0 unfilled
+    e_q: torch.Tensor          # (B, k_q) latent query embedding
+    selected: torch.Tensor     # (B, N) bool mask of already-selected items
+
+
+def _noise(key, rows: int, n: int, device) -> torch.Tensor:
+    return sampling.blocked_gumbel(key, rows, n, device=device)
+
+
+def _sample_random(key, selected, k: int):
+    """Uniform w/o replacement over unselected items (the masked-Gumbel
+    formula of the reference's ``_sample_random_ctx``)."""
+    b, n = selected.shape
+    logits = torch.where(selected, NEG_INF, 0.0).to(torch.float32)
+    return stable_topk(logits + _noise(key, b, n, selected.device), k)[1]
+
+
+def _mark_selected(selected, gidx):
+    """Set each row's picks in the selected mask; ids outside [0, N) drop
+    (a guarded scatter into a spare column that is then cut off)."""
+    b, n = selected.shape
+    g = gidx.long()
+    g = torch.where((g >= 0) & (g < n), g, n)
+    pad = torch.zeros((b, 1), dtype=torch.bool, device=selected.device)
+    return torch.cat([selected, pad], 1).scatter_(1, g, True)[:, :n].contiguous()
+
+
+def _effective_tile(cfg: AdaCURConfig, r_anc) -> int:
+    """Item tile of the plain version (the reference's CPU rule: a per-tile
+    byte budget in fp32 columns).  The CUDA kernels pick their own tiling."""
+    return cfg.fused_tile * (4 if quant.payload_dtype_of(r_anc) == "int8" else 1)
+
+
+def _fused_suppress(state: EngineState, force_mask: bool = False) -> dict:
+    """How the fused op suppresses already-selected items: the (B, k_i)
+    anchor-id list while the valid-item bound is static, the (B, N)
+    ``selected`` mask when it is a runtime value (the id list cannot see an
+    invalid padded tail) — the reference's card path (``engine.py:428``)."""
+    if force_mask:
+        return dict(anchors=None, mask=state.selected)
+    return dict(anchors=state.anchor_idx, mask=None)
+
+
+def _bcast_mask(invalid, b: int, n: int):
+    if invalid is None:
+        return None
+    inv = invalid if invalid.dim() == 2 else invalid[None, :]
+    return inv.expand(b, n).contiguous()
+
+
+def _provisional_topk(cfg, e_q, r_anc, m: int, n_valid, invalid=None):
+    """Top-m ids of the current estimate S_hat — the early-exit monitor."""
+    n = r_anc.shape[1]
+    if cfg.use_fused_topk:
+        return approx_topk_op(
+            e_q, r_anc, None, m, tile=_effective_tile(cfg, r_anc),
+            n_valid=n_valid, mask=_bcast_mask(invalid, e_q.shape[0], n),
+        )[1]
+    s_hat = quant.matmul(e_q, r_anc)
+    if n_valid is not None and n_valid < n:
+        s_hat = torch.where(torch.arange(n, device=s_hat.device) < n_valid, s_hat, NEG_INF)
+    if invalid is not None:
+        s_hat = torch.where(invalid, NEG_INF, s_hat)
+    return stable_topk(s_hat, m)[1]
+
+
+def _sample_round(cfg, key, state: EngineState, r_anc, k_eff: int, n_valid,
+                  force_mask: bool = False, monitor=None):
+    """One adaptive round's anchor pick (Alg. 3), dense or fused;
+    ``monitor=(m, invalid)`` also returns the provisional top-m of the
+    current estimate — from the same persistent sweep where the sample and
+    provisional branches share the estimate GEMM."""
+    b, n = state.selected.shape
+
+    def with_monitor(gidx):
+        if monitor is None:
+            return gidx
+        m, invalid = monitor
+        return gidx, _provisional_topk(cfg, state.e_q, r_anc, m, n_valid, invalid)
+
+    if cfg.strategy == "random" and cfg.use_fused_topk:
+        return with_monitor(_sample_random(key, state.selected, k_eff))
+    if not cfg.use_fused_topk:
+        s_hat = quant.matmul(state.e_q, r_anc)
+        return with_monitor(sampling.sample(
+            cfg.strategy, key, s_hat, state.selected, k_eff, cfg.softmax_temp
+        ))
+    suppress = _fused_suppress(state, force_mask)
+    tile = _effective_tile(cfg, r_anc)
+    e_q = state.e_q
+    if cfg.strategy == "softmax":
+        # temp folds into e_q: scores/temp == (e_q/temp) @ R_anc
+        e_q = e_q / torch.tensor(cfg.softmax_temp, dtype=e_q.dtype)
+    if cfg.round_kernel == "persistent":
+        kw = dict(k_sample=k_eff, tile=tile, n_valid=n_valid, **suppress)
+        if cfg.strategy == "softmax":
+            kw["noise_key"] = key
+        if monitor is not None and (cfg.strategy == "topk" or cfg.softmax_temp == 1.0):
+            m, invalid = monitor
+            (_, idx), (_, pidx) = persistent_round_op(
+                e_q, r_anc, k_prov=m, prov_mask=_bcast_mask(invalid, b, n), **kw
+            )
+            return idx, pidx
+        (_, idx), _ = persistent_round_op(e_q, r_anc, **kw)
+        return with_monitor(idx)
+    noise = _noise(key, b, n, e_q.device) if cfg.strategy == "softmax" else None
+    _, idx = approx_topk_op(e_q, r_anc, k=k_eff, tile=tile, noise=noise,
+                            n_valid=n_valid, **suppress)
+    return with_monitor(idx)
+
+
+def _make_round_steps(scored, r_anc, query, cfg, keys, k_s: int, n_valid,
+                      force_mask: bool = False):
+    """The round split into ``sample(r, state, monitor=None)`` (the pick)
+    and ``apply(r, state, idx_new)`` (ε mix, CE scoring, slab and pinv
+    updates); ``body = apply ∘ sample``.  The persistent monitored loop
+    composes them pipelined — ``sample`` reads only state ``apply``
+    finalized, so the values do not change, only the sweeps halve."""
+    n_rand = int(round(cfg.round_epsilon * k_s))
+
+    def sample(r, state, monitor=None):
+        return _sample_round(cfg, keys[r], state, r_anc, k_s - n_rand, n_valid,
+                             force_mask, monitor=monitor)
+
+    def apply(r, state, idx_new):
+        if n_rand:
+            sel_tmp = _mark_selected(state.selected, idx_new)
+            idx_rand = _sample_random(prng.fold_in(keys[r], 1), sel_tmp, n_rand)
+            idx_new = torch.cat([idx_new, idx_rand], dim=1)
+        idx_new = idx_new.to(torch.int32)
+        selected = _mark_selected(state.selected, idx_new)
+        start = r * k_s
+        c_new = scored(query, idx_new)
+        cols_new = quant.gather_columns(r_anc, idx_new)
+        anchor_idx = state.anchor_idx.clone()
+        anchor_idx[:, start:start + k_s] = idx_new
+        c_test = state.c_test.clone()
+        c_test[:, start:start + k_s] = c_new
+        a_buf = state.a_buf.clone()
+        a_buf[:, :, start:start + k_s] = cols_new
+        if cfg.incremental_pinv:
+            p = cur.block_pinv_extend_static(state.a_buf, state.p, cols_new, start)
+        else:
+            p = cur.pinv(a_buf, cfg.pinv_rcond)
+        e_q = torch.einsum("bk,bkq->bq", c_test, p)
+        return EngineState(anchor_idx, c_test, a_buf, p, e_q, selected)
+
+    def body(r, state):
+        return apply(r, state, sample(r, state))
+
+    return sample, apply, body
+
+
+def _pad_short_ranking(top_idx, top_s):
+    """Repeat the row-best candidate in slots a short run left unfilled."""
+    ok = top_s > 0.5 * NEG_INF
+    return (torch.where(ok, top_idx, top_idx[:, :1]),
+            torch.where(ok, top_s, top_s[:, :1]))
+
+
+def _hit_frac(cur_top, prev_top) -> float:
+    hit = (cur_top[:, :, None] == prev_top[:, None, :]).any(-1)
+    return hit.to(torch.float32).mean().item()
+
+
+def engine_search(score_fn: ScoreFn, r_anc, query, cfg: AdaCURConfig, key,
+                  first_anchors=None, n_valid_items=None,
+                  n_rounds: Optional[int] = None,
+                  return_scores: Optional[bool] = None,
+                  item_ids=None) -> AdaCURResult:
+    """Run Algorithm 1 (+ retrieval) through the static-shape round engine.
+
+    Runs on the payload's device.  ``n_valid_items`` as a Python int is a
+    static bound; as a tensor it is a runtime bound (suppression then goes
+    through the selected mask, as on the reference's dynamic path).
+    ``item_ids`` (N,) maps positions to external ids before every CE call.
+    """
+    r_anc = quant.as_payload(r_anc, cfg.payload_dtype, cfg.payload_tile)
+    k_q, n_items = r_anc.shape
+    dev = r_anc.device
+    k_i = cfg.budget_ce if not cfg.split_budget else cfg.k_anchor
+    r_max = cfg.n_rounds
+    k_s = k_i // r_max
+    if return_scores is None:
+        return_scores = not cfg.use_fused_topk
+    n_valid, invalid = None, None
+    if n_valid_items is not None:
+        if isinstance(n_valid_items, (int, np.integer)):
+            if n_valid_items < n_items:
+                n_valid = int(n_valid_items)
+        else:
+            nv = torch.clamp(torch.as_tensor(n_valid_items, device=dev), max=n_items)
+            invalid = torch.arange(n_items, device=dev) >= nv
+    dyn_valid = invalid is not None
+    if cfg.loop_mode == "unrolled" and n_rounds is not None:
+        raise ValueError("runtime n_rounds override requires loop_mode='fori'")
+
+    b = query.shape[0]
+    if first_anchors is not None and tuple(first_anchors.shape) != (b, k_s):
+        raise ValueError(f"first_anchors must be ({b}, k_s={k_s}), got "
+                         f"{tuple(first_anchors.shape)}")
+
+    if item_ids is not None:
+        def scored(q, gidx, _f=score_fn, _ids=item_ids):
+            return _f(q, _ids[gidx.long()])
+    else:
+        scored = score_fn
+
+    selected = torch.zeros((b, n_items), dtype=torch.bool, device=dev)
+    if n_valid is not None:
+        selected |= (torch.arange(n_items, device=dev) >= n_valid)[None, :]
+    if invalid is not None:
+        selected |= invalid[None, :]
+
+    keys = prng.split(key, r_max + 1)
+
+    # --- round 0: random or retriever-seeded first anchors ----------------
+    if first_anchors is not None and cfg.first_round == "retriever":
+        idx0 = first_anchors.to(device=dev, dtype=torch.int32)
+    else:
+        idx0 = _sample_random(keys[0], selected, k_s)
+    selected = _mark_selected(selected, idx0)
+    c0 = scored(query, idx0).to(torch.float32)
+    cols0 = quant.gather_columns(r_anc, idx0)
+    anchor_idx = torch.full((b, k_i), -1, dtype=torch.int32, device=dev)
+    anchor_idx[:, :k_s] = idx0
+    c_test = torch.zeros((b, k_i), dtype=torch.float32, device=dev)
+    c_test[:, :k_s] = c0
+    a_buf = torch.zeros((b, k_q, k_i), dtype=torch.float32, device=dev)
+    a_buf[:, :, :k_s] = cols0
+    p = torch.zeros((b, k_i, k_q), dtype=torch.float32, device=dev)
+    e_q = torch.zeros((b, k_q), dtype=torch.float32, device=dev)
+    if cfg.split_budget or return_scores or r_max > 1:
+        p[:, :k_s, :] = (cur.incremental_pinv_init(cols0, cfg.pinv_rcond)
+                         if cfg.incremental_pinv else cur.pinv(cols0, cfg.pinv_rcond))
+        e_q = torch.einsum("bk,bkq->bq", c_test, p)
+    state = EngineState(anchor_idx, c_test, a_buf, p, e_q, selected)
+
+    sample_step, apply_step, body = _make_round_steps(
+        scored, r_anc, query, cfg, keys, k_s, n_valid, force_mask=dyn_valid
+    )
+
+    # --- rounds 1..n_rounds-1 ---------------------------------------------
+    if cfg.loop_mode == "unrolled":
+        for r in range(1, r_max):
+            state = body(r, state)
+        rounds_done = r_max
+    else:
+        r_dyn = min(max(int(r_max if n_rounds is None else n_rounds), 1), r_max)
+        # the reference compares a float32 overlap with a float32 bound
+        stop_at = float(np.float32(1.0 - cfg.early_exit_tol))
+        m = min(cfg.k_retrieve, n_items)
+        monitor = (m, invalid)
+        r, frac = 1, 0.0
+        if cfg.early_exit_tol > 0.0 and cfg.round_kernel == "persistent":
+            pending, prev = sample_step(1, state, monitor=monitor)
+            while r < r_dyn and frac < stop_at:
+                state = apply_step(r, state, pending)
+                pending, cur_top = sample_step(r + 1, state, monitor=monitor)
+                frac, prev, r = _hit_frac(cur_top, prev), cur_top, r + 1
+        elif cfg.early_exit_tol > 0.0:
+            prev = _provisional_topk(cfg, state.e_q, r_anc, m, n_valid, invalid)
+            while r < r_dyn and frac < stop_at:
+                state = body(r, state)
+                cur_top = _provisional_topk(cfg, state.e_q, r_anc, m, n_valid, invalid)
+                frac, prev, r = _hit_frac(cur_top, prev), cur_top, r + 1
+        else:
+            for r in range(1, r_dyn):
+                state = body(r, state)
+            r = r_dyn
+        rounds_done = r
+
+    anchor_idx, c_test = state.anchor_idx, state.c_test
+    valid_slot = torch.arange(k_i, device=dev) < rounds_done * k_s
+    anchor_logits = torch.where(valid_slot[None, :], c_test, NEG_INF)
+    s_hat = quant.matmul(state.e_q, r_anc) if return_scores else None
+
+    # --- retrieval ---------------------------------------------------------
+    if not cfg.split_budget:
+        top_s, top_pos = stable_topk(anchor_logits, min(cfg.k_retrieve, k_i))
+        top_idx = torch.gather(anchor_idx, 1, top_pos.long())
+        top_idx, top_s = _pad_short_ranking(top_idx, top_s)
+        return AdaCURResult(anchor_idx, c_test, s_hat, top_idx, top_s,
+                            ce_call_plan(cfg), rounds_done)
+
+    k_r = cfg.budget_ce - k_i
+    if cfg.use_fused_topk:
+        _, rerank_idx = approx_topk_op(
+            state.e_q, r_anc, k=k_r, tile=_effective_tile(cfg, r_anc),
+            n_valid=n_valid, **_fused_suppress(state, dyn_valid),
+        )
+    else:
+        full = s_hat if s_hat is not None else quant.matmul(state.e_q, r_anc)
+        rerank_idx = stable_topk(torch.where(state.selected, NEG_INF, full), k_r)[1]
+    rerank_scores = scored(query, rerank_idx).to(torch.float32)
+    pool_idx = torch.cat([anchor_idx, rerank_idx], dim=1)
+    pool_scores = torch.cat([anchor_logits, rerank_scores], dim=1)
+    top_s, top_pos = stable_topk(pool_scores, min(cfg.k_retrieve, pool_idx.shape[1]))
+    top_idx = torch.gather(pool_idx, 1, top_pos.long())
+    top_idx, top_s = _pad_short_ranking(top_idx, top_s)
+    return AdaCURResult(anchor_idx, c_test, s_hat, top_idx, top_s,
+                        ce_call_plan(cfg), rounds_done)
+
+
+def make_engine(score_fn: ScoreFn, cfg: AdaCURConfig) -> Callable:
+    """Engine closure over a scorer + config.  In ``fori`` mode the
+    callable takes a runtime ``n_rounds`` in [1, cfg.n_rounds]."""
+
+    def run(r_anc, query, key, first_anchors=None, n_rounds=None,
+            n_valid=None, item_ids=None):
+        return engine_search(
+            score_fn, r_anc, query, cfg, key, first_anchors=first_anchors,
+            n_valid_items=n_valid, n_rounds=n_rounds, item_ids=item_ids,
+        )
+
+    return run
+
+
+@dataclass
+class AdaCURRetriever:
+    """The paper's method (Alg. 1) on the static-shape engine."""
+
+    score_fn: ScoreFn
+    r_anc: Optional[object]
+    cfg: AdaCURConfig
+    index: Optional[object] = None       # repro_torch.core.index.AnchorIndex
+    _run: Callable = field(init=False, repr=False)
+
+    def __post_init__(self):
+        if self.r_anc is None and self.index is None:
+            raise ValueError("need r_anc or an AnchorIndex")
+        if (self.index is not None and self.cfg.payload_dtype != "float32"
+                and self.index.payload_dtype != self.cfg.payload_dtype):
+            # the payload policy applies to the index once, not per search
+            self.index = self.index.quantize(self.cfg.payload_dtype,
+                                             tile=self.cfg.payload_tile)
+        self._run = make_engine(self.score_fn, self.cfg)
+
+    @classmethod
+    def from_index(cls, index, score_fn: ScoreFn, cfg: AdaCURConfig) -> "AdaCURRetriever":
+        """Bind the engine to an AnchorIndex: ``score_fn`` receives external
+        item ids, and a padded capacity is masked by the runtime bound."""
+        return cls(score_fn, None, cfg, index=index)
+
+    def _search_operands(self):
+        if self.index is None:
+            return self.r_anc, {}
+        kw = dict(item_ids=self.index.item_ids)
+        if self.index.capacity > self.index.n_items:
+            kw["n_valid"] = self.index.n_valid
+        return self.index.r_anc, kw
+
+    def search(self, query, key=None, first_anchors=None,
+               n_rounds=None) -> AdaCURResult:
+        key = prng.PRNGKey(0) if key is None else key
+        r_anc, kw = self._search_operands()
+        return self._run(r_anc, query, key, first_anchors=first_anchors,
+                         n_rounds=n_rounds, **kw)

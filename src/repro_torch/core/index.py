@@ -1,0 +1,126 @@
+"""The offline artifact every retriever consumes — port of the in-memory
+part of ``repro/core/index.py``'s :class:`AnchorIndex`.
+
+The item axis is padded to ``capacity``; positions ``[0, n_valid)`` hold
+real items (column ``j`` of ``r_anc`` scores item ``item_ids[j]``) and the
+tail holds exact-zero columns with ``item_ids == -1``.  Save/load, the
+resumable ``checkpoint_dir`` build, mutation, latents and sharding are
+later slices.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Callable, Optional, Union
+
+import torch
+
+from ..kernels.approx_topk import quant
+from ..kernels.approx_topk.quant import QuantizedRanc
+
+# bulk_score_fn(query_ids (Q,), item_ids (N,)) -> (Q, N) exact scores
+BulkScoreFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
+
+
+def build_r_anc(bulk_score_fn: BulkScoreFn, anchor_query_ids, item_ids,
+                block_rows: int = 64) -> torch.Tensor:
+    """R_anc (k_q, N), streamed in blocks of anchor-query rows into one
+    preallocated buffer on the scorer's device."""
+    k_q = int(anchor_query_ids.shape[0])
+    out = None
+    for lo in range(0, k_q, block_rows):
+        block = bulk_score_fn(anchor_query_ids[lo:lo + block_rows], item_ids)
+        if out is None:
+            out = torch.empty((k_q, block.shape[1]), dtype=torch.float32,
+                              device=block.device)
+        out[lo:lo + block.shape[0]] = block
+    return out
+
+
+@dataclass
+class AnchorIndex:
+    r_anc: Union[torch.Tensor, QuantizedRanc]   # (k_q, capacity) payload
+    anchor_query_ids: torch.Tensor              # (k_q,) int32
+    item_ids: torch.Tensor                      # (capacity,) int32, -1 padding
+    n_valid: torch.Tensor                       # () int32 real item count
+
+    @property
+    def k_q(self) -> int:
+        return self.r_anc.shape[0]
+
+    @property
+    def capacity(self) -> int:
+        return self.r_anc.shape[1]
+
+    @property
+    def device(self) -> torch.device:
+        return self.item_ids.device
+
+    @property
+    def payload_dtype(self) -> str:
+        return quant.payload_dtype_of(self.r_anc)
+
+    @property
+    def payload_nbytes(self) -> int:
+        if isinstance(self.r_anc, QuantizedRanc):
+            return self.r_anc.nbytes
+        return self.r_anc.numel() * self.r_anc.element_size()
+
+    @property
+    def n_items(self) -> int:
+        return int(self.n_valid)
+
+    def quantize(self, dtype: str = "int8", tile: int = quant.DEFAULT_TILE) -> "AnchorIndex":
+        """Re-encode the payload (``int8`` or ``float32`` in this port)."""
+        if dtype not in quant.PORTED_DTYPES:
+            raise quant._unported(dtype)
+        cur = self.r_anc
+        coded = isinstance(cur, QuantizedRanc)
+        if dtype == self.payload_dtype and (not coded or cur.tile == tile):
+            return self
+        dense = quant.dequantize(cur) if coded else cur.to(torch.float32)
+        new = quant.quantize_ranc(dense, tile) if dtype == "int8" else dense
+        return dataclasses.replace(self, r_anc=new)
+
+    def gather_item_ids(self, pos: torch.Tensor) -> torch.Tensor:
+        """Map engine positions (e.g. ``result.topk_idx``) to external ids."""
+        return self.item_ids[pos.long()]
+
+    @classmethod
+    def from_r_anc(cls, r_anc: torch.Tensor, anchor_query_ids=None,
+                   item_ids=None, capacity: Optional[int] = None) -> "AnchorIndex":
+        """Wrap a dense (k_q, N) score matrix, padding the item axis to
+        ``capacity`` (defaults to N)."""
+        k_q, n = r_anc.shape
+        dev = r_anc.device
+        capacity = n if capacity is None else int(capacity)
+        if capacity < n:
+            raise ValueError(f"capacity={capacity} < n_items={n}")
+        if anchor_query_ids is None:
+            anchor_query_ids = torch.arange(k_q, dtype=torch.int32, device=dev)
+        if item_ids is None:
+            item_ids = torch.arange(n, dtype=torch.int32, device=dev)
+        if item_ids.shape[0] != n:
+            raise ValueError(f"item_ids {tuple(item_ids.shape)} != n_items {n}")
+        r_anc = r_anc.to(torch.float32)
+        if capacity > n:
+            r_anc = torch.nn.functional.pad(r_anc, (0, capacity - n))
+        return cls(
+            r_anc=r_anc,
+            anchor_query_ids=anchor_query_ids.to(device=dev, dtype=torch.int32),
+            item_ids=torch.nn.functional.pad(
+                item_ids.to(device=dev, dtype=torch.int32), (0, capacity - n), value=-1),
+            n_valid=torch.tensor(n, dtype=torch.int32, device=dev),
+        )
+
+    @classmethod
+    def build(cls, bulk_score_fn: BulkScoreFn, anchor_query_ids, item_ids,
+              block_rows: int = 64, capacity: Optional[int] = None,
+              payload_dtype: str = "float32",
+              payload_tile: int = quant.DEFAULT_TILE) -> "AnchorIndex":
+        """The offline indexing job, block-streamed over anchor-query rows."""
+        r_anc = build_r_anc(bulk_score_fn, anchor_query_ids, item_ids, block_rows)
+        idx = cls.from_r_anc(r_anc, anchor_query_ids=anchor_query_ids,
+                             item_ids=item_ids, capacity=capacity)
+        return idx.quantize(payload_dtype, tile=payload_tile)

@@ -1,0 +1,20 @@
+"""The port's device rule.
+
+Every entry point takes ``device=None``, which means ``"cuda"``.  Without a
+card it raises unless the caller passed ``device="cpu"``: the port never
+drops to the CPU on its own.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device=None) -> torch.device:
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run the plain "
+            "PyTorch versions on the CPU"
+        )
+    return dev

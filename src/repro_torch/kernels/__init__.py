@@ -1,0 +1,17 @@
+"""The port's kernels: hand-written CUDA for Hopper (``csrc/``), each beside
+its plain PyTorch version."""
+
+
+def reset_launches() -> None:
+    """Set every kernel wrapper's launch count to 0."""
+    from .approx_topk import kernel, persistent
+
+    kernel.launches = 0
+    persistent.launches = 0
+
+
+def launch_counts() -> dict:
+    from .approx_topk import kernel, persistent
+
+    return {"approx_topk": kernel.launches,
+            "persistent_round": persistent.launches}

@@ -1,0 +1,221 @@
+"""ADACUR retrieval service — port of ``AdaCURService`` and the
+synthetic-scorer CLI of ``repro/launch/serve.py``.
+
+Requests accumulate to a batch or a deadline; a batch fires from
+``submit`` when full or overdue and from ``poll``; every fired batch is
+padded to one of a few static batch buckets (partial fills repeat the last
+row, and the padding is cut from the responses).  A failing search turns
+into per-request ``status="error"`` responses for exactly that batch.
+
+CLI (on the card by default; ``--device cpu`` runs the plain versions):
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --fused \
+        [--round-kernel staged|persistent] [--payload-dtype float32|int8] \
+        [--n-items N] [--batch B] [--requests R] [--device cuda|cpu]
+"""
+
+from __future__ import annotations
+
+import argparse
+import threading
+import time
+from dataclasses import dataclass, field
+from typing import Callable, List, Optional
+
+import numpy as np
+import torch
+
+from ..configs.base import AdaCURConfig
+from ..core import prng
+from ..core.engine import AdaCURRetriever
+from ..core.index import AnchorIndex
+from ..core.scorer import ScorerStats, SyntheticScorer, scorer_stats
+from ..device import resolve_device
+from ..kernels.approx_topk import quant
+
+
+@dataclass
+class RetrievalRequest:
+    query_id: int
+    arrival_t: float = field(default_factory=time.monotonic)
+
+
+@dataclass
+class RetrievalResponse:
+    query_id: int
+    item_ids: Optional[np.ndarray] = None      # None on status="error"
+    scores: Optional[np.ndarray] = None
+    latency_s: float = 0.0
+    ce_calls: int = 0                          # planned budget
+    measured_ce_calls: Optional[int] = None    # scorer-measured, per real row
+    status: str = "ok"                         # "ok" | "error"
+    rounds_completed: Optional[int] = None
+    error: Optional[str] = None
+
+
+class AdaCURService:
+    """Batched retrieval over an AnchorIndex via an AdaCURRetriever."""
+
+    def __init__(self, score_fn: Optional[Callable] = None,
+                 cfg: Optional[AdaCURConfig] = None, max_batch: int = 32,
+                 max_wait_s: float = 0.01, seed: int = 0, retriever=None,
+                 index: Optional[AnchorIndex] = None,
+                 batch_buckets: Optional[List[int]] = None):
+        if retriever is None:
+            if score_fn is None or cfg is None or index is None:
+                raise ValueError("need a retriever, or score_fn, cfg and an index")
+            retriever = AdaCURRetriever.from_index(index, score_fn, cfg)
+        self.retriever = retriever
+        self.max_batch = max_batch
+        self.max_wait_s = max_wait_s
+        if batch_buckets is None:
+            batch_buckets = {max(1, max_batch // 4), max(1, max_batch // 2), max_batch}
+        self.batch_buckets = sorted(set(int(b) for b in batch_buckets))
+        if self.batch_buckets[-1] != max_batch:
+            raise ValueError(f"largest bucket {self.batch_buckets[-1]} must "
+                             f"equal max_batch={max_batch}")
+        self._scorer = getattr(retriever, "score_fn", None)
+        self._key = prng.PRNGKey(seed)
+        self._pending: List[RetrievalRequest] = []
+        self._lock = threading.RLock()
+        self.batch_log: List[dict] = []   # per fired batch: rows, bucket, CE calls, seconds
+
+    @property
+    def scorer_stats(self) -> Optional[ScorerStats]:
+        return scorer_stats(self._scorer) if self._scorer is not None else None
+
+    def _due(self) -> bool:
+        if not self._pending:
+            return False
+        return (len(self._pending) >= self.max_batch
+                or time.monotonic() - self._pending[0].arrival_t >= self.max_wait_s)
+
+    def submit(self, req: RetrievalRequest) -> Optional[List[RetrievalResponse]]:
+        """Queue a request; returns responses when a batch fires."""
+        with self._lock:
+            self._pending.append(req)
+            return self.flush() if self._due() else None
+
+    def poll(self) -> List[RetrievalResponse]:
+        """Flush if the oldest queued request has waited past max_wait_s."""
+        with self._lock:
+            return self.flush() if self._due() else []
+
+    def _bucket(self, n: int) -> int:
+        for b in self.batch_buckets:
+            if b >= n:
+                return b
+        return self.batch_buckets[-1]
+
+    def flush(self) -> List[RetrievalResponse]:
+        with self._lock:
+            if not self._pending:
+                return []
+            batch = self._pending[: self.max_batch]
+            self._pending = self._pending[self.max_batch:]
+            try:
+                return self._flush_batch(batch)
+            except Exception as e:  # noqa: BLE001 — the flush boundary
+                msg = f"{type(e).__name__}: {e}"
+                now = time.monotonic()
+                return [RetrievalResponse(query_id=r.query_id,
+                                          latency_s=now - r.arrival_t,
+                                          status="error", error=msg)
+                        for r in batch]
+
+    def _flush_batch(self, batch: List[RetrievalRequest]) -> List[RetrievalResponse]:
+        t0 = time.perf_counter()
+        n_real = len(batch)
+        bucket = self._bucket(n_real)
+        raw = [r.query_id for r in batch] + [batch[-1].query_id] * (bucket - n_real)
+        idx = self.retriever.index
+        qids = torch.tensor(raw, dtype=torch.int64, device=idx.device)
+        self._key, sub = prng.split(self._key)
+        before = self.scorer_stats
+        before = before.copy() if before is not None else None
+        res = self.retriever.search(qids, sub)
+        item_ids = idx.gather_item_ids(res.topk_idx).cpu().numpy()
+        scores = res.topk_scores.cpu().numpy()
+        measured = None
+        if before is not None:
+            delta = (self.scorer_stats - before).ce_calls
+            measured = delta // n_real
+            self.batch_log.append(dict(rows=n_real, bucket=bucket, ce_calls=delta,
+                                       seconds=time.perf_counter() - t0))
+        now = time.monotonic()
+        return [RetrievalResponse(
+            query_id=r.query_id, item_ids=item_ids[i], scores=scores[i],
+            latency_s=now - r.arrival_t, ce_calls=res.ce_calls,
+            measured_ce_calls=measured, rounds_completed=int(res.rounds_done),
+        ) for i, r in enumerate(batch)]
+
+
+def build_domain(n_items: int, device=None, n_queries: int = 600,
+                 n_anchor_queries: int = 500, block_rows: int = 128):
+    """The CLI's synthetic domain and its AnchorIndex (anchor queries
+    0..n_anchor_queries-1), built on ``device``."""
+    from ..data.synthetic import make_synthetic_ce
+
+    dev = resolve_device(device)
+    ce = make_synthetic_ce(prng.PRNGKey(0), n_queries=n_queries, n_items=n_items,
+                           device=dev)
+    index = AnchorIndex.build(
+        ce.score_block, torch.arange(n_anchor_queries, device=dev),
+        torch.arange(n_items, device=dev), block_rows=block_rows,
+    )
+    return ce, index
+
+
+def drive(svc: AdaCURService, n_requests: int, qid_range=(500, 600),
+          seed: int = 0) -> List[RetrievalResponse]:
+    """Submit ``n_requests`` query ids drawn from ``qid_range``, polling
+    as an event loop would, then flush the rest."""
+    served: List[RetrievalResponse] = []
+    rng = np.random.default_rng(seed)
+    for _ in range(n_requests):
+        served += svc.submit(RetrievalRequest(query_id=int(rng.integers(*qid_range)))) or []
+        served += svc.poll()
+    while svc._pending:
+        served += svc.flush()
+    return served
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--requests", type=int, default=64)
+    ap.add_argument("--n-items", type=int, default=10000)
+    ap.add_argument("--budget", type=int, default=200)
+    ap.add_argument("--rounds", type=int, default=5)
+    ap.add_argument("--batch", type=int, default=16)
+    ap.add_argument("--fused", action="store_true",
+                    help="fused score->top-k sampling (the CUDA kernels on the card)")
+    ap.add_argument("--round-kernel", choices=("staged", "persistent"), default="staged")
+    ap.add_argument("--payload-dtype", choices=quant.PAYLOAD_DTYPES, default="float32")
+    ap.add_argument("--device", default=None, help="cuda (default) or cpu")
+    args = ap.parse_args(argv)
+    if args.payload_dtype not in quant.PORTED_DTYPES:
+        raise SystemExit(
+            f"--payload-dtype {args.payload_dtype} is not ported yet: the port "
+            f"serves {quant.PORTED_DTYPES}; bfloat16, fp8 and packed int4 are "
+            "listed in ROADMAP.md, queue 2"
+        )
+    cfg = AdaCURConfig(
+        k_anchor=args.budget // 2, n_rounds=args.rounds, budget_ce=args.budget,
+        strategy="topk", k_retrieve=100, loop_mode="fori",
+        use_fused_topk=args.fused, payload_dtype=args.payload_dtype,
+        round_kernel=args.round_kernel,
+    )
+    print(f"building synthetic CE domain + AnchorIndex (|I|={args.n_items})...")
+    ce, index = build_domain(args.n_items, args.device)
+    svc = AdaCURService(retriever=AdaCURRetriever.from_index(index, SyntheticScorer(ce), cfg),
+                        max_batch=args.batch)
+    served = drive(svc, args.requests)
+    lat = np.array([r.latency_s for r in served])
+    errors = sum(r.status != "ok" for r in served)
+    print(f"served {len(served)} requests ({errors} errors) | "
+          f"p50={np.percentile(lat, 50) * 1e3:.1f}ms p99={np.percentile(lat, 99) * 1e3:.1f}ms "
+          f"| {cfg.budget_ce} CE calls/request")
+
+
+if __name__ == "__main__":
+    main()

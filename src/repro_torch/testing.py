@@ -1,0 +1,80 @@
+"""Comparators shared by the port's tests and ``chip_smoke.py``.
+
+Two (B, k) top-k lists are held against each other and against ``scores``,
+the (B, N) dense values every id should carry (noise added, suppressed
+entries at ``NEG_INF``: ``kernels.approx_topk.ref.dense_scores``):
+
+- ids lie in ``[0, N)`` and are distinct within each row;
+- the two lists' values agree position by position;
+- each id's dense value equals the value its list reports at that position.
+
+All closeness is ``rtol = 1e-5`` relative to max(|a|, |b|, 1).  Two fp32
+contractions summed in different orders (BLAS vs the CUDA kernel's fixed
+k_q order vs XLA) may swap a near-tie: a differing id then passes, since
+both ids carry the value of the other list at that position.  An id that is
+wrong but reported with the right value (a tile-local id, an id lost in a
+merge) fails the last rule.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+TOPK_RTOL = 1e-5
+
+
+def _np(x):
+    if hasattr(x, "detach"):
+        x = x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def _close(a, b, rtol):
+    return np.abs(a - b) <= rtol * np.maximum(np.maximum(np.abs(a), np.abs(b)), 1.0)
+
+
+def _rescore(scores, ids):
+    """scores[b, ids[b, j]] as float64 numpy, gathered where ``scores``
+    lives (a card-resident field is not copied whole to the host)."""
+    idx = torch.as_tensor(ids, device=scores.device, dtype=torch.int64)
+    return _np(scores.gather(1, idx)).astype(np.float64)
+
+
+def topk_report(ids_a, vals_a, ids_b, vals_b, scores, rtol: float = TOPK_RTOL) -> dict:
+    """Agreement of two (B, k) top-k lists with each other and with the
+    dense values ``scores`` (B, N), under the rules of the module doc."""
+    ia, ib = _np(ids_a).astype(np.int64), _np(ids_b).astype(np.int64)
+    va, vb = _np(vals_a).astype(np.float64), _np(vals_b).astype(np.float64)
+    if ia.shape != ib.shape or va.shape != vb.shape or ia.shape != va.shape:
+        raise ValueError(f"shape mismatch {ia.shape}/{va.shape} vs {ib.shape}/{vb.shape}")
+    b, n = scores.shape
+    if ia.shape[0] != b:
+        raise ValueError(f"scores has {b} rows for lists of {ia.shape[0]}")
+    in_range = (ia >= 0) & (ia < n) & (ib >= 0) & (ib < n)
+    sa = _rescore(scores, np.clip(ia, 0, n - 1))
+    sb = _rescore(scores, np.clip(ib, 0, n - 1))
+    values_agree = _close(va, vb, rtol)
+    ids_carry = in_range & _close(sa, va, rtol) & _close(sb, vb, rtol)
+    dup_rows = sum(len(set(r)) < len(r) for lst in (ia, ib) for r in lst.tolist())
+    bad = ~(values_agree & ids_carry)
+    return {
+        "ok": bool(not bad.any() and dup_rows == 0),
+        "id_mismatches": int((ia != ib).sum()),
+        "bad_positions": int(bad.sum()),
+        "rows_with_duplicate_ids": int(dup_rows),
+        "max_abs_err": float(np.abs(va - vb).max()) if va.size else 0.0,
+    }
+
+
+def assert_topk_agree(ids_a, vals_a, ids_b, vals_b, scores, rtol: float = TOPK_RTOL):
+    rep = topk_report(ids_a, vals_a, ids_b, vals_b, scores, rtol)
+    assert rep["ok"], f"top-k lists disagree: {rep}"
+    return rep
+
+
+def topk_overlap(a, b) -> float:
+    """Mean per-row |set(a_i) ∩ set(b_i)| / k of two (B, k) id arrays."""
+    a, b = _np(a), _np(b)
+    k = a.shape[1]
+    return float(np.mean([len(set(x) & set(y)) / k for x, y in zip(a.tolist(), b.tolist())]))

@@ -1,0 +1,151 @@
+"""The port's engine (plain versions, on the CPU) against the JAX engine on
+one small domain built by the JAX package and carried across.
+
+Bars (the reference's own, ``tests/test_engine.py``):
+- mean top-``k_retrieve`` overlap >= 0.99 per configuration;
+- noise-free runs (``first_round="retriever"``, topk strategy) pick the
+  same anchor ids in >= 0.99 of rows;
+- measured CE calls == ``ce_call_plan(cfg, rounds_done) * B`` exactly, and
+  no row scores a pair twice.
+
+The retriever-seeded runs use the full (regularized) pinv: the incremental
+bordered update amplifies fp32 rounding round over round on this domain —
+JAX's and the port's fp32 trajectories are each as far from a float64 run
+as from each other — so exact anchor agreement is only asked where the
+arithmetic is stable.  Both engines see the same key, so the same noise
+bits."""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+
+from repro.configs.base import AdaCURConfig as JConfig  # noqa: E402
+from repro.core.engine import engine_search as j_search  # noqa: E402
+from repro.data.synthetic import make_synthetic_ce  # noqa: E402
+from repro_torch import convert  # noqa: E402
+from repro_torch.core.engine import ce_call_plan, engine_search as t_search  # noqa: E402
+from repro_torch.core.scorer import SyntheticScorer  # noqa: E402
+from repro_torch.testing import topk_overlap  # noqa: E402
+
+N_ITEMS, K_Q, B = 2000, 200, 16
+BASE = dict(k_anchor=40, n_rounds=4, budget_ce=80, k_retrieve=30, fused_tile=256)
+KEY = 3
+
+
+@pytest.fixture(scope="module")
+def domain():
+    ce = make_synthetic_ce(jax.random.PRNGKey(0), n_queries=K_Q + B, n_items=N_ITEMS)
+    m = np.asarray(ce.full_matrix(jnp.arange(K_Q + B)))
+    fields = {k: np.asarray(getattr(ce, k)) for k in convert.SYNTHETIC_CE_FIELDS}
+    fields.update(gamma=ce.gamma, sigma=ce.sigma)
+    noisy = m[K_Q:] + 2.0 * np.random.default_rng(0).standard_normal((B, N_ITEMS))
+    first = np.argsort(-noisy, axis=1, kind="stable")[:, :10].astype(np.int32)
+    return dict(ce=ce, tce=convert.synthetic_ce(fields), r_anc=m[:K_Q],
+                q=np.arange(K_Q, K_Q + B), first=first)
+
+
+def _run_both(dom, cfg_kw, first=None, n_rounds=None):
+    jcfg = JConfig(**cfg_kw)
+    kw = {} if n_rounds is None else dict(n_rounds=n_rounds)
+    jres = j_search(dom["ce"].score_fn(), jnp.asarray(dom["r_anc"]), jnp.asarray(dom["q"]),
+                    jcfg, jax.random.PRNGKey(KEY),
+                    first_anchors=None if first is None else jnp.asarray(first), **kw)
+    scorer = SyntheticScorer(dom["tce"], record_pairs=True)
+    tres = t_search(scorer, convert.r_anc(dom["r_anc"]), torch.as_tensor(dom["q"]),
+                    convert.config(cfg_kw), convert.key(np.asarray(jax.random.PRNGKey(KEY))),
+                    first_anchors=None if first is None else torch.as_tensor(first), **kw)
+    return jres, tres, scorer
+
+
+def _check_accounting(cfg_kw, tres, scorer):
+    cfg = convert.config(cfg_kw)
+    assert scorer.stats.ce_calls == ce_call_plan(cfg, tres.rounds_done) * B
+    pairs = [[] for _ in range(B)]
+    for q, idx in scorer.call_log:
+        for row in range(B):
+            assert q[row] == K_Q + row
+            pairs[row] += idx[row].tolist()
+    for row in pairs:
+        assert len(row) == len(set(row)), "a row scored a pair twice"
+
+
+# every value of {staged, persistent} x {unrolled, fori(runtime n_rounds),
+# early exit} x {fp32, int8} x {topk, softmax} at least once, plus dense
+MODES = {
+    "staged-unrolled-fp32-topk": dict(use_fused_topk=True),
+    "persistent-unrolled-int8-softmax": dict(
+        use_fused_topk=True, round_kernel="persistent", payload_dtype="int8",
+        strategy="softmax"),
+    "staged-fori3-int8-softmax": dict(
+        use_fused_topk=True, loop_mode="fori", payload_dtype="int8", strategy="softmax"),
+    "persistent-fori3-fp32-topk": dict(
+        use_fused_topk=True, loop_mode="fori", round_kernel="persistent"),
+    "staged-early-fp32-softmax": dict(
+        use_fused_topk=True, loop_mode="fori", early_exit_tol=0.5, strategy="softmax"),
+    "persistent-early-int8-topk": dict(
+        use_fused_topk=True, loop_mode="fori", early_exit_tol=0.5,
+        round_kernel="persistent", payload_dtype="int8"),
+    "dense-unrolled-fp32-topk": dict(use_fused_topk=False),
+}
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+def test_engine_matches_jax(domain, mode):
+    cfg_kw = dict(BASE, **MODES[mode])
+    n_rounds = 3 if "fori3" in mode else None
+    jres, tres, scorer = _run_both(domain, cfg_kw, n_rounds=n_rounds)
+    assert int(jres.rounds_done) == tres.rounds_done
+    assert tres.topk_idx.shape == (B, 30) and torch.isfinite(tres.topk_scores).all()
+    assert topk_overlap(np.asarray(jres.topk_idx), tres.topk_idx) >= 0.99
+    _check_accounting(cfg_kw, tres, scorer)
+
+
+@pytest.mark.parametrize("mode", ["staged-unrolled-fp32-topk", "persistent-fori3-fp32-topk",
+                                  "staged-fori3-int8-softmax"])
+def test_retriever_seeded_topk_picks_the_same_anchors(domain, mode):
+    cfg_kw = {**BASE, **MODES[mode], "first_round": "retriever",
+              "incremental_pinv": False, "strategy": "topk"}
+    jres, tres, scorer = _run_both(domain, cfg_kw, first=domain["first"])
+    same = (np.asarray(jres.anchor_idx) == tres.anchor_idx.numpy()).all(axis=1)
+    assert same.mean() >= 0.99
+    assert topk_overlap(np.asarray(jres.topk_idx), tres.topk_idx) >= 0.99
+    _check_accounting(cfg_kw, tres, scorer)
+
+
+def test_no_split_budget_ranks_anchors(domain):
+    cfg_kw = dict(k_anchor=40, n_rounds=4, budget_ce=40, split_budget=False,
+                  k_retrieve=30, use_fused_topk=True, loop_mode="fori")
+    jres, tres, scorer = _run_both(domain, cfg_kw)
+    assert tres.anchor_idx.shape == (B, 40) and tres.ce_calls == 40
+    assert topk_overlap(np.asarray(jres.topk_idx), tres.topk_idx) >= 0.99
+    _check_accounting(cfg_kw, tres, scorer)
+
+
+def test_runtime_rounds_need_fori(domain):
+    with pytest.raises(ValueError, match="fori"):
+        t_search(SyntheticScorer(domain["tce"]), convert.r_anc(domain["r_anc"]),
+                 torch.as_tensor(domain["q"]), convert.config(dict(BASE)),
+                 convert.key(np.asarray(jax.random.PRNGKey(KEY))), n_rounds=2)
+
+
+def test_full_pinv_search_is_stable_under_rounding(domain):
+    """A relative change of 1e-7 (about one fp32 ulp) to every payload entry
+    leaves the early-exit persistent search with the full pinv unchanged:
+    the same rounds and the same top-k.  Card-vs-CPU checks of that loop
+    (``tests/test_torch_cuda.py``, ``chip_smoke.py``) rely on it, since the
+    card's cuBLAS/cuSOLVER round differently from the CPU's BLAS/LAPACK."""
+    cfg = convert.config(dict(k_anchor=40, n_rounds=8, budget_ce=80, k_retrieve=30,
+                              loop_mode="fori", use_fused_topk=True,
+                              round_kernel="persistent", early_exit_tol=0.5,
+                              incremental_pinv=False))
+    r = domain["r_anc"]
+    nudged = r * (1 + 1e-7 * np.random.default_rng(1).standard_normal(r.shape))
+    key = convert.key(np.asarray(jax.random.PRNGKey(KEY)))
+    q = torch.as_tensor(domain["q"])
+    a, b = (t_search(SyntheticScorer(domain["tce"]), convert.r_anc(x.astype(np.float32)), q,
+                     cfg, key) for x in (r, nudged))
+    assert a.rounds_done == b.rounds_done < cfg.n_rounds
+    assert topk_overlap(a.topk_idx, b.topk_idx) == 1.0

@@ -1,0 +1,94 @@
+"""The port stands alone: it imports neither ``jax`` nor ``repro``, its
+entry points refuse to fall back to the CPU, and its kernel build refuses
+to run without ``nvcc``."""
+
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.kernels import build  # noqa: E402
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+IMPORT_RE = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)")
+
+
+def _modules():
+    for p in sorted(PORT.rglob("*.py")):
+        rel = p.relative_to(PORT.parent).with_suffix("")
+        parts = list(rel.parts)
+        if parts[-1] == "__init__":
+            parts = parts[:-1]
+        yield ".".join(parts)
+
+
+def test_importing_the_port_loads_no_jax_and_no_reference():
+    mods = list(_modules())
+    assert "repro_torch.launch.serve" in mods and "repro_torch.core.engine" in mods
+    code = ("import importlib, sys\n"
+            f"for m in {mods!r}: importlib.import_module(m)\n"
+            "bad = sorted(n for n in sys.modules if n == 'jax' or n.startswith('jax.')"
+            " or n == 'repro' or n.startswith('repro.'))\n"
+            "print(','.join(bad))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env=env, check=True, timeout=300)
+    assert out.stdout.strip() == ""
+
+
+@pytest.mark.parametrize("path", [*sorted(PORT.rglob("*.py")), ROOT / "chip_smoke.py"],
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_source_line_imports_jax_or_reference(path):
+    bad = [ln for ln in path.read_text().splitlines() if IMPORT_RE.match(ln)]
+    assert not bad
+
+
+def test_import_pattern_spares_the_port():
+    assert IMPORT_RE.match("import jax.numpy as jnp")
+    assert IMPORT_RE.match("from repro.core import engine")
+    assert IMPORT_RE.match("    import repro")
+    assert not IMPORT_RE.match("from repro_torch.core import engine")
+    assert not IMPORT_RE.match("import repro_torch")
+
+
+def test_entry_points_refuse_to_fall_back_to_the_cpu(monkeypatch):
+    from repro_torch.core import prng
+    from repro_torch.data.synthetic import make_synthetic_ce
+    from repro_torch.device import resolve_device
+    from repro_torch.launch import serve
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_synthetic_ce(prng.PRNGKey(0), n_queries=4, n_items=8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.build_domain(100)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(["--n-items", "100", "--requests", "1"])
+    assert resolve_device("cpu") == torch.device("cpu")
+    assert make_synthetic_ce(prng.PRNGKey(0), n_queries=4, n_items=8,
+                             device="cpu").i_emb.shape == (8, 16)
+
+
+def test_build_raises_without_nvcc(monkeypatch, tmp_path):
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setattr(build, "CUDA_ROOTS", ())
+    with pytest.raises(RuntimeError, match="nvcc was not found"):
+        build.build_all()
+    with pytest.raises(RuntimeError, match="nvcc was not found"):
+        build.load("approx_topk")
+
+
+def test_build_dir_is_keyed_by_the_sources(monkeypatch, tmp_path):
+    monkeypatch.setattr(build, "_REPO", tmp_path)
+    d = build.build_dir()
+    assert d.parent == tmp_path / "build" / "kernels" and len(d.name) == 16
+    assert {p.name for p in build._sources()[0]} == {"approx_topk.cu", "persistent_round.cu"}
