@@ -24,6 +24,22 @@ Phases (one JSON line each):
    error responses, latency and recall@{1,10,100}.
 5. ``engine_cpu_vs_card``: the same search on the card (kernels) and on the
    CPU (plain versions), N=20,000, B=64: top-k overlap >= 0.99.
+6. ``kernel:flash_attention``: the CUDA kernel against its plain version on
+   the card at the cross-encoder serving shape (64 and 1024 pairs, L=64,
+   8/4 heads, hd=32, bf16 and fp32, real pair lengths plus length-0 pad
+   rows, which must come out as zeros), the Qwen3-8B attention shape
+   (B=2, L=2048, 32/8 heads, hd=128; bf16 causal and not, fp32 not) and a
+   decode chunk (Lq=64 < Lk=192, causal); kernel, plain, library (SDPA with
+   a boolean mask) and bound times.
+7. ``serve_real_ce``: ``ce-tiny`` at full width in bf16 over a ZESHEL-like
+   corpus of 10,000 items, its AnchorIndex built from the CE itself on the
+   card, answering 200 requests through ``AdaCURService(max_batch=16)``
+   without and with a ``CachingScorer``; CE calls against the plan, launch
+   counts (flash_attention == n_layers x forwards), error responses,
+   latency, CE forwards/s and recall@{1,10,50} against the exact CE top-k.
+8. ``ce_cpu_vs_card``: 256 pairs scored by ``ce-tiny`` on the card (kernel)
+   and on the CPU (plain version) with the same weights: fp32 max |dscore|
+   <= 1e-4 x max |score|; bf16 printed.
 
 Then the card's ``name, power.limit`` line, a ``kernels`` summary line, and
 last the result line.  Any failed check exits non-zero.
@@ -42,15 +58,18 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(HERE, "src"))
 
 PEAK_FP32_FLOPS = 67e12      # H100 SXM, fp32 outside the tensor cores
+PEAK_BF16_FLOPS = 989e12     # H100 SXM, bf16 tensor cores, dense
 PEAK_BYTES = 3.35e12         # H100 SXM HBM3
 REPLACES = {
     "approx_topk": "src/repro/kernels/approx_topk/kernel.py:74",
     "persistent_round": "src/repro/kernels/approx_topk/persistent.py:232",
+    "flash_attention": "src/repro/kernels/flash_attention/kernel.py:26",
 }
 CUPTI_BOOKKEEPING = ("Command Buffer Full", "Buffer Flush", "Activity Buffer Request")
 SOURCES = {
     "approx_topk": "src/repro_torch/csrc/approx_topk.cu",
     "persistent_round": "src/repro_torch/csrc/persistent_round.cu",
+    "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
 }
 
 
@@ -90,8 +109,8 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(nbytes: float, flops: float):
-    t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_FP32_FLOPS
+def bound(nbytes: float, flops: float, peak_flops: float = PEAK_FP32_FLOPS):
+    t_bytes, t_ops = nbytes / PEAK_BYTES, flops / peak_flops
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -218,7 +237,7 @@ def phase_persistent(shape, gen, dev, reps):
 
 def profile_search(retriever, qids, key) -> dict:
     """One search under torch.profiler: device time by kernel name, the
-    device-busy share of the search's wall time."""
+    device-busy share of the search's wall time, the kernels launched."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -244,6 +263,7 @@ def profile_search(retriever, qids, key) -> dict:
     busy_ms = sum(r[0] for r in rows) / 1e3
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "device_busy_share": busy_ms / wall_ms if wall_ms else None,
+            "device_launches": sum(r[2] for r in rows),
             "top": [{"name": k[:90], "ms": us / 1e3, "calls": c} for us, k, c in rows[:12]]}
 
 
@@ -296,6 +316,7 @@ def phase_serve(dev):
         expect = ({"approx_topk": 5 * n_search, "persistent_round": 0}
                   if round_kernel == "staged"
                   else {"approx_topk": n_search, "persistent_round": 4 * n_search})
+        expect["flash_attention"] = 0
         check(counts == expect, f"serve {label}: launches {counts}, expected {expect}")
         for name in launches:
             launches[name] += counts[name]
@@ -369,11 +390,243 @@ def phase_engine_cpu_vs_card(dev):
             check(card.rounds_done == cpu.rounds_done < cfg.n_rounds,
                   f"early exit: card {card.rounds_done} rounds, CPU {cpu.rounds_done}, "
                   f"of {cfg.n_rounds}")
-            expect = {"approx_topk": 1, "persistent_round": int(card.rounds_done)}
+            expect = {"approx_topk": 1, "persistent_round": int(card.rounds_done),
+                      "flash_attention": 0}
             check(counts == expect, f"early-exit persistent launches {counts}, expected {expect}")
         out.append(dict(config=kw or "fp32 staged", overlap=ov, launches=counts,
                         rounds_done_card=int(card.rounds_done),
                         rounds_done_cpu=int(cpu.rounds_done)))
+    return out
+
+
+def flash_work(b, lq, lk, h, kv, hd, causal, lens, elem) -> tuple:
+    """(bytes, FLOPs) this input's masks leave to do, summed over the batch
+    (key tiles past a row's length or above the causal diagonal are
+    skipped): q is read for the rows that see a key, k and v for the keys
+    some row sees, every output row is written, kv_lens read once."""
+    import numpy as np
+
+    rows = np.arange(lq)
+    pairs = q_rows = keys = 0
+    for i in range(b):
+        limit = lk if lens is None else min(lk, lens[i])
+        per_row = np.minimum(limit, lk - lq + rows + 1) if causal else np.full(lq, limit)
+        per_row = np.clip(per_row, 0, None)
+        pairs += int(per_row.sum())
+        q_rows += int((per_row > 0).sum())
+        keys += int(per_row.max())
+    nb = (q_rows * h + 2 * keys * kv + b * lq * h) * hd * elem + (0 if lens is None else 4 * b)
+    return nb, 4.0 * hd * h * pairs
+
+
+def flash_case(dev, gen, reps, case, b, lq, lk, h, kv, hd, causal, lens, dtype):
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention, flash_attention_plain,
+    )
+    from repro_torch.testing import FLASH_TOL
+
+    dt = getattr(torch, dtype)
+    q = torch.randn((b, lq, h, hd), generator=gen, device=dev).to(dt)
+    k = torch.randn((b, lk, kv, hd), generator=gen, device=dev).to(dt)
+    v = torch.randn((b, lk, kv, hd), generator=gen, device=dev).to(dt)
+    kv_lens = None if lens is None else torch.tensor(lens, dtype=torch.int32, device=dev)
+    out = flash_attention(q, k, v, causal=causal, kv_lens=kv_lens)
+    ref = flash_attention_plain(q, k, v, causal=causal, kv_lens=kv_lens)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs()
+    atol, rtol = FLASH_TOL[dtype]
+    ok = bool((err <= atol + rtol * ref.float().abs()).all())
+    check(ok, f"flash_attention {case} {dtype} disagrees with its plain version: "
+              f"max abs err {err.max().item()}")
+    zero_rows = [i for i, n in enumerate(lens or []) if n == 0]
+    check(all(torch.count_nonzero(out[i]).item() == 0 for i in zero_rows),
+          f"flash_attention {case} {dtype}: a length-0 example is not all zeros")
+    # the library yardstick: SDPA with an explicit boolean mask (B, 1, Lq, Lk)
+    kpos = torch.arange(lk, device=dev)
+    lim = torch.full((b,), lk, device=dev) if kv_lens is None else kv_lens
+    mask = (kpos[None, :] < lim[:, None])[:, None, None, :]
+    if causal:
+        qpos = (lk - lq) + torch.arange(lq, device=dev)
+        mask = mask & (kpos[None, :] <= qpos[:, None])[None, None]
+    mask = mask.expand(b, 1, lq, lk)
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    ms = cuda_ms(lambda: flash_attention(q, k, v, causal=causal, kv_lens=kv_lens), reps)
+    plain_ms = cuda_ms(lambda: flash_attention_plain(q, k, v, causal=causal,
+                                                     kv_lens=kv_lens), 2)
+    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, enable_gqa=True), reps)
+    nb, flops = flash_work(b, lq, lk, h, kv, hd, causal, lens, q.element_size())
+    b_ms, b_by = bound(nb, flops, PEAK_BF16_FLOPS if dtype == "bfloat16" else PEAK_FP32_FLOPS)
+    return dict(case=case, dtype=dtype, B=b, Lq=lq, Lk=lk, H=h, KV=kv, hd=hd,
+                causal=causal, kernel_ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                bound_ms=b_ms, bound_by=b_by, bytes=nb, flops=flops,
+                max_abs_err=err.max().item(), mean_abs_err=err.mean().item(),
+                zero_rows=len(zero_rows))
+
+
+def phase_flash(gen, dev, quick):
+    """Returns (rows, worst max abs err); rows[0] is the CE serving shape
+    (64 pairs, bf16)."""
+    import numpy as np
+
+    from repro_torch.configs.registry import CE_TINY, QWEN3_8B_ATTENTION
+    from repro_torch.data.synthetic import make_zeshel_like
+
+    ds = make_zeshel_like(0, n_items=16, n_queries=4, item_len=24, query_len=16)
+    pair_len = ds.pair_tokens(np.zeros(1, np.int64), np.zeros((1, 1), np.int64)).shape[-1]
+    ce = dict(lq=64, lk=64, h=CE_TINY.n_heads, kv=CE_TINY.n_kv_heads,
+              hd=CE_TINY.resolved_head_dim, causal=False)
+    qw = dict(h=QWEN3_8B_ATTENTION["n_heads"], kv=QWEN3_8B_ATTENTION["n_kv_heads"],
+              hd=QWEN3_8B_ATTENTION["head_dim"])
+    lq_big = 256 if quick else 2048
+    cases = []
+    for b in (64, 1024):
+        lens = [pair_len] * (b - b // 8) + [0] * (b // 8)       # 1/8 pad rows
+        for dtype in ("bfloat16", "float32"):
+            cases.append(dict(case=f"ce {b} pairs", b=b, lens=lens, dtype=dtype, **ce))
+    for causal, dtype in ((True, "bfloat16"), (False, "bfloat16"), (False, "float32")):
+        cases.append(dict(case="qwen3-8b attention", b=2, lq=lq_big, lk=lq_big,
+                          causal=causal, lens=[lq_big, lq_big * 2 // 3],
+                          dtype=dtype, **qw))
+    for dtype in ("float32", "bfloat16"):
+        cases.append(dict(case="decode chunk", b=4, lq=64, lk=192, h=8, kv=4, hd=64,
+                          causal=True, lens=[192, 150, 100, 40], dtype=dtype))
+    rows = [flash_case(dev, gen, 5 if c["lq"] > 256 else 20, **c) for c in cases]
+    return rows, max(r["max_abs_err"] for r in rows)
+
+
+def phase_serve_real_ce(dev):
+    """ce-tiny at full width (bf16) serving real-CE ADACUR on the card."""
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.configs.base import AdaCURConfig
+    from repro_torch.configs.registry import CE_TINY
+    from repro_torch.core import prng
+    from repro_torch.core.engine import AdaCURRetriever, ce_call_plan
+    from repro_torch.core.scorer import CachingScorer, CrossEncoderScorer
+    from repro_torch.eval.metrics import exact_topk, topk_recall
+    from repro_torch.launch.serve import AdaCURService, build_real_ce_domain, drive
+
+    n_items, n_anchor, n_serve, n_requests = 10_000, 100, 100, 200
+    t0 = time.perf_counter()
+    ds, params, scorer, index = build_real_ce_domain(
+        n_items, n_anchor, n_serve, cfg=CE_TINY, device=dev, micro_batch=64,
+        build_micro_batch=1024)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    # the exact CE scores of the served queries: the same model, counted nowhere
+    exact = CrossEncoderScorer(params, CE_TINY, ds.pair_tokens, micro_batch=1024)
+    items = torch.arange(n_items, device=dev)
+    t0 = time.perf_counter()
+    m = torch.cat([exact.score_block(torch.arange(lo, min(lo + 25, n_anchor + n_serve)),
+                                     items) for lo in range(n_anchor, n_anchor + n_serve, 25)])
+    torch.cuda.synchronize()
+    exact_s = time.perf_counter() - t0
+    check(bool(torch.isfinite(m).all()), "real-CE scores are not all finite")
+    _, gt = exact_topk(m, 50)
+    gt = gt.cpu()
+    cfg = AdaCURConfig(k_anchor=100, n_rounds=5, budget_ce=200, strategy="topk",
+                       k_retrieve=50, loop_mode="fori", use_fused_topk=True)
+    plan = ce_call_plan(cfg)
+    results, launches = [], {"approx_topk": 0, "persistent_round": 0, "flash_attention": 0}
+    for label in ("no cache", "cache"):
+        serve_fn = CachingScorer(scorer) if label == "cache" else scorer
+        svc = AdaCURService(retriever=AdaCURRetriever.from_index(index, serve_fn, cfg),
+                            max_batch=16)
+        scorer.reset_stats()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        served = drive(svc, n_requests, qid_range=(n_anchor, n_anchor + n_serve))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        n_search = len(svc.batch_log)
+        errors = [r.error for r in served if r.status != "ok"]
+        check(not errors, f"serve_real_ce {label}: {len(errors)} error responses, "
+                          f"first: {errors[:1]}")
+        check(len(served) == n_requests,
+              f"serve_real_ce {label}: {len(served)} responses for {n_requests} requests")
+        for bl in svc.batch_log:
+            if label == "cache":
+                check(bl["pairs"] == plan * bl["bucket"]
+                      and bl["ce_calls"] + bl["cache_hits"] <= bl["pairs"],
+                      f"serve_real_ce cache: batch {bl} against plan {plan}")
+            else:
+                check(bl["ce_calls"] == plan * bl["bucket"],
+                      f"serve_real_ce: measured CE {bl['ce_calls']} != plan {plan} x "
+                      f"{bl['bucket']}")
+        hits = sum(bl["cache_hits"] for bl in svc.batch_log)
+        check(label != "cache" or hits > 0, "serve_real_ce cache: no cache hits")
+        n_fwd = scorer.forwards
+        expect = {"approx_topk": 5 * n_search, "persistent_round": 0,
+                  "flash_attention": CE_TINY.n_layers * n_fwd}
+        check(counts == expect and n_fwd > 0,
+              f"serve_real_ce {label}: launches {counts}, expected {expect}")
+        for name in launches:
+            launches[name] += counts[name]
+        for r in served:
+            check(r.item_ids.shape == (50,) and np.isfinite(r.scores).all()
+                  and ((r.item_ids >= 0) & (r.item_ids < n_items)).all(),
+                  f"serve_real_ce {label}: malformed response for query {r.query_id}")
+        retrieved = torch.as_tensor(np.stack([r.item_ids for r in served]))
+        rows = gt[[r.query_id - n_anchor for r in served]]
+        secs = [bl["seconds"] for bl in svc.batch_log]
+        results.append(dict(
+            config=label, requests=len(served), searches=n_search,
+            buckets=[bl["bucket"] for bl in svc.batch_log],
+            per_search_ms=float(np.mean(secs) * 1e3),
+            batch_p50_ms=float(np.percentile(secs, 50) * 1e3),
+            batch_p99_ms=float(np.percentile(secs, 99) * 1e3),
+            drive_s=wall, ce_forwards=n_fwd, ce_forwards_per_s=n_fwd / wall,
+            ce_calls=scorer.stats.ce_calls, ce_calls_per_s=scorer.stats.ce_calls / wall,
+            cache_hits=hits, launches=counts, ce_plan=plan, errors=0,
+            **{f"recall@{k}": topk_recall(retrieved, rows, k) for k in (1, 10, 50)},
+        ))
+    profiled = profile_search(AdaCURRetriever.from_index(index, scorer, cfg),
+                              torch.arange(n_anchor, n_anchor + 16, device=dev),
+                              prng.PRNGKey(5))
+    return dict(model="ce-tiny", dtype=CE_TINY.dtype, n_items=n_items,
+                anchor_queries=n_anchor, served_queries=n_serve,
+                index_build_s=build_s, exact_scores_s=exact_s, configs=results,
+                profile_B16=profiled), launches
+
+
+def phase_ce_cpu_vs_card(dev):
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.configs.base import replace
+    from repro_torch.configs.registry import CE_TINY
+    from repro_torch.data.synthetic import make_zeshel_like
+    from repro_torch.models.cross_encoder import init_cross_encoder, score_tokens, to_device
+
+    ds = make_zeshel_like(1, n_items=1000, n_queries=100, item_len=24, query_len=16)
+    rng = np.random.default_rng(0)
+    pairs = ds.pair_tokens(rng.integers(0, 100, 256), rng.integers(0, 1000, (256, 1)))[:, 0]
+    toks = torch.zeros((256, 64), dtype=torch.int32)
+    toks[:, :pairs.shape[1]] = torch.from_numpy(pairs)
+    out = []
+    for dtype in ("float32", "bfloat16"):
+        cfg = replace(CE_TINY, dtype=dtype)
+        params = init_cross_encoder(cfg, torch.Generator().manual_seed(1), "cpu")
+        kernels.reset_launches()
+        card = score_tokens(to_device(params, dev), toks.to(dev), cfg, attn_impl="flash")
+        torch.cuda.synchronize()
+        n_launch = kernels.launch_counts()["flash_attention"]
+        check(n_launch == cfg.n_layers, f"ce_cpu_vs_card {dtype}: {n_launch} flash launches")
+        cpu = score_tokens(params, toks, cfg, attn_impl="flash", flash_block=(64, 64))
+        d = (card.cpu() - cpu).abs().max().item()
+        top = cpu.abs().max().item()
+        if dtype == "float32":
+            check(d <= 1e-4 * top, f"ce_cpu_vs_card fp32: max |dscore| {d} > 1e-4 x {top}")
+        out.append(dict(dtype=dtype, pairs=256, max_abs_dscore=d, max_abs_score=top,
+                        rel=d / top, checked=dtype == "float32"))
     return out
 
 
@@ -416,11 +669,20 @@ def main() -> int:
         rows, err = phase_persistent(shape, gen, dev, reps)
         emit({"phase": "kernel:persistent_round", "shape": shape, "cases": rows})
         summary["persistent_round"] = (rows[0], err)
-        launches = {"approx_topk": 0, "persistent_round": 0}
+        rows, err = phase_flash(gen, dev, args.quick)
+        emit({"phase": "kernel:flash_attention", "cases": rows})
+        summary["flash_attention"] = (rows[0], err)
+        launches = {"approx_topk": 0, "persistent_round": 0, "flash_attention": 0}
         if not args.quick:
-            serve, launches = phase_serve(dev)
+            serve, serve_launches = phase_serve(dev)
             emit({"phase": "serve", **serve})
             emit({"phase": "engine_cpu_vs_card", "runs": phase_engine_cpu_vs_card(dev)})
+            real_ce, ce_launches = phase_serve_real_ce(dev)
+            emit({"phase": "serve_real_ce", **real_ce})
+            emit({"phase": "ce_cpu_vs_card", "runs": phase_ce_cpu_vs_card(dev)})
+            launches = {"approx_topk": serve_launches["approx_topk"],
+                        "persistent_round": serve_launches["persistent_round"],
+                        "flash_attention": ce_launches["flash_attention"]}
         for name, n in launches.items():
             check(args.quick or n > 0, f"{name} was never launched on the main path")
     except CheckFailed as e:

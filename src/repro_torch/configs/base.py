@@ -1,5 +1,5 @@
-"""ADACUR runtime config — the port's own copy of the reference's
-``AdaCURConfig`` and ``replace`` (``repro/configs/base.py``), with the same
+"""Configs — the port's own copies of the reference's ``AdaCURConfig``,
+``LMConfig`` and ``replace`` (``repro/configs/base.py``), with the same
 field names, defaults and checks, so both packages can be built from one
 kwargs dict.
 
@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
+from typing import Optional
 
 
 @dataclass(frozen=True)
@@ -82,3 +83,67 @@ class AdaCURConfig:
 def replace(cfg, **kw):
     """dataclasses.replace that works through our frozen configs."""
     return dataclasses.replace(cfg, **kw)
+
+
+@dataclass(frozen=True)
+class LMConfig:
+    """Decoder (or encoder) transformer LM configuration — the port's copy
+    of the reference's ``LMConfig``, same field names and defaults.
+
+    ``moe`` is kept as a field so one kwargs dict builds both packages'
+    configs, but the port serves dense models only: a config with ``moe``
+    set raises (MoE is listed in ROADMAP.md, queue 1).  ``remat`` and
+    ``scan_layers`` have no effect in the port (it runs eagerly, forward
+    only, over a list of per-layer parameter dicts).
+    """
+
+    name: str
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: Optional[int] = None   # defaults to d_model // n_heads
+    qk_norm: bool = False            # Qwen3-style per-head RMSNorm on q,k
+    qkv_bias: bool = False           # Qwen1.5-style bias on QKV projections
+    rope_theta: float = 10000.0
+    rms_eps: float = 1e-6
+    tie_embeddings: bool = False
+    causal: bool = True              # False => encoder-only (cross-encoders)
+    act: str = "swiglu"              # "swiglu" | "gelu"
+    norm: str = "rmsnorm"            # "rmsnorm" | "layernorm"
+    mlp_bias: bool = False           # bias on MLP projections
+    moe: Optional[object] = None     # not ported (see class doc)
+    max_seq_len: int = 524288
+    dtype: str = "bfloat16"          # activation / param dtype for serving
+    remat: bool = True
+    scan_layers: bool = True
+
+    def __post_init__(self):
+        if self.moe is not None:
+            raise NotImplementedError(
+                f"{self.name}: MoE layers are not ported yet (ROADMAP.md, "
+                "queue 1); the port serves dense LMConfigs"
+            )
+
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim if self.head_dim is not None else self.d_model // self.n_heads
+
+    @property
+    def q_per_kv(self) -> int:
+        return self.n_heads // self.n_kv_heads
+
+    def n_params(self) -> int:
+        """Analytic parameter count of the dense model."""
+        hd = self.resolved_head_dim
+        emb = self.vocab_size * self.d_model * (1 if self.tie_embeddings else 2)
+        attn = self.d_model * hd * (self.n_heads + 2 * self.n_kv_heads)  # qkv
+        attn += self.n_heads * hd * self.d_model                          # out
+        if self.qkv_bias:
+            attn += hd * (self.n_heads + 2 * self.n_kv_heads)
+        n_ff = 3 if self.act == "swiglu" else 2
+        per_layer = attn + n_ff * self.d_model * self.d_ff
+        norms = self.n_layers * 2 * self.d_model + self.d_model
+        return emb + per_layer * self.n_layers + norms

@@ -1,0 +1,31 @@
+"""Model configs the port serves — the port's copy of the reference's
+``CE_TINY`` (``repro/configs/registry.py``), field for field.
+
+``QWEN3_8B_ATTENTION`` is the attention shape of Qwen3-8B (32 query heads,
+8 KV heads, head_dim 128).  No path serves Qwen3-8B as a cross-encoder (its
+config is causal, so position 0 would see only ``[CLS]``); the shape is
+used only to check the flash-attention kernel at a large-model width.
+"""
+
+from __future__ import annotations
+
+from .base import LMConfig
+
+# The paper's own model: a small cross-encoder backbone.
+CE_TINY = LMConfig(
+    name="ce-tiny",
+    n_layers=4,
+    d_model=256,
+    n_heads=8,
+    n_kv_heads=4,
+    head_dim=32,
+    d_ff=1024,
+    vocab_size=512,          # byte-level tokenizer + specials
+    qk_norm=True,
+    rope_theta=10000.0,
+    act="swiglu",
+    causal=False,            # cross-encoders read the joint sequence bidirectionally
+    max_seq_len=512,
+)
+
+QWEN3_8B_ATTENTION = dict(n_heads=32, n_kv_heads=8, head_dim=128)

@@ -39,6 +39,39 @@ def quantized_ranc(codes, scales, tile: int, device="cpu") -> QuantizedRanc:
                          int(tile), "int8")
 
 
+def _leaf(x, device) -> torch.Tensor:
+    """A numpy array as a tensor of the same dtype (bfloat16 arrays, which
+    numpy holds as ``ml_dtypes.bfloat16``, go through their raw bits)."""
+    x = np.asarray(x)
+    if x.dtype.name == "bfloat16":
+        return torch.from_numpy(x.view(np.int16).copy()).view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(x)).to(device)
+
+
+def _tree(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree(v, device) for k, v in tree.items()}
+    return _leaf(tree, device)
+
+
+def cross_encoder_params(tree: dict, device="cpu") -> dict:
+    """The port's CE params from the reference's (``init_cross_encoder``'s
+    pytree as numpy arrays): the stacked ``layers`` are unstacked into a
+    list of per-layer dicts, every other leaf keeps its name, layout and
+    dtype."""
+    if "prefix" in tree:
+        raise NotImplementedError("MoE dense-prefix layers are not ported yet "
+                                  "(ROADMAP.md, queue 1)")
+    stacked = _tree(tree["layers"], device)
+
+    def layer(i, t):
+        return {k: layer(i, v) for k, v in t.items()} if isinstance(t, dict) else t[i]
+
+    out = {k: _tree(v, device) for k, v in tree.items() if k != "layers"}
+    out["layers"] = [layer(i, stacked) for i in range(stacked["ln1"]["w"].shape[0])]
+    return out
+
+
 def config(kwargs: dict) -> AdaCURConfig:
     """An AdaCURConfig from a kwargs dict (the reference's field names)."""
     return AdaCURConfig(**kwargs)

@@ -11,8 +11,9 @@ batch, from which a test reconstructs each search's scored-pair multiset.
 from __future__ import annotations
 
 import dataclasses
+from collections import OrderedDict
 from dataclasses import dataclass
-from typing import List, Optional, Tuple
+from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -57,14 +58,18 @@ class _CountingScorer:
         self.stats = ScorerStats()
         self.call_log = []
 
-    def _count(self, query, item_idx) -> None:
-        n = int(item_idx.numel())
+    def _log(self, query, item_idx) -> None:
+        """Count one request of ``item_idx.numel()`` pairs (and record it)."""
         self.stats.requests += 1
-        self.stats.pairs += n
-        self.stats.ce_calls += n
+        self.stats.pairs += int(item_idx.numel())
         if self.record_pairs:
             self.call_log.append((query.detach().cpu().numpy().copy(),
                                   item_idx.detach().cpu().numpy().copy()))
+
+    def _count(self, query, item_idx) -> None:
+        """``_log`` for a scorer that scores every requested pair."""
+        self._log(query, item_idx)
+        self.stats.ce_calls += int(item_idx.numel())
 
 
 class SyntheticScorer(_CountingScorer):
@@ -91,3 +96,174 @@ class TabulatedScorer(_CountingScorer):
         if self.matrix.device != item_idx.device:
             self.matrix = self.matrix.to(item_idx.device)
         return self.matrix[query.long()[:, None], item_idx.long()]
+
+
+def bucket_for(length: int, len_buckets: Tuple[int, ...], what: str = "pair") -> int:
+    """Smallest bucket >= length; a pair that fits no bucket raises a plain
+    ``ValueError`` where it was caused."""
+    for b in len_buckets:
+        if b >= length:
+            return b
+    raise ValueError(
+        f"{what} length {length} exceeds the largest length bucket "
+        f"{max(len_buckets)} (len_buckets={tuple(len_buckets)}); extend "
+        f"len_buckets to cover it, or shorten the query/item token budget "
+        f"so tokenized pairs fit an existing bucket"
+    )
+
+
+class CrossEncoderScorer(_CountingScorer):
+    """The transformer CE on the engine's hot path.
+
+    ``pair_fn(query_ids (B,), item_idx (B, k)) -> (B, k, L)`` int32 pair
+    tokens (numpy, valid first, trailing ``pad_id``).  Pairs are flattened,
+    padded to the smallest length bucket and scored in whole
+    ``micro_batch``-row chunks, so the model sees only a few static shapes;
+    pad rows are scored but never counted in ``ce_calls`` (they count in
+    ``batch_pad``).  The forward runs on the params' device: on the card
+    its attention is the flash-attention CUDA kernel
+    (``attn_impl='flash'``).
+
+    ``n_traces`` is the number of distinct (micro_batch, bucket) shapes run
+    so far; ``forwards`` counts model forwards since the last
+    ``reset_stats``.  ``flash_block`` shapes the CPU plain version's tiles
+    only, and ``flash_interpret`` has no effect (both kept so one kwargs
+    dict builds both packages' scorers).  At construction ``pair_fn`` is
+    probed with a one-pair dummy call, so a pair that overflows the largest
+    bucket raises at once.
+    """
+
+    def __init__(self, params, cfg, pair_fn: Callable[[np.ndarray, np.ndarray], np.ndarray],
+                 pad_id: int = 0, micro_batch: int = 64,
+                 len_buckets: Tuple[int, ...] = (32, 64, 128, 256, 512),
+                 attn_impl: str = "flash", flash_block: Tuple[int, int] = (128, 128),
+                 flash_interpret: bool = True, record_pairs: bool = False):
+        super().__init__(record_pairs)
+        self.params = params
+        self.cfg = cfg
+        self.pair_fn = pair_fn
+        self.pad_id = pad_id
+        self.micro_batch = micro_batch
+        self.len_buckets = tuple(sorted(len_buckets))
+        self.attn_impl = attn_impl
+        self.flash_block = flash_block
+        self.flash_interpret = flash_interpret
+        self.device = params["embed"].device
+        self.forwards = 0
+        self._shapes: set = set()
+        probe = np.asarray(pair_fn(np.zeros(1, np.int64), np.zeros((1, 1), np.int64)))
+        bucket_for(int(probe.shape[-1]), self.len_buckets)
+
+    @property
+    def n_traces(self) -> int:
+        """Distinct (micro_batch, bucket) shapes run so far."""
+        return len(self._shapes)
+
+    def reset_stats(self) -> None:
+        super().reset_stats()
+        self.forwards = 0
+
+    def _forward(self, flat: np.ndarray) -> torch.Tensor:
+        """Scores (M,) fp32 on the model's device of (M, bucket) tokens, M a
+        whole number of micro-batches."""
+        from ..models import cross_encoder
+
+        tokens = torch.from_numpy(flat).to(self.device)
+        out = torch.empty(flat.shape[0], dtype=torch.float32, device=self.device)
+        mb = self.micro_batch
+        for lo in range(0, flat.shape[0], mb):
+            out[lo:lo + mb] = cross_encoder.score_tokens(
+                self.params, tokens[lo:lo + mb], self.cfg, pad_id=self.pad_id,
+                attn_impl=self.attn_impl, flash_block=self.flash_block,
+                flash_interpret=self.flash_interpret)
+            self.forwards += 1
+            self._shapes.add((mb, flat.shape[1]))
+        return out
+
+    def _host(self, qids: np.ndarray, idx: np.ndarray) -> torch.Tensor:
+        """(B, k) scores on the model's device; counts ce_calls/batch_pad."""
+        b, k = idx.shape
+        tokens = np.asarray(self.pair_fn(qids, idx), dtype=np.int32)
+        n, length = b * k, tokens.shape[-1]
+        bucket = bucket_for(length, self.len_buckets)
+        n_pad = -n % self.micro_batch
+        flat = np.full((n + n_pad, bucket), self.pad_id, dtype=np.int32)
+        flat[:n, :length] = tokens.reshape(n, length)
+        self.stats.ce_calls += n
+        self.stats.batch_pad += n_pad
+        return self._forward(flat)[:n].reshape(b, k)
+
+    def __call__(self, query, item_idx) -> torch.Tensor:
+        self._log(query, item_idx)
+        scores = self._host(query.detach().cpu().numpy(), item_idx.detach().cpu().numpy())
+        return scores.to(item_idx.device)
+
+    def score_block(self, query_ids, item_ids) -> torch.Tensor:
+        """Bulk scores (Q, N) of (Q,) query ids x (N,) item ids, on the
+        model's device — the offline index build's ``bulk_score_fn``.  Its
+        pairs count in ``ce_calls``; callers reset the stats after."""
+        q = query_ids.detach().cpu().numpy()
+        items = item_ids.detach().cpu().numpy()
+        return self._host(q, np.tile(items, (len(q), 1)))
+
+
+class CachingScorer(_CountingScorer):
+    """(query_id, item_id) score cache over another port scorer.
+
+    Repeat queries hit the cache and skip the inner model; within one call
+    duplicate pairs are scored once and count as neither a hit nor a CE
+    call.  ``stats.ce_calls`` counts only the inner model's misses;
+    ``capacity`` bounds residency with LRU eviction.  Keys are the ids the
+    engine passes (external ids through ``AnchorIndex.item_ids``).
+    """
+
+    def __init__(self, inner: _CountingScorer, capacity: int = 1_000_000,
+                 record_pairs: bool = False):
+        super().__init__(record_pairs)
+        if not isinstance(inner, _CountingScorer):
+            raise TypeError("CachingScorer wraps a port scorer (TabulatedScorer, "
+                            f"CrossEncoderScorer, ...), got {type(inner).__name__}")
+        self.inner = inner
+        self.capacity = capacity
+        self._cache: "OrderedDict[int, float]" = OrderedDict()
+
+    def reset_stats(self, clear_cache: bool = False) -> None:
+        super().reset_stats()
+        self.inner.reset_stats()
+        if clear_cache:
+            self._cache.clear()
+
+    def __call__(self, query, item_idx) -> torch.Tensor:
+        self._log(query, item_idx)
+        qids = query.detach().cpu().numpy().astype(np.int64)
+        idx = item_idx.detach().cpu().numpy().astype(np.int64)
+        b, k = idx.shape
+        flat_keys = ((qids[:, None] << 32) | idx).reshape(-1)
+        out = np.empty(b * k, dtype=np.float32)
+        miss_keys: List[int] = []
+        miss_pos: dict = {}          # key -> every flat position needing it
+        for pos, key in enumerate(flat_keys.tolist()):
+            hit = self._cache.get(key)
+            if hit is not None:
+                out[pos] = hit
+                self._cache.move_to_end(key)
+                self.stats.cache_hits += 1
+            elif key in miss_pos:
+                miss_pos[key].append(pos)
+            else:
+                miss_pos[key] = [pos]
+                miss_keys.append(key)
+        if miss_keys:
+            mk = np.asarray(miss_keys, dtype=np.int64)
+            q_m = torch.from_numpy(mk >> 32).to(query.device)
+            i_m = torch.from_numpy(mk & 0xFFFFFFFF).to(item_idx.device)
+            scores = self.inner(q_m, i_m[:, None]).detach().cpu().numpy().reshape(-1)
+            self.stats.ce_calls += len(miss_keys)
+            for key, s in zip(miss_keys, scores.tolist()):
+                self._cache[key] = s
+                if len(self._cache) > self.capacity:
+                    self._cache.popitem(last=False)
+                for pos in miss_pos[key]:
+                    out[pos] = s
+        self.stats.cache_size = len(self._cache)
+        return torch.from_numpy(out.reshape(b, k)).to(item_idx.device)

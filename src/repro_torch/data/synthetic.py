@@ -1,5 +1,6 @@
-"""Synthetic ZESHEL-like cross-encoder domain — port of
-``SyntheticCE``/``make_synthetic_ce`` from ``repro/data/synthetic.py``.
+"""Synthetic ZESHEL-like cross-encoder domains — port of
+``SyntheticCE``/``make_synthetic_ce`` and ``ZeshelLikeDataset``/
+``make_zeshel_like`` from ``repro/data/synthetic.py``.
 
     score(q, i) = sum_r w_r · <tanh(A_r e_q), tanh(B_r e_i)>     (background)
                 + gamma · exp(-||e_q - e_i||² / (2σ²))           (k-NN spikes)
@@ -13,6 +14,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from ..core import prng
@@ -105,3 +107,68 @@ def make_synthetic_ce(key, n_queries: int = 1000, n_items: int = 10000,
     mix_b = prng.normal(mk[1], (n_mix, d, r_low), dev) / s
     mix_w = prng.normal(mk[2], (n_mix,), dev).abs() + 0.5
     return SyntheticCE(q_emb, i_emb, mix_a, mix_b, mix_w, gamma, sigma)
+
+
+# ---------------------------------------------------------------------------
+# ZESHEL-like token datasets for the transformer cross-encoder (numpy only,
+# so the tokens are bit-equal to the reference's for the same seed)
+# ---------------------------------------------------------------------------
+
+PAD, CLS, SEP, MASK = 0, 1, 2, 3
+N_SPECIAL = 4
+
+
+@dataclass
+class ZeshelLikeDataset:
+    """Token-level entity-linking data: items are 'entity descriptions'
+    (random-but-consistent token sequences), queries are 'mentions' (noisy
+    crops of their gold entity's description)."""
+
+    item_tokens: np.ndarray     # (n_items, item_len) int32
+    query_tokens: np.ndarray    # (n_queries, query_len) int32
+    gold: np.ndarray            # (n_queries,) gold item id
+    vocab_size: int
+    item_len: int
+    query_len: int
+
+    def pair_tokens(self, query_ids: np.ndarray, item_ids: np.ndarray) -> np.ndarray:
+        """``[CLS] query [SEP] item [SEP]``: query_ids (B,), item_ids (B, K)
+        -> (B, K, L) int32 tokens."""
+        q = self.query_tokens[query_ids]                       # (B, Lq)
+        it = self.item_tokens[item_ids]                        # (B, K, Li)
+        b, k = item_ids.shape
+        lq, li = q.shape[1], it.shape[2]
+        out = np.zeros((b, k, lq + li + 3), dtype=np.int32)
+        out[:, :, 0] = CLS
+        out[:, :, 1: 1 + lq] = q[:, None, :]
+        out[:, :, 1 + lq] = SEP
+        out[:, :, 2 + lq: 2 + lq + li] = it
+        out[:, :, 2 + lq + li] = SEP
+        return out
+
+
+def make_zeshel_like(seed: int, n_items: int = 2000, n_queries: int = 400,
+                     vocab: int = 256, item_len: int = 24, query_len: int = 16,
+                     n_families: int = 40,
+                     family_overlap: float = 0.6) -> ZeshelLikeDataset:
+    """Entity families share ``family_overlap`` of their tokens, creating the
+    confusable near-neighbour structure zero-shot entity linking has."""
+    rng = np.random.default_rng(seed)
+    usable = vocab - N_SPECIAL
+    fam_proto = rng.integers(0, usable, size=(n_families, item_len)) + N_SPECIAL
+    fam_of_item = rng.integers(0, n_families, size=n_items)
+    item_tokens = fam_proto[fam_of_item].copy()
+    keep = rng.random((n_items, item_len)) < family_overlap
+    uniq = rng.integers(0, usable, size=(n_items, item_len)) + N_SPECIAL
+    item_tokens = np.where(keep, item_tokens, uniq).astype(np.int32)
+
+    gold = rng.integers(0, n_items, size=n_queries)
+    starts = rng.integers(0, item_len - query_len + 1, size=n_queries)
+    query_tokens = np.stack(
+        [item_tokens[g, s: s + query_len] for g, s in zip(gold, starts)]
+    )
+    noise = rng.random((n_queries, query_len)) < 0.15
+    rand_tok = rng.integers(0, usable, size=(n_queries, query_len)) + N_SPECIAL
+    query_tokens = np.where(noise, rand_tok, query_tokens).astype(np.int32)
+    return ZeshelLikeDataset(item_tokens, query_tokens, gold.astype(np.int32),
+                             vocab, item_len, query_len)

@@ -97,13 +97,16 @@ def build_all() -> dict:
     return {src.stem: out / f"lib{src.stem}.so" for src in cus}
 
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     "approx_topk_launch": [_P, _P, _I, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I,
                            _I, _I, _P, _P, _P, _P, _P],
     "persistent_round_launch": [_P, _P, _I, _P, _I, _P, _P, _P, _I, _P, _I, _I,
                                 _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
                                 _P, _P],
+    "flash_attention_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                               _L, _L, _L, _L, _L, _L, _L, _L, _L, _I,
+                               ctypes.c_float, _P],
 }
 
 

@@ -1,5 +1,5 @@
-"""ADACUR retrieval service — port of ``AdaCURService`` and the
-synthetic-scorer CLI of ``repro/launch/serve.py``.
+"""ADACUR retrieval service — port of ``AdaCURService`` and the serve CLI
+of ``repro/launch/serve.py`` (synthetic and real cross-encoder scorers).
 
 Requests accumulate to a batch or a deadline; a batch fires from
 ``submit`` when full or overdue and from ``poll``; every fired batch is
@@ -10,8 +10,13 @@ into per-request ``status="error"`` responses for exactly that batch.
 CLI (on the card by default; ``--device cpu`` runs the plain versions):
 
     PYTHONPATH=src python -m repro_torch.launch.serve --fused \
+        [--scorer synthetic|real-ce] [--cache] \
         [--round-kernel staged|persistent] [--payload-dtype float32|int8] \
         [--n-items N] [--batch B] [--requests R] [--device cuda|cpu]
+
+``--scorer real-ce`` serves the transformer cross-encoder over a
+ZESHEL-like token corpus with the reference CLI's reduced CE and sizes
+(``build_real_ce_domain``); ``--cache`` wraps it in a ``CachingScorer``.
 """
 
 from __future__ import annotations
@@ -29,7 +34,8 @@ from ..configs.base import AdaCURConfig
 from ..core import prng
 from ..core.engine import AdaCURRetriever
 from ..core.index import AnchorIndex
-from ..core.scorer import ScorerStats, SyntheticScorer, scorer_stats
+from ..core.scorer import (CachingScorer, CrossEncoderScorer, ScorerStats,
+                           SyntheticScorer, scorer_stats)
 from ..device import resolve_device
 from ..kernels.approx_topk import quant
 
@@ -138,9 +144,10 @@ class AdaCURService:
         scores = res.topk_scores.cpu().numpy()
         measured = None
         if before is not None:
-            delta = (self.scorer_stats - before).ce_calls
-            measured = delta // n_real
-            self.batch_log.append(dict(rows=n_real, bucket=bucket, ce_calls=delta,
+            delta = self.scorer_stats - before
+            measured = delta.ce_calls // n_real
+            self.batch_log.append(dict(rows=n_real, bucket=bucket, ce_calls=delta.ce_calls,
+                                       pairs=delta.pairs, cache_hits=delta.cache_hits,
                                        seconds=time.perf_counter() - t0))
         now = time.monotonic()
         return [RetrievalResponse(
@@ -164,6 +171,49 @@ def build_domain(n_items: int, device=None, n_queries: int = 600,
         torch.arange(n_items, device=dev), block_rows=block_rows,
     )
     return ce, index
+
+
+def reduced_ce_config(vocab_size: int):
+    """The reference CLI's reduced CPU-friendly CE (``ce-tiny`` at 2 layers,
+    d_model 64, fp32)."""
+    from ..configs.base import replace
+    from ..configs.registry import CE_TINY
+
+    return replace(CE_TINY, n_layers=2, d_model=64, n_heads=4, n_kv_heads=2,
+                   head_dim=16, d_ff=128, vocab_size=vocab_size, dtype="float32",
+                   remat=False)
+
+
+def build_real_ce_domain(n_items: int, n_anchor_q: int, n_serve_q: int, cfg=None,
+                         device=None, micro_batch: int = 64,
+                         build_micro_batch: Optional[int] = None):
+    """The real-CE serving domain, as the reference CLI builds it: a
+    ZESHEL-like token corpus (seed 0; 24-token items, 16-token queries), a
+    cross-encoder of config ``cfg`` (default: the reference CLI's reduced
+    CE) drawn from seed 0, and an AnchorIndex built from the CE itself over
+    anchor queries 0..n_anchor_q-1, block-streamed with
+    ``build_micro_batch``-pair forwards (default ``micro_batch``).  Queries
+    n_anchor_q..n_anchor_q + n_serve_q - 1 are the ones to serve.
+
+    Returns (dataset, params, serving scorer, index); the serving scorer
+    runs ``micro_batch``-pair forwards and its stats start at zero.
+    """
+    from ..data.synthetic import make_zeshel_like
+    from ..models.cross_encoder import init_cross_encoder
+
+    dev = resolve_device(device)
+    ds = make_zeshel_like(0, n_items=n_items, n_queries=n_anchor_q + n_serve_q,
+                          item_len=24, query_len=16)
+    if cfg is None:
+        cfg = reduced_ce_config(ds.vocab_size)
+    params = init_cross_encoder(cfg, torch.Generator().manual_seed(0), dev)
+    indexer = CrossEncoderScorer(params, cfg, ds.pair_tokens, flash_block=(64, 64),
+                                 micro_batch=build_micro_batch or micro_batch)
+    index = AnchorIndex.build(indexer.score_block, torch.arange(n_anchor_q, device=dev),
+                              torch.arange(n_items, device=dev), block_rows=32)
+    scorer = CrossEncoderScorer(params, cfg, ds.pair_tokens, flash_block=(64, 64),
+                                micro_batch=micro_batch)
+    return ds, params, scorer, index
 
 
 def drive(svc: AdaCURService, n_requests: int, qid_range=(500, 600),
@@ -191,14 +241,28 @@ def main(argv=None) -> None:
                     help="fused score->top-k sampling (the CUDA kernels on the card)")
     ap.add_argument("--round-kernel", choices=("staged", "persistent"), default="staged")
     ap.add_argument("--payload-dtype", choices=quant.PAYLOAD_DTYPES, default="float32")
+    ap.add_argument("--scorer", choices=("synthetic", "real-ce"), default="synthetic",
+                    help="real-ce: the transformer cross-encoder over a ZESHEL-like corpus")
+    ap.add_argument("--cache", action="store_true",
+                    help="wrap the real-CE scorer in a (query, item) CachingScorer")
+    ap.add_argument("--retriever", choices=("adacur", "anncur", "rerank"), default="adacur")
+    ap.add_argument("--mesh", default=None, metavar="DATAxITEMS")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = ap.parse_args(argv)
+    if args.retriever != "adacur" or args.mesh:
+        raise SystemExit(
+            "--retriever anncur|rerank and --mesh are not ported yet: the port "
+            "serves single-device ADACUR (ROADMAP.md, queue 1)")
+    if args.cache and args.scorer != "real-ce":
+        raise SystemExit("--cache wraps the real-CE scorer: pass --scorer real-ce")
     if args.payload_dtype not in quant.PORTED_DTYPES:
         raise SystemExit(
             f"--payload-dtype {args.payload_dtype} is not ported yet: the port "
             f"serves {quant.PORTED_DTYPES}; bfloat16, fp8 and packed int4 are "
             "listed in ROADMAP.md, queue 2"
         )
+    if args.scorer == "real-ce":
+        return _serve_real_ce(args)
     cfg = AdaCURConfig(
         k_anchor=args.budget // 2, n_rounds=args.rounds, budget_ce=args.budget,
         strategy="topk", k_retrieve=100, loop_mode="fori",
@@ -215,6 +279,37 @@ def main(argv=None) -> None:
     print(f"served {len(served)} requests ({errors} errors) | "
           f"p50={np.percentile(lat, 50) * 1e3:.1f}ms p99={np.percentile(lat, 99) * 1e3:.1f}ms "
           f"| {cfg.budget_ce} CE calls/request")
+
+
+def _serve_real_ce(args) -> None:
+    """Serve the real CE with the reference CLI's sizes: its reduced CE,
+    at most 500 items, 100 anchor + 100 served queries, k_retrieve 50."""
+    n_items = min(args.n_items, 500)
+    n_anchor_q = n_serve_q = 100
+    print(f"building ZESHEL-like corpus (|I|={n_items}) + transformer CE + "
+          "AnchorIndex from the CE...")
+    _, _, scorer, index = build_real_ce_domain(n_items, n_anchor_q, n_serve_q,
+                                               device=args.device, micro_batch=64)
+    serve_scorer = CachingScorer(scorer) if args.cache else scorer
+    cfg = AdaCURConfig(
+        k_anchor=args.budget // 2, n_rounds=args.rounds, budget_ce=args.budget,
+        strategy="topk", k_retrieve=50, loop_mode="fori",
+        use_fused_topk=args.fused, payload_dtype=args.payload_dtype,
+        round_kernel=args.round_kernel,
+    )
+    index = index.quantize(args.payload_dtype)
+    svc = AdaCURService(retriever=AdaCURRetriever.from_index(index, serve_scorer, cfg),
+                        max_batch=args.batch)
+    served = drive(svc, args.requests, qid_range=(n_anchor_q, n_anchor_q + n_serve_q))
+    lat = np.array([r.latency_s for r in served])
+    errors = sum(r.status != "ok" for r in served)
+    stats = svc.scorer_stats
+    print(f"[real-ce] served {len(served)} requests ({errors} errors) | "
+          f"p50={np.percentile(lat, 50) * 1e3:.1f}ms p99={np.percentile(lat, 99) * 1e3:.1f}ms "
+          f"| {cfg.budget_ce} CE calls/request")
+    print(f"measured: {stats.ce_calls} CE calls, {stats.cache_hits} cache hits "
+          f"({stats.cache_size} resident pairs); {scorer.n_traces} CE shapes, "
+          f"{scorer.stats.batch_pad} padded micro-batch rows")
 
 
 if __name__ == "__main__":

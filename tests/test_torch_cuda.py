@@ -18,7 +18,10 @@ from repro_torch.kernels.approx_topk.ops import approx_topk_op  # noqa: E402
 from repro_torch.kernels.approx_topk.persistent import persistent_round_op  # noqa: E402
 from repro_torch.kernels.approx_topk.quant import quantize_ranc  # noqa: E402
 from repro_torch.kernels.approx_topk.ref import dense_scores  # noqa: E402
-from repro_torch.testing import assert_topk_agree  # noqa: E402
+from repro_torch.kernels.flash_attention.ops import (  # noqa: E402
+    flash_attention, flash_attention_plain,
+)
+from repro_torch.testing import FLASH_TOL, assert_topk_agree  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -108,6 +111,95 @@ def test_engine_on_the_card_matches_the_cpu(dev):
     card = engine_search(SyntheticScorer(ce.to(dev)), idx.r_anc.to(dev), q.to(dev), cfg,
                          prng.PRNGKey(3))
     assert card.rounds_done == cpu.rounds_done < cfg.n_rounds
-    assert kernels.launch_counts() == {"approx_topk": 1, "persistent_round": card.rounds_done}
+    assert kernels.launch_counts() == {"approx_topk": 1, "persistent_round": card.rounds_done,
+                                       "flash_attention": 0}
+    assert topk_overlap(cpu.topk_idx, card.topk_idx) >= 0.99
+    assert np.isfinite(card.topk_scores.cpu().numpy()).all()
+
+
+# flash attention: (B, Lq, Lk, H, KV, hd, causal, kv_lens) at small sizes;
+# tolerances: repro_torch.testing.FLASH_TOL, as in chip_smoke.py
+FLASH_CASES = {
+    "ce": (16, 64, 64, 8, 4, 32, False, [43] * 13 + [0] * 3),
+    "gqa4-hd128": (2, 256, 256, 8, 2, 128, True, [256, 131]),
+    "gqa4-hd128-bidir": (2, 256, 256, 8, 2, 128, False, [256, 131]),
+    "decode-chunk": (2, 64, 192, 4, 2, 64, True, None),
+    "mqa-hd16-ragged": (3, 100, 100, 4, 1, 16, False, [100, 1, 57]),
+}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(FLASH_CASES))
+def test_flash_kernel_matches_plain(dev, case, dtype):
+    b, lq, lk, h, kv, hd, causal, lens = FLASH_CASES[case]
+    g = torch.Generator(device=dev)
+    g.manual_seed(sorted(FLASH_CASES).index(case))
+    dt = getattr(torch, dtype)
+    q = torch.randn((b, lq, h, hd), generator=g, device=dev).to(dt)
+    k = torch.randn((b, lk, kv, hd), generator=g, device=dev).to(dt)
+    v = torch.randn((b, lk, kv, hd), generator=g, device=dev).to(dt)
+    kv_lens = None if lens is None else torch.tensor(lens, dtype=torch.int32, device=dev)
+    before = kernels.launch_counts()["flash_attention"]
+    out = flash_attention(q, k, v, causal=causal, kv_lens=kv_lens)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["flash_attention"] == before + 1
+    ref = flash_attention_plain(q, k, v, causal=causal, kv_lens=kv_lens)
+    assert out.dtype == dt and out.shape == q.shape
+    atol, rtol = FLASH_TOL[dtype]
+    torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=rtol)
+    for i, n in enumerate(lens or []):
+        if n == 0:
+            assert torch.count_nonzero(out[i]) == 0
+
+
+def test_flash_kernel_reads_strided_operands(dev):
+    """q, k and v as head slices of one packed (B, L, H + 2 KV, hd) tensor:
+    the kernel reads them through their strides."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    qkv = torch.randn((4, 64, 16, 32), generator=g, device=dev)
+    q, k, v = qkv[:, :, :8], qkv[:, :, 8:12], qkv[:, :, 12:]
+    assert not q.is_contiguous()
+    lens = torch.tensor([64, 43, 0, 9], dtype=torch.int32, device=dev)
+    out = flash_attention(q, k, v, causal=False, kv_lens=lens)
+    ref = flash_attention_plain(q.contiguous(), k.contiguous(), v.contiguous(), causal=False,
+                                kv_lens=lens)
+    torch.testing.assert_close(out, ref, atol=2e-5, rtol=2e-5)
+
+
+def test_flash_kernel_rejects_what_it_does_not_take(dev):
+    q = torch.zeros((1, 8, 2, 24), device=dev)
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_attention(q, q, q, causal=False)
+    q = torch.zeros((1, 8, 2, 32), device=dev, dtype=torch.float16)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        flash_attention(q, q, q, causal=False)
+
+
+def test_real_ce_search_on_the_card_matches_the_cpu(dev):
+    """A real-CE search (the reduced CE of the serve CLI, fp32) on the card
+    and on the CPU with the same weights and index: the card's forwards go
+    through the flash kernel, n_layers launches each."""
+    from repro_torch.configs.base import AdaCURConfig
+    from repro_torch.core import prng
+    from repro_torch.core.engine import engine_search
+    from repro_torch.core.scorer import CrossEncoderScorer
+    from repro_torch.launch.serve import build_real_ce_domain
+    from repro_torch.models.cross_encoder import to_device
+    from repro_torch.testing import topk_overlap
+
+    ds, params, scorer, index = build_real_ce_domain(300, 40, 16, device=dev)
+    cfg = AdaCURConfig(k_anchor=20, n_rounds=4, budget_ce=60, k_retrieve=20,
+                       loop_mode="fori", use_fused_topk=True)
+    q = torch.arange(40, 56)
+    kernels.reset_launches()
+    card = engine_search(scorer, index.r_anc, q.to(dev), cfg, prng.PRNGKey(2))
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert counts["flash_attention"] == scorer.cfg.n_layers * scorer.forwards > 0
+    assert counts["approx_topk"] == cfg.n_rounds
+    cpu_scorer = CrossEncoderScorer(to_device(params, "cpu"), scorer.cfg, ds.pair_tokens,
+                                    flash_block=(64, 64))
+    cpu = engine_search(cpu_scorer, index.r_anc.cpu(), q, cfg, prng.PRNGKey(2))
     assert topk_overlap(cpu.topk_idx, card.topk_idx) >= 0.99
     assert np.isfinite(card.topk_scores.cpu().numpy()).all()

@@ -1,0 +1,138 @@
+"""The port's flash attention (its plain PyTorch version, on the CPU)
+against the JAX package: the dense oracle ``attention_reference`` and the
+Pallas kernel ``_flash_kernel`` run in interpret mode, as
+``tests/test_kernels.py`` runs it.
+
+Inputs are drawn with numpy and handed to both packages.  Tolerances are
+the reference tests' own: 2e-5 against the dense oracle and 3e-5 against
+the Pallas kernel in fp32 (the same online-softmax arithmetic, summed in
+another order), 2e-2 in bf16 (each side rounds its fp32 result to bf16
+once, so they may differ by one bf16 ulp, 2^-8 relative).
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels.flash_attention.kernel import flash_attention as j_flash  # noqa: E402
+from repro.kernels.flash_attention.ref import attention_reference as j_ref  # noqa: E402
+from repro_torch import kernels  # noqa: E402
+from repro_torch.kernels.flash_attention import kernel as flash_kernel  # noqa: E402
+from repro_torch.kernels.flash_attention.ops import (  # noqa: E402
+    flash_attention, flash_attention_plain,
+)
+from repro_torch.kernels.flash_attention.ref import attention_reference  # noqa: E402
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread: the suite runs in several worker processes at
+    once, and many small ops on every core each thrash far more than they
+    gain."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+# the five shape cases of tests/test_kernels.py (the MHA case shrunk from
+# L = 256 to 128 to keep interpret mode cheap)
+CASES = [
+    (2, 128, 128, 4, 2, 32, True),     # GQA 2:1
+    (1, 128, 128, 4, 4, 64, True),     # MHA
+    (2, 100, 100, 2, 1, 16, False),    # MQA, bidirectional, ragged tail
+    (1, 64, 192, 2, 2, 32, True),      # decode chunk (Lk > Lq): q_offset = 128
+    (1, 128, 128, 8, 2, 128, True),    # GQA 4:1, head_dim 128
+]
+
+
+def _qkv(b, lq, lk, h, kv, hd, seed):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((b, lq, h, hd), dtype=np.float32),
+            rng.standard_normal((b, lk, kv, hd), dtype=np.float32),
+            rng.standard_normal((b, lk, kv, hd), dtype=np.float32))
+
+
+def _t(*xs, dtype=torch.float32):
+    return [torch.from_numpy(x).to(dtype) for x in xs]
+
+
+def _np(x):
+    return x.float().numpy() if isinstance(x, torch.Tensor) else np.asarray(x, np.float32)
+
+
+@pytest.mark.parametrize("b,lq,lk,h,kv,hd,causal", CASES)
+def test_plain_matches_reference_and_pallas(b, lq, lk, h, kv, hd, causal):
+    q, k, v = _qkv(b, lq, lk, h, kv, hd, seed=b * lq + lk)
+    out = flash_attention_plain(*_t(q, k, v), causal=causal, block_q=64, block_k=64)
+    ref = j_ref(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal)
+    np.testing.assert_allclose(_np(out), _np(ref), atol=2e-5, rtol=2e-5)
+    pallas = j_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
+                     block_q=64, block_k=64, interpret=True)
+    np.testing.assert_allclose(_np(out), _np(pallas), atol=3e-5, rtol=3e-5)
+
+
+@pytest.mark.parametrize("b,lq,lk,h,kv,hd,causal", CASES[:2] + CASES[3:4])
+def test_port_oracle_matches_reference(b, lq, lk, h, kv, hd, causal):
+    q, k, v = _qkv(b, lq, lk, h, kv, hd, seed=7)
+    out = attention_reference(*_t(q, k, v), causal=causal)
+    ref = j_ref(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal)
+    np.testing.assert_allclose(_np(out), _np(ref), atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_bf16_matches_pallas(causal):
+    q, k, v = _qkv(1, 128, 128, 2, 2, 32, seed=0)
+    out = flash_attention_plain(*_t(q, k, v, dtype=torch.bfloat16), causal=causal,
+                                block_q=64, block_k=64)
+    assert out.dtype == torch.bfloat16
+    jb = [jnp.asarray(x).astype(jnp.bfloat16) for x in (q, k, v)]
+    pallas = j_flash(*jb, causal=causal, block_q=64, block_k=64, interpret=True)
+    np.testing.assert_allclose(_np(out), _np(pallas), atol=2e-2, rtol=2e-2)
+    ref = j_ref(*jb, causal=causal)
+    np.testing.assert_allclose(_np(out), _np(ref), atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("lens", [[0, 17, 40], [40, 1, 33]])
+def test_varlen_kv_lens_match_pallas(causal, lens):
+    """Per-example valid lengths, every query position (those past the
+    length too, which attend to the example's valid keys), against the
+    Pallas kernel; a length-0 example gives exact zeros in both."""
+    q, k, v = _qkv(3, 40, 40, 4, 2, 16, seed=sum(lens))
+    kv_lens = np.asarray(lens, np.int32)
+    out = flash_attention_plain(*_t(q, k, v), causal=causal, block_q=16, block_k=16,
+                                kv_lens=torch.from_numpy(kv_lens))
+    pallas = j_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
+                     block_q=16, block_k=16, interpret=True, kv_lens=jnp.asarray(kv_lens))
+    np.testing.assert_allclose(_np(out), _np(pallas), atol=3e-5, rtol=3e-5)
+    for i, n in enumerate(lens):
+        if n == 0:
+            assert torch.count_nonzero(out[i]) == 0
+            assert not np.asarray(pallas[i]).any()
+        elif not causal:
+            ref = j_ref(jnp.asarray(q[i:i + 1, :n]), jnp.asarray(k[i:i + 1, :n]),
+                        jnp.asarray(v[i:i + 1, :n]), causal=False)
+            np.testing.assert_allclose(_np(out[i, :n]), _np(ref[0]), atol=3e-5, rtol=3e-5)
+
+
+def test_block_sizes_do_not_change_the_result():
+    q, k, v = _qkv(2, 70, 70, 4, 2, 32, seed=3)
+    lens = torch.tensor([70, 29], dtype=torch.int32)
+    a = flash_attention_plain(*_t(q, k, v), causal=True, block_q=16, block_k=32, kv_lens=lens)
+    b = flash_attention_plain(*_t(q, k, v), causal=True, block_q=128, block_k=128,
+                              kv_lens=lens)
+    np.testing.assert_allclose(a.numpy(), b.numpy(), atol=2e-6, rtol=2e-6)
+
+
+def test_cpu_tensors_run_the_plain_version_and_launch_nothing():
+    q, k, v = _t(*_qkv(1, 32, 32, 2, 1, 16, seed=1))
+    kernels.reset_launches()
+    out = flash_attention(q, k, v, causal=False, block_q=16, block_k=16)
+    assert kernels.launch_counts()["flash_attention"] == 0
+    assert torch.equal(out, flash_attention_plain(q, k, v, causal=False, block_q=16,
+                                                  block_k=16))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        flash_kernel.flash_attention_cuda(q, k, v, causal=False)

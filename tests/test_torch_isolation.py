@@ -77,6 +77,20 @@ def test_entry_points_refuse_to_fall_back_to_the_cpu(monkeypatch):
                              device="cpu").i_emb.shape == (8, 16)
 
 
+def test_real_ce_entry_points_refuse_to_fall_back_to_the_cpu(monkeypatch):
+    from repro_torch.configs.registry import CE_TINY
+    from repro_torch.launch import serve
+    from repro_torch.models.cross_encoder import init_cross_encoder
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_cross_encoder(CE_TINY, torch.Generator())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.build_real_ce_domain(50, 4, 4)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(["--scorer", "real-ce", "--n-items", "50", "--requests", "1"])
+
+
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
@@ -91,4 +105,5 @@ def test_build_dir_is_keyed_by_the_sources(monkeypatch, tmp_path):
     monkeypatch.setattr(build, "_REPO", tmp_path)
     d = build.build_dir()
     assert d.parent == tmp_path / "build" / "kernels" and len(d.name) == 16
-    assert {p.name for p in build._sources()[0]} == {"approx_topk.cu", "persistent_round.cu"}
+    assert {p.name for p in build._sources()[0]} == {"approx_topk.cu", "persistent_round.cu",
+                                                     "flash_attention.cu"}
