@@ -40,6 +40,29 @@ Phases (one JSON line each):
 8. ``ce_cpu_vs_card``: 256 pairs scored by ``ce-tiny`` on the card (kernel)
    and on the CPU (plain version) with the same weights: fp32 max |dscore|
    <= 1e-4 x max |score|; bf16 printed.
+9. ``kernel:embedding_bag``: the CUDA kernel against its plain version on
+   the card: (a) DLRM's per-field lookup at serve_bulk (B=262,144, H=1,
+   dim 128, fp32, a 2^24-row table), (b) the same at serve_p99 (B=512),
+   (c) multi-hot B=65,536, H=32, sum and mean, fp32 and bf16; kernel,
+   plain, library (``F.embedding_bag``) and bound times.  H=1 must be
+   bitwise equal; fp32 within 1e-5 abs + 1e-5 rel, bf16 1e-6 + 2^-7 (one
+   ulp).
+10. ``recsys_serve``: ``dlrm-mlperf`` at full width with every table capped
+    at 2^24 rows (45.0 GB of fp32 tables on the card), the serve_p99
+    (B=512) and serve_bulk (B=262,144) steps of ``build_recsys_serve``:
+    median ms a step, TFLOP/s against ``recsys_flops``, 26 bag launches a
+    step, peak device memory.
+11. ``recsys_retrieval``: R_anc (500 anchor contexts x 1,000,448 padded
+    columns, 10^6 valid) built on the card from the same DLRM; 16
+    single-context searches through ``build_recsys_retrieval``'s step
+    (Algorithm 1, 500 CE calls each) with recall@{1,10,100} against the
+    exact DLRM top-100 over 10^6 items (printed, not gated: the weights are
+    random); the same 16 through ``engine_search`` with the dict query and
+    the fused kernels (approx_topk launches, top-k overlap printed).
+12. ``dlrm_cpu_vs_card``: full width, tables capped at 2^16 rows, 512
+    contexts x 64 candidates through ``score_candidates`` on the card
+    (kernel) and on the CPU (plain): max |dscore| <= 1e-4 x max |score|
+    with TF32 off, and the lookups bitwise equal.
 
 Then the card's ``name, power.limit`` line, a ``kernels`` summary line, and
 last the result line.  Any failed check exits non-zero.
@@ -64,13 +87,17 @@ REPLACES = {
     "approx_topk": "src/repro/kernels/approx_topk/kernel.py:74",
     "persistent_round": "src/repro/kernels/approx_topk/persistent.py:232",
     "flash_attention": "src/repro/kernels/flash_attention/kernel.py:26",
+    "embedding_bag": "src/repro/kernels/embedding_bag/kernel.py:26",
 }
 CUPTI_BOOKKEEPING = ("Command Buffer Full", "Buffer Flush", "Activity Buffer Request")
 SOURCES = {
     "approx_topk": "src/repro_torch/csrc/approx_topk.cu",
     "persistent_round": "src/repro_torch/csrc/persistent_round.cu",
     "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
+    "embedding_bag": "src/repro_torch/csrc/embedding_bag.cu",
 }
+DLRM = "dlrm-mlperf"
+BAG_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (1e-6, 2.0 ** -7)}   # (atol, rtol)
 
 
 class CheckFailed(Exception):
@@ -235,9 +262,9 @@ def phase_persistent(shape, gen, dev, reps):
     return rows, worst
 
 
-def profile_search(retriever, qids, key) -> dict:
-    """One search under torch.profiler: device time by kernel name, the
-    device-busy share of the search's wall time, the kernels launched."""
+def profile_call(fn) -> dict:
+    """One call under torch.profiler: device time by kernel name, the
+    device-busy share of the call's wall time, the kernels launched."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -245,7 +272,7 @@ def profile_search(retriever, qids, key) -> dict:
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        retriever.search(qids, key)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = []
@@ -316,7 +343,7 @@ def phase_serve(dev):
         expect = ({"approx_topk": 5 * n_search, "persistent_round": 0}
                   if round_kernel == "staged"
                   else {"approx_topk": n_search, "persistent_round": 4 * n_search})
-        expect["flash_attention"] = 0
+        expect.update(flash_attention=0, embedding_bag=0)
         check(counts == expect, f"serve {label}: launches {counts}, expected {expect}")
         for name in launches:
             launches[name] += counts[name]
@@ -335,12 +362,13 @@ def phase_serve(dev):
             batch_p99_ms=float(np.percentile(secs, 99) * 1e3),
             per_search_ms=float(np.mean(secs) * 1e3),
             launches=counts, measured_ce_per_request=served[0].measured_ce_calls,
-            ce_plan=plan, errors=0, **recall,
+            ce_plan=plan, errors=len(errors), **recall,
         ))
     cfg = AdaCURConfig(k_anchor=100, n_rounds=5, budget_ce=200, strategy="topk",
                        k_retrieve=100, loop_mode="fori", use_fused_topk=True)
-    profiled = profile_search(AdaCURRetriever.from_index(index, SyntheticScorer(ce), cfg),
-                              torch.arange(500, 756, device=dev) % 600, prng.PRNGKey(5))
+    retriever = AdaCURRetriever.from_index(index, SyntheticScorer(ce), cfg)
+    qids = torch.arange(500, 756, device=dev) % 600
+    profiled = profile_call(lambda: retriever.search(qids, prng.PRNGKey(5)))
     return dict(index_build_s=build_s, round0_noise_ms_B256=noise_ms, n_items=n_items,
                 configs=results, profile_fp32_staged_B256=profiled), launches
 
@@ -391,7 +419,7 @@ def phase_engine_cpu_vs_card(dev):
                   f"early exit: card {card.rounds_done} rounds, CPU {cpu.rounds_done}, "
                   f"of {cfg.n_rounds}")
             expect = {"approx_topk": 1, "persistent_round": int(card.rounds_done),
-                      "flash_attention": 0}
+                      "flash_attention": 0, "embedding_bag": 0}
             check(counts == expect, f"early-exit persistent launches {counts}, expected {expect}")
         out.append(dict(config=kw or "fp32 staged", overlap=ov, launches=counts,
                         rounds_done_card=int(card.rounds_done),
@@ -564,7 +592,7 @@ def phase_serve_real_ce(dev):
         check(label != "cache" or hits > 0, "serve_real_ce cache: no cache hits")
         n_fwd = scorer.forwards
         expect = {"approx_topk": 5 * n_search, "persistent_round": 0,
-                  "flash_attention": CE_TINY.n_layers * n_fwd}
+                  "flash_attention": CE_TINY.n_layers * n_fwd, "embedding_bag": 0}
         check(counts == expect and n_fwd > 0,
               f"serve_real_ce {label}: launches {counts}, expected {expect}")
         for name in launches:
@@ -584,12 +612,12 @@ def phase_serve_real_ce(dev):
             batch_p99_ms=float(np.percentile(secs, 99) * 1e3),
             drive_s=wall, ce_forwards=n_fwd, ce_forwards_per_s=n_fwd / wall,
             ce_calls=scorer.stats.ce_calls, ce_calls_per_s=scorer.stats.ce_calls / wall,
-            cache_hits=hits, launches=counts, ce_plan=plan, errors=0,
+            cache_hits=hits, launches=counts, ce_plan=plan, errors=len(errors),
             **{f"recall@{k}": topk_recall(retrieved, rows, k) for k in (1, 10, 50)},
         ))
-    profiled = profile_search(AdaCURRetriever.from_index(index, scorer, cfg),
-                              torch.arange(n_anchor, n_anchor + 16, device=dev),
-                              prng.PRNGKey(5))
+    retriever = AdaCURRetriever.from_index(index, scorer, cfg)
+    qids = torch.arange(n_anchor, n_anchor + 16, device=dev)
+    profiled = profile_call(lambda: retriever.search(qids, prng.PRNGKey(5)))
     return dict(model="ce-tiny", dtype=CE_TINY.dtype, n_items=n_items,
                 anchor_queries=n_anchor, served_queries=n_serve,
                 index_build_s=build_s, exact_scores_s=exact_s, configs=results,
@@ -604,7 +632,8 @@ def phase_ce_cpu_vs_card(dev):
     from repro_torch.configs.base import replace
     from repro_torch.configs.registry import CE_TINY
     from repro_torch.data.synthetic import make_zeshel_like
-    from repro_torch.models.cross_encoder import init_cross_encoder, score_tokens, to_device
+    from repro_torch.device import to_device
+    from repro_torch.models.cross_encoder import init_cross_encoder, score_tokens
 
     ds = make_zeshel_like(1, n_items=1000, n_queries=100, item_len=24, query_len=16)
     rng = np.random.default_rng(0)
@@ -628,6 +657,243 @@ def phase_ce_cpu_vs_card(dev):
         out.append(dict(dtype=dtype, pairs=256, max_abs_dscore=d, max_abs_score=top,
                         rel=d / top, checked=dtype == "float32"))
     return out
+
+
+def bag_case(dev, gen, reps, case, table, b, h, mode):
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.embedding_bag.ops import embedding_bag_op
+    from repro_torch.kernels.embedding_bag.ref import embedding_bag_plain
+
+    rows, dim = table.shape
+    ids = torch.randint(0, rows, (b, h), generator=gen, device=dev, dtype=torch.int32)
+    out = embedding_bag_op(table, ids, mode)
+    ref = embedding_bag_plain(table, ids, mode)
+    torch.cuda.synchronize()
+    dtype = str(table.dtype).replace("torch.", "")
+    err = (out.float() - ref.float()).abs()
+    atol, rtol = BAG_TOL[dtype]
+    check(bool((err <= atol + rtol * ref.float().abs()).all()),
+          f"embedding_bag {case} {dtype} {mode} disagrees with its plain version: "
+          f"max abs err {err.max().item()}")
+    bitwise = torch.equal(out, ref)
+    check(h > 1 or bitwise, f"embedding_bag {case}: a one-id bag is not bitwise equal")
+    ids64 = ids.long()
+    ms = cuda_ms(lambda: embedding_bag_op(table, ids, mode), reps)
+    plain_ms = cuda_ms(lambda: embedding_bag_plain(table, ids, mode), 2)
+    lib_ms = cuda_ms(lambda: F.embedding_bag(ids64, table, mode=mode), reps)
+    elem = table.element_size()
+    nb = b * h * dim * elem + b * dim * elem + 4 * b * h
+    b_ms, b_by = bound(nb, float(b * h * dim))
+    return dict(case=case, dtype=dtype, mode=mode, B=b, H=h, dim=dim, rows=rows,
+                kernel_ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                bound_by=b_by, bytes=nb, max_abs_err=err.max().item(), bitwise=bitwise)
+
+
+def phase_embedding_bag(gen, dev, quick):
+    """Returns (rows, worst max abs err); rows[0] is case (a), DLRM's
+    per-field lookup at serve_bulk."""
+    import torch
+
+    rows = (1 << 16) if quick else (1 << 24)
+    table = torch.randn((rows, 128), generator=gen, device=dev)
+    big, small, multi = (4096, 512, 1024) if quick else (262144, 512, 65536)
+    out = [bag_case(dev, gen, 20, "(a) dlrm field, serve_bulk", table, big, 1, "sum"),
+           bag_case(dev, gen, 50, "(b) dlrm field, serve_p99", table, small, 1, "sum")]
+    for dtype in ("float32", "bfloat16"):
+        t = table if dtype == "float32" else table.to(torch.bfloat16)
+        for mode in ("sum", "mean"):
+            out.append(bag_case(dev, gen, 10, "(c) multi-hot", t, multi, 32, mode))
+        del t
+    del table
+    torch.cuda.empty_cache()
+    return out, max(r["max_abs_err"] for r in out)
+
+
+def phase_recsys_serve(dev, params, cfg):
+    """dlrm-mlperf's serve steps on the card; returns (result, bag launches)."""
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.configs.shapes import RECSYS_SHAPES
+    from repro_torch.launch import steps
+
+    results, launches = [], 0
+    for name, n_steps in (("serve_p99", 50), ("serve_bulk", 10)):
+        shape = RECSYS_SHAPES[name]
+        bundle = steps.build_recsys_serve(DLRM, cfg, shape, params=params)
+        out = bundle.step(*bundle.args)                   # warm-up
+        torch.cuda.synchronize()
+        check(out.shape == (shape.batch,) and bool(torch.isfinite(out).all()),
+              f"recsys_serve {name}: logits not finite of shape ({shape.batch},)")
+        del out
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        secs = []
+        for _ in range(n_steps):
+            t0 = time.perf_counter()
+            bundle.step(*bundle.args)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        counts = kernels.launch_counts()
+        per_step = counts["embedding_bag"] / n_steps
+        check(per_step == cfg.n_sparse,
+              f"recsys_serve {name}: {per_step} bag launches a step, expected {cfg.n_sparse}")
+        launches += counts["embedding_bag"]
+        med = float(np.median(secs))
+        results.append(dict(
+            shape=name, batch=shape.batch, steps=n_steps, median_ms=med * 1e3,
+            min_ms=min(secs) * 1e3, model_flops=bundle.model_flops,
+            tflops=bundle.model_flops / med / 1e12,
+            fp32_peak_share=bundle.model_flops / med / PEAK_FP32_FLOPS,
+            bag_launches_per_step=per_step,
+            max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
+            profile=profile_call(lambda: bundle.step(*bundle.args))))
+        del bundle
+    return results, launches
+
+
+def phase_recsys_retrieval(dev, params, cfg, n_search=16):
+    """ADACUR over 10^6 candidates with DLRM as the scorer; returns
+    (result, {kernel: launches})."""
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.configs.base import replace
+    from repro_torch.configs.shapes import RECSYS_SHAPES
+    from repro_torch.core import prng
+    from repro_torch.core.engine import engine_search
+    from repro_torch.eval.metrics import exact_topk, topk_recall
+    from repro_torch.launch import steps
+    from repro_torch.models.recsys import dlrm, embedding
+    from repro_torch.testing import topk_overlap
+
+    shape = RECSYS_SHAPES["retrieval_cand"]
+    n_cand = shape.n_candidates
+    t0 = time.perf_counter()
+    bundle = steps.build_recsys_retrieval(DLRM, cfg, shape, params=params)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    params, batch, _ = bundle.args
+    r_anc = batch["r_anc"]
+    check(r_anc.shape == (steps.K_Q, embedding.padded_rows(n_cand))
+          and bool(torch.isfinite(r_anc).all()), "recsys_retrieval: R_anc malformed")
+    ctx = steps.recsys_inputs(cfg, n_search, seed=7, device=dev)
+    t0 = time.perf_counter()
+    exact = steps.anchor_scores(params, cfg, ctx, n_cand)[:, :n_cand]
+    torch.cuda.synchronize()
+    exact_s = time.perf_counter() - t0
+    _, gt = exact_topk(exact, 100)
+    del exact
+    queries = [{"dense": ctx["dense"][i:i + 1], "sparse": ctx["sparse"][i:i + 1]}
+               for i in range(n_search)]
+
+    kernels.reset_launches()
+    ids, secs, calls, errors = [], [], [], []
+    ce_before = bundle.stats.ce_calls
+    for i, q in enumerate(queries):
+        before = bundle.stats.ce_calls
+        t0 = time.perf_counter()
+        idx, sc = bundle.step(params, dict(q, r_anc=r_anc), prng.PRNGKey(100 + i))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        calls.append(bundle.stats.ce_calls - before)
+        row = idx[0].tolist()
+        if calls[-1] != steps.RETRIEVAL_CFG.budget_ce:
+            errors.append(f"search {i} made {calls[-1]} CE calls, expected "
+                          f"{steps.RETRIEVAL_CFG.budget_ce}")
+        if not (idx.shape == (1, 100) and len(set(row)) == 100 and max(row) < n_cand
+                and min(row) >= 0 and bool(torch.isfinite(sc).all())):
+            errors.append(f"search {i} returned a malformed top-100")
+        ids.append(idx)
+    check(not errors, "recsys_retrieval: " + "; ".join(errors))
+    ce_per_search = (bundle.stats.ce_calls - ce_before) / n_search
+    counts = kernels.launch_counts()
+    # one DLRM forward per CE request: 5 rounds + the rerank
+    expect = 26 * (steps.RETRIEVAL_CFG.n_rounds + 1) * n_search
+    check(counts["embedding_bag"] == expect,
+          f"recsys_retrieval: {counts['embedding_bag']} bag launches, expected {expect}")
+    ids = torch.cat(ids)
+    recall = {f"recall@{k}": topk_recall(ids, gt, k) for k in (1, 10, 100)}
+
+    ecfg = replace(steps.RETRIEVAL_CFG, use_fused_topk=True)
+    e_calls = [0]
+
+    def sf(q, idx):
+        e_calls[0] += idx.numel()
+        return dlrm.score_candidates(params, q["dense"], q["sparse"], idx, cfg)
+
+    kernels.reset_launches()
+    e_ids, e_secs = [], []
+    for i, q in enumerate(queries):
+        t0 = time.perf_counter()
+        res = engine_search(sf, r_anc, q, ecfg, prng.PRNGKey(100 + i), n_valid_items=n_cand)
+        torch.cuda.synchronize()
+        e_secs.append(time.perf_counter() - t0)
+        e_ids.append(res.topk_idx)
+    e_counts = kernels.launch_counts()
+    check(e_calls[0] == ecfg.budget_ce * n_search,
+          f"recsys_retrieval engine: {e_calls[0]} CE calls for {n_search} searches")
+    check(e_counts["approx_topk"] == ecfg.n_rounds * n_search,
+          f"recsys_retrieval engine: approx_topk launches {e_counts}")
+    e_ids = torch.cat(e_ids)
+    prof = profile_call(lambda: bundle.step(params, dict(queries[0], r_anc=r_anc),
+                                            prng.PRNGKey(100)))
+    return dict(
+        n_candidates=n_cand, k_q=steps.K_Q, r_anc_build_s=build_s,
+        r_anc_pairs=steps.K_Q * n_cand, exact_scores_s=exact_s, searches=n_search,
+        per_search_ms=float(np.mean(secs) * 1e3),
+        per_search_p50_ms=float(np.percentile(secs, 50) * 1e3),
+        per_search_max_ms=max(secs) * 1e3,
+        ce_calls_per_search=ce_per_search,
+        ce_calls_min=min(calls), ce_calls_max=max(calls), errors=len(errors), **recall,
+        bag_launches=counts["embedding_bag"], profile_search=prof,
+        engine=dict(per_search_ms=float(np.mean(e_secs) * 1e3), launches=e_counts,
+                    overlap_with_adacur_search=topk_overlap(ids, e_ids),
+                    **{f"recall@{k}": topk_recall(e_ids, gt, k) for k in (1, 10, 100)}),
+    ), {"embedding_bag": counts["embedding_bag"] + e_counts["embedding_bag"],
+        "approx_topk": e_counts["approx_topk"]}
+
+
+def phase_dlrm_cpu_vs_card(dev):
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.configs import dlrm_mlperf
+    from repro_torch.device import to_device
+    from repro_torch.launch import steps
+    from repro_torch.models.recsys import dlrm, embedding
+
+    check(not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32,
+          "TF32 is on")
+    cfg = dlrm_mlperf.capped(max_rows=1 << 16)
+    params = dlrm.init_dlrm(cfg, torch.Generator().manual_seed(3), "cpu")
+    ctx = steps.recsys_inputs(cfg, 512, seed=4, device="cpu")
+    cands = torch.randint(0, 10 ** 6, (512, 64), generator=torch.Generator().manual_seed(5),
+                          dtype=torch.int32)
+    card_params = to_device(params, dev)
+    kernels.reset_launches()
+    card = dlrm.score_candidates(card_params, ctx["dense"].to(dev), ctx["sparse"].to(dev),
+                                 cands.to(dev), cfg)
+    torch.cuda.synchronize()
+    n_launch = kernels.launch_counts()["embedding_bag"]
+    check(n_launch == cfg.n_sparse, f"dlrm_cpu_vs_card: {n_launch} bag launches")
+    t0 = time.perf_counter()
+    cpu = dlrm.score_candidates(params, ctx["dense"], ctx["sparse"], cands, cfg)
+    cpu_s = time.perf_counter() - t0
+    d = (card.cpu() - cpu).abs().max().item()
+    top = cpu.abs().max().item()
+    check(d <= 1e-4 * top, f"dlrm_cpu_vs_card: max |dscore| {d} > 1e-4 x {top}")
+    sparse_r = torch.repeat_interleave(ctx["sparse"], 64, dim=0)
+    sparse_r[:, 0] = cands.reshape(-1)
+    same = torch.equal(embedding.lookup_all_tables(card_params["tables"], sparse_r.to(dev)).cpu(),
+                       embedding.lookup_all_tables(params["tables"], sparse_r))
+    check(same, "dlrm_cpu_vs_card: lookups differ between the card and the CPU")
+    return dict(pairs=512 * 64, max_abs_dscore=d, max_abs_score=top, rel=d / top,
+                lookups_bitwise=same, cpu_s=cpu_s, tf32=False)
 
 
 def main() -> int:
@@ -672,7 +938,11 @@ def main() -> int:
         rows, err = phase_flash(gen, dev, args.quick)
         emit({"phase": "kernel:flash_attention", "cases": rows})
         summary["flash_attention"] = (rows[0], err)
-        launches = {"approx_topk": 0, "persistent_round": 0, "flash_attention": 0}
+        rows, err = phase_embedding_bag(gen, dev, args.quick)
+        emit({"phase": "kernel:embedding_bag", "cases": rows})
+        summary["embedding_bag"] = (rows[0], err)
+        launches = {"approx_topk": 0, "persistent_round": 0, "flash_attention": 0,
+                    "embedding_bag": 0}
         if not args.quick:
             serve, serve_launches = phase_serve(dev)
             emit({"phase": "serve", **serve})
@@ -680,9 +950,27 @@ def main() -> int:
             real_ce, ce_launches = phase_serve_real_ce(dev)
             emit({"phase": "serve_real_ce", **real_ce})
             emit({"phase": "ce_cpu_vs_card", "runs": phase_ce_cpu_vs_card(dev)})
-            launches = {"approx_topk": serve_launches["approx_topk"],
+            from repro_torch.configs import dlrm_mlperf
+            from repro_torch.launch import steps
+
+            cfg = dlrm_mlperf.capped()
+            t0 = time.perf_counter()
+            params = steps.recsys_init(cfg, seed=0, device=dev)
+            torch.cuda.synchronize()
+            init_s = time.perf_counter() - t0
+            tables_gb = sum(t.numel() * t.element_size() for t in params["tables"]) / 1e9
+            rs, rs_bags = phase_recsys_serve(dev, params, cfg)
+            emit({"phase": "recsys_serve", "model": DLRM, "table_rows_cap": 1 << 24,
+                  "tables_gb": tables_gb, "init_s": init_s, "steps": rs})
+            rr, rr_launches = phase_recsys_retrieval(dev, params, cfg)
+            emit({"phase": "recsys_retrieval", "model": DLRM, **rr})
+            del params
+            torch.cuda.empty_cache()
+            emit({"phase": "dlrm_cpu_vs_card", **phase_dlrm_cpu_vs_card(dev)})
+            launches = {"approx_topk": serve_launches["approx_topk"] + rr_launches["approx_topk"],
                         "persistent_round": serve_launches["persistent_round"],
-                        "flash_attention": ce_launches["flash_attention"]}
+                        "flash_attention": ce_launches["flash_attention"],
+                        "embedding_bag": rs_bags + rr_launches["embedding_bag"]}
         for name, n in launches.items():
             check(args.quick or n > 0, f"{name} was never launched on the main path")
     except CheckFailed as e:

@@ -1,20 +1,22 @@
 """Configs — the port's own copies of the reference's ``AdaCURConfig``,
-``LMConfig`` and ``replace`` (``repro/configs/base.py``), with the same
-field names, defaults and checks, so both packages can be built from one
-kwargs dict.
+``LMConfig``, ``RecSysConfig``, ``RecSysShape`` and ``replace``
+(``repro/configs/base.py``), with the same field names, defaults and
+checks, so both packages can be built from one kwargs dict.
 
-``fused_interpret`` is kept only for that reason and has no effect here: in
-the port the backend follows the tensor's device (CUDA kernels for CUDA
-tensors, the plain PyTorch versions for CPU tensors).  Likewise
-``fused_tile`` is the CPU plain version's item tile; the CUDA kernels pick
-their own tiling, and their results do not depend on it.
+``fused_interpret`` and ``distributed_gather`` are kept only for that
+reason and have no effect here: in the port the backend follows the
+tensor's device (CUDA kernels for CUDA tensors, the plain PyTorch versions
+for CPU tensors), and the port runs on one device, so anchor columns are
+always gathered by index (the reference's one-hot gather serves its SPMD
+path).  Likewise ``fused_tile`` is the CPU plain version's item tile; the
+CUDA kernels pick their own tiling, and their results do not depend on it.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Tuple
 
 
 @dataclass(frozen=True)
@@ -37,7 +39,7 @@ class AdaCURConfig:
     softmax_temp: float = 1.0
     round_epsilon: float = 0.0
     incremental_pinv: bool = True
-    distributed_gather: bool = False
+    distributed_gather: bool = False  # no effect in the port (see module doc)
     loop_mode: str = "unrolled"      # "unrolled" | "fori"
     use_fused_topk: bool = False
     fused_tile: int = 6144
@@ -147,3 +149,42 @@ class LMConfig:
         per_layer = attn + n_ff * self.d_model * self.d_ff
         norms = self.n_layers * 2 * self.d_model + self.d_model
         return emb + per_layer * self.n_layers + norms
+
+
+@dataclass(frozen=True)
+class RecSysConfig:
+    """Recommender configuration — the port's copy of the reference's
+    ``RecSysConfig``, same field names and defaults.  The port serves the
+    ``dlrm`` kind; BST, BERT4Rec and MIND are later slices (ROADMAP.md,
+    queue 1, item 13)."""
+
+    name: str
+    kind: str                        # "bst" | "mind" | "bert4rec" | "dlrm"
+    embed_dim: int
+    n_items: int = 1_000_000         # item vocabulary (retrieval corpus)
+    seq_len: int = 20                # user-history length (sequential models)
+    n_heads: int = 8
+    n_blocks: int = 1
+    mlp_dims: Tuple[int, ...] = ()
+    # MIND
+    n_interests: int = 4
+    capsule_iters: int = 3
+    # DLRM
+    n_dense: int = 0
+    n_sparse: int = 0
+    bot_mlp: Tuple[int, ...] = ()
+    top_mlp: Tuple[int, ...] = ()
+    table_sizes: Tuple[int, ...] = ()
+    interaction: str = "dot"
+    multihot_per_field: int = 1      # lookups per sparse field (embedding-bag size)
+    dtype: str = "float32"
+
+
+@dataclass(frozen=True)
+class RecSysShape:
+    """One named recsys step shape (``configs/shapes.py``)."""
+
+    name: str
+    kind: str          # "train" | "serve" | "retrieval"
+    batch: int
+    n_candidates: int = 0

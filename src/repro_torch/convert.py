@@ -51,6 +51,8 @@ def _leaf(x, device) -> torch.Tensor:
 def _tree(tree, device):
     if isinstance(tree, dict):
         return {k: _tree(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_tree(v, device) for v in tree]
     return _leaf(tree, device)
 
 
@@ -70,6 +72,15 @@ def cross_encoder_params(tree: dict, device="cpu") -> dict:
     out = {k: _tree(v, device) for k, v in tree.items() if k != "layers"}
     out["layers"] = [layer(i, stacked) for i in range(stacked["ln1"]["w"].shape[0])]
     return out
+
+
+def dlrm_params(tree: dict, device="cpu") -> dict:
+    """The port's DLRM params from the reference's (``init_dlrm``'s pytree
+    as numpy arrays): ``bot`` and ``top`` keep their ``b{i}_w``/``t{i}_b``
+    names and (d_in, d_out) layouts, ``tables`` stays a list of padded
+    (rows, dim) tables."""
+    return {"bot": _tree(tree["bot"], device), "top": _tree(tree["top"], device),
+            "tables": _tree(tree["tables"], device)}
 
 
 def config(kwargs: dict) -> AdaCURConfig:

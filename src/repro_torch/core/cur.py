@@ -17,6 +17,12 @@ def pinv(a: torch.Tensor, rcond: float = 1e-6) -> torch.Tensor:
     return torch.linalg.pinv(a, rtol=rcond)
 
 
+def gather_anchor_columns(r_anc: torch.Tensor, anchor_idx: torch.Tensor) -> torch.Tensor:
+    """R_anc[:, I_anc] for per-query anchor sets: r_anc (k_q, N), anchor_idx
+    (B, k) -> (B, k_q, k)."""
+    return r_anc[:, anchor_idx.long()].permute(1, 0, 2).contiguous()
+
+
 def _solve(a, b):
     return torch.linalg.solve_ex(a, b, check_errors=False).result
 

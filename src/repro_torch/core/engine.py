@@ -35,7 +35,7 @@ from ..kernels.approx_topk.ops import approx_topk_op
 from ..kernels.approx_topk.persistent import persistent_round_op
 from ..kernels.approx_topk.select import NEG_INF, stable_topk
 from . import cur, prng, sampling
-from .adacur import AdaCURResult, ScoreFn
+from .adacur import AdaCURResult, ScoreFn, query_batch
 
 
 def ce_call_plan(cfg: AdaCURConfig, rounds: Optional[int] = None) -> int:
@@ -219,16 +219,21 @@ def _hit_frac(cur_top, prev_top) -> float:
 
 
 def engine_search(score_fn: ScoreFn, r_anc, query, cfg: AdaCURConfig, key,
-                  first_anchors=None, n_valid_items=None,
-                  n_rounds: Optional[int] = None,
+                  first_anchors=None, batch: Optional[int] = None,
+                  n_valid_items=None, n_rounds: Optional[int] = None,
                   return_scores: Optional[bool] = None,
                   item_ids=None) -> AdaCURResult:
     """Run Algorithm 1 (+ retrieval) through the static-shape round engine.
 
-    Runs on the payload's device.  ``n_valid_items`` as a Python int is a
-    static bound; as a tensor it is a runtime bound (suppression then goes
-    through the selected mask, as on the reference's dynamic path).
-    ``item_ids`` (N,) maps positions to external ids before every CE call.
+    Runs on the payload's device.  ``query`` is any batched query pytree (a
+    tensor, or a dict/list of them, e.g. DLRM's ``{"dense", "sparse"}``),
+    handed to ``score_fn`` untouched; the batch size is ``first_anchors``'
+    rows, else ``batch``, else the first leaf's leading dimension
+    (``adacur.query_batch``, the reference's rule).
+    ``n_valid_items`` as a Python int is a static bound; as a tensor it is
+    a runtime bound (suppression then goes through the selected mask, as on
+    the reference's dynamic path).  ``item_ids`` (N,) maps positions to
+    external ids before every CE call.
     """
     r_anc = quant.as_payload(r_anc, cfg.payload_dtype, cfg.payload_tile)
     k_q, n_items = r_anc.shape
@@ -250,7 +255,7 @@ def engine_search(score_fn: ScoreFn, r_anc, query, cfg: AdaCURConfig, key,
     if cfg.loop_mode == "unrolled" and n_rounds is not None:
         raise ValueError("runtime n_rounds override requires loop_mode='fori'")
 
-    b = query.shape[0]
+    b = query_batch(query, first_anchors, batch)
     if first_anchors is not None and tuple(first_anchors.shape) != (b, k_s):
         raise ValueError(f"first_anchors must be ({b}, k_s={k_s}), got "
                          f"{tuple(first_anchors.shape)}")
@@ -361,11 +366,12 @@ def make_engine(score_fn: ScoreFn, cfg: AdaCURConfig) -> Callable:
     """Engine closure over a scorer + config.  In ``fori`` mode the
     callable takes a runtime ``n_rounds`` in [1, cfg.n_rounds]."""
 
-    def run(r_anc, query, key, first_anchors=None, n_rounds=None,
+    def run(r_anc, query, key, first_anchors=None, batch=None, n_rounds=None,
             n_valid=None, item_ids=None):
         return engine_search(
             score_fn, r_anc, query, cfg, key, first_anchors=first_anchors,
-            n_valid_items=n_valid, n_rounds=n_rounds, item_ids=item_ids,
+            batch=batch, n_valid_items=n_valid, n_rounds=n_rounds,
+            item_ids=item_ids,
         )
 
     return run
@@ -405,9 +411,9 @@ class AdaCURRetriever:
             kw["n_valid"] = self.index.n_valid
         return self.index.r_anc, kw
 
-    def search(self, query, key=None, first_anchors=None,
+    def search(self, query, key=None, first_anchors=None, batch=None,
                n_rounds=None) -> AdaCURResult:
         key = prng.PRNGKey(0) if key is None else key
         r_anc, kw = self._search_operands()
         return self._run(r_anc, query, key, first_anchors=first_anchors,
-                         n_rounds=n_rounds, **kw)
+                         batch=batch, n_rounds=n_rounds, **kw)

@@ -18,3 +18,12 @@ def resolve_device(device=None) -> torch.device:
             "PyTorch versions on the CPU"
         )
     return dev
+
+
+def to_device(tree, device):
+    """A parameter tree (dicts, lists, tensors) moved to ``device``."""
+    if isinstance(tree, dict):
+        return {k: to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [to_device(v, device) for v in tree]
+    return tree.to(device)

@@ -107,6 +107,7 @@ _SIGNATURES = {
     "flash_attention_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                _L, _L, _L, _L, _L, _L, _L, _L, _L, _I,
                                ctypes.c_float, _P],
+    "embedding_bag_launch": [_P, _P, _P, _I, _L, _I, _L, _I, _I, _I, _P],
 }
 
 

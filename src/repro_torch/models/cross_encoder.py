@@ -11,7 +11,7 @@ from __future__ import annotations
 import torch
 
 from ..configs.base import LMConfig
-from ..device import resolve_device
+from ..device import resolve_device, to_device
 from . import layers, transformer
 
 
@@ -23,15 +23,6 @@ def init_cross_encoder(cfg: LMConfig, generator: torch.Generator, device=None):
     params = transformer.init_lm(cfg, generator)
     params["score_head"] = layers.dense_init(generator, (cfg.d_model, 1), scale=0.02)
     return to_device(params, dev)
-
-
-def to_device(tree, device):
-    """A parameter tree (dicts, lists, tensors) moved to ``device``."""
-    if isinstance(tree, dict):
-        return {k: to_device(v, device) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [to_device(v, device) for v in tree]
-    return tree.to(device)
 
 
 def score_tokens(params, pair_tokens: torch.Tensor, cfg: LMConfig, pad_id: int = 0,

@@ -18,6 +18,8 @@ from repro_torch.kernels.approx_topk.ops import approx_topk_op  # noqa: E402
 from repro_torch.kernels.approx_topk.persistent import persistent_round_op  # noqa: E402
 from repro_torch.kernels.approx_topk.quant import quantize_ranc  # noqa: E402
 from repro_torch.kernels.approx_topk.ref import dense_scores  # noqa: E402
+from repro_torch.kernels.embedding_bag.ops import embedding_bag_op  # noqa: E402
+from repro_torch.kernels.embedding_bag.ref import embedding_bag_plain  # noqa: E402
 from repro_torch.kernels.flash_attention.ops import (  # noqa: E402
     flash_attention, flash_attention_plain,
 )
@@ -112,7 +114,7 @@ def test_engine_on_the_card_matches_the_cpu(dev):
                          prng.PRNGKey(3))
     assert card.rounds_done == cpu.rounds_done < cfg.n_rounds
     assert kernels.launch_counts() == {"approx_topk": 1, "persistent_round": card.rounds_done,
-                                       "flash_attention": 0}
+                                       "flash_attention": 0, "embedding_bag": 0}
     assert topk_overlap(cpu.topk_idx, card.topk_idx) >= 0.99
     assert np.isfinite(card.topk_scores.cpu().numpy()).all()
 
@@ -184,8 +186,8 @@ def test_real_ce_search_on_the_card_matches_the_cpu(dev):
     from repro_torch.core import prng
     from repro_torch.core.engine import engine_search
     from repro_torch.core.scorer import CrossEncoderScorer
+    from repro_torch.device import to_device
     from repro_torch.launch.serve import build_real_ce_domain
-    from repro_torch.models.cross_encoder import to_device
     from repro_torch.testing import topk_overlap
 
     ds, params, scorer, index = build_real_ce_domain(300, 40, 16, device=dev)
@@ -203,3 +205,83 @@ def test_real_ce_search_on_the_card_matches_the_cpu(dev):
     cpu = engine_search(cpu_scorer, index.r_anc.cpu(), q, cfg, prng.PRNGKey(2))
     assert topk_overlap(cpu.topk_idx, card.topk_idx) >= 0.99
     assert np.isfinite(card.topk_scores.cpu().numpy()).all()
+
+
+# embedding bag: (rows, dim, B, H); dim 21, and dim 36 in bf16, take the
+# scalar path (a row is not a whole number of 16-byte chunks), dim 200 has a
+# ragged last chunk, H = 45 two id batches of 32
+BAG_CASES = {
+    "dlrm-field": (4096, 128, 1000, 1),
+    "multihot": (5000, 128, 700, 32),
+    "wide-h": (300, 64, 50, 45),
+    "dim36": (500, 36, 123, 7),
+    "dim21": (500, 21, 64, 3),
+    "dim200": (400, 200, 33, 5),
+}
+BAG_TOL = {"float32": dict(atol=1e-5, rtol=1e-5),
+           "bfloat16": dict(atol=1e-6, rtol=2.0 ** -7)}
+
+
+@pytest.mark.parametrize("mode", ["sum", "mean"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(BAG_CASES))
+def test_bag_kernel_matches_plain(dev, case, dtype, mode):
+    rows, dim, b, h = BAG_CASES[case]
+    g = torch.Generator(device=dev)
+    g.manual_seed(sorted(BAG_CASES).index(case))
+    table = torch.randn((rows, dim), generator=g, device=dev).to(getattr(torch, dtype))
+    ids = torch.randint(0, rows, (b, h), generator=g, device=dev, dtype=torch.int32)
+    before = kernels.launch_counts()["embedding_bag"]
+    out = embedding_bag_op(table, ids, mode)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["embedding_bag"] == before + 1
+    ref = embedding_bag_plain(table, ids, mode)
+    assert out.dtype == table.dtype and out.shape == (b, dim)
+    torch.testing.assert_close(out.float(), ref.float(), **BAG_TOL[dtype])
+    if h == 1:
+        assert torch.equal(out, ref)
+    with pytest.raises(ValueError, match="int32"):
+        embedding_bag_op(table, ids.long(), mode)
+
+
+def test_bag_kernel_takes_ids_as_jnp_take_does(dev):
+    table = torch.randn((20, 128), device=dev)
+    ids = torch.tensor([[3, -1], [-20, 5], [20, 1], [-21, 0]], device=dev,
+                       dtype=torch.int32)
+    out = embedding_bag_op(table, ids)
+    ref = embedding_bag_plain(table, ids)
+    torch.testing.assert_close(out[:2], ref[:2], atol=1e-5, rtol=1e-5)
+    assert torch.isnan(out[2:]).all() and torch.isnan(ref[2:]).all()
+
+
+def test_bag_kernel_rejects_what_it_does_not_take(dev):
+    ids = torch.zeros((4, 2), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        embedding_bag_op(torch.zeros((10, 8), device=dev, dtype=torch.float16), ids)
+    with pytest.raises(ValueError, match="contiguous"):
+        embedding_bag_op(torch.zeros((8, 10), device=dev).t(), ids)
+    with pytest.raises(ValueError, match="but the table on"):
+        embedding_bag_op(torch.zeros((10, 8), device=dev), ids.cpu())
+
+
+def test_dlrm_on_the_card_matches_the_cpu(dev):
+    """Full-width DLRM with small tables: the lookups are bitwise equal on
+    the card (26 kernel launches a forward) and on the CPU (plain)."""
+    from repro_torch.configs import dlrm_mlperf
+    from repro_torch.device import to_device
+    from repro_torch.launch import steps
+    from repro_torch.models.recsys import dlrm, embedding
+
+    cfg = dlrm_mlperf.capped(max_rows=4096)
+    params = dlrm.init_dlrm(cfg, torch.Generator().manual_seed(0), "cpu")
+    ctx = steps.recsys_inputs(cfg, 64, device="cpu")
+    card_params = to_device(params, dev)
+    kernels.reset_launches()
+    card = dlrm.forward(card_params, ctx["dense"].to(dev), ctx["sparse"].to(dev), cfg)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["embedding_bag"] == cfg.n_sparse
+    cpu = dlrm.forward(params, ctx["dense"], ctx["sparse"], cfg)
+    assert (card.cpu() - cpu).abs().max() <= 1e-4 * cpu.abs().max()
+    assert torch.equal(embedding.lookup_all_tables(card_params["tables"],
+                                                   ctx["sparse"].to(dev)).cpu(),
+                       embedding.lookup_all_tables(params["tables"], ctx["sparse"]))

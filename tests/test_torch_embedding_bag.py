@@ -1,0 +1,157 @@
+"""The port's embedding bag (its plain PyTorch version, on the CPU) against
+the JAX package: the Pallas kernel ``_bag_kernel`` in interpret mode, as
+``tests/test_kernels.py`` runs it, and the jnp oracle
+``embedding_bag_reference``.
+
+Inputs are drawn with numpy and handed to both packages.  The interpret-mode
+kernel steps once per (bag, id), so it runs only at B·H <= 64 (the shapes of
+``tests/test_kernels.py::TestEmbeddingBag``); larger shapes go against the
+oracle.  Tolerances: fp32 ``atol = rtol = 1e-5``, the reference tests' own;
+bf16 ``rtol = 2^-7, atol = 1e-6``, one bf16 ulp (both sides accumulate in
+fp32 and round once); a bag of one id is a copy of its row and must be
+bitwise equal.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels.embedding_bag.ops import embedding_bag_op as j_bag  # noqa: E402
+from repro.kernels.embedding_bag.ref import embedding_bag_reference as j_ref  # noqa: E402
+from repro_torch import kernels  # noqa: E402
+from repro_torch.kernels.embedding_bag.kernel import embedding_bag_cuda  # noqa: E402
+from repro_torch.kernels.embedding_bag.ops import embedding_bag_op  # noqa: E402
+from repro_torch.kernels.embedding_bag.ref import embedding_bag_plain  # noqa: E402
+
+TOL = {"float32": dict(atol=1e-5, rtol=1e-5), "bfloat16": dict(atol=1e-6, rtol=2.0 ** -7)}
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _inputs(rows, dim, b, h, dtype, seed=0, low=0):
+    rng = np.random.default_rng(seed)
+    table = rng.standard_normal((rows, dim)).astype(np.float32)
+    ids = rng.integers(low, rows, (b, h)).astype(np.int32)
+    jt = jnp.asarray(table).astype(getattr(jnp, dtype))
+    tt = torch.from_numpy(table).to(getattr(torch, dtype))
+    return jt, tt, ids
+
+
+def _np(x):
+    return np.asarray(jnp.asarray(x, jnp.float32)) if isinstance(x, jax.Array) \
+        else x.float().numpy()
+
+
+@pytest.mark.parametrize("rows,dim,b,h,mode,dtype", [
+    (1000, 128, 8, 4, "sum", "float32"),
+    (500, 64, 16, 3, "mean", "float32"),
+    (100, 256, 3, 1, "sum", "float32"),
+    (200, 64, 4, 5, "sum", "bfloat16"),
+    (200, 64, 4, 5, "mean", "bfloat16"),
+    (300, 40, 6, 7, "mean", "float32"),
+])
+def test_plain_matches_the_pallas_kernel(rows, dim, b, h, mode, dtype):
+    jt, tt, ids = _inputs(rows, dim, b, h, dtype, seed=rows)
+    want = j_bag(jt, jnp.asarray(ids), mode=mode, interpret=True)
+    got = embedding_bag_plain(tt, torch.from_numpy(ids), mode)
+    assert got.dtype == getattr(torch, dtype) and got.shape == (b, dim)
+    np.testing.assert_allclose(_np(got), _np(want), **TOL[dtype])
+
+
+@pytest.mark.parametrize("mode", ["sum", "mean"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_matches_the_oracle_on_wide_bags(mode, dtype):
+    jt, tt, ids = _inputs(5000, 128, 256, 32, dtype, seed=1)
+    got = embedding_bag_plain(tt, torch.from_numpy(ids), mode)
+    # the oracle over the fp32 table, rounded once: fp32 accumulation
+    want = j_ref(jt.astype(jnp.float32), jnp.asarray(ids), mode).astype(jt.dtype)
+    np.testing.assert_allclose(_np(got), _np(want), **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_one_id_bags_are_bitwise_copies(dtype):
+    jt, tt, ids = _inputs(4096, 128, 64, 1, dtype, seed=2)
+    got = embedding_bag_plain(tt, torch.from_numpy(ids), "sum")
+    want_k = j_bag(jt, jnp.asarray(ids), mode="sum", interpret=True)
+    want_r = j_ref(jt, jnp.asarray(ids), "sum")
+    assert np.array_equal(_np(got), _np(want_k))
+    assert np.array_equal(_np(got), _np(want_r))
+    assert torch.equal(embedding_bag_plain(tt, torch.from_numpy(ids), "mean"), got)
+
+
+def test_duplicate_ids_add_up():
+    jt, tt, ids = _inputs(50, 32, 4, 6, "float32", seed=3)
+    ids[0] = 7                       # one row six times
+    ids[1, :3] = ids[1, 3:]          # each id twice
+    want = j_bag(jt, jnp.asarray(ids), mode="sum", interpret=True)
+    got = embedding_bag_plain(tt, torch.from_numpy(ids), "sum")
+    np.testing.assert_allclose(_np(got), _np(want), **TOL["float32"])
+    np.testing.assert_allclose(got[0].numpy(), 6 * tt[7].numpy(), rtol=1e-6)
+
+
+def test_ids_follow_jnp_take():
+    """An id in [-rows, 0) wraps once; one outside [-rows, rows) reads as a
+    row of NaN, as ``jnp.take`` (the oracle's gather) fills it."""
+    jt, tt, _ = _inputs(20, 16, 1, 1, "float32", seed=4)
+    ids = np.array([[3, -1], [-20, 5], [20, 1], [-21, 0]], dtype=np.int32)
+    got = embedding_bag_plain(tt, torch.from_numpy(ids), "sum").numpy()
+    want = np.asarray(j_ref(jt, jnp.asarray(ids), "sum"))
+    np.testing.assert_allclose(got[:2], want[:2], **TOL["float32"])
+    assert np.isnan(got[2:]).all() and np.isnan(want[2:]).all()
+
+
+@pytest.mark.parametrize("np_dtype", [np.int64, np.int16, np.uint8])
+def test_id_dtypes_agree(np_dtype):
+    """The plain version and the kernel's wrapper take the same ids: int32,
+    the reference kernel's id type; both refuse any other integer type."""
+    _, tt, ids = _inputs(200, 24, 10, 5, "float32", seed=5)
+    other = torch.from_numpy(ids.astype(np_dtype))
+    for fn in (embedding_bag_plain, embedding_bag_cuda):
+        with pytest.raises(ValueError, match="int32"):
+            fn(tt, other, "mean")
+
+
+def test_op_runs_the_plain_version_on_cpu_tensors():
+    _, tt, ids = _inputs(64, 8, 5, 3, "float32", seed=6)
+    kernels.reset_launches()
+    out = embedding_bag_op(tt, torch.from_numpy(ids), "mean")
+    assert torch.equal(out, embedding_bag_plain(tt, torch.from_numpy(ids), "mean"))
+    assert kernels.launch_counts()["embedding_bag"] == 0
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        embedding_bag_cuda(tt, torch.from_numpy(ids))
+
+
+@pytest.mark.parametrize("case,match", [
+    ("h0", "H >= 1"), ("max", "mode"), ("float_ids", "integers"),
+    ("bool_ids", "integers"), ("int64_ids", "int32"), ("table_3d", "rows, dim"),
+    ("ids_1d", r"\(B, H\)"),
+])
+def test_op_raises_on_what_it_does_not_take(case, match):
+    table = torch.zeros((10, 4))
+    ids = torch.zeros((3, 2), dtype=torch.int32)
+    kw = dict(mode="sum")
+    if case == "h0":
+        ids = torch.zeros((3, 0), dtype=torch.int32)
+    elif case == "max":
+        kw["mode"] = "max"
+    elif case == "float_ids":
+        ids = ids.float()
+    elif case == "bool_ids":
+        ids = ids.bool()
+    elif case == "int64_ids":
+        ids = ids.long()
+    elif case == "table_3d":
+        table = torch.zeros((10, 4, 1))
+    else:
+        ids = ids[0]
+    with pytest.raises(ValueError, match=match):
+        embedding_bag_op(table, ids, **kw)

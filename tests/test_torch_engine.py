@@ -149,3 +149,25 @@ def test_full_pinv_search_is_stable_under_rounding(domain):
                      cfg, key) for x in (r, nudged))
     assert a.rounds_done == b.rounds_done < cfg.n_rounds
     assert topk_overlap(a.topk_idx, b.topk_idx) == 1.0
+
+
+@pytest.mark.parametrize("batch", [None, B])
+def test_dict_query_gives_the_ids_of_the_tensor_query(domain, batch):
+    """A query pytree reaches score_fn untouched, and B comes from the
+    first leaf or ``batch=`` (the reference's rule), so a dict wrapping the
+    query ids searches exactly as the bare ids do."""
+    cfg = convert.config(dict(BASE, use_fused_topk=True))
+    key = convert.key(np.asarray(jax.random.PRNGKey(KEY)))
+    q = torch.as_tensor(domain["q"])
+    r = convert.r_anc(domain["r_anc"])
+    bare = t_search(SyntheticScorer(domain["tce"]), r, q, cfg, key)
+    inner = SyntheticScorer(domain["tce"])
+
+    def scorer(query, idx):
+        assert set(query) == {"ids", "z"} and query["ids"] is q
+        return inner(query["ids"], idx)
+
+    wrapped = t_search(scorer, r, {"z": torch.zeros((B, 3)), "ids": q}, cfg, key, batch=batch)
+    assert torch.equal(wrapped.topk_idx, bare.topk_idx)
+    assert torch.equal(wrapped.anchor_idx, bare.anchor_idx)
+    assert inner.stats.ce_calls == ce_call_plan(cfg) * B

@@ -30,7 +30,8 @@ def _modules():
 
 def test_importing_the_port_loads_no_jax_and_no_reference():
     mods = list(_modules())
-    assert "repro_torch.launch.serve" in mods and "repro_torch.core.engine" in mods
+    assert {"repro_torch.launch.serve", "repro_torch.core.engine",
+            "repro_torch.models.recsys.dlrm", "repro_torch.launch.steps"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(n for n in sys.modules if n == 'jax' or n.startswith('jax.')"
@@ -106,4 +107,4 @@ def test_build_dir_is_keyed_by_the_sources(monkeypatch, tmp_path):
     d = build.build_dir()
     assert d.parent == tmp_path / "build" / "kernels" and len(d.name) == 16
     assert {p.name for p in build._sources()[0]} == {"approx_topk.cu", "persistent_round.cu",
-                                                     "flash_attention.cu"}
+                                                     "flash_attention.cu", "embedding_bag.cu"}
