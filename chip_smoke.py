@@ -9,12 +9,20 @@ Run from the repository root on a machine with an NVIDIA H100:
 Phases (one JSON line each):
 
 1. ``env``: torch/CUDA versions, the card's name and power limit, kernel
-   build seconds and ptxas resource lines.
+   build seconds and ptxas resource lines, and the card's ``mma.sync``
+   TF32 rate (a register-only loop of ``mma.sync.m16n8k8`` TF32 on every
+   SM, built beside the kernels): the most the top-k kernels' mainloop can
+   reach.
 2. ``kernel:approx_topk``: the CUDA kernel against its plain PyTorch version
    on the card at the serving shape (B=256, k_q=500, N=10^6; fp32 and int8;
    k=20 and k=100), plus a noise/mask/anchors/n_valid case with under-filled
    rows at N=65,536; kernel, plain and library (torch.matmul + torch.topk)
-   times beside the bound.
+   times beside the tensor-core bound (``bound_ms``: the product split
+   into TF32 or bf16 parts at fp32 accuracy, whichever is faster), the
+   CUDA-core fp32 one (``bound_simt_ms``) and, at the serving shape, the
+   earlier CUDA-core design's kernel time as recorded on an H100
+   (``earlier_design_ms_recorded``, a constant, not measured here).  ptxas
+   must report no spill for either top-k kernel.
 3. ``kernel:persistent_round``: both accumulators at the same shapes, held
    to the plain version and bitwise to two approx_topk calls.
 4. ``serve``: the serve CLI's domain at full size (600 queries, 10^6 items,
@@ -71,8 +79,10 @@ last the result line.  Any failed check exits non-zero.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -81,6 +91,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(HERE, "src"))
 
 PEAK_FP32_FLOPS = 67e12      # H100 SXM, fp32 outside the tensor cores
+PEAK_TF32_FLOPS = 494.7e12   # H100 SXM, TF32 tensor cores, dense
 PEAK_BF16_FLOPS = 989e12     # H100 SXM, bf16 tensor cores, dense
 PEAK_BYTES = 3.35e12         # H100 SXM HBM3
 REPLACES = {
@@ -95,6 +106,15 @@ SOURCES = {
     "persistent_round": "src/repro_torch/csrc/persistent_round.cu",
     "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
     "embedding_bag": "src/repro_torch/csrc/embedding_bag.cu",
+}
+# kernel_ms of the earlier CUDA-core design of the two top-k kernels (fp32
+# FMA tiles, one-at-a-time list inserts) at the serving shape, recorded on
+# an H100 80GB HBM3 at 700 W: constants, printed in the phase rows at that
+# shape only, for comparison
+EARLIER_DESIGN_MS = {
+    ("approx_topk", "float32", 20): 24.27, ("approx_topk", "float32", 100): 33.97,
+    ("approx_topk", "int8", 20): 21.76, ("approx_topk", "int8", 100): 34.38,
+    ("persistent_round", "float32", 20): 41.76, ("persistent_round", "int8", 20): 41.35,
 }
 DLRM = "dlrm-mlperf"
 BAG_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (1e-6, 2.0 ** -7)}   # (atol, rtol)
@@ -141,6 +161,77 @@ def bound(nbytes: float, flops: float, peak_flops: float = PEAK_FP32_FLOPS):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def topk_bounds(dtype, nb, b, k_q, n) -> dict:
+    """The fused ops' bounds.  ``bound_ms``: the product at fp32 accuracy on
+    the tensor cores, by the faster of two splits: TF32 (an fp32 operand in
+    hi + lo parts: 3 passes; int8 codes are exact, so 2) and bf16 (an fp32
+    operand in 3 parts: 6 passes for fp32 x fp32, 3 for fp32 x int8 codes).
+    ``bound_simt_ms``: the product in fp32 on the CUDA cores."""
+    mac2 = 2.0 * b * k_q * n
+    tf32 = (3 if dtype == "float32" else 2, PEAK_TF32_FLOPS, "TF32")
+    bf16 = (6 if dtype == "float32" else 3, PEAK_BF16_FLOPS, "bf16")
+    passes, peak, name = min(tf32, bf16, key=lambda split: split[0] / split[1])
+    b_ms, b_by = bound(nb, passes * mac2, peak)
+    simt_ms, _ = bound(nb, mac2)
+    return dict(bound_ms=b_ms, bound_by=b_by, bound_peak=f"{passes}x{name} tensor cores",
+                bound_simt_ms=simt_ms)
+
+
+MMA_PROBE = r"""
+#include <cuda_runtime.h>
+#include <stdint.h>
+__global__ void mma_loop(float* out, int iters) {
+  float c[8][4] = {};
+  const uint32_t a[4] = {threadIdx.x, threadIdx.x + 1, threadIdx.x + 2, threadIdx.x + 3};
+  const uint32_t b0 = threadIdx.x * 7, b1 = threadIdx.x * 3;
+  for (int i = 0; i < iters; ++i)
+#pragma unroll
+    for (int f = 0; f < 8; ++f)
+      asm volatile("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+                   "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
+                   : "+f"(c[f][0]), "+f"(c[f][1]), "+f"(c[f][2]), "+f"(c[f][3])
+                   : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  float s = 0.f;
+  for (int f = 0; f < 8; ++f) s += c[f][0] + c[f][1] + c[f][2] + c[f][3];
+  out[blockIdx.x * blockDim.x + threadIdx.x] = s;
+}
+extern "C" int mma_loop_launch(int blocks, float* out, int iters) {
+  mma_loop<<<blocks, 256>>>(out, iters);
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def start_mma_probe_build(build):
+    """Start nvcc on the mma.sync probe, beside the kernels' own builds."""
+    out = os.path.join(HERE, "build", "probe")
+    os.makedirs(out, exist_ok=True)
+    src, lib = os.path.join(out, "mma_probe.cu"), os.path.join(out, "libmma_probe.so")
+    with open(src, "w") as f:
+        f.write(MMA_PROBE)
+    proc = subprocess.Popen([build.find_nvcc(), *build.NVCC_FLAGS, "-o", lib, src],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return proc, lib
+
+
+def mma_tf32_tflops(lib_path, iters: int = 20000) -> dict:
+    """TFLOP/s of back-to-back mma.sync.m16n8k8 TF32, eight independent
+    accumulators a warp, at the top-k kernels' 8 warps an SM and at 32."""
+    import torch
+
+    lib = ctypes.CDLL(lib_path)
+    lib.mma_loop_launch.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_int]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rates = {}
+    for per_sm in (1, 4):
+        blocks = sms * per_sm
+        out = torch.empty(blocks * 256, device="cuda")
+        check(lib.mma_loop_launch(blocks, out.data_ptr(), 100) == 0, "mma.sync probe launch")
+        ms = cuda_ms(lambda: lib.mma_loop_launch(blocks, out.data_ptr(), iters), 1)
+        rates[f"{8 * per_sm}_warps_per_sm"] = blocks * 8 * iters * 8 * 2.0 * 16 * 8 * 8 / ms / 1e9
+    return rates
+
+
 def nbytes(*ts) -> int:
     from repro_torch.kernels.approx_topk.quant import QuantizedRanc
 
@@ -163,7 +254,7 @@ def make_inputs(b, k_q, n, gen, dev):
     return e_q, {"float32": r, "int8": quantize_ranc(r)}, anchors
 
 
-def phase_approx_topk(shape, gen, dev, reps):
+def phase_approx_topk(shape, gen, dev, reps, earlier):
     import torch
 
     from repro_torch.kernels.approx_topk.ops import approx_topk_op, approx_topk_plain
@@ -187,9 +278,10 @@ def phase_approx_topk(shape, gen, dev, reps):
             ms = cuda_ms(lambda: approx_topk_op(e_q, pay, anchors, k), reps)
             plain_ms = cuda_ms(lambda: approx_topk_plain(e_q, pay, anchors, k, tile=8192), 1)
             lib_ms = cuda_ms(lambda: torch.topk(torch.matmul(e_q, r_dense), k, dim=1), reps)
-            b_ms, b_by = bound(nbytes(e_q, pay, anchors) + b * k * 8, 2.0 * b * k_q * n)
+            bounds = topk_bounds(dtype, nbytes(e_q, pay, anchors) + b * k * 8, b, k_q, n)
             rows.append(dict(payload=dtype, k=k, kernel_ms=ms, plain_ms=plain_ms,
-                             library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, **rep))
+                             library_ms=lib_ms, **bounds, **rep,
+                             earlier_design_ms_recorded=earlier.get(("approx_topk", dtype, k))))
         del scores
     # noise / mask / anchors / n_valid, with under-filled rows
     n2 = 65536
@@ -214,7 +306,7 @@ def phase_approx_topk(shape, gen, dev, reps):
     return rows, worst
 
 
-def phase_persistent(shape, gen, dev, reps):
+def phase_persistent(shape, gen, dev, reps, earlier):
     import torch
 
     from repro_torch.kernels.approx_topk.ops import approx_topk_op
@@ -254,11 +346,12 @@ def phase_persistent(shape, gen, dev, reps):
             torch.topk(s.masked_fill(prov_mask, -1e30), 100, dim=1)
 
         lib_ms = cuda_ms(library, reps)
-        b_ms, b_by = bound(nbytes(e_q, pay, anchors, prov_mask) + b * 120 * 8,
-                           2.0 * b * k_q * n)
+        bounds = topk_bounds(dtype, nbytes(e_q, pay, anchors, prov_mask) + b * 120 * 8,
+                             b, k_q, n)
         rows.append(dict(payload=dtype, k_sample=20, k_prov=100, kernel_ms=ms,
-                         plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
-                         bound_by=b_by, bitwise_vs_staged=bitwise))
+                         plain_ms=plain_ms, library_ms=lib_ms, **bounds,
+                         bitwise_vs_staged=bitwise,
+                         earlier_design_ms_recorded=earlier.get(("persistent_round", dtype, 20))))
     return rows, worst
 
 
@@ -914,25 +1007,35 @@ def main() -> int:
     dev = torch.device("cuda")
     smi = smi_line()
     t0 = time.perf_counter()
-    build.build_all()
+    probe, probe_lib = start_mma_probe_build(build)
+    try:
+        build.build_all()
+    finally:
+        probe_log, _ = probe.communicate()
     build_s = time.perf_counter() - t0
     ptxas = {name: [ln.strip() for ln in info["ptxas"].splitlines()
                     if "registers" in ln or "spill" in ln]
              for name, info in build.build_info.items()}
-    emit({"phase": "env", "torch": torch.__version__, "cuda": torch.version.cuda,
-          "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
-          "build_s": build_s, "ptxas": ptxas})
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     shape = (64, 128, 16384) if args.quick else (256, 500, 1_000_000)
     reps = 2 if args.quick else 3
+    earlier = {} if args.quick else EARLIER_DESIGN_MS
     summary = {}
     try:
-        rows, err = phase_approx_topk(shape, gen, dev, reps)
+        check(probe.returncode == 0, f"the mma.sync probe did not build:\n{probe_log}")
+        emit({"phase": "env", "torch": torch.__version__, "cuda": torch.version.cuda,
+              "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
+              "build_s": build_s, "ptxas": ptxas,
+              "mma_sync_tf32_tflops": mma_tf32_tflops(probe_lib)})
+        spills = [ln for name in ("approx_topk", "persistent_round")
+                  for ln in ptxas.get(name, []) if re.search(r"[1-9][0-9]* bytes spill", ln)]
+        check(not spills, f"the top-k kernels spill registers: {spills}")
+        rows, err = phase_approx_topk(shape, gen, dev, reps, earlier)
         emit({"phase": "kernel:approx_topk", "shape": shape, "cases": rows})
         summary["approx_topk"] = (rows[0], err)
-        rows, err = phase_persistent(shape, gen, dev, reps)
+        rows, err = phase_persistent(shape, gen, dev, reps, earlier)
         emit({"phase": "kernel:persistent_round", "shape": shape, "cases": rows})
         summary["persistent_round"] = (rows[0], err)
         rows, err = phase_flash(gen, dev, args.quick)

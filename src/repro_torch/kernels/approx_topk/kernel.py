@@ -3,10 +3,11 @@ port of the TPU kernel ``_approx_topk_kernel``
 (``repro/kernels/approx_topk/kernel.py:74``).
 
 ``approx_topk_cuda`` checks its operands, allocates the outputs and the
-per-block scratch, and launches the block kernel and its merge on the
+per-block scratch, and launches the sweep kernel and its merge on the
 current stream.  ``launches`` counts its calls (one per fused op, i.e. per
-block-kernel + merge pair).  The plain PyTorch version of the same function
-is ``ops.approx_topk_plain``; ``ops.approx_topk_op`` picks by device.
+sweep + merge pair); :func:`plan_grid` sizes the grid.  The plain PyTorch
+version of the same function is ``ops.approx_topk_plain``;
+``ops.approx_topk_op`` picks by device.
 """
 
 from __future__ import annotations
@@ -16,22 +17,61 @@ import torch
 from .. import build
 from .quant import QuantizedRanc
 
-ROWS, TCOLS, KMAX = 32, 128, 256   # must match csrc/topk_common.cuh
-_TARGET_BLOCKS = 264               # two blocks per SM of an H100 (132 SMs)
-_MAX_SUPER = 8192
+# must match csrc/topk_common.cuh
+ROWS, TCOLS, BK, KMAX = 32, 512, 32, 256
+H100_SMS = 132
 
 launches = 0
 
 
-def super_cols(b: int, n: int) -> int:
-    """Columns per block: enough blocks to fill the card, at most 8192
-    columns (which keeps the per-block lists a few percent of the payload's
-    bytes at N = 10^6).  Results do not depend on it: every score is the
-    same fixed-order fp32 sum whatever the tiling."""
+def plan_grid(b: int, n: int, sms: int = H100_SMS) -> tuple[int, int]:
+    """(column ranges, columns per range) of the sweep's grid.
+
+    Blocks are (32-row group, column range), one per SM (their 255
+    registers a thread allow no second), so the grid is one wave: each row
+    group gets ``sms // groups`` ranges of whole TCOLS-column tiles.  Row
+    groups vary fastest, so the blocks of one range run together and read
+    the payload from HBM about once.  Results do not depend on the plan: every score is
+    the same chunked sum whatever the tiling, and selection is exact."""
     groups = -(-b // ROWS)
-    per = -(-n // max(1, -(-_TARGET_BLOCKS // groups)))
-    per = -(-per // TCOLS) * TCOLS
-    return max(TCOLS, min(_MAX_SUPER, per))
+    tiles = -(-n // TCOLS)
+    ranges = max(1, min(sms // groups, tiles))
+    cols = -(-tiles // ranges) * TCOLS
+    return -(-n // cols), cols
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """fp32 -> TF32 by round to nearest, ties away (the kernels' rounding)."""
+    return ((x.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def fragment_split(e_q: torch.Tensor):
+    """e_q (B, k_q) -> its TF32 hi and lo parts in the kernels' A-fragment
+    order, each (row groups, k_q chunks, BK/8, 2, 32, 4) fp32.
+
+    Rows pad to a multiple of 32 and k_q to a multiple of BK with zeros.
+    Entry [grp, chunk, ks, mi, lane, j] is row grp*32 + mi*16 + (lane >> 2)
+    + 8*(j & 1), column chunk*BK + ks*8 + (lane & 3) + 4*(j >> 1): the four
+    values of an mma.m16n8k8 A fragment, so a warp reads one with a 16-byte
+    load.  The split is the same for every launch on these rows, so both
+    kernels see the same operands."""
+    b, k_q = e_q.shape
+    groups, chunks = -(-b // ROWS), -(-k_q // BK)
+    x = torch.zeros((groups * ROWS, chunks * BK), dtype=torch.float32, device=e_q.device)
+    x[:b, :k_q] = e_q
+    hi = _tf32(x)
+    lo = _tf32(x - hi)
+
+    def frag(t):   # rows (grp, mi, jr, g), columns (chunk, ks, jk, t)
+        t = t.view(groups, 2, 2, 8, chunks, BK // 8, 2, 4)
+        t = t.permute(0, 4, 5, 1, 3, 7, 6, 2).contiguous()
+        return t.view(groups, chunks, BK // 8, 2, 32, 4)
+
+    return frag(hi), frag(lo)
+
+
+def sm_count(dev) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
 def payload_operands(r_anc):
@@ -83,15 +123,15 @@ def approx_topk_cuda(e_q, r_anc, anchors, k: int, noise=None, mask=None,
     b, k_q = e_q.shape
     n = codes.shape[1]
     n_items = n if n_valid is None else min(int(n_valid), n)
-    cols = super_cols(b, n)
-    nblk = -(-n // cols)
     dev = e_q.device
-    e_q = e_q.contiguous()
+    nblk, cols = plan_grid(b, n, sm_count(dev))
+    a_hi, a_lo = fragment_split(e_q)
     noise = None if noise is None else noise.contiguous()
     anchors = None if anchors is None else anchors.to(torch.int32).contiguous()
     n_anc = 0 if anchors is None else anchors.shape[1]
     blk_v = torch.empty((b, nblk, k), dtype=torch.float32, device=dev)
     blk_i = torch.empty((b, nblk, k), dtype=torch.int32, device=dev)
+    gthr = torch.empty((b,), dtype=torch.int32, device=dev)
     out_v = torch.empty((b, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((b, k), dtype=torch.int32, device=dev)
     m8 = as_u8(mask)
@@ -101,9 +141,9 @@ def approx_topk_cuda(e_q, r_anc, anchors, k: int, noise=None, mask=None,
     lib = build.load("approx_topk")
     p = build.ptr
     err = lib.approx_topk_launch(
-        p(e_q), p(codes), kind, p(scales), qtile, p(noise), p(m8),
+        p(a_hi), p(a_lo), p(codes), kind, p(scales), qtile, p(noise), p(m8),
         p(anchors), n_anc, b, k_q, n, n_items, k, cols,
-        p(blk_v), p(blk_i), p(out_v), p(out_i),
+        p(blk_v), p(blk_i), p(gthr), p(out_v), p(out_i),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     build.check(err, "approx_topk")

@@ -29,7 +29,8 @@ from __future__ import annotations
 import torch
 
 from .. import build
-from .kernel import as_u8, check_operands, payload_operands, super_cols
+from .kernel import (as_u8, check_operands, fragment_split, payload_operands, plan_grid,
+                     sm_count)
 from .ops import PlainTiles, anchor_mask, tile_select
 from .select import INT32_MAX, NEG_INF, topk_value_id
 
@@ -85,31 +86,31 @@ def persistent_round_cuda(e_q, r_anc, *, k_sample=None, k_prov=None,
     b, k_q = e_q.shape
     n = codes.shape[1]
     n_items = n if n_valid is None else min(int(n_valid), n)
-    cols = super_cols(b, n)
-    nblk = -(-n // cols)
     dev = e_q.device
-    e_q = e_q.contiguous()
+    nblk, cols = plan_grid(b, n, sm_count(dev))
+    a_hi, a_lo = fragment_split(e_q)
     noise = None if noise is None else noise.contiguous()
     anchors = None if anchors is None else anchors.to(torch.int32).contiguous()
     n_anc = 0 if anchors is None else anchors.shape[1]
 
     def buffers(k):
         if not k:
-            return None, None, None, None
+            return None, None, None, None, None
         return (torch.empty((b, nblk, k), dtype=torch.float32, device=dev),
                 torch.empty((b, nblk, k), dtype=torch.int32, device=dev),
+                torch.empty((b,), dtype=torch.int32, device=dev),
                 torch.empty((b, k), dtype=torch.float32, device=dev),
                 torch.empty((b, k), dtype=torch.int32, device=dev))
 
-    bsv, bsi, osv, osi = buffers(ks)
-    bpv, bpi, opv, opi = buffers(kp)
+    bsv, bsi, gs, osv, osi = buffers(ks)
+    bpv, bpi, gp, opv, opi = buffers(kp)
     m8, pm8 = as_u8(mask), as_u8(prov_mask)
     lib = build.load("persistent_round")
     p = build.ptr
     err = lib.persistent_round_launch(
-        p(e_q), p(codes), kind, p(scales), qtile, p(noise), p(m8),
+        p(a_hi), p(a_lo), p(codes), kind, p(scales), qtile, p(noise), p(m8),
         p(anchors), n_anc, p(pm8), b, k_q, n, n_items, ks, kp, cols,
-        p(bsv), p(bsi), p(bpv), p(bpi), p(osv), p(osi), p(opv), p(opi),
+        p(bsv), p(bsi), p(bpv), p(bpi), p(gs), p(gp), p(osv), p(osi), p(opv), p(opi),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     build.check(err, "persistent_round")

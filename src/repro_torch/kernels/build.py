@@ -32,7 +32,8 @@ NVCC_FLAGS = [
 
 _lock = threading.Lock()
 _libs: dict = {}
-build_info: dict = {}      # name -> {"seconds": ..., "ptxas": ...}
+build_info: dict = {}      # name -> {"seconds": ..., "ptxas": ...}; a library
+                           # built earlier reports its saved ptxas log
 
 
 CUDA_ROOTS = ("/usr/local/cuda",)   # searched after PATH and $CUDA_HOME
@@ -78,6 +79,10 @@ def build_all() -> dict:
     for src in cus:
         lib = out / f"lib{src.stem}.so"
         if lib.exists():
+            log = lib.with_suffix(".ptxas.txt")
+            build_info.setdefault(src.stem, {
+                "seconds": 0.0, "cached": True,
+                "ptxas": log.read_text() if log.exists() else ""})
             continue
         tmp = out / f".lib{src.stem}.{os.getpid()}.so"
         cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(src)]
@@ -91,6 +96,7 @@ def build_all() -> dict:
         if proc.returncode != 0:
             failed.append(f"--- {name}.cu (exit {proc.returncode}) ---\n{log}")
             continue
+        lib.with_suffix(".ptxas.txt").write_text(log)
         os.replace(tmp, lib)
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
@@ -99,11 +105,11 @@ def build_all() -> dict:
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
-    "approx_topk_launch": [_P, _P, _I, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I,
-                           _I, _I, _P, _P, _P, _P, _P],
-    "persistent_round_launch": [_P, _P, _I, _P, _I, _P, _P, _P, _I, _P, _I, _I,
+    "approx_topk_launch": [_P, _P, _P, _I, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I,
+                           _I, _I, _P, _P, _P, _P, _P, _P],
+    "persistent_round_launch": [_P, _P, _P, _I, _P, _I, _P, _P, _P, _I, _P, _I, _I,
                                 _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
-                                _P, _P],
+                                _P, _P, _P, _P],
     "flash_attention_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                _L, _L, _L, _L, _L, _L, _L, _L, _L, _I,
                                ctypes.c_float, _P],

@@ -27,7 +27,10 @@ from repro_torch.kernels.approx_topk.ops import approx_topk_op as t_topk  # noqa
 from repro_torch.kernels.approx_topk.persistent import persistent_round_op as t_pers  # noqa: E402
 from repro_torch.kernels.approx_topk.quant import quantize_ranc as t_quant  # noqa: E402
 from repro_torch.core.sampling import blocked_gumbel  # noqa: E402
-from repro_torch.kernels.approx_topk.ref import approx_topk_reference, dense_scores  # noqa: E402
+from repro_torch.kernels.approx_topk.ref import (  # noqa: E402
+    approx_topk_reference, dense_scores, tf32_round, tf32x3_scores,
+)
+from repro_torch.kernels.approx_topk.select import stable_topk  # noqa: E402
 from repro_torch.testing import assert_topk_agree, topk_report  # noqa: E402
 
 B, KQ, N, TILE = 8, 48, 1500, 512
@@ -210,6 +213,75 @@ def test_cuda_wrapper_refuses_cpu_tensors():
 
 
 def test_super_cols_fill_the_card():
-    assert t_kernel.super_cols(256, 1_000_000) == 8192
-    assert t_kernel.super_cols(16, 1_000_000) % 128 == 0
-    assert t_kernel.super_cols(16, 100) == 128
+    """The sweep's grid planner: one wave of (32-row group, column range)
+    blocks on the card's SMs, ranges of whole TCOLS-wide (512-column) tiles covering N."""
+    plan, tcols = t_kernel.plan_grid, t_kernel.TCOLS
+    tiles = -(-1_000_000 // tcols)
+    assert plan(256, 1_000_000) == (16, -(-tiles // 16) * tcols)   # 8 groups x 16 ranges
+    for b, n, sms in ((256, 1_000_000, 132), (16, 1_000_000, 132), (16, 100, 132),
+                      (200, 9001, 132), (5000, 70_000, 132), (64, 1 << 20, 114)):
+        ranges, cols = plan(b, n, sms)
+        groups = -(-b // t_kernel.ROWS)
+        assert cols % t_kernel.TCOLS == 0 and ranges == -(-n // cols)
+        assert (ranges - 1) * cols < n <= ranges * cols
+        assert groups * ranges <= max(sms, groups)
+    assert plan(16, 100) == (1, tcols)
+
+
+@pytest.mark.parametrize("b, k_q", [(40, 70), (32, 32), (1, 500)])
+def test_fragment_split_layout(b, k_q):
+    """The wrapper's host-side e_q split, as the CUDA kernels read it: TF32
+    hi/lo of each entry (``ref.tf32_round``) at its mma A-fragment slot,
+    zeros in the padding."""
+    e = torch.from_numpy(np.random.default_rng(b + k_q).standard_normal((b, k_q)).astype(np.float32))
+    hi, lo = t_kernel.fragment_split(e)
+    groups, chunks = -(-b // 32), -(-k_q // 32)
+    assert hi.shape == lo.shape == (groups, chunks, 4, 2, 32, 4)
+    want_hi = torch.zeros((groups * 32, chunks * 32))
+    want_hi[:b, :k_q] = tf32_round(e)
+    want_lo = torch.zeros_like(want_hi)
+    want_lo[:b, :k_q] = tf32_round(e - tf32_round(e))
+    grp, ch, ks, mi, lane, j = np.meshgrid(*[np.arange(d) for d in hi.shape], indexing="ij")
+    rows = grp * 32 + mi * 16 + lane // 4 + 8 * (j & 1)
+    cols = ch * 32 + ks * 8 + lane % 4 + 4 * (j >> 1)
+    assert torch.equal(hi, want_hi[rows, cols])
+    assert torch.equal(lo, want_lo[rows, cols])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "int8"])
+def test_tf32x3_split_meets_the_comparator_at_k_q_500(dtype):
+    """The CUDA kernels' 3xTF32 arithmetic (``ref.tf32x3_scores``: hi/lo
+    split, 32-deep chunks, fp32 chunk sums) on the CPU: its top-k passes
+    ``topk_report`` at TOPK_RTOL against the JAX package's scan backend with
+    the port's fp32 dense field, and its error against float64 stays within
+    4x plain fp32's (torch's fp32 product)."""
+    rng = np.random.default_rng(11)
+    b, k_q, n = 8, 500, 4096
+    e = rng.standard_normal((b, k_q)).astype(np.float32)
+    r = rng.standard_normal((k_q, n)).astype(np.float32)
+    jpay, tpay = _payloads(r, dtype)
+    e_t = torch.from_numpy(e)
+    emul = tf32x3_scores(e_t, tpay)
+    dense = dense_scores(e_t, tpay)
+    for k in (20, 100):
+        ev, ei = stable_topk(emul, k)
+        jv, ji = j_topk(jnp.asarray(e), jpay, None, k, tile=TILE, impl="scan")
+        assert_topk_agree(ji, jv, ei, ev, dense)
+    codes = tpay.codes.double() if dtype == "int8" else tpay.double()
+    exact = e_t.double() @ codes
+    if dtype == "int8":
+        exact = exact * tpay.col_scales().double()[None, :]
+    err_emul = (emul.double() - exact).abs().max().item()
+    err_fp32 = (dense.double() - exact).abs().max().item()
+    assert err_emul <= 4.0 * err_fp32, (err_emul, err_fp32)
+
+
+def test_tf32_round_is_round_to_nearest_ties_away():
+    x = torch.tensor([1.0, 1 + 2**-11, 1 + 2**-10 + 2**-11, -(1 + 2**-11), 1 + 2**-12,
+                      1 + 2**-11 - 2**-23, float("inf"), float("-inf")], dtype=torch.float32)
+    want = [1.0, 1 + 2**-10, 1 + 2**-9, -(1 + 2**-10), 1.0, 1.0, float("inf"), float("-inf")]
+    assert tf32_round(x).tolist() == want
+    y = torch.from_numpy(np.random.default_rng(0).standard_normal(1000).astype(np.float32))
+    hi = tf32_round(y)
+    assert ((hi.view(torch.int32) & 0x1FFF) == 0).all()
+    assert ((y - hi).abs() <= y.abs() * 2.0**-11).all()

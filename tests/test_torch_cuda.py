@@ -18,12 +18,13 @@ from repro_torch.kernels.approx_topk.ops import approx_topk_op  # noqa: E402
 from repro_torch.kernels.approx_topk.persistent import persistent_round_op  # noqa: E402
 from repro_torch.kernels.approx_topk.quant import quantize_ranc  # noqa: E402
 from repro_torch.kernels.approx_topk.ref import dense_scores  # noqa: E402
+from repro_torch.kernels.approx_topk.select import NEG_INF  # noqa: E402
 from repro_torch.kernels.embedding_bag.ops import embedding_bag_op  # noqa: E402
 from repro_torch.kernels.embedding_bag.ref import embedding_bag_plain  # noqa: E402
 from repro_torch.kernels.flash_attention.ops import (  # noqa: E402
     flash_attention, flash_attention_plain,
 )
-from repro_torch.testing import FLASH_TOL, assert_topk_agree  # noqa: E402
+from repro_torch.testing import FLASH_TOL, assert_topk_agree, topk_report  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -84,6 +85,141 @@ def test_persistent_kernel_is_two_staged_calls(dev, dtype):
                                              noise=noise, prov_mask=mask, impl="torch")
     assert_topk_agree(si, sv, qi, qv, dense_scores(e, pay, anchors, noise=noise))
     assert_topk_agree(pi, pv, ri, rv, dense_scores(e, pay, mask=mask))
+
+
+# (B, k_q, N): ragged rows, a k_q tail that is not a multiple of the
+# kernels' 32-deep chunks, N that is not a multiple of any tile (and, at
+# N = 9001 or 2049, leaves payload rows unaligned for 16-byte copies)
+RAGGED = [(200, 500, 9001), (1, 7, 1000), (33, 500, 2049), (200, 7, 9001), (64, 96, 8192)]
+
+
+def _ragged(dev, b, k_q, n, seed):
+    e, r, noise, mask, _ = _inputs(dev, b, k_q, n, seed)
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed + 100)
+    anchors = torch.randint(0, n, (b, 100), generator=g, device=dev, dtype=torch.int32)
+    mask[0] = True                              # row 0: nothing valid
+    if b > 1:
+        mask[1] = True
+        mask[1, [3, n // 2, n - 6]] = False     # row 1: three valid items
+        anchors[1] = n - 1
+    return e, r, noise, mask, anchors
+
+
+@pytest.mark.parametrize("dtype", ["float32", "int8"])
+@pytest.mark.parametrize("k, n_anc", [(1, 0), (256, 100), (20, 100), (256, 0)])
+@pytest.mark.parametrize("shape", RAGGED, ids=lambda s: "x".join(map(str, s)))
+def test_sweep_ragged_shapes_match_plain(dev, shape, k, n_anc, dtype):
+    """Both kernels against the plain versions on shapes that stress the
+    tiling; persistent bitwise equal to two approx_topk calls."""
+    b, k_q, n = shape
+    e, r, noise, mask, anchors = _ragged(dev, b, k_q, n, seed=b + k_q + k)
+    pay = r if dtype == "float32" else quantize_ranc(r)
+    anc = anchors[:, :n_anc] if n_anc else None
+    kw = dict(noise=noise, mask=mask, n_valid=n - 5)
+    kv, ki = approx_topk_op(e, pay, anc, k, **kw)
+    pv, pi = approx_topk_op(e, pay, anc, k, impl="torch", **kw)
+    assert_topk_agree(ki, kv, pi, pv, dense_scores(e, pay, anc, **kw))
+    assert ki[0].tolist() == list(range(k))
+    if b > 1 and k >= 3:
+        valid = [3, n // 2, n - 6]
+        assert sorted(ki[1, :3].tolist()) == valid
+        assert ki[1, 3:].tolist() == [j for j in range(k + 3) if j not in valid][:k - 3]
+    prov_mask = torch.flip(mask, dims=[1]).contiguous()
+    (sv, si), (qv, qi) = persistent_round_op(e, pay, k_sample=k, k_prov=k, anchors=anc,
+                                             noise=noise, mask=mask, prov_mask=prov_mask,
+                                             n_valid=n - 5)
+    bv, bi = approx_topk_op(e, pay, None, k, mask=prov_mask, n_valid=n - 5)
+    for x, y in ((sv, kv), (si, ki), (qv, bv), (qi, bi)):
+        assert torch.equal(x, y)
+    (rv, ri), _ = persistent_round_op(e, pay, k_sample=k, anchors=anc, n_valid=n - 5,
+                                      noise=noise, mask=mask)
+    assert torch.equal(rv, kv) and torch.equal(ri, ki)
+
+
+def _max_err(vals, ids, exact):
+    """Worst |reported value - float64 value of its id| over live entries."""
+    v = vals.double().cpu()
+    live = v > NEG_INF / 2
+    return (v - exact.gather(1, ids.long().cpu())).abs()[live].max().item()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "int8"])
+def test_sweep_near_full_selection_is_as_accurate_as_fp32(dev, dtype):
+    """(B, k_q, N) = (33, 500, 257) with k = 256 selects nearly every valid
+    item, values near 0 among them.  There the comparator's bar,
+    TOPK_RTOL x max(|v|, 1), is 1e-5 absolute against partial sums of size
+    ~20, finer than fp32 summation itself: the plain version on the card
+    (cuBLAS) and on the CPU already fail topk_report against each other.
+    So the kernel is held to float64 instead: its worst error is no larger
+    than the plain fp32 version's on the card; every row has fewer than k
+    valid items, and its list holds all of them, values non-increasing, then
+    the lowest suppressed ids, ascending."""
+    b, k_q, n, k = 33, 500, 257, 256
+    e, r, noise, mask, anchors = _ragged(dev, b, k_q, n, seed=b + k_q + k)
+    pay = r if dtype == "float32" else quantize_ranc(r)
+    kw = dict(noise=noise, mask=mask, n_valid=n - 5)
+    kv, ki = approx_topk_op(e, pay, anchors, k, **kw)
+    pv, pi = approx_topk_op(e, pay, anchors, k, impl="torch", **kw)
+    cpu = {key: t.cpu() for key, t in kw.items() if key != "n_valid"}
+    cv, ci = approx_topk_op(e.cpu(), pay.to("cpu"), anchors.cpu(), k, impl="torch",
+                            n_valid=n - 5, **cpu)
+    witness = topk_report(pi, pv, ci, cv, dense_scores(e, pay, anchors, **kw))
+    assert not witness["ok"], f"two fp32 orders agree to the bar here: {witness}"
+
+    codes = r if dtype == "float32" else pay.codes
+    exact = (e.double() @ codes.double()).cpu()
+    if dtype == "int8":
+        exact = exact * pay.col_scales().double().cpu()[None, :]
+    exact += noise.double().cpu()
+    exact[(dense_scores(e, pay, anchors, **kw) <= NEG_INF / 2).cpu()] = NEG_INF
+    err_kernel, err_plain = _max_err(kv, ki, exact), _max_err(pv, pi, exact)
+    print(f"{dtype}: worst error against float64: kernel {err_kernel:.4g}, "
+          f"plain fp32 on the card {err_plain:.4g}")
+    assert err_kernel <= err_plain, (err_kernel, err_plain)
+    for row in range(b):
+        live = torch.nonzero(exact[row] > NEG_INF / 2).flatten().tolist()
+        dead = [j for j in range(n) if j not in set(live)]
+        ids, head = ki[row].tolist(), kv[row, :len(live)].cpu()
+        assert len(live) < k
+        assert sorted(ids[:len(live)]) == live
+        assert ids[len(live):] == dead[:k - len(live)]
+        assert bool((head[1:] <= head[:-1]).all())
+    (sv, si), _ = persistent_round_op(e, pay, k_sample=k, k_prov=k, anchors=anchors,
+                                      prov_mask=mask, **kw)
+    assert torch.equal(sv, kv) and torch.equal(si, ki)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "int8"])
+def test_sweep_exact_ties_go_to_the_lower_id(dev, dtype):
+    """Duplicated payload columns score exactly equal in every tile, warp
+    and block; the lower id must win, as in the plain version."""
+    e, r, _, _, _ = _inputs(dev, b=70, k_q=500, n=20000, seed=5)
+    e = e.abs()
+    r[:, 10] = r[:, 10].abs() + 3.0
+    for lo, hi in ((700, 760), (9000, 9003), (19990, 20000)):
+        r[:, lo:hi] = r[:, 10:11]
+    pay = r if dtype == "float32" else quantize_ranc(r, 256)
+    kv, ki = approx_topk_op(e, pay, None, 80)
+    pv, pi = approx_topk_op(e, pay, None, 80, impl="torch")
+    assert_topk_agree(ki, kv, pi, pv, dense_scores(e, pay))
+    assert torch.equal(ki, pi)
+    if dtype == "float32":
+        assert ki[:, 0].tolist() == [10] * 70 and ki[:, 1].tolist() == [700] * 70
+    (sv, si), (qv, qi) = persistent_round_op(e, pay, k_sample=80, k_prov=3)
+    qv2, qi2 = approx_topk_op(e, pay, None, 3)
+    assert torch.equal(si, ki) and torch.equal(sv, kv)
+    assert torch.equal(qi, qi2) and torch.equal(qv, qv2)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "int8"])
+def test_sweep_takes_a_long_k_q(dev, dtype):
+    """e_q streams through the ring chunk by chunk, so k_q has no limit."""
+    e, r, noise, mask, anchors = _inputs(dev, b=70, k_q=2000, n=3000, seed=9)
+    pay = r if dtype == "float32" else quantize_ranc(r)
+    kv, ki = approx_topk_op(e, pay, anchors, 50, noise=noise, mask=mask)
+    pv, pi = approx_topk_op(e, pay, anchors, 50, noise=noise, mask=mask, impl="torch")
+    assert_topk_agree(ki, kv, pi, pv, dense_scores(e, pay, anchors, noise=noise, mask=mask))
 
 
 def test_engine_on_the_card_matches_the_cpu(dev):
