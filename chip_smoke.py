@@ -9,10 +9,13 @@ Run from the repository root on a machine with an NVIDIA H100:
 Phases (one JSON line each):
 
 1. ``env``: torch/CUDA versions, the card's name and power limit, kernel
-   build seconds and ptxas resource lines, and the card's ``mma.sync``
-   TF32 rate (a register-only loop of ``mma.sync.m16n8k8`` TF32 on every
-   SM, built beside the kernels): the most the top-k kernels' mainloop can
-   reach.
+   build seconds and ptxas resource lines, the count of ``HGMMA``
+   instructions in the flash library's SASS (``cuobjdump -sass``), and the
+   card's ``mma.sync`` TF32 rate (a register-only loop of
+   ``mma.sync.m16n8k8`` TF32 on every SM, built beside the kernels): the
+   most the top-k kernels' mainloop can reach.  ptxas must report no
+   spill for the top-k and flash kernels, and the bf16 flash kernel must
+   hold ``HGMMA`` (the wgmma tensor-core path).
 2. ``kernel:approx_topk``: the CUDA kernel against its plain PyTorch version
    on the card at the serving shape (B=256, k_q=500, N=10^6; fp32 and int8;
    k=20 and k=100), plus a noise/mask/anchors/n_valid case with under-filled
@@ -38,7 +41,9 @@ Phases (one JSON line each):
    rows, which must come out as zeros), the Qwen3-8B attention shape
    (B=2, L=2048, 32/8 heads, hd=128; bf16 causal and not, fp32 not) and a
    decode chunk (Lq=64 < Lk=192, causal); kernel, plain, library (SDPA with
-   a boolean mask) and bound times.
+   a boolean mask) and bound times; bf16 rows also ``bound_split_ms``, the
+   bound of the kernel's own tensor-core work (P V three times: p in three
+   bf16 terms, 2x the FLOPs).
 7. ``serve_real_ce``: ``ce-tiny`` at full width in bf16 over a ZESHEL-like
    corpus of 10,000 items, its AnchorIndex built from the CE itself on the
    card, answering 200 requests through ``AdaCURService(max_batch=16)``
@@ -116,6 +121,7 @@ EARLIER_DESIGN_MS = {
     ("approx_topk", "int8", 20): 21.76, ("approx_topk", "int8", 100): 34.38,
     ("persistent_round", "float32", 20): 41.76, ("persistent_round", "int8", 20): 41.35,
 }
+FLASH_P_TERMS = 3           # bf16 terms of p in the bf16 flash kernel's P V product
 DLRM = "dlrm-mlperf"
 BAG_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (1e-6, 2.0 ** -7)}   # (atol, rtol)
 
@@ -230,6 +236,17 @@ def mma_tf32_tflops(lib_path, iters: int = 20000) -> dict:
         ms = cuda_ms(lambda: lib.mma_loop_launch(blocks, out.data_ptr(), iters), 1)
         rates[f"{8 * per_sm}_warps_per_sm"] = blocks * 8 * iters * 8 * 2.0 * 16 * 8 * 8 / ms / 1e9
     return rates
+
+
+def sass_count(lib_path, opcode: str) -> int:
+    """Instructions of ``opcode`` in a built library's SASS (cuobjdump,
+    beside nvcc)."""
+    from repro_torch.kernels import build
+
+    tool = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
+    out = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True, text=True,
+                         check=True).stdout
+    return len(re.findall(rf"\b{opcode}\b", out))
 
 
 def nbytes(*ts) -> int:
@@ -581,9 +598,12 @@ def flash_case(dev, gen, reps, case, b, lq, lk, h, kv, hd, causal, lens, dtype):
         qt, kt, vt, attn_mask=mask, enable_gqa=True), reps)
     nb, flops = flash_work(b, lq, lk, h, kv, hd, causal, lens, q.element_size())
     b_ms, b_by = bound(nb, flops, PEAK_BF16_FLOPS if dtype == "bfloat16" else PEAK_FP32_FLOPS)
+    # the bf16 kernel's own work: Q K^T once, P V once per bf16 term of p
+    split_ms = (bound(nb, flops * (1 + FLASH_P_TERMS) / 2, PEAK_BF16_FLOPS)[0]
+                if dtype == "bfloat16" else None)
     return dict(case=case, dtype=dtype, B=b, Lq=lq, Lk=lk, H=h, KV=kv, hd=hd,
                 causal=causal, kernel_ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                bound_ms=b_ms, bound_by=b_by, bytes=nb, flops=flops,
+                bound_ms=b_ms, bound_by=b_by, bound_split_ms=split_ms, bytes=nb, flops=flops,
                 max_abs_err=err.max().item(), mean_abs_err=err.mean().item(),
                 zero_rows=len(zero_rows))
 
@@ -1009,12 +1029,12 @@ def main() -> int:
     t0 = time.perf_counter()
     probe, probe_lib = start_mma_probe_build(build)
     try:
-        build.build_all()
+        libs = build.build_all()
     finally:
         probe_log, _ = probe.communicate()
     build_s = time.perf_counter() - t0
     ptxas = {name: [ln.strip() for ln in info["ptxas"].splitlines()
-                    if "registers" in ln or "spill" in ln]
+                    if re.search(r"registers|spill|entry function|wgmma", ln)]
              for name, info in build.build_info.items()}
 
     gen = torch.Generator(device=dev)
@@ -1025,13 +1045,15 @@ def main() -> int:
     summary = {}
     try:
         check(probe.returncode == 0, f"the mma.sync probe did not build:\n{probe_log}")
+        hgmma = sass_count(libs["flash_attention"], "HGMMA")
         emit({"phase": "env", "torch": torch.__version__, "cuda": torch.version.cuda,
               "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
-              "build_s": build_s, "ptxas": ptxas,
+              "build_s": build_s, "ptxas": ptxas, "flash_sass_hgmma": hgmma,
               "mma_sync_tf32_tflops": mma_tf32_tflops(probe_lib)})
-        spills = [ln for name in ("approx_topk", "persistent_round")
+        spills = [ln for name in ("approx_topk", "persistent_round", "flash_attention")
                   for ln in ptxas.get(name, []) if re.search(r"[1-9][0-9]* bytes spill", ln)]
-        check(not spills, f"the top-k kernels spill registers: {spills}")
+        check(not spills, f"the top-k or flash kernels spill registers: {spills}")
+        check(hgmma > 0, "the bf16 flash kernel holds no HGMMA (wgmma) instruction")
         rows, err = phase_approx_topk(shape, gen, dev, reps, earlier)
         emit({"phase": "kernel:approx_topk", "shape": shape, "cases": rows})
         summary["approx_topk"] = (rows[0], err)

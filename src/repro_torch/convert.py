@@ -2,7 +2,9 @@
 
 The JAX package's objects are handed over as numpy arrays (the caller does
 ``np.asarray`` on its side), so this module needs neither package's
-internals: both then compute on identical data.
+internals: both then compute on identical data.  Every function follows the
+port's device rule (``device.resolve_device``): the state lands on the card
+unless the caller passes ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -11,6 +13,7 @@ import numpy as np
 import torch
 
 from .configs.base import AdaCURConfig
+from .device import resolve_device
 from .data.synthetic import SyntheticCE
 from .kernels.approx_topk.quant import QuantizedRanc
 
@@ -18,22 +21,22 @@ SYNTHETIC_CE_FIELDS = ("q_emb", "i_emb", "mix_a", "mix_b", "mix_w")
 
 
 def _t(x, device, dtype=None):
-    return torch.as_tensor(np.array(x), dtype=dtype).to(device)
+    return torch.as_tensor(np.array(x), dtype=dtype).to(resolve_device(device))
 
 
-def synthetic_ce(fields: dict, device="cpu") -> SyntheticCE:
+def synthetic_ce(fields: dict, device=None) -> SyntheticCE:
     """A SyntheticCE from its fields: the five arrays plus gamma and sigma."""
     arrays = {k: _t(fields[k], device, torch.float32) for k in SYNTHETIC_CE_FIELDS}
     return SyntheticCE(**arrays, gamma=float(fields["gamma"]),
                        sigma=float(fields["sigma"]))
 
 
-def r_anc(x, device="cpu") -> torch.Tensor:
+def r_anc(x, device=None) -> torch.Tensor:
     """An fp32 (k_q, N) payload."""
     return _t(x, device, torch.float32)
 
 
-def quantized_ranc(codes, scales, tile: int, device="cpu") -> QuantizedRanc:
+def quantized_ranc(codes, scales, tile: int, device=None) -> QuantizedRanc:
     """An int8 payload from its codes (k_q, N), tile scales and tile."""
     return QuantizedRanc(_t(codes, device, torch.int8), _t(scales, device, torch.float32),
                          int(tile), "int8")
@@ -56,7 +59,7 @@ def _tree(tree, device):
     return _leaf(tree, device)
 
 
-def cross_encoder_params(tree: dict, device="cpu") -> dict:
+def cross_encoder_params(tree: dict, device=None) -> dict:
     """The port's CE params from the reference's (``init_cross_encoder``'s
     pytree as numpy arrays): the stacked ``layers`` are unstacked into a
     list of per-layer dicts, every other leaf keeps its name, layout and
@@ -64,6 +67,7 @@ def cross_encoder_params(tree: dict, device="cpu") -> dict:
     if "prefix" in tree:
         raise NotImplementedError("MoE dense-prefix layers are not ported yet "
                                   "(ROADMAP.md, queue 1)")
+    device = resolve_device(device)
     stacked = _tree(tree["layers"], device)
 
     def layer(i, t):
@@ -74,11 +78,12 @@ def cross_encoder_params(tree: dict, device="cpu") -> dict:
     return out
 
 
-def dlrm_params(tree: dict, device="cpu") -> dict:
+def dlrm_params(tree: dict, device=None) -> dict:
     """The port's DLRM params from the reference's (``init_dlrm``'s pytree
     as numpy arrays): ``bot`` and ``top`` keep their ``b{i}_w``/``t{i}_b``
     names and (d_in, d_out) layouts, ``tables`` stays a list of padded
     (rows, dim) tables."""
+    device = resolve_device(device)
     return {"bot": _tree(tree["bot"], device), "top": _tree(tree["top"], device),
             "tables": _tree(tree["tables"], device)}
 

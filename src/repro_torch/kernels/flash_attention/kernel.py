@@ -3,10 +3,14 @@ the port of the TPU kernel ``_flash_kernel``
 (``repro/kernels/flash_attention/kernel.py:26``).
 
 ``flash_attention_cuda`` checks its operands, allocates the output and
-launches one kernel on the current stream.  q, k and v are read in the
-(B, L, heads, hd) layout through their strides (the last dimension must be
-contiguous), so no transposed copy is made.  ``launches`` counts its
-launches.  The plain PyTorch version is ``ops.flash_attention_plain``;
+launches one kernel on the current stream, by dtype: bf16 operands go to
+the tensor-core kernel (wgmma; P in three bf16 terms; K/V tiles by TMA),
+fp32 ones to the exact fp32 CUDA-core kernel.  q, k and v are read in the
+(B, L, heads, hd) layout through their strides, so no transposed copy is
+made; an operand whose last stride is not 1, or (bf16) whose base or
+other strides are not positive multiples of 16 bytes (what a TMA tensor
+map takes), is copied to a contiguous tensor first.  ``launches`` counts
+its launches.  The plain PyTorch version is ``ops.flash_attention_plain``;
 ``ops.flash_attention`` picks by device.
 """
 
@@ -22,6 +26,17 @@ HEAD_DIMS = (16, 32, 64, 128)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = 0
+
+
+def _readable(t) -> bool:
+    """The kernel reads ``t`` in place: unit last stride and, for bf16 (read
+    by TMA), a 16-byte aligned base and positive (batch, sequence, head)
+    strides that are multiples of 16 bytes."""
+    if t.stride(-1) != 1:
+        return False
+    if t.dtype != torch.bfloat16:
+        return True
+    return t.data_ptr() % 16 == 0 and all(s > 0 and s % 8 == 0 for s in t.stride()[:3])
 
 
 def flash_attention_cuda(q, k, v, *, causal: bool = True, kv_lens=None) -> torch.Tensor:
@@ -45,7 +60,8 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, kv_lens=None) -> torch
     for t in (k, v, kv_lens):
         if t is not None and t.device != q.device:
             raise ValueError("all operands must be on the same device")
-    q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
+    q, k, v = (t if _readable(t) else t.clone(memory_format=torch.contiguous_format)
+               for t in (q, k, v))
     if kv_lens is not None:
         if kv_lens.shape != (b,):
             raise ValueError(f"kv_lens must be ({b},), got {tuple(kv_lens.shape)}")

@@ -56,7 +56,7 @@ def domain():
     fields.update(gamma=ce.gamma, sigma=ce.sigma)
     noisy = m[K_Q:] + 2.0 * np.random.default_rng(0).standard_normal((B, N_ITEMS))
     first = np.argsort(-noisy, axis=1, kind="stable")[:, :10].astype(np.int32)
-    return dict(ce=ce, tce=convert.synthetic_ce(fields), r_anc=m[:K_Q],
+    return dict(ce=ce, tce=convert.synthetic_ce(fields, device="cpu"), r_anc=m[:K_Q],
                 q=np.arange(K_Q, K_Q + B), first=first)
 
 
@@ -83,8 +83,9 @@ def test_adacur_search_matches_jax(domain, name):
     jres = j_search(domain["ce"].score_fn(), jnp.asarray(domain["r_anc"]),
                     jnp.asarray(domain["q"]), JConfig(**kw), jkey, n_valid_items=n_valid)
     scorer = SyntheticScorer(domain["tce"])
-    tres = t_search(scorer, convert.r_anc(domain["r_anc"]), torch.as_tensor(domain["q"]),
-                    convert.config(kw), tkey, n_valid_items=n_valid)
+    tres = t_search(scorer, convert.r_anc(domain["r_anc"], device="cpu"),
+                    torch.as_tensor(domain["q"]), convert.config(kw), tkey,
+                    n_valid_items=n_valid)
     assert tres.topk_idx.shape == tuple(jres.topk_idx.shape)
     assert torch.isfinite(tres.topk_scores).all()
     assert topk_overlap(np.asarray(jres.topk_idx), tres.topk_idx) >= 0.99
@@ -101,9 +102,9 @@ def test_retriever_seeded_anchors_match_jax(domain):
     jres = j_search(domain["ce"].score_fn(), jnp.asarray(domain["r_anc"]),
                     jnp.asarray(domain["q"]), JConfig(**kw), jkey,
                     first_anchors=jnp.asarray(domain["first"]))
-    tres = t_search(SyntheticScorer(domain["tce"]), convert.r_anc(domain["r_anc"]),
-                    torch.as_tensor(domain["q"]), convert.config(kw), tkey,
-                    first_anchors=torch.as_tensor(domain["first"]))
+    tres = t_search(SyntheticScorer(domain["tce"]),
+                    convert.r_anc(domain["r_anc"], device="cpu"), torch.as_tensor(domain["q"]),
+                    convert.config(kw), tkey, first_anchors=torch.as_tensor(domain["first"]))
     same = (np.asarray(jres.anchor_idx) == tres.anchor_idx.numpy()).all(axis=1)
     assert same.mean() >= 0.99
     assert topk_overlap(np.asarray(jres.topk_idx), tres.topk_idx) >= 0.99
@@ -113,7 +114,7 @@ def test_dlrm_dict_query_matches_jax():
     cfg = retrieval_smoke_config()
     jcfg = JRecSysConfig(**dataclasses.asdict(cfg))
     jparams, _ = j_dlrm.init_dlrm(jax.random.PRNGKey(0), jcfg)
-    params = convert.dlrm_params(jax.tree.map(np.asarray, jparams))
+    params = convert.dlrm_params(jax.tree.map(np.asarray, jparams), device="cpu")
     n_cand, b = 900, 4
     anchors = steps.recsys_inputs(cfg, 100, seed=2, device="cpu")
     r_anc = steps.anchor_scores(params, cfg, anchors, n_cand)          # (100, 1024)
@@ -155,7 +156,7 @@ def test_smoke_item_table_breaks_algorithm_1_in_both_packages(item_table):
         cfg = retrieval_smoke_config()
     jcfg = JRecSysConfig(**dataclasses.asdict(cfg))
     jparams, _ = j_dlrm.init_dlrm(jax.random.PRNGKey(0), jcfg)
-    params = convert.dlrm_params(jax.tree.map(np.asarray, jparams))
+    params = convert.dlrm_params(jax.tree.map(np.asarray, jparams), device="cpu")
     n_cand, b = 1000, 4
     anchors = steps.recsys_inputs(cfg, steps.K_Q, seed=2, device="cpu")
     r_anc = steps.anchor_scores(params, cfg, anchors, n_cand)          # (500, 1024)

@@ -57,9 +57,10 @@ def _inputs(seed=0, ties=False):
 
 def _payloads(r, dtype):
     if dtype == "float32":
-        return jnp.asarray(r), convert.r_anc(r)
+        return jnp.asarray(r), convert.r_anc(r, device="cpu")
     jq = j_quant(jnp.asarray(r), 256)
-    return jq, convert.quantized_ranc(np.asarray(jq.codes), np.asarray(jq.scales), jq.tile)
+    return jq, convert.quantized_ranc(np.asarray(jq.codes), np.asarray(jq.scales), jq.tile,
+                                      device="cpu")
 
 
 @pytest.mark.parametrize("tile", [128, 256, 512])
@@ -165,18 +166,18 @@ def test_persistent_noise_key_materializes_the_field():
     (jv, ji), _ = j_pers(jnp.asarray(e), jnp.asarray(r), k_sample=8,
                          noise_key=key, interpret=True, impl="scan", tile=256)
     tkey = convert.key(np.asarray(key))
-    (tv, ti), prov = t_pers(torch.from_numpy(e), convert.r_anc(r), k_sample=8,
+    (tv, ti), prov = t_pers(torch.from_numpy(e), convert.r_anc(r, device="cpu"), k_sample=8,
                             noise_key=tkey, tile=256)
     assert prov is None
     noise = blocked_gumbel(tkey, B, N, 0, 0, device="cpu")
-    assert_topk_agree(ji, jv, ti, tv, dense_scores(torch.from_numpy(e), convert.r_anc(r),
-                                                   noise=noise))
+    assert_topk_agree(ji, jv, ti, tv, dense_scores(torch.from_numpy(e),
+                                                   convert.r_anc(r, device="cpu"), noise=noise))
 
 
 @pytest.mark.parametrize("fault", ["tile_local_ids", "repeated_id", "swapped_non_tie"])
 def test_comparator_rejects_wrong_ids_with_right_values(fault):
     e, r, _ = _inputs(7)
-    e_t, pay = torch.from_numpy(e), convert.r_anc(r)
+    e_t, pay = torch.from_numpy(e), convert.r_anc(r, device="cpu")
     dense = dense_scores(e_t, pay)
     v, i = t_topk(e_t, pay, None, 10, tile=TILE)
     assert topk_report(i, v, i, v, dense)["ok"]
@@ -194,7 +195,7 @@ def test_comparator_rejects_wrong_ids_with_right_values(fault):
 
 def test_comparator_accepts_a_swapped_exact_tie():
     e, r, _ = _inputs(8, ties=True)
-    e_t, pay = torch.from_numpy(e), convert.r_anc(r)
+    e_t, pay = torch.from_numpy(e), convert.r_anc(r, device="cpu")
     dense = dense_scores(e_t, pay)
     v, i = t_topk(e_t, pay, None, 4, tile=TILE)
     assert i[:, :2].tolist() == [[10, 700]] * B and torch.equal(v[:, 0], v[:, 1])
@@ -207,9 +208,9 @@ def test_comparator_accepts_a_swapped_exact_tie():
 def test_cuda_wrapper_refuses_cpu_tensors():
     e, r, _ = _inputs(6)
     with pytest.raises(ValueError, match="CUDA tensors"):
-        t_kernel.approx_topk_cuda(torch.from_numpy(e), convert.r_anc(r), None, 5)
+        t_kernel.approx_topk_cuda(torch.from_numpy(e), convert.r_anc(r, device="cpu"), None, 5)
     with pytest.raises(ValueError, match="unknown impl"):
-        t_topk(torch.from_numpy(e), convert.r_anc(r), None, 5, impl="pallas")
+        t_topk(torch.from_numpy(e), convert.r_anc(r, device="cpu"), None, 5, impl="pallas")
 
 
 def test_super_cols_fill_the_card():

@@ -65,7 +65,7 @@ def _port_cfg(jcfg):
 
 
 def _carry(jparams):
-    return convert.cross_encoder_params(jax.tree.map(np.asarray, jparams))
+    return convert.cross_encoder_params(jax.tree.map(np.asarray, jparams), device="cpu")
 
 
 @pytest.fixture(scope="module")

@@ -8,12 +8,17 @@ machine need not have):
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+import re
+import subprocess
+from pathlib import Path
+
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
 from repro_torch import kernels  # noqa: E402
+from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.approx_topk.ops import approx_topk_op  # noqa: E402
 from repro_torch.kernels.approx_topk.persistent import persistent_round_op  # noqa: E402
 from repro_torch.kernels.approx_topk.quant import quantize_ranc  # noqa: E402
@@ -21,6 +26,7 @@ from repro_torch.kernels.approx_topk.ref import dense_scores  # noqa: E402
 from repro_torch.kernels.approx_topk.select import NEG_INF  # noqa: E402
 from repro_torch.kernels.embedding_bag.ops import embedding_bag_op  # noqa: E402
 from repro_torch.kernels.embedding_bag.ref import embedding_bag_plain  # noqa: E402
+from repro_torch.kernels.flash_attention import kernel as flash_kernel  # noqa: E402
 from repro_torch.kernels.flash_attention.ops import (  # noqa: E402
     flash_attention, flash_attention_plain,
 )
@@ -263,6 +269,21 @@ FLASH_CASES = {
     "gqa4-hd128-bidir": (2, 256, 256, 8, 2, 128, False, [256, 131]),
     "decode-chunk": (2, 64, 192, 4, 2, 64, True, None),
     "mqa-hd16-ragged": (3, 100, 100, 4, 1, 16, False, [100, 1, 57]),
+    # Qwen3-8B's attention widths (32/8 heads, hd 128) at L 1024
+    "qwen3-8b-width": (2, 1024, 1024, 32, 8, 128, True, [1024, 683]),
+    "qwen3-8b-width-bidir": (2, 1024, 1024, 32, 8, 128, False, [1024, 683]),
+    # L not a multiple of any tile, one example of length 1 and one of 0
+    "ragged-l100": (4, 100, 100, 8, 2, 64, True, [100, 1, 57, 0]),
+    # a decode chunk of 37 rows against 300 keys, ragged lengths
+    "decode-chunk-ragged": (3, 37, 300, 8, 2, 64, True, [300, 200, 37]),
+    "all-zero-lens": (2, 64, 64, 8, 4, 32, False, [0, 0]),
+    # H / KV odd: one head and two 64-row slices a CTA in the bf16 kernel
+    "mha-hd32-two-slices": (2, 200, 200, 4, 4, 32, True, [200, 150]),
+    "gqa3-hd32": (2, 80, 80, 6, 2, 32, False, None),
+    # 128 key tiles: the bf16 kernel adds each tile's P V to O with a rounded
+    # fma; accumulating it in the tensor core's truncated sums instead
+    # misses the tolerance at this length
+    "long-l8192": (1, 8192, 8192, 8, 2, 128, False, None),
 }
 
 
@@ -303,6 +324,71 @@ def test_flash_kernel_reads_strided_operands(dev):
     ref = flash_attention_plain(q.contiguous(), k.contiguous(), v.contiguous(), causal=False,
                                 kv_lens=lens)
     torch.testing.assert_close(out, ref, atol=2e-5, rtol=2e-5)
+
+
+def test_bf16_flash_kernel_reads_strided_operands(dev):
+    """The same packed QKV in bf16: 16-byte aligned head slices, which the
+    tensor-core kernel's cp.async reads in place."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(1)
+    qkv = torch.randn((4, 64, 16, 32), generator=g, device=dev).to(torch.bfloat16)
+    q, k, v = qkv[:, :, :8], qkv[:, :, 8:12], qkv[:, :, 12:]
+    assert not q.is_contiguous() and all(flash_kernel._readable(t) for t in (q, k, v))
+    lens = torch.tensor([64, 43, 0, 9], dtype=torch.int32, device=dev)
+    out = flash_attention(q, k, v, causal=False, kv_lens=lens)
+    ref = flash_attention_plain(q.contiguous(), k.contiguous(), v.contiguous(), causal=False,
+                                kv_lens=lens)
+    atol, rtol = FLASH_TOL["bfloat16"]
+    torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=rtol)
+    assert torch.count_nonzero(out[2]) == 0
+
+
+def test_bf16_flash_kernel_reads_head_major_operands(dev):
+    """q, k and v as (B, L, heads, hd) views of head-major (B, heads, L, hd)
+    tensors: the head stride exceeds the sequence stride, and the kernel
+    still reads them in place."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(3)
+    q, k, v = (torch.randn((2, n, 150, 64), generator=g, device=dev).to(torch.bfloat16)
+               .transpose(1, 2) for n in (8, 2, 2))
+    assert q.stride(2) > q.stride(1) and all(flash_kernel._readable(t) for t in (q, k, v))
+    lens = torch.tensor([150, 77], dtype=torch.int32, device=dev)
+    out = flash_attention(q, k, v, causal=True, kv_lens=lens)
+    ref = flash_attention_plain(q, k, v, causal=True, kv_lens=lens)
+    atol, rtol = FLASH_TOL["bfloat16"]
+    torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=rtol)
+
+
+def test_bf16_flash_kernel_copies_an_unaligned_operand(dev):
+    """A bf16 operand whose base is not 16-byte aligned is copied first
+    (cp.async reads 16-byte chunks); the result is the same."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(2)
+    flat = torch.randn(2 * 64 * 4 * 32 + 1, generator=g, device=dev).to(torch.bfloat16)
+    q = flat[1:].view(2, 64, 4, 32)
+    k, v = (torch.randn((2, 64, 2, 32), generator=g, device=dev).to(torch.bfloat16)
+            for _ in range(2))
+    assert not flash_kernel._readable(q) and flash_kernel._readable(k)
+    out = flash_attention(q, k, v, causal=True)
+    ref = flash_attention_plain(q, k, v, causal=True)
+    atol, rtol = FLASH_TOL["bfloat16"]
+    torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=rtol)
+
+
+def test_bf16_flash_kernel_runs_on_wgmma(dev):
+    """Every head-dim instantiation of the bf16 kernel holds HGMMA (the
+    wgmma tensor-core instruction) in the built library's SASS."""
+    lib = build.build_all()["flash_attention"]
+    tool = Path(build.find_nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True, text=True,
+                          check=True).stdout
+    funcs = {}
+    for part in sass.split("Function : ")[1:]:
+        name, body = part.split("\n", 1)
+        funcs[name.strip()] = body
+    tc = {n: b for n, b in funcs.items() if "flash_tc_kernel" in n}
+    assert len(tc) == len(flash_kernel.HEAD_DIMS), sorted(funcs)
+    assert all(re.search(r"\bHGMMA\b", b) for b in tc.values())
 
 
 def test_flash_kernel_rejects_what_it_does_not_take(dev):

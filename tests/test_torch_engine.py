@@ -43,7 +43,7 @@ def domain():
     fields.update(gamma=ce.gamma, sigma=ce.sigma)
     noisy = m[K_Q:] + 2.0 * np.random.default_rng(0).standard_normal((B, N_ITEMS))
     first = np.argsort(-noisy, axis=1, kind="stable")[:, :10].astype(np.int32)
-    return dict(ce=ce, tce=convert.synthetic_ce(fields), r_anc=m[:K_Q],
+    return dict(ce=ce, tce=convert.synthetic_ce(fields, device="cpu"), r_anc=m[:K_Q],
                 q=np.arange(K_Q, K_Q + B), first=first)
 
 
@@ -54,7 +54,8 @@ def _run_both(dom, cfg_kw, first=None, n_rounds=None):
                     jcfg, jax.random.PRNGKey(KEY),
                     first_anchors=None if first is None else jnp.asarray(first), **kw)
     scorer = SyntheticScorer(dom["tce"], record_pairs=True)
-    tres = t_search(scorer, convert.r_anc(dom["r_anc"]), torch.as_tensor(dom["q"]),
+    tres = t_search(scorer, convert.r_anc(dom["r_anc"], device="cpu"),
+                    torch.as_tensor(dom["q"]),
                     convert.config(cfg_kw), convert.key(np.asarray(jax.random.PRNGKey(KEY))),
                     first_anchors=None if first is None else torch.as_tensor(first), **kw)
     return jres, tres, scorer
@@ -126,7 +127,7 @@ def test_no_split_budget_ranks_anchors(domain):
 
 def test_runtime_rounds_need_fori(domain):
     with pytest.raises(ValueError, match="fori"):
-        t_search(SyntheticScorer(domain["tce"]), convert.r_anc(domain["r_anc"]),
+        t_search(SyntheticScorer(domain["tce"]), convert.r_anc(domain["r_anc"], device="cpu"),
                  torch.as_tensor(domain["q"]), convert.config(dict(BASE)),
                  convert.key(np.asarray(jax.random.PRNGKey(KEY))), n_rounds=2)
 
@@ -145,8 +146,9 @@ def test_full_pinv_search_is_stable_under_rounding(domain):
     nudged = r * (1 + 1e-7 * np.random.default_rng(1).standard_normal(r.shape))
     key = convert.key(np.asarray(jax.random.PRNGKey(KEY)))
     q = torch.as_tensor(domain["q"])
-    a, b = (t_search(SyntheticScorer(domain["tce"]), convert.r_anc(x.astype(np.float32)), q,
-                     cfg, key) for x in (r, nudged))
+    a, b = (t_search(SyntheticScorer(domain["tce"]),
+                     convert.r_anc(x.astype(np.float32), device="cpu"), q, cfg, key)
+            for x in (r, nudged))
     assert a.rounds_done == b.rounds_done < cfg.n_rounds
     assert topk_overlap(a.topk_idx, b.topk_idx) == 1.0
 
@@ -159,7 +161,7 @@ def test_dict_query_gives_the_ids_of_the_tensor_query(domain, batch):
     cfg = convert.config(dict(BASE, use_fused_topk=True))
     key = convert.key(np.asarray(jax.random.PRNGKey(KEY)))
     q = torch.as_tensor(domain["q"])
-    r = convert.r_anc(domain["r_anc"])
+    r = convert.r_anc(domain["r_anc"], device="cpu")
     bare = t_search(SyntheticScorer(domain["tce"]), r, q, cfg, key)
     inner = SyntheticScorer(domain["tce"])
 

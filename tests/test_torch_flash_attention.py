@@ -24,7 +24,10 @@ from repro_torch.kernels.flash_attention import kernel as flash_kernel  # noqa: 
 from repro_torch.kernels.flash_attention.ops import (  # noqa: E402
     flash_attention, flash_attention_plain,
 )
-from repro_torch.kernels.flash_attention.ref import attention_reference  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
+    attention_reference, flash_split_p_emulated,
+)
+from repro_torch.testing import FLASH_TOL  # noqa: E402
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -116,6 +119,76 @@ def test_varlen_kv_lens_match_pallas(causal, lens):
             ref = j_ref(jnp.asarray(q[i:i + 1, :n]), jnp.asarray(k[i:i + 1, :n]),
                         jnp.asarray(v[i:i + 1, :n]), causal=False)
             np.testing.assert_allclose(_np(out[i, :n]), _np(ref[0]), atol=3e-5, rtol=3e-5)
+
+
+def _bf16(*xs):
+    """numpy fp32 arrays as bf16: torch tensors and jax arrays of the same
+    values (both round to nearest even)."""
+    return _t(*xs, dtype=torch.bfloat16), [jnp.asarray(x).astype(jnp.bfloat16) for x in xs]
+
+
+def _fail_share(out, ref, dtype="bfloat16") -> float:
+    """Share of outputs outside ``FLASH_TOL[dtype]`` of ``ref``."""
+    atol, rtol = FLASH_TOL[dtype]
+    a, r = _np(out), _np(ref)
+    return float((np.abs(a - r) > atol + rtol * np.abs(r)).mean())
+
+
+@pytest.mark.parametrize("b,lq,lk,h,kv,hd,causal", CASES)
+def test_split_p_emulation_matches_pallas_bf16(b, lq, lk, h, kv, hd, causal):
+    """The bf16 kernel's arithmetic (P split into three bf16 terms, 64-key
+    tiles, exp2) against the Pallas kernel on the same bf16 inputs, at the
+    tolerance the card holds the kernel to."""
+    (tq, tk, tv), jb = _bf16(*_qkv(b, lq, lk, h, kv, hd, seed=b * lq + lk))
+    out = flash_split_p_emulated(tq, tk, tv, causal=causal)
+    assert out.dtype == torch.bfloat16 and out.shape == tq.shape
+    pallas = j_flash(*jb, causal=causal, block_q=64, block_k=64, interpret=True)
+    atol, rtol = FLASH_TOL["bfloat16"]
+    np.testing.assert_allclose(_np(out), _np(pallas), atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_split_p_emulation_varlen_matches_pallas_bf16(causal):
+    """Per-example lengths with a length-0 example: exact zeros in both."""
+    lens = np.asarray([0, 17, 40], np.int32)
+    (tq, tk, tv), jb = _bf16(*_qkv(3, 40, 40, 4, 2, 16, seed=11))
+    out = flash_split_p_emulated(tq, tk, tv, causal=causal, kv_lens=torch.from_numpy(lens))
+    pallas = j_flash(*jb, causal=causal, block_q=16, block_k=16, interpret=True,
+                     kv_lens=jnp.asarray(lens))
+    atol, rtol = FLASH_TOL["bfloat16"]
+    np.testing.assert_allclose(_np(out), _np(pallas), atol=atol, rtol=rtol)
+    assert torch.count_nonzero(out[0]) == 0 and not np.asarray(pallas[0]).any()
+
+
+def test_one_bf16_p_misses_the_tolerance_and_three_terms_do_not():
+    """Why the kernel splits P: on the same bf16 inputs at hd 128, P rounded
+    to one bf16 (FlashAttention's habit) puts outputs outside
+    FLASH_TOL["bfloat16"] of the plain version (the Pallas arithmetic);
+    the kernel's three bf16 terms put none there."""
+    b, lq, lk, h, kv, hd, causal = CASES[4]
+    (tq, tk, tv), _ = _bf16(*_qkv(b, lq, lk, h, kv, hd, seed=5))
+    plain = flash_attention_plain(tq, tk, tv, causal=causal)
+    single = _fail_share(flash_split_p_emulated(tq, tk, tv, causal=causal, terms=1), plain)
+    three = _fail_share(flash_split_p_emulated(tq, tk, tv, causal=causal), plain)
+    assert single > 0.01, single
+    assert three == 0.0, three
+
+
+def test_two_bf16_terms_miss_the_tolerance_at_the_ce_shape():
+    """Why three terms and not two: at the cross-encoder serving shape (64
+    pairs of L 64, 8/4 heads, hd 32, 43 valid keys, 1/8 pad rows) P in two
+    bf16 terms (16 bits) puts a few outputs in a million outside
+    FLASH_TOL["bfloat16"] of the plain version: outputs are large there,
+    so the 2^-17 error of p passes the tolerance's 1e-6 floor where an
+    output cancels to near zero.  Three terms put none there."""
+    (tq, tk, tv), _ = _bf16(*_qkv(64, 64, 64, 8, 4, 32, seed=2))
+    lens = torch.tensor([43] * 56 + [0] * 8, dtype=torch.int32)
+    plain = flash_attention_plain(tq, tk, tv, causal=False, kv_lens=lens)
+    two = _fail_share(flash_split_p_emulated(tq, tk, tv, causal=False, kv_lens=lens,
+                                             terms=2), plain)
+    three = _fail_share(flash_split_p_emulated(tq, tk, tv, causal=False, kv_lens=lens), plain)
+    assert two > 0.0, two
+    assert three == 0.0, three
 
 
 def test_block_sizes_do_not_change_the_result():

@@ -8,6 +8,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -90,6 +91,19 @@ def test_real_ce_entry_points_refuse_to_fall_back_to_the_cpu(monkeypatch):
         serve.build_real_ce_domain(50, 4, 4)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve.main(["--scorer", "real-ce", "--n-items", "50", "--requests", "1"])
+
+
+def test_convert_follows_the_device_rule():
+    """``convert`` lands the JAX package's state on the card unless the
+    caller asks for the CPU: without a card it raises the rule's error."""
+    from repro_torch import convert
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: convert.r_anc lands on it")
+    x = np.zeros((2, 3), np.float32)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        convert.r_anc(x)
+    assert convert.r_anc(x, device="cpu").device == torch.device("cpu")
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):

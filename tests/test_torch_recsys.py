@@ -66,7 +66,8 @@ def model(request):
     jcfg = _jcfg(cfg)
     jparams, _ = j_dlrm.init_dlrm(jax.random.PRNGKey(0), jcfg)
     tree = jax.tree.map(np.asarray, jparams)
-    return dict(cfg=cfg, jcfg=jcfg, jparams=jparams, params=convert.dlrm_params(tree))
+    return dict(cfg=cfg, jcfg=jcfg, jparams=jparams,
+                params=convert.dlrm_params(tree, device="cpu"))
 
 
 def _contexts(cfg, b, seed):
@@ -223,7 +224,7 @@ def test_retrieval_builder_matches():
     cfg = retrieval_smoke_config()
     jcfg = _jcfg(cfg)
     jparams, _ = j_dlrm.init_dlrm(jax.random.PRNGKey(0), jcfg)
-    params = convert.dlrm_params(jax.tree.map(np.asarray, jparams))
+    params = convert.dlrm_params(jax.tree.map(np.asarray, jparams), device="cpu")
     shape = dataclasses.replace(RECSYS_SHAPES["retrieval_cand"], n_candidates=1000)
     bundle = steps.build_recsys_retrieval(ARCH, cfg, shape, params=params, device="cpu")
     jb = j_steps.build_recsys_retrieval(

@@ -29,7 +29,7 @@ def carried():
     ce = make_synthetic_ce(jax.random.PRNGKey(1), n_queries=K_Q + 20, n_items=N_ITEMS)
     fields = {k: np.asarray(getattr(ce, k)) for k in convert.SYNTHETIC_CE_FIELDS}
     fields.update(gamma=ce.gamma, sigma=ce.sigma)
-    return ce, convert.synthetic_ce(fields)
+    return ce, convert.synthetic_ce(fields, device="cpu")
 
 
 def _cfg(**kw):
