@@ -17,24 +17,27 @@ Phases (one JSON line each):
    spill for the top-k and flash kernels, and the bf16 flash kernel must
    hold ``HGMMA`` (the wgmma tensor-core path).
 2. ``kernel:approx_topk``: the CUDA kernel against its plain PyTorch version
-   on the card at the serving shape (B=256, k_q=500, N=10^6; fp32 and int8;
-   k=20 and k=100), plus a noise/mask/anchors/n_valid case with under-filled
-   rows at N=65,536; kernel, plain and library (torch.matmul + torch.topk)
-   times beside the tensor-core bound (``bound_ms``: the product split
-   into TF32 or bf16 parts at fp32 accuracy, whichever is faster), the
-   CUDA-core fp32 one (``bound_simt_ms``) and, at the serving shape, the
-   earlier CUDA-core design's kernel time as recorded on an H100
+   on the card at the serving shape (B=256, k_q=500, N=10^6; every payload:
+   fp32, int8, bf16, fp8 e4m3, packed int4; k=20 and k=100), plus a
+   noise/mask/anchors/n_valid case with under-filled rows at N=65,536;
+   kernel, plain and library (dequantize or cast to fp32 + torch.matmul +
+   torch.topk, all timed) times beside the tensor-core bound (``bound_ms``:
+   the product split into TF32 or bf16 parts at fp32 accuracy, whichever is
+   faster), the CUDA-core fp32 one (``bound_simt_ms``) and, at the serving
+   shape, the earlier CUDA-core design's kernel time as recorded on an H100
    (``earlier_design_ms_recorded``, a constant, not measured here).  ptxas
    must report no spill for either top-k kernel.
-3. ``kernel:persistent_round``: both accumulators at the same shapes, held
-   to the plain version and bitwise to two approx_topk calls.
+3. ``kernel:persistent_round``: both accumulators at the same shapes and
+   payloads, held to the plain version and bitwise to two approx_topk calls.
 4. ``serve``: the serve CLI's domain at full size (600 queries, 10^6 items,
    AnchorIndex over anchor queries 0..499 built on the card) answering 600
-   requests through ``AdaCURService(max_batch=256)`` for fp32 staged, fp32
-   persistent and int8 staged; launch counts, CE calls against the plan,
-   error responses, latency and recall@{1,10,100}.
+   requests through ``AdaCURService(max_batch=256)`` for every payload,
+   staged and persistent; launch counts, CE calls against the plan, error
+   responses, latency, recall@{1,10,100} and the payload's bytes.
 5. ``engine_cpu_vs_card``: the same search on the card (kernels) and on the
-   CPU (plain versions), N=20,000, B=64: top-k overlap >= 0.99.
+   CPU (plain versions), N=20,000, B=64, fp32, int8, bf16, fp8 and int4,
+   staged and persistent, with the incremental pinv the serve path runs:
+   top-k overlap >= 0.99, launch counts.
 6. ``kernel:flash_attention``: the CUDA kernel against its plain version on
    the card at the cross-encoder serving shape (64 and 1024 pairs, L=64,
    8/4 heads, hd=32, bf16 and fp32, real pair lengths plus length-0 pad
@@ -77,8 +80,10 @@ Phases (one JSON line each):
     (kernel) and on the CPU (plain): max |dscore| <= 1e-4 x max |score|
     with TF32 off, and the lookups bitwise equal.
 
-Then the card's ``name, power.limit`` line, a ``kernels`` summary line, and
-last the result line.  Any failed check exits non-zero.
+Then the card's ``name, power.limit`` line, a ``kernels`` summary line (one
+entry per kernel and, for the two top-k kernels, per payload: ``approx_topk``
+is fp32, ``approx_topk[int8]`` etc. the others), and last the result line.
+Any failed check exits non-zero.
 """
 
 from __future__ import annotations
@@ -95,6 +100,7 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(HERE, "src"))
 
+NEG_INF = -1e30              # the ops' suppressed score (kernels/approx_topk/select.py)
 PEAK_FP32_FLOPS = 67e12      # H100 SXM, fp32 outside the tensor cores
 PEAK_TF32_FLOPS = 494.7e12   # H100 SXM, TF32 tensor cores, dense
 PEAK_BF16_FLOPS = 989e12     # H100 SXM, bf16 tensor cores, dense
@@ -123,7 +129,14 @@ EARLIER_DESIGN_MS = {
 }
 FLASH_P_TERMS = 3           # bf16 terms of p in the bf16 flash kernel's P V product
 DLRM = "dlrm-mlperf"
+PAYLOADS = ("float32", "int8", "bfloat16", "fp8", "int4")
 BAG_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (1e-6, 2.0 ** -7)}   # (atol, rtol)
+
+
+def topk_entry(kernel: str, payload: str) -> str:
+    """The kernels line's name of a top-k kernel on one payload: the kernel's
+    own name for fp32, ``kernel[payload]`` for the others."""
+    return kernel if payload == "float32" else f"{kernel}[{payload}]"
 
 
 class CheckFailed(Exception):
@@ -263,27 +276,37 @@ def nbytes(*ts) -> int:
 def make_inputs(b, k_q, n, gen, dev):
     import torch
 
-    from repro_torch.kernels.approx_topk.quant import quantize_ranc
+    from repro_torch.kernels.approx_topk.quant import as_payload
 
     e_q = torch.randn((b, k_q), generator=gen, device=dev)
     r = torch.randn((k_q, n), generator=gen, device=dev)
     anchors = torch.randint(0, n, (b, 100), generator=gen, device=dev, dtype=torch.int32)
-    return e_q, {"float32": r, "int8": quantize_ranc(r)}, anchors
+    return e_q, {dtype: as_payload(r, dtype) for dtype in PAYLOADS}, anchors
+
+
+def dense_fp32(pay):
+    """The payload as one fp32 (k_q, N) tensor, as a library caller would
+    form it: fp32 as is, bf16 cast, codes dequantized."""
+    import torch
+
+    from repro_torch.kernels.approx_topk.quant import QuantizedRanc, dequantize
+
+    if isinstance(pay, QuantizedRanc):
+        return dequantize(pay)
+    return pay if pay.dtype == torch.float32 else pay.float()
 
 
 def phase_approx_topk(shape, gen, dev, reps, earlier):
     import torch
 
     from repro_torch.kernels.approx_topk.ops import approx_topk_op, approx_topk_plain
-    from repro_torch.kernels.approx_topk.quant import dequantize
     from repro_torch.kernels.approx_topk.ref import dense_scores
     from repro_torch.testing import topk_report
 
     b, k_q, n = shape
     e_q, payloads, anchors = make_inputs(b, k_q, n, gen, dev)
-    rows, worst = [], 0.0
+    rows, worst = [], dict.fromkeys(PAYLOADS, 0.0)
     for dtype, pay in payloads.items():
-        r_dense = pay if dtype == "float32" else dequantize(pay)
         scores = dense_scores(e_q, pay, anchors)
         for k in (20, 100):
             kv, ki = approx_topk_op(e_q, pay, anchors, k)
@@ -291,10 +314,11 @@ def phase_approx_topk(shape, gen, dev, reps, earlier):
             torch.cuda.synchronize()
             rep = topk_report(ki, kv, pi, pv, scores)
             check(rep["ok"], f"approx_topk {dtype} k={k} disagrees with its plain version: {rep}")
-            worst = max(worst, rep["max_abs_err"])
+            worst[dtype] = max(worst[dtype], rep["max_abs_err"])
             ms = cuda_ms(lambda: approx_topk_op(e_q, pay, anchors, k), reps)
             plain_ms = cuda_ms(lambda: approx_topk_plain(e_q, pay, anchors, k, tile=8192), 1)
-            lib_ms = cuda_ms(lambda: torch.topk(torch.matmul(e_q, r_dense), k, dim=1), reps)
+            lib_ms = cuda_ms(lambda: torch.topk(torch.matmul(e_q, dense_fp32(pay)), k, dim=1),
+                             reps)
             bounds = topk_bounds(dtype, nbytes(e_q, pay, anchors) + b * k * 8, b, k_q, n)
             rows.append(dict(payload=dtype, k=k, kernel_ms=ms, plain_ms=plain_ms,
                              library_ms=lib_ms, **bounds, **rep,
@@ -312,15 +336,65 @@ def phase_approx_topk(shape, gen, dev, reps, earlier):
         kw = dict(noise=noise, mask=mask, n_valid=60000)
         kv, ki = approx_topk_op(e2, pay, anc2, 20, **kw)
         pv, pi = approx_topk_plain(e2, pay, anc2, 20, tile=4096, **kw)
-        rep = topk_report(ki, kv, pi, pv, dense_scores(e2, pay, anc2, **kw))
+        dense = dense_scores(e2, pay, anc2, **kw)
+        full = (dense > NEG_INF / 2).sum(1) >= 20        # rows with k valid items
+        rep = topk_report(ki[full], kv[full], pi[full], pv[full], dense[full])
         check(rep["ok"], f"approx_topk {dtype} masked case disagrees: {rep}")
+        under = underfilled_rows(dtype, e2, pay, noise, ki, kv, pi, pv, ~full, dense)
         check(torch.equal(ki[0].cpu(), torch.arange(20, dtype=torch.int32)),
               f"fully masked row must return ids 0..19, got {ki[0].tolist()}")
         ids1 = ki[1].cpu()
         check(len(set(ids1.tolist())) == 20, f"under-filled row repeats ids: {ids1.tolist()}")
-        worst = max(worst, rep["max_abs_err"])
-        rows.append(dict(payload=dtype, k=20, case="noise+mask+anchors+n_valid", n=n2, **rep))
+        worst[dtype] = max(worst[dtype], rep["max_abs_err"])
+        rows.append(dict(payload=dtype, k=20, case="noise+mask+anchors+n_valid", n=n2, **rep,
+                         **under))
     return rows, worst
+
+
+def underfilled_rows(dtype, e_q, pay, noise, ki, kv, pi, pv, under, dense):
+    """Rows with fewer than k valid items select all of them: near-full
+    selection, where ``topk_report``'s bar (1e-5 x max(|v|, 1)) is finer
+    than fp32 summation at k_q = 500 for the small values such a row keeps
+    (ROADMAP.md, queue 3).  There the kernel's values are held to float64
+    (its worst error over every row's live entries is no larger than the
+    plain version's), and position by position: a row's live entries are
+    its valid items in float64 order (ties to the lower id) with
+    non-increasing values, the plain version selects the same items, and
+    the suppressed tail's ids equal the plain version's."""
+    import torch
+
+    from repro_torch.kernels.approx_topk.quant import QuantizedRanc, unpacked_codes
+
+    coded = isinstance(pay, QuantizedRanc)
+    exact = e_q.double() @ (unpacked_codes(pay) if coded else pay).double()
+    if coded:
+        exact *= pay.col_scales().double()[None, :]
+    exact += noise.double()
+    live = kv > NEG_INF / 2
+    check(torch.equal(live, pv > NEG_INF / 2), f"approx_topk {dtype}: live entries differ")
+
+    def err(v, i):
+        return (v.double() - exact.gather(1, i.long())).abs()[live].max().item()
+
+    err_kernel, err_plain = err(kv, ki), err(pv, pi)
+    check(err_kernel <= err_plain, f"approx_topk {dtype} masked case: worst error against "
+                                   f"float64 {err_kernel} above the plain version's {err_plain}")
+    for r in torch.nonzero(under).flatten().tolist():
+        n_live = int(live[r].sum())
+        valid = torch.nonzero(dense[r] > NEG_INF / 2).flatten()    # ascending ids
+        order = torch.sort(-exact[r, valid], stable=True).indices
+        want = valid[order].to(ki.dtype).cpu()
+        row = kv[r, :n_live]
+        same = (n_live == valid.numel() and torch.equal(ki[r, :n_live].cpu(), want)
+                and bool((row[1:] <= row[:-1]).all())
+                and sorted(pi[r, :n_live].tolist()) == want.sort().values.tolist()
+                and torch.equal(ki[r, n_live:], pi[r, n_live:]))
+        check(same, f"approx_topk {dtype}: under-filled row {r} ids {ki[r].tolist()} "
+                    f"values {kv[r, :n_live].tolist()}: float64 order {want.tolist()}, "
+                    f"plain {pi[r].tolist()}")
+    del exact
+    return dict(underfilled_rows=int(under.sum()), f64_err_kernel=err_kernel,
+                f64_err_plain=err_plain)
 
 
 def phase_persistent(shape, gen, dev, reps, earlier):
@@ -330,16 +404,14 @@ def phase_persistent(shape, gen, dev, reps, earlier):
     from repro_torch.kernels.approx_topk.persistent import (
         persistent_round_op, persistent_round_plain,
     )
-    from repro_torch.kernels.approx_topk.quant import dequantize
     from repro_torch.kernels.approx_topk.ref import dense_scores
     from repro_torch.testing import topk_report
 
     b, k_q, n = shape
     e_q, payloads, anchors = make_inputs(b, k_q, n, gen, dev)
     prov_mask = torch.rand((b, n), generator=gen, device=dev) < 0.1
-    rows, worst = [], 0.0
+    rows, worst = [], dict.fromkeys(PAYLOADS, 0.0)
     for dtype, pay in payloads.items():
-        r_dense = pay if dtype == "float32" else dequantize(pay)
         kw = dict(k_sample=20, k_prov=100, anchors=anchors, prov_mask=prov_mask)
         (sv, si), (pv, pi) = persistent_round_op(e_q, pay, **kw)
         (qv, qi), (rv, ri) = persistent_round_plain(e_q, pay, tile=8192, **kw)
@@ -353,12 +425,12 @@ def phase_persistent(shape, gen, dev, reps, earlier):
         for name, (x, y, sup) in lists.items():
             rep = topk_report(x[0], x[1], y[0], y[1], dense_scores(e_q, pay, **sup))
             check(rep["ok"], f"persistent_round {dtype} {name} disagrees with its plain version: {rep}")
-            worst = max(worst, rep["max_abs_err"])
+            worst[dtype] = max(worst[dtype], rep["max_abs_err"])
         ms = cuda_ms(lambda: persistent_round_op(e_q, pay, **kw), reps)
         plain_ms = cuda_ms(lambda: persistent_round_plain(e_q, pay, tile=8192, **kw), 1)
 
         def library():
-            s = torch.matmul(e_q, r_dense)
+            s = torch.matmul(e_q, dense_fp32(pay))
             torch.topk(s, 20, dim=1)
             torch.topk(s.masked_fill(prov_mask, -1e30), 100, dim=1)
 
@@ -405,16 +477,16 @@ def profile_call(fn) -> dict:
 
 
 def phase_serve(dev):
-    import numpy as np
+    """The synthetic serve drives; returns (result, {kernel: {payload:
+    launches}})."""
     import torch
 
-    from repro_torch import kernels
     from repro_torch.configs.base import AdaCURConfig
     from repro_torch.core import prng, sampling
-    from repro_torch.core.engine import AdaCURRetriever, ce_call_plan
+    from repro_torch.core.engine import AdaCURRetriever
     from repro_torch.core.scorer import SyntheticScorer
-    from repro_torch.eval.metrics import exact_topk, topk_recall
-    from repro_torch.launch.serve import AdaCURService, build_domain, drive
+    from repro_torch.eval.metrics import exact_topk
+    from repro_torch.launch.serve import build_domain
 
     n_items = 1_000_000
     t0 = time.perf_counter()
@@ -425,55 +497,15 @@ def phase_serve(dev):
     _, gt = exact_topk(ce.full_matrix(served_q), 100)
     gt = gt.cpu()
     noise_ms = cuda_ms(lambda: sampling.blocked_gumbel(prng.PRNGKey(1), 256, n_items, device=dev), 2)
-    int8_index = index.quantize("int8")
-    results, launches = [], {"approx_topk": 0, "persistent_round": 0}
-    for label, payload, round_kernel in (("fp32 staged", "float32", "staged"),
-                                         ("fp32 persistent", "float32", "persistent"),
-                                         ("int8 staged", "int8", "staged")):
-        cfg = AdaCURConfig(k_anchor=100, n_rounds=5, budget_ce=200, strategy="topk",
-                           k_retrieve=100, loop_mode="fori", use_fused_topk=True,
-                           payload_dtype=payload, round_kernel=round_kernel)
-        scorer = SyntheticScorer(ce)
-        svc = AdaCURService(
-            retriever=AdaCURRetriever.from_index(
-                int8_index if payload == "int8" else index, scorer, cfg),
-            max_batch=256)
-        kernels.reset_launches()
-        served = drive(svc, 600)
-        torch.cuda.synchronize()
-        counts = kernels.launch_counts()
-        n_search = len(svc.batch_log)
-        errors = [r.error for r in served if r.status != "ok"]
-        check(not errors, f"serve {label}: {len(errors)} error responses, first: {errors[:1]}")
-        check(len(served) == 600, f"serve {label}: {len(served)} responses for 600 requests")
-        plan = ce_call_plan(cfg)
-        for bl in svc.batch_log:
-            check(bl["ce_calls"] == plan * bl["bucket"],
-                  f"serve {label}: measured CE {bl['ce_calls']} != plan {plan} x {bl['bucket']}")
-        expect = ({"approx_topk": 5 * n_search, "persistent_round": 0}
-                  if round_kernel == "staged"
-                  else {"approx_topk": n_search, "persistent_round": 4 * n_search})
-        expect.update(flash_attention=0, embedding_bag=0)
-        check(counts == expect, f"serve {label}: launches {counts}, expected {expect}")
-        for name in launches:
-            launches[name] += counts[name]
-        retrieved = torch.as_tensor(np.stack([r.item_ids for r in served]))
-        rows = gt[[r.query_id - 500 for r in served]]
-        recall = {f"recall@{k}": topk_recall(retrieved, rows, k) for k in (1, 10, 100)}
-        for r in served:
-            check(r.item_ids.shape == (100,) and np.isfinite(r.scores).all()
-                  and ((r.item_ids >= 0) & (r.item_ids < n_items)).all(),
-                  f"serve {label}: malformed response for query {r.query_id}")
-        secs = [bl["seconds"] for bl in svc.batch_log]
-        results.append(dict(
-            config=label, requests=len(served), searches=n_search,
-            buckets=[bl["bucket"] for bl in svc.batch_log],
-            batch_p50_ms=float(np.percentile(secs, 50) * 1e3),
-            batch_p99_ms=float(np.percentile(secs, 99) * 1e3),
-            per_search_ms=float(np.mean(secs) * 1e3),
-            launches=counts, measured_ce_per_request=served[0].measured_ce_calls,
-            ce_plan=plan, errors=len(errors), **recall,
-        ))
+    results = []
+    launches = {name: dict.fromkeys(PAYLOADS, 0) for name in ("approx_topk", "persistent_round")}
+    fp32_bytes = index.payload_nbytes
+    for payload in PAYLOADS:
+        served_index = index.quantize(payload)
+        for round_kernel in ("staged", "persistent"):
+            results.append(serve_config(ce, served_index, payload, round_kernel, gt, launches,
+                                        fp32_bytes, n_items))
+        del served_index
     cfg = AdaCURConfig(k_anchor=100, n_rounds=5, budget_ce=200, strategy="topk",
                        k_retrieve=100, loop_mode="fori", use_fused_topk=True)
     retriever = AdaCURRetriever.from_index(index, SyntheticScorer(ce), cfg)
@@ -483,17 +515,73 @@ def phase_serve(dev):
                 configs=results, profile_fp32_staged_B256=profiled), launches
 
 
+def serve_config(ce, index, payload, round_kernel, gt, launches, fp32_bytes, n_items):
+    """600 requests through AdaCURService(max_batch=256) over ``index``;
+    adds the kernels' launches to ``launches[kernel][payload]``."""
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.configs.base import AdaCURConfig
+    from repro_torch.core.engine import AdaCURRetriever, ce_call_plan
+    from repro_torch.core.scorer import SyntheticScorer
+    from repro_torch.eval.metrics import topk_recall
+    from repro_torch.launch.serve import AdaCURService, drive
+
+    label = f"{payload} {round_kernel}"
+    cfg = AdaCURConfig(k_anchor=100, n_rounds=5, budget_ce=200, strategy="topk",
+                       k_retrieve=100, loop_mode="fori", use_fused_topk=True,
+                       payload_dtype=payload, round_kernel=round_kernel)
+    scorer = SyntheticScorer(ce)
+    svc = AdaCURService(retriever=AdaCURRetriever.from_index(index, scorer, cfg),
+                        max_batch=256)
+    kernels.reset_launches()
+    served = drive(svc, 600)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    n_search = len(svc.batch_log)
+    errors = [r.error for r in served if r.status != "ok"]
+    check(not errors, f"serve {label}: {len(errors)} error responses, first: {errors[:1]}")
+    check(len(served) == 600, f"serve {label}: {len(served)} responses for 600 requests")
+    plan = ce_call_plan(cfg)
+    for bl in svc.batch_log:
+        check(bl["ce_calls"] == plan * bl["bucket"],
+              f"serve {label}: measured CE {bl['ce_calls']} != plan {plan} x {bl['bucket']}")
+    expect = ({"approx_topk": 5 * n_search, "persistent_round": 0}
+              if round_kernel == "staged"
+              else {"approx_topk": n_search, "persistent_round": 4 * n_search})
+    expect.update(flash_attention=0, embedding_bag=0)
+    check(counts == expect, f"serve {label}: launches {counts}, expected {expect}")
+    for name in launches:
+        launches[name][payload] += counts[name]
+    retrieved = torch.as_tensor(np.stack([r.item_ids for r in served]))
+    rows = gt[[r.query_id - 500 for r in served]]
+    recall = {f"recall@{k}": topk_recall(retrieved, rows, k) for k in (1, 10, 100)}
+    for r in served:
+        check(r.item_ids.shape == (100,) and np.isfinite(r.scores).all()
+              and ((r.item_ids >= 0) & (r.item_ids < n_items)).all(),
+              f"serve {label}: malformed response for query {r.query_id}")
+    secs = [bl["seconds"] for bl in svc.batch_log]
+    return dict(
+        config=label, requests=len(served), searches=n_search,
+        buckets=[bl["bucket"] for bl in svc.batch_log],
+        batch_p50_ms=float(np.percentile(secs, 50) * 1e3),
+        batch_p99_ms=float(np.percentile(secs, 99) * 1e3),
+        per_search_ms=float(np.mean(secs) * 1e3),
+        launches=counts, measured_ce_per_request=served[0].measured_ce_calls,
+        ce_plan=plan, errors=len(errors), payload_bytes=index.payload_nbytes,
+        fp32_payload_bytes=fp32_bytes, **recall,
+    )
+
+
 def phase_engine_cpu_vs_card(dev):
-    """The same search on the card and on the CPU.  The early-exit persistent
-    config runs the software-pipelined monitored loop: every sweep launches
-    ``persistent_round`` with both lists (sample + provisional monitor), so
-    the card makes one launch per round done and one ``approx_topk`` (the
-    rerank) in all.  It stops before its last round, on both devices alike.
-    It uses the full regularized pinv, whose search a one-ulp change of the
-    payload leaves unchanged (``tests/test_torch_engine.py::
-    test_full_pinv_search_is_stable_under_rounding``); the incremental
-    bordered update amplifies fp32 rounding, so the card's cuBLAS/cuSOLVER
-    rounding alone can move its top-k."""
+    """The same search on the card and on the CPU, for every payload, with
+    the incremental pinv the serve path runs (top-k overlap >= 0.99).  The
+    early-exit persistent config runs the software-pipelined monitored loop:
+    every sweep launches ``persistent_round`` with both lists (sample +
+    provisional monitor), so the card makes one launch per round done and
+    one ``approx_topk`` (the rerank) in all.  It stops before its last
+    round, on both devices alike, and uses the full regularized pinv."""
     import torch
 
     from repro_torch import kernels
@@ -512,6 +600,8 @@ def phase_engine_cpu_vs_card(dev):
     base = dict(k_anchor=40, n_rounds=4, budget_ce=80, k_retrieve=30, loop_mode="fori",
                 use_fused_topk=True)
     for kw in (dict(), dict(round_kernel="persistent"), dict(payload_dtype="int8"),
+               dict(payload_dtype="bfloat16"), dict(payload_dtype="fp8"),
+               dict(payload_dtype="int4"), dict(payload_dtype="int4", round_kernel="persistent"),
                dict(round_kernel="persistent", early_exit_tol=0.5, n_rounds=8,
                     incremental_pinv=False)):
         cfg = AdaCURConfig(**{**base, **kw})
@@ -530,7 +620,12 @@ def phase_engine_cpu_vs_card(dev):
                   f"of {cfg.n_rounds}")
             expect = {"approx_topk": 1, "persistent_round": int(card.rounds_done),
                       "flash_attention": 0, "embedding_bag": 0}
-            check(counts == expect, f"early-exit persistent launches {counts}, expected {expect}")
+        else:
+            expect = ({"approx_topk": cfg.n_rounds, "persistent_round": 0}
+                      if cfg.round_kernel == "staged"
+                      else {"approx_topk": 1, "persistent_round": cfg.n_rounds - 1})
+            expect.update(flash_attention=0, embedding_bag=0)
+        check(counts == expect, f"engine {kw}: launches {counts}, expected {expect}")
         out.append(dict(config=kw or "fp32 staged", overlap=ov, launches=counts,
                         rounds_done_card=int(card.rounds_done),
                         rounds_done_cpu=int(cpu.rounds_done)))
@@ -1054,20 +1149,23 @@ def main() -> int:
                   for ln in ptxas.get(name, []) if re.search(r"[1-9][0-9]* bytes spill", ln)]
         check(not spills, f"the top-k or flash kernels spill registers: {spills}")
         check(hgmma > 0, "the bf16 flash kernel holds no HGMMA (wgmma) instruction")
-        rows, err = phase_approx_topk(shape, gen, dev, reps, earlier)
+        rows, errs = phase_approx_topk(shape, gen, dev, reps, earlier)
         emit({"phase": "kernel:approx_topk", "shape": shape, "cases": rows})
-        summary["approx_topk"] = (rows[0], err)
-        rows, err = phase_persistent(shape, gen, dev, reps, earlier)
+        for dtype in PAYLOADS:   # each payload's k = 20 row at the serving shape
+            row = next(r for r in rows if r["payload"] == dtype and r["k"] == 20)
+            summary[topk_entry("approx_topk", dtype)] = (row, errs[dtype])
+        rows, errs = phase_persistent(shape, gen, dev, reps, earlier)
         emit({"phase": "kernel:persistent_round", "shape": shape, "cases": rows})
-        summary["persistent_round"] = (rows[0], err)
+        for dtype in PAYLOADS:
+            row = next(r for r in rows if r["payload"] == dtype)
+            summary[topk_entry("persistent_round", dtype)] = (row, errs[dtype])
         rows, err = phase_flash(gen, dev, args.quick)
         emit({"phase": "kernel:flash_attention", "cases": rows})
         summary["flash_attention"] = (rows[0], err)
         rows, err = phase_embedding_bag(gen, dev, args.quick)
         emit({"phase": "kernel:embedding_bag", "cases": rows})
         summary["embedding_bag"] = (rows[0], err)
-        launches = {"approx_topk": 0, "persistent_round": 0, "flash_attention": 0,
-                    "embedding_bag": 0}
+        launches = dict.fromkeys(summary, 0)
         if not args.quick:
             serve, serve_launches = phase_serve(dev)
             emit({"phase": "serve", **serve})
@@ -1092,10 +1190,12 @@ def main() -> int:
             del params
             torch.cuda.empty_cache()
             emit({"phase": "dlrm_cpu_vs_card", **phase_dlrm_cpu_vs_card(dev)})
-            launches = {"approx_topk": serve_launches["approx_topk"] + rr_launches["approx_topk"],
-                        "persistent_round": serve_launches["persistent_round"],
-                        "flash_attention": ce_launches["flash_attention"],
-                        "embedding_bag": rs_bags + rr_launches["embedding_bag"]}
+            for name, per_payload in serve_launches.items():
+                for dtype, n in per_payload.items():
+                    launches[topk_entry(name, dtype)] = n
+            launches["approx_topk"] += rr_launches["approx_topk"]     # DLRM retrieval, fp32
+            launches.update(flash_attention=ce_launches["flash_attention"],
+                            embedding_bag=rs_bags + rr_launches["embedding_bag"])
         for name, n in launches.items():
             check(args.quick or n > 0, f"{name} was never launched on the main path")
     except CheckFailed as e:
@@ -1103,11 +1203,12 @@ def main() -> int:
         return 1
     print(smi, flush=True)
     emit({"kernels": [
-        {"name": name, "route": "cuda", "source": SOURCES[name],
-         "replaces": REPLACES[name], "launches": launches[name],
+        {"name": name, "route": "cuda", "source": SOURCES[name.split("[")[0]],
+         "replaces": REPLACES[name.split("[")[0]], "launches": launches[name],
          "max_abs_err": err, "ms": row["kernel_ms"], "plain_ms": row["plain_ms"],
          "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-         "library_ms": row["library_ms"]}
+         "library_ms": row["library_ms"],
+         **({"payload": row["payload"]} if "payload" in row else {})}
         for name, (row, err) in summary.items()
     ]})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -32,14 +32,24 @@ def synthetic_ce(fields: dict, device=None) -> SyntheticCE:
 
 
 def r_anc(x, device=None) -> torch.Tensor:
-    """An fp32 (k_q, N) payload."""
+    """A dense (k_q, N) payload: bf16 from a bf16 array, else fp32."""
+    if np.asarray(x).dtype.name == "bfloat16":
+        return _leaf(x, resolve_device(device))
     return _t(x, device, torch.float32)
 
 
-def quantized_ranc(codes, scales, tile: int, device=None) -> QuantizedRanc:
-    """An int8 payload from its codes (k_q, N), tile scales and tile."""
-    return QuantizedRanc(_t(codes, device, torch.int8), _t(scales, device, torch.float32),
-                         int(tile), "int8")
+_CODE_TORCH_DTYPES = {"int8": torch.int8, "int4": torch.uint8, "fp8": torch.float8_e4m3fn}
+
+
+def quantized_ranc(codes, scales, tile: int, device=None, code_dtype: str = "int8",
+                   n_cols: int = -1) -> QuantizedRanc:
+    """A coded payload from its codes (int8 or fp8 e4m3 (k_q, N), packed
+    int4 (k_q, ceil(N/2)) bytes), tile scales, tile and, for odd-width int4,
+    its logical width; the codes' bytes carry over unchanged."""
+    raw = np.ascontiguousarray(np.asarray(codes))
+    bits = torch.from_numpy(raw.view(np.uint8).copy()).view(_CODE_TORCH_DTYPES[code_dtype])
+    return QuantizedRanc(bits.to(resolve_device(device)), _t(scales, device, torch.float32),
+                         int(tile), code_dtype, int(n_cols))
 
 
 def _leaf(x, device) -> torch.Tensor:

@@ -33,9 +33,20 @@ def _bordered_blocks(a, p, b, ridge: float):
     K is the full-column-rank branch ``(CᵀC + ridge I)⁻¹ Cᵀ`` blended per
     column with the Greville branch ``(I + DᵀD)⁻¹ Dᵀ P``; a non-finite
     solve (duplicate new columns) falls back to the Greville branch
-    (reference guard, ``cur.py:123``)."""
+    (reference guard, ``cur.py:123``).
+
+    The residual C = B - A P B is projected off A's span twice (the
+    reference does it once).  A new anchor column lies close to that span,
+    so one projection leaves C dominated by P's rounding error, which the
+    ridge solve then amplifies round over round: one ulp of the payload
+    moved a 40-anchor, 4-round fp32 search's top-k
+    (``tests/test_torch_engine.py``).  The second pass removes that error
+    (the "twice is enough" rule of Gram-Schmidt)."""
     d = p @ b                                          # (B, n, s)
     c = b - a @ d                                      # (B, m, s)
+    d2 = p @ c
+    d = d + d2
+    c = c - a @ d2
     ct = c.transpose(-1, -2)
     gram = ct @ c
     s = gram.shape[-1]

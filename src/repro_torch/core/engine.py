@@ -81,9 +81,12 @@ def _mark_selected(selected, gidx):
 
 
 def _effective_tile(cfg: AdaCURConfig, r_anc) -> int:
-    """Item tile of the plain version (the reference's CPU rule: a per-tile
-    byte budget in fp32 columns).  The CUDA kernels pick their own tiling."""
-    return cfg.fused_tile * (4 if quant.payload_dtype_of(r_anc) == "int8" else 1)
+    """Item tile of the plain version: ``cfg.fused_tile`` is a per-tile
+    byte budget in fp32 columns, widened by fp32's bytes over a payload
+    column's so each tile holds the same bytes (the reference's
+    ``_effective_tile`` for its CPU scan backend, engine.py:403-425).  The
+    CUDA kernels pick their own tiling."""
+    return cfg.fused_tile * int(4 / quant.BYTES_PER_COL[quant.payload_dtype_of(r_anc)])
 
 
 def _fused_suppress(state: EngineState, force_mask: bool = False) -> dict:

@@ -63,6 +63,8 @@ class AnchorIndex:
 
     @property
     def payload_nbytes(self) -> int:
+        """Device bytes of the payload (codes + scales when coded; packed
+        int4 at half a byte a column)."""
         if isinstance(self.r_anc, QuantizedRanc):
             return self.r_anc.nbytes
         return self.r_anc.numel() * self.r_anc.element_size()
@@ -72,15 +74,24 @@ class AnchorIndex:
         return int(self.n_valid)
 
     def quantize(self, dtype: str = "int8", tile: int = quant.DEFAULT_TILE) -> "AnchorIndex":
-        """Re-encode the payload (``int8`` or ``float32`` in this port)."""
-        if dtype not in quant.PORTED_DTYPES:
-            raise quant._unported(dtype)
+        """Re-encode the payload (``int8`` | ``int4`` | ``fp8`` |
+        ``bfloat16`` | ``float32``).  The coded dtypes store per-item-tile
+        codes and fp32 scales (int8 and fp8 about 4x smaller than fp32,
+        packed int4 about 8x); re-encoding a coded index re-quantizes its
+        dequantized codes (lossy: keep one encoding per artifact)."""
+        if dtype not in quant.PAYLOAD_DTYPES:
+            raise ValueError(f"unknown payload dtype '{dtype}' (one of {quant.PAYLOAD_DTYPES})")
         cur = self.r_anc
         coded = isinstance(cur, QuantizedRanc)
         if dtype == self.payload_dtype and (not coded or cur.tile == tile):
             return self
         dense = quant.dequantize(cur) if coded else cur.to(torch.float32)
-        new = quant.quantize_ranc(dense, tile) if dtype == "int8" else dense
+        if dtype in quant.CODE_DTYPES:
+            new = quant.quantize_ranc(dense, tile, code_dtype=dtype)
+        elif dtype == "bfloat16":
+            new = dense.to(torch.bfloat16)
+        else:
+            new = dense
         return dataclasses.replace(self, r_anc=new)
 
     def gather_item_ids(self, pos: torch.Tensor) -> torch.Tensor:

@@ -10,10 +10,27 @@ Specification (the installed JAX sources): ``jax/_src/prng.py`` —
 ``threefry_2x32`` (the hash), ``_threefry_split_foldlike`` (split),
 ``threefry_fold_in`` and ``_threefry_random_bits_partitionable`` (32-bit
 bits = ``x0 ^ x1`` of the hash of the flat (hi, lo) counter) — and
-``jax/_src/random.py`` — ``_uniform`` (mantissa fill) and ``_gumbel`` in its
-default ``low`` mode.  Integer bits and ``uniform`` are bit-equal to JAX;
-``gumbel`` is equal up to the final two ``log`` calls, which torch and XLA
-round differently (within 1e-6 absolute on the field's range).
+``jax/_src/random.py`` — ``_uniform`` (mantissa fill), ``_randint`` (two
+32-bit draws a value, combined by a span multiply in uint32),
+``_normal_real`` (``sqrt(2) * erf_inv(u)``) and ``_gumbel`` in its default
+``low`` mode.
+
+What is promised:
+
+- integer bits, ``uniform`` and ``randint``: bit-equal to JAX;
+- ``normal``: the f32 ``erf_inv`` polynomial XLA lowers ``lax.erf_inv`` to
+  (Giles' approximation, with XLA's own ``log1p`` and ``log``, and the
+  fused multiply-adds the CPU compiler forms), so the draws are JAX's bit
+  for bit except where |u| > 0.9966 (``w >= 5``): there XLA's CPU ``sqrt``
+  is not correctly rounded, and a draw may differ by a few ulp
+  (``tests/test_torch_prng.py`` states the bound it measured);
+- ``gumbel``: equal up to the final two ``log`` calls, which torch and XLA
+  round differently (within 1e-6 absolute on the field's range).
+
+A fused multiply-add is formed in float64 and rounded once to float32:
+the product of two floats is exact in float64, so only the sum rounds
+twice, which changes a result only when it lands within 2^-29 of a float32
+half-way point.
 
 Large fields are generated in chunks so no int64 temporary grows past a few
 hundred MB (a (256 x 10^6) Gumbel field is 2.56e8 draws).
@@ -118,21 +135,104 @@ def gumbel(key, shape, device=None) -> torch.Tensor:
     return _unit_to_gumbel(_bits_to_unit(random_bits(key, shape, device)))
 
 
+def _fma(a, b, c) -> torch.Tensor:
+    """float32 ``a * b + c`` rounded once (see the module doc)."""
+    return (a.double() * b.double() + c.double()).to(torch.float32)
+
+
+def _horner(x: torch.Tensor, coeffs) -> torch.Tensor:
+    """XLA's ``EvaluatePolynomial``: highest degree first, one fma a step."""
+    p = torch.zeros_like(x)
+    for c in coeffs:
+        p = _fma(p, x, torch.full_like(x, c))
+    return p
+
+
+# Cephes' single-precision log, the polynomial XLA's CPU backend emits for f32
+_LOG_P = (7.0376836292e-2, -1.1514610310e-1, 1.1676998740e-1, -1.2420140846e-1,
+          1.4249322787e-1, -1.6668057665e-1, 2.0000714765e-1, -2.4999993993e-1,
+          3.3333331174e-1)
+# Cephes' log1p rational approximation for |x| < sqrt(2) - 1 (XLA's EmitLog1p)
+_LOG1P_NUM = (4.5270000862445199635215e-5, 4.9854102823193375972212e-1,
+              6.5787325942061044846969e0, 2.9911919328553073277375e1,
+              6.0949667980987787057556e1, 5.7112963590585538103336e1,
+              2.0039553499201281259648e1)
+_LOG1P_DEN = (1.0, 1.5062909083469192043167e1, 8.3047565967967209469434e1,
+              2.2176239823732856465394e2, 3.0909872225312059774938e2,
+              2.1642788614495947685003e2, 6.0118660497603843919306e1)
+# Giles' f32 erf_inv, as XLA lowers lax.erf_inv: w < 5 and w >= 5 branches
+_ERFINV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06, -4.39150654e-06,
+               0.00021858087, -0.00125372503, -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322, -0.00367342844,
+               0.00573950773, -0.0076224613, 0.00943887047, 1.00167406, 2.83297682)
+
+
+def _f(v, like) -> torch.Tensor:
+    return torch.tensor(v, dtype=torch.float32, device=like.device)
+
+
+def xla_log(x: torch.Tensor) -> torch.Tensor:
+    """f32 ``log`` for x in [0, inf) as XLA's CPU backend computes it."""
+    bits = torch.clamp_min(x, _TINY).view(torch.int32)
+    e = 1.0 + ((bits >> 23) - 0x7F).to(torch.float32)
+    m = ((bits & ~0x7F800000) | 0x3F000000).view(torch.float32)    # [0.5, 1)
+    small = m < 0.707106781186547524
+    e = e - small.to(torch.float32)
+    t = (m - 1.0) + torch.where(small, m, torch.zeros_like(m))
+    x2 = t * t
+    x3 = x2 * t
+    p = [_f(c, x) for c in _LOG_P]
+    y = _fma(_fma(t, p[0], p[1]), t, p[2])
+    y1 = _fma(_fma(t, p[3], p[4]), t, p[5])
+    y2 = _fma(_fma(t, p[6], p[7]), t, p[8])
+    y = _fma(_fma(y, x3, y1), x3, y2)
+    y = _fma(y, x3, _f(-2.12194440e-4, x) * e)
+    t = _fma(_f(-0.5, x), x2, t) + y
+    t = _fma(_f(0.693359375, x), e, t)
+    return torch.where(x == 0, _f(-float("inf"), x), t)
+
+
+def xla_log1p(x: torch.Tensor) -> torch.Tensor:
+    """f32 ``log1p`` for x in (-1, inf) as XLA's CPU backend computes it."""
+    x2 = x * x
+    small = _horner(x, _LOG1P_NUM) / _horner(x, _LOG1P_DEN)
+    small = x + _fma(_f(-0.5, x), x2, (x * x2) * small)
+    return torch.where(x.abs() < 0.41421356237309504880, small, xla_log(x + 1.0))
+
+
+def erf_inv(u: torch.Tensor) -> torch.Tensor:
+    """f32 ``lax.erf_inv`` as XLA lowers it (Giles' approximation)."""
+    w = -xla_log1p(-(u * u))
+    lt = w < 5.0
+    w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0)
+    coeff = lambda i: torch.where(lt, _f(_ERFINV_LT5[i], u), _f(_ERFINV_GE5[i], u))
+    p = coeff(0)
+    for i in range(1, len(_ERFINV_LT5)):
+        p = _fma(p, w, coeff(i))
+    return torch.where(u.abs() == 1, u * float("inf"), p * u)
+
+
 def normal(key, shape, device=None) -> torch.Tensor:
-    """Standard normal draws by the inverse-CDF route ``jax.random.normal``
-    takes (sqrt(2)·erfinv of a uniform on (-1, 1)); the same distribution,
-    not promised bit-equal to JAX."""
-    lo = torch.nextafter(torch.tensor(-1.0), torch.tensor(0.0)).item()
+    """``jax.random.normal(key, shape, float32)``: ``sqrt(2) * erf_inv(u)``
+    of a uniform on (nextafter(-1, 0), 1) drawn from the same bits (see the
+    module doc for what is promised)."""
+    lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
     u = uniform(key, shape, lo, 1.0, device)
-    return torch.erfinv(u) * (2.0 ** 0.5)
+    return _f(float(np.float32(np.sqrt(2.0))), u) * erf_inv(u)
 
 
 def randint(key, shape, low: int, high: int, device=None) -> torch.Tensor:
-    """Uniform integers in [low, high) from one 32-bit draw each (the same
-    distribution as ``jax.random.randint`` up to a bias of (high-low)/2^32,
-    not promised bit-equal)."""
-    bits = random_bits(key, shape, device)
-    return low + bits % (high - low)
+    """``jax.random.randint(key, shape, low, high)`` (int32), bit for bit:
+    the key splits in two, each half draws 32 bits a value, and the pair is
+    reduced mod the span with uint32 wrap-around, as ``_randint`` does."""
+    k1, k2 = split(key)
+    hi = random_bits(k1, shape, device)
+    lo = random_bits(k2, shape, device)
+    span = max(int(high) - int(low), 1)
+    mult = (2 ** 16) % span
+    mult = ((mult * mult) & _M32) % span
+    off = (((hi % span) * mult) & _M32) + lo % span
+    return (int(low) + (off & _M32) % span).to(torch.int32)
 
 
 def block_bits(block_keys: torch.Tensor, width: int) -> torch.Tensor:

@@ -12,8 +12,10 @@
 // both merged by (max value, min id) from the sentinel (NEG_INF, INT32_MAX).
 //
 // Bound on an H100: as approx_topk.cu, the product at fp32 accuracy on the
-// tensor cores, 1.55 ms (fp32, 3xTF32) / 0.78 ms (int8, bf16 split) at the
-// serving shape; the sweep does it once where the staged path does it twice.
+// tensor cores, 1.55 ms (fp32, 3xTF32) / 0.78 ms (bf16, int8, fp8, int4:
+// bf16 split) at the serving shape; the sweep does it once where the staged
+// path does it twice.  The payload kinds and their decode are
+// approx_topk.cu's (persistent.py:248-254 on the TPU).
 //
 // Design: the same kernel template as approx_topk.cu (topk_common.cuh,
 // sweep_kernel<PT, 2>): the mainloop computes each accumulator fragment
@@ -25,7 +27,8 @@
 
 #include "topk_common.cuh"
 
-// As approx_topk_launch, with a second (provisional) list: ks / kp are the
+// As approx_topk_launch (payload kinds 0-4, logical N), with a second
+// (provisional) list: ks / kp are the
 // list lengths (0 = not requested), prov_mask may be null; gthr_s / gthr_p
 // are (B,) int32 scratch.
 extern "C" int persistent_round_launch(
@@ -38,24 +41,18 @@ extern "C" int persistent_round_launch(
     int* out_pi, void* stream) {
   if (ks < 0 || kp < 0 || ks > adacur::KMAX || kp > adacur::KMAX || ks + kp == 0)
     return (int)cudaErrorInvalidValue;
-  const int epc = payload_kind == 1 ? 16 : 4;
-  const adacur::SweepArgs a{
-      a_hi, a_lo, (KQ + adacur::BK - 1) / adacur::BK, payload, scales, qtile, B, KQ,
-      N, n_items, range_cols,
-      (reinterpret_cast<uintptr_t>(payload) % 16 == 0) && (N % epc == 0)};
+  const adacur::SweepArgs a = adacur::sweep_args(a_hi, a_lo, payload, scales,
+                                                 qtile, B, KQ, N, n_items, range_cols);
   const adacur::ListDesc sample{noise, mask, anchors, A, ks, blk_sv, blk_si, gthr_s};
   const adacur::ListDesc prov{nullptr, prov_mask, nullptr, 0, kp, blk_pv, blk_pi, gthr_p};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (ks > 0 && kp > 0) {
     float* const ov[2] = {out_sv, out_pv};
     int* const oi[2] = {out_si, out_pi};
-    if (payload_kind == 1)
-      return adacur::launch_sweep<int8_t, 2>(a, sample, prov, ov, oi, s);
-    return adacur::launch_sweep<float, 2>(a, sample, prov, ov, oi, s);
+    return adacur::launch_kind<2>(payload_kind, a, sample, prov, ov, oi, s);
   }
   const adacur::ListDesc& one = ks > 0 ? sample : prov;
   float* const ov[2] = {ks > 0 ? out_sv : out_pv, nullptr};
   int* const oi[2] = {ks > 0 ? out_si : out_pi, nullptr};
-  if (payload_kind == 1) return adacur::launch_sweep<int8_t, 1>(a, one, one, ov, oi, s);
-  return adacur::launch_sweep<float, 1>(a, one, one, ov, oi, s);
+  return adacur::launch_kind<1>(payload_kind, a, one, one, ov, oi, s);
 }

@@ -1,7 +1,7 @@
 // Shared device core of the two fused score->top-k kernels
 // (approx_topk.cu, persistent_round.cu), redesigned for Hopper (sm_90a).
 //
-// Both kernels are one template, sweep_kernel<PT, NL>: NL = 1 list for
+// Both kernels are one template, sweep_kernel<K, NL>: NL = 1 list for
 // approx_topk (port of _approx_topk_kernel,
 // src/repro/kernels/approx_topk/kernel.py:74), NL = 2 lists for
 // persistent_round (port of _persistent_kernel,
@@ -12,11 +12,34 @@
 //
 // Bound (H100 SXM, B=256, k_q=500, N=10^6): 2.56e11 multiply-adds.  In
 // 3xTF32 on the tensor cores that is 3 x 2.56e11 FLOP / 494.7 TFLOP/s =
-// 1.55 ms for an fp32 payload.  For int8 codes (exact in TF32 and bf16)
-// two TF32 passes take 1.03 ms, three bf16 passes of a three-way split e_q
-// 0.78 ms at 989 TFLOP/s, the bound.  All are above the 0.60 ms (fp32) /
-// 0.15 ms (int8) it takes to read the payload once at 3.35 TB/s.  The
-// CUDA-core fp32 figure is 3.82 ms at 67 TFLOP/s.
+// 1.55 ms for an fp32 payload.  bf16 values, int8 and fp8 e4m3 codes and
+// int4 nibbles are all exact in TF32 (and in bf16): two TF32 passes take
+// 1.03 ms, three bf16 passes of a three-way split e_q 0.78 ms at 989
+// TFLOP/s, the bound.  All are above the time to read the payload once at
+// 3.35 TB/s: 0.60 ms (fp32), 0.30 ms (bf16), 0.15 ms (int8, fp8), 0.075 ms
+// (packed int4).  The CUDA-core fp32 figure is 3.82 ms at 67 TFLOP/s.
+//
+// Payloads (the port of the TPU kernels' in-body decode, kernel.py:100-107,
+// persistent.py:248-254): a tag, PayloadKind, names what a stored element
+// is, and Payload<K> says how it is staged and decoded; nothing branches on
+// sizeof, so fp8 bytes are never read as int8 codes.  Each kind decodes in
+// registers, at the B-fragment load, to an exact TF32 value that feeds the
+// same two-pass mainloop (a_lo*b + a_hi*b, no b_lo part):
+//   int8  the code biased by 128, put in the mantissa of 2^23, minus 2^23 + 128;
+//   int4  the nibble biased by 8 (x ^ 8), the same trick minus 2^23 + 8;
+//   bf16  its bits shifted up 16;
+//   fp8   sign to bit 31, the 7 exponent/mantissa bits to bits 20..26, times
+//         2^120: exact for normals, subnormals (an fp32 subnormal times a
+//         power of two; no flush to zero in this build), +-0 and +-448.
+// The per-tile scale of the coded kinds multiplies the finished
+// accumulator (sample_value), as for int8.  The ring stage holds a tile's
+// rows as stored: a packed int4 row is TCOLS / 2 bytes, and a lane reads
+// its four columns 32 grp + 4g .. +3 as one 2-byte load.  Widening the
+// stage to int8 after the cp.async lands would cost a pass over shared
+// memory and a barrier a stage for no fewer loads (int8 also reads one
+// word a group), so the packed layout stays; the row pad (16 bytes, 4
+// words mod 32) keeps the four t rows of a warp's 2-byte loads on distinct
+// banks, as the 8-word pads do for the 4-, 8- and 16-byte loads.
 //
 // Design:
 // 1. Mainloop on the tensor cores, 3xTF32.  Each fp32 operand x splits
@@ -25,9 +48,9 @@
 //    BK = 32 of k_q the accumulator takes every a_lo*b_hi and a_hi*b_lo
 //    first, then the a_hi*b_hi (small terms first, so the tensor core's
 //    truncation of its fp32 sums hits them at a small scale) with
-//    mma.sync.m16n8k8 tf32.  int8 codes are exact in
-//    TF32, so b_lo = 0 and two passes do.  The tensor core adds in a
-//    chunk accumulator that restarts every BK = 32 of k_q; each chunk is
+//    mma.sync.m16n8k8 tf32.  bf16 values and int8 / fp8 / int4 codes are
+//    exact in TF32, so b_lo = 0 and two passes do.  The tensor core adds in
+//    a chunk accumulator that restarts every BK = 32 of k_q; each chunk is
 //    added to the running fp32 sum with __fadd_rn, so the hardware's
 //    truncating accumulation only ever spans 32 terms.
 //    mma.sync and not wgmma: wgmma transposes only 16-bit operands, and
@@ -106,9 +129,41 @@ constexpr int KMAX = 256;      // largest k a list may hold
 constexpr int SMEM_LIMIT = 232448;   // opt-in shared memory per block, sm_90
 constexpr unsigned FULL = 0xffffffffu;
 
-template <typename PT>
+// What a payload element is (the wrappers' payload_operands kinds).
+enum PayloadKind : int { PK_F32 = 0, PK_I8 = 1, PK_BF16 = 2, PK_FP8 = 3, PK_I4 = 4 };
+
+// Unit: the stored element; COLS: item columns a unit holds; SPLIT: the
+// value needs a TF32 lo part; PAD: ring row pad in bytes (see load_b).
+template <int K> struct Payload;
+template <> struct Payload<PK_F32> {
+  using Unit = float;
+  static constexpr int COLS = 1, PAD = 32;
+  static constexpr bool SPLIT = true;
+};
+template <> struct Payload<PK_I8> {
+  using Unit = uint8_t;
+  static constexpr int COLS = 1, PAD = 32;
+  static constexpr bool SPLIT = false;
+};
+template <> struct Payload<PK_BF16> {
+  using Unit = uint16_t;
+  static constexpr int COLS = 1, PAD = 32;
+  static constexpr bool SPLIT = false;
+};
+template <> struct Payload<PK_FP8> {
+  using Unit = uint8_t;
+  static constexpr int COLS = 1, PAD = 32;
+  static constexpr bool SPLIT = false;
+};
+template <> struct Payload<PK_I4> {
+  using Unit = uint8_t;
+  static constexpr int COLS = 2, PAD = 16;
+  static constexpr bool SPLIT = false;
+};
+
+template <int K>
 __host__ __device__ constexpr int stage_ld_bytes() {   // ring row stride
-  return sizeof(PT) == 4 ? (TCOLS + 8) * 4 : TCOLS + 32;   // = 8 words mod 32
+  return TCOLS / Payload<K>::COLS * (int)sizeof(typename Payload<K>::Unit) + Payload<K>::PAD;
 }
 __host__ __device__ constexpr int list_smem_bytes() {   // queue + count + threshold, per list
   return ROWS * QCAP * 8 + ROWS * 12;
@@ -116,13 +171,13 @@ __host__ __device__ constexpr int list_smem_bytes() {   // queue + count + thres
 __host__ __device__ constexpr int anchor_smem_bytes() {   // in-range anchors
   return ROWS * ACAP * 4 + ROWS * 4;
 }
-template <typename PT>
+template <int K>
 __host__ __device__ constexpr int stage_bytes() {   // payload tile + e_q hi/lo
-  return BK * stage_ld_bytes<PT>() + 2 * A_TILE * 4;
+  return BK * stage_ld_bytes<K>() + 2 * A_TILE * 4;
 }
-template <typename PT>
+template <int K>
 __host__ constexpr size_t sweep_smem_bytes(int nl) {
-  return 2 * (size_t)stage_bytes<PT>() + (size_t)nl * list_smem_bytes() +
+  return 2 * (size_t)stage_bytes<K>() + (size_t)nl * list_smem_bytes() +
          anchor_smem_bytes();
 }
 
@@ -249,9 +304,11 @@ struct SweepArgs {
   const float* a_hi;     // e_q split to TF32 hi / lo, in A-fragment order:
   const float* a_lo;     // [row group][chunk][BK/8][2][32][4], zero-padded
   int nchunks;           // ceil(KQ / BK)
-  const void* payload;   // (KQ, N) fp32 or int8 codes
-  const float* scales;   // int8: per-tile scales, else null
-  int qtile, B, KQ, N, n_items;
+  const void* payload;   // (KQ, ld) units of a PayloadKind
+  const float* scales;   // coded kinds: per-tile scales, else null
+  int qtile, B, KQ, N;   // N: logical item columns
+  int ld;                // units a payload row holds (ceil(N / 2) packed int4, else N)
+  int n_items;
   int range_cols;        // columns per block (multiple of TCOLS)
   int vec_ok;            // payload rows 16-byte aligned
 };
@@ -327,68 +384,116 @@ __device__ __forceinline__ bool anchor_hit(const ListDesc& L, const AnchorSmem& 
 }
 
 // Fill part `part` (of NPART) of a ring stage: the block's e_q chunk (hi,
-// lo; part 0), and rows of one (BK x TCOLS) payload tile by 16-byte
-// cp.async where it is whole and aligned, element-wise loads (zeros past
-// k_q and N; all in part 0) elsewhere.  The parts are issued between the
-// mma's of the chunk before, so the copies' issue overlaps them.
+// lo; part 0), and rows of one (BK x TCOLS) payload tile, as stored, by
+// 16-byte cp.async where it is whole and aligned, unit-wise loads (zeros
+// past k_q and the row's ld units; all in part 0) elsewhere.  The parts are
+// issued between the mma's of the chunk before, so the copies' issue
+// overlaps them.
 constexpr int NPART = BK / 8;
-template <typename PT>
+template <int K>
 __device__ __forceinline__ void load_stage(const SweepArgs& a, int chunk, int c0,
                                            unsigned char* stage, int part) {
+  using U = typename Payload<K>::Unit;
   if (part == 0) {   // the block's e_q chunk, split on the host: one 16-byte copy each
     const size_t o = ((size_t)blockIdx.x * a.nchunks + chunk) * A_TILE + threadIdx.x * 4;
-    float* dst = reinterpret_cast<float*>(stage + BK * stage_ld_bytes<PT>());
+    float* dst = reinterpret_cast<float*>(stage + BK * stage_ld_bytes<K>());
     cp_async16(dst + threadIdx.x * 4, a.a_hi + o);
     cp_async16(dst + A_TILE + threadIdx.x * 4, a.a_lo + o);
   }
   const int k0 = chunk * BK;
-  constexpr int EPC = 16 / sizeof(PT);
-  constexpr int CPR = TCOLS / EPC;      // 16-byte chunks per row
+  constexpr int EPC = 16 / (int)sizeof(U);                // units per 16-byte chunk
+  constexpr int CPR = TCOLS / Payload<K>::COLS / EPC;     // 16-byte chunks per row
   constexpr int RPP = THREADS / CPR;    // rows per pass of the block
-  constexpr int LDB = stage_ld_bytes<PT>();
-  const PT* pay = static_cast<const PT*>(a.payload);
+  constexpr int CPT = BK / RPP;         // copies a thread makes per stage
+  constexpr int LDB = stage_ld_bytes<K>();
+  const U* pay = static_cast<const U*>(a.payload);
+  const int u0 = c0 / Payload<K>::COLS;   // the tile's first unit in a row
   if (a.vec_ok && k0 + BK <= a.KQ && c0 + TCOLS <= a.N) {   // the whole tile
     const int r0 = threadIdx.x / CPR, cc = threadIdx.x % CPR;
-    const PT* src = pay + (size_t)(k0 + r0) * a.N + c0 + cc * EPC;
+    const U* src = pay + (size_t)(k0 + r0) * a.ld + u0 + cc * EPC;
     unsigned char* dst = stage + r0 * LDB + cc * 16;
-    constexpr int J = BK / RPP / NPART;   // copies a thread makes per part
 #pragma unroll
-    for (int j = part * J; j < (part + 1) * J; ++j)
-      cp_async16(dst + j * RPP * LDB, src + (size_t)j * RPP * a.N);
+    for (int j = part * CPT / NPART; j < (part + 1) * CPT / NPART; ++j)
+      cp_async16(dst + j * RPP * LDB, src + (size_t)j * RPP * a.ld);
     return;
   }
   if (part != 0) return;
   for (int c = threadIdx.x; c < BK * CPR; c += THREADS) {
     const int r = c / CPR, cc = c % CPR;
-    const int gq = k0 + r, gc = c0 + cc * EPC;
+    const int gq = k0 + r, gu = u0 + cc * EPC;
     unsigned char* dst = stage + r * LDB + cc * 16;
-    if (gq < a.KQ && a.vec_ok && gc + EPC <= a.N) {
-      cp_async16(dst, pay + (size_t)gq * a.N + gc);
+    if (gq < a.KQ && a.vec_ok && gu + EPC <= a.ld) {
+      cp_async16(dst, pay + (size_t)gq * a.ld + gu);
     } else {
-      PT* d = reinterpret_cast<PT*>(dst);
+      U* d = reinterpret_cast<U*>(dst);
 #pragma unroll
       for (int e = 0; e < EPC; ++e)
-        d[e] = (gq < a.KQ && gc + e < a.N) ? pay[(size_t)gq * a.N + gc + e]
-                                           : static_cast<PT>(0);
+        d[e] = (gq < a.KQ && gu + e < a.ld) ? pay[(size_t)gq * a.ld + gu + e]
+                                            : static_cast<U>(0);
+    }
+  }
+}
+
+// The TF32 bit patterns of four adjacent stored columns at p (all exact:
+// see the header note).
+template <int K>
+__device__ __forceinline__ void decode4(const unsigned char* p, uint32_t (&v)[4]) {
+  if constexpr (K == PK_I8) {
+    // code b -> float: bias to u = b + 128 (flip the sign bit), place u
+    // in the mantissa of 2^23 and subtract 2^23 + 128; exact, and on the
+    // integer and fp32 pipes rather than the conversion unit
+    const uint32_t x = *reinterpret_cast<const uint32_t*>(p) ^ 0x80808080u;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      v[j] = __float_as_uint(
+          __fsub_rn(__uint_as_float(__byte_perm(x, 0x4B00u, j | 0x5440)), 8388736.f));
+  } else if constexpr (K == PK_I4) {
+    // nibble n (column 2i low, 2i+1 high) -> u = n + 8 by flipping bit 3,
+    // then the int8 path's trick with 2^23 + 8
+    const uint32_t x = *reinterpret_cast<const uint16_t*>(p) ^ 0x8888u;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      v[j] = __float_as_uint(
+          __fsub_rn(__uint_as_float(0x4B000000u | ((x >> (4 * j)) & 0xFu)), 8388616.f));
+  } else if constexpr (K == PK_BF16) {
+    const uint2 x = *reinterpret_cast<const uint2*>(p);
+    v[0] = x.x << 16;
+    v[1] = x.x & 0xFFFF0000u;
+    v[2] = x.y << 16;
+    v[3] = x.y & 0xFFFF0000u;
+  } else {
+    static_assert(K == PK_FP8, "decode4: unknown payload kind");
+    // e4m3 byte s eeee mmm: s to bit 31, eeee mmm to bits 20..26, then
+    // 2^120 moves the fp32 exponent bias (127) to e4m3's (7)
+    const uint32_t x = *reinterpret_cast<const uint32_t*>(p);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const uint32_t y = x << (24 - 8 * j);
+      v[j] = __float_as_uint(__fmul_rn(
+          __uint_as_float((y & 0x80000000u) | ((y >> 4) & 0x07F00000u)),
+          __uint_as_float(0x7B800000u)));
     }
   }
 }
 
 // Load one k-step's B fragments from a ring stage: column slot g of
 // n-tile ni = 4 grp + j holds the warp's column 32 grp + 4g + j, so a lane
-// reads four n-tiles' B values with one 16-byte (fp32) or 4-byte (int8)
-// load per k row.  An fp32 value splits into TF32 hi and lo (lo only if
-// LO); an int8 code is exact in TF32 and has no lo part.
-template <typename PT, bool LO>
+// reads four n-tiles' B values with one load per k row: 16 bytes (fp32), 8
+// (bf16), 4 (int8, fp8) or 2 (packed int4).  An fp32 value splits into
+// TF32 hi and lo (lo only if LO); every other kind is exact in TF32 and has
+// no lo part.
+template <int K, bool LO>
 __device__ __forceinline__ void load_b(const unsigned char* stage, int ks, int warp, int g,
                                        int t, uint32_t (&bhi)[NI][2], uint32_t (&blo)[NI][2]) {
-  constexpr int LDB = stage_ld_bytes<PT>();
+  using P = Payload<K>;
+  constexpr int LDB = stage_ld_bytes<K>();
 #pragma unroll
   for (int grp = 0; grp < NI / 4; ++grp) {
+    const int col = warp * WCOLS + grp * 32 + 4 * g;
     const unsigned char* r0 =
-        stage + (ks * 8 + t) * LDB + (warp * WCOLS + grp * 32 + 4 * g) * sizeof(PT);
+        stage + (ks * 8 + t) * LDB + col / P::COLS * (int)sizeof(typename P::Unit);
     const unsigned char* r1 = r0 + 4 * LDB;
-    if constexpr (sizeof(PT) == 4) {
+    if constexpr (K == PK_F32) {
       const float4 x0 = *reinterpret_cast<const float4*>(r0);
       const float4 x1 = *reinterpret_cast<const float4*>(r1);
       const float v0[4] = {x0.x, x0.y, x0.z, x0.w}, v1[4] = {x1.x, x1.y, x1.z, x1.w};
@@ -403,17 +508,13 @@ __device__ __forceinline__ void load_b(const unsigned char* stage, int ks, int w
         }
       }
     } else {
-      // code b -> float: bias to u = b + 128 (flip the sign bit), place u
-      // in the mantissa of 2^23 and subtract 2^23 + 128; exact, and on the
-      // integer and fp32 pipes rather than the conversion unit
-      const uint32_t x0 = *reinterpret_cast<const uint32_t*>(r0) ^ 0x80808080u;
-      const uint32_t x1 = *reinterpret_cast<const uint32_t*>(r1) ^ 0x80808080u;
+      uint32_t v0[4], v1[4];
+      decode4<K>(r0, v0);
+      decode4<K>(r1, v1);
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        bhi[grp * 4 + j][0] = __float_as_uint(
-            __fsub_rn(__uint_as_float(__byte_perm(x0, 0x4B00u, j | 0x5440)), 8388736.f));
-        bhi[grp * 4 + j][1] = __float_as_uint(
-            __fsub_rn(__uint_as_float(__byte_perm(x1, 0x4B00u, j | 0x5440)), 8388736.f));
+        bhi[grp * 4 + j][0] = v0[j];
+        bhi[grp * 4 + j][1] = v1[j];
       }
     }
   }
@@ -435,10 +536,13 @@ __device__ __forceinline__ void load_a(const float4* src, int ks, int lane,
 // core truncates each sum it forms to fp32 at the accumulator's scale, so
 // the small terms go in while c is still small, and only the a_hi*b_hi
 // steps are truncated at the chunk sum's scale.  The B tile is read from
-// shared memory once for each half.  The accumulator c[mi][ni][q] is
-// (row mi*16 + g + 8(q>>1), column 32 grp + 8t + 4(q&1) + j) of the warp's
-// 32 x WCOLS tile, for n-tile ni = 4 grp + j.
-template <typename PT, typename Between>
+// shared memory once for each half.  (A chain a k-step for the payloads
+// exact in TF32, each added to the running sum with __fadd_rn, spilled and
+// was less accurate on the card: the four times as many rounded adds cost
+// more than the shorter truncating sums saved.)  The accumulator
+// c[mi][ni][q] is (row mi*16 + g + 8(q>>1), column 32 grp + 8t + 4(q&1) + j)
+// of the warp's 32 x WCOLS tile, for n-tile ni = 4 grp + j.
+template <int K, typename Between>
 __device__ __forceinline__ void mma_chunk(const float* a_hi, const float* a_lo,
                                           const unsigned char* stage,
                                           float (&c)[2][NI][4], int warp,
@@ -446,12 +550,12 @@ __device__ __forceinline__ void mma_chunk(const float* a_hi, const float* a_lo,
   const int g = lane >> 2, t = lane & 3;
   const float4* ah = reinterpret_cast<const float4*>(a_hi);
   const float4* al = reinterpret_cast<const float4*>(a_lo);
-  constexpr bool FP32 = sizeof(PT) == 4;
+  constexpr bool FP32 = Payload<K>::SPLIT;
 #pragma unroll
   for (int ks = 0; ks < BK / 8; ++ks) {
     uint32_t ahi[2][4], alo[2][4], bhi[NI][2], blo[NI][2];
     load_a(al, ks, lane, alo);
-    load_b<PT, FP32>(stage, ks, warp, g, t, bhi, blo);
+    load_b<K, FP32>(stage, ks, warp, g, t, bhi, blo);
 #pragma unroll
     for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
@@ -469,7 +573,7 @@ __device__ __forceinline__ void mma_chunk(const float* a_hi, const float* a_lo,
   for (int ks = 0; ks < BK / 8; ++ks) {
     uint32_t ahi[2][4], bhi[NI][2], unused[NI][2];
     load_a(ah, ks, lane, ahi);
-    load_b<PT, false>(stage, ks, warp, g, t, bhi, unused);
+    load_b<K, false>(stage, ks, warp, g, t, bhi, unused);
 #pragma unroll
     for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
@@ -509,7 +613,7 @@ struct TileCols {
   int gid0;           // id of the warp's column 8t
   unsigned inr;       // bit cc: inside the block's range
   unsigned item;      // bit cc: below n_items
-  float scale[NCOL];  // int8 tile scale of column cc
+  float scale[NCOL];  // tile scale of column cc (coded kinds)
 };
 
 __device__ __forceinline__ int col_of(int cc) { return 32 * (cc >> 3) + (cc & 7); }
@@ -629,13 +733,13 @@ __device__ __forceinline__ void load_gthr(const ListDesc& L, int row0, int B,
 
 // The fused sweep: block (row group x, column range y) scores its 32 rows
 // against its columns tile by tile and keeps NL running lists per row.
-template <typename PT, int NL>
+template <int K, int NL>
 __global__ void __launch_bounds__(THREADS, 1)
 sweep_kernel(SweepArgs a, ListDesc l0, ListDesc l1) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* ring = smem_raw;
-  constexpr int STAGE_BYTES = stage_bytes<PT>();
-  constexpr int A_OFF = BK * stage_ld_bytes<PT>();   // e_q hi/lo within a stage
+  constexpr int STAGE_BYTES = stage_bytes<K>();
+  constexpr int A_OFF = BK * stage_ld_bytes<K>();   // e_q hi/lo within a stage
   unsigned char* p = ring + 2 * STAGE_BYTES;
   ListSmem s0 = carve_list(p);
   ListSmem s1 = s0;
@@ -674,7 +778,7 @@ sweep_kernel(SweepArgs a, ListDesc l0, ListDesc l1) {
   const int nchunks = a.nchunks;
   const int ntiles = (cend - cbeg + TCOLS - 1) / TCOLS;
   const int nsteps = ntiles * nchunks;
-  for (int part = 0; part < NPART; ++part) load_stage<PT>(a, 0, cbeg, ring, part);
+  for (int part = 0; part < NPART; ++part) load_stage<K>(a, 0, cbeg, ring, part);
   cp_async_commit();
 
   float acc[2][NI][4], c[2][NI][4];
@@ -697,7 +801,7 @@ sweep_kernel(SweepArgs a, ListDesc l0, ListDesc l1) {
     const int nx_chunk = nx % nchunks, nx_col = cbeg + (nx / nchunks) * TCOLS;
     unsigned char* nx_stage = ring + (nx & 1) * STAGE_BYTES;
     auto refill = [&](int part) {
-      if (nx < nsteps && part < NPART) load_stage<PT>(a, nx_chunk, nx_col, nx_stage, part);
+      if (nx < nsteps && part < NPART) load_stage<K>(a, nx_chunk, nx_col, nx_stage, part);
     };
     refill(0);
     const bool last = chunk == nchunks - 1;
@@ -710,7 +814,7 @@ sweep_kernel(SweepArgs a, ListDesc l0, ListDesc l1) {
         for (int q = 0; q < 4; ++q) c[mi][ni][q] = 0.f;
     const unsigned char* st = ring + (s & 1) * STAGE_BYTES;
     const float* ab = reinterpret_cast<const float*>(st + A_OFF);
-    mma_chunk<PT>(ab, ab + A_TILE, st, c, warp, lane, [&](int ks) { refill(ks + 1); });
+    mma_chunk<K>(ab, ab + A_TILE, st, c, warp, lane, [&](int ks) { refill(ks + 1); });
     cp_async_commit();
 #pragma unroll
     for (int mi = 0; mi < 2; ++mi)
@@ -774,15 +878,21 @@ __global__ void merge_topk_kernel(const float* __restrict__ v,
 }
 
 // Launch the sweep and one merge per list.  Returns a cudaError_t.
-template <typename PT, int NL>
-int launch_sweep(const SweepArgs& a, const ListDesc& l0, const ListDesc& l1,
+template <int K, int NL>
+int launch_sweep(SweepArgs a, const ListDesc& l0, const ListDesc& l1,
                  float* const out_v[2], int* const out_i[2],
                  cudaStream_t stream) {
-  const size_t smem = sweep_smem_bytes<PT>(NL);
+  // A row's length in units, and whether every payload row starts 16-byte
+  // aligned: the base is, and a row holds whole 16-byte chunks.
+  using P = Payload<K>;
+  constexpr int cols16 = 16 / (int)sizeof(typename P::Unit) * P::COLS;
+  a.ld = (a.N + P::COLS - 1) / P::COLS;
+  a.vec_ok = reinterpret_cast<uintptr_t>(a.payload) % 16 == 0 && a.N % cols16 == 0;
+  const size_t smem = sweep_smem_bytes<K>(NL);
   if (smem > (size_t)SMEM_LIMIT || a.range_cols % TCOLS != 0)
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      sweep_kernel<PT, NL>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      sweep_kernel<K, NL>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   for (int l = 0; l < NL; ++l) {   // 0x80808080: below every ordered() value used
     err = cudaMemsetAsync((l == 0 ? l0 : l1).gthr, 0x80, sizeof(int) * a.B, stream);
@@ -790,7 +900,7 @@ int launch_sweep(const SweepArgs& a, const ListDesc& l0, const ListDesc& l1,
   }
   const int nranges = (a.N + a.range_cols - 1) / a.range_cols;
   dim3 grid((a.B + ROWS - 1) / ROWS, nranges);
-  sweep_kernel<PT, NL><<<grid, THREADS, smem, stream>>>(a, l0, l1);
+  sweep_kernel<K, NL><<<grid, THREADS, smem, stream>>>(a, l0, l1);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   for (int l = 0; l < NL; ++l) {
@@ -801,6 +911,28 @@ int launch_sweep(const SweepArgs& a, const ListDesc& l0, const ListDesc& l1,
     if (err != cudaSuccess) return (int)err;
   }
   return (int)cudaSuccess;
+}
+
+// The sweep's arguments; launch_sweep<K> fills in the payload's layout.
+inline SweepArgs sweep_args(const float* a_hi, const float* a_lo, const void* payload,
+                            const float* scales, int qtile, int B, int KQ, int N,
+                            int n_items, int range_cols) {
+  return SweepArgs{a_hi, a_lo, (KQ + BK - 1) / BK, payload, scales, qtile, B, KQ, N,
+                   0, n_items, range_cols, 0};
+}
+
+// launch_sweep for a payload kind known at run time.
+template <int NL>
+int launch_kind(int kind, const SweepArgs& a, const ListDesc& l0, const ListDesc& l1,
+                float* const out_v[2], int* const out_i[2], cudaStream_t stream) {
+  switch (kind) {
+    case PK_F32: return launch_sweep<PK_F32, NL>(a, l0, l1, out_v, out_i, stream);
+    case PK_I8: return launch_sweep<PK_I8, NL>(a, l0, l1, out_v, out_i, stream);
+    case PK_BF16: return launch_sweep<PK_BF16, NL>(a, l0, l1, out_v, out_i, stream);
+    case PK_FP8: return launch_sweep<PK_FP8, NL>(a, l0, l1, out_v, out_i, stream);
+    case PK_I4: return launch_sweep<PK_I4, NL>(a, l0, l1, out_v, out_i, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace adacur

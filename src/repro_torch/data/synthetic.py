@@ -91,9 +91,12 @@ def make_synthetic_ce(key, n_queries: int = 1000, n_items: int = 10000,
                       d: int = 16, r_low: int = 8, n_mix: int = 4,
                       gamma: float = 2.5, sigma: float = 0.6,
                       n_clusters: int = 25, device=None) -> SyntheticCE:
-    """A synthetic domain with cluster structure, drawn from the port's own
-    threefry (the reference's construction; the draws are not bit-equal to
-    JAX's normal/randint — tests carry JAX-built domains across instead)."""
+    """A synthetic domain with cluster structure: the reference's
+    construction from the same key.  ``prng.randint`` draws JAX's cluster
+    ids bit for bit and ``prng.normal`` JAX's normals bit for bit outside
+    their far tail (a few ulp there; ``core/prng.py``), so
+    ``make_synthetic_ce(prng.PRNGKey(s), ...)`` is the reference's
+    ``make_synthetic_ce(jax.random.PRNGKey(s), ...)`` up to those ulp."""
     dev = resolve_device(device)
     ks = prng.split(key, 6)
     s = d ** 0.5

@@ -4,7 +4,9 @@ port of the TPU kernel ``_approx_topk_kernel``
 
 ``approx_topk_cuda`` checks its operands, allocates the outputs and the
 per-block scratch, and launches the sweep kernel and its merge on the
-current stream.  ``launches`` counts its calls (one per fused op, i.e. per
+current stream.  It takes every payload policy: fp32 and bf16 tensors and
+int8, fp8 e4m3 and packed int4 codes (:func:`payload_operands`), each
+decoded in the kernel's registers.  ``launches`` counts its calls (one per fused op, i.e. per
 sweep + merge pair); :func:`plan_grid` sizes the grid.  The plain PyTorch
 version of the same function is ``ops.approx_topk_plain``;
 ``ops.approx_topk_op`` picks by device.
@@ -15,6 +17,7 @@ from __future__ import annotations
 import torch
 
 from .. import build
+from . import quant
 from .quant import QuantizedRanc
 
 # must match csrc/topk_common.cuh
@@ -74,21 +77,34 @@ def sm_count(dev) -> int:
     return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
+# the kernels' PayloadKind (csrc/topk_common.cuh) of each payload policy,
+# and the storage dtype its operand must have
+PAYLOAD_KINDS = {"float32": (0, torch.float32), "int8": (1, torch.int8),
+                 "bfloat16": (2, torch.bfloat16), "fp8": (3, torch.float8_e4m3fn),
+                 "int4": (4, torch.uint8)}
+
+
 def payload_operands(r_anc):
-    """(codes, kind, tile scales, quantization tile) of a payload."""
-    if isinstance(r_anc, QuantizedRanc):
-        if r_anc.code_dtype != "int8":
-            raise ValueError(f"the CUDA kernels take fp32 or int8 payloads, got {r_anc.code_dtype}")
-        return r_anc.codes.contiguous(), 1, r_anc.scales.contiguous(), r_anc.tile
-    if r_anc.dtype != torch.float32:
-        raise ValueError(f"the CUDA kernels take fp32 or int8 payloads, got {r_anc.dtype}")
-    return r_anc.contiguous(), 0, None, 1
+    """(storage, kind, tile scales, quantization tile, logical N) of a
+    payload: fp32 or bf16 (k_q, N) tensors, int8 / fp8 (k_q, N) codes or
+    packed int4 (k_q, ceil(N / 2)) bytes with their per-tile scales.
+    Anything else raises."""
+    name = quant.payload_dtype_of(r_anc)
+    kind, dtype = PAYLOAD_KINDS.get(name, (None, None))
+    coded = isinstance(r_anc, QuantizedRanc)
+    storage = r_anc.codes if coded else r_anc
+    if kind is None or storage.dtype != dtype or coded != (name in quant.CODE_DTYPES):
+        raise ValueError(f"the CUDA kernels take {tuple(PAYLOAD_KINDS)} payloads, got "
+                         f"{name} stored as {storage.dtype}")
+    if coded:
+        return storage.contiguous(), kind, r_anc.scales.contiguous(), r_anc.tile, r_anc.shape[1]
+    return storage.contiguous(), kind, None, 1, r_anc.shape[1]
 
 
-def check_operands(e_q, codes, k_list, noise, masks, anchors):
-    """Device, dtype and shape checks shared by both kernel wrappers."""
+def check_operands(e_q, codes, n, k_list, noise, masks, anchors):
+    """Device, dtype and shape checks shared by both kernel wrappers; ``n``
+    is the payload's logical item count."""
     b, k_q = e_q.shape
-    n = codes.shape[1]
     if not e_q.is_cuda:
         raise ValueError("the CUDA kernel needs CUDA tensors (the plain "
                          "version serves CPU tensors)")
@@ -118,10 +134,9 @@ def approx_topk_cuda(e_q, r_anc, anchors, k: int, noise=None, mask=None,
                      n_valid=None):
     """(vals (B, k) fp32, idx (B, k) int32) of the fused op, on the card."""
     global launches
-    codes, kind, scales, qtile = payload_operands(r_anc)
-    check_operands(e_q, codes, [k], noise, [mask], anchors)
+    codes, kind, scales, qtile, n = payload_operands(r_anc)
+    check_operands(e_q, codes, n, [k], noise, [mask], anchors)
     b, k_q = e_q.shape
-    n = codes.shape[1]
     n_items = n if n_valid is None else min(int(n_valid), n)
     dev = e_q.device
     nblk, cols = plan_grid(b, n, sm_count(dev))

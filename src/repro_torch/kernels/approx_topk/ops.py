@@ -23,7 +23,7 @@ from __future__ import annotations
 import torch
 
 from .kernel import approx_topk_cuda
-from .quant import QuantizedRanc
+from .quant import QuantizedRanc, unpack_int4
 from .select import NEG_INF, stable_topk, topk_value_id
 
 
@@ -45,23 +45,33 @@ def anchor_mask(anchors, b: int, n: int, device) -> torch.Tensor:
 
 class PlainTiles:
     """Per-tile fp32 GEMM slabs of a payload, shared by the plain versions
-    of both ops so their scores are computed by identical calls."""
+    of both ops so their scores are computed by identical calls.  Each tile
+    reads its slice of the payload as stored and widens it to fp32 (bf16
+    and fp8 by a cast; a packed int4 tile is tile/2 bytes, unpacked, as
+    the reference's ``_scan_topk_tiles`` does); the tile is even for int4
+    so its boundaries fall on bytes."""
 
     def __init__(self, e_q, r_anc, tile: int):
         self.e_q = e_q.to(torch.float32)
         if isinstance(r_anc, QuantizedRanc):
             self.codes, self.scales = r_anc.codes, r_anc.col_scales()
+            self.pack = r_anc.packing
         else:
-            self.codes, self.scales = r_anc, None
-        self.n = self.codes.shape[1]
+            self.codes, self.scales, self.pack = r_anc, None, 1
+        self.n = r_anc.shape[1]
         self.tile = rebalanced_tile(self.n, tile)
+        self.tile += -self.tile % self.pack
 
     def bounds(self):
         for lo in range(0, self.n, self.tile):
             yield lo, min(self.n, lo + self.tile)
 
     def gemm(self, lo: int, hi: int) -> torch.Tensor:
-        return self.e_q @ self.codes[:, lo:hi].to(torch.float32)
+        if self.pack == 2:
+            r = unpack_int4(self.codes[:, lo // 2:(hi + 1) // 2])[:, :hi - lo]
+        else:
+            r = self.codes[:, lo:hi]
+        return self.e_q @ r.to(torch.float32)
 
     def scaled(self, gemm, lo: int, hi: int) -> torch.Tensor:
         return gemm if self.scales is None else gemm * self.scales[lo:hi][None, :]
@@ -108,7 +118,8 @@ def approx_topk_op(e_q, r_anc, anchors, k: int, *, tile: int = 512,
                    n_valid=None, impl: str = "auto"):
     """Fused  top-k(mask(e_q @ R_anc [+ noise]))  ->  (vals (B,k), idx (B,k)).
 
-    ``r_anc`` is a (k_q, N) fp32 tensor or an int8 :class:`QuantizedRanc`;
+    ``r_anc`` is a (k_q, N) fp32 or bf16 tensor or a
+    :class:`QuantizedRanc` (int8, fp8 or packed int4 codes);
     ``anchors`` (B, A) are suppressed ids (pad with -1; None = none);
     ``mask`` (B, N) bool suppresses where True; ``noise`` (B, N) is added
     before masking; ``n_valid`` suppresses ids >= n_valid.  ``tile`` is the

@@ -19,6 +19,10 @@ backend:
 - ``prov``   == ``approx_topk_op(e_q, r_anc, None, k_prov, mask=prov_mask,
   n_valid=n_valid)``
 
+Both take every payload policy (fp32, bf16, int8 / fp8 / packed-int4
+codes); each branch multiplies the shared GEMM tile by the scale itself,
+as the reference does (``persistent.py:132-138``).
+
 A ``noise_key`` (with global ``row_offset``/``col_offset``) in place of a
 ``noise`` array is materialized with ``sampling.blocked_gumbel`` before the
 sweep, on either backend, as the reference's Pallas path does.
@@ -79,12 +83,11 @@ def persistent_round_cuda(e_q, r_anc, *, k_sample=None, k_prov=None,
                           n_valid=None):
     """The fused sweep on the card -> (sample, prov) pairs (or None)."""
     global launches
-    codes, kind, scales, qtile = payload_operands(r_anc)
+    codes, kind, scales, qtile, n = payload_operands(r_anc)
     ks, kp = k_sample or 0, k_prov or 0
-    check_operands(e_q, codes, [k for k in (k_sample, k_prov) if k is not None],
+    check_operands(e_q, codes, n, [k for k in (k_sample, k_prov) if k is not None],
                    noise, [mask, prov_mask], anchors)
     b, k_q = e_q.shape
-    n = codes.shape[1]
     n_items = n if n_valid is None else min(int(n_valid), n)
     dev = e_q.device
     nblk, cols = plan_grid(b, n, sm_count(dev))

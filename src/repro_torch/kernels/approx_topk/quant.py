@@ -1,47 +1,102 @@
-"""Quantized anchor payload, int8 only — port of
-``repro/kernels/approx_topk/quant.py``.
+"""Quantized anchor payload — port of ``repro/kernels/approx_topk/quant.py``.
 
-``R_anc`` (k_q, N) is stored as int8 codes plus one fp32 scale per
-``tile``-column item tile (``scale = amax_tile / 127``; an all-zero tile
-stores 1.0).  Scores dequantize per column,
+``R_anc`` (k_q, N) is stored as codes plus one fp32 scale per
+``tile``-column item tile (``scale = amax_tile / qmax``; an all-zero tile
+stores 1.0), in one of three code formats (``QuantizedRanc.code_dtype``):
+
+- ``"int8"``: (k_q, N) int8, qmax 127 (0.25x fp32 bytes);
+- ``"int4"``: (k_q, ceil(N/2)) uint8, two signed nibbles a byte (column 2j
+  in the low nibble, 2j+1 in the high one; an odd tail packs against a
+  zero nibble), qmax 7 (0.125x fp32 bytes);
+- ``"fp8"``: (k_q, N) float8_e4m3fn, qmax 448, e4m3's largest finite value
+  (0.25x fp32 bytes, about 2 more bits of dynamic range a tile than int8).
+
+Scores dequantize per column,
 ``S_hat[:, j] = (e_q @ codes[:, j]) * scales[j // tile]``, so the kernels
 apply the scale to the GEMM output and the fp32 ``R_anc`` never exists.
+The payload policies (``AdaCURConfig.payload_dtype``) are plain fp32 and
+bf16 tensors and :class:`QuantizedRanc`; the engine and the fused ops call
+the dispatchers here (:func:`matmul`, :func:`gather_columns`, ...) and never
+branch on the payload type themselves.
 
-bfloat16, fp8 and packed int4 payloads are not ported yet.
+The mutation and hybrid-retrieval helpers of the reference
+(``subset_columns``, ``dequantize_slice``, ``update_columns``,
+``requantize_preserving_prefix``) come with the index lifecycle and hybrid
+retrieval (ROADMAP.md, queue 1).
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass, replace
 
 import torch
 
 PAYLOAD_DTYPES = ("float32", "bfloat16", "int8", "int4", "fp8")
-PORTED_DTYPES = ("float32", "int8")
-CODE_DTYPES = ("int8",)
+CODE_DTYPES = ("int8", "int4", "fp8")
 DEFAULT_TILE = 512
-_QMAX = {"int8": 127.0}
+_QMAX = {"int8": 127.0, "int4": 7.0, "fp8": 448.0}
+# storage bytes a column takes in each k_q row (scales add 4 / tile a column)
+BYTES_PER_COL = {"float32": 4.0, "bfloat16": 2.0, "int8": 1.0, "int4": 0.5, "fp8": 1.0}
 
 
-def _unported(dtype: str) -> ValueError:
-    return ValueError(
-        f"payload dtype '{dtype}' is not ported yet (the port serves "
-        f"{PORTED_DTYPES}); bfloat16, fp8 and packed int4 are still to do"
-    )
+def fp8_supported() -> bool:
+    """Whether this torch build carries float8_e4m3fn."""
+    return hasattr(torch, "float8_e4m3fn")
+
+
+def pack_int4(codes: torch.Tensor) -> torch.Tensor:
+    """(k_q, n) signed nibble values in [-8, 7] -> (k_q, ceil(n/2)) uint8."""
+    c = codes.to(torch.int32)
+    if c.shape[1] % 2:
+        c = torch.nn.functional.pad(c, (0, 1))
+    c = c & 0xF
+    return (c[:, 0::2] | (c[:, 1::2] << 4)).to(torch.uint8)
+
+
+def _nibbles(packed: torch.Tensor):
+    """The low and high nibbles of uint8 bytes as sign-extended int8: the
+    nibble moved to the top of the byte, then an arithmetic shift right."""
+    return (packed << 4).view(torch.int8) >> 4, packed.view(torch.int8) >> 4
+
+
+def unpack_int4(packed: torch.Tensor) -> torch.Tensor:
+    """(k_q, m) uint8 -> (k_q, 2m) int8 signed nibble values."""
+    lo, hi = _nibbles(packed)
+    return torch.stack([lo, hi], dim=-1).reshape(packed.shape[0], -1)
+
+
+def _take_nibbles(packed: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    """Logical int4 columns ``pos`` (any shape) -> (k_q, *pos.shape) int8,
+    reading one byte a column."""
+    pos = pos.long()
+    lo, hi = _nibbles(packed[:, pos // 2].contiguous())
+    return torch.where(pos % 2 == 0, lo, hi)
 
 
 @dataclass
 class QuantizedRanc:
-    """int8 codes (k_q, N) + per-item-tile fp32 scales (ceil(N / tile),)."""
+    """Codes (int8 / packed-int4 uint8 / fp8) + per-item-tile fp32 scales
+    (ceil(N / tile),).  ``n_cols`` is the logical width of an odd-width
+    int4 payload (its packed bytes over-state it by one) and -1 elsewhere."""
 
     codes: torch.Tensor
     scales: torch.Tensor
     tile: int
     code_dtype: str = "int8"
+    n_cols: int = -1
+
+    @property
+    def packing(self) -> int:
+        """Logical columns per stored code element (2 for packed int4)."""
+        return 2 if self.code_dtype == "int4" else 1
 
     @property
     def shape(self):
-        return tuple(self.codes.shape)
+        k_q, m = self.codes.shape
+        if self.code_dtype == "int4":
+            return (k_q, m * 2 if self.n_cols < 0 else self.n_cols)
+        return (k_q, m)
 
     @property
     def device(self) -> torch.device:
@@ -49,6 +104,7 @@ class QuantizedRanc:
 
     @property
     def nbytes(self) -> int:
+        """Storage bytes (packed int4 counts half a byte a column)."""
         return (self.codes.numel() * self.codes.element_size()
                 + self.scales.numel() * self.scales.element_size())
 
@@ -65,28 +121,45 @@ class QuantizedRanc:
 
 
 def payload_dtype_of(r_anc) -> str:
+    """The policy name of a payload ("float32"/"bfloat16"/"int8"/"int4"/"fp8")."""
     if isinstance(r_anc, QuantizedRanc):
         return r_anc.code_dtype
     return str(r_anc.dtype).replace("torch.", "")
 
 
-def payload_nbytes(payload_dtype: str, k_q: int, n: int, tile: int = DEFAULT_TILE) -> int:
-    """Analytic byte footprint of a (k_q, n) payload under a policy."""
+def _check_policy(payload_dtype: str) -> None:
     if payload_dtype not in PAYLOAD_DTYPES:
         raise ValueError(f"unknown payload_dtype '{payload_dtype}' (one of {PAYLOAD_DTYPES})")
-    if payload_dtype == "float32":
-        return k_q * n * 4
-    if payload_dtype not in CODE_DTYPES:
-        raise _unported(payload_dtype)
-    return k_q * n + 4 * (-(-n // tile))
+
+
+def payload_nbytes(payload_dtype: str, k_q: int, n: int, tile: int = DEFAULT_TILE) -> int:
+    """Analytic storage bytes of a (k_q, n) payload under a policy: a packed
+    int4 column is half a byte a row, and the coded dtypes add their
+    4-byte-a-tile scales.  Equals ``.nbytes`` of the operand, up to int4's
+    padding byte a row at an odd width."""
+    _check_policy(payload_dtype)
+    values = int(math.ceil(k_q * n * BYTES_PER_COL[payload_dtype]))
+    return values + (4 * (-(-n // tile)) if payload_dtype in CODE_DTYPES else 0)
+
+
+def unpacked_codes(payload: QuantizedRanc) -> torch.Tensor:
+    """Codes at logical width: int4 nibbles widened to int8, others as-is."""
+    if payload.code_dtype == "int4":
+        return unpack_int4(payload.codes)[:, : payload.shape[1]]
+    return payload.codes
 
 
 def quantize_ranc(r_anc: torch.Tensor, tile: int = DEFAULT_TILE,
                   code_dtype: str = "int8") -> QuantizedRanc:
-    """Symmetric per-item-tile quantization, round half to even (as
-    ``jnp.round``; ``torch.round`` rounds the same way)."""
+    """Symmetric per-item-tile quantization: round half to even for the
+    integer formats (as ``jnp.round``; ``torch.round`` rounds the same
+    way), the fp8 cast's round to nearest even for fp8."""
     if code_dtype not in CODE_DTYPES:
-        raise _unported(code_dtype)
+        raise ValueError(f"unknown code_dtype '{code_dtype}' (one of {CODE_DTYPES})")
+    if code_dtype == "int4" and tile % 2:
+        raise ValueError(f"int4 payloads need an even tile, got {tile}")
+    if code_dtype == "fp8" and not fp8_supported():
+        raise ValueError("fp8 payloads need torch.float8_e4m3fn in this torch build")
     x = r_anc.to(torch.float32)
     k_q, n = x.shape
     n_tiles = -(-n // tile)
@@ -97,47 +170,63 @@ def quantize_ranc(r_anc: torch.Tensor, tile: int = DEFAULT_TILE,
     amax = x.reshape(k_q, n_tiles, tile).abs().amax(dim=(0, 2))
     scales = torch.where(amax > 0, amax / qmax, torch.ones_like(amax))
     y = x / torch.repeat_interleave(scales, tile)[None, :]
+    if code_dtype == "fp8":
+        # the clip keeps the reference's codes: amax / scale can land an ulp
+        # above qmax, where JAX's cast gives NaN and torch's saturates
+        codes = torch.clamp(y, -qmax, qmax).to(torch.float8_e4m3fn)
+        return QuantizedRanc(codes[:, :n].contiguous(), scales, tile, "fp8")
     q = torch.clamp(torch.round(y), -qmax, qmax)
+    if code_dtype == "int4":
+        return QuantizedRanc(pack_int4(q[:, :n]), scales, tile, "int4", n if n % 2 else -1)
     return QuantizedRanc(q.to(torch.int8)[:, :n].contiguous(), scales, tile)
 
 
 def dequantize(payload: QuantizedRanc) -> torch.Tensor:
     """(k_q, N) fp32 reconstruction — offline/debug only."""
-    return payload.codes.to(torch.float32) * payload.col_scales()[None, :]
+    return unpacked_codes(payload).to(torch.float32) * payload.col_scales()[None, :]
 
 
 def as_payload(r_anc, payload_dtype: str, tile: int = DEFAULT_TILE):
-    """Apply the config's payload policy to a raw operand (a payload that
-    is already quantized passes through unchanged)."""
-    if payload_dtype not in PAYLOAD_DTYPES:
-        raise ValueError(f"unknown payload_dtype '{payload_dtype}' (one of {PAYLOAD_DTYPES})")
+    """Apply the config's payload policy to a raw operand: a bf16 cast or a
+    quantization; a payload that is already quantized passes unchanged."""
+    _check_policy(payload_dtype)
     if isinstance(r_anc, QuantizedRanc) or payload_dtype == "float32":
         return r_anc
+    if payload_dtype == "bfloat16":
+        return r_anc.to(torch.bfloat16)
     return quantize_ranc(r_anc, tile, code_dtype=payload_dtype)
 
 
 def matmul(e_q: torch.Tensor, r_anc) -> torch.Tensor:
-    """Dense ``e_q @ R_anc`` -> (B, N) fp32 for any payload type."""
+    """Dense ``e_q @ R_anc`` -> (B, N) fp32 for any payload type; the
+    per-column scale multiplies the GEMM output, as in the kernels."""
     if isinstance(r_anc, QuantizedRanc):
-        s = e_q.to(torch.float32) @ r_anc.codes.to(torch.float32)
+        s = e_q.to(torch.float32) @ unpacked_codes(r_anc).to(torch.float32)
         return s * r_anc.col_scales()[None, :]
     return e_q.to(torch.float32) @ r_anc.to(torch.float32)
+
+
+def _codes_at(r_anc: QuantizedRanc, pos: torch.Tensor) -> torch.Tensor:
+    """(k_q, *pos.shape) fp32 codes of logical columns ``pos``."""
+    if r_anc.code_dtype == "int4":
+        return _take_nibbles(r_anc.codes, pos).to(torch.float32)
+    return r_anc.codes[:, pos.long()].to(torch.float32)
 
 
 def take_columns(r_anc, pos: torch.Tensor) -> torch.Tensor:
     """R_anc[:, pos] -> (k_q, k) fp32 for an unbatched position vector."""
     pos = pos.long()
     if isinstance(r_anc, QuantizedRanc):
-        cols = r_anc.codes[:, pos].to(torch.float32)
-        return cols * r_anc.scales[pos // r_anc.tile][None, :]
+        return _codes_at(r_anc, pos) * r_anc.scales[pos // r_anc.tile][None, :]
     return r_anc[:, pos].to(torch.float32)
 
 
 def gather_columns(r_anc, anchor_idx: torch.Tensor) -> torch.Tensor:
     """R_anc[:, I_anc] for per-query anchor sets (B, k) -> (B, k_q, k) fp32,
-    dequantizing exactly the gathered columns."""
+    dequantizing exactly the gathered columns (k nibble reads for packed
+    int4, never a full unpack)."""
     idx = anchor_idx.long()
     if isinstance(r_anc, QuantizedRanc):
-        cols = r_anc.codes[:, idx].to(torch.float32).permute(1, 0, 2)
+        cols = _codes_at(r_anc, idx).permute(1, 0, 2)
         return cols * r_anc.scales[idx // r_anc.tile][:, None, :]
     return r_anc[:, idx].to(torch.float32).permute(1, 0, 2).contiguous()

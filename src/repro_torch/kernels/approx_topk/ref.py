@@ -1,12 +1,13 @@
 """Dense oracle — port of ``repro/kernels/approx_topk/ref.py``: materialize
-S_hat, mask, one index-stable top-k over all N columns."""
+S_hat, mask, one index-stable top-k over all N columns, for every payload
+policy (``quant.matmul``)."""
 
 from __future__ import annotations
 
 import torch
 
 from .ops import anchor_mask
-from .quant import QuantizedRanc, matmul
+from .quant import QuantizedRanc, matmul, unpacked_codes
 from .select import NEG_INF, stable_topk
 
 
@@ -46,17 +47,20 @@ def tf32x3_scores(e_q, r_anc, chunk: int = 32) -> torch.Tensor:
     """(B, N) scores as the CUDA kernels' 3xTF32 mainloop forms them.
 
     Each fp32 operand splits into ``hi = tf32(x)`` and ``lo = tf32(x - hi)``
-    (int8 codes are exact: ``lo = 0``); per ``chunk`` of k_q the sum of
+    (bf16 values and int8, fp8 and int4 codes are exact: ``lo = 0``); per
+    ``chunk`` of k_q the sum of
     a_lo·b_hi + a_hi·b_lo + a_hi·b_hi is formed in float64 (TF32 products
     are exact there) and rounded to fp32 once, and the chunks add in fp32 in
     ascending k_q, as the kernels' ``__fadd_rn`` does.  The tensor core's
-    own rounding inside a chunk is not modelled.  The int8 scale multiplies
-    the finished sum in fp32."""
+    own rounding inside a chunk is not modelled.  A coded payload's scale
+    multiplies the finished sum in fp32."""
     a = e_q.to(torch.float32)
     a_hi = tf32_round(a)
     a_lo = tf32_round(a - a_hi)
     if isinstance(r_anc, QuantizedRanc):
-        b_hi, b_lo = r_anc.codes.to(torch.float32), None
+        b_hi, b_lo = unpacked_codes(r_anc).to(torch.float32), None
+    elif r_anc.dtype == torch.bfloat16:
+        b_hi, b_lo = r_anc.to(torch.float32), None
     else:
         b = r_anc.to(torch.float32)
         b_hi = tf32_round(b)

@@ -11,7 +11,8 @@ CLI (on the card by default; ``--device cpu`` runs the plain versions):
 
     PYTHONPATH=src python -m repro_torch.launch.serve --fused \
         [--scorer synthetic|real-ce] [--cache] \
-        [--round-kernel staged|persistent] [--payload-dtype float32|int8] \
+        [--round-kernel staged|persistent] \
+        [--payload-dtype float32|bfloat16|int8|fp8|int4] \
         [--n-items N] [--batch B] [--requests R] [--device cuda|cpu]
 
 ``--scorer real-ce`` serves the transformer cross-encoder over a
@@ -216,6 +217,18 @@ def build_real_ce_domain(n_items: int, n_anchor_q: int, n_serve_q: int, cfg=None
     return ds, params, scorer, index
 
 
+def quantize_for_serving(index: AnchorIndex, cfg: AdaCURConfig) -> AnchorIndex:
+    """The index under the config's payload policy, once before serving;
+    prints the payload's bytes against fp32's, as the reference CLI does."""
+    if cfg.payload_dtype == "float32":
+        return index
+    fp32_bytes = quant.payload_nbytes("float32", index.k_q, index.capacity)
+    index = index.quantize(cfg.payload_dtype, tile=cfg.payload_tile)
+    print(f"payload {cfg.payload_dtype}: {index.payload_nbytes / 1e6:.1f} MB "
+          f"(fp32 would be {fp32_bytes / 1e6:.1f} MB)")
+    return index
+
+
 def drive(svc: AdaCURService, n_requests: int, qid_range=(500, 600),
           seed: int = 0) -> List[RetrievalResponse]:
     """Submit ``n_requests`` query ids drawn from ``qid_range``, polling
@@ -255,12 +268,6 @@ def main(argv=None) -> None:
             "serves single-device ADACUR (ROADMAP.md, queue 1)")
     if args.cache and args.scorer != "real-ce":
         raise SystemExit("--cache wraps the real-CE scorer: pass --scorer real-ce")
-    if args.payload_dtype not in quant.PORTED_DTYPES:
-        raise SystemExit(
-            f"--payload-dtype {args.payload_dtype} is not ported yet: the port "
-            f"serves {quant.PORTED_DTYPES}; bfloat16, fp8 and packed int4 are "
-            "listed in ROADMAP.md, queue 2"
-        )
     if args.scorer == "real-ce":
         return _serve_real_ce(args)
     cfg = AdaCURConfig(
@@ -271,6 +278,7 @@ def main(argv=None) -> None:
     )
     print(f"building synthetic CE domain + AnchorIndex (|I|={args.n_items})...")
     ce, index = build_domain(args.n_items, args.device)
+    index = quantize_for_serving(index, cfg)
     svc = AdaCURService(retriever=AdaCURRetriever.from_index(index, SyntheticScorer(ce), cfg),
                         max_batch=args.batch)
     served = drive(svc, args.requests)
@@ -297,7 +305,7 @@ def _serve_real_ce(args) -> None:
         use_fused_topk=args.fused, payload_dtype=args.payload_dtype,
         round_kernel=args.round_kernel,
     )
-    index = index.quantize(args.payload_dtype)
+    index = quantize_for_serving(index, cfg)
     svc = AdaCURService(retriever=AdaCURRetriever.from_index(index, serve_scorer, cfg),
                         max_batch=args.batch)
     served = drive(svc, args.requests, qid_range=(n_anchor_q, n_anchor_q + n_serve_q))

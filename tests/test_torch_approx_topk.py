@@ -1,6 +1,8 @@
 """The port's fused score->top-k ops (plain versions, on the CPU) against
 the JAX package's ``approx_topk_op`` (Pallas kernel in interpret mode and
-the scan backend) and ``persistent_round_op``.
+the scan backend) and ``persistent_round_op``, for every payload policy:
+fp32, bf16, and int8 / fp8 e4m3 / packed int4 codes (carried across as
+bytes).
 
 Comparator (``repro_torch.testing``, rtol 1e-5): values equal position by
 position, ids distinct in each row, and every id carries its reported value
@@ -25,7 +27,9 @@ from repro_torch import convert  # noqa: E402
 from repro_torch.kernels.approx_topk import kernel as t_kernel  # noqa: E402
 from repro_torch.kernels.approx_topk.ops import approx_topk_op as t_topk  # noqa: E402
 from repro_torch.kernels.approx_topk.persistent import persistent_round_op as t_pers  # noqa: E402
-from repro_torch.kernels.approx_topk.quant import quantize_ranc as t_quant  # noqa: E402
+from repro_torch.kernels.approx_topk.quant import (  # noqa: E402
+    QuantizedRanc, quantize_ranc as t_quant, unpacked_codes,
+)
 from repro_torch.core.sampling import blocked_gumbel  # noqa: E402
 from repro_torch.kernels.approx_topk.ref import (  # noqa: E402
     approx_topk_reference, dense_scores, tf32_round, tf32x3_scores,
@@ -55,12 +59,25 @@ def _inputs(seed=0, ties=False):
     return e, r, extras
 
 
+DTYPES = ["float32", "int8", "bfloat16", "fp8", "int4"]
+
+
 def _payloads(r, dtype):
-    if dtype == "float32":
-        return jnp.asarray(r), convert.r_anc(r, device="cpu")
-    jq = j_quant(jnp.asarray(r), 256)
+    """The reference's payload of policy ``dtype`` and the port's copy of
+    it, carried across as bytes."""
+    if dtype in ("float32", "bfloat16"):
+        jp = jnp.asarray(r).astype(dtype)
+        return jp, convert.r_anc(np.asarray(jp), device="cpu")
+    jq = j_quant(jnp.asarray(r), 256, code_dtype=dtype)
     return jq, convert.quantized_ranc(np.asarray(jq.codes), np.asarray(jq.scales), jq.tile,
-                                      device="cpu")
+                                      device="cpu", code_dtype=dtype, n_cols=jq.n_cols)
+
+
+def _impls(dtype, case):
+    """JAX backends to hold a case against: the scan backend always, the
+    Pallas kernel (interpret mode) for every fp32 / int8 case and for the
+    full case of each other payload."""
+    return ("pallas", "scan") if dtype in ("float32", "int8") or case == "all" else ("scan",)
 
 
 @pytest.mark.parametrize("tile", [128, 256, 512])
@@ -85,7 +102,7 @@ CASES = [
 
 @pytest.mark.parametrize("ties", [False, True])
 @pytest.mark.parametrize("case", [c[0] for c in CASES])
-@pytest.mark.parametrize("dtype", ["float32", "int8"])
+@pytest.mark.parametrize("dtype", DTYPES)
 def test_approx_topk_matches_both_jax_backends(dtype, case, ties):
     opts = dict(CASES)[case]
     e, r, ex = _inputs(2, ties=ties)
@@ -102,7 +119,7 @@ def test_approx_topk_matches_both_jax_backends(dtype, case, ties):
     tv, ti = t_topk(torch.from_numpy(e), tpay, tanc, k, tile=TILE, **tkw)
     assert ti.dtype == torch.int32 and tv.shape == (B, k)
     dense = dense_scores(torch.from_numpy(e), tpay, tanc, **tkw)
-    for impl in ("pallas", "scan"):
+    for impl in _impls(dtype, case):
         jv, ji = j_topk(jnp.asarray(e), jpay, janc, k, tile=TILE, interpret=True,
                         impl=impl, **jkw)
         assert_topk_agree(ji, jv, ti, tv, dense)
@@ -114,7 +131,7 @@ def test_approx_topk_matches_both_jax_backends(dtype, case, ties):
     assert_topk_agree(ri, rv, ti, tv, dense)
 
 
-@pytest.mark.parametrize("dtype", ["float32", "int8"])
+@pytest.mark.parametrize("dtype", DTYPES)
 def test_underfilled_rows_follow_scan(dtype):
     e, r, _ = _inputs(3)
     jpay, tpay = _payloads(r, dtype)
@@ -134,7 +151,7 @@ def test_underfilled_rows_follow_scan(dtype):
 
 
 @pytest.mark.parametrize("strategy_noise", [False, True])
-@pytest.mark.parametrize("dtype", ["float32", "int8"])
+@pytest.mark.parametrize("dtype", DTYPES)
 def test_persistent_round_matches_jax_and_staged(dtype, strategy_noise):
     e, r, ex = _inputs(4)
     jpay, tpay = _payloads(r, dtype)
@@ -145,7 +162,10 @@ def test_persistent_round_matches_jax_and_staged(dtype, strategy_noise):
                 prov_mask=torch.from_numpy(prov_mask), n_valid=1400, tile=TILE)
     if strategy_noise:
         kw_j["noise"], kw_t["noise"] = jnp.asarray(ex["noise"]), torch.from_numpy(ex["noise"])
-    (jsv, jsi), (jpv, jpi) = j_pers(jnp.asarray(e), jpay, interpret=True, impl="pallas", **kw_j)
+    # the Pallas kernel in interpret mode for fp32 / int8 and for each other
+    # payload with noise, the scan backend otherwise
+    impl = "pallas" if dtype in ("float32", "int8") or strategy_noise else "scan"
+    (jsv, jsi), (jpv, jpi) = j_pers(jnp.asarray(e), jpay, interpret=True, impl=impl, **kw_j)
     (tsv, tsi), (tpv, tpi) = t_pers(torch.from_numpy(e), tpay, **kw_t)
     assert_topk_agree(jsi, jsv, tsi, tsv, dense_scores(
         torch.from_numpy(e), tpay, kw_t["anchors"], kw_t.get("noise"), n_valid=1400))
@@ -249,7 +269,7 @@ def test_fragment_split_layout(b, k_q):
     assert torch.equal(lo, want_lo[rows, cols])
 
 
-@pytest.mark.parametrize("dtype", ["float32", "int8"])
+@pytest.mark.parametrize("dtype", DTYPES)
 def test_tf32x3_split_meets_the_comparator_at_k_q_500(dtype):
     """The CUDA kernels' 3xTF32 arithmetic (``ref.tf32x3_scores``: hi/lo
     split, 32-deep chunks, fp32 chunk sums) on the CPU: its top-k passes
@@ -268,9 +288,10 @@ def test_tf32x3_split_meets_the_comparator_at_k_q_500(dtype):
         ev, ei = stable_topk(emul, k)
         jv, ji = j_topk(jnp.asarray(e), jpay, None, k, tile=TILE, impl="scan")
         assert_topk_agree(ji, jv, ei, ev, dense)
-    codes = tpay.codes.double() if dtype == "int8" else tpay.double()
+    coded = isinstance(tpay, QuantizedRanc)
+    codes = unpacked_codes(tpay).double() if coded else tpay.double()
     exact = e_t.double() @ codes
-    if dtype == "int8":
+    if coded:
         exact = exact * tpay.col_scales().double()[None, :]
     err_emul = (emul.double() - exact).abs().max().item()
     err_fp32 = (dense.double() - exact).abs().max().item()

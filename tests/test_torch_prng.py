@@ -1,9 +1,13 @@
 """The port's threefry against ``jax.random`` and the blocked Gumbel field
 against ``repro.core.sampling.blocked_gumbel``.
 
-Integer bits and ``uniform`` must be bit-equal; Gumbel values agree within
-atol 1e-6 (bits are equal up to the final two ``log`` calls, which torch and
-XLA round differently)."""
+Integer bits, ``uniform`` and ``randint`` must be bit-equal; ``normal``
+within ``NORMAL_MAX_ULP`` of JAX's draw, and bit-equal in all but
+``NORMAL_MAX_DIFFERING`` of them (XLA's CPU sqrt in the erf_inv tail);
+Gumbel values agree within atol 1e-6 (bits are equal up to the final two
+``log`` calls, which torch and XLA round differently).  The port's
+``make_synthetic_ce`` then builds the reference's domain from the same
+key."""
 
 import numpy as np
 import pytest
@@ -73,3 +77,58 @@ def test_stable_topk_is_index_stable():
     tv, ti = stable_topk(torch.from_numpy(np.array(x)), 40)
     assert np.array_equal(np.asarray(ji), ti.numpy())
     assert np.array_equal(np.asarray(jv), tv.numpy())
+
+
+@pytest.mark.parametrize("low, high", [(0, 25), (0, 10**6), (-3, 100_000), (5, 7), (4, 4)])
+def test_randint_bit_equal(low, high):
+    for seed in (0, 3):
+        want = np.asarray(jax.random.randint(jax.random.PRNGKey(seed), (100_000,), low, high))
+        got = prng.randint(prng.PRNGKey(seed), (100_000,), low, high)
+        assert got.dtype == torch.int32
+        assert np.array_equal(want, got.numpy())
+
+
+# XLA's CPU sqrt (the erf_inv tail, |u| > 0.9966) is not correctly rounded:
+# 20 of 10^6 draws under key 3 differed, by at most 2 ulp, on an x86 CPU
+NORMAL_MAX_ULP = 4
+NORMAL_MAX_DIFFERING = 1e-4
+
+
+def _ulp_distance(a, b):
+    ia, ib = (np.asarray(x, np.float32).view(np.int32).astype(np.int64) for x in (a, b))
+    ia = np.where(ia < 0, -(ia & 0x7FFFFFFF), ia)
+    ib = np.where(ib < 0, -(ib & 0x7FFFFFFF), ib)
+    return np.abs(ia - ib)
+
+
+@pytest.mark.parametrize("seed", [3, 0])
+def test_normal_follows_jax_within_the_stated_ulp(seed):
+    want = np.asarray(jax.random.normal(jax.random.PRNGKey(seed), (200_000,)))
+    got = prng.normal(prng.PRNGKey(seed), (200_000,)).numpy()
+    d = _ulp_distance(want, got)
+    assert d.max() <= NORMAL_MAX_ULP, d.max()
+    assert (d > 0).mean() <= NORMAL_MAX_DIFFERING, (d > 0).sum()
+    # every draw that differs lies in the tail where XLA's sqrt is used
+    lo = float(np.nextafter(np.float32(-1), np.float32(0)))
+    u = prng.uniform(prng.PRNGKey(seed), (200_000,), lo, 1.0).numpy()
+    assert (np.abs(u[d > 0]) > 0.9966).all()
+    # the log1p and log XLA emits, on their own, are reproduced bit for bit
+    x = -(u * u)
+    assert np.array_equal(np.asarray(jnp.log1p(jnp.asarray(x))),
+                          prng.xla_log1p(torch.from_numpy(x)).numpy())
+
+
+def test_synthetic_domain_is_the_reference_domain():
+    from repro.data.synthetic import make_synthetic_ce as j_make
+    from repro_torch.data.synthetic import make_synthetic_ce as t_make
+
+    jce = j_make(jax.random.PRNGKey(0), n_queries=60, n_items=1500)
+    tce = t_make(prng.PRNGKey(0), n_queries=60, n_items=1500, device="cpu")
+    for name in ("q_emb", "mix_a", "mix_b", "mix_w"):
+        assert np.array_equal(np.asarray(getattr(jce, name)), getattr(tce, name).numpy()), name
+    np.testing.assert_allclose(tce.i_emb.numpy(), np.asarray(jce.i_emb), rtol=0, atol=1e-6)
+    want = np.asarray(jce.full_matrix(jnp.arange(60)))
+    got = tce.full_matrix(torch.arange(60)).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+    top = lambda m: np.argsort(-m, axis=1, kind="stable")[:, :10]
+    assert np.array_equal(top(want), top(got))

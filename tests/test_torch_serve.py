@@ -54,7 +54,8 @@ def test_index_build_matches_reference(carried):
 
 
 @pytest.mark.parametrize("round_kernel,payload", [("staged", "float32"),
-                                                  ("persistent", "int8")])
+                                                  ("persistent", "int8"),
+                                                  ("persistent", "int4")])
 def test_service_answers_with_a_padded_partial_bucket(carried, round_kernel, payload):
     _, tce = carried
     idx = AnchorIndex.build(tce.score_block, torch.arange(K_Q), torch.arange(N_ITEMS))
@@ -92,13 +93,31 @@ def test_service_turns_a_raising_scorer_into_error_responses(carried):
                for r in out)
 
 
-def test_serve_cli_runs_on_the_cpu(capsys):
-    serve.main(["--device", "cpu", "--fused", "--n-items", "1500", "--requests", "5",
-                "--batch", "4", "--budget", "40", "--rounds", "4"])
-    assert "served 5 requests (0 errors)" in capsys.readouterr().out
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8", "fp8", "int4"])
+def test_serve_cli_runs_on_the_cpu(dtype, capsys):
+    """Every payload serves; the coded and bf16 ones print their bytes
+    against fp32's."""
+    serve.main(["--device", "cpu", "--fused", "--payload-dtype", dtype, "--n-items", "1500",
+                "--requests", "5", "--batch", "4", "--budget", "40", "--rounds", "4"])
+    out = capsys.readouterr().out
+    assert "served 5 requests (0 errors)" in out
+    if dtype != "float32":
+        assert f"payload {dtype}: " in out and "(fp32 would be 3.0 MB)" in out
 
 
-@pytest.mark.parametrize("dtype", ["bfloat16", "int4", "fp8"])
-def test_serve_cli_rejects_unported_payloads(dtype):
-    with pytest.raises(SystemExit, match="ROADMAP.md"):
-        serve.main(["--device", "cpu", "--payload-dtype", dtype])
+@pytest.mark.parametrize("dtype", ["bfloat16", "int8", "fp8", "int4"])
+def test_index_quantize_matches_reference(dtype):
+    """``AnchorIndex.quantize`` re-encodes to the reference's bytes, and
+    ``payload_nbytes`` counts packed int4 at half a byte a column."""
+    r = np.random.default_rng(4).standard_normal((K_Q, 1001)).astype(np.float32)
+    jq = JIndex.from_r_anc(jnp.asarray(r)).quantize(dtype)
+    tq = AnchorIndex.from_r_anc(torch.from_numpy(r)).quantize(dtype)
+    assert tq.payload_dtype == dtype and tq.r_anc.shape == (K_Q, 1001)
+    jcodes = jq.r_anc.codes if dtype != "bfloat16" else jq.r_anc
+    tcodes = tq.r_anc.codes if dtype != "bfloat16" else tq.r_anc
+    assert np.array_equal(np.asarray(jcodes).view(np.uint8),
+                          tcodes.contiguous().view(torch.uint8).numpy())
+    assert tq.payload_nbytes == jq.payload_nbytes
+    per_col = {"bfloat16": 2, "int8": 1, "fp8": 1, "int4": 0.5}[dtype]
+    scales = 0 if dtype == "bfloat16" else 4 * 2
+    assert tq.payload_nbytes == K_Q * int(np.ceil(1001 * per_col)) + scales
