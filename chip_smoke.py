@@ -26,14 +26,36 @@ Phases (one JSON line each):
    faster), the CUDA-core fp32 one (``bound_simt_ms``) and, at the serving
    shape, the earlier CUDA-core design's kernel time as recorded on an H100
    (``earlier_design_ms_recorded``, a constant, not measured here).  ptxas
-   must report no spill for either top-k kernel.
+   must report no spill for either top-k kernel.  The large-k
+   instantiation (k in (256, 1024]) at the serving shape, k = 800 and
+   1024, fp32 and int8 (``case: large_k``), and the dual-encoder first
+   stage's shape, B = 100 queries x d = 16 over 10^6 items at k = 200 and
+   800 (``case: dual_encoder``), each against its plain version with
+   kernel, plain, library and bound times.
 3. ``kernel:persistent_round``: both accumulators at the same shapes and
    payloads, held to the plain version and bitwise to two approx_topk calls.
 4. ``serve``: the serve CLI's domain at full size (600 queries, 10^6 items,
    AnchorIndex over anchor queries 0..499 built on the card) answering 600
    requests through ``AdaCURService(max_batch=256)`` for every payload,
    staged and persistent; launch counts, CE calls against the plan, error
-   responses, latency, recall@{1,10,100} and the payload's bytes.
+   responses, latency, recall@{1,10,100}, the payload's bytes and the
+   engine's slab bytes (``engine_slab_bytes``).
+4a. ``retrievers``: the paper's budget-matched comparison
+   (``eval.harness.quality_matrix``) on the same domain: ADACUR, ANNCUR,
+   DE retrieve-and-rerank and the DE-hybrid, budget 200 in 5 rounds
+   (k_anchor 100), k_retrieve 100, fused, fp32, a DE shortlist of 800, the
+   tabulated 600 x 10^6 fp32 matrix (2.4 GB) on the card, 100 test
+   queries; per method planned and measured CE (gated equal), recall@
+   {1,10,100} and recall/MRR/NDCG against the CE's top-1 (printed), wall
+   microseconds a query and kernel launches (approx_topk gated > 0); the
+   fused round body's (B, N) float count (gated 0).
+4b. ``anytime``: 256 requests through ``AdaCURService(max_batch=256)`` over
+   an ``anytime=True`` retriever at N = 10^6, with every deadline already
+   past (one round, degraded, CE = ``ce_call_plan(cfg, 1)`` a request) and
+   with none (five rounds, not degraded).
+4c. ``retrievers_cpu_vs_card``: the four methods at N = 20,000, B = 64,
+   fp32 and int8, on the card (kernels) and on the CPU (plain versions):
+   top-k overlap >= 0.99 and measured CE equal, per method.
 5. ``engine_cpu_vs_card``: the same search on the card (kernels) and on the
    CPU (plain versions), N=20,000, B=64, fp32, int8, bf16, fp8 and int4,
    staged and persistent, with the incremental pinv the serve path runs:
@@ -324,6 +346,7 @@ def phase_approx_topk(shape, gen, dev, reps, earlier):
                              library_ms=lib_ms, **bounds, **rep,
                              earlier_design_ms_recorded=earlier.get(("approx_topk", dtype, k))))
         del scores
+    rows += large_k_cases(e_q, payloads, anchors, gen, dev, reps, worst)
     # noise / mask / anchors / n_valid, with under-filled rows
     n2 = 65536
     e2, pays2, anc2 = make_inputs(b, k_q, n2, gen, dev)
@@ -349,6 +372,57 @@ def phase_approx_topk(shape, gen, dev, reps, earlier):
         rows.append(dict(payload=dtype, k=20, case="noise+mask+anchors+n_valid", n=n2, **rep,
                          **under))
     return rows, worst
+
+
+def topk_case(name, e_q, pay, anchors, k, reps, plain_tile, worst) -> dict:
+    """One fused-op case: the kernel against its plain version (ids equal, or
+    within the tie-aware comparator), with kernel, plain, library
+    (``torch.matmul`` + ``torch.topk``) and bound times."""
+    import torch
+
+    from repro_torch.kernels.approx_topk.ops import approx_topk_op, approx_topk_plain
+    from repro_torch.kernels.approx_topk.quant import payload_dtype_of
+    from repro_torch.kernels.approx_topk.ref import dense_scores
+    from repro_torch.testing import topk_report
+
+    dtype = payload_dtype_of(pay)
+    b, k_q = e_q.shape
+    n = pay.shape[1]
+    kv, ki = approx_topk_op(e_q, pay, anchors, k)
+    pv, pi = approx_topk_plain(e_q, pay, anchors, k, tile=plain_tile)
+    torch.cuda.synchronize()
+    rep = topk_report(ki, kv, pi, pv, dense_scores(e_q, pay, anchors))
+    check(rep["ok"], f"approx_topk {name} {dtype} k={k} disagrees with its plain version: {rep}")
+    worst[dtype] = max(worst[dtype], rep["max_abs_err"])
+    ms = cuda_ms(lambda: approx_topk_op(e_q, pay, anchors, k), reps)
+    plain_ms = cuda_ms(lambda: approx_topk_plain(e_q, pay, anchors, k, tile=plain_tile), 1)
+    lib_ms = cuda_ms(lambda: torch.topk(torch.matmul(e_q, dense_fp32(pay)), k, dim=1), reps)
+    bounds = topk_bounds(dtype, nbytes(e_q, pay, anchors) + b * k * 8, b, k_q, n)
+    # the sweep's and the merge's shares of one launch
+    split = {r["name"].split("<")[0].split("::")[-1]: r["ms"]
+             for r in profile_call(lambda: approx_topk_op(e_q, pay, anchors, k))["top"]}
+    return dict(case=name, payload=dtype, b=b, k_q=k_q, n=n, k=k, kernel_ms=ms,
+                plain_ms=plain_ms, library_ms=lib_ms, ids_equal=bool(torch.equal(ki, pi)),
+                profile_ms=split, **bounds, **rep)
+
+
+def large_k_cases(e_q, payloads, anchors, gen, dev, reps, worst) -> list:
+    """The large-k instantiation (k in (256, 1024]): the serving shape at
+    k = 800 and 1024 for fp32 and int8, and the dual-encoder first stage's
+    shape (B = 100 queries x d = 16 over 10^6 items, k = 200 and 800: the
+    rerank and hybrid shortlists), each against its plain version."""
+    import torch
+
+    rows = []
+    for dtype in ("float32", "int8"):
+        for k in (800, 1024):
+            rows.append(topk_case("large_k", e_q, payloads[dtype], anchors, k, reps, 8192, worst))
+    n = payloads["float32"].shape[1]
+    q_emb = torch.randn((100, 16), generator=gen, device=dev)
+    i_emb_t = torch.randn((16, n), generator=gen, device=dev)
+    for k in (200, 800):
+        rows.append(topk_case("dual_encoder", q_emb, i_emb_t, None, k, reps, 8192, worst))
+    return rows
 
 
 def underfilled_rows(dtype, e_q, pay, noise, ki, kv, pi, pv, under, dense):
@@ -476,27 +550,29 @@ def profile_call(fn) -> dict:
             "top": [{"name": k[:90], "ms": us / 1e3, "calls": c} for us, k, c in rows[:12]]}
 
 
-def phase_serve(dev):
-    """The synthetic serve drives; returns (result, {kernel: {payload:
-    launches}})."""
+def phase_serve(dev, ce, index, build_s):
+    """The synthetic serve drives over the serve CLI's domain (``ce``,
+    ``index``); returns (result, {kernel: {payload: launches}})."""
     import torch
 
     from repro_torch.configs.base import AdaCURConfig
-    from repro_torch.core import prng, sampling
+    from repro_torch.core import cur, prng, sampling
     from repro_torch.core.engine import AdaCURRetriever
     from repro_torch.core.scorer import SyntheticScorer
     from repro_torch.eval.metrics import exact_topk
-    from repro_torch.launch.serve import build_domain
 
-    n_items = 1_000_000
-    t0 = time.perf_counter()
-    ce, index = build_domain(n_items, dev)
-    torch.cuda.synchronize()
-    build_s = time.perf_counter() - t0
+    n_items = index.n_items
     served_q = torch.arange(500, 600, device=dev)
     _, gt = exact_topk(ce.full_matrix(served_q), 100)
     gt = gt.cpu()
     noise_ms = cuda_ms(lambda: sampling.blocked_gumbel(prng.PRNGKey(1), 256, n_items, device=dev), 2)
+    # the rerank's regularized solve against the full pinv it stands in for,
+    # at the serve shape's anchor block (B = 256, k_q = 500, k_i = 100)
+    block = torch.randn((256, index.k_q, 100), device=dev)
+    c_test = torch.randn((256, 100), device=dev)
+    ridge_ms = cuda_ms(lambda: cur.ridge_query_embedding(block, c_test), 3)
+    pinv_ms = cuda_ms(lambda: cur.pinv(block), 1)
+    del block
     results = []
     launches = {name: dict.fromkeys(PAYLOADS, 0) for name in ("approx_topk", "persistent_round")}
     fp32_bytes = index.payload_nbytes
@@ -512,6 +588,7 @@ def phase_serve(dev):
     qids = torch.arange(500, 756, device=dev) % 600
     profiled = profile_call(lambda: retriever.search(qids, prng.PRNGKey(5)))
     return dict(index_build_s=build_s, round0_noise_ms_B256=noise_ms, n_items=n_items,
+                ridge_solve_ms_B256=ridge_ms, pinv_100cols_ms_B256=pinv_ms,
                 configs=results, profile_fp32_staged_B256=profiled), launches
 
 
@@ -523,7 +600,7 @@ def serve_config(ce, index, payload, round_kernel, gt, launches, fp32_bytes, n_i
 
     from repro_torch import kernels
     from repro_torch.configs.base import AdaCURConfig
-    from repro_torch.core.engine import AdaCURRetriever, ce_call_plan
+    from repro_torch.core.engine import AdaCURRetriever, ce_call_plan, engine_slab_bytes
     from repro_torch.core.scorer import SyntheticScorer
     from repro_torch.eval.metrics import topk_recall
     from repro_torch.launch.serve import AdaCURService, drive
@@ -570,8 +647,141 @@ def serve_config(ce, index, payload, round_kernel, gt, launches, fp32_bytes, n_i
         per_search_ms=float(np.mean(secs) * 1e3),
         launches=counts, measured_ce_per_request=served[0].measured_ce_calls,
         ce_plan=plan, errors=len(errors), payload_bytes=index.payload_nbytes,
-        fp32_payload_bytes=fp32_bytes, **recall,
+        fp32_payload_bytes=fp32_bytes,
+        engine_slab_bytes=engine_slab_bytes(cfg, 256, n_items, index.k_q, payload=index.r_anc),
+        **recall,
     )
+
+
+def phase_retrievers(dev, ce, index):
+    """The paper's budget-matched comparison (``eval.harness.quality_matrix``)
+    at the serve CLI's domain: budget 200 in 5 rounds (k_anchor 100),
+    k_retrieve 100, fused, fp32, a DE shortlist of 800, the tabulated
+    600 x 10^6 fp32 matrix on the card.  Gates: every method's measured CE
+    equals its plan, every method launches approx_topk, and the fused round
+    body creates no (B, N) float; recall is printed, not gated."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.core.engine import round_body_bn_intermediates
+    from repro_torch.core.scorer import TabulatedScorer
+    from repro_torch.eval.harness import matrix_config, quality_matrix
+
+    t0 = time.perf_counter()
+    matrix = ce.full_matrix(torch.arange(600, device=dev))
+    torch.cuda.synchronize()
+    matrix_s = time.perf_counter() - t0
+    test_q = torch.arange(500, 600, device=dev)
+    kernels.reset_launches()
+    reports = quality_matrix(ce, index, test_q, matrix, budget=200, n_rounds=5,
+                             ks=(1, 10, 100), shortlist_k=800, use_fused_topk=True)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    cfg = matrix_config(200, 5, (1, 10, 100), use_fused_topk=True)
+    bn = round_body_bn_intermediates(TabulatedScorer(matrix), index.r_anc, test_q, cfg)
+    check(bn == 0, f"retrievers: the fused round body creates {bn} (B, N) float tensors")
+    rows = []
+    for rep in reports:
+        check(rep.budget_matched, f"retrievers {rep.method}: measured CE {rep.measured_ce} "
+                                  f"!= plan {rep.planned_ce}")
+        check(rep.launches["approx_topk"] > 0,
+              f"retrievers {rep.method}: approx_topk never launched ({rep.launches})")
+        # ADACUR and the DE-hybrid run the adaptive round body; ANNCUR and
+        # rerank search one retriever-seeded round and have none
+        rounds = rep.method in ("adacur", "hybrid_de")
+        rows.append(dict(**rep.to_json(), round_body_bn_intermediates=bn if rounds else None))
+    del matrix
+    torch.cuda.empty_cache()
+    return dict(n_items=index.n_items, test_queries=100, budget=200, n_rounds=5,
+                shortlist_k=800, matrix_gb=600 * index.n_items * 4 / 1e9, matrix_s=matrix_s,
+                launches=launches, methods=rows), launches
+
+
+def phase_anytime(dev, ce, index):
+    """256 requests through AdaCURService(max_batch=256) over an anytime
+    retriever at N = 10^6, twice: every request's deadline already past
+    (one round, degraded, CE = ce_call_plan(cfg, 1) a request) and no
+    deadline (every round, not degraded)."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.configs.base import AdaCURConfig
+    from repro_torch.core.engine import AdaCURRetriever, ce_call_plan
+    from repro_torch.core.scorer import SyntheticScorer
+    from repro_torch.launch.serve import AdaCURService, RetrievalRequest
+
+    cfg = AdaCURConfig(k_anchor=100, n_rounds=5, budget_ce=200, strategy="topk",
+                       k_retrieve=100, loop_mode="fori", use_fused_topk=True)
+    svc = AdaCURService(retriever=AdaCURRetriever.from_index(
+        index, SyntheticScorer(ce), cfg, anytime=True), max_batch=256, max_wait_s=600.0)
+    out = {}
+    for name, rounds, plan in (("expired", 1, ce_call_plan(cfg, 1)),
+                               ("none", cfg.n_rounds, ce_call_plan(cfg))):
+        kernels.reset_launches()
+        past = time.monotonic() - 1.0
+        served = []
+        for i in range(256):
+            served += svc.submit(RetrievalRequest(
+                query_id=500 + i % 100, deadline_t=past if name == "expired" else None)) or []
+        torch.cuda.synchronize()
+        check(len(served) == 256 and all(r.status == "ok" for r in served),
+              f"anytime {name}: {len(served)} responses, errors "
+              f"{[r.error for r in served if r.status != 'ok'][:1]}")
+        degraded = name == "expired"
+        for r in served:
+            check(r.rounds_completed == rounds and r.degraded == degraded
+                  and r.measured_ce_calls == plan,
+                  f"anytime {name}: query {r.query_id} rounds {r.rounds_completed}, degraded "
+                  f"{r.degraded}, CE {r.measured_ce_calls} (want {rounds}, {degraded}, {plan})")
+        out[name] = dict(rounds_completed=rounds, degraded=degraded, measured_ce_per_request=plan,
+                         ce_plan=plan, search_ms=svc.batch_log[-1]["seconds"] * 1e3,
+                         launches=kernels.launch_counts())
+    return out
+
+
+def phase_retrievers_cpu_vs_card(dev):
+    """The four methods of the quality matrix (eval.harness.method_retrievers)
+    on the card (kernels) and on the CPU (plain versions), N = 20,000,
+    B = 64, fp32 and int8: top-k overlap >= 0.99 per method, measured CE
+    equal."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.core import prng
+    from repro_torch.core.index import AnchorIndex
+    from repro_torch.core.scorer import scorer_stats
+    from repro_torch.data.synthetic import make_synthetic_ce
+    from repro_torch.eval.harness import matrix_config, method_retrievers
+    from repro_torch.testing import topk_overlap
+
+    ce = make_synthetic_ce(prng.PRNGKey(7), n_queries=264, n_items=20000, device="cpu")
+    index = AnchorIndex.build(ce.score_block, torch.arange(200), torch.arange(20000))
+    matrix = ce.full_matrix(torch.arange(264))
+    q = torch.arange(200, 264)
+    out = []
+    for payload in ("float32", "int8"):
+        cfg = matrix_config(200, 5, (1, 10, 100), use_fused_topk=True, payload_dtype=payload)
+        idx = index.quantize(payload)
+        sides = {}
+        for side, d in (("cpu", "cpu"), ("card", dev)):
+            kernels.reset_launches()
+            res = {}
+            for name, ret, kw in method_retrievers(ce.to(d), idx.to(d), matrix.to(d), cfg, 800):
+                qd = q.to(d)
+                before = scorer_stats(ret.score_fn).ce_calls
+                r = ret.search(qd, prng.PRNGKey(0), **(kw(qd) if kw else {}))
+                res[name] = (r.topk_idx.cpu(), scorer_stats(ret.score_fn).ce_calls - before)
+            sides[side] = (res, kernels.launch_counts())
+        for name in sides["cpu"][0]:
+            (ci, cce), (gi, gce) = sides["cpu"][0][name], sides["card"][0][name]
+            ov = topk_overlap(ci, gi)
+            check(ov >= 0.99, f"retrievers card vs CPU: {name} {payload} overlap {ov} < 0.99")
+            check(cce == gce, f"retrievers card vs CPU: {name} {payload} CE {gce} vs {cce}")
+            out.append(dict(method=name, payload=payload, overlap=ov, measured_ce_total=gce))
+        cpu_l, card_l = sides["cpu"][1], sides["card"][1]
+        check(cpu_l["approx_topk"] == 0 and card_l["approx_topk"] > 0,
+              f"retrievers card vs CPU {payload}: launches CPU {cpu_l}, card {card_l}")
+    return out
 
 
 def phase_engine_cpu_vs_card(dev):
@@ -1167,8 +1377,20 @@ def main() -> int:
         summary["embedding_bag"] = (rows[0], err)
         launches = dict.fromkeys(summary, 0)
         if not args.quick:
-            serve, serve_launches = phase_serve(dev)
+            from repro_torch.launch.serve import build_domain
+
+            t0 = time.perf_counter()
+            ce, index = build_domain(1_000_000, dev)
+            torch.cuda.synchronize()
+            serve, serve_launches = phase_serve(dev, ce, index, time.perf_counter() - t0)
             emit({"phase": "serve", **serve})
+            retrievers, retr_launches = phase_retrievers(dev, ce, index)
+            emit({"phase": "retrievers", **retrievers})
+            anytime = phase_anytime(dev, ce, index)
+            emit({"phase": "anytime", **anytime})
+            del ce, index
+            torch.cuda.empty_cache()
+            emit({"phase": "retrievers_cpu_vs_card", "runs": phase_retrievers_cpu_vs_card(dev)})
             emit({"phase": "engine_cpu_vs_card", "runs": phase_engine_cpu_vs_card(dev)})
             real_ce, ce_launches = phase_serve_real_ce(dev)
             emit({"phase": "serve_real_ce", **real_ce})
@@ -1194,6 +1416,10 @@ def main() -> int:
                 for dtype, n in per_payload.items():
                     launches[topk_entry(name, dtype)] = n
             launches["approx_topk"] += rr_launches["approx_topk"]     # DLRM retrieval, fp32
+            # the comparison's four methods and the anytime drives, fp32
+            launches["approx_topk"] += retr_launches["approx_topk"]
+            launches["approx_topk"] += sum(run["launches"]["approx_topk"]
+                                           for run in anytime.values())
             launches.update(flash_attention=ce_launches["flash_attention"],
                             embedding_bag=rs_bags + rr_launches["embedding_bag"])
         for name, n in launches.items():

@@ -17,19 +17,26 @@ their plain versions for CPU tensors.  No (B, N) score matrix is formed on
 that path; round 0's random draw reads the (B, N) Gumbel field, as in the
 reference.  Every top-k is index-stable.
 
-The sharded engine, the ANNCUR/Rerank retrievers, anytime deadlines and
-candidate-subset search are later slices.
+Every method is a configuration of this one engine behind the
+:class:`Retriever` protocol: :class:`AdaCURRetriever` (the paper),
+:class:`ANNCURRetriever` (fixed anchors, one retriever-seeded round) and
+:class:`RerankRetriever` (retrieve-and-rerank, one retriever-seeded round
+with no budget split).  A per-query ``eligible`` mask restricts a search to
+a candidate set (hybrid retrieval), and an :class:`AnytimeDeadline` cuts
+the round loop at a wall-clock deadline.  The sharded engine and
+candidate-subset search (``pos_map``) are later slices (ROADMAP.md).
 """
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass, field
-from typing import Callable, NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional, Protocol, runtime_checkable
 
 import numpy as np
 import torch
 
-from ..configs.base import AdaCURConfig
+from ..configs.base import AdaCURConfig, replace
 from ..kernels.approx_topk import quant
 from ..kernels.approx_topk.ops import approx_topk_op
 from ..kernels.approx_topk.persistent import persistent_round_op
@@ -47,6 +54,51 @@ def ce_call_plan(cfg: AdaCURConfig, rounds: Optional[int] = None) -> int:
         raise ValueError(f"rounds={r} outside [1, {cfg.n_rounds}]")
     k_r = cfg.budget_ce - k_i if cfg.split_budget else 0
     return k_s * r + k_r
+
+
+class AnytimeDeadline:
+    """Wall-clock deadline the engine's round loop polls at every round
+    boundary (the anytime-serving contract of the reference's
+    ``AnytimeDeadline``): every round boundary is a valid, coarser answer,
+    so a search past its deadline returns the provisional top-k of the
+    rounds it completed.  Round 0 always runs, and the split-budget rerank
+    still spends its ``budget_ce - k_anchor`` calls.
+
+    The port's round loop runs on the host, ahead of the card: a poll must
+    see rounds that have executed, not rounds that were enqueued, or
+    ``rounds_done`` would report enqueue progress and a cut round's CE calls
+    (the scorer counts them as they are issued) would already be spent.  So
+    :meth:`expired` first waits for the device's stream (a synchronize),
+    then reads the clock.  That costs one sync per round, which is why the
+    deadline is opt-in (``make_engine(anytime=True)``).
+
+    ``fired`` records whether the deadline cut the loop short: the loop
+    polls only before a round it would otherwise run, so a search that
+    finishes all its rounds is never marked.  ``arm()`` resets it,
+    ``disarm()`` leaves it readable."""
+
+    def __init__(self):
+        self.deadline_t = float("inf")
+        self.fired = False
+
+    def arm(self, deadline_t: float) -> None:
+        self.deadline_t = float(deadline_t)
+        self.fired = False
+
+    def disarm(self) -> None:
+        """Stop cutting rounds; ``fired`` stays readable for the caller."""
+        self.deadline_t = float("inf")
+
+    def expired(self, device) -> bool:
+        """True (and ``fired``) once the clock passes the deadline, read
+        after the rounds enqueued on ``device`` have run."""
+        if self.deadline_t == float("inf"):
+            return False
+        if torch.device(device).type == "cuda":
+            torch.cuda.current_stream(device).synchronize()
+        if time.monotonic() >= self.deadline_t:
+            self.fired = True
+        return self.fired
 
 
 class EngineState(NamedTuple):
@@ -225,7 +277,8 @@ def engine_search(score_fn: ScoreFn, r_anc, query, cfg: AdaCURConfig, key,
                   first_anchors=None, batch: Optional[int] = None,
                   n_valid_items=None, n_rounds: Optional[int] = None,
                   return_scores: Optional[bool] = None,
-                  item_ids=None) -> AdaCURResult:
+                  item_ids=None, eligible=None,
+                  deadline: Optional[AnytimeDeadline] = None) -> AdaCURResult:
     """Run Algorithm 1 (+ retrieval) through the static-shape round engine.
 
     Runs on the payload's device.  ``query`` is any batched query pytree (a
@@ -236,7 +289,11 @@ def engine_search(score_fn: ScoreFn, r_anc, query, cfg: AdaCURConfig, key,
     ``n_valid_items`` as a Python int is a static bound; as a tensor it is
     a runtime bound (suppression then goes through the selected mask, as on
     the reference's dynamic path).  ``item_ids`` (N,) maps positions to
-    external ids before every CE call.
+    external ids before every CE call.  ``eligible`` (B, N) or (N,) bool
+    restricts each query to its True items: the rest are never sampled,
+    never reranked and left out of the early-exit monitor, and the CE
+    accounting does not change.  ``deadline`` (``loop_mode='fori'`` only)
+    cuts the round loop at an armed :class:`AnytimeDeadline`.
     """
     r_anc = quant.as_payload(r_anc, cfg.payload_dtype, cfg.payload_tile)
     k_q, n_items = r_anc.shape
@@ -254,9 +311,20 @@ def engine_search(score_fn: ScoreFn, r_anc, query, cfg: AdaCURConfig, key,
         else:
             nv = torch.clamp(torch.as_tensor(n_valid_items, device=dev), max=n_items)
             invalid = torch.arange(n_items, device=dev) >= nv
-    dyn_valid = invalid is not None
+    if eligible is not None:
+        eligible = torch.as_tensor(eligible, device=dev).to(torch.bool)
+        if eligible.dim() == 1:
+            eligible = eligible[None, :]
+    # the early-exit monitor's invalid mask: padded tail + ineligible items
+    mon_invalid = invalid
+    if eligible is not None:
+        mon_invalid = ~eligible if invalid is None else (~eligible | invalid[None, :])
+    dyn_valid = invalid is not None or eligible is not None
     if cfg.loop_mode == "unrolled" and n_rounds is not None:
         raise ValueError("runtime n_rounds override requires loop_mode='fori'")
+    if deadline is not None and cfg.loop_mode != "fori":
+        raise ValueError("an anytime deadline needs the runtime round loop: "
+                         "use loop_mode='fori'")
 
     b = query_batch(query, first_anchors, batch)
     if first_anchors is not None and tuple(first_anchors.shape) != (b, k_s):
@@ -274,6 +342,8 @@ def engine_search(score_fn: ScoreFn, r_anc, query, cfg: AdaCURConfig, key,
         selected |= (torch.arange(n_items, device=dev) >= n_valid)[None, :]
     if invalid is not None:
         selected |= invalid[None, :]
+    if eligible is not None:
+        selected |= ~eligible
 
     keys = prng.split(key, r_max + 1)
 
@@ -313,26 +383,41 @@ def engine_search(score_fn: ScoreFn, r_anc, query, cfg: AdaCURConfig, key,
         # the reference compares a float32 overlap with a float32 bound
         stop_at = float(np.float32(1.0 - cfg.early_exit_tol))
         m = min(cfg.k_retrieve, n_items)
-        monitor = (m, invalid)
+        monitor = (m, mon_invalid)
         r, frac = 1, 0.0
+
+        def cut() -> bool:   # polled only before a round the loop would run
+            return deadline is not None and deadline.expired(dev)
+
         if cfg.early_exit_tol > 0.0 and cfg.round_kernel == "persistent":
             pending, prev = sample_step(1, state, monitor=monitor)
-            while r < r_dyn and frac < stop_at:
+            while r < r_dyn and frac < stop_at and not cut():
                 state = apply_step(r, state, pending)
                 pending, cur_top = sample_step(r + 1, state, monitor=monitor)
                 frac, prev, r = _hit_frac(cur_top, prev), cur_top, r + 1
         elif cfg.early_exit_tol > 0.0:
-            prev = _provisional_topk(cfg, state.e_q, r_anc, m, n_valid, invalid)
-            while r < r_dyn and frac < stop_at:
+            prev = _provisional_topk(cfg, state.e_q, r_anc, m, n_valid, mon_invalid)
+            while r < r_dyn and frac < stop_at and not cut():
                 state = body(r, state)
-                cur_top = _provisional_topk(cfg, state.e_q, r_anc, m, n_valid, invalid)
+                cur_top = _provisional_topk(cfg, state.e_q, r_anc, m, n_valid, mon_invalid)
                 frac, prev, r = _hit_frac(cur_top, prev), cur_top, r + 1
         else:
-            for r in range(1, r_dyn):
+            while r < r_dyn and not cut():
                 state = body(r, state)
-            r = r_dyn
+                r += 1
         rounds_done = r
 
+    if cfg.incremental_pinv and r_max > 1 and (cfg.split_budget or return_scores):
+        # The bordered update is the unregularized pseudo-inverse: it cannot
+        # truncate the anchor block's small singular values as the full
+        # pinv's rcond does.  At 100 anchors in 5 rounds over k_q = 200 the
+        # block is ill-conditioned enough that a one-ulp change of the
+        # payload moves the rerank's top-100 (tests/test_torch_engine.py),
+        # and card against CPU fell below 0.99 (chip_smoke.py).  So the
+        # rerank's estimate is a regularized solve, once after the last
+        # round: a float64 Cholesky of the (k_i, k_i) Gram matrix, where the
+        # full pinv's batched SVD is far slower on the card (PERF.md).
+        state = state._replace(e_q=cur.ridge_query_embedding(state.a_buf, state.c_test))
     anchor_idx, c_test = state.anchor_idx, state.c_test
     valid_slot = torch.arange(k_i, device=dev) < rounds_done * k_s
     anchor_logits = torch.where(valid_slot[None, :], c_test, NEG_INF)
@@ -365,46 +450,69 @@ def engine_search(score_fn: ScoreFn, r_anc, query, cfg: AdaCURConfig, key,
                         ce_call_plan(cfg), rounds_done)
 
 
-def make_engine(score_fn: ScoreFn, cfg: AdaCURConfig) -> Callable:
+def make_engine(score_fn: ScoreFn, cfg: AdaCURConfig, n_valid_items=None,
+                return_scores: Optional[bool] = None, anytime: bool = False) -> Callable:
     """Engine closure over a scorer + config.  In ``fori`` mode the
-    callable takes a runtime ``n_rounds`` in [1, cfg.n_rounds]."""
+    callable takes a runtime ``n_rounds`` in [1, cfg.n_rounds].
+
+    ``anytime=True`` (``fori`` only) threads an :class:`AnytimeDeadline`
+    through the round loop and exposes it as ``run.deadline``: arm it with
+    an absolute ``time.monotonic()`` deadline before a search, and the loop
+    stops at the first round boundary past it."""
+    deadline = None
+    if anytime:
+        if cfg.loop_mode != "fori":
+            raise ValueError("anytime=True requires loop_mode='fori' (the "
+                             "deadline cuts a runtime round loop)")
+        deadline = AnytimeDeadline()
 
     def run(r_anc, query, key, first_anchors=None, batch=None, n_rounds=None,
-            n_valid=None, item_ids=None):
+            n_valid=None, item_ids=None, eligible=None):
         return engine_search(
             score_fn, r_anc, query, cfg, key, first_anchors=first_anchors,
-            batch=batch, n_valid_items=n_valid, n_rounds=n_rounds,
-            item_ids=item_ids,
+            batch=batch, n_valid_items=n_valid if n_valid is not None else n_valid_items,
+            n_rounds=n_rounds, return_scores=return_scores, item_ids=item_ids,
+            eligible=eligible, deadline=deadline,
         )
 
+    run.deadline = deadline
     return run
 
 
-@dataclass
-class AdaCURRetriever:
-    """The paper's method (Alg. 1) on the static-shape engine."""
+@runtime_checkable
+class Retriever(Protocol):
+    """Anything that answers a k-NN query batch under a CE-call budget."""
 
-    score_fn: ScoreFn
-    r_anc: Optional[object]
-    cfg: AdaCURConfig
-    index: Optional[object] = None       # repro_torch.core.index.AnchorIndex
-    _run: Callable = field(init=False, repr=False)
+    def search(self, query, key=None, **kw) -> AdaCURResult:
+        ...
 
-    def __post_init__(self):
-        if self.r_anc is None and self.index is None:
-            raise ValueError("need r_anc or an AnchorIndex")
-        if (self.index is not None and self.cfg.payload_dtype != "float32"
-                and self.index.payload_dtype != self.cfg.payload_dtype):
-            # the payload policy applies to the index once, not per search
-            self.index = self.index.quantize(self.cfg.payload_dtype,
-                                             tile=self.cfg.payload_tile)
-        self._run = make_engine(self.score_fn, self.cfg)
 
-    @classmethod
-    def from_index(cls, index, score_fn: ScoreFn, cfg: AdaCURConfig) -> "AdaCURRetriever":
-        """Bind the engine to an AnchorIndex: ``score_fn`` receives external
-        item ids, and a padded capacity is masked by the runtime bound."""
-        return cls(score_fn, None, cfg, index=index)
+class _IndexBacked:
+    """Shared plumbing of the retrievers that consume an AnchorIndex.
+
+    The index's tensors are read from ``self.index`` at every search, so a
+    replaced index (``retriever.index = new``) is picked up.  The runtime
+    ``n_valid`` bound is passed only for a padded index; an unpadded one
+    keeps the static path, whose fused sampling suppresses by the anchor-id
+    list.  ``cfg.payload_dtype`` is applied to the index once, at
+    construction (:meth:`_apply_payload_policy`); an index that is already
+    coded (int8, int4, fp8) is authoritative and passes through.  A
+    subclass holds ``score_fn``, ``r_anc`` and ``index``."""
+
+    def _apply_payload_policy(self, cfg: AdaCURConfig) -> None:
+        idx = self.index
+        if idx is None or cfg.payload_dtype == "float32":
+            return
+        if idx.payload_dtype == cfg.payload_dtype or idx.payload_dtype in quant.CODE_DTYPES:
+            return
+        self.index = idx.quantize(cfg.payload_dtype, tile=cfg.payload_tile)
+
+    def _prep_query(self, query):
+        """A scorer with a host tokenizer (``tokenize_queries``) takes token
+        operands: map the query ids once, before the round loop; every
+        other scorer gets the query untouched."""
+        tok = getattr(self.score_fn, "tokenize_queries", None)
+        return query if tok is None else tok(query)
 
     def _search_operands(self):
         if self.index is None:
@@ -414,9 +522,232 @@ class AdaCURRetriever:
             kw["n_valid"] = self.index.n_valid
         return self.index.r_anc, kw
 
+
+@dataclass
+class AdaCURRetriever(_IndexBacked):
+    """The paper's method (Alg. 1) on the static-shape engine.
+    ``anytime=True`` (``fori`` only) lets :meth:`search` take a
+    ``deadline_t``; ``self.deadline.fired`` then says whether it cut the
+    search short."""
+
+    score_fn: ScoreFn
+    r_anc: Optional[object]
+    cfg: AdaCURConfig
+    index: Optional[object] = None       # repro_torch.core.index.AnchorIndex
+    anytime: bool = False
+    _run: Callable = field(init=False, repr=False)
+
+    def __post_init__(self):
+        if self.r_anc is None and self.index is None:
+            raise ValueError("need r_anc or an AnchorIndex")
+        self._apply_payload_policy(self.cfg)
+        self._run = make_engine(self.score_fn, self.cfg, anytime=self.anytime)
+        self.deadline = self._run.deadline
+
+    @classmethod
+    def from_index(cls, index, score_fn: ScoreFn, cfg: AdaCURConfig,
+                   anytime: bool = False) -> "AdaCURRetriever":
+        """Bind the engine to an AnchorIndex: ``score_fn`` receives external
+        item ids, and a padded capacity is masked by the runtime bound."""
+        return cls(score_fn, None, cfg, index=index, anytime=anytime)
+
     def search(self, query, key=None, first_anchors=None, batch=None,
-               n_rounds=None) -> AdaCURResult:
+               n_rounds=None, deadline_t=None, **_ignored) -> AdaCURResult:
         key = prng.PRNGKey(0) if key is None else key
+        query = self._prep_query(query)
         r_anc, kw = self._search_operands()
-        return self._run(r_anc, query, key, first_anchors=first_anchors,
-                         batch=batch, n_rounds=n_rounds, **kw)
+        run = lambda: self._run(r_anc, query, key, first_anchors=first_anchors,  # noqa: E731
+                                batch=batch, n_rounds=n_rounds, **kw)
+        if deadline_t is None:
+            return run()
+        if self.deadline is None:
+            raise ValueError("deadline_t= requires anytime=True at construction")
+        self.deadline.arm(deadline_t)
+        try:
+            return run()
+        finally:
+            self.deadline.disarm()
+
+
+@dataclass
+class ANNCURRetriever(_IndexBacked):
+    """Fixed-anchor one-round special case (Yadav et al. 2022): one
+    retriever-seeded engine round over the fixed anchors, then the
+    split-budget rerank, the code path ADACUR runs at ``n_rounds=1``.  With
+    ``budget_ce == k_anchor`` no rerank budget is left, and the ranking is
+    the free exact-score ranking of the anchors (the no-split
+    configuration).  ``base_cfg`` supplies the engine's other settings
+    (``use_fused_topk``, payload)."""
+
+    score_fn: ScoreFn
+    r_anc: Optional[object]
+    anchor_idx: Optional[torch.Tensor]   # (k_i,) fixed anchor item positions
+    budget_ce: int = 0
+    k_retrieve: int = 100
+    pinv_rcond: float = 1e-6
+    base_cfg: Optional[AdaCURConfig] = None
+    index: Optional[object] = None       # repro_torch.core.index.AnchorIndex
+    _run: Callable = field(init=False, repr=False)
+
+    def __post_init__(self):
+        if self.anchor_idx is None:
+            if self.index is None or self.index.anchor_item_pos is None:
+                raise ValueError("need anchor_idx or an AnchorIndex with anchors "
+                                 "(index.with_anchors() / with_latents())")
+            k_i = int(self.index.anchor_item_pos.shape[0])
+        else:
+            k_i = int(self.anchor_idx.shape[0])
+        if self.r_anc is None and self.index is None:
+            raise ValueError("need r_anc or an AnchorIndex")
+        if self.budget_ce < k_i:
+            raise ValueError(f"budget_ce={self.budget_ce} < k_anchor={k_i}")
+        self.cfg = replace(
+            self.base_cfg or AdaCURConfig(), k_anchor=k_i, n_rounds=1,
+            budget_ce=self.budget_ce, split_budget=self.budget_ce > k_i,
+            first_round="retriever", k_retrieve=self.k_retrieve,
+            pinv_rcond=self.pinv_rcond, round_epsilon=0.0, early_exit_tol=0.0,
+        )
+        self._apply_payload_policy(self.cfg)
+        self._run = make_engine(self.score_fn, self.cfg)
+
+    @classmethod
+    def from_index(cls, index, score_fn: ScoreFn, budget_ce: int, k_retrieve: int = 100,
+                   pinv_rcond: float = 1e-6,
+                   base_cfg: Optional[AdaCURConfig] = None) -> "ANNCURRetriever":
+        """ANNCUR over an AnchorIndex that carries anchors; they are read
+        from the index at every search."""
+        return cls(score_fn, None, None, budget_ce, k_retrieve, pinv_rcond, base_cfg,
+                   index=index)
+
+    def search(self, query, key=None, **_ignored) -> AdaCURResult:
+        key = prng.PRNGKey(0) if key is None else key
+        query = self._prep_query(query)
+        anchors = self.index.anchor_item_pos if self.anchor_idx is None else self.anchor_idx
+        r_anc, kw = self._search_operands()
+        b = query_batch(query)
+        first = anchors.to(device=r_anc.device, dtype=torch.int32)[None, :].expand(
+            b, anchors.shape[0]).contiguous()
+        return self._run(r_anc, query, key, first_anchors=first, **kw)
+
+
+@dataclass
+class RerankRetriever(_IndexBacked):
+    """Retrieve-and-rerank baseline: one retriever-seeded round, no split.
+    Every candidate is exact-CE scored (they are the anchors) and the
+    ranking is the free top-k of those scores: ``retrieval.rerank_baseline``
+    as an engine configuration."""
+
+    score_fn: ScoreFn
+    r_anc: Optional[object]
+    budget_ce: int = 0
+    k_retrieve: int = 100
+    base_cfg: Optional[AdaCURConfig] = None
+    index: Optional[object] = None       # repro_torch.core.index.AnchorIndex
+    _run: Callable = field(init=False, repr=False)
+
+    def __post_init__(self):
+        if self.r_anc is None and self.index is None:
+            raise ValueError("need r_anc or an AnchorIndex")
+        self.cfg = replace(
+            self.base_cfg or AdaCURConfig(), k_anchor=self.budget_ce, n_rounds=1,
+            budget_ce=self.budget_ce, split_budget=False, first_round="retriever",
+            k_retrieve=self.k_retrieve, round_epsilon=0.0, early_exit_tol=0.0,
+        )
+        self._apply_payload_policy(self.cfg)
+        # pure rerank never reads S_hat: no pinv/e_q machinery
+        self._run = make_engine(self.score_fn, self.cfg, return_scores=False)
+
+    @classmethod
+    def from_index(cls, index, score_fn: ScoreFn, budget_ce: int, k_retrieve: int = 100,
+                   base_cfg: Optional[AdaCURConfig] = None) -> "RerankRetriever":
+        return cls(score_fn, None, budget_ce, k_retrieve, base_cfg, index=index)
+
+    def search(self, query, key=None, candidate_idx=None, **_ignored) -> AdaCURResult:
+        if candidate_idx is None:
+            raise ValueError("RerankRetriever.search needs candidate_idx (B, >= budget)")
+        key = prng.PRNGKey(0) if key is None else key
+        query = self._prep_query(query)
+        r_anc, kw = self._search_operands()
+        first = candidate_idx[:, :self.budget_ce].to(device=r_anc.device, dtype=torch.int32)
+        return self._run(r_anc, query, key, first_anchors=first, **kw)
+
+
+# ---------------------------------------------------------------------------
+# Introspection: the fused path never materializes (B, N) scores.
+# ---------------------------------------------------------------------------
+
+
+def round_body_bn_intermediates(score_fn: ScoreFn, r_anc, query, cfg: AdaCURConfig,
+                                batch: Optional[int] = None) -> int:
+    """Number of (B, N) floating-point tensors that ONE adaptive round body
+    creates (round 1 on zeroed slabs, as the reference traces it).
+
+    The reference counts the float (B, N) outputs of the round body's jaxpr;
+    the port runs eagerly, so a ``TorchDispatchMode`` counts the float
+    (B, N) outputs of every aten op the body dispatches.  Dense sampling
+    scores every item each round (>= 1); the fused TopK path must report 0
+    (a CUDA kernel's work is invisible to the dispatcher, and it allocates
+    only its (B, k) lists; the CPU plain version forms (B, tile) slabs, so
+    hold the CPU count with N above the plain tile)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    r_anc = quant.as_payload(r_anc, cfg.payload_dtype, cfg.payload_tile)
+    k_q, n_items = r_anc.shape
+    dev = r_anc.device
+    k_i = cfg.budget_ce if not cfg.split_budget else cfg.k_anchor
+    k_s = k_i // cfg.n_rounds
+    b = query_batch(query, batch=batch)
+    keys = prng.split(prng.PRNGKey(0), cfg.n_rounds + 1)
+    _, _, body = _make_round_steps(score_fn, r_anc, query, cfg, keys, k_s, None)
+    state = EngineState(
+        anchor_idx=torch.zeros((b, k_i), dtype=torch.int32, device=dev),
+        c_test=torch.zeros((b, k_i), device=dev),
+        a_buf=torch.zeros((b, k_q, k_i), device=dev),
+        p=torch.zeros((b, k_i, k_q), device=dev),
+        e_q=torch.zeros((b, k_q), device=dev),
+        selected=torch.zeros((b, n_items), dtype=torch.bool, device=dev),
+    )
+
+    class _Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            for t in (out if isinstance(out, (tuple, list)) else (out,)):
+                if (isinstance(t, torch.Tensor) and t.is_floating_point()
+                        and tuple(t.shape) == (b, n_items)):
+                    self.n += 1
+            return out
+
+    with _Count() as counter:
+        body(1, state)
+    return counter.n
+
+
+def engine_slab_bytes(cfg: AdaCURConfig, batch: int, n_items: int, k_q: int,
+                      n_data_shards: int = 1, n_item_shards: int = 1, payload=None) -> dict:
+    """Device bytes of the engine's preallocated per-search slabs (per shard
+    for a (data x items) decomposition, as the reference reports them), plus
+    ``"payload"`` when ``payload`` is given: a payload (its real bytes, packed
+    int4 at half a byte a column) or a payload dtype name (sized from
+    ``(k_q, n_items)`` and the tile scales)."""
+    k_i = cfg.budget_ce if not cfg.split_budget else cfg.k_anchor
+    b = batch // n_data_shards
+    slabs = {
+        "anchor_idx": b * k_i * 4,
+        "c_test": b * k_i * 4,
+        "a_buf": b * k_q * k_i * 4,
+        "p": b * k_i * k_q * 4,
+        "e_q": b * k_q * 4,
+        "selected_mask": b * (n_items // n_item_shards) * 1,
+    }
+    if payload is not None:
+        if isinstance(payload, str):
+            nb = quant.payload_nbytes(payload, k_q, n_items, cfg.payload_tile)
+        elif isinstance(payload, quant.QuantizedRanc):
+            nb = payload.nbytes
+        else:
+            nb = payload.numel() * payload.element_size()
+        slabs["payload"] = nb // n_item_shards
+    slabs["total"] = sum(slabs.values())
+    return slabs

@@ -3,9 +3,10 @@ part of ``repro/core/index.py``'s :class:`AnchorIndex`.
 
 The item axis is padded to ``capacity``; positions ``[0, n_valid)`` hold
 real items (column ``j`` of ``r_anc`` scores item ``item_ids[j]``) and the
-tail holds exact-zero columns with ``item_ids == -1``.  Save/load, the
-resumable ``checkpoint_dir`` build, mutation, latents and sharding are
-later slices.
+tail holds exact-zero columns with ``item_ids == -1``.  ANNCUR's anchors
+and latents (``with_anchors``, ``with_latents``) and the single-device
+``topk`` are here; save/load, the resumable ``checkpoint_dir`` build,
+mutation and sharding are later slices (ROADMAP.md, queue 1).
 """
 
 from __future__ import annotations
@@ -17,7 +18,9 @@ from typing import Callable, Optional, Union
 import torch
 
 from ..kernels.approx_topk import quant
+from ..kernels.approx_topk.ops import approx_topk_op
 from ..kernels.approx_topk.quant import QuantizedRanc
+from . import cur, prng
 
 # bulk_score_fn(query_ids (Q,), item_ids (N,)) -> (Q, N) exact scores
 BulkScoreFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
@@ -44,6 +47,10 @@ class AnchorIndex:
     anchor_query_ids: torch.Tensor              # (k_q,) int32
     item_ids: torch.Tensor                      # (capacity,) int32, -1 padding
     n_valid: torch.Tensor                       # () int32 real item count
+    # optional ANNCUR latents (arXiv 2210.12579)
+    anchor_item_pos: Optional[torch.Tensor] = None   # (k_i,) int32 anchor positions
+    u: Optional[torch.Tensor] = None                 # (k_i, k_q) pinv(R_anc[:, I_anc])
+    item_embeddings: Optional[torch.Tensor] = None   # (k_i, capacity) U @ R_anc
 
     @property
     def k_q(self) -> int:
@@ -73,6 +80,14 @@ class AnchorIndex:
     def n_items(self) -> int:
         return int(self.n_valid)
 
+    @property
+    def has_latents(self) -> bool:
+        return self.item_embeddings is not None
+
+    def valid_mask(self) -> torch.Tensor:
+        """(capacity,) bool, True on real item positions."""
+        return torch.arange(self.capacity, device=self.device) < self.n_valid
+
     def quantize(self, dtype: str = "int8", tile: int = quant.DEFAULT_TILE) -> "AnchorIndex":
         """Re-encode the payload (``int8`` | ``int4`` | ``fp8`` |
         ``bfloat16`` | ``float32``).  The coded dtypes store per-item-tile
@@ -93,6 +108,15 @@ class AnchorIndex:
         else:
             new = dense
         return dataclasses.replace(self, r_anc=new)
+
+    def to(self, device) -> "AnchorIndex":
+        """The same index with every tensor on ``device``."""
+        move = lambda t: None if t is None else t.to(device)  # noqa: E731
+        return dataclasses.replace(
+            self, r_anc=self.r_anc.to(device), anchor_query_ids=move(self.anchor_query_ids),
+            item_ids=move(self.item_ids), n_valid=move(self.n_valid),
+            anchor_item_pos=move(self.anchor_item_pos), u=move(self.u),
+            item_embeddings=move(self.item_embeddings))
 
     def gather_item_ids(self, pos: torch.Tensor) -> torch.Tensor:
         """Map engine positions (e.g. ``result.topk_idx``) to external ids."""
@@ -135,3 +159,40 @@ class AnchorIndex:
         idx = cls.from_r_anc(r_anc, anchor_query_ids=anchor_query_ids,
                              item_ids=item_ids, capacity=capacity)
         return idx.quantize(payload_dtype, tile=payload_tile)
+
+    # ---- ANNCUR latents ----------------------------------------------------
+
+    def with_anchors(self, k_anchor: Optional[int] = None, key=None,
+                     anchor_pos=None) -> "AnchorIndex":
+        """Fix the ANNCUR anchor item positions without latents: ``anchor_pos``,
+        or ``k_anchor`` positions drawn uniformly from the valid prefix by
+        ``prng.choice(key, ...)``, JAX's draw bit for bit, so the same key
+        picks the reference's anchors."""
+        if anchor_pos is None:
+            if key is None or k_anchor is None:
+                raise ValueError("need (k_anchor, key) or explicit anchor_pos")
+            anchor_pos = prng.choice(key, self.n_items, (int(k_anchor),), replace=False)
+        pos = torch.as_tensor(anchor_pos).to(device=self.device, dtype=torch.int32)
+        return dataclasses.replace(self, anchor_item_pos=pos, u=None, item_embeddings=None)
+
+    def with_latents(self, k_anchor: Optional[int] = None, key=None, anchor_pos=None,
+                     rcond: float = 1e-6) -> "AnchorIndex":
+        """:meth:`with_anchors` plus ``U = pinv(R_anc[:, I_anc])`` and the
+        latent item embeddings ``E_I = U @ R_anc``."""
+        idx = self.with_anchors(k_anchor=k_anchor, key=key, anchor_pos=anchor_pos)
+        u = cur.pinv(quant.take_columns(idx.r_anc, idx.anchor_item_pos), rcond)
+        return dataclasses.replace(idx, u=u, item_embeddings=quant.matmul(u, idx.r_anc))
+
+    def query_embedding(self, c_anchor: torch.Tensor) -> torch.Tensor:
+        """(B, k_i) exact anchor scores -> (B, k_q) latent query embedding."""
+        if self.u is None:
+            raise ValueError("index has no latents; call with_latents() first")
+        return c_anchor @ self.u
+
+    def topk(self, e_q: torch.Tensor, k: int, tile: int = 512):
+        """Top-k of ``e_q @ R_anc`` over the valid items -> (values, positions),
+        through the fused op (the CUDA kernel on the card).  The padded tail
+        is suppressed by the ``n_valid`` bound, the same items as the
+        reference's broadcast valid mask, without a (B, capacity) mask."""
+        n_valid = self.n_items if self.n_items < self.capacity else None
+        return approx_topk_op(e_q, self.r_anc, None, k, tile=tile, n_valid=n_valid)

@@ -235,6 +235,36 @@ def randint(key, shape, low: int, high: int, device=None) -> torch.Tensor:
     return (int(low) + (off & _M32) % span).to(torch.int32)
 
 
+def permutation(key, n: int, device=None) -> torch.Tensor:
+    """``jax.random.permutation(key, n)`` (int64 ids), bit for bit: JAX's
+    ``_shuffle`` runs ``ceil(3 ln n / ln(2^32 - 1))`` rounds, each splitting
+    the key and sorting the ids by fresh 32-bit ``random_bits``.  The sort is
+    stable, as ``lax.sort_key_val`` is: equal 32-bit keys do occur at
+    N = 10^6, and then the earlier position goes first."""
+    n = int(n)
+    x = torch.arange(n, dtype=torch.int64, device=device or key.device)
+    rounds = int(np.ceil(3 * np.log(max(1, n)) / np.log(np.iinfo(np.uint32).max)))
+    for _ in range(rounds):
+        key, sub = split(key)
+        order = torch.sort(random_bits(sub, (n,), x.device), stable=True).indices
+        x = x[order]
+    return x
+
+
+def choice(key, n: int, shape, replace: bool = True, device=None) -> torch.Tensor:
+    """``jax.random.choice(key, n, shape, replace=False)``: the first
+    ``prod(shape)`` ids of :func:`permutation`.  Sampling with replacement
+    is not ported (nothing in the port draws it)."""
+    if replace:
+        raise NotImplementedError("choice(replace=True) is not ported; pass replace=False")
+    shape = tuple(shape)
+    k = int(np.prod(shape, dtype=np.int64))
+    if k > n:
+        raise ValueError(f"cannot take a larger sample ({k}) than the population ({n}) "
+                         "when replace=False")
+    return permutation(key, n, device)[:k].reshape(shape)
+
+
 def block_bits(block_keys: torch.Tensor, width: int) -> torch.Tensor:
     """32-bit bits of ``width`` draws under each key of a (..., 2) key array
     -> (..., width); row i of the result is ``random_bits(block_keys[i])``."""

@@ -85,11 +85,17 @@ class SyntheticScorer(_CountingScorer):
 
 
 class TabulatedScorer(_CountingScorer):
-    """Exact-matrix lookup ``score(q, i) = matrix[q, i]``."""
+    """Exact-matrix lookup ``score(q, i) = matrix[q, i]``.  A tensor stays
+    where it is (several scorers may share one card-resident table); an
+    array is copied to a CPU tensor and moves to the ids' device at the
+    first call."""
 
     def __init__(self, matrix, record_pairs: bool = False):
         super().__init__(record_pairs)
-        self.matrix = torch.as_tensor(np.asarray(matrix, dtype=np.float32))
+        if isinstance(matrix, torch.Tensor):
+            self.matrix = matrix.to(torch.float32)
+        else:
+            self.matrix = torch.from_numpy(np.array(matrix, dtype=np.float32))
 
     def __call__(self, query, item_idx) -> torch.Tensor:
         self._count(query, item_idx)

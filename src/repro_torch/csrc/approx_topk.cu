@@ -23,7 +23,10 @@
 // stream through a cp.async ring that overlaps loads with the mma's and
 // with the epilogue, and selection works on the accumulator fragments in
 // registers against a cached per-row threshold and a threshold the blocks
-// publish, batching survivors into warp-parallel merges.  The (B, N) score matrix never leaves the chip: a
+// publish, batching survivors into warp-parallel merges.  Lists longer than
+// KMAX = 256 (the dual-encoder shortlist of k = 800, up to 1024) take a
+// second instantiation that merges a list 256 entries at a time, so the
+// k <= 256 kernel keeps its registers and code.  The (B, N) score matrix never leaves the chip: a
 // block writes only its (32, k) lists, which a second kernel merges.
 
 #include "topk_common.cuh"
@@ -36,6 +39,9 @@
 // scales / noise / mask / anchors may be null (A = 0 without anchors).
 // range_cols: columns per block (a multiple of TCOLS); blk_v / blk_i hold
 // (B, ceil(N / range_cols), k) scratch, gthr (B,) int32 scratch.
+// 1 <= k <= KMAX_LARGE (1024): k <= KMAX (256) runs the sweep whose lists
+// are read in one register chunk (the serving path's kernel), a larger k
+// the same sweep instantiated for lists of up to four chunks (warp_merge).
 extern "C" int approx_topk_launch(const float* a_hi, const float* a_lo,
                                   const void* payload,
                                   int payload_kind, const float* scales,
@@ -45,12 +51,13 @@ extern "C" int approx_topk_launch(const float* a_hi, const float* a_lo,
                                   int k, int range_cols, float* blk_v,
                                   int* blk_i, int* gthr, float* out_v, int* out_i,
                                   void* stream) {
-  if (k < 1 || k > adacur::KMAX) return (int)cudaErrorInvalidValue;
+  if (k < 1 || k > adacur::KMAX_LARGE) return (int)cudaErrorInvalidValue;
   const adacur::SweepArgs a = adacur::sweep_args(a_hi, a_lo, payload, scales,
                                                  qtile, B, KQ, N, n_items, range_cols);
   const adacur::ListDesc l{noise, mask, anchors, A, k, blk_v, blk_i, gthr};
   float* const ov[2] = {out_v, nullptr};
   int* const oi[2] = {out_i, nullptr};
-  return adacur::launch_kind<1>(payload_kind, a, l, l, ov, oi,
-                                static_cast<cudaStream_t>(stream));
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (k <= adacur::KMAX) return adacur::launch_kind<1>(payload_kind, a, l, l, ov, oi, s);
+  return adacur::launch_kind<1, adacur::KCH_LARGE>(payload_kind, a, l, l, ov, oi, s);
 }

@@ -52,7 +52,16 @@
 //    exact in TF32, so b_lo = 0 and two passes do.  The tensor core adds in
 //    a chunk accumulator that restarts every BK = 32 of k_q; each chunk is
 //    added to the running fp32 sum with __fadd_rn, so the hardware's
-//    truncating accumulation only ever spans 32 terms.
+//    truncating accumulation only ever spans 32 terms.  For the payloads
+//    exact in TF32 (bf16, int8, fp8, int4) that add's rounding error
+//    (Fast2Sum) is where the next chunk's accumulator starts, so the
+//    running sum is not rounded at its own scale once a chunk, and the
+//    tensor core's truncation (most of its sums are the exact sum of c and
+//    a k-step's 8 products, truncated toward zero;
+//    ref.tf32x3_scores(truncate=True) replays it) sets the error alone.
+//    The fp32 payload's chunks restart at 0: its mainloop issues the most
+//    instructions a chunk, and the carry's two extra adds an accumulator
+//    cost it 4-7% (PERF.md, the kernel table).
 //    mma.sync and not wgmma: wgmma transposes only 16-bit operands, and
 //    R_anc is (k_q, N) row-major (N contiguous), so the payload tile
 //    would have to be transposed to K-major in shared memory first.  That
@@ -97,6 +106,13 @@
 //    as the row's global threshold (atomicMax on an order-preserving int
 //    image); every block drops values strictly below it, which cannot be in
 //    the row's top k.
+// 4. Lists longer than KMAX = 256 (the dual-encoder shortlist, k = 800;
+//    any k up to KMAX_LARGE = 1024) take a second instantiation of the same
+//    sweep (KCH = 4 list chunks): warp_merge reads a list 256 entries at a
+//    time, from its last chunk to its first, so its registers are the
+//    k <= 256 kernel's and neither instantiation spills.  The lists live
+//    in the (B, ranges, k) scratch either way.  persistent_round keeps
+//    KMAX = 256.
 //
 // Ties break by (max value, min id) everywhere.  Masked entries score
 // exactly NEG_INF and still compete by id, so an under-filled row returns
@@ -125,7 +141,9 @@ constexpr int BK = 32;         // k_q depth of one ring stage / one chunk
 constexpr int QCAP = 64;       // queue entries per row
 constexpr int ACAP = 64;       // in-range anchor ids kept per row
 constexpr int A_TILE = ROWS * BK;   // floats of one e_q chunk (hi or lo)
-constexpr int KMAX = 256;      // largest k a list may hold
+constexpr int KMAX = 256;      // largest k of a list held in one chunk (the KCH = 1 kernels)
+constexpr int KMAX_LARGE = 1024;   // largest k of approx_topk's large-k instantiation
+constexpr int KCH_LARGE = KMAX_LARGE / KMAX;   // its list chunks
 constexpr int SMEM_LIMIT = 232448;   // opt-in shared memory per block, sm_90
 constexpr unsigned FULL = 0xffffffffu;
 
@@ -222,51 +240,71 @@ __device__ __forceinline__ void cp_async_wait_all() {
 // sorted, in global or shared memory).  Lane s holds queue entry
 // (qv, qi) if bit s of qmask is set; all 32 lanes call it.  Every entry's
 // rank in the union is counted, and it is written there if below k.
+//
+// The list is read KMAX entries at a time (a chunk: KMAX / 32 a lane, in
+// registers), from its last chunk to its first.  An entry only moves down
+// the list (to its index plus the queue entries that beat it), so a chunk's
+// writes land on entries already read; the queue entries go in last.  KCH
+// is the most chunks a list may hold: 1 for k <= KMAX (the serving path's
+// lists), KMAX_LARGE / KMAX for the large-k instantiation.
+template <int KCH>
 __device__ __forceinline__ void warp_merge(float* lv, int* li, int k, float qv,
                                            int qi, unsigned qmask, int lane) {
   constexpr int T = KMAX / 32;
-  float rv[T];
-  int ri[T], cnt[T];
-#pragma unroll
-  for (int t = 0; t < T; ++t) {
-    const int j = lane + 32 * t;
-    cnt[t] = 0;
-    rv[t] = NEG_INF_F;
-    ri[t] = SENTINEL_ID;
-    if (j < k) {
-      rv[t] = lv[j];
-      ri[t] = li[j];
-    }
-  }
   const bool mine = (qmask >> lane) & 1u;
   int rank = 0;
-  unsigned m = qmask;
-  while (m) {
-    const int s = __ffs(m) - 1;
-    m &= m - 1;
-    const float sv = __shfl_sync(FULL, qv, s);
-    const int si = __shfl_sync(FULL, qi, s);
-    int list_better = 0;
+  // one chunk [base, base + KMAX) of the list; `first` counts the queue
+  // entries that beat this lane's entry (once per merge)
+  auto chunk = [&](int base, bool first) {
+    float rv[T];
+    int ri[T], cnt[T];
 #pragma unroll
     for (int t = 0; t < T; ++t) {
-      if (lane + 32 * t < k) {
-        if (better(sv, si, rv[t], ri[t])) ++cnt[t];
-        else ++list_better;
+      const int j = base + lane + 32 * t;
+      cnt[t] = 0;
+      rv[t] = NEG_INF_F;
+      ri[t] = SENTINEL_ID;
+      if (j < k) {
+        rv[t] = lv[j];
+        ri[t] = li[j];
       }
     }
-    list_better = __reduce_add_sync(FULL, list_better);
-    if (lane == s) rank += list_better;
-    if (mine && better(sv, si, qv, qi)) ++rank;
-  }
-  __syncwarp();
+    unsigned m = qmask;
+    while (m) {
+      const int s = __ffs(m) - 1;
+      m &= m - 1;
+      const float sv = __shfl_sync(FULL, qv, s);
+      const int si = __shfl_sync(FULL, qi, s);
+      int list_better = 0;
 #pragma unroll
-  for (int t = 0; t < T; ++t) {
-    const int j = lane + 32 * t;
-    const int pos = j + cnt[t];
-    if (j < k && pos < k) {
-      lv[pos] = rv[t];
-      li[pos] = ri[t];
+      for (int t = 0; t < T; ++t) {
+        if (base + lane + 32 * t < k) {
+          if (better(sv, si, rv[t], ri[t])) ++cnt[t];
+          else ++list_better;
+        }
+      }
+      list_better = __reduce_add_sync(FULL, list_better);
+      if (lane == s) rank += list_better;
+      if (first && mine && better(sv, si, qv, qi)) ++rank;
     }
+    __syncwarp();
+#pragma unroll
+    for (int t = 0; t < T; ++t) {
+      const int j = base + lane + 32 * t;
+      const int pos = j + cnt[t];
+      if (j < k && pos < k) {
+        lv[pos] = rv[t];
+        li[pos] = ri[t];
+      }
+    }
+    __syncwarp();
+  };
+  if constexpr (KCH == 1) {
+    chunk(0, true);
+  } else {
+    const int top = (k - 1) / KMAX;
+#pragma unroll 1
+    for (int ch = top; ch >= 0; --ch) chunk(ch * KMAX, ch == top);
   }
   if (mine && rank < k) {
     lv[rank] = qv;
@@ -587,6 +625,7 @@ __device__ __forceinline__ void mma_chunk(const float* a_hi, const float* a_lo,
 // drop what does not make the list.  Resets the queue, refreshes the
 // cached threshold and publishes a full list's k-th value as the row's
 // global threshold.
+template <int KCH>
 __device__ __forceinline__ void flush_row(const ListDesc& L, const ListSmem& S,
                                           const AnchorSmem& AS, int rr, int row,
                                           int n, float* lv, int* li, int lane) {
@@ -596,7 +635,7 @@ __device__ __forceinline__ void flush_row(const ListDesc& L, const ListSmem& S,
     float qv = in ? S.qv[rr * QCAP + base + lane] : NEG_INF_F;
     const int qi = in ? S.qi[rr * QCAP + base + lane] : SENTINEL_ID;
     if (in && L.A > 0 && anchor_hit(L, AS, rr, row, qi)) qv = NEG_INF_F;
-    warp_merge(lv, li, L.k, qv, qi, m >= 32 ? FULL : ((1u << m) - 1u), lane);
+    warp_merge<KCH>(lv, li, L.k, qv, qi, m >= 32 ? FULL : ((1u << m) - 1u), lane);
   }
   if (lane == 0) {
     const float kth = lv[L.k - 1];
@@ -649,6 +688,7 @@ __device__ __forceinline__ T pick(const T* x, int e) {
 // the list's k-th value) and queues the rest; a full queue leaves its
 // candidates pending, and the block then merges every queue at least a
 // quarter full between barriers and retries them until every one is in.
+template <int KCH>
 __device__ __forceinline__ void offer_tile(const SweepArgs& a, const ListDesc& L,
                                            const ListSmem& S, const AnchorSmem& AS,
                                            const float (&acc)[2][NI][4], int col0,
@@ -702,7 +742,7 @@ __device__ __forceinline__ void offer_tile(const SweepArgs& a, const ListDesc& L
       const int n = S.qn[rr];
       if (row < a.B && n >= QCAP / 4) {
         const size_t o = ((size_t)row * nranges + rblk) * L.k;
-        flush_row(L, S, AS, rr, row, min(n, QCAP), L.blk_v + o, L.blk_i + o, lane);
+        flush_row<KCH>(L, S, AS, rr, row, min(n, QCAP), L.blk_v + o, L.blk_i + o, lane);
       }
     }
     __syncthreads();
@@ -733,7 +773,7 @@ __device__ __forceinline__ void load_gthr(const ListDesc& L, int row0, int B,
 
 // The fused sweep: block (row group x, column range y) scores its 32 rows
 // against its columns tile by tile and keeps NL running lists per row.
-template <int K, int NL>
+template <int K, int NL, int KCH>
 __global__ void __launch_bounds__(THREADS, 1)
 sweep_kernel(SweepArgs a, ListDesc l0, ListDesc l1) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -782,55 +822,65 @@ sweep_kernel(SweepArgs a, ListDesc l0, ListDesc l1) {
   cp_async_commit();
 
   float acc[2][NI][4], c[2][NI][4];
-  for (int s = 0; s < nsteps; ++s) {
-    const int chunk = s % nchunks;
-    if (chunk == 0) {
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < NI; ++ni)
-#pragma unroll
-          for (int q = 0; q < 4; ++q) acc[mi][ni][q] = 0.f;
-    }
-    cp_async_wait_all();
-    __syncthreads();
-    // every warp has passed this barrier, so the other stage is free: its
-    // refill goes out in NPART parts, one before and the rest between this
-    // chunk's k-steps
-    const int nx = s + 1;
-    const int nx_chunk = nx % nchunks, nx_col = cbeg + (nx / nchunks) * TCOLS;
-    unsigned char* nx_stage = ring + (nx & 1) * STAGE_BYTES;
-    auto refill = [&](int part) {
-      if (nx < nsteps && part < NPART) load_stage<K>(a, nx_chunk, nx_col, nx_stage, part);
-    };
-    refill(0);
-    const bool last = chunk == nchunks - 1;
-    const int col0 = cbeg + (s / nchunks) * TCOLS;
+  for (int tile = 0; tile < ntiles; ++tile) {
 #pragma unroll
     for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
       for (int ni = 0; ni < NI; ++ni)
 #pragma unroll
-        for (int q = 0; q < 4; ++q) c[mi][ni][q] = 0.f;
-    const unsigned char* st = ring + (s & 1) * STAGE_BYTES;
-    const float* ab = reinterpret_cast<const float*>(st + A_OFF);
-    mma_chunk<K>(ab, ab + A_TILE, st, c, warp, lane, [&](int ks) { refill(ks + 1); });
-    cp_async_commit();
+        for (int q = 0; q < 4; ++q) acc[mi][ni][q] = c[mi][ni][q] = 0.f;
+    for (int chunk = 0; chunk < nchunks; ++chunk) {
+      const int s = tile * nchunks + chunk;
+      cp_async_wait_all();
+      __syncthreads();
+      // every warp has passed this barrier, so the other stage is free: its
+      // refill goes out in NPART parts, one before and the rest between this
+      // chunk's k-steps
+      const int nx = s + 1;
+      const int nx_chunk = nx % nchunks, nx_col = cbeg + (nx / nchunks) * TCOLS;
+      unsigned char* nx_stage = ring + (nx & 1) * STAGE_BYTES;
+      auto refill = [&](int part) {
+        if (nx < nsteps && part < NPART) load_stage<K>(a, nx_chunk, nx_col, nx_stage, part);
+      };
+      refill(0);
+      const unsigned char* st = ring + (s & 1) * STAGE_BYTES;
+      const float* ab = reinterpret_cast<const float*>(st + A_OFF);
+      mma_chunk<K>(ab, ab + A_TILE, st, c, warp, lane, [&](int ks) { refill(ks + 1); });
+      cp_async_commit();
+      if (chunk + 1 < nchunks) {
+        // add the chunk to the running sum; for the payloads exact in TF32,
+        // start the next chunk's accumulator at that add's rounding error
+        // (Fast2Sum: exact while |acc| >= |c|), an fp32 payload restarts at 0
+        // (design note 1)
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+          for (int ni = 0; ni < NI; ++ni)
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+              const float sum = __fadd_rn(acc[mi][ni][q], c[mi][ni][q]);
+              if constexpr (Payload<K>::SPLIT)
+                c[mi][ni][q] = 0.f;
+              else
+                c[mi][ni][q] = __fsub_rn(c[mi][ni][q], __fsub_rn(sum, acc[mi][ni][q]));
+              acc[mi][ni][q] = sum;
+            }
+      }
+    }
 #pragma unroll
     for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
       for (int ni = 0; ni < NI; ++ni)
 #pragma unroll
-        for (int q = 0; q < 4; ++q)
-          acc[mi][ni][q] = __fadd_rn(acc[mi][ni][q], c[mi][ni][q]);
-    if (last) {   // loaded here, not during the mma's: that spilled (two lists)
-      float gf0[4], gf1[4];
-      load_gthr(l0, row0, a.B, lane, gf0);
-      if (NL == 2) load_gthr(l1, row0, a.B, lane, gf1);
-      offer_tile(a, l0, s0, as, acc, col0, cend, gf0, row0, rblk, nranges, warp, lane);
-      if (NL == 2)
-        offer_tile(a, l1, s1, as, acc, col0, cend, gf1, row0, rblk, nranges, warp, lane);
-    }
+        for (int q = 0; q < 4; ++q) acc[mi][ni][q] = __fadd_rn(acc[mi][ni][q], c[mi][ni][q]);
+    // loaded here, not during the mma's: that spilled (two lists)
+    const int col0 = cbeg + tile * TCOLS;
+    float gf0[4], gf1[4];
+    load_gthr(l0, row0, a.B, lane, gf0);
+    if (NL == 2) load_gthr(l1, row0, a.B, lane, gf1);
+    offer_tile<KCH>(a, l0, s0, as, acc, col0, cend, gf0, row0, rblk, nranges, warp, lane);
+    if (NL == 2)
+      offer_tile<KCH>(a, l1, s1, as, acc, col0, cend, gf1, row0, rblk, nranges, warp, lane);
   }
   asm volatile("cp.async.wait_all;\n" ::);
 
@@ -844,7 +894,7 @@ sweep_kernel(SweepArgs a, ListDesc l0, ListDesc l1) {
       const int n = S.qn[rr];
       if (row < a.B && n > 0) {
         const size_t o = ((size_t)row * nranges + rblk) * L.k;
-        flush_row(L, S, as, rr, row, n, L.blk_v + o, L.blk_i + o, lane);
+        flush_row<KCH>(L, S, as, rr, row, n, L.blk_v + o, L.blk_i + o, lane);
       }
     }
   }
@@ -853,6 +903,7 @@ sweep_kernel(SweepArgs a, ListDesc l0, ListDesc l1) {
 // Merge per-block lists (B, M) -> (B, k) by the same rule; one warp per
 // row, 32 candidates at a time, those that beat the list's last entry
 // merged by warp_merge.
+template <int KCH>
 __global__ void merge_topk_kernel(const float* __restrict__ v,
                                   const int* __restrict__ ids, int M, int k,
                                   float* __restrict__ out_v,
@@ -873,12 +924,12 @@ __global__ void merge_topk_kernel(const float* __restrict__ v,
     const int cg = in ? ids[row * M + j] : SENTINEL_ID;
     const bool pass = in && better(cv, cg, lv[k - 1], li[k - 1]);
     const unsigned m = __ballot_sync(FULL, pass);
-    if (m) warp_merge(lv, li, k, cv, cg, m, lane);
+    if (m) warp_merge<KCH>(lv, li, k, cv, cg, m, lane);
   }
 }
 
 // Launch the sweep and one merge per list.  Returns a cudaError_t.
-template <int K, int NL>
+template <int K, int NL, int KCH>
 int launch_sweep(SweepArgs a, const ListDesc& l0, const ListDesc& l1,
                  float* const out_v[2], int* const out_i[2],
                  cudaStream_t stream) {
@@ -892,7 +943,7 @@ int launch_sweep(SweepArgs a, const ListDesc& l0, const ListDesc& l1,
   if (smem > (size_t)SMEM_LIMIT || a.range_cols % TCOLS != 0)
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      sweep_kernel<K, NL>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      sweep_kernel<K, NL, KCH>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   for (int l = 0; l < NL; ++l) {   // 0x80808080: below every ordered() value used
     err = cudaMemsetAsync((l == 0 ? l0 : l1).gthr, 0x80, sizeof(int) * a.B, stream);
@@ -900,12 +951,12 @@ int launch_sweep(SweepArgs a, const ListDesc& l0, const ListDesc& l1,
   }
   const int nranges = (a.N + a.range_cols - 1) / a.range_cols;
   dim3 grid((a.B + ROWS - 1) / ROWS, nranges);
-  sweep_kernel<K, NL><<<grid, THREADS, smem, stream>>>(a, l0, l1);
+  sweep_kernel<K, NL, KCH><<<grid, THREADS, smem, stream>>>(a, l0, l1);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   for (int l = 0; l < NL; ++l) {
     const ListDesc& L = l == 0 ? l0 : l1;
-    merge_topk_kernel<<<a.B, 32, 0, stream>>>(L.blk_v, L.blk_i, nranges * L.k, L.k,
+    merge_topk_kernel<KCH><<<a.B, 32, 0, stream>>>(L.blk_v, L.blk_i, nranges * L.k, L.k,
                                               out_v[l], out_i[l]);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
@@ -921,16 +972,17 @@ inline SweepArgs sweep_args(const float* a_hi, const float* a_lo, const void* pa
                    0, n_items, range_cols, 0};
 }
 
-// launch_sweep for a payload kind known at run time.
-template <int NL>
+// launch_sweep for a payload kind known at run time; KCH list chunks
+// (KCH_LARGE for approx_topk's large-k lists).
+template <int NL, int KCH = 1>
 int launch_kind(int kind, const SweepArgs& a, const ListDesc& l0, const ListDesc& l1,
                 float* const out_v[2], int* const out_i[2], cudaStream_t stream) {
   switch (kind) {
-    case PK_F32: return launch_sweep<PK_F32, NL>(a, l0, l1, out_v, out_i, stream);
-    case PK_I8: return launch_sweep<PK_I8, NL>(a, l0, l1, out_v, out_i, stream);
-    case PK_BF16: return launch_sweep<PK_BF16, NL>(a, l0, l1, out_v, out_i, stream);
-    case PK_FP8: return launch_sweep<PK_FP8, NL>(a, l0, l1, out_v, out_i, stream);
-    case PK_I4: return launch_sweep<PK_I4, NL>(a, l0, l1, out_v, out_i, stream);
+    case PK_F32: return launch_sweep<PK_F32, NL, KCH>(a, l0, l1, out_v, out_i, stream);
+    case PK_I8: return launch_sweep<PK_I8, NL, KCH>(a, l0, l1, out_v, out_i, stream);
+    case PK_BF16: return launch_sweep<PK_BF16, NL, KCH>(a, l0, l1, out_v, out_i, stream);
+    case PK_FP8: return launch_sweep<PK_FP8, NL, KCH>(a, l0, l1, out_v, out_i, stream);
+    case PK_I4: return launch_sweep<PK_I4, NL, KCH>(a, l0, l1, out_v, out_i, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -6,8 +6,9 @@ port of the TPU kernel ``_approx_topk_kernel``
 per-block scratch, and launches the sweep kernel and its merge on the
 current stream.  It takes every payload policy: fp32 and bf16 tensors and
 int8, fp8 e4m3 and packed int4 codes (:func:`payload_operands`), each
-decoded in the kernel's registers.  ``launches`` counts its calls (one per fused op, i.e. per
-sweep + merge pair); :func:`plan_grid` sizes the grid.  The plain PyTorch
+decoded in the kernel's registers, for any k up to 1024 (``KMAX_LARGE``).
+``launches`` counts its calls (one per fused op, i.e. per sweep + merge
+pair); :func:`plan_grid` sizes the grid.  The plain PyTorch
 version of the same function is ``ops.approx_topk_plain``;
 ``ops.approx_topk_op`` picks by device.
 """
@@ -20,8 +21,10 @@ from .. import build
 from . import quant
 from .quant import QuantizedRanc
 
-# must match csrc/topk_common.cuh
-ROWS, TCOLS, BK, KMAX = 32, 512, 32, 256
+# must match csrc/topk_common.cuh: KMAX is the longest list of the
+# persistent round's kernel and of approx_topk's k <= 256 sweep, KMAX_LARGE
+# approx_topk's longest (its large-k sweep, k in (256, 1024])
+ROWS, TCOLS, BK, KMAX, KMAX_LARGE = 32, 512, 32, 256, 1024
 H100_SMS = 132
 
 launches = 0
@@ -101,9 +104,9 @@ def payload_operands(r_anc):
     return storage.contiguous(), kind, None, 1, r_anc.shape[1]
 
 
-def check_operands(e_q, codes, n, k_list, noise, masks, anchors):
+def check_operands(e_q, codes, n, k_list, noise, masks, anchors, kmax: int = KMAX):
     """Device, dtype and shape checks shared by both kernel wrappers; ``n``
-    is the payload's logical item count."""
+    is the payload's logical item count, ``kmax`` the wrapper's longest list."""
     b, k_q = e_q.shape
     if not e_q.is_cuda:
         raise ValueError("the CUDA kernel needs CUDA tensors (the plain "
@@ -115,8 +118,8 @@ def check_operands(e_q, codes, n, k_list, noise, masks, anchors):
         if t is not None and t.device != e_q.device:
             raise ValueError("all operands must be on the same device")
     for k in k_list:
-        if not 1 <= k <= min(KMAX, n):
-            raise ValueError(f"k={k} outside [1, min({KMAX}, N={n})]")
+        if not 1 <= k <= min(kmax, n):
+            raise ValueError(f"k={k} outside [1, min({kmax}, N={n})]")
     if noise is not None and (noise.shape != (b, n) or noise.dtype != torch.float32):
         raise ValueError(f"noise must be ({b}, {n}) fp32")
     for m in masks:
@@ -132,10 +135,13 @@ def as_u8(mask):
 
 def approx_topk_cuda(e_q, r_anc, anchors, k: int, noise=None, mask=None,
                      n_valid=None):
-    """(vals (B, k) fp32, idx (B, k) int32) of the fused op, on the card."""
+    """(vals (B, k) fp32, idx (B, k) int32) of the fused op, on the card,
+    for 1 <= k <= min(1024, N): k <= 256 launches the serving path's sweep,
+    a larger k its large-k instantiation (lists merged 256 entries at a
+    time)."""
     global launches
     codes, kind, scales, qtile, n = payload_operands(r_anc)
-    check_operands(e_q, codes, n, [k], noise, [mask], anchors)
+    check_operands(e_q, codes, n, [k], noise, [mask], anchors, kmax=KMAX_LARGE)
     b, k_q = e_q.shape
     n_items = n if n_valid is None else min(int(n_valid), n)
     dev = e_q.device

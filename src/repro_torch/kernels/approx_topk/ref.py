@@ -43,17 +43,35 @@ def tf32_round(x: torch.Tensor) -> torch.Tensor:
     return r.to(torch.int32).view(torch.float32)
 
 
-def tf32x3_scores(e_q, r_anc, chunk: int = 32) -> torch.Tensor:
+def _rz_f32(x: torch.Tensor) -> torch.Tensor:
+    """float64 -> the nearest fp32 toward zero (as float64)."""
+    f = x.to(torch.float32)
+    over = f.double().abs() > x.abs()
+    return torch.where(over, torch.nextafter(f, torch.zeros_like(f)), f).double()
+
+
+def tf32x3_scores(e_q, r_anc, chunk: int = 32, truncate: bool = False,
+                  carry=None) -> torch.Tensor:
     """(B, N) scores as the CUDA kernels' 3xTF32 mainloop forms them.
 
     Each fp32 operand splits into ``hi = tf32(x)`` and ``lo = tf32(x - hi)``
-    (bf16 values and int8, fp8 and int4 codes are exact: ``lo = 0``); per
-    ``chunk`` of k_q the sum of
-    a_lo·b_hi + a_hi·b_lo + a_hi·b_hi is formed in float64 (TF32 products
-    are exact there) and rounded to fp32 once, and the chunks add in fp32 in
-    ascending k_q, as the kernels' ``__fadd_rn`` does.  The tensor core's
-    own rounding inside a chunk is not modelled.  A coded payload's scale
-    multiplies the finished sum in fp32."""
+    (bf16 values and int8, fp8 and int4 codes are exact: ``lo = 0``).  Per
+    ``chunk`` of k_q the products a_lo·b_hi (and a_hi·b_lo) go in first,
+    then a_hi·b_hi, 8 of k_q a step, as the kernels' ``mma.sync`` k-steps:
+
+    - ``truncate=False``: the chunk's sum is exact (float64) and rounded to
+      fp32 once (no tensor-core rounding);
+    - ``truncate=True``: a replay of the tensor core, each step's
+      accumulator plus its 8 exact products summed exactly and truncated
+      toward zero to fp32 (on an H100 this model reproduces most of the
+      kernel's outputs bit for bit, not all: the hardware's exact alignment
+      rule is not public).
+
+    The chunks add in fp32 in ascending k_q; with ``carry`` each add's
+    rounding error, by Fast2Sum, is where the next chunk's accumulator
+    starts.  ``carry=None`` is the kernels' choice: on for the payloads exact
+    in TF32, off for fp32.  A coded payload's scale multiplies the finished
+    sum in fp32."""
     a = e_q.to(torch.float32)
     a_hi = tf32_round(a)
     a_lo = tf32_round(a - a_hi)
@@ -65,14 +83,31 @@ def tf32x3_scores(e_q, r_anc, chunk: int = 32) -> torch.Tensor:
         b = r_anc.to(torch.float32)
         b_hi = tf32_round(b)
         b_lo = tf32_round(b - b_hi)
+    if carry is None:
+        carry = b_lo is None
+    k_q = a.shape[1]
     acc = torch.zeros((a.shape[0], b_hi.shape[1]), dtype=torch.float32, device=a.device)
-    for k0 in range(0, a.shape[1], chunk):
-        sl = slice(k0, k0 + chunk)
-        part = a_lo[:, sl].double() @ b_hi[sl].double()
-        if b_lo is not None:
-            part += a_hi[:, sl].double() @ b_lo[sl].double()
-        part += a_hi[:, sl].double() @ b_hi[sl].double()
-        acc = acc + part.to(torch.float32)
+    c0 = torch.zeros_like(acc, dtype=torch.float64)
+    for k0 in range(0, k_q, chunk):
+        steps = []
+        for s0 in range(k0, min(k0 + chunk, k_q), 8):
+            steps.append((a_lo, b_hi, s0))
+            if b_lo is not None:
+                steps.append((a_hi, b_lo, s0))
+        steps += [(a_hi, b_hi, s0) for s0 in range(k0, min(k0 + chunk, k_q), 8)]
+        c = c0.clone()
+        for x, y, s0 in steps:
+            sl = slice(s0, min(s0 + 8, k_q))
+            if truncate:
+                prod = x[:, sl].double()[:, None, :] * y[sl].double().T[None, :, :]
+                c = _rz_f32(c + prod.sum(-1))
+            else:
+                c = c + x[:, sl].double() @ y[sl].double()
+        c = c.to(torch.float32)
+        total = acc + c
+        if carry:
+            c0 = (c - (total - acc)).double()
+        acc = total
     if isinstance(r_anc, QuantizedRanc):
         acc = acc * r_anc.col_scales()[None, :]
     return acc

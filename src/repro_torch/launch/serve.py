@@ -7,14 +7,26 @@ padded to one of a few static batch buckets (partial fills repeat the last
 row, and the padding is cut from the responses).  A failing search turns
 into per-request ``status="error"`` responses for exactly that batch.
 
+Anytime serving: a request may carry ``deadline_t`` (absolute
+``time.monotonic()``); over an ``anytime=True`` retriever the tightest
+deadline in a batch governs its round loop, and a response whose search the
+deadline cut is ``degraded`` (the provisional top-k of the rounds done).
+
 CLI (on the card by default; ``--device cpu`` runs the plain versions):
 
     PYTHONPATH=src python -m repro_torch.launch.serve --fused \
+        [--retriever adacur|anncur|rerank] [--first-stage none|de] \
         [--scorer synthetic|real-ce] [--cache] \
         [--round-kernel staged|persistent] \
         [--payload-dtype float32|bfloat16|int8|fp8|int4] \
         [--n-items N] [--batch B] [--requests R] [--device cuda|cpu]
 
+``--retriever anncur`` fixes ``k_anchor`` anchors drawn from key 2 (the
+reference's); ``--retriever rerank`` reranks a stand-in dual-encoder order
+(``q_emb @ i_embᵀ``, index-stable top-k, a plain product).
+``--first-stage de`` serves the DE-hybrid: a dual-encoder shortlist of
+``4 x budget`` (through the approx_topk kernel) restricts ADACUR to each
+query's candidates.  ``--first-stage bm25`` and ``--mesh`` are not ported.
 ``--scorer real-ce`` serves the transformer cross-encoder over a
 ZESHEL-like token corpus with the reference CLI's reduced CE and sizes
 (``build_real_ce_domain``); ``--cache`` wraps it in a ``CachingScorer``.
@@ -33,18 +45,23 @@ import torch
 
 from ..configs.base import AdaCURConfig
 from ..core import prng
-from ..core.engine import AdaCURRetriever
+from ..core.candidates import DualEncoderCandidates, HybridRetriever
+from ..core.engine import AdaCURRetriever, ANNCURRetriever, RerankRetriever, Retriever
 from ..core.index import AnchorIndex
 from ..core.scorer import (CachingScorer, CrossEncoderScorer, ScorerStats,
                            SyntheticScorer, scorer_stats)
 from ..device import resolve_device
 from ..kernels.approx_topk import quant
+from ..kernels.approx_topk.select import stable_topk
 
 
 @dataclass
 class RetrievalRequest:
     query_id: int
     arrival_t: float = field(default_factory=time.monotonic)
+    deadline_t: Optional[float] = None   # absolute time.monotonic() budget; past
+                                         # it the search returns the provisional
+                                         # top-k (degraded=True)
 
 
 @dataclass
@@ -55,24 +72,30 @@ class RetrievalResponse:
     latency_s: float = 0.0
     ce_calls: int = 0                          # planned budget
     measured_ce_calls: Optional[int] = None    # scorer-measured, per real row
+    cache_hits: Optional[int] = None           # pairs served from cache (batch)
     status: str = "ok"                         # "ok" | "error"
+    degraded: bool = False                     # a deadline cut the round loop
     rounds_completed: Optional[int] = None
     error: Optional[str] = None
 
 
 class AdaCURService:
-    """Batched retrieval over an AnchorIndex via an AdaCURRetriever."""
+    """Batched retrieval over an AnchorIndex via any index-backed Retriever.
+    ``candidate_fn`` (query ids (B,) -> (B, M) first-stage order) feeds a
+    retriever that reranks candidates (``RerankRetriever``)."""
 
     def __init__(self, score_fn: Optional[Callable] = None,
                  cfg: Optional[AdaCURConfig] = None, max_batch: int = 32,
                  max_wait_s: float = 0.01, seed: int = 0, retriever=None,
                  index: Optional[AnchorIndex] = None,
+                 candidate_fn: Optional[Callable] = None,
                  batch_buckets: Optional[List[int]] = None):
         if retriever is None:
             if score_fn is None or cfg is None or index is None:
                 raise ValueError("need a retriever, or score_fn, cfg and an index")
             retriever = AdaCURRetriever.from_index(index, score_fn, cfg)
         self.retriever = retriever
+        self.candidate_fn = candidate_fn
         self.max_batch = max_batch
         self.max_wait_s = max_wait_s
         if batch_buckets is None:
@@ -138,15 +161,27 @@ class AdaCURService:
         idx = self.retriever.index
         qids = torch.tensor(raw, dtype=torch.int64, device=idx.device)
         self._key, sub = prng.split(self._key)
+        kw = {}
+        if self.candidate_fn is not None:
+            kw["candidate_idx"] = self.candidate_fn(qids)
+        # one round loop serves every row, so the tightest deadline governs
+        holder = getattr(self.retriever, "deadline", None)
+        budgets = [r.deadline_t for r in batch if r.deadline_t is not None]
+        if budgets and holder is not None:
+            kw["deadline_t"] = min(budgets)
         before = self.scorer_stats
         before = before.copy() if before is not None else None
-        res = self.retriever.search(qids, sub)
+        res = self.retriever.search(qids, sub, **kw)
         item_ids = idx.gather_item_ids(res.topk_idx).cpu().numpy()
         scores = res.topk_scores.cpu().numpy()
-        measured = None
+        degraded = bool(holder.fired) if "deadline_t" in kw else False
+        measured = cache_hits = None
         if before is not None:
             delta = self.scorer_stats - before
+            # amortized over the real requests: padded rows are a cost of
+            # serving them
             measured = delta.ce_calls // n_real
+            cache_hits = delta.cache_hits
             self.batch_log.append(dict(rows=n_real, bucket=bucket, ce_calls=delta.ce_calls,
                                        pairs=delta.pairs, cache_hits=delta.cache_hits,
                                        seconds=time.perf_counter() - t0))
@@ -154,7 +189,8 @@ class AdaCURService:
         return [RetrievalResponse(
             query_id=r.query_id, item_ids=item_ids[i], scores=scores[i],
             latency_s=now - r.arrival_t, ce_calls=res.ce_calls,
-            measured_ce_calls=measured, rounds_completed=int(res.rounds_done),
+            measured_ce_calls=measured, cache_hits=cache_hits, degraded=degraded,
+            rounds_completed=int(res.rounds_done),
         ) for i, r in enumerate(batch)]
 
 
@@ -229,6 +265,35 @@ def quantize_for_serving(index: AnchorIndex, cfg: AdaCURConfig) -> AnchorIndex:
     return index
 
 
+def make_retriever(kind: str, index: AnchorIndex, score_fn: Callable, cfg: AdaCURConfig,
+                   anchor_key=None, anytime: bool = False) -> Retriever:
+    """The CLI's retriever factory: every method consumes the same index.
+    ANNCUR and rerank take ``cfg`` as their base config (the reference
+    leaves them on the default one), so ``--fused`` and the payload reach
+    their engine too; their ids are the same either way."""
+    if kind == "adacur":
+        return AdaCURRetriever.from_index(index, score_fn, cfg, anytime=anytime)
+    if kind == "anncur":
+        if index.anchor_item_pos is None:
+            index = index.with_anchors(k_anchor=cfg.k_anchor, key=prng.PRNGKey(2)
+                                       if anchor_key is None else anchor_key)
+        return ANNCURRetriever.from_index(index, score_fn, budget_ce=cfg.budget_ce,
+                                          k_retrieve=cfg.k_retrieve, base_cfg=cfg)
+    if kind == "rerank":
+        return RerankRetriever.from_index(index, score_fn, budget_ce=cfg.budget_ce,
+                                          k_retrieve=cfg.k_retrieve, base_cfg=cfg)
+    raise ValueError(f"unknown retriever '{kind}' (adacur|anncur|rerank)")
+
+
+def de_order(ce, k: int) -> Callable:
+    """The CLI's stand-in first stage for ``--retriever rerank``: each
+    query's top-``k`` items by the dual-encoder product ``q_emb @ i_embᵀ``
+    (a plain product and an index-stable top-k, outside any kernel)."""
+    def candidate_fn(qids):
+        return stable_topk(ce.q_emb[qids.long()] @ ce.i_emb.T, k)[1]
+    return candidate_fn
+
+
 def drive(svc: AdaCURService, n_requests: int, qid_range=(500, 600),
           seed: int = 0) -> List[RetrievalResponse]:
     """Submit ``n_requests`` query ids drawn from ``qid_range``, polling
@@ -258,14 +323,30 @@ def main(argv=None) -> None:
                     help="real-ce: the transformer cross-encoder over a ZESHEL-like corpus")
     ap.add_argument("--cache", action="store_true",
                     help="wrap the real-CE scorer in a (query, item) CachingScorer")
-    ap.add_argument("--retriever", choices=("adacur", "anncur", "rerank"), default="adacur")
+    ap.add_argument("--retriever", choices=("adacur", "anncur", "rerank"), default="adacur",
+                    help="search method over the index")
+    ap.add_argument("--first-stage", choices=("none", "de", "bm25"), default="none",
+                    help="de: a dual-encoder shortlist restricts ADACUR to each query's "
+                         "candidates (needs --retriever adacur)")
     ap.add_argument("--mesh", default=None, metavar="DATAxITEMS")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = ap.parse_args(argv)
-    if args.retriever != "adacur" or args.mesh:
-        raise SystemExit(
-            "--retriever anncur|rerank and --mesh are not ported yet: the port "
-            "serves single-device ADACUR (ROADMAP.md, queue 1)")
+    if args.mesh:
+        raise SystemExit("--mesh is not ported yet: the sharded engine is ROADMAP.md, "
+                         "queue 1, item 7")
+    if args.first_stage == "bm25":
+        raise SystemExit("--first-stage bm25 is not ported yet: BM25Candidates is "
+                         "ROADMAP.md, queue 1, item 3")
+    if args.first_stage != "none" and args.retriever != "adacur":
+        raise SystemExit("--first-stage composes the hybrid on top of ADACUR; use "
+                         "--retriever adacur (rerank already is a first-stage method)")
+    if args.scorer == "real-ce" and args.retriever == "rerank":
+        raise SystemExit("--retriever rerank over the real CE needs a first stage over the "
+                         "token corpus (BM25: ROADMAP.md, queue 1, item 3); the synthetic "
+                         "domain reranks its dual-encoder order")
+    if args.first_stage != "none" and args.scorer != "synthetic":
+        raise SystemExit("--first-stage de needs the synthetic domain's embeddings: "
+                         "use --scorer synthetic")
     if args.cache and args.scorer != "real-ce":
         raise SystemExit("--cache wraps the real-CE scorer: pass --scorer real-ce")
     if args.scorer == "real-ce":
@@ -279,12 +360,26 @@ def main(argv=None) -> None:
     print(f"building synthetic CE domain + AnchorIndex (|I|={args.n_items})...")
     ce, index = build_domain(args.n_items, args.device)
     index = quantize_for_serving(index, cfg)
-    svc = AdaCURService(retriever=AdaCURRetriever.from_index(index, SyntheticScorer(ce), cfg),
-                        max_batch=args.batch)
+    scorer = SyntheticScorer(ce)
+    candidate_fn = None
+    if args.first_stage == "de":
+        shortlist = min(4 * cfg.budget_ce, index.n_items)
+        retriever = HybridRetriever(
+            score_fn=scorer, generator=DualEncoderCandidates(ce.q_emb, ce.i_emb,
+                                                             n_valid=index.n_items),
+            cfg=cfg, index=index, shortlist_k=shortlist, mode="mask")
+        print(f"first stage: de shortlist_k={shortlist} (CE budget restricted to each "
+              "query's candidates)")
+    else:
+        retriever = make_retriever(args.retriever, index, scorer, cfg)
+        if args.retriever == "rerank":
+            candidate_fn = de_order(ce, cfg.budget_ce)
+    svc = AdaCURService(retriever=retriever, max_batch=args.batch, candidate_fn=candidate_fn)
     served = drive(svc, args.requests)
     lat = np.array([r.latency_s for r in served])
     errors = sum(r.status != "ok" for r in served)
-    print(f"served {len(served)} requests ({errors} errors) | "
+    print(f"[{args.retriever}{'/' + args.first_stage if args.first_stage != 'none' else ''}] "
+          f"served {len(served)} requests ({errors} errors) | "
           f"p50={np.percentile(lat, 50) * 1e3:.1f}ms p99={np.percentile(lat, 99) * 1e3:.1f}ms "
           f"| {cfg.budget_ce} CE calls/request")
 
@@ -306,7 +401,7 @@ def _serve_real_ce(args) -> None:
         round_kernel=args.round_kernel,
     )
     index = quantize_for_serving(index, cfg)
-    svc = AdaCURService(retriever=AdaCURRetriever.from_index(index, serve_scorer, cfg),
+    svc = AdaCURService(retriever=make_retriever(args.retriever, index, serve_scorer, cfg),
                         max_batch=args.batch)
     served = drive(svc, args.requests, qid_range=(n_anchor_q, n_anchor_q + n_serve_q))
     lat = np.array([r.latency_s for r in served])

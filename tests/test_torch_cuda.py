@@ -148,6 +148,53 @@ def test_sweep_ragged_shapes_match_plain(dev, shape, k, n_anc, dtype):
     assert torch.equal(rv, kv) and torch.equal(ri, ki)
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("k", [257, 800, 1024])
+@pytest.mark.parametrize("shape", [(40, 96, 9001), (33, 500, 20000), (200, 7, 12289)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_large_k_kernel_matches_plain(dev, shape, k, dtype):
+    """approx_topk's large-k instantiation (k in (256, 1024]) against the
+    plain version on ragged shapes, with noise, a mask, anchors and
+    ``n_valid``: row 0 fully masked returns ids 0..k-1, row 1 (three valid
+    items) returns them first and then the lowest suppressed ids."""
+    b, k_q, n = shape
+    e, r, noise, mask, anchors = _ragged(dev, b, k_q, n, seed=b + k_q + k)
+    pay = as_payload(r, dtype)
+    kw = dict(noise=noise, mask=mask, n_valid=n - 5)
+    before = kernels.launch_counts()["approx_topk"]
+    kv, ki = approx_topk_op(e, pay, anchors, k, **kw)
+    assert kernels.launch_counts()["approx_topk"] == before + 1
+    pv, pi = approx_topk_op(e, pay, anchors, k, impl="torch", **kw)
+    assert_topk_agree(ki, kv, pi, pv, dense_scores(e, pay, anchors, **kw))
+    assert ki[0].tolist() == list(range(k))
+    valid = [3, n // 2, n - 6]
+    assert sorted(ki[1, :3].tolist()) == valid
+    assert ki[1, 3:].tolist() == [j for j in range(k + 3) if j not in valid][:k - 3]
+
+
+@pytest.mark.parametrize("k", [200, 800])
+def test_de_shape_kernel_matches_plain(dev, k):
+    """The dual-encoder first stage's shape: k_q = d = 16 (half of one
+    32-deep chunk, zero-padded) over the (d, N) transposed item
+    embeddings, k = 200 (rerank) and 800 (the hybrid's shortlist)."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(k)
+    q = torch.randn((100, 16), generator=g, device=dev)
+    items_t = torch.randn((16, 200_003), generator=g, device=dev)
+    kv, ki = approx_topk_op(q, items_t, None, k, n_valid=200_000)
+    pv, pi = approx_topk_op(q, items_t, None, k, n_valid=200_000, impl="torch")
+    assert_topk_agree(ki, kv, pi, pv, dense_scores(q, items_t, n_valid=200_000))
+    assert (ki < 200_000).all()
+
+
+def test_large_k_is_refused_above_1024(dev):
+    e, r, _, _, _ = _inputs(dev, b=4, k_q=32, n=3000)
+    with pytest.raises(ValueError, match="1024"):
+        approx_topk_op(e, r, None, 1025)
+    with pytest.raises(ValueError, match="256"):
+        persistent_round_op(e, r, k_sample=257)
+
+
 def _max_err(vals, ids, exact, live=None):
     """Worst |reported value - float64 value of its id| over live entries
     (those ``vals`` reports above NEG_INF, unless ``live`` is given)."""
@@ -326,9 +373,10 @@ def test_sweep_decodes_fp8_and_int4_exactly(dev):
 
 def test_topk_kernels_do_not_spill(dev):
     """ptxas reports no spill for any instantiation of the sweep (5 payload
-    kinds in approx_topk, 5 x {1, 2} lists in persistent_round)."""
+    kinds x {k <= 256, large k} in approx_topk, 5 x {1, 2} lists in
+    persistent_round)."""
     build.build_all()
-    for name, n_sweeps in (("approx_topk", 5), ("persistent_round", 10)):
+    for name, n_sweeps in (("approx_topk", 10), ("persistent_round", 10)):
         log = build.build_info[name]["ptxas"]
         entries = re.findall(r"Compiling entry function '(_ZN6adacur12sweep_kernel[^']*)'", log)
         assert len(set(entries)) == n_sweeps, sorted(set(entries))

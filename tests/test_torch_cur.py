@@ -71,3 +71,24 @@ def test_extend_equals_full_pinv_when_well_conditioned():
     ext = tcur.block_pinv_extend(torch.from_numpy(a), p, torch.from_numpy(b))
     full = tcur.pinv(torch.from_numpy(np.concatenate([a, b], 2)))
     np.testing.assert_allclose(ext.numpy(), full.numpy(), atol=ATOL, rtol=0)
+
+
+def test_cur_reconstruction_matches():
+    """Algorithm 2's ``query_embedding``, ``approx_scores`` and
+    ``cur_reconstruction`` against the reference (atol 1e-4 on outputs of
+    O(1) magnitude: the pinv's SVD rounds differently in the two
+    packages)."""
+    rng = np.random.default_rng(3)
+    r_anc = rng.standard_normal((40, 300)).astype(np.float32)
+    idx = np.stack([rng.choice(300, 12, replace=False) for _ in range(5)]).astype(np.int32)
+    c = rng.standard_normal((5, 12)).astype(np.float32)
+    cols = np.asarray(jcur.gather_anchor_columns(jnp.asarray(r_anc), jnp.asarray(idx)))
+    r_t, idx_t, c_t = torch.from_numpy(r_anc), torch.from_numpy(idx), torch.from_numpy(c)
+    np.testing.assert_allclose(
+        tcur.query_embedding(torch.from_numpy(cols), c_t).numpy(),
+        np.asarray(jcur.query_embedding(jnp.asarray(cols), jnp.asarray(c))), atol=ATOL, rtol=0)
+    ref = np.asarray(jcur.approx_scores(jnp.asarray(r_anc), jnp.asarray(c), jnp.asarray(idx)))
+    np.testing.assert_allclose(tcur.approx_scores(r_t, c_t, idx_t).numpy(), ref,
+                               atol=ATOL, rtol=0)
+    np.testing.assert_allclose(tcur.cur_reconstruction(r_t, idx_t, c_t).numpy(), ref,
+                               atol=ATOL, rtol=0)

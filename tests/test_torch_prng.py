@@ -132,3 +132,17 @@ def test_synthetic_domain_is_the_reference_domain():
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
     top = lambda m: np.argsort(-m, axis=1, kind="stable")[:, :10]
     assert np.array_equal(top(want), top(got))
+
+
+@pytest.mark.parametrize("n", [10, 2000, 100003])
+def test_permutation_and_choice_bit_equal(n):
+    """``permutation`` (JAX's ``_shuffle``: rounds of stable sorts by fresh
+    32-bit keys; two rounds at n = 100,003) and ``choice(replace=False)``,
+    its prefix, equal ``jax.random``'s ids exactly."""
+    for seed in (0, 7):
+        jk, tk = jax.random.PRNGKey(seed), prng.PRNGKey(seed)
+        ref = np.asarray(jax.random.permutation(jk, n))
+        assert np.array_equal(prng.permutation(tk, n).numpy(), ref)
+        k = min(n, 100)
+        ref = np.asarray(jax.random.choice(jk, n, shape=(k,), replace=False))
+        assert np.array_equal(prng.choice(tk, n, (k,), replace=False).numpy(), ref)
