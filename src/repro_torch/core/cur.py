@@ -101,34 +101,6 @@ def approx_scores(r_anc: torch.Tensor, c_test: torch.Tensor, anchor_idx: torch.T
     return query_embedding(cols, c_test, rcond) @ r_anc
 
 
-# Tikhonov level of ridge_query_embedding, relative to sigma_max.  It caps
-# the amplification of rounding in the estimate at 1 / (2 RIDGE_RCOND):
-# 1e-5 holds the 100-anchor search under a one-ulp change of the payload
-# (tests/test_torch_engine.py), and leaves the well-conditioned 40-anchor
-# searches within the engine's 0.99 overlap of the reference (1e-4 did not).
-RIDGE_RCOND = 1e-5
-
-
-def ridge_query_embedding(r_anc_cols: torch.Tensor, c_test: torch.Tensor) -> torch.Tensor:
-    """A regularized e_q = A (AᵀA + λ I)⁻¹ c for (B, k_q, k) anchor columns A
-    and (B, k) exact scores c, in float64, with λ = (RIDGE_RCOND · σ_max(A))²
-    (σ_max by power iteration on AᵀA): singular directions far below
-    σ_max are damped, as a pinv's rcond truncates them, where the bordered
-    update keeps them undamped.  Zero (unfilled) columns get zero weight.
-    Returns (B, k_q) fp32."""
-    a = r_anc_cols.to(torch.float64)
-    g = a.transpose(-1, -2) @ a                                 # (B, k, k)
-    v = torch.ones(g.shape[:-1], dtype=g.dtype, device=g.device)[..., None]
-    for _ in range(20):        # power iteration for sigma_max^2
-        v = g @ v
-        v = v / v.norm(dim=-2, keepdim=True)
-    lam = RIDGE_RCOND ** 2 * (v.transpose(-1, -2) @ g @ v)[..., 0, 0]
-    eye = torch.eye(g.shape[-1], dtype=g.dtype, device=g.device)
-    chol = torch.linalg.cholesky(g + lam[..., None, None] * eye)
-    y = torch.cholesky_solve(c_test.to(torch.float64)[..., None], chol)
-    return (a @ y)[..., 0].to(torch.float32)
-
-
 def cur_reconstruction(r_anc: torch.Tensor, anchor_idx: torch.Tensor, rows: torch.Tensor,
                        rcond: float = 1e-6) -> torch.Tensor:
     """The CUR reconstruction C U R of (B, k) exact score rows on the anchor

@@ -407,17 +407,6 @@ def engine_search(score_fn: ScoreFn, r_anc, query, cfg: AdaCURConfig, key,
                 r += 1
         rounds_done = r
 
-    if cfg.incremental_pinv and r_max > 1 and (cfg.split_budget or return_scores):
-        # The bordered update is the unregularized pseudo-inverse: it cannot
-        # truncate the anchor block's small singular values as the full
-        # pinv's rcond does.  At 100 anchors in 5 rounds over k_q = 200 the
-        # block is ill-conditioned enough that a one-ulp change of the
-        # payload moves the rerank's top-100 (tests/test_torch_engine.py),
-        # and card against CPU fell below 0.99 (chip_smoke.py).  So the
-        # rerank's estimate is a regularized solve, once after the last
-        # round: a float64 Cholesky of the (k_i, k_i) Gram matrix, where the
-        # full pinv's batched SVD is far slower on the card (PERF.md).
-        state = state._replace(e_q=cur.ridge_query_embedding(state.a_buf, state.c_test))
     anchor_idx, c_test = state.anchor_idx, state.c_test
     valid_slot = torch.arange(k_i, device=dev) < rounds_done * k_s
     anchor_logits = torch.where(valid_slot[None, :], c_test, NEG_INF)
@@ -450,8 +439,8 @@ def engine_search(score_fn: ScoreFn, r_anc, query, cfg: AdaCURConfig, key,
                         ce_call_plan(cfg), rounds_done)
 
 
-def make_engine(score_fn: ScoreFn, cfg: AdaCURConfig, n_valid_items=None,
-                return_scores: Optional[bool] = None, anytime: bool = False) -> Callable:
+def make_engine(score_fn: ScoreFn, cfg: AdaCURConfig, return_scores: Optional[bool] = None,
+                anytime: bool = False) -> Callable:
     """Engine closure over a scorer + config.  In ``fori`` mode the
     callable takes a runtime ``n_rounds`` in [1, cfg.n_rounds].
 
@@ -470,7 +459,7 @@ def make_engine(score_fn: ScoreFn, cfg: AdaCURConfig, n_valid_items=None,
             n_valid=None, item_ids=None, eligible=None):
         return engine_search(
             score_fn, r_anc, query, cfg, key, first_anchors=first_anchors,
-            batch=batch, n_valid_items=n_valid if n_valid is not None else n_valid_items,
+            batch=batch, n_valid_items=n_valid,
             n_rounds=n_rounds, return_scores=return_scores, item_ids=item_ids,
             eligible=eligible, deadline=deadline,
         )

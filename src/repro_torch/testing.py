@@ -1,4 +1,5 @@
-"""Comparators shared by the port's tests and ``chip_smoke.py``.
+"""Comparators shared by the port's tests and ``chip_smoke.py``, and the
+seeded top-k inputs of the card tests (``topk_inputs``, ``ragged_topk_inputs``).
 
 Two (B, k) top-k lists are held against each other and against ``scores``,
 the (B, N) dense values every id should carry (noise added, suppressed
@@ -86,3 +87,32 @@ def topk_overlap(a, b) -> float:
     a, b = _np(a), _np(b)
     k = a.shape[1]
     return float(np.mean([len(set(x) & set(y)) / k for x, y in zip(a.tolist(), b.tolist())]))
+
+
+def topk_inputs(dev, b=40, k_q=96, n=9000, seed=0):
+    """Seeded top-k operands on ``dev``: (B, k_q) e, (k_q, N) payload,
+    (B, N) noise, a (B, N) suppression mask (~20% set) and (B, 30) anchors."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    e = torch.randn((b, k_q), generator=g, device=dev)
+    r = torch.randn((k_q, n), generator=g, device=dev)
+    noise = torch.rand((b, n), generator=g, device=dev)
+    mask = torch.rand((b, n), generator=g, device=dev) < 0.2
+    anchors = torch.randint(0, n, (b, 30), generator=g, device=dev, dtype=torch.int32)
+    return e, r, noise, mask, anchors
+
+
+def ragged_topk_inputs(dev, b, k_q, n, seed):
+    """:func:`topk_inputs` with (B, 100) anchors from ``seed + 100``, row 0
+    fully suppressed and row 1 left with three valid items (under-filled
+    rows)."""
+    e, r, noise, mask, _ = topk_inputs(dev, b, k_q, n, seed)
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed + 100)
+    anchors = torch.randint(0, n, (b, 100), generator=g, device=dev, dtype=torch.int32)
+    mask[0] = True                              # row 0: nothing valid
+    if b > 1:
+        mask[1] = True
+        mask[1, [3, n // 2, n - 6]] = False     # row 1: three valid items
+        anchors[1] = n - 1
+    return e, r, noise, mask, anchors

@@ -32,7 +32,8 @@ from repro_torch.kernels.flash_attention import kernel as flash_kernel  # noqa: 
 from repro_torch.kernels.flash_attention.ops import (  # noqa: E402
     flash_attention, flash_attention_plain,
 )
-from repro_torch.testing import FLASH_TOL, assert_topk_agree, topk_report  # noqa: E402
+from repro_torch.testing import (  # noqa: E402
+    FLASH_TOL, assert_topk_agree, ragged_topk_inputs, topk_inputs, topk_report)
 
 pytestmark = pytest.mark.cuda
 
@@ -47,21 +48,10 @@ def dev():
     return torch.device("cuda")
 
 
-def _inputs(dev, b=40, k_q=96, n=9000, seed=0):
-    g = torch.Generator(device=dev)
-    g.manual_seed(seed)
-    e = torch.randn((b, k_q), generator=g, device=dev)
-    r = torch.randn((k_q, n), generator=g, device=dev)
-    noise = torch.rand((b, n), generator=g, device=dev)
-    mask = torch.rand((b, n), generator=g, device=dev) < 0.2
-    anchors = torch.randint(0, n, (b, 30), generator=g, device=dev, dtype=torch.int32)
-    return e, r, noise, mask, anchors
-
-
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("k", [1, 20, 100])
 def test_approx_topk_kernel_matches_plain(dev, dtype, k):
-    e, r, noise, mask, anchors = _inputs(dev)
+    e, r, noise, mask, anchors = topk_inputs(dev)
     pay = as_payload(r, dtype)
     before = kernels.launch_counts()["approx_topk"]
     kv, ki = approx_topk_op(e, pay, anchors, k, noise=noise, mask=mask, n_valid=8500)
@@ -73,7 +63,7 @@ def test_approx_topk_kernel_matches_plain(dev, dtype, k):
 
 
 def test_underfilled_rows_are_distinct_and_ascending(dev):
-    e, r, _, _, _ = _inputs(dev)
+    e, r, _, _, _ = topk_inputs(dev)
     mask = torch.ones((e.shape[0], r.shape[1]), dtype=torch.bool, device=dev)
     mask[1, [5, 700, 8000]] = False
     _, ki = approx_topk_op(e, r, None, 8, mask=mask)
@@ -84,7 +74,7 @@ def test_underfilled_rows_are_distinct_and_ascending(dev):
 
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_persistent_kernel_is_two_staged_calls(dev, dtype):
-    e, r, noise, mask, anchors = _inputs(dev, seed=1)
+    e, r, noise, mask, anchors = topk_inputs(dev, seed=1)
     pay = as_payload(r, dtype)
     (sv, si), (pv, pi) = persistent_round_op(e, pay, k_sample=20, k_prov=50,
                                              anchors=anchors, noise=noise, prov_mask=mask)
@@ -104,19 +94,6 @@ def test_persistent_kernel_is_two_staged_calls(dev, dtype):
 RAGGED = [(200, 500, 9001), (1, 7, 1000), (33, 500, 2049), (200, 7, 9001), (64, 96, 8192)]
 
 
-def _ragged(dev, b, k_q, n, seed):
-    e, r, noise, mask, _ = _inputs(dev, b, k_q, n, seed)
-    g = torch.Generator(device=dev)
-    g.manual_seed(seed + 100)
-    anchors = torch.randint(0, n, (b, 100), generator=g, device=dev, dtype=torch.int32)
-    mask[0] = True                              # row 0: nothing valid
-    if b > 1:
-        mask[1] = True
-        mask[1, [3, n // 2, n - 6]] = False     # row 1: three valid items
-        anchors[1] = n - 1
-    return e, r, noise, mask, anchors
-
-
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("k, n_anc", [(1, 0), (256, 100), (20, 100), (256, 0)])
 @pytest.mark.parametrize("shape", RAGGED, ids=lambda s: "x".join(map(str, s)))
@@ -124,7 +101,7 @@ def test_sweep_ragged_shapes_match_plain(dev, shape, k, n_anc, dtype):
     """Both kernels against the plain versions on shapes that stress the
     tiling; persistent bitwise equal to two approx_topk calls."""
     b, k_q, n = shape
-    e, r, noise, mask, anchors = _ragged(dev, b, k_q, n, seed=b + k_q + k)
+    e, r, noise, mask, anchors = ragged_topk_inputs(dev, b, k_q, n, seed=b + k_q + k)
     pay = as_payload(r, dtype)
     anc = anchors[:, :n_anc] if n_anc else None
     kw = dict(noise=noise, mask=mask, n_valid=n - 5)
@@ -158,7 +135,7 @@ def test_large_k_kernel_matches_plain(dev, shape, k, dtype):
     ``n_valid``: row 0 fully masked returns ids 0..k-1, row 1 (three valid
     items) returns them first and then the lowest suppressed ids."""
     b, k_q, n = shape
-    e, r, noise, mask, anchors = _ragged(dev, b, k_q, n, seed=b + k_q + k)
+    e, r, noise, mask, anchors = ragged_topk_inputs(dev, b, k_q, n, seed=b + k_q + k)
     pay = as_payload(r, dtype)
     kw = dict(noise=noise, mask=mask, n_valid=n - 5)
     before = kernels.launch_counts()["approx_topk"]
@@ -188,7 +165,7 @@ def test_de_shape_kernel_matches_plain(dev, k):
 
 
 def test_large_k_is_refused_above_1024(dev):
-    e, r, _, _, _ = _inputs(dev, b=4, k_q=32, n=3000)
+    e, r, _, _, _ = topk_inputs(dev, b=4, k_q=32, n=3000)
     with pytest.raises(ValueError, match="1024"):
         approx_topk_op(e, r, None, 1025)
     with pytest.raises(ValueError, match="256"):
@@ -217,7 +194,7 @@ def test_sweep_near_full_selection_is_as_accurate_as_fp32(dev, dtype):
     holds all of them, values non-increasing, then the lowest suppressed
     ids, ascending."""
     b, k_q, n, k = 33, 500, 257, 256
-    e, r, noise, mask, anchors = _ragged(dev, b, k_q, n, seed=b + k_q + k)
+    e, r, noise, mask, anchors = ragged_topk_inputs(dev, b, k_q, n, seed=b + k_q + k)
     pay = as_payload(r, dtype)
     kw = dict(noise=noise, mask=mask, n_valid=n - 5)
     kv, ki = approx_topk_op(e, pay, anchors, k, **kw)
@@ -263,7 +240,7 @@ def test_sweep_error_is_below_cublas_at_k_q_500(dev, dtype):
     near-full shape above the two are level and the worst entry falls
     either way, 0.5-1.3x for every payload including fp32)."""
     for seed in range(3):
-        e, r, _, _, _ = _inputs(dev, b=256, k_q=500, n=4096, seed=seed)
+        e, r, _, _, _ = topk_inputs(dev, b=256, k_q=500, n=4096, seed=seed)
         pay = as_payload(r, dtype)
         coded = isinstance(pay, QuantizedRanc)
         exact = (e.double() @ (unpacked_codes(pay) if coded else pay).double()).cpu()
@@ -280,7 +257,7 @@ def test_sweep_error_is_below_cublas_at_k_q_500(dev, dtype):
 def test_sweep_exact_ties_go_to_the_lower_id(dev, dtype):
     """Duplicated payload columns score exactly equal in every tile, warp
     and block; the lower id must win, as in the plain version."""
-    e, r, _, _, _ = _inputs(dev, b=70, k_q=500, n=20000, seed=5)
+    e, r, _, _, _ = topk_inputs(dev, b=70, k_q=500, n=20000, seed=5)
     e = e.abs()
     r[:, 10] = r[:, 10].abs() + 3.0
     for lo, hi in ((700, 760), (9000, 9003), (19990, 20000)):
@@ -301,7 +278,7 @@ def test_sweep_exact_ties_go_to_the_lower_id(dev, dtype):
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_sweep_takes_a_long_k_q(dev, dtype):
     """e_q streams through the ring chunk by chunk, so k_q has no limit."""
-    e, r, noise, mask, anchors = _inputs(dev, b=70, k_q=2000, n=3000, seed=9)
+    e, r, noise, mask, anchors = topk_inputs(dev, b=70, k_q=2000, n=3000, seed=9)
     pay = as_payload(r, dtype)
     kv, ki = approx_topk_op(e, pay, anchors, 50, noise=noise, mask=mask)
     pv, pi = approx_topk_op(e, pay, anchors, 50, noise=noise, mask=mask, impl="torch")
@@ -324,7 +301,7 @@ def test_sweep_reads_a_byte_offset_payload(dev, dtype):
     """A payload whose rows do not start 16-byte aligned (its storage a
     view at an offset of one element, one byte for the codes) takes the
     unit-wise loader and gives the aligned payload's lists bit for bit."""
-    e, r, noise, mask, anchors = _inputs(dev, b=40, k_q=70, n=4096, seed=13)
+    e, r, noise, mask, anchors = topk_inputs(dev, b=40, k_q=70, n=4096, seed=13)
     pay = as_payload(r, dtype)
     if isinstance(pay, QuantizedRanc):
         moved = QuantizedRanc(_offset_copy(pay.codes, 1), pay.scales, pay.tile,

@@ -6,7 +6,8 @@ near-full accuracy, for comparing two commits on the same card.
 
 ``SRC`` is a tree's ``src`` directory (``src`` for this checkout; a parent
 commit unpacked with ``git archive`` into a gitignored directory for the
-other side).  Run the two sides in turns in one machine session (parent,
+other side); the near-full inputs come from that tree's
+``repro_torch.testing.ragged_topk_inputs``, the card tests' own builder.  Run the two sides in turns in one machine session (parent,
 change, change, parent): each run builds its tree's kernels into that
 tree's own ``build/``.  Prints one JSON line: for every payload,
 approx_topk (k = 20) and persistent_round (k_sample 20 + k_prov 100) ms at
@@ -34,6 +35,7 @@ def main() -> int:
     from repro_torch.kernels.approx_topk.persistent import persistent_round_op
     from repro_torch.kernels.approx_topk.quant import (QuantizedRanc, as_payload, dequantize,
                                                        unpacked_codes)
+    from repro_torch.testing import ragged_topk_inputs
 
     dev = torch.device("cuda")
 
@@ -64,24 +66,8 @@ def main() -> int:
         del pay
     del r, prov
 
-    def near_full(seed):
-        # the card test's inputs (tests/test_torch_cuda.py::_ragged)
-        b, k_q, n = 33, 500, 257
-        gg = torch.Generator(device=dev)
-        gg.manual_seed(seed)
-        ee = torch.randn((b, k_q), generator=gg, device=dev)
-        rr = torch.randn((k_q, n), generator=gg, device=dev)
-        noise = torch.rand((b, n), generator=gg, device=dev)
-        mask = torch.rand((b, n), generator=gg, device=dev) < 0.2
-        torch.randint(0, n, (b, 30), generator=gg, device=dev, dtype=torch.int32)
-        g2 = torch.Generator(device=dev)
-        g2.manual_seed(seed + 100)
-        anc = torch.randint(0, n, (b, 100), generator=g2, device=dev, dtype=torch.int32)
-        mask[0] = True
-        mask[1] = True
-        mask[1, [3, n // 2, n - 6]] = False
-        anc[1] = n - 1
-        return ee, rr, noise, mask, anc
+    def near_full(seed):   # the near-full card test's inputs
+        return ragged_topk_inputs(dev, 33, 500, 257, seed)
 
     def worst(v, i, exact, live):
         return (v.double() - exact.gather(1, i.long())).abs()[live].max().item()
