@@ -42,20 +42,37 @@ Phases (one JSON line each):
    engine's slab bytes (``engine_slab_bytes``).
 4a. ``retrievers``: the paper's budget-matched comparison
    (``eval.harness.quality_matrix``) on the same domain: ADACUR, ANNCUR,
-   DE retrieve-and-rerank and the DE-hybrid, budget 200 in 5 rounds
-   (k_anchor 100), k_retrieve 100, fused, fp32, a DE shortlist of 800, the
+   DE retrieve-and-rerank, the DE-hybrid and the BM25-hybrid (BM25 over
+   the domain's ``lexical_signatures``, seed 3), budget 200 in 5 rounds
+   (k_anchor 100), k_retrieve 100, fused, fp32, shortlists of 800, the
    tabulated 600 x 10^6 fp32 matrix (2.4 GB) on the card, 100 test
    queries; per method planned and measured CE (gated equal), recall@
    {1,10,100} and recall/MRR/NDCG against the CE's top-1 (printed), wall
    microseconds a query and kernel launches (approx_topk gated > 0); the
-   fused round body's (B, N) float count (gated 0).
+   fused round body's (B, N) float count (gated 0).  Both hybrids again
+   in subset mode (``subset_mode``): measured CE = plan and top-k ids and
+   scores bitwise equal to the full-corpus search masked to the union of
+   the shortlists (gated), microseconds a query beside mask mode's.
 4b. ``anytime``: 256 requests through ``AdaCURService(max_batch=256)`` over
    an ``anytime=True`` retriever at N = 10^6, with every deadline already
    past (one round, degraded, CE = ``ce_call_plan(cfg, 1)`` a request) and
    with none (five rounds, not degraded).
-4c. ``retrievers_cpu_vs_card``: the four methods at N = 20,000, B = 64,
-   fp32 and int8, full pinv, on the card (kernels) and on the CPU (plain
-   versions): top-k overlap >= 0.99 and measured CE equal, per method.
+4c. ``index_lifecycle``: the AnchorIndex lifecycle on the same domain
+   (k_q = 500, N = 10^6): a resumable build interrupted after 2 of 4
+   blocks and resumed (scores the 2 missing blocks; R_anc bit-equal to the
+   domain's); save and load of every payload (bytes on disk, seconds and
+   GB/s; ``topk`` at B = 256, k = 100 and a B = 256 persistent engine
+   search bit-equal after the load); ``with_capacity(2^20)``,
+   ``remove_items`` of every 100th id and ``add_items`` of them back (fp32
+   held against ``from_r_anc`` over the same columns: bytes, ids, topk and
+   engine results, CE = plan; the coded payloads' bytes held against the
+   same mutation on the CPU, and a search over the mutated index);
+   ``swap_index`` with 64 requests queued (answered under the old index,
+   no removed id after).
+4d. ``retrievers_cpu_vs_card``: the five methods and both hybrids in
+   subset mode at N = 20,000, B = 64, fp32 and int8, full pinv, on the
+   card (kernels) and on the CPU (plain versions): top-k overlap >= 0.99
+   and measured CE equal, per method.
 5. ``engine_cpu_vs_card``: the same search on the card (kernels) and on the
    CPU (plain versions), N=20,000, B=64, fp32, int8, bf16, fp8 and int4,
    staged and persistent, with the incremental pinv the serve path runs:
@@ -170,7 +187,16 @@ def check(cond, what):
         raise CheckFailed(what)
 
 
+_LAST_EMIT = [time.perf_counter()]
+
+
 def emit(obj):
+    """Print one JSON line; a phase line also gets ``phase_s``, the wall
+    seconds since the line before it."""
+    now = time.perf_counter()
+    if "phase" in obj:
+        obj = {**obj, "phase_s": now - _LAST_EMIT[0]}
+    _LAST_EMIT[0] = now
     print(json.dumps(obj), flush=True)
 
 
@@ -648,28 +674,79 @@ def serve_config(ce, index, payload, round_kernel, gt, launches, fp32_bytes, n_i
 def phase_retrievers(dev, ce, index):
     """The paper's budget-matched comparison (``eval.harness.quality_matrix``)
     at the serve CLI's domain: budget 200 in 5 rounds (k_anchor 100),
-    k_retrieve 100, fused, fp32, a DE shortlist of 800, the tabulated
-    600 x 10^6 fp32 matrix on the card.  Gates: every method's measured CE
-    equals its plan, every method launches approx_topk, and the fused round
-    body creates no (B, N) float; recall is printed, not gated."""
+    k_retrieve 100, fused, fp32, DE and BM25 shortlists of 800 (BM25 over
+    the domain's ``lexical_signatures``, seed 3), the tabulated 600 x 10^6
+    fp32 matrix on the card.  Gates: every method's measured CE equals its
+    plan, every method launches approx_topk, and the fused round body
+    creates no (B, N) float; recall is printed, not gated.  Then the two
+    hybrids in subset mode (the union of the 100 shortlists gathered into a
+    sub-payload): measured CE = plan, and top-k ids and scores bitwise equal
+    to the full-corpus search masked to the union (the reference's
+    contract), with µs a query beside mask mode's."""
     import torch
 
     from repro_torch import kernels
-    from repro_torch.core.engine import round_body_bn_intermediates
+    from repro_torch.core import prng
+    from repro_torch.core.candidates import (BM25Candidates, DualEncoderCandidates,
+                                             HybridRetriever, candidate_eligibility,
+                                             union_candidates)
+    from repro_torch.core.engine import make_engine, round_body_bn_intermediates
     from repro_torch.core.scorer import TabulatedScorer
+    from repro_torch.data.synthetic import lexical_signatures
     from repro_torch.eval.harness import matrix_config, quality_matrix
+    from repro_torch.eval.metrics import evaluate_result
 
     t0 = time.perf_counter()
     matrix = ce.full_matrix(torch.arange(600, device=dev))
     torch.cuda.synchronize()
     matrix_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tokens = (lexical_signatures(ce.i_emb, seed=3), lexical_signatures(ce.q_emb, seed=3))
+    tokens_s = time.perf_counter() - t0
     test_q = torch.arange(500, 600, device=dev)
     kernels.reset_launches()
     reports = quality_matrix(ce, index, test_q, matrix, budget=200, n_rounds=5,
-                             ks=(1, 10, 100), shortlist_k=800, use_fused_topk=True)
+                             ks=(1, 10, 100), shortlist_k=800, use_fused_topk=True,
+                             corpus_tokens=tokens[0], query_tokens=tokens[1])
     torch.cuda.synchronize()
+    # the main path's launches: the comparison's and the subset searches',
+    # not the checks' masked searches and shortlists
     launches = kernels.launch_counts()
     cfg = matrix_config(200, 5, (1, 10, 100), use_fused_topk=True)
+    key, b = prng.PRNGKey(0), test_q.shape[0]
+    exact = matrix[test_q]
+    mask_us = {rep.method: rep.wall_us_per_query for rep in reports}
+    subset = []
+    for name, gen in (("hybrid_de", DualEncoderCandidates(ce.q_emb, ce.i_emb, n_valid=index.n_items)),
+                      ("hybrid_bm25", BM25Candidates(*tokens, n_valid=index.n_items, device=dev))):
+        scorer = TabulatedScorer(matrix)
+        ret = HybridRetriever(score_fn=scorer, generator=gen, cfg=cfg, index=index,
+                              shortlist_k=800, mode="subset")
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        res = ret.search(test_q, key)
+        torch.cuda.synchronize()
+        us = (time.perf_counter() - t0) / b * 1e6
+        launches = {k: launches[k] + c for k, c in kernels.launch_counts().items()}
+        cand = gen(test_q, 800)
+        union = candidate_eligibility(cand, index.capacity, per_query=False)
+        masked = make_engine(TabulatedScorer(matrix), cfg)(index.r_anc, test_q, key,
+                                                          eligible=union,
+                                                          item_ids=index.item_ids)
+        n_sub = int(union_candidates(cand, ret._capacity(b), index.capacity)[2])
+        bitwise = bool(torch.equal(res.topk_idx, masked.topk_idx)
+                       and torch.equal(res.topk_scores, masked.topk_scores))
+        check(bitwise, f"retrievers {name} subset: top-k differs from the union-masked search")
+        check(scorer.stats.ce_calls == ret.ce_call_plan() * b,
+              f"retrievers {name} subset: measured CE {scorer.stats.ce_calls} != plan "
+              f"{ret.ce_call_plan()} x {b}")
+        subset.append(dict(method=name, union_columns=n_sub, subset_capacity=ret._capacity(b),
+                           measured_ce=scorer.stats.ce_calls // b, planned_ce=ret.ce_call_plan(),
+                           bitwise_equal_to_union_mask=bitwise, subset_us_per_query=us,
+                           mask_us_per_query=mask_us[name],
+                           topk_recall=evaluate_result(name, res, exact,
+                                                       ks=(1, 10, 100)).recall))
     bn = round_body_bn_intermediates(TabulatedScorer(matrix), index.r_anc, test_q, cfg)
     check(bn == 0, f"retrievers: the fused round body creates {bn} (B, N) float tensors")
     rows = []
@@ -678,15 +755,16 @@ def phase_retrievers(dev, ce, index):
                                   f"!= plan {rep.planned_ce}")
         check(rep.launches["approx_topk"] > 0,
               f"retrievers {rep.method}: approx_topk never launched ({rep.launches})")
-        # ADACUR and the DE-hybrid run the adaptive round body; ANNCUR and
+        # ADACUR and the hybrids run the adaptive round body; ANNCUR and
         # rerank search one retriever-seeded round and have none
-        rounds = rep.method in ("adacur", "hybrid_de")
+        rounds = rep.method in ("adacur", "hybrid_de", "hybrid_bm25")
         rows.append(dict(**rep.to_json(), round_body_bn_intermediates=bn if rounds else None))
     del matrix
     torch.cuda.empty_cache()
     return dict(n_items=index.n_items, test_queries=100, budget=200, n_rounds=5,
                 shortlist_k=800, matrix_gb=600 * index.n_items * 4 / 1e9, matrix_s=matrix_s,
-                launches=launches, methods=rows), launches
+                lexical_signatures_s=tokens_s, launches=launches, methods=rows,
+                subset_mode=subset), launches
 
 
 def phase_anytime(dev, ce, index):
@@ -735,11 +813,271 @@ def phase_anytime(dev, ce, index):
     return out
 
 
+class Preempted(Exception):
+    """The interruption of the index_lifecycle phase's build."""
+
+
+def same_payload(a, b) -> bool:
+    """Two payloads' bytes (and, coded, their tile layout) equal."""
+    import torch
+
+    from repro_torch.kernels.approx_topk.quant import QuantizedRanc
+
+    if isinstance(a, QuantizedRanc) != isinstance(b, QuantizedRanc):
+        return False
+    if isinstance(a, QuantizedRanc):
+        return ((a.tile, a.code_dtype, a.n_cols) == (b.tile, b.code_dtype, b.n_cols)
+                and torch.equal(a.codes.cpu().view(torch.uint8), b.codes.cpu().view(torch.uint8))
+                and torch.equal(a.scales.cpu(), b.scales.cpu()))
+    return a.dtype == b.dtype and torch.equal(a.cpu().view(torch.uint8), b.cpu().view(torch.uint8))
+
+
+def same_index(a, b) -> bool:
+    import torch
+
+    return (same_payload(a.r_anc, b.r_anc)
+            and torch.equal(a.item_ids.cpu(), b.item_ids.cpu())
+            and int(a.n_valid) == int(b.n_valid)
+            and torch.equal(a.anchor_query_ids.cpu(), b.anchor_query_ids.cpu()))
+
+
+def dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(path) for f in fs)
+
+
+def lifecycle_search(ce, index, payload, round_kernel="persistent"):
+    """One B = 256 engine search over ``index`` (queries 500..755 mod 600,
+    key 5) -> (result, measured CE calls, plan x B)."""
+    import torch
+
+    from repro_torch.configs.base import AdaCURConfig
+    from repro_torch.core import prng
+    from repro_torch.core.engine import AdaCURRetriever, ce_call_plan
+    from repro_torch.core.scorer import SyntheticScorer
+
+    cfg = AdaCURConfig(k_anchor=100, n_rounds=5, budget_ce=200, strategy="topk",
+                       k_retrieve=100, loop_mode="fori", use_fused_topk=True,
+                       payload_dtype=payload, round_kernel=round_kernel)
+    scorer = SyntheticScorer(ce)
+    qids = torch.arange(500, 756, device=ce.device) % 600
+    res = AdaCURRetriever.from_index(index, scorer, cfg).search(qids, prng.PRNGKey(5))
+    torch.cuda.synchronize()
+    return res, scorer.stats.ce_calls, ce_call_plan(cfg) * 256
+
+
+def phase_index_lifecycle(dev, ce, index):
+    """The AnchorIndex lifecycle at the serve domain's full size (k_q = 500,
+    N = 10^6): (a) a resumable build interrupted after 2 of its 4 blocks of
+    128 rows, resumed (scores only the 2 missing blocks, R_anc bit-equal to
+    build_domain's); (b) save and load of every payload in a temp directory
+    (bytes on disk, seconds, GB/s; ``topk`` at B = 256, k = 100 and a
+    B = 256 persistent engine search bit-equal after the load); (c)
+    ``with_capacity(2^20)``, ``remove_items`` of every 100th id and
+    ``add_items`` of them back, each held, for fp32, against ``from_r_anc``
+    over the same columns in the same order (payload bytes, item ids,
+    ``topk`` and the engine's ids, values and measured CE = plan) and, for
+    the coded payloads, against the same mutation on the CPU (bytes), with
+    a search over the mutated index (n_valid < capacity, CE = plan, no
+    removed id served); (d) ``swap_index`` with 64 requests queued, answered
+    under the old index, none after it serving a removed id.  Returns
+    (result, {kernel: {payload: launches}}), the launches of the loaded and
+    mutated indexes' searches and the service's, not of the references
+    they are held against."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.configs.base import AdaCURConfig
+    from repro_torch.core.engine import AdaCURRetriever
+    from repro_torch.core.index import AnchorIndex, build_r_anc, clear_build_checkpoints
+    from repro_torch.core.scorer import SyntheticScorer
+    from repro_torch.launch.serve import AdaCURService, RetrievalRequest
+
+    n, k_q = index.n_items, index.k_q
+    launches = {name: dict.fromkeys(PAYLOADS, 0) for name in ("approx_topk", "persistent_round")}
+
+    def count(payload):
+        for name, c in kernels.launch_counts().items():
+            if name in launches:
+                launches[name][payload] += c
+        kernels.reset_launches()
+
+    tmp = tempfile.mkdtemp(prefix="adacur_index_")
+    try:
+        # (a) resumable build
+        ck = os.path.join(tmp, "build")
+        calls = {"scored": 0, "stop_at": 2}
+
+        def scorer(q, i):
+            if calls["scored"] == calls["stop_at"]:
+                raise Preempted()
+            calls["scored"] += 1
+            return ce.score_block(q, i)
+
+        q_ids, i_ids = torch.arange(k_q, device=dev), torch.arange(n, device=dev)
+        try:
+            build_r_anc(scorer, q_ids, i_ids, block_rows=128, checkpoint_dir=ck)
+            check(False, "index_lifecycle: the interrupted build ran to its end")
+        except Preempted:
+            pass
+        calls.update(scored=0, stop_at=None)
+        t0 = time.perf_counter()
+        resumed = build_r_anc(scorer, q_ids, i_ids, block_rows=128, checkpoint_dir=ck)
+        torch.cuda.synchronize()
+        build = dict(blocks=4, block_rows=128, resumed_blocks_scored=calls["scored"],
+                     resume_s=time.perf_counter() - t0,
+                     bit_equal_to_build_domain=bool(torch.equal(resumed, index.r_anc)))
+        check(calls["scored"] == 2, f"index_lifecycle: the resumed build scored "
+                                    f"{calls['scored']} blocks, not the 2 missing")
+        check(build["bit_equal_to_build_domain"],
+              "index_lifecycle: the resumed R_anc differs from build_domain's")
+        del resumed
+        clear_build_checkpoints(ck)
+
+        # (b) save and load, every payload
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(18)
+        e_q = torch.randn((256, k_q), generator=gen, device=dev)
+        saved = []
+        kernels.reset_launches()
+        for payload in PAYLOADS:
+            idx = index.quantize(payload)
+            path = os.path.join(tmp, payload)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            idx.save(path)
+            save_s = time.perf_counter() - t0
+            disk = dir_bytes(path)
+            t0 = time.perf_counter()
+            loaded = AnchorIndex.load(path, device=dev)
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+            with open(os.path.join(path, "index_meta.json")) as f:
+                version = json.load(f)["format_version"]
+            check(same_index(idx, loaded), f"index_lifecycle: {payload} loads other leaves")
+            av, ai = idx.topk(e_q, 100)
+            ra, _, _ = lifecycle_search(ce, idx, payload)
+            kernels.reset_launches()            # counted: the loaded index only
+            bv, bi = loaded.topk(e_q, 100)
+            rb, measured, plan = lifecycle_search(ce, loaded, payload)
+            count(payload)
+            check(torch.equal(av, bv) and torch.equal(ai, bi),
+                  f"index_lifecycle: {payload} topk differs after the load")
+            check(torch.equal(ra.topk_idx, rb.topk_idx) and measured == plan,
+                  f"index_lifecycle: {payload} engine search differs after the load "
+                  f"(CE {measured} vs plan {plan})")
+            saved.append(dict(payload=payload, format_version=version, disk_bytes=disk,
+                              payload_bytes=idx.payload_nbytes, save_s=save_s, load_s=load_s,
+                              save_gb_s=disk / save_s / 1e9, load_gb_s=disk / load_s / 1e9))
+            shutil.rmtree(path)
+            del idx, loaded
+
+        # (c) mutation: capacity to the next power of two above N + 1% (2^20)
+        cap = 1 << (n + n // 100).bit_length()
+        rm_ids = torch.arange(0, n, 100, device=dev, dtype=torch.int32)
+        rm_host = rm_ids.cpu().numpy()
+        cols = index.r_anc[:, rm_ids.long()]
+        keep = torch.ones(n, dtype=torch.bool, device=dev)
+        keep[rm_ids.long()] = False
+        surv = torch.nonzero(keep).flatten().to(torch.int32)
+        order = torch.cat([surv, rm_ids])
+        mutated, fp32_steps = [], {}
+        for payload in PAYLOADS:
+            base = index.quantize(payload)
+            steps, secs = [], {}
+            for name, fn in (("with_capacity", lambda x: x.with_capacity(cap)),
+                             ("remove_items", lambda x: x.remove_items(rm_ids)),
+                             ("add_items", lambda x: x.add_items(rm_ids, cols=cols))):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                base = fn(base)
+                torch.cuda.synchronize()
+                secs[name] = time.perf_counter() - t0
+                steps.append((name, base))
+            row = dict(payload=payload, seconds=secs, n_valid=[int(x.n_valid) for _, x in steps])
+            if payload == "float32":
+                fresh = [AnchorIndex.from_r_anc(index.r_anc[:, c.long()], item_ids=c,
+                                                capacity=cap)
+                         for c in (i_ids.to(torch.int32), surv, order)]
+                for (name, got), want in zip(steps, fresh):
+                    check(same_index(got, want),
+                          f"index_lifecycle: fp32 {name} differs from a rebuild")
+                    bv, bi = want.topk(e_q, 100)
+                    rb, mb, _ = lifecycle_search(ce, want, payload, "staged")
+                    kernels.reset_launches()        # counted: the mutated index only
+                    av, ai = got.topk(e_q, 100)
+                    ra, ma, plan = lifecycle_search(ce, got, payload, "staged")
+                    count(payload)
+                    check(torch.equal(av, bv) and torch.equal(ai, bi)
+                          and torch.equal(ra.topk_idx, rb.topk_idx)
+                          and torch.equal(ra.topk_scores, rb.topk_scores)
+                          and ma == mb == plan,
+                          f"index_lifecycle: fp32 {name} searches differ from a rebuild's "
+                          f"(CE {ma}, {mb}, plan {plan})")
+                fp32_steps = dict(steps)
+                row["held_against"] = "from_r_anc rebuild"
+                del fresh
+            else:
+                cpu = index.quantize(payload).to("cpu")
+                for name, got in steps:
+                    cpu = {"with_capacity": lambda x: x.with_capacity(cap),
+                           "remove_items": lambda x: x.remove_items(rm_ids.cpu()),
+                           "add_items": lambda x: x.add_items(rm_ids.cpu(), cols=cols.cpu()),
+                           }[name](cpu)
+                    check(same_index(got, cpu),
+                          f"index_lifecycle: {payload} {name} bytes differ from the CPU's")
+                shrunk = dict(steps)["remove_items"]
+                kernels.reset_launches()
+                res, measured, plan = lifecycle_search(ce, shrunk, payload)
+                count(payload)
+                served = shrunk.gather_item_ids(res.topk_idx)
+                check(measured == plan and not np.isin(served.cpu().numpy(), rm_host).any(),
+                      f"index_lifecycle: {payload} search over the shrunk index "
+                      f"(CE {measured}, plan {plan}) or served a removed id")
+                row["held_against"] = "the same mutation on the CPU"
+                del cpu
+            mutated.append(row)
+            del steps, base
+
+        # (d) swap_index with 64 requests queued
+        cfg = AdaCURConfig(k_anchor=100, n_rounds=5, budget_ce=200, strategy="topk",
+                           k_retrieve=100, loop_mode="fori", use_fused_topk=True)
+        svc = AdaCURService(retriever=AdaCURRetriever.from_index(
+            fp32_steps["with_capacity"], SyntheticScorer(ce), cfg), max_batch=256,
+            max_wait_s=1e9)
+        kernels.reset_launches()
+        for i in range(64):
+            check(svc.submit(RetrievalRequest(query_id=500 + i)) is None,
+                  "index_lifecycle: a batch fired before the swap")
+        drained = svc.swap_index(fp32_steps["remove_items"])
+        torch.cuda.synchronize()
+        old_ids = np.stack([r.item_ids for r in drained])
+        for i in range(64):
+            svc.submit(RetrievalRequest(query_id=500 + i))
+        after = svc.flush()
+        new_ids = np.stack([r.item_ids for r in after])
+        swap = dict(queued=64, drained=len(drained),
+                    drained_removed_ids=int(np.isin(old_ids, rm_host).sum()),
+                    after_removed_ids=int(np.isin(new_ids, rm_host).sum()),
+                    errors=sum(r.status != "ok" for r in drained + after))
+        check(len(drained) == 64 and swap["errors"] == 0 and swap["drained_removed_ids"] > 0
+              and swap["after_removed_ids"] == 0,
+              f"index_lifecycle: swap_index {swap}")
+        count("float32")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return dict(n_items=n, k_q=k_q, capacity=cap, removed=int(rm_ids.numel()), build=build,
+                save_load=saved, mutation=mutated, swap=swap), launches
+
+
 def phase_retrievers_cpu_vs_card(dev):
-    """The four methods of the quality matrix (eval.harness.method_retrievers)
-    on the card (kernels) and on the CPU (plain versions), N = 20,000,
-    B = 64, fp32 and int8: top-k overlap >= 0.99 per method, measured CE
-    equal.  The searches use the full pinv (``incremental_pinv=False``), as
+    """The five methods of the quality matrix (eval.harness.method_retrievers,
+    with the BM25-hybrid) and both hybrids in subset mode on the card
+    (kernels) and on the CPU (plain versions), N = 20,000, B = 64, fp32 and
+    int8: top-k overlap >= 0.99 per method, measured CE equal.  The searches use the full pinv (``incremental_pinv=False``), as
     the reference allows: at 100 anchors in 5 rounds the bordered update's
     fp32 estimate is unstable in the reference itself (ROADMAP queue 3), so
     one ulp of rounding moves its top-k and card against CPU would compare
@@ -750,15 +1088,18 @@ def phase_retrievers_cpu_vs_card(dev):
 
     from repro_torch import kernels
     from repro_torch.core import prng
+    from repro_torch.core.candidates import (BM25Candidates, DualEncoderCandidates,
+                                             HybridRetriever)
     from repro_torch.core.index import AnchorIndex
-    from repro_torch.core.scorer import scorer_stats
-    from repro_torch.data.synthetic import make_synthetic_ce
+    from repro_torch.core.scorer import TabulatedScorer, scorer_stats
+    from repro_torch.data.synthetic import lexical_signatures, make_synthetic_ce
     from repro_torch.eval.harness import matrix_config, method_retrievers
     from repro_torch.testing import topk_overlap
 
     ce = make_synthetic_ce(prng.PRNGKey(7), n_queries=264, n_items=20000, device="cpu")
     index = AnchorIndex.build(ce.score_block, torch.arange(200), torch.arange(20000))
     matrix = ce.full_matrix(torch.arange(264))
+    tokens = (lexical_signatures(ce.i_emb, seed=3), lexical_signatures(ce.q_emb, seed=3))
     q = torch.arange(200, 264)
     out = []
     for payload in ("float32", "int8"):
@@ -769,7 +1110,15 @@ def phase_retrievers_cpu_vs_card(dev):
         for side, d in (("cpu", "cpu"), ("card", dev)):
             kernels.reset_launches()
             res = {}
-            for name, ret, kw in method_retrievers(ce.to(d), idx.to(d), matrix.to(d), cfg, 800):
+            ce_d, idx_d, matrix_d = ce.to(d), idx.to(d), matrix.to(d)
+            methods = method_retrievers(ce_d, idx_d, matrix_d, cfg, 800, corpus_tokens=tokens[0],
+                                        query_tokens=tokens[1])
+            for name, gen in (("hybrid_de", DualEncoderCandidates(ce_d.q_emb, ce_d.i_emb)),
+                              ("hybrid_bm25", BM25Candidates(*tokens, device=d))):
+                methods.append((f"{name}_subset", HybridRetriever(
+                    score_fn=TabulatedScorer(matrix_d), generator=gen, cfg=cfg, index=idx_d,
+                    shortlist_k=800, mode="subset"), None))
+            for name, ret, kw in methods:
                 qd = q.to(d)
                 before = scorer_stats(ret.score_fn).ce_calls
                 r = ret.search(qd, prng.PRNGKey(0), **(kw(qd) if kw else {}))
@@ -1391,6 +1740,8 @@ def main() -> int:
             emit({"phase": "retrievers", **retrievers})
             anytime = phase_anytime(dev, ce, index)
             emit({"phase": "anytime", **anytime})
+            lifecycle, life_launches = phase_index_lifecycle(dev, ce, index)
+            emit({"phase": "index_lifecycle", **lifecycle})
             del ce, index
             torch.cuda.empty_cache()
             emit({"phase": "retrievers_cpu_vs_card", "runs": phase_retrievers_cpu_vs_card(dev)})
@@ -1417,9 +1768,10 @@ def main() -> int:
             emit({"phase": "dlrm_cpu_vs_card", **phase_dlrm_cpu_vs_card(dev)})
             for name, per_payload in serve_launches.items():
                 for dtype, n in per_payload.items():
-                    launches[topk_entry(name, dtype)] = n
+                    # the serve drives and the index lifecycle's searches
+                    launches[topk_entry(name, dtype)] = n + life_launches[name][dtype]
             launches["approx_topk"] += rr_launches["approx_topk"]     # DLRM retrieval, fp32
-            # the comparison's four methods and the anytime drives, fp32
+            # the comparison, its subset searches and the anytime drives, fp32
             launches["approx_topk"] += retr_launches["approx_topk"]
             launches["approx_topk"] += sum(run["launches"]["approx_topk"]
                                            for run in anytime.values())

@@ -22,9 +22,12 @@ Every method is a configuration of this one engine behind the
 :class:`ANNCURRetriever` (fixed anchors, one retriever-seeded round) and
 :class:`RerankRetriever` (retrieve-and-rerank, one retriever-seeded round
 with no budget split).  A per-query ``eligible`` mask restricts a search to
-a candidate set (hybrid retrieval), and an :class:`AnytimeDeadline` cuts
-the round loop at a wall-clock deadline.  The sharded engine and
-candidate-subset search (``pos_map``) are later slices (ROADMAP.md).
+a candidate set (hybrid retrieval), ``pos_map`` declares the payload a
+candidate subset gathered from those corpus positions (every noise draw
+then reads the canonical field there, so the subset search equals the
+masked full-corpus one bit for bit), and an :class:`AnytimeDeadline` cuts
+the round loop at a wall-clock deadline.  The sharded engine is a later
+slice (ROADMAP.md, queue 1).
 """
 
 from __future__ import annotations
@@ -110,16 +113,22 @@ class EngineState(NamedTuple):
     selected: torch.Tensor     # (B, N) bool mask of already-selected items
 
 
-def _noise(key, rows: int, n: int, device) -> torch.Tensor:
+def _noise(key, rows: int, n: int, device, col_map=None) -> torch.Tensor:
+    """The (rows, n) rectangle of the canonical noise field, or, for a
+    candidate subset (``col_map``: each column's corpus position), the field
+    at those positions (:func:`sampling.gumbel_at`): the draws a masked
+    full-corpus search sees at the same columns."""
+    if col_map is not None:
+        return sampling.gumbel_at(key, rows, col_map)
     return sampling.blocked_gumbel(key, rows, n, device=device)
 
 
-def _sample_random(key, selected, k: int):
+def _sample_random(key, selected, k: int, col_map=None):
     """Uniform w/o replacement over unselected items (the masked-Gumbel
     formula of the reference's ``_sample_random_ctx``)."""
     b, n = selected.shape
     logits = torch.where(selected, NEG_INF, 0.0).to(torch.float32)
-    return stable_topk(logits + _noise(key, b, n, selected.device), k)[1]
+    return stable_topk(logits + _noise(key, b, n, selected.device, col_map), k)[1]
 
 
 def _mark_selected(selected, gidx):
@@ -175,11 +184,12 @@ def _provisional_topk(cfg, e_q, r_anc, m: int, n_valid, invalid=None):
 
 
 def _sample_round(cfg, key, state: EngineState, r_anc, k_eff: int, n_valid,
-                  force_mask: bool = False, monitor=None):
+                  force_mask: bool = False, monitor=None, col_map=None):
     """One adaptive round's anchor pick (Alg. 3), dense or fused;
     ``monitor=(m, invalid)`` also returns the provisional top-m of the
     current estimate — from the same persistent sweep where the sample and
-    provisional branches share the estimate GEMM."""
+    provisional branches share the estimate GEMM.  ``col_map`` remaps the
+    noise of a candidate subset to corpus coordinates."""
     b, n = state.selected.shape
 
     def with_monitor(gidx):
@@ -188,13 +198,15 @@ def _sample_round(cfg, key, state: EngineState, r_anc, k_eff: int, n_valid,
         m, invalid = monitor
         return gidx, _provisional_topk(cfg, state.e_q, r_anc, m, n_valid, invalid)
 
-    if cfg.strategy == "random" and cfg.use_fused_topk:
-        return with_monitor(_sample_random(key, state.selected, k_eff))
+    if cfg.strategy == "random":
+        return with_monitor(_sample_random(key, state.selected, k_eff, col_map))
     if not cfg.use_fused_topk:
-        s_hat = quant.matmul(state.e_q, r_anc)
-        return with_monitor(sampling.sample(
-            cfg.strategy, key, s_hat, state.selected, k_eff, cfg.softmax_temp
-        ))
+        # sampling.sample_topk / sample_softmax, with the noise at col_map
+        logits = sampling._masked_logits(quant.matmul(state.e_q, r_anc), state.selected,
+                                         cfg.softmax_temp)
+        if cfg.strategy == "softmax":
+            logits = logits + _noise(key, b, n, logits.device, col_map)
+        return with_monitor(stable_topk(logits, k_eff)[1])
     suppress = _fused_suppress(state, force_mask)
     tile = _effective_tile(cfg, r_anc)
     e_q = state.e_q
@@ -203,7 +215,9 @@ def _sample_round(cfg, key, state: EngineState, r_anc, k_eff: int, n_valid,
         e_q = e_q / torch.tensor(cfg.softmax_temp, dtype=e_q.dtype)
     if cfg.round_kernel == "persistent":
         kw = dict(k_sample=k_eff, tile=tile, n_valid=n_valid, **suppress)
-        if cfg.strategy == "softmax":
+        if cfg.strategy == "softmax" and col_map is not None:
+            kw["noise"] = _noise(key, b, n, e_q.device, col_map)
+        elif cfg.strategy == "softmax":
             kw["noise_key"] = key
         if monitor is not None and (cfg.strategy == "topk" or cfg.softmax_temp == 1.0):
             m, invalid = monitor
@@ -213,14 +227,14 @@ def _sample_round(cfg, key, state: EngineState, r_anc, k_eff: int, n_valid,
             return idx, pidx
         (_, idx), _ = persistent_round_op(e_q, r_anc, **kw)
         return with_monitor(idx)
-    noise = _noise(key, b, n, e_q.device) if cfg.strategy == "softmax" else None
+    noise = _noise(key, b, n, e_q.device, col_map) if cfg.strategy == "softmax" else None
     _, idx = approx_topk_op(e_q, r_anc, k=k_eff, tile=tile, noise=noise,
                             n_valid=n_valid, **suppress)
     return with_monitor(idx)
 
 
 def _make_round_steps(scored, r_anc, query, cfg, keys, k_s: int, n_valid,
-                      force_mask: bool = False):
+                      force_mask: bool = False, col_map=None):
     """The round split into ``sample(r, state, monitor=None)`` (the pick)
     and ``apply(r, state, idx_new)`` (ε mix, CE scoring, slab and pinv
     updates); ``body = apply ∘ sample``.  The persistent monitored loop
@@ -230,12 +244,12 @@ def _make_round_steps(scored, r_anc, query, cfg, keys, k_s: int, n_valid,
 
     def sample(r, state, monitor=None):
         return _sample_round(cfg, keys[r], state, r_anc, k_s - n_rand, n_valid,
-                             force_mask, monitor=monitor)
+                             force_mask, monitor=monitor, col_map=col_map)
 
     def apply(r, state, idx_new):
         if n_rand:
             sel_tmp = _mark_selected(state.selected, idx_new)
-            idx_rand = _sample_random(prng.fold_in(keys[r], 1), sel_tmp, n_rand)
+            idx_rand = _sample_random(prng.fold_in(keys[r], 1), sel_tmp, n_rand, col_map)
             idx_new = torch.cat([idx_new, idx_rand], dim=1)
         idx_new = idx_new.to(torch.int32)
         selected = _mark_selected(state.selected, idx_new)
@@ -277,7 +291,7 @@ def engine_search(score_fn: ScoreFn, r_anc, query, cfg: AdaCURConfig, key,
                   first_anchors=None, batch: Optional[int] = None,
                   n_valid_items=None, n_rounds: Optional[int] = None,
                   return_scores: Optional[bool] = None,
-                  item_ids=None, eligible=None,
+                  item_ids=None, eligible=None, pos_map=None,
                   deadline: Optional[AnytimeDeadline] = None) -> AdaCURResult:
     """Run Algorithm 1 (+ retrieval) through the static-shape round engine.
 
@@ -292,12 +306,20 @@ def engine_search(score_fn: ScoreFn, r_anc, query, cfg: AdaCURConfig, key,
     external ids before every CE call.  ``eligible`` (B, N) or (N,) bool
     restricts each query to its True items: the rest are never sampled,
     never reranked and left out of the early-exit monitor, and the CE
-    accounting does not change.  ``deadline`` (``loop_mode='fori'`` only)
-    cuts the round loop at an armed :class:`AnytimeDeadline`.
+    accounting does not change.  ``pos_map`` (N,) ascending int declares
+    the payload's columns a candidate subset gathered from those corpus
+    positions (``quant.subset_columns``): every noise draw reads the
+    canonical field at the mapped coordinates, so the search equals the
+    same search over the full corpus masked to the subset (``eligible``),
+    and ascending order keeps the ascending-id tie-break.  Results stay in
+    subset coordinates; callers map them through ``pos_map``.
+    ``deadline`` (``loop_mode='fori'`` only) cuts the round loop at an
+    armed :class:`AnytimeDeadline`.
     """
     r_anc = quant.as_payload(r_anc, cfg.payload_dtype, cfg.payload_tile)
     k_q, n_items = r_anc.shape
     dev = r_anc.device
+    col_map = None if pos_map is None else torch.as_tensor(pos_map, device=dev)
     k_i = cfg.budget_ce if not cfg.split_budget else cfg.k_anchor
     r_max = cfg.n_rounds
     k_s = k_i // r_max
@@ -351,7 +373,7 @@ def engine_search(score_fn: ScoreFn, r_anc, query, cfg: AdaCURConfig, key,
     if first_anchors is not None and cfg.first_round == "retriever":
         idx0 = first_anchors.to(device=dev, dtype=torch.int32)
     else:
-        idx0 = _sample_random(keys[0], selected, k_s)
+        idx0 = _sample_random(keys[0], selected, k_s, col_map)
     selected = _mark_selected(selected, idx0)
     c0 = scored(query, idx0).to(torch.float32)
     cols0 = quant.gather_columns(r_anc, idx0)
@@ -370,7 +392,7 @@ def engine_search(score_fn: ScoreFn, r_anc, query, cfg: AdaCURConfig, key,
     state = EngineState(anchor_idx, c_test, a_buf, p, e_q, selected)
 
     sample_step, apply_step, body = _make_round_steps(
-        scored, r_anc, query, cfg, keys, k_s, n_valid, force_mask=dyn_valid
+        scored, r_anc, query, cfg, keys, k_s, n_valid, force_mask=dyn_valid, col_map=col_map
     )
 
     # --- rounds 1..n_rounds-1 ---------------------------------------------
@@ -456,12 +478,12 @@ def make_engine(score_fn: ScoreFn, cfg: AdaCURConfig, return_scores: Optional[bo
         deadline = AnytimeDeadline()
 
     def run(r_anc, query, key, first_anchors=None, batch=None, n_rounds=None,
-            n_valid=None, item_ids=None, eligible=None):
+            n_valid=None, item_ids=None, eligible=None, pos_map=None):
         return engine_search(
             score_fn, r_anc, query, cfg, key, first_anchors=first_anchors,
             batch=batch, n_valid_items=n_valid,
             n_rounds=n_rounds, return_scores=return_scores, item_ids=item_ids,
-            eligible=eligible, deadline=deadline,
+            eligible=eligible, pos_map=pos_map, deadline=deadline,
         )
 
     run.deadline = deadline

@@ -52,16 +52,15 @@
 //    exact in TF32, so b_lo = 0 and two passes do.  The tensor core adds in
 //    a chunk accumulator that restarts every BK = 32 of k_q; each chunk is
 //    added to the running fp32 sum with __fadd_rn, so the hardware's
-//    truncating accumulation only ever spans 32 terms.  For the payloads
-//    exact in TF32 (bf16, int8, fp8, int4) that add's rounding error
-//    (Fast2Sum) is where the next chunk's accumulator starts, so the
-//    running sum is not rounded at its own scale once a chunk, and the
-//    tensor core's truncation (most of its sums are the exact sum of c and
-//    a k-step's 8 products, truncated toward zero;
-//    ref.tf32x3_scores(truncate=True) replays it) sets the error alone.
-//    The fp32 payload's chunks restart at 0: its mainloop issues the most
-//    instructions a chunk, and the carry's two extra adds an accumulator
-//    cost it 4-7% (PERF.md, the kernel table).
+//    truncating accumulation only ever spans 32 terms.  For every payload
+//    that add's rounding error (Fast2Sum) is where the next chunk's
+//    accumulator starts, so the running sum is not rounded at its own
+//    scale once a chunk, and the tensor core's truncation (most of its
+//    sums are the exact sum of c and a k-step's 8 products, truncated
+//    toward zero; ref.tf32x3_scores(truncate=True) replays it) sets the
+//    error alone.  The carry costs two adds an accumulator a chunk (fp32
+//    k = 20 about +6%, PERF.md, the kernel table); without it fp32's worst
+//    near-full error reached 1.33x cuBLAS fp32's over seeds 0-7.
 //    mma.sync and not wgmma: wgmma transposes only 16-bit operands, and
 //    R_anc is (k_q, N) row-major (N contiguous), so the payload tile
 //    would have to be transposed to K-major in shared memory first.  That
@@ -848,10 +847,9 @@ sweep_kernel(SweepArgs a, ListDesc l0, ListDesc l1) {
       mma_chunk<K>(ab, ab + A_TILE, st, c, warp, lane, [&](int ks) { refill(ks + 1); });
       cp_async_commit();
       if (chunk + 1 < nchunks) {
-        // add the chunk to the running sum; for the payloads exact in TF32,
-        // start the next chunk's accumulator at that add's rounding error
-        // (Fast2Sum: exact while |acc| >= |c|), an fp32 payload restarts at 0
-        // (design note 1)
+        // add the chunk to the running sum and start the next chunk's
+        // accumulator at that add's rounding error (Fast2Sum: exact while
+        // |acc| >= |c|; design note 1)
 #pragma unroll
         for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
@@ -859,10 +857,7 @@ sweep_kernel(SweepArgs a, ListDesc l0, ListDesc l1) {
 #pragma unroll
             for (int q = 0; q < 4; ++q) {
               const float sum = __fadd_rn(acc[mi][ni][q], c[mi][ni][q]);
-              if constexpr (Payload<K>::SPLIT)
-                c[mi][ni][q] = 0.f;
-              else
-                c[mi][ni][q] = __fsub_rn(c[mi][ni][q], __fsub_rn(sum, acc[mi][ni][q]));
+              c[mi][ni][q] = __fsub_rn(c[mi][ni][q], __fsub_rn(sum, acc[mi][ni][q]));
               acc[mi][ni][q] = sum;
             }
       }

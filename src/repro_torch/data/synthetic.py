@@ -1,6 +1,6 @@
 """Synthetic ZESHEL-like cross-encoder domains — port of
-``SyntheticCE``/``make_synthetic_ce`` and ``ZeshelLikeDataset``/
-``make_zeshel_like`` from ``repro/data/synthetic.py``.
+``SyntheticCE``/``make_synthetic_ce``, ``lexical_signatures`` and
+``ZeshelLikeDataset``/``make_zeshel_like`` from ``repro/data/synthetic.py``.
 
     score(q, i) = sum_r w_r · <tanh(A_r e_q), tanh(B_r e_i)>     (background)
                 + gamma · exp(-||e_q - e_i||² / (2σ²))           (k-NN spikes)
@@ -119,6 +119,26 @@ def make_synthetic_ce(key, n_queries: int = 1000, n_items: int = 10000,
 
 PAD, CLS, SEP, MASK = 0, 1, 2, 3
 N_SPECIAL = 4
+
+
+def lexical_signatures(emb, n_terms: int = 8, n_planes: int = 64, seed: int = 0) -> np.ndarray:
+    """Signed random-projection "tokens" for an embedding-only corpus (the
+    synthetic domain has no text; BM25 needs token sequences): each row's
+    ``n_terms`` largest-|projection| planes of ``n_planes`` shared random
+    hyperplanes, sign-split (plane p firing positive and negative are
+    different tokens), a vocabulary of ``2 * n_planes`` tokens plus the pad
+    id 0.  Numpy's ``default_rng(seed)`` on the host, as the reference, so
+    the same embeddings give the same tokens; corpus and queries must share
+    ``seed``."""
+    if isinstance(emb, torch.Tensor):
+        emb = emb.detach().cpu().numpy()
+    emb = np.asarray(emb, dtype=np.float32)
+    rng = np.random.default_rng(seed)
+    planes = rng.standard_normal((emb.shape[1], n_planes)).astype(np.float32)
+    proj = emb @ planes                                   # (B, n_planes)
+    top = np.argsort(-np.abs(proj), axis=1, kind="stable")[:, :n_terms]
+    sign = (np.take_along_axis(proj, top, axis=1) >= 0).astype(np.int32)
+    return (2 * top + sign + 1).astype(np.int32)          # 0 stays the pad id
 
 
 @dataclass

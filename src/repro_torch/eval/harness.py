@@ -2,10 +2,11 @@
 port of ``repro/eval/harness.py``.
 
 :func:`quality_matrix` runs the paper's comparison in one call: ADACUR vs
-ANNCUR vs dual-encoder retrieve-and-rerank vs the DE-hybrid (DE shortlist
--> candidate-restricted ADACUR), every method at the same exact-CE-call
-budget, each with its own :class:`~repro_torch.core.scorer.TabulatedScorer`
-so every spend is measured and held against the engine's plan.
+ANNCUR vs dual-encoder retrieve-and-rerank vs the DE-hybrid and, given
+token data, the BM25-hybrid (a first-stage shortlist -> candidate-restricted
+ADACUR), every method at the same exact-CE-call budget, each with its own
+:class:`~repro_torch.core.scorer.TabulatedScorer` so every spend is
+measured and held against the engine's plan.
 
 Two deliberate differences from the reference: ANNCUR and rerank get the
 matrix's config as their ``base_cfg``, so ``use_fused_topk`` reaches their
@@ -26,7 +27,7 @@ import torch
 
 from ..configs.base import AdaCURConfig
 from ..core import prng
-from ..core.candidates import DualEncoderCandidates, HybridRetriever
+from ..core.candidates import BM25Candidates, DualEncoderCandidates, HybridRetriever
 from ..core.engine import AdaCURRetriever, ANNCURRetriever, RerankRetriever
 from ..core.scorer import TabulatedScorer, scorer_stats
 from ..kernels import launch_counts
@@ -95,12 +96,20 @@ def evaluate_retriever(name: str, retriever, qids, key, *, exact=None,
 
 
 def method_retrievers(ce, index, matrix, cfg: AdaCURConfig, shortlist_k: int,
-                      seed: int = 0) -> list:
-    """The matrix's four methods at ``cfg``'s budget, each with its own
+                      seed: int = 0, corpus_tokens=None, query_tokens=None) -> list:
+    """The matrix's methods at ``cfg``'s budget, each with its own
     TabulatedScorer over ``matrix``: (name, retriever, search_kw), the
-    search_kw a dict or a function of the query ids."""
+    search_kw a dict or a function of the query ids.  Token data adds the
+    BM25-hybrid, its weights on the matrix's device."""
     budget = cfg.budget_ce
     de = DualEncoderCandidates(ce.q_emb, ce.i_emb, n_valid=index.n_items)
+    bm25 = []
+    if corpus_tokens is not None and query_tokens is not None:
+        bm = BM25Candidates(corpus_tokens, query_tokens, n_valid=index.n_items,
+                            device=matrix.device)
+        bm25 = [("hybrid_bm25", HybridRetriever(
+            score_fn=TabulatedScorer(matrix), generator=bm, cfg=cfg, index=index,
+            shortlist_k=shortlist_k, mode="mask"), None)]
     return [
         ("adacur", AdaCURRetriever.from_index(index, TabulatedScorer(matrix), cfg), None),
         ("anncur", ANNCURRetriever.from_index(
@@ -112,7 +121,7 @@ def method_retrievers(ce, index, matrix, cfg: AdaCURConfig, shortlist_k: int,
         ("hybrid_de", HybridRetriever(
             score_fn=TabulatedScorer(matrix), generator=de, cfg=cfg, index=index,
             shortlist_k=shortlist_k, mode="mask"), None),
-    ]
+    ] + bm25
 
 
 def matrix_config(budget: int = 200, n_rounds: int = 5, ks: Sequence[int] = (1, 10, 100),
@@ -136,15 +145,12 @@ def quality_matrix(ce, index, test_q, matrix, *, budget: int = 200, n_rounds: in
     - ``anncur``     fixed anchors, one round (Yadav et al. 2022)
     - ``rerank_de``  dual-encoder retrieve-and-rerank (the whole budget reranks)
     - ``hybrid_de``  DE shortlist -> candidate-restricted ADACUR
+    - ``hybrid_bm25`` BM25 shortlist -> candidate-restricted ADACUR (only
+      when ``corpus_tokens`` and ``query_tokens`` are given)
 
     ``matrix`` is the (n_queries, N) exact score table (rows by global query
     id), on the device the search runs on; ``test_q`` the query ids.  The
-    qrels are the CE's exact top-``qrels_k``.  ``hybrid_bm25`` (token data
-    supplied) waits for the BM25 port and raises."""
-    if corpus_tokens is not None or query_tokens is not None:
-        raise NotImplementedError(
-            "hybrid_bm25 needs BM25Candidates, which is not ported yet "
-            "(ROADMAP.md, queue 1, item 3)")
+    qrels are the CE's exact top-``qrels_k``."""
     test_q = torch.as_tensor(test_q, device=matrix.device)
     exact = matrix[test_q.long()]
     qrels = qrels_from_exact(exact, k=qrels_k)
@@ -156,4 +162,5 @@ def quality_matrix(ce, index, test_q, matrix, *, budget: int = 200, n_rounds: in
     key = prng.PRNGKey(seed)
     return [evaluate_retriever(name, ret, test_q, key, exact=exact, qrels=qrels, ks=ks,
                                search_kw=kw)
-            for name, ret, kw in method_retrievers(ce, index, matrix, cfg, shortlist_k, seed)]
+            for name, ret, kw in method_retrievers(ce, index, matrix, cfg, shortlist_k, seed,
+                                                   corpus_tokens, query_tokens)]

@@ -19,10 +19,13 @@ bf16 tensors and :class:`QuantizedRanc`; the engine and the fused ops call
 the dispatchers here (:func:`matmul`, :func:`gather_columns`, ...) and never
 branch on the payload type themselves.
 
-The mutation and hybrid-retrieval helpers of the reference
-(``subset_columns``, ``dequantize_slice``, ``update_columns``,
-``requantize_preserving_prefix``) come with the index lifecycle and hybrid
-retrieval (ROADMAP.md, queue 1).
+Tile-local scales make mutation cheap: ``add_items`` / ``remove_items``
+re-quantize only the tiles whose columns changed (:func:`update_columns`,
+:func:`requantize_preserving_prefix`) and every other tile keeps its codes
+and scale byte for byte (packed int4 too: the tile is even, so a tile
+boundary is a byte boundary).  :func:`subset_columns` gathers a candidate
+subset into a compact payload of the same policy, per-column scales
+(``tile=1``), each column dequantizing bit-equal to its source.
 """
 
 from __future__ import annotations
@@ -168,7 +171,9 @@ def quantize_ranc(r_anc: torch.Tensor, tile: int = DEFAULT_TILE,
         x = torch.nn.functional.pad(x, (0, n_pad - n))
     qmax = _QMAX[code_dtype]
     amax = x.reshape(k_q, n_tiles, tile).abs().amax(dim=(0, 2))
-    scales = torch.where(amax > 0, amax / qmax, torch.ones_like(amax))
+    # a tensor divisor: CUDA divides by a Python scalar as a multiply by its
+    # reciprocal, which can round the scale an ulp away from the reference's
+    scales = torch.where(amax > 0, amax / torch.full_like(amax, qmax), torch.ones_like(amax))
     y = x / torch.repeat_interleave(scales, tile)[None, :]
     if code_dtype == "fp8":
         # the clip keeps the reference's codes: amax / scale can land an ulp
@@ -230,3 +235,87 @@ def gather_columns(r_anc, anchor_idx: torch.Tensor) -> torch.Tensor:
         cols = _codes_at(r_anc, idx).permute(1, 0, 2)
         return cols * r_anc.scales[idx // r_anc.tile][:, None, :]
     return r_anc[:, idx].to(torch.float32).permute(1, 0, 2).contiguous()
+
+
+def subset_columns(r_anc, pos: torch.Tensor, valid: torch.Tensor):
+    """Columns ``pos`` (C,) of a payload as a compact (k_q, C) payload of the
+    same policy, whose column j dequantizes bit-equal to column ``pos[j]``;
+    ``valid`` (C,) marks the real entries, the others become exact zeros
+    (codes 0, scale 1.0).  Coded payloads keep their code bytes and carry
+    each column's source-tile scale (``tile=1``), so nothing re-quantizes;
+    packed int4 widens to int8 codes (the nibble values, exactly), since a
+    scattered, odd-width subset has no packed layout."""
+    pos = pos.long()
+    if isinstance(r_anc, QuantizedRanc):
+        scales = torch.where(valid, r_anc.scales[pos // r_anc.tile], 1.0).to(torch.float32)
+        if r_anc.code_dtype == "int4":
+            codes = torch.where(valid[None, :], _take_nibbles(r_anc.codes, pos), 0)
+            return QuantizedRanc(codes.to(torch.int8), scales, 1, "int8")
+        # the bytes, so every code type goes through one integer where
+        raw = r_anc.codes.view(torch.uint8)[:, pos]
+        raw = torch.where(valid[None, :], raw, 0).to(torch.uint8)
+        return QuantizedRanc(raw.view(r_anc.codes.dtype), scales, 1, r_anc.code_dtype)
+    cols = r_anc[:, pos]
+    return torch.where(valid[None, :], cols, torch.zeros((), dtype=cols.dtype, device=cols.device))
+
+
+# ---------------------------------------------------------------------------
+# Tile-local mutation: re-quantize only the touched tiles.
+# ---------------------------------------------------------------------------
+
+
+def _tile_scales(payload: QuantizedRanc, lo: int, hi: int) -> torch.Tensor:
+    cols = torch.arange(lo, hi, device=payload.scales.device)
+    return payload.scales[cols // payload.tile]
+
+
+def dequantize_slice(payload: QuantizedRanc, lo: int, hi: int) -> torch.Tensor:
+    """fp32 reconstruction of columns [lo, hi); for packed int4 ``lo`` is
+    even (a byte boundary) and an odd ``hi`` decodes and drops a phantom
+    high nibble."""
+    if payload.code_dtype == "int4":
+        if lo % 2:
+            raise ValueError("int4 slices must start on a byte boundary")
+        codes = unpack_int4(payload.codes[:, lo // 2:-(-hi // 2)])[:, :hi - lo]
+    else:
+        codes = payload.codes[:, lo:hi]
+    return codes.to(torch.float32) * _tile_scales(payload, lo, hi)[None, :]
+
+
+def update_columns(payload: QuantizedRanc, cols: torch.Tensor, start: int) -> QuantizedRanc:
+    """Columns [start, start + m) overwritten with fp32 ``cols``, re-quantizing
+    only the tiles that range touches; every other tile is returned byte for
+    byte (packed int4 spliced at byte granularity, exact since tiles are
+    even)."""
+    m = cols.shape[1]
+    tile, n = payload.tile, payload.shape[1]
+    t0 = start // tile
+    t1 = -(-(start + m) // tile)                   # exclusive touched-tile end
+    lo, hi = t0 * tile, min(t1 * tile, n)
+    region = dequantize_slice(payload, lo, hi)
+    region[:, start - lo:start - lo + m] = cols.to(torch.float32)
+    sub = quantize_ranc(region, tile, code_dtype=payload.code_dtype)
+    codes, scales = payload.codes.clone(), payload.scales.clone()
+    c0 = lo // payload.packing
+    codes[:, c0:c0 + sub.codes.shape[1]] = sub.codes
+    scales[t0:t0 + sub.n_tiles] = sub.scales
+    return QuantizedRanc(codes, scales, tile, payload.code_dtype, payload.n_cols)
+
+
+def requantize_preserving_prefix(old: QuantizedRanc, new_f32: torch.Tensor,
+                                 first_touched_col: int) -> QuantizedRanc:
+    """``new_f32`` quantized, with every tile strictly before the first
+    touched column restored from ``old`` byte for byte: those tiles hold the
+    same values, and restoring their bytes keeps them bit-identical where a
+    recomputed scale could move an ulp (and fp8's grid could move a code).
+    ``new_f32`` may be wider or narrower than ``old``."""
+    newp = quantize_ranc(new_f32, old.tile, code_dtype=old.code_dtype)
+    t0 = min(first_touched_col // old.tile, old.n_tiles, newp.n_tiles)
+    keep = t0 * old.tile
+    if keep == 0:
+        return newp
+    kc = keep // old.packing            # tile evenness: byte-aligned for int4
+    codes, scales = newp.codes.clone(), newp.scales.clone()
+    codes[:, :kc] = old.codes[:, :kc]
+    scales[:t0] = old.scales[:t0]
+    return QuantizedRanc(codes, scales, old.tile, old.code_dtype, newp.n_cols)

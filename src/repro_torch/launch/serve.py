@@ -12,21 +12,30 @@ Anytime serving: a request may carry ``deadline_t`` (absolute
 deadline in a batch governs its round loop, and a response whose search the
 deadline cut is ``degraded`` (the provisional top-k of the rounds done).
 
+The offline side enters through the :class:`AnchorIndex` artifact: pass
+one, or a directory it was saved to (``index=<path>``).  :meth:`swap_index`
+serves a mutated index (``add_items`` / ``remove_items``) from the next
+batch on; the requests already queued are answered under the index that
+admitted them first.
+
 CLI (on the card by default; ``--device cpu`` runs the plain versions):
 
     PYTHONPATH=src python -m repro_torch.launch.serve --fused \
-        [--retriever adacur|anncur|rerank] [--first-stage none|de] \
-        [--scorer synthetic|real-ce] [--cache] \
+        [--retriever adacur|anncur|rerank] [--first-stage none|de|bm25] \
+        [--index-path DIR] [--scorer synthetic|real-ce] [--cache] \
         [--round-kernel staged|persistent] \
         [--payload-dtype float32|bfloat16|int8|fp8|int4] \
         [--n-items N] [--batch B] [--requests R] [--device cuda|cpu]
 
+``--index-path DIR`` loads the index saved there, or builds it resumably
+(row-block checkpoints in DIR), saves it there and drops the blocks.
 ``--retriever anncur`` fixes ``k_anchor`` anchors drawn from key 2 (the
 reference's); ``--retriever rerank`` reranks a stand-in dual-encoder order
 (``q_emb @ i_embᵀ``, index-stable top-k, a plain product).
-``--first-stage de`` serves the DE-hybrid: a dual-encoder shortlist of
-``4 x budget`` (through the approx_topk kernel) restricts ADACUR to each
-query's candidates.  ``--first-stage bm25`` and ``--mesh`` are not ported.
+``--first-stage de|bm25`` serves the hybrid: a dual-encoder shortlist
+(through the approx_topk kernel) or a BM25 one (over the domain's
+``lexical_signatures``, seed 3) of ``4 x budget`` restricts ADACUR to each
+query's candidates.  ``--mesh`` is not ported (ROADMAP.md, queue 1).
 ``--scorer real-ce`` serves the transformer cross-encoder over a
 ZESHEL-like token corpus with the reference CLI's reduced CE and sizes
 (``build_real_ce_domain``); ``--cache`` wraps it in a ``CachingScorer``.
@@ -35,19 +44,21 @@ ZESHEL-like token corpus with the reference CLI's reduced CE and sizes
 from __future__ import annotations
 
 import argparse
+import json
+import os
 import threading
 import time
 from dataclasses import dataclass, field
-from typing import Callable, List, Optional
+from typing import Callable, List, Optional, Union
 
 import numpy as np
 import torch
 
 from ..configs.base import AdaCURConfig
 from ..core import prng
-from ..core.candidates import DualEncoderCandidates, HybridRetriever
+from ..core.candidates import BM25Candidates, DualEncoderCandidates, HybridRetriever
 from ..core.engine import AdaCURRetriever, ANNCURRetriever, RerankRetriever, Retriever
-from ..core.index import AnchorIndex
+from ..core.index import AnchorIndex, clear_build_checkpoints
 from ..core.scorer import (CachingScorer, CrossEncoderScorer, ScorerStats,
                            SyntheticScorer, scorer_stats)
 from ..device import resolve_device
@@ -81,20 +92,28 @@ class RetrievalResponse:
 
 class AdaCURService:
     """Batched retrieval over an AnchorIndex via any index-backed Retriever.
-    ``candidate_fn`` (query ids (B,) -> (B, M) first-stage order) feeds a
-    retriever that reranks candidates (``RerankRetriever``)."""
+    ``index`` is an AnchorIndex or the directory one was saved to (loaded
+    onto ``device``, the card unless ``device="cpu"``).  ``candidate_fn``
+    (query ids (B,) -> (B, M) first-stage order) feeds a retriever that
+    reranks candidates (``RerankRetriever``)."""
 
     def __init__(self, score_fn: Optional[Callable] = None,
                  cfg: Optional[AdaCURConfig] = None, max_batch: int = 32,
                  max_wait_s: float = 0.01, seed: int = 0, retriever=None,
-                 index: Optional[AnchorIndex] = None,
+                 index: Optional[Union[AnchorIndex, str, os.PathLike]] = None,
                  candidate_fn: Optional[Callable] = None,
-                 batch_buckets: Optional[List[int]] = None):
+                 batch_buckets: Optional[List[int]] = None, device=None):
+        if index is not None and not isinstance(index, AnchorIndex):
+            index = AnchorIndex.load(os.fspath(index), device=device)
         if retriever is None:
             if score_fn is None or cfg is None or index is None:
-                raise ValueError("need a retriever, or score_fn, cfg and an index")
+                raise ValueError("need a retriever, or score_fn, cfg and an index "
+                                 "(AnchorIndex or path)")
             retriever = AdaCURRetriever.from_index(index, score_fn, cfg)
+        elif index is None:
+            index = getattr(retriever, "index", None)
         self.retriever = retriever
+        self.index = index
         self.candidate_fn = candidate_fn
         self.max_batch = max_batch
         self.max_wait_s = max_wait_s
@@ -107,12 +126,31 @@ class AdaCURService:
         self._scorer = getattr(retriever, "score_fn", None)
         self._key = prng.PRNGKey(seed)
         self._pending: List[RetrievalRequest] = []
+        # one lock over the queue, index swaps and flushes: a batch is
+        # popped, searched and answered under the index that admitted it
+        # (reentrant: swap_index drains through flush)
         self._lock = threading.RLock()
         self.batch_log: List[dict] = []   # per fired batch: rows, bucket, CE calls, seconds
 
     @property
     def scorer_stats(self) -> Optional[ScorerStats]:
         return scorer_stats(self._scorer) if self._scorer is not None else None
+
+    def swap_index(self, index: AnchorIndex) -> List[RetrievalResponse]:
+        """Serve ``index`` (a mutated one: same capacity, so the search's
+        shapes hold) from the next batch on.  The requests already queued
+        were admitted under the live index: they are flushed against it
+        first, and their responses returned."""
+        if getattr(self.retriever, "index", None) is None:
+            raise ValueError("swap_index needs an index-backed retriever (from_index); this "
+                             "one was built on a bare r_anc and would keep searching it")
+        with self._lock:
+            drained: List[RetrievalResponse] = []
+            while self._pending:
+                drained += self.flush()
+            self.index = index
+            self.retriever.index = index
+            return drained
 
     def _due(self) -> bool:
         if not self._pending:
@@ -194,19 +232,46 @@ class AdaCURService:
         ) for i, r in enumerate(batch)]
 
 
+DEFAULT_N_ITEMS = 10000
+
+
+def saved_n_items(index_path: Optional[str]) -> Optional[int]:
+    """The item count of the index saved at ``index_path``, or None."""
+    meta = os.path.join(index_path, "index_meta.json") if index_path else None
+    if meta is None or not os.path.exists(meta):
+        return None
+    with open(meta) as f:
+        return int(json.load(f)["n_items"])
+
+
 def build_domain(n_items: int, device=None, n_queries: int = 600,
-                 n_anchor_queries: int = 500, block_rows: int = 128):
+                 n_anchor_queries: int = 500, block_rows: int = 128,
+                 index_path: Optional[str] = None):
     """The CLI's synthetic domain and its AnchorIndex (anchor queries
-    0..n_anchor_queries-1), built on ``device``."""
+    0..n_anchor_queries-1) on ``device``.  With ``index_path`` the index
+    saved there is loaded; if none is, it is built resumably (row-block
+    checkpoints in ``index_path``), saved there, and the blocks dropped; a
+    saved index of another item count than ``n_items`` is refused."""
     from ..data.synthetic import make_synthetic_ce
 
+    saved = saved_n_items(index_path)
+    if saved is not None and saved != n_items:
+        raise ValueError(f"the index at {index_path} holds {saved} items, not {n_items}")
     dev = resolve_device(device)
     ce = make_synthetic_ce(prng.PRNGKey(0), n_queries=n_queries, n_items=n_items,
                            device=dev)
+    if saved is not None:
+        print(f"loading AnchorIndex from {index_path}...")
+        return ce, AnchorIndex.load(index_path, device=dev)
     index = AnchorIndex.build(
         ce.score_block, torch.arange(n_anchor_queries, device=dev),
         torch.arange(n_items, device=dev), block_rows=block_rows,
+        checkpoint_dir=index_path,
     )
+    if index_path:
+        index.save(index_path)
+        clear_build_checkpoints(index_path)   # the saved index supersedes them
+        print(f"saved AnchorIndex to {index_path}")
     return ce, index
 
 
@@ -311,7 +376,9 @@ def drive(svc: AdaCURService, n_requests: int, qid_range=(500, 600),
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--requests", type=int, default=64)
-    ap.add_argument("--n-items", type=int, default=10000)
+    ap.add_argument("--n-items", type=int, default=None,
+                    help=f"corpus size (default: the --index-path index's, else "
+                         f"{DEFAULT_N_ITEMS})")
     ap.add_argument("--budget", type=int, default=200)
     ap.add_argument("--rounds", type=int, default=5)
     ap.add_argument("--batch", type=int, default=16)
@@ -326,27 +393,31 @@ def main(argv=None) -> None:
     ap.add_argument("--retriever", choices=("adacur", "anncur", "rerank"), default="adacur",
                     help="search method over the index")
     ap.add_argument("--first-stage", choices=("none", "de", "bm25"), default="none",
-                    help="de: a dual-encoder shortlist restricts ADACUR to each query's "
-                         "candidates (needs --retriever adacur)")
+                    help="a dual-encoder (de) or BM25 (bm25) shortlist restricts ADACUR "
+                         "to each query's candidates (needs --retriever adacur)")
+    ap.add_argument("--index-path", default=None,
+                    help="AnchorIndex directory: loaded when present, else built there "
+                         "resumably and saved")
     ap.add_argument("--mesh", default=None, metavar="DATAxITEMS")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = ap.parse_args(argv)
     if args.mesh:
         raise SystemExit("--mesh is not ported yet: the sharded engine is ROADMAP.md, "
                          "queue 1, item 7")
-    if args.first_stage == "bm25":
-        raise SystemExit("--first-stage bm25 is not ported yet: BM25Candidates is "
-                         "ROADMAP.md, queue 1, item 3")
     if args.first_stage != "none" and args.retriever != "adacur":
         raise SystemExit("--first-stage composes the hybrid on top of ADACUR; use "
                          "--retriever adacur (rerank already is a first-stage method)")
     if args.scorer == "real-ce" and args.retriever == "rerank":
-        raise SystemExit("--retriever rerank over the real CE needs a first stage over the "
-                         "token corpus (BM25: ROADMAP.md, queue 1, item 3); the synthetic "
-                         "domain reranks its dual-encoder order")
+        raise SystemExit("--retriever rerank over the real CE has no first stage to rerank: "
+                         "the reference's CLI wires none either (ROADMAP.md, queue 1, item 3); "
+                         "use --retriever adacur or anncur, or --scorer synthetic, whose "
+                         "dual-encoder order it reranks")
     if args.first_stage != "none" and args.scorer != "synthetic":
-        raise SystemExit("--first-stage de needs the synthetic domain's embeddings: "
-                         "use --scorer synthetic")
+        raise SystemExit(f"--first-stage {args.first_stage} needs the synthetic domain's "
+                         "embeddings: use --scorer synthetic")
+    if args.index_path and args.scorer != "synthetic":
+        raise SystemExit("--index-path serves the synthetic domain's index: use "
+                         "--scorer synthetic")
     if args.cache and args.scorer != "real-ce":
         raise SystemExit("--cache wraps the real-CE scorer: pass --scorer real-ce")
     if args.scorer == "real-ce":
@@ -357,19 +428,26 @@ def main(argv=None) -> None:
         use_fused_topk=args.fused, payload_dtype=args.payload_dtype,
         round_kernel=args.round_kernel,
     )
-    print(f"building synthetic CE domain + AnchorIndex (|I|={args.n_items})...")
-    ce, index = build_domain(args.n_items, args.device)
+    n_items = args.n_items or saved_n_items(args.index_path) or DEFAULT_N_ITEMS
+    print(f"building synthetic CE domain + AnchorIndex (|I|={n_items})...")
+    ce, index = build_domain(n_items, args.device, index_path=args.index_path)
     index = quantize_for_serving(index, cfg)
     scorer = SyntheticScorer(ce)
     candidate_fn = None
-    if args.first_stage == "de":
+    if args.first_stage != "none":
         shortlist = min(4 * cfg.budget_ce, index.n_items)
-        retriever = HybridRetriever(
-            score_fn=scorer, generator=DualEncoderCandidates(ce.q_emb, ce.i_emb,
-                                                             n_valid=index.n_items),
-            cfg=cfg, index=index, shortlist_k=shortlist, mode="mask")
-        print(f"first stage: de shortlist_k={shortlist} (CE budget restricted to each "
-              "query's candidates)")
+        if args.first_stage == "de":
+            generator = DualEncoderCandidates(ce.q_emb, ce.i_emb, n_valid=index.n_items)
+        else:
+            from ..data.synthetic import lexical_signatures
+
+            generator = BM25Candidates(lexical_signatures(ce.i_emb, seed=3),
+                                       lexical_signatures(ce.q_emb, seed=3),
+                                       n_valid=index.n_items, device=ce.device)
+        retriever = HybridRetriever(score_fn=scorer, generator=generator, cfg=cfg,
+                                    index=index, shortlist_k=shortlist, mode="mask")
+        print(f"first stage: {args.first_stage} shortlist_k={shortlist} (CE budget "
+              "restricted to each query's candidates)")
     else:
         retriever = make_retriever(args.retriever, index, scorer, cfg)
         if args.retriever == "rerank":
@@ -387,7 +465,7 @@ def main(argv=None) -> None:
 def _serve_real_ce(args) -> None:
     """Serve the real CE with the reference CLI's sizes: its reduced CE,
     at most 500 items, 100 anchor + 100 served queries, k_retrieve 50."""
-    n_items = min(args.n_items, 500)
+    n_items = min(args.n_items or DEFAULT_N_ITEMS, 500)
     n_anchor_q = n_serve_q = 100
     print(f"building ZESHEL-like corpus (|I|={n_items}) + transformer CE + "
           "AnchorIndex from the CE...")

@@ -22,7 +22,7 @@ from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.approx_topk.ops import approx_topk_op  # noqa: E402
 from repro_torch.kernels.approx_topk.persistent import persistent_round_op  # noqa: E402
 from repro_torch.kernels.approx_topk.quant import (  # noqa: E402
-    QuantizedRanc, as_payload, dequantize, unpacked_codes,
+    QuantizedRanc, as_payload, dequantize, subset_columns, unpacked_codes,
 )
 from repro_torch.kernels.approx_topk.ref import dense_scores  # noqa: E402
 from repro_torch.kernels.approx_topk.select import NEG_INF  # noqa: E402
@@ -39,6 +39,8 @@ pytestmark = pytest.mark.cuda
 
 # every payload policy of the two top-k kernels
 DTYPES = ["float32", "int8", "bfloat16", "fp8", "int4"]
+# the near-full accuracy case's seeds: its original one and 0-7
+NEAR_FULL_SEEDS = [33 + 500 + 256, *range(8)]
 
 
 @pytest.fixture
@@ -86,6 +88,41 @@ def test_persistent_kernel_is_two_staged_calls(dev, dtype):
                                              noise=noise, prov_mask=mask, impl="torch")
     assert_topk_agree(si, sv, qi, qv, dense_scores(e, pay, anchors, noise=noise))
     assert_topk_agree(pi, pv, ri, rv, dense_scores(e, pay, mask=mask))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_kernels_take_a_per_column_scale_sub_payload(dev, dtype):
+    """A candidate subset's payload (``subset_columns``: per-column scales,
+    ``tile=1``; int4 widened to int8 codes) through both kernels: against
+    the plain versions, persistent bitwise equal to two approx_topk calls,
+    and approx_topk bitwise equal to the full payload's kernel masked to the
+    subset (the subset search's contract), ids mapped through ``pos``."""
+    e, r, noise, mask, anchors = topk_inputs(dev, seed=3)
+    n = r.shape[1]
+    pay = as_payload(r, dtype)
+    g = torch.Generator(device=dev)
+    g.manual_seed(3)
+    c = 3001
+    pos = torch.sort(torch.randperm(n, generator=g, device=dev)[:c]).values.to(torch.int32)
+    valid = torch.arange(c, device=dev) < c - 11
+    pos = torch.where(valid, pos, 0)
+    sub = subset_columns(pay, pos, valid)
+    if isinstance(sub, QuantizedRanc):
+        assert sub.tile == 1 and sub.code_dtype == ("int8" if dtype == "int4" else dtype)
+    kw = dict(noise=noise[:, pos.long()], mask=mask[:, pos.long()], n_valid=c - 11)
+    kv, ki = approx_topk_op(e, sub, None, 20, **kw)
+    pv, pi = approx_topk_op(e, sub, None, 20, impl="torch", **kw)
+    assert_topk_agree(ki, kv, pi, pv, dense_scores(e, sub, **kw))
+    (sv, si), (qv, qi) = persistent_round_op(e, sub, k_sample=20, k_prov=50, noise=kw["noise"],
+                                             prov_mask=kw["mask"], n_valid=c - 11)
+    av, ai = approx_topk_op(e, sub, None, 20, noise=kw["noise"], n_valid=c - 11)
+    bv, bi = approx_topk_op(e, sub, None, 50, mask=kw["mask"], n_valid=c - 11)
+    assert torch.equal(sv, av) and torch.equal(si, ai)
+    assert torch.equal(qv, bv) and torch.equal(qi, bi)
+    outside = torch.ones(n, dtype=torch.bool, device=dev)
+    outside[pos[valid].long()] = False
+    fv, fi = approx_topk_op(e, pay, None, 20, noise=noise, mask=mask | outside[None, :])
+    assert torch.equal(fv, kv) and torch.equal(fi, pos[ki.long()])
 
 
 # (B, k_q, N): ragged rows, a k_q tail that is not a multiple of the
@@ -180,8 +217,9 @@ def _max_err(vals, ids, exact, live=None):
     return (v - exact.gather(1, ids.long().cpu())).abs()[live].max().item()
 
 
+@pytest.mark.parametrize("seed", NEAR_FULL_SEEDS)
 @pytest.mark.parametrize("dtype", DTYPES)
-def test_sweep_near_full_selection_is_as_accurate_as_fp32(dev, dtype):
+def test_sweep_near_full_selection_is_as_accurate_as_fp32(dev, dtype, seed):
     """(B, k_q, N) = (33, 500, 257) with k = 256 selects nearly every valid
     item, values near 0 among them.  There the comparator's bar,
     TOPK_RTOL x max(|v|, 1), is 1e-5 absolute against partial sums of size
@@ -192,9 +230,10 @@ def test_sweep_near_full_selection_is_as_accurate_as_fp32(dev, dtype):
     without the kernel would run: ``e_q @ dequantize(payload)``, the payload
     itself for fp32); every row has fewer than k valid items, and its list
     holds all of them, values non-increasing, then the lowest suppressed
-    ids, ascending."""
+    ids, ascending.  Seeds: the test's original one (b + k_q + k = 789) and
+    0-7, so an unlucky draw cannot hide a payload's error."""
     b, k_q, n, k = 33, 500, 257, 256
-    e, r, noise, mask, anchors = ragged_topk_inputs(dev, b, k_q, n, seed=b + k_q + k)
+    e, r, noise, mask, anchors = ragged_topk_inputs(dev, b, k_q, n, seed=seed)
     pay = as_payload(r, dtype)
     kw = dict(noise=noise, mask=mask, n_valid=n - 5)
     kv, ki = approx_topk_op(e, pay, anchors, k, **kw)

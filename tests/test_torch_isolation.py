@@ -79,6 +79,31 @@ def test_entry_points_refuse_to_fall_back_to_the_cpu(monkeypatch):
                              device="cpu").i_emb.shape == (8, 16)
 
 
+def test_index_entry_points_refuse_to_fall_back_to_the_cpu(monkeypatch, tmp_path):
+    """Loading a saved index (``AnchorIndex.load``, ``Checkpointer.restore``,
+    ``AdaCURService(index=<dir>)``) and folding BM25's weights land on the
+    card unless the caller asks for the CPU: without a card they raise."""
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.configs.base import AdaCURConfig
+    from repro_torch.core.candidates import BM25Candidates
+    from repro_torch.core.index import AnchorIndex
+    from repro_torch.launch.serve import AdaCURService
+
+    AnchorIndex.from_r_anc(torch.ones(4, 8)).save(str(tmp_path))
+    tokens = np.arange(24, dtype=np.int32).reshape(8, 3) % 5
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        AnchorIndex.load(str(tmp_path))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Checkpointer(str(tmp_path)).restore(0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        AdaCURService(score_fn=lambda q, i: None, cfg=AdaCURConfig(), index=str(tmp_path))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        BM25Candidates(tokens, tokens[:2])
+    assert AnchorIndex.load(str(tmp_path), device="cpu").r_anc.device == torch.device("cpu")
+    assert Checkpointer(str(tmp_path)).restore(0, device="cpu")["r_anc"].shape == (4, 8)
+
+
 def test_real_ce_entry_points_refuse_to_fall_back_to_the_cpu(monkeypatch):
     from repro_torch.configs.registry import CE_TINY
     from repro_torch.launch import serve
