@@ -69,7 +69,23 @@ Phases (one JSON line each):
    same mutation on the CPU, and a search over the mutated index);
    ``swap_index`` with 64 requests queued (answered under the old index,
    no removed id after).
-4d. ``retrievers_cpu_vs_card``: the five methods and both hybrids in
+4d. ``router``: the fault-tolerant serving tier over the same index
+   (one copy, shared by every replica): ``Router`` over ``AdaCURService``
+   replicas, each on its own CUDA stream and thread, each with its own
+   anytime retriever and ``FaultyScorer`` (budget 200 in 5 rounds, k_anchor
+   100, fused, ``max_batch=64``, buckets [16, 32, 64]), 256 requests a
+   scenario: capacity (closed loop; 1 and 2 replicas, staged and
+   persistent: QPS, p50/p99, device-busy share, peak memory), then Poisson
+   arrivals at half the 2-replica QPS: baseline, scorer_fault (replica 0
+   quarantined, every request ok), slow_replica (hedged; p99 <= 2x the
+   baseline's + 50 ms), swap_midflight (ids + 10^7, every 100th removed, at
+   admission 128: no mixed or stale answer, no removed id) and
+   deadline_degraded (1 <= rounds < 5 where degraded).  Every scenario:
+   one terminal outcome per request, ``router.stats`` adds up, CE = plan x
+   bucket per batch.  Then degraded answers bitwise equal to
+   ``search(n_rounds=rounds_completed)`` (prefix consistency), under a
+   faulthandler watchdog.
+4e. ``retrievers_cpu_vs_card``: the five methods and both hybrids in
    subset mode at N = 20,000, B = 64, fp32 and int8, full pinv, on the
    card (kernels) and on the CPU (plain versions): top-k overlap >= 0.99
    and measured CE equal, per method.
@@ -169,6 +185,7 @@ EARLIER_DESIGN_MS = {
 FLASH_P_TERMS = 3           # bf16 terms of p in the bf16 flash kernel's P V product
 DLRM = "dlrm-mlperf"
 PAYLOADS = ("float32", "int8", "bfloat16", "fp8", "int4")
+ROUTER_BUCKETS = (16, 32, 64)   # the router phase's batch buckets (B of its searches)
 BAG_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (1e-6, 2.0 ** -7)}   # (atol, rtol)
 
 
@@ -373,6 +390,12 @@ def phase_approx_topk(shape, gen, dev, reps, earlier):
                              earlier_design_ms_recorded=earlier.get(("approx_topk", dtype, k))))
         del scores
     rows += large_k_cases(e_q, payloads, anchors, gen, dev, reps, worst)
+    # the router phase's searches: B = 16, 32 and 64 rows of the same fp32
+    # inputs (fewer row groups, more column ranges to merge)
+    for b_router in ROUTER_BUCKETS:
+        for k in (20, 100):
+            rows.append(topk_case(f"router_b{b_router}", e_q[:b_router], payloads["float32"],
+                                  anchors[:b_router], k, reps, 8192, worst))
     # noise / mask / anchors / n_valid, with under-filled rows
     n2 = 65536
     e2, pays2, anc2 = make_inputs(b, k_q, n2, gen, dev)
@@ -497,56 +520,77 @@ def underfilled_rows(dtype, e_q, pay, noise, ki, kv, pi, pv, under, dense):
                 f64_err_plain=err_plain)
 
 
-def phase_persistent(shape, gen, dev, reps, earlier):
+def persistent_case(e_q, pay, anchors, prov_mask, reps, worst) -> dict:
+    """One persistent-round case (sample k = 20 with ``anchors`` suppressed,
+    provisional k = 100 under ``prov_mask``): bitwise equal to two
+    approx_topk calls, each list against the plain version, with kernel,
+    plain, library and bound times."""
     import torch
 
     from repro_torch.kernels.approx_topk.ops import approx_topk_op
     from repro_torch.kernels.approx_topk.persistent import (
         persistent_round_op, persistent_round_plain,
     )
+    from repro_torch.kernels.approx_topk.quant import payload_dtype_of
     from repro_torch.kernels.approx_topk.ref import dense_scores
     from repro_torch.testing import topk_report
+
+    dtype = payload_dtype_of(pay)
+    b, k_q = e_q.shape
+    n = pay.shape[1]
+    kw = dict(k_sample=20, k_prov=100, anchors=anchors, prov_mask=prov_mask)
+    (sv, si), (pv, pi) = persistent_round_op(e_q, pay, **kw)
+    (qv, qi), (rv, ri) = persistent_round_plain(e_q, pay, tile=8192, **kw)
+    av, ai = approx_topk_op(e_q, pay, anchors, 20)
+    bv, bi = approx_topk_op(e_q, pay, None, 100, mask=prov_mask)
+    torch.cuda.synchronize()
+    bitwise = all(torch.equal(x, y) for x, y in ((sv, av), (si, ai), (pv, bv), (pi, bi)))
+    check(bitwise, f"persistent_round {dtype} B={b} is not bitwise equal to two approx_topk calls")
+    lists = {"sample": ((si, sv), (qi, qv), dict(anchors=anchors)),
+             "prov": ((pi, pv), (ri, rv), dict(mask=prov_mask))}
+    for name, (x, y, sup) in lists.items():
+        rep = topk_report(x[0], x[1], y[0], y[1], dense_scores(e_q, pay, **sup))
+        check(rep["ok"], f"persistent_round {dtype} B={b} {name} disagrees with its plain "
+                         f"version: {rep}")
+        worst[dtype] = max(worst[dtype], rep["max_abs_err"])
+    ms = cuda_ms(lambda: persistent_round_op(e_q, pay, **kw), reps)
+    plain_ms = cuda_ms(lambda: persistent_round_plain(e_q, pay, tile=8192, **kw), 1)
+
+    def library():
+        s = torch.matmul(e_q, dense_fp32(pay))
+        torch.topk(s, 20, dim=1)
+        torch.topk(s.masked_fill(prov_mask, -1e30), 100, dim=1)
+
+    lib_ms = cuda_ms(library, reps)
+    bounds = topk_bounds(dtype, nbytes(e_q, pay, anchors, prov_mask) + b * 120 * 8, b, k_q, n)
+    return dict(payload=dtype, b=b, k_sample=20, k_prov=100, kernel_ms=ms, plain_ms=plain_ms,
+                library_ms=lib_ms, **bounds, bitwise_vs_staged=bitwise)
+
+
+def phase_persistent(shape, gen, dev, reps, earlier):
+    import torch
 
     b, k_q, n = shape
     e_q, payloads, anchors = make_inputs(b, k_q, n, gen, dev)
     prov_mask = torch.rand((b, n), generator=gen, device=dev) < 0.1
     rows, worst = [], dict.fromkeys(PAYLOADS, 0.0)
     for dtype, pay in payloads.items():
-        kw = dict(k_sample=20, k_prov=100, anchors=anchors, prov_mask=prov_mask)
-        (sv, si), (pv, pi) = persistent_round_op(e_q, pay, **kw)
-        (qv, qi), (rv, ri) = persistent_round_plain(e_q, pay, tile=8192, **kw)
-        av, ai = approx_topk_op(e_q, pay, anchors, 20)
-        bv, bi = approx_topk_op(e_q, pay, None, 100, mask=prov_mask)
-        torch.cuda.synchronize()
-        bitwise = all(torch.equal(x, y) for x, y in ((sv, av), (si, ai), (pv, bv), (pi, bi)))
-        check(bitwise, f"persistent_round {dtype} is not bitwise equal to two approx_topk calls")
-        lists = {"sample": ((si, sv), (qi, qv), dict(anchors=anchors)),
-                 "prov": ((pi, pv), (ri, rv), dict(mask=prov_mask))}
-        for name, (x, y, sup) in lists.items():
-            rep = topk_report(x[0], x[1], y[0], y[1], dense_scores(e_q, pay, **sup))
-            check(rep["ok"], f"persistent_round {dtype} {name} disagrees with its plain version: {rep}")
-            worst[dtype] = max(worst[dtype], rep["max_abs_err"])
-        ms = cuda_ms(lambda: persistent_round_op(e_q, pay, **kw), reps)
-        plain_ms = cuda_ms(lambda: persistent_round_plain(e_q, pay, tile=8192, **kw), 1)
-
-        def library():
-            s = torch.matmul(e_q, dense_fp32(pay))
-            torch.topk(s, 20, dim=1)
-            torch.topk(s.masked_fill(prov_mask, -1e30), 100, dim=1)
-
-        lib_ms = cuda_ms(library, reps)
-        bounds = topk_bounds(dtype, nbytes(e_q, pay, anchors, prov_mask) + b * 120 * 8,
-                             b, k_q, n)
-        rows.append(dict(payload=dtype, k_sample=20, k_prov=100, kernel_ms=ms,
-                         plain_ms=plain_ms, library_ms=lib_ms, **bounds,
-                         bitwise_vs_staged=bitwise,
-                         earlier_design_ms_recorded=earlier.get(("persistent_round", dtype, 20))))
+        row = persistent_case(e_q, pay, anchors, prov_mask, reps, worst)
+        rows.append(dict(row, earlier_design_ms_recorded=earlier.get(
+            ("persistent_round", dtype, 20))))
+    # the router phase's searches: B = 16, 32 and 64 rows of the fp32 inputs
+    for b_router in ROUTER_BUCKETS:
+        rows.append(dict(persistent_case(e_q[:b_router], payloads["float32"],
+                                         anchors[:b_router], prov_mask[:b_router], reps, worst),
+                         case=f"router_b{b_router}"))
     return rows, worst
 
 
 def profile_call(fn) -> dict:
     """One call under torch.profiler: device time by kernel name, the
-    device-busy share of the call's wall time, the kernels launched."""
+    device-busy share of the call's wall time (the union of the kernels'
+    and copies' intervals: work on several streams overlaps, so their
+    summed time may exceed the wall), the kernels launched."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -569,9 +613,17 @@ def profile_call(fn) -> dict:
         if us:
             rows.append((us, ev.key, ev.count))
     rows.sort(reverse=True)
-    busy_ms = sum(r[0] for r in rows) / 1e3
+    spans = sorted((ev.time_range.start, ev.time_range.end) for ev in prof.events()
+                   if ev.device_type == DeviceType.CUDA and ev.name not in CUPTI_BOOKKEEPING)
+    busy_us, end = 0.0, float("-inf")
+    for start, stop in spans:
+        if stop > end:
+            busy_us += stop - max(start, end)
+            end = stop
+    busy_ms = busy_us / 1e3
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "device_busy_share": busy_ms / wall_ms if wall_ms else None,
+            "device_ms_summed": sum(r[0] for r in rows) / 1e3,
             "device_launches": sum(r[2] for r in rows),
             "top": [{"name": k[:90], "ms": us / 1e3, "calls": c} for us, k, c in rows[:12]]}
 
@@ -1071,6 +1123,423 @@ def phase_index_lifecycle(dev, ce, index):
         shutil.rmtree(tmp, ignore_errors=True)
     return dict(n_items=n, k_q=k_q, capacity=cap, removed=int(rm_ids.numel()), build=build,
                 save_load=saved, mutation=mutated, swap=swap), launches
+
+
+ROUTER_N_REQUESTS = 256
+# capacity: closed loops of 2,048 requests (32 full batches, ~5 s on the
+# card), each configuration run CAPACITY_REPEATS times interleaved, so the
+# spread across runs shows beside the 1-vs-2-replica ratio
+CAPACITY_REQUESTS = 2048
+CAPACITY_REPEATS = 3
+SWAP_OFFSET = 10 ** 7          # the swapped index's external ids: item_ids + 10^7
+# the watchdog of the scenarios that do not test it: a threshold far above
+# the spread of healthy batch times across buckets 16-64
+LAX_WATCHDOG = dict(watchdog_threshold=50.0, watchdog_patience=3)
+ROUTER_WATCHDOG_S = 300        # a router phase still running then is deadlocked
+
+
+def router_cfg(round_kernel="staged"):
+    from repro_torch.configs.base import AdaCURConfig
+
+    return AdaCURConfig(k_anchor=100, n_rounds=5, budget_ce=200, strategy="topk",
+                        loop_mode="fori", use_fused_topk=True, round_kernel=round_kernel)
+
+
+def router_services(ce, index, cfg, n, plan=None, buckets=ROUTER_BUCKETS, deterministic=False):
+    """``n`` AdaCURServices over the one shared ``index``, each with its own
+    anytime retriever and its own scorer over the domain (a FaultyScorer
+    around a SyntheticScorer that answers both id namespaces of the swap)."""
+    from repro_torch.core.engine import AdaCURRetriever
+    from repro_torch.core.scorer import SyntheticScorer
+    from repro_torch.launch.faults import FaultyScorer
+    from repro_torch.launch.serve import AdaCURService
+
+    class NamespaceScorer(SyntheticScorer):
+        def __call__(self, query, item_idx):
+            return super().__call__(query, item_idx % SWAP_OFFSET)
+
+    return [AdaCURService(retriever=AdaCURRetriever.from_index(
+                index, FaultyScorer(NamespaceScorer(ce), plan, replica=rid), cfg, anytime=True),
+            max_batch=buckets[-1], max_wait_s=60.0, batch_buckets=list(buckets),
+            deterministic=deterministic)
+            for rid in range(n)]
+
+
+def drive_router(router, qids, rate=None, seed=0, deadline_s=None):
+    """Submit ``qids`` (all at once, or Poisson arrivals at ``rate`` a
+    second from a seeded generator), then wait for every outcome; returns
+    (tickets, outcomes, wall seconds, whether the swap had fired by each
+    submit's return)."""
+    import numpy as np
+
+    gaps = (np.random.default_rng(seed).exponential(1.0 / rate, len(qids))
+            if rate else np.zeros(len(qids)))
+    arrive = np.cumsum(gaps)
+    tickets, swapped = [], []
+    t0 = time.monotonic()
+    for q, at in zip(qids, arrive):
+        wait = t0 + at - time.monotonic()
+        if wait > 0:
+            time.sleep(wait)
+        tickets.append(router.submit(int(q), deadline_s=deadline_s))
+        swapped.append(router.stats["swaps"] > 0)
+    outs = [router.result(t, timeout=300.0) for t in tickets]
+    wall = time.monotonic() - t0
+    check(router.drain(60.0), "router: tickets still live after every outcome was read")
+    return tickets, outs, wall, swapped
+
+
+def router_gates(name, router, cfg, tickets, outs, wall, launches) -> dict:
+    """The gates every scenario shares: one terminal outcome per submitted
+    request, each answering its own ticket; ``router.stats`` adds up; every
+    batch's measured CE = ce_call_plan(cfg, rounds) x bucket; approx_topk
+    launched.  Returns the scenario's row."""
+    import numpy as np
+
+    from repro_torch.core.engine import ce_call_plan
+
+    n = len(tickets)
+    check(all(o is not None for o in outs), f"router {name}: {sum(o is None for o in outs)} "
+                                            "requests without a terminal outcome")
+    for tk, o in zip(tickets, outs):
+        check(o.seq == tk.seq and o.query_id == tk.query_id
+              and (o.response is None or o.response.query_id == tk.query_id),
+              f"router {name}: ticket {tk.seq} (query {tk.query_id}) answered by {o}")
+        check(o.status in ("ok", "error", "rejected"), f"router {name}: status {o.status}")
+    by = {s: sum(o.status == s for o in outs) for s in ("ok", "error", "rejected")}
+    degraded = sum(o.degraded for o in outs)
+    st = router.stats
+    check(st["submitted"] == n and st["admitted"] + st["rejected"] == n
+          and st["ok"] == by["ok"] and st["errors"] == by["error"]
+          and st["rejected"] == by["rejected"] and st["degraded"] == degraded,
+          f"router {name}: stats {st} against outcomes {by}, degraded {degraded}")
+    batches = [bl for rep in router.replicas for bl in rep.service.batch_log]
+    for bl in batches:
+        check(bl["ce_calls"] == ce_call_plan(cfg, bl["rounds"]) * bl["bucket"],
+              f"router {name}: batch CE {bl['ce_calls']} != plan {ce_call_plan(cfg, bl['rounds'])}"
+              f" x {bl['bucket']} ({bl['rounds']} rounds)")
+    check(launches["approx_topk"] > 0, f"router {name}: approx_topk never launched")
+    lat = [o.latency_s * 1e3 for o in outs if o.status == "ok"]
+    hedged = [o.latency_s * 1e3 for o in outs if o.status == "ok" and o.hedged]
+    by_bucket = {}
+    for bl in batches:
+        by_bucket.setdefault(bl["bucket"], []).append(bl["seconds"] * 1e3)
+    return dict(requests=n, wall_s=wall, qps=n / wall, ok=by["ok"], degraded=degraded,
+                errors=by["error"], rejected=by["rejected"],
+                p50_ms=float(np.percentile(lat, 50)) if lat else None,
+                p99_ms=float(np.percentile(lat, 99)) if lat else None,
+                hedges=st["hedges"], retries=st["retries"], quarantines=st["quarantines"],
+                quarantined=list(router.quarantined), batches=len(batches),
+                buckets=sorted({bl["bucket"] for bl in batches}),
+                batch_p50_ms=float(np.percentile([bl["seconds"] for bl in batches], 50) * 1e3)
+                if batches else None,
+                batch_ms_by_bucket={b: dict(n=len(v), p50=float(np.percentile(v, 50)),
+                                            max=max(v)) for b, v in sorted(by_bucket.items())},
+                hedged_p99_ms=float(np.percentile(hedged, 99)) if hedged else None,
+                launches=launches)
+
+
+def run_router(name, services, cfg, qids, router_kw, rate=None, seed=0, deadline_s=None,
+               before_drive=None):
+    """One scenario: a Router over ``services``, the drive, the shared gates;
+    returns (row, router, tickets, outcomes, swapped flags)."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.launch.router import Router
+
+    router = Router(services, **router_kw)
+    try:
+        if before_drive is not None:
+            before_drive(router)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        tickets, outs, wall, swapped = drive_router(router, qids, rate, seed, deadline_s)
+        torch.cuda.synchronize()
+        launches = kernels.launch_counts()
+    finally:
+        router.close()
+    return router_gates(name, router, cfg, tickets, outs, wall, launches), router, tickets, \
+        outs, swapped
+
+
+MID_SEARCH_ATTEMPTS = 8
+
+
+def prefix_consistency(ce, index):
+    """One deterministic service (bucket [64]) answers 64 requests with an
+    expired deadline, then 64 with a mid-search one: its budget is bisected
+    between round 0's time and the full search's until the cut falls
+    inside rounds 1..4 (a window of ~10-40 ms after a round 0 of ~150 ms,
+    narrower than the spread of round 0 across searches).  Every answer,
+    cut or not, must equal bit for bit an explicit search(...,
+    n_rounds=rounds_completed) with the service's key on the same rows.
+    Returns (rows, the service's launches)."""
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.core.engine import ce_call_plan
+    from repro_torch.launch.serve import RetrievalRequest
+
+    cfg = router_cfg()
+    (svc,) = router_services(ce, index, cfg, 1, buckets=(64,), deterministic=True)
+    qids = [500 + i % 100 for i in range(64)]
+    def timed(n_rounds):
+        t0 = time.perf_counter()
+        svc.retriever.search(torch.tensor(qids, device=index.device), svc._key,
+                             n_rounds=n_rounds)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    timed(None)                  # warm
+    timed(1)
+    round0_s = float(np.median([timed(1) for _ in range(3)]))
+    full_s = float(np.median([timed(None) for _ in range(3)]))
+    launches = {"approx_topk": 0, "persistent_round": 0}
+
+    def serve(label, budget) -> dict:
+        kernels.reset_launches()
+        deadline_t = time.monotonic() + budget
+        served = []
+        for q in qids:
+            served += svc.submit(RetrievalRequest(query_id=q, deadline_t=deadline_t)) or []
+        served += svc.flush()
+        torch.cuda.synchronize()
+        for k in launches:
+            launches[k] += kernels.launch_counts()[k]
+        check(len(served) == 64 and all(r.status == "ok" for r in served),
+              f"router prefix {label}: {len(served)} responses, errors "
+              f"{[r.error for r in served if r.status != 'ok'][:1]}")
+        rounds = served[0].rounds_completed
+        degraded = {r.degraded for r in served}
+        check(degraded == {rounds < cfg.n_rounds},
+              f"router prefix {label}: rounds {rounds}, degraded {degraded}")
+        bl = svc.batch_log[-1]
+        check(bl["ce_calls"] == ce_call_plan(cfg, rounds) * 64,
+              f"router prefix {label}: CE {bl['ce_calls']} != plan x 64")
+        ref = svc.retriever.search(torch.tensor(qids, device=index.device), svc._key,
+                                   n_rounds=rounds)
+        ref_ids = index.gather_item_ids(ref.topk_idx).cpu().numpy()
+        ref_scores = ref.topk_scores.cpu().numpy()
+        got_ids = np.stack([r.item_ids for r in served])
+        got_scores = np.stack([r.scores for r in served])
+        bitwise = bool(np.array_equal(got_ids, ref_ids)
+                       and np.array_equal(got_scores.view(np.uint32), ref_scores.view(np.uint32)))
+        check(bitwise, f"router prefix {label}: the answer of {rounds} rounds differs "
+                       f"from search(n_rounds={rounds}) in "
+                       f"{int((got_ids != ref_ids).any(1).sum())} rows")
+        return dict(deadline=label, budget_s=budget, round0_s=round0_s, full_search_s=full_s,
+                    rounds_completed=rounds, bitwise_equal=bitwise)
+
+    rows = [serve("expired", -1.0)]
+    check(rows[0]["rounds_completed"] == 1,
+          f"router prefix expired: {rows[0]['rounds_completed']} rounds, not round 0 alone")
+    lo, hi = round0_s, full_s
+    for attempt in range(MID_SEARCH_ATTEMPTS):
+        row = serve("mid_search", 0.5 * (lo + hi))
+        rows.append(dict(row, attempt=attempt))
+        if row["rounds_completed"] == cfg.n_rounds:
+            hi = row["budget_s"]
+        elif row["rounds_completed"] == 1:
+            lo = row["budget_s"]
+        else:
+            break
+    check(1 < rows[-1]["rounds_completed"] < cfg.n_rounds,
+          f"router prefix mid_search: no budget of {MID_SEARCH_ATTEMPTS} cut the search inside "
+          f"rounds 1..4: {[(r['budget_s'], r['rounds_completed']) for r in rows[1:]]}")
+    return rows, launches
+
+
+def phase_router(dev, ce, index):
+    """The fault-tolerant serving tier on the card: Routers over
+    AdaCURService replicas that share the serve domain's index (k_q = 500,
+    N = 10^6, fp32, one copy), each replica on its own CUDA stream, with
+    ``AdaCURConfig(k_anchor=100, n_rounds=5, budget_ce=200, topk, fori,
+    fused)``, anytime retrievers, ``max_batch=64``, buckets [16, 32, 64] and
+    one FaultyScorer over the domain each.  Scenarios (256 requests each,
+    arrivals Poisson from a seeded generator unless closed-loop):
+    capacity (closed loops of 2,048 requests, 1 and 2 replicas, staged and
+    persistent, each run three times interleaved: QPS with its spread and
+    the 2-over-1-replica ratio of each repeat, p50/p99, peak memory; the
+    device-busy share from one profiled 256-request run each); baseline (2
+    staged replicas at half the 2-replica closed-loop QPS); scorer_fault
+    (replica 0 raises on every call: quarantined, every request ok);
+    slow_replica (replica 0 stalls 4x the baseline p50 batch time; hedging
+    after the baseline p99; p99 <= 2x baseline p99 + 50 ms); swap_midflight
+    (swap_index at admission 128 to the same payload under ids + 10^7 with
+    every 100th item removed: no mixed response, every later request in the
+    new namespace, no removed id); deadline_degraded (deadlines of half the
+    baseline p50 batch time: 1 <= rounds < 5 where degraded).  Every
+    scenario: one terminal outcome per request, stats add up, every batch's
+    CE = plan x bucket, approx_topk launched from the replica threads.
+    Then prefix consistency on the card (an expired and a mid-search
+    deadline, bitwise).  Runs under a faulthandler
+    watchdog: a deadlocked router ends the run.  Returns (result,
+    {kernel: launches})."""
+    import dataclasses
+    import faulthandler
+
+    import numpy as np
+    import torch
+
+    from repro_torch.launch.faults import FaultPlan, ScorerFault, SleepFault, SwapFault
+
+    faulthandler.dump_traceback_later(ROUTER_WATCHDOG_S, exit=True)
+    try:
+        n = ROUTER_N_REQUESTS
+        qids = np.random.default_rng(1).integers(500, 600, n)
+        launches = {"approx_topk": 0, "persistent_round": 0}
+
+        def counted(row):
+            for k in launches:
+                launches[k] += row["launches"][k]
+            return row
+
+        closed = dict(queue_limit=CAPACITY_REQUESTS, **LAX_WATCHDOG)
+        # warm: cuBLAS / cuSOLVER handles of the replica threads, the kernels'
+        # first launches (not counted)
+        for rk in ("staged", "persistent"):
+            run_router(f"warm {rk}", router_services(ce, index, router_cfg(rk), 2),
+                       router_cfg(rk), qids[:128], closed)
+
+        cap_qids = np.random.default_rng(1).integers(500, 600, CAPACITY_REQUESTS)
+        runs = {(rk, reps): [] for rk in ("staged", "persistent") for reps in (1, 2)}
+        for attempt in range(CAPACITY_REPEATS):
+            for (rk, reps), done in runs.items():
+                cfg = router_cfg(rk)
+                name = f"capacity {rk} x{reps} run {attempt}"
+                base_mem = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                row, *_ = run_router(name, router_services(ce, index, cfg, reps), cfg,
+                                     cap_qids, closed)
+                row["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+                row["peak_over_resident_gb"] = (torch.cuda.max_memory_allocated()
+                                                - base_mem) / 1e9
+                searches = row["batches"]
+                expect = ({"approx_topk": 5 * searches, "persistent_round": 0} if rk == "staged"
+                          else {"approx_topk": searches, "persistent_round": 4 * searches})
+                got = {k: row["launches"][k] for k in expect}
+                check(got == expect, f"router {name}: launches {got}, expected {expect}")
+                check(row["ok"] == CAPACITY_REQUESTS,
+                      f"router {name}: {row['ok']} ok of {CAPACITY_REQUESTS}")
+                done.append(counted(row))
+        capacity = []
+        for (rk, reps), done in runs.items():
+            cfg = router_cfg(rk)
+            name = f"capacity {rk} x{reps}"
+            qps = [r["qps"] for r in done]
+            busy = profile_call(lambda: run_router(
+                name + " profiled", router_services(ce, index, cfg, reps), cfg, qids, closed))
+            # the profiler slows the host loop: the device's busy time per
+            # request at the unprofiled runs' median rate is the other estimate
+            busy["device_busy_share_at_unprofiled_rate"] = (
+                busy["device_busy_ms"] / 1e3 / n * float(np.median(qps)))
+            keep = ("wall_s", "qps", "p50_ms", "p99_ms", "batches", "peak_memory_gb",
+                    "peak_over_resident_gb")
+            capacity.append(dict(round_kernel=rk, replicas=reps, requests=CAPACITY_REQUESTS,
+                                 qps_median=float(np.median(qps)), qps_min=min(qps),
+                                 qps_max=max(qps),
+                                 runs=[{k: r[k] for k in keep} for r in done],
+                                 launches=done[-1]["launches"],
+                                 profiled_requests=n, profiled=busy))
+        # each round's 2-replica QPS over the 1-replica QPS of the same repeat
+        ratios = {rk: [two["qps"] / one["qps"] for one, two in zip(runs[(rk, 1)], runs[(rk, 2)])]
+                  for rk in ("staged", "persistent")}
+        qps2 = next(c["qps_median"] for c in capacity
+                    if c["round_kernel"] == "staged" and c["replicas"] == 2)
+        rate = 0.5 * qps2
+        cfg = router_cfg()
+        lax = dict(queue_limit=n, **LAX_WATCHDOG)
+
+        row, router, *_ = run_router("baseline", router_services(ce, index, cfg, 2), cfg, qids,
+                                     lax, rate=rate, seed=2)
+        check(row["ok"] == n and row["quarantines"] == 0, f"router baseline: {row}")
+        baseline = counted(row)
+        healthy = [bl["seconds"] for rep in router.replicas for bl in rep.service.batch_log]
+        p50_batch_s = float(np.percentile(healthy, 50))
+        p99_s = baseline["p99_ms"] / 1e3
+
+        plan = FaultPlan(scorer_faults=[ScorerFault(call_k=k, replica=0) for k in range(1, 2000)])
+        row, *_ = run_router("scorer_fault", router_services(ce, index, cfg, 2, plan), cfg, qids,
+                             dict(lax, plan=plan, max_retries=2, max_consecutive_errors=2),
+                             rate=rate, seed=3)
+        check(row["ok"] == n and row["errors"] == 0 and row["quarantined"] == [0],
+              f"router scorer_fault: {row}")
+        scorer_fault = counted(row)
+
+        stall_s = 4 * p50_batch_s
+        plan = FaultPlan(sleep_faults=[SleepFault(replica=0, seconds=stall_s)])
+
+        def seed_baseline(router):
+            # the fleet baseline: the baseline scenario's healthy batches
+            router.replicas[1].watchdog.window.extend(healthy)
+
+        row, *_ = run_router("slow_replica", router_services(ce, index, cfg, 2, plan), cfg, qids,
+                             # patience 1, as the reference's load run: the
+                             # stalled replica looks idle to dispatch (its
+                             # queue is empty while it sleeps) until quarantined
+                             dict(queue_limit=n, plan=plan, hedge_after_s=p99_s,
+                                  watchdog_threshold=3.0, watchdog_patience=1),
+                             rate=rate, seed=4, before_drive=seed_baseline)
+        bound_ms = 2 * baseline["p99_ms"] + 50.0
+        row.update(stall_s=stall_s, hedge_after_ms=p99_s * 1e3, p99_bound_ms=bound_ms)
+        check(row["ok"] == n and row["p99_ms"] <= bound_ms,
+              f"router slow_replica: p99 {row['p99_ms']} ms > {bound_ms} ms or not all ok: {row}")
+        slow = counted(row)
+
+        removed = index.item_ids[:index.n_items:100] + SWAP_OFFSET
+        new_index = dataclasses.replace(
+            index, item_ids=torch.where(index.item_ids >= 0, index.item_ids + SWAP_OFFSET, -1)
+        ).remove_items(removed)
+        removed_host = removed.cpu().numpy()
+        plan = FaultPlan(swap_faults=[SwapFault(at_seq=128)])
+        row, router, tickets, outs, swapped = run_router(
+            "swap_midflight", router_services(ce, index, cfg, 2), cfg, qids,
+            dict(lax, plan=plan, swap_index_fn=lambda: new_index), rate=rate, seed=5)
+        mixed = late_old = removed_served = new_answers = 0
+        for o, after in zip(outs, swapped):
+            if o.status != "ok":
+                continue
+            ids = o.response.item_ids
+            old, new = bool((ids < SWAP_OFFSET).all()), bool((ids >= SWAP_OFFSET).all())
+            mixed += not (old or new)
+            late_old += after and not new
+            new_answers += new
+            removed_served += int(np.isin(ids, removed_host).sum()) if new else 0
+        row.update(swaps=router.stats["swaps"], swapped_at_admission=128, mixed=mixed,
+                   old_after_swap=late_old, new_namespace_answers=new_answers,
+                   removed_ids_served=removed_served, removed=int(removed.numel()))
+        check(row["ok"] == n and row["swaps"] == 1 and mixed == 0 and late_old == 0
+              and removed_served == 0 and new_answers >= n - 128,
+              f"router swap_midflight: {row}")
+        swap = counted(row)
+        del new_index
+
+        deadline_s = 0.5 * p50_batch_s
+        row, router, tickets, outs, _ = run_router(
+            "deadline_degraded", router_services(ce, index, cfg, 2), cfg, qids, lax,
+            rate=rate, seed=6, deadline_s=deadline_s)
+        bad = [o.response.rounds_completed for o in outs
+               if o.status == "ok" and o.degraded
+               and not 1 <= o.response.rounds_completed < cfg.n_rounds]
+        rounds = [bl["rounds"] for rep in router.replicas for bl in rep.service.batch_log]
+        row.update(deadline_ms=deadline_s * 1e3,
+                   rounds_histogram={r: rounds.count(r) for r in sorted(set(rounds))})
+        check(row["ok"] == n and not bad and row["degraded"] > 0,
+              f"router deadline_degraded: degraded rounds {bad[:5]}, {row}")
+        deadline = counted(row)
+
+        prefix, prefix_launches = prefix_consistency(ce, index)
+        for k in launches:
+            launches[k] += prefix_launches[k]
+        check(launches["persistent_round"] > 0, "router: persistent_round never launched")
+    finally:
+        faulthandler.cancel_dump_traceback_later()
+    return dict(n_items=index.n_items, requests_per_scenario=n, arrival_rate_qps=rate,
+                capacity=capacity, capacity_qps_ratio_2_over_1=ratios, baseline=baseline, scorer_fault=scorer_fault,
+                slow_replica=slow, swap_midflight=swap, deadline_degraded=deadline,
+                prefix_consistency=prefix, launches=launches), launches
 
 
 def phase_retrievers_cpu_vs_card(dev):
@@ -1714,12 +2183,13 @@ def main() -> int:
         rows, errs = phase_approx_topk(shape, gen, dev, reps, earlier)
         emit({"phase": "kernel:approx_topk", "shape": shape, "cases": rows})
         for dtype in PAYLOADS:   # each payload's k = 20 row at the serving shape
-            row = next(r for r in rows if r["payload"] == dtype and r["k"] == 20)
+            row = next(r for r in rows if r["payload"] == dtype and r["k"] == 20
+                       and "case" not in r)
             summary[topk_entry("approx_topk", dtype)] = (row, errs[dtype])
         rows, errs = phase_persistent(shape, gen, dev, reps, earlier)
         emit({"phase": "kernel:persistent_round", "shape": shape, "cases": rows})
         for dtype in PAYLOADS:
-            row = next(r for r in rows if r["payload"] == dtype)
+            row = next(r for r in rows if r["payload"] == dtype and "case" not in r)
             summary[topk_entry("persistent_round", dtype)] = (row, errs[dtype])
         rows, err = phase_flash(gen, dev, args.quick)
         emit({"phase": "kernel:flash_attention", "cases": rows})
@@ -1742,6 +2212,8 @@ def main() -> int:
             emit({"phase": "anytime", **anytime})
             lifecycle, life_launches = phase_index_lifecycle(dev, ce, index)
             emit({"phase": "index_lifecycle", **lifecycle})
+            router, router_launches = phase_router(dev, ce, index)
+            emit({"phase": "router", **router})
             del ce, index
             torch.cuda.empty_cache()
             emit({"phase": "retrievers_cpu_vs_card", "runs": phase_retrievers_cpu_vs_card(dev)})
@@ -1775,6 +2247,9 @@ def main() -> int:
             launches["approx_topk"] += retr_launches["approx_topk"]
             launches["approx_topk"] += sum(run["launches"]["approx_topk"]
                                            for run in anytime.values())
+            # the router's replica threads, fp32
+            launches["approx_topk"] += router_launches["approx_topk"]
+            launches["persistent_round"] += router_launches["persistent_round"]
             launches.update(flash_attention=ce_launches["flash_attention"],
                             embedding_bag=rs_bags + rr_launches["embedding_bag"])
         for name, n in launches.items():

@@ -1,20 +1,43 @@
 """The port's kernels: hand-written CUDA for Hopper (``csrc/``), each beside
 its plain PyTorch version."""
 
+import threading
+
+
+class LaunchCounter:
+    """A kernel wrapper's launch count, safe to add to from any thread: the
+    replicas of a router launch from their own threads, and a bare
+    ``count += 1`` (a read, an add, a write) can lose an update between
+    them."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._n = 0
+
+    def add(self, n: int = 1) -> None:
+        with self._lock:
+            self._n += n
+
+    def reset(self) -> None:
+        with self._lock:
+            self._n = 0
+
+    @property
+    def value(self) -> int:
+        return self._n
+
 
 def reset_launches() -> None:
     """Set every kernel wrapper's launch count to 0."""
-    from .approx_topk import kernel, persistent
-    from .embedding_bag import kernel as bag
-    from .flash_attention import kernel as flash
-
-    kernel.launches = 0
-    persistent.launches = 0
-    flash.launches = 0
-    bag.launches = 0
+    for counter in _counters().values():
+        counter.reset()
 
 
 def launch_counts() -> dict:
+    return {name: counter.value for name, counter in _counters().items()}
+
+
+def _counters() -> dict:
     from .approx_topk import kernel, persistent
     from .embedding_bag import kernel as bag
     from .flash_attention import kernel as flash

@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import torch
 
-from .. import build
+from .. import LaunchCounter, build
 from . import quant
 from .quant import QuantizedRanc
 
@@ -27,7 +27,7 @@ from .quant import QuantizedRanc
 ROWS, TCOLS, BK, KMAX, KMAX_LARGE = 32, 512, 32, 256, 1024
 H100_SMS = 132
 
-launches = 0
+launches = LaunchCounter()
 
 
 def plan_grid(b: int, n: int, sms: int = H100_SMS) -> tuple[int, int]:
@@ -139,7 +139,6 @@ def approx_topk_cuda(e_q, r_anc, anchors, k: int, noise=None, mask=None,
     for 1 <= k <= min(1024, N): k <= 256 launches the serving path's sweep,
     a larger k its large-k instantiation (lists merged 256 entries at a
     time)."""
-    global launches
     codes, kind, scales, qtile, n = payload_operands(r_anc)
     check_operands(e_q, codes, n, [k], noise, [mask], anchors, kmax=KMAX_LARGE)
     b, k_q = e_q.shape
@@ -168,5 +167,5 @@ def approx_topk_cuda(e_q, r_anc, anchors, k: int, noise=None, mask=None,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     build.check(err, "approx_topk")
-    launches += 1
+    launches.add()
     return out_v, out_i

@@ -32,13 +32,13 @@ from __future__ import annotations
 
 import torch
 
-from .. import build
+from .. import LaunchCounter, build
 from .kernel import (as_u8, check_operands, fragment_split, payload_operands, plan_grid,
                      sm_count)
 from .ops import PlainTiles, anchor_mask, tile_select
 from .select import INT32_MAX, NEG_INF, topk_value_id
 
-launches = 0
+launches = LaunchCounter()
 
 
 def _sentinel(b: int, k: int, device):
@@ -82,7 +82,6 @@ def persistent_round_cuda(e_q, r_anc, *, k_sample=None, k_prov=None,
                           anchors=None, mask=None, prov_mask=None, noise=None,
                           n_valid=None):
     """The fused sweep on the card -> (sample, prov) pairs (or None)."""
-    global launches
     codes, kind, scales, qtile, n = payload_operands(r_anc)
     ks, kp = k_sample or 0, k_prov or 0
     check_operands(e_q, codes, n, [k for k in (k_sample, k_prov) if k is not None],
@@ -117,7 +116,7 @@ def persistent_round_cuda(e_q, r_anc, *, k_sample=None, k_prov=None,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     build.check(err, "persistent_round")
-    launches += 1
+    launches.add()
     return ((osv, osi) if ks else None), ((opv, opi) if kp else None)
 
 

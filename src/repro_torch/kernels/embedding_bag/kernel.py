@@ -12,18 +12,17 @@ from __future__ import annotations
 
 import torch
 
-from .. import build
+from .. import LaunchCounter, build
 from .ref import check_bag
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-launches = 0
+launches = LaunchCounter()
 
 
 def embedding_bag_cuda(table: torch.Tensor, ids: torch.Tensor,
                        mode: str = "sum") -> torch.Tensor:
     """(B, dim) bag in the table's dtype, on the card."""
-    global launches
     check_bag(table, ids, mode)
     if not table.is_cuda:
         raise ValueError("the CUDA kernel needs CUDA tensors (the plain version "
@@ -44,5 +43,5 @@ def embedding_bag_cuda(table: torch.Tensor, ids: torch.Tensor,
         torch.cuda.current_stream(table.device).cuda_stream,
     )
     build.check(err, "embedding_bag")
-    launches += 1
+    launches.add()
     return out

@@ -20,12 +20,12 @@ import ctypes
 
 import torch
 
-from .. import build
+from .. import LaunchCounter, build
 
 HEAD_DIMS = (16, 32, 64, 128)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-launches = 0
+launches = LaunchCounter()
 
 
 def _readable(t) -> bool:
@@ -41,7 +41,6 @@ def _readable(t) -> bool:
 
 def flash_attention_cuda(q, k, v, *, causal: bool = True, kv_lens=None) -> torch.Tensor:
     """(B, Lq, H, hd) attention output in q's dtype, on the card."""
-    global launches
     if not q.is_cuda:
         raise ValueError("the CUDA kernel needs CUDA tensors (the plain version "
                          "serves CPU tensors)")
@@ -76,5 +75,5 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, kv_lens=None) -> torch
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     build.check(err, "flash_attention")
-    launches += 1
+    launches.add()
     return out

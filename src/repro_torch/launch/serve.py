@@ -13,10 +13,13 @@ deadline in a batch governs its round loop, and a response whose search the
 deadline cut is ``degraded`` (the provisional top-k of the rounds done).
 
 The offline side enters through the :class:`AnchorIndex` artifact: pass
-one, or a directory it was saved to (``index=<path>``).  :meth:`swap_index`
-serves a mutated index (``add_items`` / ``remove_items``) from the next
-batch on; the requests already queued are answered under the index that
-admitted them first.
+one, a directory it was saved to (``index=<path>``), or a bare ``r_anc``
+score matrix the service wraps.  :meth:`swap_index` serves a mutated
+index (``add_items`` / ``remove_items``) from the next batch on; the
+requests already queued are answered under the index that admitted them
+first.  ``deterministic=True`` reuses the seed key at every flush, so a
+batch replays bit for bit.  ``launch/router.py`` puts replicas of this
+service behind a fault-tolerant router.
 
 CLI (on the card by default; ``--device cpu`` runs the plain versions):
 
@@ -92,23 +95,37 @@ class RetrievalResponse:
 
 class AdaCURService:
     """Batched retrieval over an AnchorIndex via any index-backed Retriever.
-    ``index`` is an AnchorIndex or the directory one was saved to (loaded
-    onto ``device``, the card unless ``device="cpu"``).  ``candidate_fn``
-    (query ids (B,) -> (B, M) first-stage order) feeds a retriever that
-    reranks candidates (``RerankRetriever``)."""
+    The offline side is an AnchorIndex, the directory one was saved to
+    (``index``; loaded onto ``device``, the card unless ``device="cpu"``),
+    or a bare ``r_anc`` score matrix, which the service wraps
+    (``AnchorIndex.from_r_anc``, on ``device``).  ``candidate_fn`` (query
+    ids (B,) -> (B, M) first-stage order) feeds a retriever that reranks
+    candidates (``RerankRetriever``).
 
-    def __init__(self, score_fn: Optional[Callable] = None,
+    ``deterministic=True`` reuses the seed key at every flush instead of
+    splitting it, so a query's search is a function of its batch row and
+    query id alone: a repeat query re-requests the pairs a
+    ``CachingScorer`` already holds, and a batch replays bit for bit."""
+
+    def __init__(self, score_fn: Optional[Callable] = None, r_anc=None,
                  cfg: Optional[AdaCURConfig] = None, max_batch: int = 32,
                  max_wait_s: float = 0.01, seed: int = 0, retriever=None,
                  index: Optional[Union[AnchorIndex, str, os.PathLike]] = None,
                  candidate_fn: Optional[Callable] = None,
-                 batch_buckets: Optional[List[int]] = None, device=None):
+                 batch_buckets: Optional[List[int]] = None, deterministic: bool = False,
+                 device=None):
         if index is not None and not isinstance(index, AnchorIndex):
             index = AnchorIndex.load(os.fspath(index), device=device)
         if retriever is None:
-            if score_fn is None or cfg is None or index is None:
-                raise ValueError("need a retriever, or score_fn, cfg and an index "
-                                 "(AnchorIndex or path)")
+            if index is None:
+                if score_fn is None or r_anc is None or cfg is None:
+                    raise ValueError("need an index (AnchorIndex or path), (score_fn, "
+                                     "r_anc, cfg), or a retriever")
+                if not isinstance(r_anc, torch.Tensor):
+                    r_anc = torch.from_numpy(np.array(r_anc, dtype=np.float32))
+                index = AnchorIndex.from_r_anc(r_anc.to(resolve_device(device)))
+            if score_fn is None or cfg is None:
+                raise ValueError("need score_fn and cfg to build the retriever")
             retriever = AdaCURRetriever.from_index(index, score_fn, cfg)
         elif index is None:
             index = getattr(retriever, "index", None)
@@ -124,13 +141,15 @@ class AdaCURService:
             raise ValueError(f"largest bucket {self.batch_buckets[-1]} must "
                              f"equal max_batch={max_batch}")
         self._scorer = getattr(retriever, "score_fn", None)
+        self.deterministic = deterministic
         self._key = prng.PRNGKey(seed)
         self._pending: List[RetrievalRequest] = []
         # one lock over the queue, index swaps and flushes: a batch is
         # popped, searched and answered under the index that admitted it
         # (reentrant: swap_index drains through flush)
         self._lock = threading.RLock()
-        self.batch_log: List[dict] = []   # per fired batch: rows, bucket, CE calls, seconds
+        # per fired batch: rows, bucket, rounds, CE calls, seconds
+        self.batch_log: List[dict] = []
 
     @property
     def scorer_stats(self) -> Optional[ScorerStats]:
@@ -164,10 +183,34 @@ class AdaCURService:
             self._pending.append(req)
             return self.flush() if self._due() else None
 
+    def submit_and_flush(self, requests: List[RetrievalRequest]) -> List[RetrievalResponse]:
+        """Queue ``requests`` and flush until each has its response, all
+        under the service's lock: a concurrent ``swap_index`` waits for the
+        whole list, so no request's response is drained to the swapping
+        thread and every response answers its own request, in order."""
+        with self._lock:
+            responses: List[RetrievalResponse] = []
+            for req in requests:
+                responses += self.submit(req) or []
+            responses += self.flush()
+            while len(responses) < len(requests):
+                more = self.flush()
+                if not more:
+                    break
+                responses += more
+            return responses
+
     def poll(self) -> List[RetrievalResponse]:
         """Flush if the oldest queued request has waited past max_wait_s."""
         with self._lock:
             return self.flush() if self._due() else []
+
+    @property
+    def device(self) -> torch.device:
+        """The device of the payload the retriever searches: its index's,
+        else its bare r_anc's."""
+        idx = getattr(self.retriever, "index", None)
+        return (idx.r_anc if idx is not None else self.retriever.r_anc).device
 
     def _bucket(self, n: int) -> int:
         for b in self.batch_buckets:
@@ -185,6 +228,15 @@ class AdaCURService:
                 return self._flush_batch(batch)
             except Exception as e:  # noqa: BLE001 — the flush boundary
                 msg = f"{type(e).__name__}: {e}"
+                if self.device.type == "cuda":
+                    # a search that raised between launches left work queued
+                    # on this thread's stream: wait for it, as a finished
+                    # flush's copies do; a device fault surfacing here is
+                    # named beside the first error
+                    try:
+                        torch.cuda.current_stream(self.device).synchronize()
+                    except RuntimeError as sync_err:
+                        msg += f" (then, synchronizing the stream: {sync_err})"
                 now = time.monotonic()
                 return [RetrievalResponse(query_id=r.query_id,
                                           latency_s=now - r.arrival_t,
@@ -196,9 +248,14 @@ class AdaCURService:
         n_real = len(batch)
         bucket = self._bucket(n_real)
         raw = [r.query_id for r in batch] + [batch[-1].query_id] * (bucket - n_real)
-        idx = self.retriever.index
-        qids = torch.tensor(raw, dtype=torch.int64, device=idx.device)
-        self._key, sub = prng.split(self._key)
+        # positions map through the retriever's own index (it may have been
+        # replaced directly); a retriever over a bare r_anc answers positions
+        idx = getattr(self.retriever, "index", None)
+        qids = torch.tensor(raw, dtype=torch.int64, device=self.device)
+        if self.deterministic:
+            sub = self._key
+        else:
+            self._key, sub = prng.split(self._key)
         kw = {}
         if self.candidate_fn is not None:
             kw["candidate_idx"] = self.candidate_fn(qids)
@@ -210,9 +267,15 @@ class AdaCURService:
         before = self.scorer_stats
         before = before.copy() if before is not None else None
         res = self.retriever.search(qids, sub, **kw)
-        item_ids = idx.gather_item_ids(res.topk_idx).cpu().numpy()
+        top = idx.gather_item_ids(res.topk_idx) if idx is not None else res.topk_idx
+        # blocking copies: the search's work on this thread's stream has run
+        # when they return, so no flush leaves work queued that reads an
+        # index a concurrent swap_index may then free (the router's index
+        # handoff between replica streams rests on this)
+        item_ids = top.cpu().numpy()
         scores = res.topk_scores.cpu().numpy()
         degraded = bool(holder.fired) if "deadline_t" in kw else False
+        rounds = int(res.rounds_done)
         measured = cache_hits = None
         if before is not None:
             delta = self.scorer_stats - before
@@ -220,15 +283,16 @@ class AdaCURService:
             # serving them
             measured = delta.ce_calls // n_real
             cache_hits = delta.cache_hits
-            self.batch_log.append(dict(rows=n_real, bucket=bucket, ce_calls=delta.ce_calls,
-                                       pairs=delta.pairs, cache_hits=delta.cache_hits,
+            self.batch_log.append(dict(rows=n_real, bucket=bucket, rounds=rounds,
+                                       ce_calls=delta.ce_calls, pairs=delta.pairs,
+                                       cache_hits=delta.cache_hits,
                                        seconds=time.perf_counter() - t0))
         now = time.monotonic()
         return [RetrievalResponse(
             query_id=r.query_id, item_ids=item_ids[i], scores=scores[i],
             latency_s=now - r.arrival_t, ce_calls=res.ce_calls,
             measured_ce_calls=measured, cache_hits=cache_hits, degraded=degraded,
-            rounds_completed=int(res.rounds_done),
+            rounds_completed=rounds,
         ) for i, r in enumerate(batch)]
 
 

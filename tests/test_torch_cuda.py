@@ -8,8 +8,11 @@ machine need not have):
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+import dataclasses
 import re
 import subprocess
+import threading
+import time
 from pathlib import Path
 
 import numpy as np
@@ -679,3 +682,120 @@ def test_dlrm_on_the_card_matches_the_cpu(dev):
     assert torch.equal(embedding.lookup_all_tables(card_params["tables"],
                                                    ctx["sparse"].to(dev)).cpu(),
                        embedding.lookup_all_tables(params["tables"], ctx["sparse"]))
+
+
+def _router_domain():
+    """A synthetic domain (232 queries, 6,000 items), its index over anchor
+    queries 0..199 on the CPU and the fused config the router tests serve."""
+    from repro_torch.configs.base import AdaCURConfig
+    from repro_torch.core import prng
+    from repro_torch.core.index import AnchorIndex
+    from repro_torch.data.synthetic import make_synthetic_ce
+
+    ce = make_synthetic_ce(prng.PRNGKey(6), n_queries=232, n_items=6000, device="cpu")
+    m = ce.full_matrix(torch.arange(232))
+    idx = AnchorIndex.from_r_anc(m[:200])
+    cfg = AdaCURConfig(k_anchor=40, n_rounds=4, budget_ce=80, k_retrieve=20, loop_mode="fori",
+                       use_fused_topk=True, incremental_pinv=False)
+    return m, idx, cfg
+
+
+def _router_services(idx, scorer_matrix, cfg, n, buckets):
+    from repro_torch.core.engine import AdaCURRetriever
+    from repro_torch.core.scorer import TabulatedScorer
+    from repro_torch.launch.serve import AdaCURService
+
+    return [AdaCURService(retriever=AdaCURRetriever.from_index(
+                idx, TabulatedScorer(scorer_matrix), cfg, anytime=True),
+            max_batch=buckets[-1], max_wait_s=60.0, batch_buckets=buckets, deterministic=True)
+            for _ in range(n)]
+
+
+def test_router_replicas_on_their_streams_match_the_cpu_router(dev):
+    """Two replicas sharing one card index, each on its own stream, answer
+    as the same router over CPU services: deterministic services with
+    bucket [1] make each answer a function of its query alone, so the
+    tickets compare one to one (top-k overlap >= 0.99, the card-vs-CPU
+    bar), and approx_topk ran from the replica threads."""
+    from repro_torch.launch.router import Router
+    from repro_torch.testing import topk_overlap
+
+    m, idx, cfg = _router_domain()
+    qids = [int(q) for q in np.random.default_rng(0).integers(200, 232, 48)]
+    outs = {}
+    for name, index, matrix in (("cpu", idx, m), ("card", idx.to(dev), m.to(dev))):
+        router = Router(_router_services(index, matrix, cfg, 2, [1]), queue_limit=128)
+        try:
+            if name == "card":
+                assert all(rep.stream is not None for rep in router.replicas)
+                assert len({rep.stream.cuda_stream for rep in router.replicas}) == 2
+                kernels.reset_launches()
+            tickets = [router.submit(q) for q in qids]
+            outs[name] = [router.result(t, timeout=300) for t in tickets]
+            if name == "card":
+                launched = kernels.launch_counts()["approx_topk"]
+        finally:
+            router.close()
+        assert all(o is not None and o.status == "ok" for o in outs[name])
+        assert router.stats["ok"] == len(qids)
+    assert launched >= len(qids) * (cfg.n_rounds - 1)
+    assert {o.replica for o in outs["card"]} == {0, 1}
+    card = np.stack([o.response.item_ids for o in outs["card"]])
+    cpu = np.stack([o.response.item_ids for o in outs["cpu"]])
+    assert topk_overlap(card, cpu) >= 0.99
+
+
+def test_router_swap_midflight_on_the_card_keeps_namespaces(dev):
+    """swap_index from the main thread while two threads submit to a
+    two-replica card router: no response mixes the old (0..N-1) and new
+    (N..2N-1) namespaces, every request submitted after the swap returned
+    is answered in the new one, and no new-namespace answer holds an id
+    the new index removed."""
+    from repro_torch.launch.router import Router
+
+    m, idx, cfg = _router_domain()
+    n = idx.n_items
+    wide = torch.cat([m, m], dim=1).to(dev)
+    card_idx = idx.to(dev)
+    removed = torch.arange(n, 2 * n, 100, dtype=torch.int32)
+    new_idx = dataclasses.replace(card_idx, item_ids=card_idx.item_ids + n).remove_items(
+        removed.to(dev))
+    router = Router(_router_services(card_idx, wide, cfg, 2, [4, 8]), queue_limit=512)
+    swapped = threading.Event()
+    seen, lock, stop = [], threading.Lock(), threading.Event()
+
+    def submitter(seed):
+        rng = np.random.default_rng(seed)
+        while not stop.is_set():
+            after = swapped.is_set()
+            tk = router.submit(int(rng.integers(200, 232)))
+            with lock:
+                seen.append((tk, after))
+            time.sleep(0.005)
+
+    threads = [threading.Thread(target=submitter, args=(s,)) for s in range(2)]
+    try:
+        for t in threads:
+            t.start()
+        time.sleep(1.0)
+        router.swap_index(new_idx)
+        swapped.set()
+        time.sleep(1.0)
+        stop.set()
+        for t in threads:
+            t.join(timeout=60)
+            assert not t.is_alive()
+        outs = [(router.result(tk, timeout=300), after) for tk, after in seen]
+    finally:
+        router.close()
+    removed_set = set(removed.tolist())
+    assert all(out is not None and out.status in ("ok", "rejected") for out, _ in outs)
+    outs = [(out, after) for out, after in outs if out.status == "ok"]
+    assert sum(after for _, after in outs) > 0 and sum(not after for _, after in outs) > 0
+    for out, after in outs:
+        ids = out.response.item_ids
+        old, new = (ids < n).all(), (ids >= n).all()
+        assert old or new, "mixed-namespace response"
+        assert new or not after, "a request submitted after the swap saw the old index"
+        if new:
+            assert not set(ids.tolist()) & removed_set

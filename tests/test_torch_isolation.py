@@ -104,6 +104,34 @@ def test_index_entry_points_refuse_to_fall_back_to_the_cpu(monkeypatch, tmp_path
     assert Checkpointer(str(tmp_path)).restore(0, device="cpu")["r_anc"].shape == (4, 8)
 
 
+def test_router_and_faulty_services_refuse_to_fall_back_to_the_cpu(monkeypatch):
+    """A service over a ``FaultyScorer`` built from a bare ``r_anc`` lands on
+    the card unless the caller asks for the CPU, and a ``Router`` over card
+    services gives each replica a stream on that card: without a card both
+    raise; CPU services take no streams."""
+    from repro_torch.configs.base import AdaCURConfig
+    from repro_torch.core.scorer import TabulatedScorer
+    from repro_torch.launch.faults import FaultPlan, FaultyScorer
+    from repro_torch.launch.router import Router
+    from repro_torch.launch.serve import AdaCURService
+
+    m = np.zeros((4, 8), np.float32)
+    cfg = AdaCURConfig(k_anchor=2, n_rounds=2, budget_ce=4, k_retrieve=2, loop_mode="fori")
+    faulty = FaultyScorer(TabulatedScorer(m), FaultPlan())
+    svc = AdaCURService(score_fn=faulty, r_anc=m, cfg=cfg, device="cpu")
+    router = Router([svc])
+    try:
+        assert router.replicas[0].stream is None
+    finally:
+        router.close()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        AdaCURService(score_fn=faulty, r_anc=m, cfg=cfg)
+    monkeypatch.setattr(AdaCURService, "device", property(lambda self: torch.device("cuda")))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Router([svc])
+
+
 def test_real_ce_entry_points_refuse_to_fall_back_to_the_cpu(monkeypatch):
     from repro_torch.configs.registry import CE_TINY
     from repro_torch.launch import serve
