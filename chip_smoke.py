@@ -85,7 +85,29 @@ Phases (one JSON line each):
    bucket per batch.  Then degraded answers bitwise equal to
    ``search(n_rounds=rounds_completed)`` (prefix consistency), under a
    faulthandler watchdog.
-4e. ``retrievers_cpu_vs_card``: the five methods and both hybrids in
+4e. ``sharded``: the sharded engine on one card.  The serve domain's index
+   (N = 10^6, k_q = 500) is saved to local disk and loaded by a 2 (data) x
+   2 (items) world of ranks on ``cuda:0`` (gloo over CUDA tensors; NCCL
+   refuses two ranks on one card), each reading only its columns
+   (``AnchorIndex.load(path, mesh)``), int8 quantized on the ranks; each
+   rank's resident payload is gated at 1.1x the ideal N / items.  For fp32
+   and int8, staged and persistent, a B = 256 search (budget 200 in 5
+   rounds; fp32 staged and int8 persistent also at B = 200, 100 rows a
+   data shard) through the tabulated 600 x 10^6 matrix must give every rank
+   the single-device engine's ``topk_idx``, ``topk_scores``,
+   ``anchor_idx`` and ``rounds_done`` bit for bit, with CE = plan; one
+   more search through the synthetic CE is reported beside them (its
+   batched einsum gives a pair other bits in a batch of 128).  Times,
+   launches and collectives per rank, beside the single-device search's
+   ms.  Then ``ce-tiny`` (full width, fp32) through ``DeviceCEScorer``
+   under a 1 x 2 mesh over 4,096 items: the single-device
+   ``DeviceCEScorer``'s and ``CrossEncoderScorer``'s ids, CE = plan; a
+   probe of the gloo collectives on CUDA tensors; NCCL's error for two
+   ranks on one card; and the serve CLI under ``torchrun
+   --nproc-per-node 1 ... --mesh 1x1`` on NCCL.  The ``kernel:*`` phases
+   hold both top-k kernels at a rank's shape too (``case: sharded``: B =
+   128 over one item shard's slab, fp32 and int8, the selected mask).
+4f. ``retrievers_cpu_vs_card``: the five methods and both hybrids in
    subset mode at N = 20,000, B = 64, fp32 and int8, full pinv, on the
    card (kernels) and on the CPU (plain versions): top-k overlap >= 0.99
    and measured CE equal, per method.
@@ -186,6 +208,8 @@ FLASH_P_TERMS = 3           # bf16 terms of p in the bf16 flash kernel's P V pro
 DLRM = "dlrm-mlperf"
 PAYLOADS = ("float32", "int8", "bfloat16", "fp8", "int4")
 ROUTER_BUCKETS = (16, 32, 64)   # the router phase's batch buckets (B of its searches)
+SHARDED_MESH = (2, 2)           # the sharded phase's (data, items) ranks, all on one card
+SHARD_ROWS = 256 // SHARDED_MESH[0]   # a data shard's rows of the serving batch
 BAG_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (1e-6, 2.0 ** -7)}   # (atol, rtol)
 
 
@@ -396,6 +420,12 @@ def phase_approx_topk(shape, gen, dev, reps, earlier):
         for k in (20, 100):
             rows.append(topk_case(f"router_b{b_router}", e_q[:b_router], payloads["float32"],
                                   anchors[:b_router], k, reps, 8192, worst))
+    # the sharded phase's per-rank searches: B = 128 rows (2 data shards)
+    # over one item shard's slab, suppressed by the selected mask
+    for dtype, pay, anc, mask in sharded_slabs(e_q, payloads, anchors):
+        for k in (20, 100):
+            rows.append(topk_case("sharded", e_q[:SHARD_ROWS], pay, None, k, reps, 8192,
+                                  worst, mask=mask))
     # noise / mask / anchors / n_valid, with under-filled rows
     n2 = 65536
     e2, pays2, anc2 = make_inputs(b, k_q, n2, gen, dev)
@@ -423,10 +453,11 @@ def phase_approx_topk(shape, gen, dev, reps, earlier):
     return rows, worst
 
 
-def topk_case(name, e_q, pay, anchors, k, reps, plain_tile, worst) -> dict:
+def topk_case(name, e_q, pay, anchors, k, reps, plain_tile, worst, mask=None) -> dict:
     """One fused-op case: the kernel against its plain version (ids equal, or
     within the tie-aware comparator), with kernel, plain, library
-    (``torch.matmul`` + ``torch.topk``) and bound times."""
+    (``torch.matmul`` + ``torch.topk``) and bound times; ``mask`` (B, N)
+    suppresses as the sharded engine does."""
     import torch
 
     from repro_torch.kernels.approx_topk.ops import approx_topk_op, approx_topk_plain
@@ -437,19 +468,20 @@ def topk_case(name, e_q, pay, anchors, k, reps, plain_tile, worst) -> dict:
     dtype = payload_dtype_of(pay)
     b, k_q = e_q.shape
     n = pay.shape[1]
-    kv, ki = approx_topk_op(e_q, pay, anchors, k)
-    pv, pi = approx_topk_plain(e_q, pay, anchors, k, tile=plain_tile)
+    kw = {} if mask is None else dict(mask=mask)
+    kv, ki = approx_topk_op(e_q, pay, anchors, k, **kw)
+    pv, pi = approx_topk_plain(e_q, pay, anchors, k, tile=plain_tile, **kw)
     torch.cuda.synchronize()
-    rep = topk_report(ki, kv, pi, pv, dense_scores(e_q, pay, anchors))
+    rep = topk_report(ki, kv, pi, pv, dense_scores(e_q, pay, anchors, **kw))
     check(rep["ok"], f"approx_topk {name} {dtype} k={k} disagrees with its plain version: {rep}")
     worst[dtype] = max(worst[dtype], rep["max_abs_err"])
-    ms = cuda_ms(lambda: approx_topk_op(e_q, pay, anchors, k), reps)
-    plain_ms = cuda_ms(lambda: approx_topk_plain(e_q, pay, anchors, k, tile=plain_tile), 1)
+    ms = cuda_ms(lambda: approx_topk_op(e_q, pay, anchors, k, **kw), reps)
+    plain_ms = cuda_ms(lambda: approx_topk_plain(e_q, pay, anchors, k, tile=plain_tile, **kw), 1)
     lib_ms = cuda_ms(lambda: torch.topk(torch.matmul(e_q, dense_fp32(pay)), k, dim=1), reps)
-    bounds = topk_bounds(dtype, nbytes(e_q, pay, anchors) + b * k * 8, b, k_q, n)
+    bounds = topk_bounds(dtype, nbytes(e_q, pay, anchors, mask) + b * k * 8, b, k_q, n)
     # the sweep's and the merge's shares of one launch
     split = {r["name"].split("<")[0].split("::")[-1]: r["ms"]
-             for r in profile_call(lambda: approx_topk_op(e_q, pay, anchors, k))["top"]}
+             for r in profile_call(lambda: approx_topk_op(e_q, pay, anchors, k, **kw))["top"]}
     return dict(case=name, payload=dtype, b=b, k_q=k_q, n=n, k=k, kernel_ms=ms,
                 plain_ms=plain_ms, library_ms=lib_ms, ids_equal=bool(torch.equal(ki, pi)),
                 profile_ms=split, **bounds, **rep)
@@ -520,11 +552,12 @@ def underfilled_rows(dtype, e_q, pay, noise, ki, kv, pi, pv, under, dense):
                 f64_err_plain=err_plain)
 
 
-def persistent_case(e_q, pay, anchors, prov_mask, reps, worst) -> dict:
+def persistent_case(e_q, pay, anchors, prov_mask, reps, worst, mask=None) -> dict:
     """One persistent-round case (sample k = 20 with ``anchors`` suppressed,
-    provisional k = 100 under ``prov_mask``): bitwise equal to two
-    approx_topk calls, each list against the plain version, with kernel,
-    plain, library and bound times."""
+    or the (B, N) ``mask`` where one is given, as the sharded engine
+    suppresses; provisional k = 100 under ``prov_mask``): bitwise equal to
+    two approx_topk calls, each list against the plain version, with
+    kernel, plain, library and bound times."""
     import torch
 
     from repro_torch.kernels.approx_topk.ops import approx_topk_op
@@ -538,15 +571,15 @@ def persistent_case(e_q, pay, anchors, prov_mask, reps, worst) -> dict:
     dtype = payload_dtype_of(pay)
     b, k_q = e_q.shape
     n = pay.shape[1]
-    kw = dict(k_sample=20, k_prov=100, anchors=anchors, prov_mask=prov_mask)
+    kw = dict(k_sample=20, k_prov=100, anchors=anchors, mask=mask, prov_mask=prov_mask)
     (sv, si), (pv, pi) = persistent_round_op(e_q, pay, **kw)
     (qv, qi), (rv, ri) = persistent_round_plain(e_q, pay, tile=8192, **kw)
-    av, ai = approx_topk_op(e_q, pay, anchors, 20)
+    av, ai = approx_topk_op(e_q, pay, anchors, 20, mask=mask)
     bv, bi = approx_topk_op(e_q, pay, None, 100, mask=prov_mask)
     torch.cuda.synchronize()
     bitwise = all(torch.equal(x, y) for x, y in ((sv, av), (si, ai), (pv, bv), (pi, bi)))
     check(bitwise, f"persistent_round {dtype} B={b} is not bitwise equal to two approx_topk calls")
-    lists = {"sample": ((si, sv), (qi, qv), dict(anchors=anchors)),
+    lists = {"sample": ((si, sv), (qi, qv), dict(anchors=anchors, mask=mask)),
              "prov": ((pi, pv), (ri, rv), dict(mask=prov_mask))}
     for name, (x, y, sup) in lists.items():
         rep = topk_report(x[0], x[1], y[0], y[1], dense_scores(e_q, pay, **sup))
@@ -562,7 +595,8 @@ def persistent_case(e_q, pay, anchors, prov_mask, reps, worst) -> dict:
         torch.topk(s.masked_fill(prov_mask, -1e30), 100, dim=1)
 
     lib_ms = cuda_ms(library, reps)
-    bounds = topk_bounds(dtype, nbytes(e_q, pay, anchors, prov_mask) + b * 120 * 8, b, k_q, n)
+    bounds = topk_bounds(dtype, nbytes(e_q, pay, anchors, mask, prov_mask) + b * 120 * 8,
+                         b, k_q, n)
     return dict(payload=dtype, b=b, k_sample=20, k_prov=100, kernel_ms=ms, plain_ms=plain_ms,
                 library_ms=lib_ms, **bounds, bitwise_vs_staged=bitwise)
 
@@ -583,7 +617,43 @@ def phase_persistent(shape, gen, dev, reps, earlier):
         rows.append(dict(persistent_case(e_q[:b_router], payloads["float32"],
                                          anchors[:b_router], prov_mask[:b_router], reps, worst),
                          case=f"router_b{b_router}"))
+    # the sharded phase's per-rank sweeps: B = 128 over one item shard's
+    # slab, suppressed by the selected mask as the sharded engine does
+    for dtype, pay, _, mask in sharded_slabs(e_q, payloads, anchors):
+        rows.append(dict(persistent_case(e_q[:SHARD_ROWS], pay, None,
+                                         prov_mask[:SHARD_ROWS, :pay.shape[1]], reps, worst,
+                                         mask=mask),
+                         case="sharded"))
     return rows, worst
+
+
+def sharded_slabs(e_q, payloads, anchors):
+    """(payload, one item shard's slab of it, the slab's anchors, the
+    selected mask those anchors make) at the sharded phase's shapes: the
+    fp32 and int8 payloads cut to the first of ``SHARDED_MESH[1]`` slabs of a
+    capacity aligned as ``AnchorIndex.shard`` aligns it."""
+    import torch
+
+    from repro_torch.kernels.approx_topk.quant import QuantizedRanc
+
+    b, n = SHARD_ROWS, payloads["float32"].shape[1]
+    if n < 1_000_000:       # --quick: the kernel phases' small shape has no such slab
+        return
+    for dtype in ("float32", "int8"):
+        pay = payloads[dtype]
+        grain = 512 if dtype == "int8" else 128          # lcm(tile, NOISE_BLOCK)
+        unit = SHARDED_MESH[1] * grain
+        local = -(-n // unit) * unit // SHARDED_MESH[1]
+        if dtype == "int8":
+            slab = QuantizedRanc(pay.codes[:, :local].contiguous(), pay.scales[:local // 512],
+                                 512, "int8")
+        else:
+            slab = pay[:, :local].contiguous()
+        anc = anchors[:b].clone()
+        mask = torch.zeros((b, local), dtype=torch.bool, device=anc.device)
+        mask.scatter_(1, anc.long().clamp(0, local - 1), True)
+        yield dtype, slab, anc, mask
+        del slab, mask
 
 
 def profile_call(fn) -> dict:
@@ -2135,16 +2205,404 @@ def phase_dlrm_cpu_vs_card(dev):
                 lookups_bitwise=same, cpu_s=cpu_s, tf32=False)
 
 
+# ---------------------------------------------------------------------------
+# the sharded engine: (data x items) ranks over torch.distributed on one card
+# ---------------------------------------------------------------------------
+
+SHARDED_CONFIGS = (("float32", "staged"), ("float32", "persistent"),
+                   ("int8", "staged"), ("int8", "persistent"))
+# the synthetic CE scores a pair with bits that depend on its batch on the
+# card (a batched einsum), so the bitwise gates score through the domain's
+# tabulated matrix; one configuration also runs the synthetic scorer,
+# reported beside them
+SHARDED_SYNTHETIC = ("float32", "staged")
+# two configurations also run a batch of 200 (100 rows a data shard, no
+# multiple of 128): a row's estimate-state bits must not depend on its batch
+SHARDED_ODD_BATCH = (("float32", "staged", 200), ("int8", "persistent", 200))
+SHARDED_TIMEOUT_S = 600          # a world still running then is deadlocked: its ranks die
+SHARDED_MEM_GATE = 1.1           # resident payload bytes a rank / (N / items), at most
+CE_MESH = (1, 2)                 # the real-CE case's (data, items) ranks
+CE_MESH_ITEMS, CE_MESH_QUERIES = 4096, 16
+
+
+def sharded_cfg(payload, round_kernel, k_retrieve=100):
+    from repro_torch.configs.base import AdaCURConfig
+
+    return AdaCURConfig(k_anchor=100, n_rounds=5, budget_ce=200, strategy="topk",
+                        k_retrieve=k_retrieve, loop_mode="fori", use_fused_topk=True,
+                        payload_dtype=payload, round_kernel=round_kernel)
+
+
+def sharded_runs():
+    """(payload, round kernel, scorer, batch) of each sharded search."""
+    return ([(p, k, "tabulated", 256) for p, k in SHARDED_CONFIGS]
+            + [(p, k, "tabulated", b) for p, k, b in SHARDED_ODD_BATCH]
+            + [(*SHARDED_SYNTHETIC, "synthetic", 256)])
+
+
+def sharded_label(payload, round_kernel, scorer_kind, b) -> str:
+    return f"{payload} {round_kernel} {scorer_kind} B={b}"
+
+
+def sharded_qids(b, dev):
+    """The serve domain's query ids of a sharded search of ``b`` rows."""
+    import torch
+
+    return torch.arange(500, 500 + b, device=dev) % 600
+
+
+def timed_search(retriever, qids, key):
+    """(result, ms): the second of two searches; the first warms up."""
+    import torch
+
+    retriever.search(qids, key)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = retriever.search(qids, key)
+    torch.cuda.synchronize()
+    return res, (time.perf_counter() - t0) * 1e3
+
+
+def ce_mesh_cfg():
+    """ce-tiny at full width, in fp32."""
+    from repro_torch.configs.base import replace
+    from repro_torch.configs.registry import CE_TINY
+
+    return replace(CE_TINY, dtype="float32")
+
+
+def ce_mesh_model(dev):
+    """The real-CE mesh case's corpus and model, as ``build_real_ce_domain``
+    draws them (seed 0): a ZESHEL-like corpus and ``ce_mesh_cfg``'s CE."""
+    import torch
+
+    from repro_torch.data.synthetic import make_zeshel_like
+    from repro_torch.models.cross_encoder import init_cross_encoder
+
+    cfg = ce_mesh_cfg()
+    ds = make_zeshel_like(0, n_items=CE_MESH_ITEMS, n_queries=200, item_len=24, query_len=16)
+    return ds, cfg, init_cross_encoder(cfg, torch.Generator().manual_seed(0), dev)
+
+
+def device_ce_scorer(ds, cfg, params):
+    from repro_torch.core.scorer import DeviceCEScorer
+
+    return DeviceCEScorer(params, cfg, query_token_fn=lambda q: ds.query_tokens[q],
+                          flash_block=(64, 64))
+
+
+def rank_worker(kind: str, out_dir: str) -> int:
+    """One rank of a world the sharded phase starts (``run_world`` gives it
+    the torchrun environment); writes its results under ``out_dir``."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import kernels
+    from repro_torch.core import prng
+    from repro_torch.core.engine import AdaCURRetriever, collective_calls
+    from repro_torch.core.index import AnchorIndex
+    from repro_torch.core.scorer import SyntheticScorer, TabulatedScorer
+    from repro_torch.launch.mesh import make_serving_mesh
+    from repro_torch.launch.serve import build_domain
+
+    rank = int(os.environ["RANK"])
+    out = {"rank": rank}
+    if kind == "nccl_two":     # two NCCL ranks on one card: NCCL's own answer
+        torch.cuda.set_device(0)
+        try:
+            dist.init_process_group("nccl")
+            x = torch.ones(4, device="cuda")
+            dist.all_reduce(x)
+            torch.cuda.synchronize()
+            out["error"] = None
+        except Exception as e:  # noqa: BLE001 — the error text is the result
+            out["error"] = f"{type(e).__name__}: {e}"
+        torch.save(out, os.path.join(out_dir, f"{kind}_rank{rank}.pt"))
+        os._exit(0)            # a failed communicator may not tear down cleanly
+    if kind == "gloo_probe":   # which gloo collectives take CUDA tensors
+        make_serving_mesh(1, int(os.environ["WORLD_SIZE"]), backend="gloo")
+        dev = torch.device("cuda", torch.cuda.current_device())
+        w = dist.get_world_size()
+        x = torch.ones(8 * w, device=dev)
+        ops = {
+            "all_reduce": lambda: dist.all_reduce(x.clone()),
+            "broadcast": lambda: dist.broadcast(x.clone(), src=0),
+            "all_gather": lambda: dist.all_gather([torch.empty_like(x) for _ in range(w)], x),
+            "all_gather_into_tensor": lambda: dist.all_gather_into_tensor(
+                torch.empty(8 * w * w, device=dev), x),
+            "reduce_scatter_tensor": lambda: dist.reduce_scatter_tensor(
+                torch.empty(8, device=dev), x),
+            "all_to_all_single": lambda: dist.all_to_all_single(torch.empty_like(x), x),
+            "reduce": lambda: dist.reduce(x.clone(), dst=0),
+        }
+        for name, op in ops.items():
+            try:
+                op()
+                torch.cuda.synchronize()
+                out[name] = "ok"
+            except Exception as e:  # noqa: BLE001 — the error text is the result
+                out[name] = f"{type(e).__name__}: {str(e).splitlines()[0][:200]}"
+            dist.barrier()
+        torch.save(out, os.path.join(out_dir, f"{kind}_rank{rank}.pt"))
+        dist.destroy_process_group()
+        return 0
+    if kind == "ce_mesh":
+        mesh = make_serving_mesh(*CE_MESH, backend="gloo")
+        dev = torch.device("cuda", torch.cuda.current_device())
+        ds, cfg, params = ce_mesh_model(dev)
+        index = AnchorIndex.load(os.path.join(out_dir, "ce_index"), mesh=mesh)
+        scorer = device_ce_scorer(ds, cfg, params)
+        retriever = AdaCURRetriever.from_index(index, scorer, sharded_cfg("float32", "staged", 50))
+        qids = torch.arange(100, 100 + CE_MESH_QUERIES, device=dev)
+        kernels.reset_launches()
+        res, ms = timed_search(retriever, qids, prng.PRNGKey(5))
+        out.update(topk_idx=res.topk_idx.cpu(), rounds=res.rounds_done, ms=ms,
+                   launches=kernels.launch_counts(), ce_calls=scorer.stats.ce_calls,
+                   batch_pad=scorer.stats.batch_pad)
+    else:                      # "sharded": the serving configuration at N = 10^6
+        mesh = make_serving_mesh(*SHARDED_MESH, backend="gloo")
+        dev = torch.device("cuda", torch.cuda.current_device())
+        ce = build_domain(1_000_000, dev, with_index=False)[0]
+        table = ce.full_matrix(torch.arange(600, device=dev))
+        t0 = time.perf_counter()
+        fp32 = AnchorIndex.load(os.path.join(out_dir, "index"), mesh=mesh)
+        torch.cuda.synchronize()
+        out["load_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        indexes = {"float32": fp32, "int8": fp32.quantize("int8")}
+        torch.cuda.synchronize()
+        out["quantize_s"] = time.perf_counter() - t0
+        out["payload_bytes"] = {k: v.payload_nbytes for k, v in indexes.items()}
+        out["local_capacity"] = {k: v.local_capacity for k, v in indexes.items()}
+        for payload, round_kernel, scorer_kind, b in sharded_runs():
+            scorer = TabulatedScorer(table) if scorer_kind == "tabulated" else SyntheticScorer(ce)
+            retriever = AdaCURRetriever.from_index(indexes[payload], scorer,
+                                                   sharded_cfg(payload, round_kernel))
+            kernels.reset_launches()
+            collective_calls.reset()
+            res, ms = timed_search(retriever, sharded_qids(b, dev), prng.PRNGKey(5))
+            counts = kernels.launch_counts()
+            out[sharded_label(payload, round_kernel, scorer_kind, b)] = dict(
+                collectives=collective_calls.value // 2,        # a search
+                topk_idx=res.topk_idx.cpu(), topk_scores=res.topk_scores.cpu(),
+                anchor_idx=res.anchor_idx.cpu(), rounds=res.rounds_done, ms=ms,
+                launches=counts, ce_calls=scorer.stats.ce_calls, sharded=retriever._sharded)
+    torch.save(out, os.path.join(out_dir, f"{kind}_rank{rank}.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def start_world(kind, tmp, world, timeout=SHARDED_TIMEOUT_S) -> list:
+    """Run ``world`` ranks of ``rank_worker(kind)``; every rank must exit 0
+    (a rank still running at ``timeout`` is killed and fails the check)."""
+    import torch
+
+    from repro_torch.testing import run_world
+
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+    ranks = run_world([sys.executable, os.path.abspath(__file__), "--rank-worker", kind, tmp],
+                      world, timeout, env=env)
+    for r, (rc, o, e) in enumerate(ranks):
+        check(rc == 0, f"sharded {kind}: rank {r} exited {rc}\n{o[-2000:]}\n{e[-4000:]}")
+    return [torch.load(os.path.join(tmp, f"{kind}_rank{r}.pt"), weights_only=False)
+            for r in range(world)]
+
+
+def probe_world(kind, tmp, world, timeout=120):
+    """What each rank of a probe world found (a rank that hung or died is
+    recorded as such: the probes' answers are findings, not gates)."""
+    import torch
+
+    from repro_torch.testing import run_world
+
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+    ranks = run_world([sys.executable, os.path.abspath(__file__), "--rank-worker", kind, tmp],
+                      world, timeout, env=env)
+    found = []
+    for r, (rc, o, e) in enumerate(ranks):
+        path = os.path.join(tmp, f"{kind}_rank{r}.pt")
+        if os.path.exists(path):
+            res = torch.load(path, weights_only=False)
+            res.pop("rank")
+            found.append(res)
+        else:
+            found.append({"exit": rc, "stderr_tail": e[-600:]})
+    return found
+
+
+def phase_sharded(dev, ce, index):
+    """The sharded engine on one card: 2 (data) x 2 (items) gloo ranks over
+    CUDA tensors load their columns of the serve domain's index (N = 10^6,
+    k_q = 500), and each configuration's search (B = 256, budget 200 in 5
+    rounds, fp32 and int8, staged and persistent; two also at B = 200) must
+    equal the single-device engine's bit for bit; then the real-CE mesh (1 x 2),
+    which gloo collectives take CUDA tensors, NCCL's answer to two ranks on
+    one card, and the serve CLI under torchrun on a 1 x 1 NCCL mesh.
+    Returns (result, {kernel: {payload: launches}})."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.core import prng
+    from repro_torch.core.engine import AdaCURRetriever, ce_call_plan
+    from repro_torch.core.scorer import SyntheticScorer, TabulatedScorer
+    from repro_torch.kernels.approx_topk import quant
+    from repro_torch.launch.serve import build_real_ce_domain
+    from repro_torch.testing import topk_overlap
+
+    tmp = tempfile.mkdtemp(prefix="adacur_sharded_")
+    launches = {name: dict.fromkeys(PAYLOADS, 0) for name in ("approx_topk", "persistent_round")}
+    try:
+        t0 = time.perf_counter()
+        index.save(os.path.join(tmp, "index"))
+        save_s = time.perf_counter() - t0
+        table = ce.full_matrix(torch.arange(600, device=dev))
+        single = {}
+        for run in sharded_runs():
+            payload, round_kernel, scorer_kind, b = run
+            scorer = TabulatedScorer(table) if scorer_kind == "tabulated" else SyntheticScorer(ce)
+            retriever = AdaCURRetriever.from_index(index, scorer,
+                                                   sharded_cfg(payload, round_kernel))
+            single[sharded_label(*run)] = timed_search(retriever, sharded_qids(b, dev),
+                                                       prng.PRNGKey(5))
+            del retriever
+        del table
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ranks = start_world("sharded", tmp, SHARDED_MESH[0] * SHARDED_MESH[1])
+        world_s = time.perf_counter() - t0
+        items = SHARDED_MESH[1]
+        configs, faults = [], []
+        for run in sharded_runs():
+            payload, round_kernel, scorer_kind, b = run
+            label = sharded_label(*run)
+            ref, ref_ms = single[label]
+            runs = [r[label] for r in ranks]
+            equal = {f: [bool(torch.equal(run[f], getattr(ref, f).cpu())) for run in runs]
+                     for f in ("topk_idx", "topk_scores", "anchor_idx")}
+            equal["rounds_done"] = [run["rounds"] == ref.rounds_done for run in runs]
+            score_diff = max(float((run["topk_scores"] - ref.topk_scores.cpu()).abs().max())
+                             for run in runs)
+            anchors_moved = max(int((run["anchor_idx"] != ref.anchor_idx.cpu()).sum())
+                                for run in runs)
+            if scorer_kind == "tabulated":
+                faults += [f"{label}: rank {r}'s {f} differs from the single-device engine's"
+                           for f, per_rank in equal.items()
+                           for r, ok in enumerate(per_rank) if not ok]
+                faults += [f"{label}: rank {r} did not bind the sharded engine"
+                           for r, run in enumerate(runs) if not run["sharded"]]
+            ce_calls = sum(run["ce_calls"] for run in runs)
+            plan = 2 * ce_call_plan(sharded_cfg(payload, round_kernel)) * b   # two searches
+            if ce_calls != plan:
+                faults.append(f"{label}: measured CE {ce_calls} != plan {plan}")
+            counts = {name: sum(run["launches"][name] for run in runs) for name in launches}
+            want = "approx_topk" if round_kernel == "staged" else "persistent_round"
+            if not counts[want]:
+                faults.append(f"{label}: {want} was never launched")
+            for name in launches:
+                launches[name][payload] += counts[name]
+            ideal = quant.payload_nbytes(payload, index.k_q, index.n_items) / items
+            ratio = max(r["payload_bytes"][payload] for r in ranks) / ideal
+            if ratio > SHARDED_MEM_GATE:
+                faults.append(f"{label}: a rank holds {ratio:.4f}x the ideal payload bytes")
+            configs.append(dict(
+                config=label, b=b, equal=equal, max_abs_score_diff=score_diff,
+                anchor_entries_differing=anchors_moved,
+                collectives_per_search=[run["collectives"] for run in runs],
+                rounds=ref.rounds_done, sharded_ms=[run["ms"] for run in runs],
+                single_device_ms=ref_ms, launches_per_rank=[run["launches"] for run in runs],
+                measured_ce=ce_calls, ce_plan=plan,
+                payload_bytes_per_rank=[r["payload_bytes"][payload] for r in ranks],
+                ideal_bytes_per_rank=ideal, bytes_ratio=ratio,
+                local_capacity=ranks[0]["local_capacity"][payload]))
+        load_s = [r["load_s"] for r in ranks]
+        quantize_s = [r["quantize_s"] for r in ranks]
+        del ranks
+
+        # the real CE device-resident under a 1 x 2 mesh
+        cfg = ce_mesh_cfg()
+        t0 = time.perf_counter()
+        ds, params, host, ce_index = build_real_ce_domain(CE_MESH_ITEMS, 100, 100, cfg=cfg,
+                                                          device=dev, build_micro_batch=1024)
+        ce_build_s = time.perf_counter() - t0
+        ce_index = ce_index.with_item_tokens(torch.as_tensor(ds.item_tokens))
+        ce_index.save(os.path.join(tmp, "ce_index"))
+        ce_cfg = sharded_cfg("float32", "staged", 50)
+        cq = torch.arange(100, 100 + CE_MESH_QUERIES, device=dev)
+        dsc = device_ce_scorer(ds, cfg, params)
+        dres, dms = timed_search(AdaCURRetriever.from_index(ce_index, dsc, ce_cfg), cq,
+                                 prng.PRNGKey(5))
+        hres, hms = timed_search(AdaCURRetriever.from_index(ce_index, host, ce_cfg), cq,
+                                 prng.PRNGKey(5))
+        ce_ranks = start_world("ce_mesh", tmp, CE_MESH[0] * CE_MESH[1])
+        plan = 2 * ce_call_plan(ce_cfg) * CE_MESH_QUERIES
+        mesh_equal = [bool(torch.equal(run["topk_idx"], dres.topk_idx.cpu()))
+                      for run in ce_ranks]
+        host_equal = bool(torch.equal(dres.topk_idx, hres.topk_idx))
+        faults += [f"real-CE mesh: rank {r}'s ids differ from the single-device "
+                   "DeviceCEScorer's" for r, ok in enumerate(mesh_equal) if not ok]
+        if not host_equal:
+            faults.append("DeviceCEScorer's ids differ from CrossEncoderScorer's on one device")
+        faults += [f"real-CE mesh: rank {r} launched no flash kernel"
+                   for r, run in enumerate(ce_ranks) if not run["launches"]["flash_attention"]]
+        ce_sum = sum(run["ce_calls"] for run in ce_ranks)
+        if ce_sum != plan:
+            faults.append(f"real-CE mesh: measured CE {ce_sum} != plan {plan}")
+        real_ce = dict(mesh=list(CE_MESH), n_items=CE_MESH_ITEMS, b=CE_MESH_QUERIES,
+                       index_build_s=ce_build_s, measured_ce=ce_sum, ce_plan=plan,
+                       pad_rows_excluded=sum(run["batch_pad"] for run in ce_ranks),
+                       mesh_ms=[run["ms"] for run in ce_ranks], device_ce_ms=dms,
+                       cross_encoder_scorer_ms=hms, mesh_ids_equal=mesh_equal,
+                       device_ce_vs_cross_encoder_ids_equal=host_equal,
+                       topk_overlap_vs_cross_encoder=topk_overlap(dres.topk_idx, hres.topk_idx),
+                       flash_launches_per_rank=[run["launches"]["flash_attention"]
+                                                for run in ce_ranks])
+        del host, ce_index, dsc, params
+
+        probe = probe_world("gloo_probe", tmp, 2)
+        nccl = probe_world("nccl_two", tmp, 2)
+        cli = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
+             "1", "-m", "repro_torch.launch.serve", "--mesh", "1x1", "--fused",
+             "--n-items", "100000", "--requests", "64", "--batch", "16"],
+            env=dict(os.environ, PYTHONPATH=os.path.join(HERE, "src")),
+            capture_output=True, text=True, timeout=300)
+        if not (cli.returncode == 0 and "served 64 requests (0 errors)" in cli.stdout
+                and "measured: 12800 CE calls over 1 ranks" in cli.stdout):
+            faults.append(f"NCCL 1x1 serve CLI failed:\n{cli.stdout[-2000:]}\n"
+                          f"{cli.stderr[-3000:]}")
+        result = dict(mesh=list(SHARDED_MESH), backend="gloo (CUDA tensors staged through "
+                      "host memory), every rank on one card", n_items=index.n_items,
+                      k_q=index.k_q, b=sorted({run[3] for run in sharded_runs()}),
+                      save_s=save_s, world_s=world_s, load_s=load_s,
+                      quantize_s=quantize_s, configs=configs, real_ce_mesh=real_ce,
+                      gloo_cuda_collectives=probe, nccl_two_ranks_one_card=nccl,
+                      nccl_world1_cli=[ln for ln in cli.stdout.splitlines()
+                                       if "served" in ln or "measured" in ln])
+        if faults:
+            emit({"phase": "sharded", **result})
+        check(not faults, "; ".join(faults))
+        return result, launches
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--quick", action="store_true",
                     help="build and check the kernels at small shapes only")
+    ap.add_argument("--rank-worker", nargs=2, metavar=("KIND", "DIR"),
+                    help=argparse.SUPPRESS)   # one rank of the sharded phase's worlds
     args = ap.parse_args()
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
+    if args.rank_worker:
+        return rank_worker(*args.rank_worker)
     try:
         from repro_torch.kernels import build
     except ImportError as e:
@@ -2214,6 +2672,8 @@ def main() -> int:
             emit({"phase": "index_lifecycle", **lifecycle})
             router, router_launches = phase_router(dev, ce, index)
             emit({"phase": "router", **router})
+            sharded, sharded_launches = phase_sharded(dev, ce, index)
+            emit({"phase": "sharded", **sharded})
             del ce, index
             torch.cuda.empty_cache()
             emit({"phase": "retrievers_cpu_vs_card", "runs": phase_retrievers_cpu_vs_card(dev)})
@@ -2240,8 +2700,10 @@ def main() -> int:
             emit({"phase": "dlrm_cpu_vs_card", **phase_dlrm_cpu_vs_card(dev)})
             for name, per_payload in serve_launches.items():
                 for dtype, n in per_payload.items():
-                    # the serve drives and the index lifecycle's searches
-                    launches[topk_entry(name, dtype)] = n + life_launches[name][dtype]
+                    # the serve drives, the index lifecycle's searches and
+                    # every rank's sharded searches
+                    launches[topk_entry(name, dtype)] = (n + life_launches[name][dtype]
+                                                         + sharded_launches[name][dtype])
             launches["approx_topk"] += rr_launches["approx_topk"]     # DLRM retrieval, fp32
             # the comparison, its subset searches and the anytime drives, fp32
             launches["approx_topk"] += retr_launches["approx_topk"]
@@ -2250,7 +2712,8 @@ def main() -> int:
             # the router's replica threads, fp32
             launches["approx_topk"] += router_launches["approx_topk"]
             launches["persistent_round"] += router_launches["persistent_round"]
-            launches.update(flash_attention=ce_launches["flash_attention"],
+            launches.update(flash_attention=ce_launches["flash_attention"]
+                            + sum(sharded["real_ce_mesh"]["flash_launches_per_rank"]),
                             embedding_bag=rs_bags + rr_launches["embedding_bag"])
         for name, n in launches.items():
             check(args.quick or n > 0, f"{name} was never launched on the main path")

@@ -16,8 +16,11 @@ dtype is needed on either side.
 
 A spec is the JSON form of the reference's ``PartitionSpec`` (``[null,
 "data"]``, ``["data"]``, ``[]``): the port writes what it is given, so the
-reference can restore a port-written tree onto a mesh, and reads specs back
-without acting on them (the port has no sharded restore yet, ROADMAP.md).
+reference can restore a port-written tree onto a mesh.  The port's
+counterpart of the reference's ``restore(..., mesh)`` is ``restore(...,
+slices=)``: each rank names the range of a leaf's axis it holds and reads
+only those bytes (the ``.npy`` is memory-mapped), so no rank ever holds a
+whole sharded leaf.
 """
 
 from __future__ import annotations
@@ -57,7 +60,7 @@ def to_host(t: torch.Tensor) -> np.ndarray:
 
 def from_host(arr: np.ndarray, dtype: str, shape, device) -> torch.Tensor:
     """A leaf read from disk as a tensor of its logical dtype and shape."""
-    t = torch.from_numpy(np.require(arr, requirements="C"))   # keeps a 0-d leaf 0-d
+    t = torch.from_numpy(np.array(arr, order="C", copy=True))   # keeps a 0-d leaf 0-d
     if dtype in _BYTE_DTYPES and t.dtype != _BYTE_DTYPES[dtype]:
         t = t.view(torch.uint8).view(_BYTE_DTYPES[dtype])
     if tuple(t.shape) != tuple(shape):
@@ -98,13 +101,29 @@ class Checkpointer:
             shutil.rmtree(final)
         os.replace(tmp, final)  # atomic commit
 
-    def restore(self, step: int, device=None) -> Dict[str, torch.Tensor]:
+    def restore(self, step: int, device=None, slices: Optional[Dict[str, tuple]] = None
+                ) -> Dict[str, torch.Tensor]:
         """Every leaf saved at ``step``, on ``device`` (the card unless
-        ``device="cpu"``)."""
+        ``device="cpu"``).  ``slices`` maps a leaf to ``(axis, lo, hi)``, a
+        range of its logical axis: only that range is read (through a memory
+        map; a raw-byte leaf's last axis scales by its element size).
+        ``bytes_read`` is what the last restore copied off the disk."""
         device = resolve_device(device)
+        slices = slices or {}
         path = os.path.join(self.dir, f"step_{step}")
         with open(os.path.join(path, "manifest.json")) as f:
             manifest = json.load(f)["leaves"]
-        return {key: from_host(np.load(os.path.join(path, meta["file"])), meta["dtype"],
-                               meta["shape"], device)
-                for key, meta in manifest.items()}
+        out, self.bytes_read = {}, 0
+        for key, meta in manifest.items():
+            arr = np.load(os.path.join(path, meta["file"]), mmap_mode="r")
+            shape = list(meta["shape"])
+            if key in slices:
+                axis, lo, hi = slices[key]
+                shape[axis] = hi - lo
+                scale = arr.shape[axis] // meta["shape"][axis] if meta["shape"][axis] else 1
+                index = [slice(None)] * arr.ndim
+                index[axis] = slice(lo * scale, hi * scale)
+                arr = arr[tuple(index)]
+            self.bytes_read += arr.nbytes
+            out[key] = from_host(arr, meta["dtype"], shape, device)
+        return out

@@ -40,7 +40,7 @@ from ..kernels.approx_topk.ops import approx_topk_op
 from ..kernels.approx_topk.select import stable_topk
 from . import prng
 from .adacur import AdaCURResult, ScoreFn
-from .engine import _IndexBacked, ce_call_plan, engine_search, make_engine
+from .engine import _IndexBacked, ce_call_plan, engine_search
 
 
 @dataclass
@@ -256,8 +256,11 @@ class HybridRetriever(_IndexBacked):
             # full-corpus search would stream
             self.r_anc = quant.as_payload(self.r_anc, self.cfg.payload_dtype,
                                           self.cfg.payload_tile)
-        self._run = self._subset_run if self.mode == "subset" else make_engine(
-            self.score_fn, self.cfg)
+        sharded = self.index is not None and self.index._item_sharding()[0] is not None
+        if self.mode == "subset" and sharded:
+            raise ValueError("mode='subset' is single-device (pos_map); use mode='mask' "
+                             "over a sharded index")
+        self._run = self._subset_run if self.mode == "subset" else self._build_engine(self.cfg)
 
     def ce_call_plan(self, rounds: Optional[int] = None) -> int:
         """Planned CE calls per query: the engine's plan, the first stage free."""
@@ -306,5 +309,6 @@ class HybridRetriever(_IndexBacked):
         if self.mode == "subset":
             return self._run(query, cand, key, n_rounds)
         r_anc, kw = self._search_operands()
-        eligible = candidate_eligibility(cand.to(r_anc.device), r_anc.shape[1])
+        n = self.index.capacity if self.index is not None else r_anc.shape[1]
+        eligible = candidate_eligibility(cand.to(r_anc.device), n)
         return self._run(r_anc, query, key, n_rounds=n_rounds, eligible=eligible, **kw)

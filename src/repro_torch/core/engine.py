@@ -1,5 +1,5 @@
-"""Static-shape multi-round ADACUR engine, single device — port of
-``repro/core/engine.py`` (``engine_search`` and ``AdaCURRetriever``).
+"""Static-shape multi-round ADACUR engine — port of ``repro/core/engine.py``
+(``engine_search``, ``make_sharded_engine`` and the retrievers).
 
 The search runs eagerly in PyTorch over preallocated slabs: the anchor-id
 (B, k_i), exact-score (B, k_i), anchor-column (B, k_q, k_i) and
@@ -26,26 +26,40 @@ a candidate set (hybrid retrieval), ``pos_map`` declares the payload a
 candidate subset gathered from those corpus positions (every noise draw
 then reads the canonical field there, so the subset search equals the
 masked full-corpus one bit for bit), and an :class:`AnytimeDeadline` cuts
-the round loop at a wall-clock deadline.  The sharded engine is a later
-slice (ROADMAP.md, queue 1).
+the round loop at a wall-clock deadline.
+
+The sharded engine (:func:`make_sharded_engine`) runs the same search over a
+(data x items) ``torch.distributed`` mesh, one process per rank: the item
+axis of the payload is split into per-rank slabs, the query batch into
+per-rank rows, and the collective layer (``distributed/collectives.py``:
+:class:`ShardCtx` and the cross-shard primitives, with the engine's own
+below) is where a global item id meets a rank's slab.  Its results are
+bitwise those of the single-device engine.
 """
 
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass, field
-from typing import Callable, NamedTuple, Optional, Protocol, runtime_checkable
+from typing import Callable, NamedTuple, Optional, Protocol, Tuple, runtime_checkable
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..configs.base import AdaCURConfig, replace
+from ..distributed import sharding
+from ..distributed.collectives import (ShardCtx, _axes_index, _dims_group, _gather_rows,
+                                       _item_offset, _local_ctx, _local_topk_merge,
+                                       _map_item_ids, _merge_topk, _owned, _psum_items,
+                                       collective_calls)
 from ..kernels.approx_topk import quant
 from ..kernels.approx_topk.ops import approx_topk_op
 from ..kernels.approx_topk.persistent import persistent_round_op
 from ..kernels.approx_topk.select import NEG_INF, stable_topk
 from . import cur, prng, sampling
 from .adacur import AdaCURResult, ScoreFn, query_batch
+from .scorer import _device_ce_score
 
 
 def ce_call_plan(cfg: AdaCURConfig, rounds: Optional[int] = None) -> int:
@@ -113,32 +127,83 @@ class EngineState(NamedTuple):
     selected: torch.Tensor     # (B, N) bool mask of already-selected items
 
 
-def _noise(key, rows: int, n: int, device, col_map=None) -> torch.Tensor:
-    """The (rows, n) rectangle of the canonical noise field, or, for a
-    candidate subset (``col_map``: each column's corpus position), the field
-    at those positions (:func:`sampling.gumbel_at`): the draws a masked
-    full-corpus search sees at the same columns."""
-    if col_map is not None:
-        return sampling.gumbel_at(key, rows, col_map)
-    return sampling.blocked_gumbel(key, rows, n, device=device)
+# ---------------------------------------------------------------------------
+# The engine's side of the collective layer (``distributed/collectives.py``
+# holds ShardCtx and the cross-shard primitives): the per-shard noise, the
+# selected mask, the anchor-column gather, score-once and the early-exit
+# fraction.  On a trivial context every helper is the plain local math.
+# ---------------------------------------------------------------------------
 
 
-def _sample_random(key, selected, k: int, col_map=None):
-    """Uniform w/o replacement over unselected items (the masked-Gumbel
-    formula of the reference's ``_sample_random_ctx``)."""
-    b, n = selected.shape
+def _noise(ctx: ShardCtx, key, rows: int, device) -> torch.Tensor:
+    """This context's (rows, N_local) rectangle of the canonical noise
+    field, or, for a candidate subset (``col_map``: each column's corpus
+    position), the field at those positions (:func:`sampling.gumbel_at`):
+    the draws a masked full-corpus search sees at the same columns."""
+    if ctx.col_map is not None:
+        return sampling.gumbel_at(key, rows, ctx.col_map, ctx.row_offset)
+    return sampling.blocked_gumbel(key, rows, ctx.n_local, ctx.row_offset,
+                                   _item_offset(ctx), device=device)
+
+
+def _sample_random_ctx(ctx: ShardCtx, key, selected, k: int):
+    """Uniform w/o replacement over unselected items (global ids): the
+    masked-Gumbel formula of ``sampling.sample_random`` over this shard's
+    rectangle of the noise field."""
+    b, _ = selected.shape
     logits = torch.where(selected, NEG_INF, 0.0).to(torch.float32)
-    return stable_topk(logits + _noise(key, b, n, selected.device, col_map), k)[1]
+    return _local_topk_merge(ctx, logits + _noise(ctx, key, b, selected.device), k)
 
 
-def _mark_selected(selected, gidx):
-    """Set each row's picks in the selected mask; ids outside [0, N) drop
-    (a guarded scatter into a spare column that is then cut off)."""
+def _mark_selected(ctx: ShardCtx, selected, gidx):
+    """Set each row's (global-id) picks in the local selected mask; ids
+    owned by other shards drop (a guarded scatter into a spare column that
+    is then cut off)."""
     b, n = selected.shape
-    g = gidx.long()
+    g = gidx.long() - _item_offset(ctx)
     g = torch.where((g >= 0) & (g < n), g, n)
     pad = torch.zeros((b, 1), dtype=torch.bool, device=selected.device)
     return torch.cat([selected, pad], 1).scatter_(1, g, True)[:, :n].contiguous()
+
+
+def _gather_cols(ctx: ShardCtx, r_anc, gidx) -> torch.Tensor:
+    """R_anc[:, gidx] -> (B, k_q, k) fp32: each shard dequantizes the
+    columns it owns, zeros elsewhere, one sum over the item group."""
+    if ctx.item_group is None:
+        return quant.gather_columns(r_anc, gidx)
+    local, owned = _owned(ctx, gidx)
+    cols = quant.gather_columns(r_anc, local)
+    return _psum_items(ctx, torch.where(owned[:, None, :], cols, 0.0))
+
+
+def _score_once(ctx: ShardCtx, score_fn: ScoreFn, query, ids):
+    """Exact-CE scores of a (B, k) id batch, computed EXACTLY ONCE across
+    the mesh: item shard 0 of each data shard calls the scorer and
+    broadcasts the fp32 scores to its item group, so a counting scorer's
+    calls, summed over the ranks, equal the plan.  The bits are those of
+    the reference's sum with zeros."""
+    if ctx.item_group is None:
+        return score_fn(query, ids)
+    if ctx.item_shard == 0:
+        c = score_fn(query, ids).to(torch.float32).contiguous()
+    else:
+        c = torch.empty(ids.shape, dtype=torch.float32, device=ids.device)
+    dist.broadcast(c, src=dist.get_global_rank(ctx.item_group, 0), group=ctx.item_group)
+    collective_calls.add()
+    return c
+
+
+def _global_frac(ctx: ShardCtx, hit) -> float:
+    """Batch-mean of a boolean (B_local, m) statistic over the GLOBAL batch
+    (the early-exit monitor must stop every shard on the same round): the
+    hit count, summed over the data group, over the global entry count, in
+    fp32, so the sharded mean is bit-equal to the single-device one."""
+    count = hit.sum().to(torch.int64).reshape(1)
+    if ctx.data_group is not None:
+        dist.all_reduce(count, group=ctx.data_group)
+        collective_calls.add()
+    n = hit.numel() * ctx.n_data_shards
+    return float(np.float32(int(count.item())) / np.float32(n))
 
 
 def _effective_tile(cfg: AdaCURConfig, r_anc) -> int:
@@ -167,95 +232,112 @@ def _bcast_mask(invalid, b: int, n: int):
     return inv.expand(b, n).contiguous()
 
 
-def _provisional_topk(cfg, e_q, r_anc, m: int, n_valid, invalid=None):
-    """Top-m ids of the current estimate S_hat — the early-exit monitor."""
+def _provisional_topk(cfg, e_q, r_anc, m: int, n_valid, invalid=None,
+                      ctx: Optional[ShardCtx] = None):
+    """Top-m ids of the current estimate S_hat — the early-exit monitor.
+    ``invalid`` is the runtime invalid-column mask, (N_local,) or (B,
+    N_local); global ids come back (merged on a sharded context)."""
     n = r_anc.shape[1]
+    ctx = ctx or _local_ctx(n)
+    sharded = ctx.item_group is not None
     if cfg.use_fused_topk:
-        return approx_topk_op(
+        v, idx = approx_topk_op(
             e_q, r_anc, None, m, tile=_effective_tile(cfg, r_anc),
-            n_valid=n_valid, mask=_bcast_mask(invalid, e_q.shape[0], n),
-        )[1]
+            n_valid=None if sharded else n_valid,
+            mask=_bcast_mask(invalid, e_q.shape[0], n),
+        )
+        return _merge_topk(ctx, v, idx + _item_offset(ctx), m)[1] if sharded else idx
     s_hat = quant.matmul(e_q, r_anc)
-    if n_valid is not None and n_valid < n:
+    if n_valid is not None and not sharded and n_valid < n:
         s_hat = torch.where(torch.arange(n, device=s_hat.device) < n_valid, s_hat, NEG_INF)
     if invalid is not None:
         s_hat = torch.where(invalid, NEG_INF, s_hat)
-    return stable_topk(s_hat, m)[1]
+    return _local_topk_merge(ctx, s_hat, m)
 
 
 def _sample_round(cfg, key, state: EngineState, r_anc, k_eff: int, n_valid,
-                  force_mask: bool = False, monitor=None, col_map=None):
-    """One adaptive round's anchor pick (Alg. 3), dense or fused;
-    ``monitor=(m, invalid)`` also returns the provisional top-m of the
-    current estimate — from the same persistent sweep where the sample and
-    provisional branches share the estimate GEMM.  ``col_map`` remaps the
-    noise of a candidate subset to corpus coordinates."""
+                  ctx: ShardCtx, force_mask: bool = False, monitor=None):
+    """One adaptive round's anchor pick (Alg. 3), dense or fused, over this
+    shard's payload slab -> GLOBAL ids; ``monitor=(m, invalid)`` also
+    returns the provisional top-m of the current estimate — from the same
+    persistent sweep where the sample and provisional branches share the
+    estimate GEMM.  A sharded context always suppresses by the (B, N_local)
+    mask (its validity is a runtime bound), draws its noise at its column
+    offset and merges each list over the item shards."""
     b, n = state.selected.shape
+    sharded = ctx.item_group is not None
+    off = _item_offset(ctx)
 
     def with_monitor(gidx):
         if monitor is None:
             return gidx
         m, invalid = monitor
-        return gidx, _provisional_topk(cfg, state.e_q, r_anc, m, n_valid, invalid)
+        return gidx, _provisional_topk(cfg, state.e_q, r_anc, m, n_valid, invalid, ctx)
+
+    def merged(v, idx, k):
+        return _merge_topk(ctx, v, idx + off, k)[1] if sharded else idx
 
     if cfg.strategy == "random":
-        return with_monitor(_sample_random(key, state.selected, k_eff, col_map))
+        return with_monitor(_sample_random_ctx(ctx, key, state.selected, k_eff))
     if not cfg.use_fused_topk:
-        # sampling.sample_topk / sample_softmax, with the noise at col_map
+        # sampling.sample_topk / sample_softmax over this shard's columns
         logits = sampling._masked_logits(quant.matmul(state.e_q, r_anc), state.selected,
                                          cfg.softmax_temp)
         if cfg.strategy == "softmax":
-            logits = logits + _noise(key, b, n, logits.device, col_map)
-        return with_monitor(stable_topk(logits, k_eff)[1])
-    suppress = _fused_suppress(state, force_mask)
+            logits = logits + _noise(ctx, key, b, logits.device)
+        return with_monitor(_local_topk_merge(ctx, logits, k_eff))
+    suppress = _fused_suppress(state, force_mask or sharded)
     tile = _effective_tile(cfg, r_anc)
+    nv = None if sharded else n_valid
     e_q = state.e_q
     if cfg.strategy == "softmax":
         # temp folds into e_q: scores/temp == (e_q/temp) @ R_anc
         e_q = e_q / torch.tensor(cfg.softmax_temp, dtype=e_q.dtype)
     if cfg.round_kernel == "persistent":
-        kw = dict(k_sample=k_eff, tile=tile, n_valid=n_valid, **suppress)
-        if cfg.strategy == "softmax" and col_map is not None:
-            kw["noise"] = _noise(key, b, n, e_q.device, col_map)
+        kw = dict(k_sample=k_eff, tile=tile, n_valid=nv, **suppress)
+        if cfg.strategy == "softmax" and ctx.col_map is not None:
+            kw["noise"] = _noise(ctx, key, b, e_q.device)
         elif cfg.strategy == "softmax":
-            kw["noise_key"] = key
+            kw.update(noise_key=key, row_offset=ctx.row_offset, col_offset=off)
         if monitor is not None and (cfg.strategy == "topk" or cfg.softmax_temp == 1.0):
             m, invalid = monitor
-            (_, idx), (_, pidx) = persistent_round_op(
+            (v, idx), (pv, pidx) = persistent_round_op(
                 e_q, r_anc, k_prov=m, prov_mask=_bcast_mask(invalid, b, n), **kw
             )
-            return idx, pidx
-        (_, idx), _ = persistent_round_op(e_q, r_anc, **kw)
-        return with_monitor(idx)
-    noise = _noise(key, b, n, e_q.device, col_map) if cfg.strategy == "softmax" else None
-    _, idx = approx_topk_op(e_q, r_anc, k=k_eff, tile=tile, noise=noise,
-                            n_valid=n_valid, **suppress)
-    return with_monitor(idx)
+            return merged(v, idx, k_eff), merged(pv, pidx, m)
+        (v, idx), _ = persistent_round_op(e_q, r_anc, **kw)
+        return with_monitor(merged(v, idx, k_eff))
+    noise = _noise(ctx, key, b, e_q.device) if cfg.strategy == "softmax" else None
+    v, idx = approx_topk_op(e_q, r_anc, k=k_eff, tile=tile, noise=noise,
+                            n_valid=nv, **suppress)
+    return with_monitor(merged(v, idx, k_eff))
 
 
 def _make_round_steps(scored, r_anc, query, cfg, keys, k_s: int, n_valid,
-                      force_mask: bool = False, col_map=None):
+                      ctx: ShardCtx, force_mask: bool = False):
     """The round split into ``sample(r, state, monitor=None)`` (the pick)
     and ``apply(r, state, idx_new)`` (ε mix, CE scoring, slab and pinv
     updates); ``body = apply ∘ sample``.  The persistent monitored loop
     composes them pipelined — ``sample`` reads only state ``apply``
-    finalized, so the values do not change, only the sweeps halve."""
+    finalized, so the values do not change, only the sweeps halve.  Every
+    item id in play is global; ``scored`` scores each pair once across the
+    mesh."""
     n_rand = int(round(cfg.round_epsilon * k_s))
 
     def sample(r, state, monitor=None):
-        return _sample_round(cfg, keys[r], state, r_anc, k_s - n_rand, n_valid,
-                             force_mask, monitor=monitor, col_map=col_map)
+        return _sample_round(cfg, keys[r], state, r_anc, k_s - n_rand, n_valid, ctx,
+                             force_mask, monitor=monitor)
 
     def apply(r, state, idx_new):
         if n_rand:
-            sel_tmp = _mark_selected(state.selected, idx_new)
-            idx_rand = _sample_random(prng.fold_in(keys[r], 1), sel_tmp, n_rand, col_map)
+            sel_tmp = _mark_selected(ctx, state.selected, idx_new)
+            idx_rand = _sample_random_ctx(ctx, prng.fold_in(keys[r], 1), sel_tmp, n_rand)
             idx_new = torch.cat([idx_new, idx_rand], dim=1)
         idx_new = idx_new.to(torch.int32)
-        selected = _mark_selected(state.selected, idx_new)
+        selected = _mark_selected(ctx, state.selected, idx_new)
         start = r * k_s
         c_new = scored(query, idx_new)
-        cols_new = quant.gather_columns(r_anc, idx_new)
+        cols_new = _gather_cols(ctx, r_anc, idx_new)
         anchor_idx = state.anchor_idx.clone()
         anchor_idx[:, start:start + k_s] = idx_new
         c_test = state.c_test.clone()
@@ -263,16 +345,45 @@ def _make_round_steps(scored, r_anc, query, cfg, keys, k_s: int, n_valid,
         a_buf = state.a_buf.clone()
         a_buf[:, :, start:start + k_s] = cols_new
         if cfg.incremental_pinv:
-            p = cur.block_pinv_extend_static(state.a_buf, state.p, cols_new, start)
+            p = _rowwise(lambda a, q, c: cur.block_pinv_extend_static(a, q, c, start),
+                         state.a_buf, state.p, cols_new)
         else:
-            p = cur.pinv(a_buf, cfg.pinv_rcond)
-        e_q = torch.einsum("bk,bkq->bq", c_test, p)
-        return EngineState(anchor_idx, c_test, a_buf, p, e_q, selected)
+            p = _rowwise(lambda a: cur.pinv(a, cfg.pinv_rcond), a_buf)
+        return EngineState(anchor_idx, c_test, a_buf, p, _e_q(c_test, p), selected)
 
     def body(r, state):
         return apply(r, state, sample(r, state))
 
     return sample, apply, body
+
+
+# the fewest rows a call of the per-row estimate math (pinv, its bordered
+# update, e_q) takes on the card: for a small batch cuSOLVER and cuBLAS
+# take other kernels (a per-matrix LU, a plain GEMM) than for a large one,
+# and so give a row other bits, while from 64 rows on a row's bits do not
+# depend on its batch (tests/test_torch_cuda.py holds 1-200 row calls to a
+# 256-row batch's bits).  That is what lets a data shard of any row count
+# reproduce the single-device engine bit for bit.
+STATE_MIN_ROWS = 64
+
+
+def _rowwise(fn, *xs):
+    """``fn(*xs)`` over a batch of per-row problems; on the card a batch of
+    fewer than ``STATE_MIN_ROWS`` rows runs padded to that many with copies
+    of its last row."""
+    b = xs[0].shape[0]
+    if b >= STATE_MIN_ROWS or xs[0].device.type != "cuda":
+        return fn(*xs)
+    pad = torch.arange(STATE_MIN_ROWS, device=xs[0].device).clamp(max=b - 1)
+    return fn(*(x[pad] for x in xs))[:b]
+
+
+def _e_q(c_test, p):
+    """e_q = c_test @ p per row, (B, k_i) x (B, k_i, k_q) -> (B, k_q), as a
+    product and a reduction over k_i: on the card its bits do not depend on
+    the batch, where a batched GEMM's do (cuBLAS picks its kernel by the
+    batch)."""
+    return _rowwise(lambda c, q: (c[:, :, None] * q).sum(1), c_test, p)
 
 
 def _pad_short_ranking(top_idx, top_s):
@@ -282,17 +393,17 @@ def _pad_short_ranking(top_idx, top_s):
             torch.where(ok, top_s, top_s[:, :1]))
 
 
-def _hit_frac(cur_top, prev_top) -> float:
-    hit = (cur_top[:, :, None] == prev_top[:, None, :]).any(-1)
-    return hit.to(torch.float32).mean().item()
+def _hit(cur_top, prev_top):
+    return (cur_top[:, :, None] == prev_top[:, None, :]).any(-1)
 
 
 def engine_search(score_fn: ScoreFn, r_anc, query, cfg: AdaCURConfig, key,
                   first_anchors=None, batch: Optional[int] = None,
                   n_valid_items=None, n_rounds: Optional[int] = None,
                   return_scores: Optional[bool] = None,
-                  item_ids=None, eligible=None, pos_map=None,
-                  deadline: Optional[AnytimeDeadline] = None) -> AdaCURResult:
+                  item_ids=None, eligible=None, pos_map=None, item_tokens=None,
+                  deadline: Optional[AnytimeDeadline] = None,
+                  _ctx: Optional[ShardCtx] = None) -> AdaCURResult:
     """Run Algorithm 1 (+ retrieval) through the static-shape round engine.
 
     Runs on the payload's device.  ``query`` is any batched query pytree (a
@@ -315,18 +426,46 @@ def engine_search(score_fn: ScoreFn, r_anc, query, cfg: AdaCURConfig, key,
     subset coordinates; callers map them through ``pos_map``.
     ``deadline`` (``loop_mode='fori'`` only) cuts the round loop at an
     armed :class:`AnytimeDeadline`.
+
+    A device-resident scorer (``score_fn.device_resident``, e.g.
+    :class:`~repro_torch.core.scorer.DeviceCEScorer`) scores in the engine:
+    ``query`` is then the (B, Lq) query token batch and ``item_tokens`` the
+    (N, Li) corpus token table (position-indexed like the payload;
+    ``item_ids`` never applies), defaulting to the scorer's own table.
+
+    ``_ctx`` is the shard context when this call is one rank's part of the
+    sharded engine (:func:`make_sharded_engine`): ``r_anc``, ``item_ids``,
+    ``eligible`` and ``item_tokens`` are then this rank's LOCAL slabs and
+    ``query`` its batch rows, while ``n_valid_items`` stays the GLOBAL
+    valid count.
     """
     r_anc = quant.as_payload(r_anc, cfg.payload_dtype, cfg.payload_tile)
     k_q, n_items = r_anc.shape
     dev = r_anc.device
+    if pos_map is not None and _ctx is not None:
+        raise ValueError("pos_map (candidate-subset search) is single-shard only; under "
+                         "a mesh use the eligible mask over the sharded full corpus")
     col_map = None if pos_map is None else torch.as_tensor(pos_map, device=dev)
+    ctx = _ctx or _local_ctx(n_items, col_map)
+    sharded = ctx.item_group is not None
+    n_global = n_items * ctx.n_item_shards
     k_i = cfg.budget_ce if not cfg.split_budget else cfg.k_anchor
     r_max = cfg.n_rounds
     k_s = k_i // r_max
     if return_scores is None:
-        return_scores = not cfg.use_fused_topk
+        return_scores = not cfg.use_fused_topk and not sharded
+    if sharded and return_scores:
+        raise ValueError("return_scores is unavailable under the sharded engine: the "
+                         "(B, N) approximate score matrix is exactly what sharding "
+                         "refuses to materialize")
     n_valid, invalid = None, None
-    if n_valid_items is not None:
+    if sharded:
+        # always the dynamic-mask path: validity is a local column mask
+        # derived from the (replicated) global bound
+        nv = n_global if n_valid_items is None else n_valid_items
+        nv = torch.clamp(torch.as_tensor(nv, device=dev), max=n_global)
+        invalid = _item_offset(ctx) + torch.arange(n_items, device=dev) >= nv
+    elif n_valid_items is not None:
         if isinstance(n_valid_items, (int, np.integer)):
             if n_valid_items < n_items:
                 n_valid = int(n_valid_items)
@@ -344,16 +483,44 @@ def engine_search(score_fn: ScoreFn, r_anc, query, cfg: AdaCURConfig, key,
     dyn_valid = invalid is not None or eligible is not None
     if cfg.loop_mode == "unrolled" and n_rounds is not None:
         raise ValueError("runtime n_rounds override requires loop_mode='fori'")
-    if deadline is not None and cfg.loop_mode != "fori":
-        raise ValueError("an anytime deadline needs the runtime round loop: "
-                         "use loop_mode='fori'")
+    if deadline is not None:
+        if cfg.loop_mode != "fori":
+            raise ValueError("an anytime deadline needs the runtime round loop: "
+                             "use loop_mode='fori'")
+        if sharded:
+            raise ValueError("anytime deadlines are single-device only: per-rank clocks "
+                             "would disagree on the round count and deadlock the "
+                             "collectives; the serving tier's unit of redundancy is the "
+                             "replica, not the shard")
 
     b = query_batch(query, first_anchors, batch)
     if first_anchors is not None and tuple(first_anchors.shape) != (b, k_s):
         raise ValueError(f"first_anchors must be ({b}, k_s={k_s}), got "
                          f"{tuple(first_anchors.shape)}")
 
-    if item_ids is not None:
+    # the score-once wrapper: positions -> external ids -> one CE call per
+    # pair across the mesh, or, for a device-resident scorer, positions ->
+    # token rows -> the CE forward, split over the item shards
+    if getattr(score_fn, "device_resident", False):
+        if item_tokens is None:
+            item_tokens = getattr(score_fn, "item_tokens", None)
+        if item_tokens is None:
+            raise ValueError("a device-resident scorer needs the corpus token table: pass "
+                             "item_tokens= (carried by AnchorIndex.with_item_tokens) or "
+                             "construct the scorer with one")
+        if item_tokens.shape[0] != n_items:
+            raise ValueError(f"item_tokens rows ({item_tokens.shape[0]}) must match the "
+                             f"payload's item columns ({n_items}); the token table is "
+                             "position-indexed alongside r_anc")
+        item_tokens = item_tokens.to(dev)
+
+        def scored(q, gidx, _tok=item_tokens):
+            return _device_ce_score(ctx, score_fn, q, gidx, _tok)
+    elif sharded:
+        def scored(q, gidx):
+            ids = gidx if item_ids is None else _map_item_ids(ctx, item_ids, gidx)
+            return _score_once(ctx, score_fn, q, ids)
+    elif item_ids is not None:
         def scored(q, gidx, _f=score_fn, _ids=item_ids):
             return _f(q, _ids[gidx.long()])
     else:
@@ -373,10 +540,10 @@ def engine_search(score_fn: ScoreFn, r_anc, query, cfg: AdaCURConfig, key,
     if first_anchors is not None and cfg.first_round == "retriever":
         idx0 = first_anchors.to(device=dev, dtype=torch.int32)
     else:
-        idx0 = _sample_random(keys[0], selected, k_s, col_map)
-    selected = _mark_selected(selected, idx0)
+        idx0 = _sample_random_ctx(ctx, keys[0], selected, k_s)
+    selected = _mark_selected(ctx, selected, idx0)
     c0 = scored(query, idx0).to(torch.float32)
-    cols0 = quant.gather_columns(r_anc, idx0)
+    cols0 = _gather_cols(ctx, r_anc, idx0)
     anchor_idx = torch.full((b, k_i), -1, dtype=torch.int32, device=dev)
     anchor_idx[:, :k_s] = idx0
     c_test = torch.zeros((b, k_i), dtype=torch.float32, device=dev)
@@ -386,13 +553,13 @@ def engine_search(score_fn: ScoreFn, r_anc, query, cfg: AdaCURConfig, key,
     p = torch.zeros((b, k_i, k_q), dtype=torch.float32, device=dev)
     e_q = torch.zeros((b, k_q), dtype=torch.float32, device=dev)
     if cfg.split_budget or return_scores or r_max > 1:
-        p[:, :k_s, :] = (cur.incremental_pinv_init(cols0, cfg.pinv_rcond)
-                         if cfg.incremental_pinv else cur.pinv(cols0, cfg.pinv_rcond))
-        e_q = torch.einsum("bk,bkq->bq", c_test, p)
+        init = cur.incremental_pinv_init if cfg.incremental_pinv else cur.pinv
+        p[:, :k_s, :] = _rowwise(lambda a: init(a, cfg.pinv_rcond), cols0)
+        e_q = _e_q(c_test, p)
     state = EngineState(anchor_idx, c_test, a_buf, p, e_q, selected)
 
     sample_step, apply_step, body = _make_round_steps(
-        scored, r_anc, query, cfg, keys, k_s, n_valid, force_mask=dyn_valid, col_map=col_map
+        scored, r_anc, query, cfg, keys, k_s, n_valid, ctx, force_mask=dyn_valid
     )
 
     # --- rounds 1..n_rounds-1 ---------------------------------------------
@@ -404,7 +571,7 @@ def engine_search(score_fn: ScoreFn, r_anc, query, cfg: AdaCURConfig, key,
         r_dyn = min(max(int(r_max if n_rounds is None else n_rounds), 1), r_max)
         # the reference compares a float32 overlap with a float32 bound
         stop_at = float(np.float32(1.0 - cfg.early_exit_tol))
-        m = min(cfg.k_retrieve, n_items)
+        m = min(cfg.k_retrieve, n_global)
         monitor = (m, mon_invalid)
         r, frac = 1, 0.0
 
@@ -416,13 +583,14 @@ def engine_search(score_fn: ScoreFn, r_anc, query, cfg: AdaCURConfig, key,
             while r < r_dyn and frac < stop_at and not cut():
                 state = apply_step(r, state, pending)
                 pending, cur_top = sample_step(r + 1, state, monitor=monitor)
-                frac, prev, r = _hit_frac(cur_top, prev), cur_top, r + 1
+                frac, prev, r = _global_frac(ctx, _hit(cur_top, prev)), cur_top, r + 1
         elif cfg.early_exit_tol > 0.0:
-            prev = _provisional_topk(cfg, state.e_q, r_anc, m, n_valid, mon_invalid)
+            prev = _provisional_topk(cfg, state.e_q, r_anc, m, n_valid, mon_invalid, ctx)
             while r < r_dyn and frac < stop_at and not cut():
                 state = body(r, state)
-                cur_top = _provisional_topk(cfg, state.e_q, r_anc, m, n_valid, mon_invalid)
-                frac, prev, r = _hit_frac(cur_top, prev), cur_top, r + 1
+                cur_top = _provisional_topk(cfg, state.e_q, r_anc, m, n_valid, mon_invalid,
+                                            ctx)
+                frac, prev, r = _global_frac(ctx, _hit(cur_top, prev)), cur_top, r + 1
         else:
             while r < r_dyn and not cut():
                 state = body(r, state)
@@ -444,15 +612,17 @@ def engine_search(score_fn: ScoreFn, r_anc, query, cfg: AdaCURConfig, key,
 
     k_r = cfg.budget_ce - k_i
     if cfg.use_fused_topk:
-        _, rerank_idx = approx_topk_op(
+        v_r, rerank_idx = approx_topk_op(
             state.e_q, r_anc, k=k_r, tile=_effective_tile(cfg, r_anc),
-            n_valid=n_valid, **_fused_suppress(state, dyn_valid),
+            n_valid=None if sharded else n_valid, **_fused_suppress(state, dyn_valid),
         )
+        if sharded:
+            rerank_idx = _merge_topk(ctx, v_r, rerank_idx + _item_offset(ctx), k_r)[1]
     else:
         full = s_hat if s_hat is not None else quant.matmul(state.e_q, r_anc)
-        rerank_idx = stable_topk(torch.where(state.selected, NEG_INF, full), k_r)[1]
+        rerank_idx = _local_topk_merge(ctx, torch.where(state.selected, NEG_INF, full), k_r)
     rerank_scores = scored(query, rerank_idx).to(torch.float32)
-    pool_idx = torch.cat([anchor_idx, rerank_idx], dim=1)
+    pool_idx = torch.cat([anchor_idx, rerank_idx.to(torch.int32)], dim=1)
     pool_scores = torch.cat([anchor_logits, rerank_scores], dim=1)
     top_s, top_pos = stable_topk(pool_scores, min(cfg.k_retrieve, pool_idx.shape[1]))
     top_idx = torch.gather(pool_idx, 1, top_pos.long())
@@ -478,15 +648,128 @@ def make_engine(score_fn: ScoreFn, cfg: AdaCURConfig, return_scores: Optional[bo
         deadline = AnytimeDeadline()
 
     def run(r_anc, query, key, first_anchors=None, batch=None, n_rounds=None,
-            n_valid=None, item_ids=None, eligible=None, pos_map=None):
+            n_valid=None, item_ids=None, eligible=None, pos_map=None, item_tokens=None):
         return engine_search(
             score_fn, r_anc, query, cfg, key, first_anchors=first_anchors,
             batch=batch, n_valid_items=n_valid,
             n_rounds=n_rounds, return_scores=return_scores, item_ids=item_ids,
-            eligible=eligible, pos_map=pos_map, deadline=deadline,
+            eligible=eligible, pos_map=pos_map, item_tokens=item_tokens,
+            deadline=deadline,
         )
 
     run.deadline = deadline
+    return run
+
+
+def _rows(tree, lo: int, hi: int):
+    """Rows [lo, hi) of every leaf of a batched query pytree."""
+    if isinstance(tree, dict):
+        return {k: _rows(v, lo, hi) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_rows(v, lo, hi) for v in tree)
+    return tree[lo:hi]
+
+
+def make_sharded_engine(score_fn: ScoreFn, cfg: AdaCURConfig, mesh, *,
+                        item_axes: Tuple[str, ...] = ("items",)) -> Callable:
+    """The sharded engine over a (data x items) ``DeviceMesh``, one process
+    per rank.  The returned callable has :func:`make_engine`'s signature;
+    every rank calls it, with the same global query batch and key and its
+    OWN slabs of the item axis: ``r_anc`` (k_q, N_local) (a coded payload's
+    codes with their co-sharded tile scales), ``item_ids`` and
+    ``item_tokens`` (N_local, ...), as ``AnchorIndex.shard`` /
+    ``load(path, mesh)`` hold them.  ``eligible`` and ``first_anchors`` are
+    global; ``n_valid`` is the global valid count.
+
+    Inside, the whole multi-round search is :func:`engine_search` on a live
+    :class:`ShardCtx`: ``item_axes`` shard the payload, the ``selected``
+    slab and the id map, and per-round candidates cross shards only as
+    (B, k) lists through the tie-break merge; the mesh dimensions named
+    ``pod`` or ``data`` outside ``item_axes`` shard the query batch, each
+    rank taking its rows by ``row_offset`` (the noise field keys off global
+    rows, so the split never changes a trajectory); the pinv / ``e_q``
+    state is per row and replicated over the item shards.  Every rank returns the global (B, k) result, assembled over
+    the data shards, and ``anchor_idx``, ``topk_idx``, ``topk_scores`` and
+    ``rounds_done`` are bitwise those of the single-device engine.
+
+    Checked here: the global batch divides over the data shards; the slab
+    holds whole ``NOISE_BLOCK`` noise blocks (more than one item shard) and
+    whole payload tiles (``AnchorIndex.shard`` aligns both); every
+    per-shard candidate list (``k_s``, the rerank budget, ``k_retrieve``)
+    fits in one slab; and no ``pos_map`` (subset search is single-device)."""
+    item_axes = (item_axes,) if isinstance(item_axes, str) else tuple(item_axes)
+    data_axes = tuple(a for a in sharding.batch_axes(mesh) if a not in item_axes)
+    n_item_shards = sharding.axis_size(mesh, item_axes)
+    n_data_shards = sharding.axis_size(mesh, data_axes) if data_axes else 1
+    item_group = _dims_group(mesh, item_axes)
+    data_group = _dims_group(mesh, data_axes) if data_axes else None
+    item_shard = _axes_index(item_group)
+    data_shard = _axes_index(data_group) if data_group is not None else 0
+    k_i = cfg.budget_ce if not cfg.split_budget else cfg.k_anchor
+    k_s = k_i // cfg.n_rounds
+    k_r = cfg.budget_ce - k_i if cfg.split_budget else 0
+
+    def _validate(r_anc, b_global: int) -> int:
+        n_local = r_anc.shape[1]
+        capacity = n_local * n_item_shards
+        if n_item_shards > 1 and n_local % sampling.NOISE_BLOCK:
+            raise ValueError(f"per-shard slab {n_local} must hold whole NOISE_BLOCK="
+                             f"{sampling.NOISE_BLOCK} noise blocks (AnchorIndex.shard "
+                             "aligns this)")
+        if isinstance(r_anc, quant.QuantizedRanc) and n_local % r_anc.tile:
+            raise ValueError(f"per-shard slab {n_local} must hold whole payload tiles "
+                             f"({r_anc.tile})")
+        need = max(k_s, k_r, min(cfg.k_retrieve, capacity))
+        if need > n_local:
+            raise ValueError(f"per-shard candidate list ({need}) exceeds the per-shard "
+                             f"slab ({n_local}); use fewer item shards")
+        if b_global % n_data_shards:
+            raise ValueError(f"batch {b_global} not divisible over {n_data_shards} "
+                             "data shards")
+        return n_local
+
+    def run(r_anc, query, key, first_anchors=None, batch=None, n_rounds=None,
+            n_valid=None, item_ids=None, eligible=None, pos_map=None, item_tokens=None):
+        if pos_map is not None:
+            raise ValueError("pos_map (candidate-subset search) is single-shard only; "
+                             "pass eligible= to restrict a sharded search")
+        if batch is not None:
+            raise ValueError("the sharded engine derives the batch from the query leaves "
+                             "(or first_anchors); pass batched query operands instead")
+        r_anc = quant.as_payload(r_anc, cfg.payload_dtype, cfg.payload_tile)
+        dev = r_anc.device
+        b = query_batch(query, first_anchors)
+        n_local = _validate(r_anc, b)
+        off = item_shard * n_local
+        b_local = b // n_data_shards
+        lo = data_shard * b_local
+        if n_valid is None:
+            n_valid = n_local * n_item_shards
+        if item_ids is None:
+            item_ids = off + torch.arange(n_local, dtype=torch.int32, device=dev)
+        if item_tokens is None and getattr(score_fn, "device_resident", False):
+            table = getattr(score_fn, "item_tokens", None)   # the scorer's: global
+            if table is not None:
+                item_tokens = table[off:off + n_local]
+        if eligible is not None:
+            eligible = torch.as_tensor(eligible, device=dev).to(torch.bool)
+            eligible = (eligible[off:off + n_local] if eligible.dim() == 1
+                        else eligible[lo:lo + b_local, off:off + n_local])
+        ctx = ShardCtx(item_group, data_group, n_local, n_item_shards, item_shard, lo,
+                       None, n_data_shards)
+        res = engine_search(
+            score_fn, r_anc, _rows(query, lo, lo + b_local), cfg, key,
+            first_anchors=None if first_anchors is None else first_anchors[lo:lo + b_local],
+            n_valid_items=n_valid, n_rounds=n_rounds, return_scores=False,
+            item_ids=item_ids, eligible=eligible, item_tokens=item_tokens, _ctx=ctx,
+        )
+        return AdaCURResult(
+            _gather_rows(ctx, res.anchor_idx), _gather_rows(ctx, res.anchor_scores), None,
+            _gather_rows(ctx, res.topk_idx), _gather_rows(ctx, res.topk_scores),
+            ce_call_plan(cfg), res.rounds_done,
+        )
+
+    run.deadline = None
     return run
 
 
@@ -508,7 +791,28 @@ class _IndexBacked:
     list.  ``cfg.payload_dtype`` is applied to the index once, at
     construction (:meth:`_apply_payload_policy`); an index that is already
     coded (int8, int4, fp8) is authoritative and passes through.  A
-    subclass holds ``score_fn``, ``r_anc`` and ``index``."""
+    subclass holds ``score_fn``, ``r_anc`` and ``index``.
+
+    An index whose item axis is placed over a mesh (``AnchorIndex.shard`` /
+    ``load(path, mesh)``) makes the retriever bind the sharded engine
+    (:func:`make_sharded_engine`) instead: every rank of the mesh then
+    calls ``search`` with the same query batch and key, and gets the
+    global result, bit-identical to the single-device engine's."""
+
+    def _build_engine(self, cfg: AdaCURConfig, return_scores: Optional[bool] = None,
+                      anytime: bool = False) -> Callable:
+        """make_engine or make_sharded_engine, by the index's placement."""
+        idx = getattr(self, "index", None)
+        mesh, axes = idx._item_sharding() if idx is not None else (None, None)
+        self._sharded = mesh is not None
+        if mesh is None:
+            return make_engine(self.score_fn, cfg, return_scores=return_scores,
+                               anytime=anytime)
+        if anytime:
+            raise ValueError("anytime deadlines are single-device only: ranks polling "
+                             "their own clocks would stop on different rounds and "
+                             "deadlock the collectives")
+        return make_sharded_engine(self.score_fn, cfg, mesh, item_axes=axes)
 
     def _apply_payload_policy(self, cfg: AdaCURConfig) -> None:
         idx = self.index
@@ -516,6 +820,8 @@ class _IndexBacked:
             return
         if idx.payload_dtype == cfg.payload_dtype or idx.payload_dtype in quant.CODE_DTYPES:
             return
+        # a sharded index quantizes its own slab (re-aligning the slabs to
+        # whole tiles first), keeping its placement
         self.index = idx.quantize(cfg.payload_dtype, tile=cfg.payload_tile)
 
     def _prep_query(self, query):
@@ -531,6 +837,11 @@ class _IndexBacked:
         kw = dict(item_ids=self.index.item_ids)
         if self.index.capacity > self.index.n_items:
             kw["n_valid"] = self.index.n_valid
+        if (getattr(self.score_fn, "device_resident", False)
+                and self.index.item_tokens is not None):
+            # the index's table is authoritative: position-aligned with the
+            # payload through every mutation
+            kw["item_tokens"] = self.index.item_tokens
         return self.index.r_anc, kw
 
 
@@ -552,7 +863,7 @@ class AdaCURRetriever(_IndexBacked):
         if self.r_anc is None and self.index is None:
             raise ValueError("need r_anc or an AnchorIndex")
         self._apply_payload_policy(self.cfg)
-        self._run = make_engine(self.score_fn, self.cfg, anytime=self.anytime)
+        self._run = self._build_engine(self.cfg, anytime=self.anytime)
         self.deadline = self._run.deadline
 
     @classmethod
@@ -619,7 +930,7 @@ class ANNCURRetriever(_IndexBacked):
             pinv_rcond=self.pinv_rcond, round_epsilon=0.0, early_exit_tol=0.0,
         )
         self._apply_payload_policy(self.cfg)
-        self._run = make_engine(self.score_fn, self.cfg)
+        self._run = self._build_engine(self.cfg)
 
     @classmethod
     def from_index(cls, index, score_fn: ScoreFn, budget_ce: int, k_retrieve: int = 100,
@@ -666,7 +977,7 @@ class RerankRetriever(_IndexBacked):
         )
         self._apply_payload_policy(self.cfg)
         # pure rerank never reads S_hat: no pinv/e_q machinery
-        self._run = make_engine(self.score_fn, self.cfg, return_scores=False)
+        self._run = self._build_engine(self.cfg, return_scores=False)
 
     @classmethod
     def from_index(cls, index, score_fn: ScoreFn, budget_ce: int, k_retrieve: int = 100,
@@ -709,7 +1020,8 @@ def round_body_bn_intermediates(score_fn: ScoreFn, r_anc, query, cfg: AdaCURConf
     k_s = k_i // cfg.n_rounds
     b = query_batch(query, batch=batch)
     keys = prng.split(prng.PRNGKey(0), cfg.n_rounds + 1)
-    _, _, body = _make_round_steps(score_fn, r_anc, query, cfg, keys, k_s, None)
+    _, _, body = _make_round_steps(score_fn, r_anc, query, cfg, keys, k_s, None,
+                                   _local_ctx(n_items))
     state = EngineState(
         anchor_idx=torch.zeros((b, k_i), dtype=torch.int32, device=dev),
         c_test=torch.zeros((b, k_i), device=dev),

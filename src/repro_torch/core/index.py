@@ -18,8 +18,19 @@
 The item axis is padded to ``capacity``; positions ``[0, n_valid)`` hold
 real items (column ``j`` of ``r_anc`` scores item ``item_ids[j]``) and the
 tail holds exact-zero columns with ``item_ids == -1``.  Every method
-returns a new index and leaves the old one's tensors untouched.  Sharding
-(``shard``, ``load(mesh)``) is a later slice (ROADMAP.md, queue 1).
+returns a new index and leaves the old one's tensors untouched.
+
+- **shard**: :meth:`AnchorIndex.shard` places the item axis over a
+  ``torch.distributed`` mesh (``distributed/sharding.py``'s rules): each
+  rank keeps only its column slab of the payload (a coded payload's codes
+  with their tile scales), ``item_ids``, ``item_embeddings`` and
+  ``item_tokens``, and the small leaves whole.  :meth:`load` with a mesh
+  reads only the rank's columns off the disk.  :meth:`topk` then merges
+  per-shard candidates over the item shards, the retrievers bind the
+  sharded engine, and ``with_capacity`` / ``add_items`` / ``remove_items``
+  keep the placement (each rank writes the columns it owns; compaction
+  moves columns between ranks one slab broadcast at a time).  Every rank
+  of the mesh calls these methods together.
 """
 
 from __future__ import annotations
@@ -27,18 +38,24 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import json
+import math
 import os
 from dataclasses import dataclass
-from typing import Callable, Optional, Union
+from typing import Callable, Optional, Tuple, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..checkpoint.checkpointer import Checkpointer
+from ..distributed import sharding
+from ..distributed.collectives import (ShardCtx, _all_gather, _dims_group, _map_item_ids,
+                                       _merge_topk, _owned, _psum_items, _redistribute)
 from ..kernels.approx_topk import quant
 from ..kernels.approx_topk.ops import approx_topk_op
 from ..kernels.approx_topk.quant import QuantizedRanc
 from . import cur, prng
+from .sampling import NOISE_BLOCK
 
 # bulk_score_fn(query_ids (Q,), item_ids (N,)) -> (Q, N) exact scores
 BulkScoreFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
@@ -145,6 +162,23 @@ def _pad_axis(x: torch.Tensor, axis: int, target: int, fill) -> torch.Tensor:
     return torch.cat([x, torch.full(shape, fill, dtype=x.dtype, device=x.device)], dim=axis)
 
 
+def _item_axes_for(mesh, k_q: int, grain: int, rules=None) -> Tuple[str, ...]:
+    """The mesh dimensions the rules give the item axis: probed with a
+    capacity every dimension divides, so on a (data x items) mesh the data
+    dimension never inflates the alignment."""
+    probe = sharding.spec_for(mesh, ("anchor_q", "items"),
+                              (k_q, math.prod(tuple(mesh.shape)) * grain), rules)
+    axes = probe[1] if len(probe) > 1 else None
+    if axes is None:
+        raise ValueError(f"item axis not shardable over mesh {sharding.mesh_dims(mesh)}")
+    return (axes,) if isinstance(axes, str) else tuple(axes)
+
+
+def _shard_grain(r_anc) -> int:
+    """A slab's width unit: whole payload tiles and whole noise blocks."""
+    return math.lcm(r_anc.tile if isinstance(r_anc, QuantizedRanc) else 1, NOISE_BLOCK)
+
+
 @dataclass
 class AnchorIndex:
     r_anc: Union[torch.Tensor, QuantizedRanc]   # (k_q, capacity) payload
@@ -158,14 +192,42 @@ class AnchorIndex:
     # optional corpus token table: row j tokenizes the item at position j,
     # kept in positional lockstep with r_anc through every mutation
     item_tokens: Optional[torch.Tensor] = None       # (capacity, item_len) int32
+    # the item axis's placement: the DeviceMesh and its dimensions that split
+    # it (None: whole on this device).  A sharded index holds this rank's
+    # slab of every item-axis tensor; the other tensors are whole.
+    mesh: Optional[object] = None
+    item_axes: Optional[Tuple[str, ...]] = None
 
     @property
     def k_q(self) -> int:
         return self.r_anc.shape[0]
 
     @property
-    def capacity(self) -> int:
+    def local_capacity(self) -> int:
+        """Item columns this rank holds (the capacity, unsharded)."""
         return self.r_anc.shape[1]
+
+    @property
+    def n_item_shards(self) -> int:
+        return 1 if self.mesh is None else sharding.axis_size(self.mesh, self.item_axes)
+
+    @property
+    def capacity(self) -> int:
+        return self.local_capacity * self.n_item_shards
+
+    def _group(self):
+        return _dims_group(self.mesh, self.item_axes)
+
+    @property
+    def item_offset(self) -> int:
+        """Global position of this rank's column 0."""
+        return 0 if self.mesh is None else dist.get_rank(self._group()) * self.local_capacity
+
+    def _ctx(self) -> ShardCtx:
+        """The item-shard context of this rank's slab (trivial unsharded)."""
+        group = None if self.mesh is None else self._group()
+        shard = 0 if group is None else dist.get_rank(group)
+        return ShardCtx(group, None, self.local_capacity, self.n_item_shards, shard, 0)
 
     @property
     def device(self) -> torch.device:
@@ -177,8 +239,8 @@ class AnchorIndex:
 
     @property
     def payload_nbytes(self) -> int:
-        """Device bytes of the payload (codes + scales when coded; packed
-        int4 at half a byte a column)."""
+        """Device bytes of this rank's payload (codes + scales when coded;
+        packed int4 at half a byte a column)."""
         if isinstance(self.r_anc, QuantizedRanc):
             return self.r_anc.nbytes
         return self.r_anc.numel() * self.r_anc.element_size()
@@ -192,8 +254,8 @@ class AnchorIndex:
         return self.item_embeddings is not None
 
     def valid_mask(self) -> torch.Tensor:
-        """(capacity,) bool, True on real item positions."""
-        return torch.arange(self.capacity, device=self.device) < self.n_valid
+        """(local_capacity,) bool, True on this rank's real item positions."""
+        return self.item_offset + torch.arange(self.local_capacity, device=self.device) < self.n_valid
 
     def quantize(self, dtype: str = "int8", tile: int = quant.DEFAULT_TILE) -> "AnchorIndex":
         """Re-encode the payload (``int8`` | ``int4`` | ``fp8`` |
@@ -203,6 +265,13 @@ class AnchorIndex:
         dequantized codes (lossy: keep one encoding per artifact)."""
         if dtype not in quant.PAYLOAD_DTYPES:
             raise ValueError(f"unknown payload dtype '{dtype}' (one of {quant.PAYLOAD_DTYPES})")
+        if self.mesh is not None and dtype in quant.CODE_DTYPES:
+            # a rank quantizes its own slab: first re-align the slabs to
+            # whole tiles (the codes of every column below the old capacity
+            # are then those of the unsharded index's)
+            unit = self.n_item_shards * math.lcm(tile, NOISE_BLOCK)
+            if self.capacity % unit:
+                return self.with_capacity(-(-self.capacity // unit) * unit).quantize(dtype, tile)
         cur = self.r_anc
         coded = isinstance(cur, QuantizedRanc)
         if dtype == self.payload_dtype and (not coded or cur.tile == tile):
@@ -226,8 +295,9 @@ class AnchorIndex:
             item_embeddings=move(self.item_embeddings), item_tokens=move(self.item_tokens))
 
     def gather_item_ids(self, pos: torch.Tensor) -> torch.Tensor:
-        """Map engine positions (e.g. ``result.topk_idx``) to external ids."""
-        return self.item_ids[pos.long()]
+        """Map engine positions (e.g. ``result.topk_idx``) to external ids
+        (a sum over the item shards of a sharded index)."""
+        return _map_item_ids(self._ctx(), self.item_ids, pos.to(self.device))
 
     @classmethod
     def from_r_anc(cls, r_anc: torch.Tensor, anchor_query_ids=None,
@@ -283,7 +353,9 @@ class AnchorIndex:
         if n not in (self.n_items, self.capacity):
             raise ValueError(f"item_tokens rows ({n}) must cover the valid items "
                              f"({self.n_items}) or the full capacity ({self.capacity})")
-        return dataclasses.replace(self, item_tokens=_pad_axis(tok, 0, self.capacity, 0))
+        tok = _pad_axis(tok, 0, self.capacity, 0)
+        off = self.item_offset
+        return dataclasses.replace(self, item_tokens=tok[off:off + self.local_capacity].clone())
 
     def with_capacity(self, capacity: int) -> "AnchorIndex":
         """Re-pad the item axis to ``capacity`` (at least ``n_valid``).  A
@@ -292,6 +364,8 @@ class AnchorIndex:
         n = self.n_items
         if capacity < n:
             raise ValueError(f"capacity={capacity} < n_valid={n}")
+        if self.mesh is not None:
+            return self._sharded_with_capacity(capacity)
         if isinstance(self.r_anc, QuantizedRanc):
             dense = _pad_axis(quant.dequantize(self.r_anc)[:, :n], 1, capacity, 0.0)
             r_anc = quant.requantize_preserving_prefix(self.r_anc, dense, n)
@@ -302,6 +376,48 @@ class AnchorIndex:
             self, r_anc=r_anc, item_ids=_pad_axis(self.item_ids[:n], 0, capacity, -1),
             item_embeddings=None if emb is None else _pad_axis(emb[:, :n], 1, capacity, 0.0),
             item_tokens=None if tok is None else _pad_axis(tok[:n], 0, capacity, 0))
+
+    def _sharded_with_capacity(self, capacity: int) -> "AnchorIndex":
+        """with_capacity over the mesh: the slab width changes, so columns
+        move between ranks (:func:`_redistribute`)."""
+        unit = self.n_item_shards * _shard_grain(self.r_anc)
+        if capacity % unit:
+            raise ValueError(f"a sharded index's capacity must be a multiple of {unit} "
+                             f"(item shards x lcm(tile, NOISE_BLOCK)); got {capacity}")
+        n, group = self.n_items, self._group()
+        local = capacity // self.n_item_shards
+        off = dist.get_rank(group) * local
+        pos = off + torch.arange(local, device=self.device)
+        src = torch.where(pos < n, pos, -1)
+        r_anc = self._moved_payload(group, src, n - off)
+        emb, tok = self.item_embeddings, self.item_tokens
+        return dataclasses.replace(
+            self, r_anc=r_anc, item_ids=_redistribute(group, self.item_ids, 0, src, -1),
+            item_embeddings=None if emb is None else _redistribute(group, emb, 1, src, 0),
+            item_tokens=None if tok is None else _redistribute(group, tok, 0, src, 0))
+
+    def _moved_payload(self, group, src: torch.Tensor, keep_local: int):
+        """This rank's new payload slab, column j taken from old global
+        column ``src[j]`` (-1: zero).  A coded payload is re-quantized from
+        the moved values, and every new tile wholly before local column
+        ``keep_local`` gets its old bytes back (the codes and scale that
+        were at the same global position), as ``with_capacity`` and
+        ``remove_items`` keep an unsharded prefix byte for byte."""
+        r = self.r_anc
+        if not isinstance(r, QuantizedRanc):
+            return _redistribute(group, r, 1, src, 0)
+        dense = _redistribute(group, quant.dequantize(r), 1, src, 0.0)
+        local = src.shape[0]
+        keep = max(0, min(int(keep_local), local))
+        tile_src = src[::r.tile]
+        old = QuantizedRanc(
+            _redistribute(group, r.codes, 1,
+                          torch.where(src[::r.packing] >= 0, src[::r.packing] // r.packing, -1),
+                          0),
+            _redistribute(group, r.scales, 0,
+                          torch.where(tile_src >= 0, tile_src // r.tile, -1), 1.0),
+            r.tile, r.code_dtype)
+        return quant.requantize_preserving_prefix(old, dense, keep)
 
     # ---- ANNCUR latents ----------------------------------------------------
 
@@ -323,8 +439,17 @@ class AnchorIndex:
         """:meth:`with_anchors` plus ``U = pinv(R_anc[:, I_anc])`` and the
         latent item embeddings ``E_I = U @ R_anc``."""
         idx = self.with_anchors(k_anchor=k_anchor, key=key, anchor_pos=anchor_pos)
-        u = cur.pinv(quant.take_columns(idx.r_anc, idx.anchor_item_pos), rcond)
+        u = cur.pinv(idx._anchor_columns(), rcond)
         return dataclasses.replace(idx, u=u, item_embeddings=quant.matmul(u, idx.r_anc))
+
+    def _anchor_columns(self) -> torch.Tensor:
+        """R_anc[:, anchor_item_pos] (k_q, k_i) fp32; on a sharded index
+        each rank takes the anchor columns it owns, zeros elsewhere, summed
+        over the item shards."""
+        ctx = self._ctx()
+        local, owned = _owned(ctx, self.anchor_item_pos)
+        cols = quant.take_columns(self.r_anc, local)
+        return _psum_items(ctx, torch.where(owned[None, :], cols, 0.0))
 
     def query_embedding(self, c_anchor: torch.Tensor) -> torch.Tensor:
         """(B, k_i) exact anchor scores -> (B, k_q) latent query embedding."""
@@ -351,7 +476,11 @@ class AnchorIndex:
             raise ValueError("add_items: item ids must be >= 0 (-1 is the padding sentinel)")
         if np.unique(new_host).size != n_new:
             raise ValueError("add_items: duplicate item ids in the new batch")
-        if np.intersect1d(new_host, self.item_ids[:n0].cpu().numpy()).size:
+        held = self.item_ids[self.valid_mask()].cpu().numpy()
+        clash = torch.tensor([np.intersect1d(new_host, held).size], device=self.device)
+        if self.mesh is not None:      # every rank sees the count, so all raise
+            dist.all_reduce(clash, group=self._group())
+        if int(clash.item()):
             raise ValueError("add_items: some item ids already in the index")
         if cols is None:
             if bulk_score_fn is None:
@@ -370,25 +499,34 @@ class AnchorIndex:
             if tuple(new_tokens.shape) != (n_new, tok.shape[1]):
                 raise ValueError(f"new_tokens {tuple(new_tokens.shape)} != "
                                  f"({n_new}, {tok.shape[1]})")
-            tok = tok.clone()
-            tok[n0:n0 + n_new] = new_tokens
         elif new_tokens is not None:
             raise ValueError("new_tokens given but the index carries no token table; "
                              "attach one first (with_item_tokens)")
-        if isinstance(self.r_anc, QuantizedRanc):
+        # the part of [n0, n0 + n_new) this rank holds (all of it, unsharded)
+        off = self.item_offset
+        lo = max(n0, off)
+        hi = max(lo, min(n0 + n_new, off + self.local_capacity))
+        cols, new_ids = cols[:, lo - n0:hi - n0], new_ids[lo - n0:hi - n0]
+        if tok is not None:
+            tok = tok.clone()
+            tok[lo - off:hi - off] = new_tokens[lo - n0:hi - n0]
+        n0, n_add = lo - off, hi - lo
+        if not n_add:
+            r_anc = self.r_anc
+        elif isinstance(self.r_anc, QuantizedRanc):
             r_anc = quant.update_columns(self.r_anc, cols, n0)   # only the touched tiles
         else:
             r_anc = self.r_anc.clone()
-            r_anc[:, n0:n0 + n_new] = cols.to(r_anc.dtype)
+            r_anc[:, n0:n0 + n_add] = cols.to(r_anc.dtype)
         item_ids = self.item_ids.clone()
-        item_ids[n0:n0 + n_new] = new_ids
+        item_ids[n0:n0 + n_add] = new_ids
         emb = self.item_embeddings
         if emb is not None:
             emb = emb.clone()
-            emb[:, n0:n0 + n_new] = (self.u @ cols).to(emb.dtype)
+            emb[:, n0:n0 + n_add] = (self.u @ cols).to(emb.dtype)
         return dataclasses.replace(
             self, r_anc=r_anc, item_ids=item_ids,
-            n_valid=torch.tensor(n0 + n_new, dtype=torch.int32, device=self.device),
+            n_valid=torch.tensor(self.n_items + n_new, dtype=torch.int32, device=self.device),
             item_embeddings=emb, item_tokens=tok)
 
     def remove_items(self, remove_item_ids) -> "AnchorIndex":
@@ -400,6 +538,8 @@ class AnchorIndex:
         cap = self.capacity
         ids = torch.as_tensor(remove_item_ids).to(device=self.device, dtype=torch.int32)
         rm = self.valid_mask() & torch.isin(self.item_ids, ids)
+        if self.mesh is not None:
+            return self._sharded_remove(rm)
         if self.anchor_item_pos is not None and bool(rm[self.anchor_item_pos.long()].any()):
             raise ValueError("remove_items would drop an ANNCUR anchor item; rebuild the "
                              "latents (with_latents) with a surviving anchor set first")
@@ -427,6 +567,35 @@ class AnchorIndex:
                 new, anchor_item_pos=inv[self.anchor_item_pos.long()].to(torch.int32))
         return new
 
+    def _sharded_remove(self, rm_local: torch.Tensor) -> "AnchorIndex":
+        """remove_items over the mesh: the global removal mask is gathered
+        (one bool a column), and the stable compaction moves columns
+        between ranks (:func:`_redistribute`)."""
+        group = self._group()
+        rm = _all_gather(group, rm_local.to(torch.int32), 0).to(torch.bool)
+        if self.anchor_item_pos is not None and bool(rm[self.anchor_item_pos.long()].any()):
+            raise ValueError("remove_items would drop an ANNCUR anchor item; rebuild the "
+                             "latents (with_latents) with a surviving anchor set first")
+        perm = torch.sort(rm.to(torch.int32), stable=True).indices   # survivors first
+        n_rm = int(rm.sum())
+        n1 = self.n_items - n_rm
+        off = self.item_offset
+        pos = off + torch.arange(self.local_capacity, device=self.device)
+        src = torch.where(pos < n1, perm[pos], -1)
+        first_rm = int(torch.argmax(rm.to(torch.int32))) if n_rm else self.capacity
+        emb, tok = self.item_embeddings, self.item_tokens
+        new = dataclasses.replace(
+            self, r_anc=self._moved_payload(group, src, first_rm - off),
+            item_ids=_redistribute(group, self.item_ids, 0, src, -1),
+            n_valid=torch.tensor(n1, dtype=torch.int32, device=self.device),
+            item_embeddings=None if emb is None else _redistribute(group, emb, 1, src, 0),
+            item_tokens=None if tok is None else _redistribute(group, tok, 0, src, 0))
+        if self.anchor_item_pos is not None:
+            inv = torch.argsort(perm)                     # old position -> new
+            new = dataclasses.replace(
+                new, anchor_item_pos=inv[self.anchor_item_pos.long()].to(torch.int32))
+        return new
+
     # ---- persistence (the reference's versioned Checkpointer layout) -------
 
     def _tree(self) -> dict:
@@ -447,7 +616,13 @@ class AnchorIndex:
     def save(self, path: str) -> None:
         """Persist atomically under ``path``: one ``.npy`` per leaf and a
         manifest with each leaf's reference partition spec (``step_0/``),
-        then ``index_meta.json``, written as the reference writes them."""
+        then ``index_meta.json``, written as the reference writes them.  A
+        sharded index is saved before it is sharded (no rank holds the
+        whole payload to write)."""
+        if self.mesh is not None:
+            raise ValueError("save the index before sharding it: a sharded index holds "
+                             "only this rank's columns (load(path, mesh) re-shards a "
+                             "saved one)")
         tree = self._tree()
         Checkpointer(path).save(_CKPT_STEP, tree, {k: _LEAF_SPECS[k] for k in tree})
         coded = isinstance(self.r_anc, QuantizedRanc)
@@ -479,10 +654,18 @@ class AnchorIndex:
         os.replace(tmp, os.path.join(path, _META_FILE))
 
     @classmethod
-    def load(cls, path: str, device=None) -> "AnchorIndex":
+    def load(cls, path: str, device=None, mesh=None) -> "AnchorIndex":
         """Load a saved index (format v1–v4, written by the port or the
-        reference) onto ``device`` (the card unless ``device="cpu"``).  Specs
-        are read and not acted on: the port has no sharded load yet."""
+        reference) onto ``device`` (the card unless ``device="cpu"``).
+
+        With a ``mesh`` the item axis is placed as :meth:`shard` places it
+        (``load(path, mesh)`` equals ``load(path).shard(mesh)``), and each
+        rank reads only its columns of the item-axis leaves off the disk
+        (``Checkpointer.restore(slices=)``), so no rank ever holds the whole
+        payload; ``device`` defaults to the mesh's.  The reference re-resolves
+        each leaf's save-time spec on the new mesh instead; the port places
+        by the ``items`` rule, which puts the item axis on a serving mesh's
+        ``items`` dimension."""
         meta_path = os.path.join(path, _META_FILE)
         if not os.path.exists(meta_path):
             raise FileNotFoundError(f"no AnchorIndex at {path!r} ({_META_FILE} missing)")
@@ -492,20 +675,119 @@ class AnchorIndex:
             raise ValueError(
                 f"unsupported AnchorIndex format version {meta.get('format_version')} "
                 f"(this build reads versions {_READABLE_FORMAT_VERSIONS})")
-        tree = Checkpointer(path).restore(_CKPT_STEP, device=device)
+        payload = meta.get("payload") or {}
+        # v2/v3 meta predates sub-int8 codes: default to the int8 layout
+        tile = int(payload.get("tile") or quant.DEFAULT_TILE)
+        code_dtype = str(payload.get("code_dtype") or "int8")
+        ck = Checkpointer(path)
+        if mesh is None:
+            tree = ck.restore(_CKPT_STEP, device=device)
+            if "r_codes" in tree:
+                tree["r_anc"] = QuantizedRanc(
+                    codes=tree.pop("r_codes"), scales=tree.pop("r_scales"), tile=tile,
+                    code_dtype=code_dtype, n_cols=int(payload.get("n_cols", -1)))
+            return cls(**tree)
+        if device is None:
+            from ..launch.mesh import mesh_device
+            device = mesh_device(mesh)
+        coded = payload.get("tile") is not None
+        cap, n = int(meta["capacity"]), int(meta["n_items"])
+        grain = math.lcm(tile if coded else 1, NOISE_BLOCK)
+        axes = _item_axes_for(mesh, int(meta["k_q"]), grain)
+        n_shards = sharding.axis_size(mesh, axes)
+        unit = n_shards * grain
+        aligned = -(-cap // unit) * unit
+        local = aligned // n_shards
+        off = dist.get_rank(_dims_group(mesh, axes)) * local
+        lo, hi = min(off, cap), min(off + local, cap)   # the saved columns this rank holds
+        pack = 2 if code_dtype == "int4" else 1
+        slices = {"r_anc": (1, lo, hi), "r_codes": (1, lo // pack, -(-hi // pack)),
+                  "r_scales": (0, lo // tile, -(-hi // tile)), "item_ids": (0, lo, hi),
+                  "item_embeddings": (1, lo, hi), "item_tokens": (0, lo, hi)}
+        tree = ck.restore(_CKPT_STEP, device=device, slices=slices)
+        fills = {"r_anc": (1, 0), "item_ids": (0, -1), "item_embeddings": (1, 0),
+                 "item_tokens": (0, 0)}
+        for key, (axis, fill) in fills.items():
+            if key in tree:
+                tree[key] = _pad_axis(tree[key], axis, local, fill)
         if "r_codes" in tree:
-            payload = meta.get("payload") or {}
-            # v2/v3 meta predates sub-int8 codes: default to the int8 layout
-            tree["r_anc"] = QuantizedRanc(
-                codes=tree.pop("r_codes"), scales=tree.pop("r_scales"),
-                tile=int(payload.get("tile") or quant.DEFAULT_TILE),
-                code_dtype=str(payload.get("code_dtype") or "int8"),
-                n_cols=int(payload.get("n_cols", -1)))
-        return cls(**tree)
+            codes = _pad_axis(tree.pop("r_codes"), 1, local // pack, 0)
+            scales = _pad_axis(tree.pop("r_scales"), 0, local // tile, 1.0)
+            tree["r_anc"] = QuantizedRanc(codes, scales, tile, code_dtype)
+        idx = cls(**tree, mesh=mesh, item_axes=axes)
+        if aligned == cap:
+            return idx
+        # shard() re-pads an unaligned capacity first (with_capacity): the
+        # columns past the valid prefix become padding and the tiles from the
+        # prefix's last one on are re-quantized, here on this rank's columns
+        pos = off + torch.arange(local, device=idx.device)
+        return dataclasses.replace(
+            idx, r_anc=idx._moved_payload_local(torch.where(pos < n, pos - off, -1), n - off),
+            item_ids=torch.where(pos < n, idx.item_ids, -1),
+            item_embeddings=(None if idx.item_embeddings is None
+                             else torch.where(pos < n, idx.item_embeddings, 0)),
+            item_tokens=(None if idx.item_tokens is None
+                         else torch.where((pos < n)[:, None], idx.item_tokens, 0)))
+
+    # ---- sharding ------------------------------------------------------------
+
+    def shard(self, mesh, rules=None) -> "AnchorIndex":
+        """Place the item axis over ``mesh`` (a ``DeviceMesh``; every rank
+        calls this with the same index).  The dimensions come from the
+        ``items`` rule (``distributed/sharding.py``): ``items`` on a serving
+        mesh.  Capacity is re-padded to a multiple of ``n_item_shards x
+        lcm(tile, NOISE_BLOCK)`` so every slab holds whole quantization tiles
+        (with their scales) and whole blocks of the engine's noise field;
+        each rank then keeps its column slab of the payload, ``item_ids``,
+        ``item_embeddings`` and ``item_tokens``.  The placement lives on the
+        index (``mesh``, ``item_axes``) and survives mutation."""
+        if self.mesh is not None:
+            if self.mesh is mesh:
+                return self
+            raise ValueError("this index is already sharded over another mesh")
+        axes = _item_axes_for(mesh, self.k_q, _shard_grain(self.r_anc), rules)
+        n_shards = sharding.axis_size(mesh, axes)
+        unit = n_shards * _shard_grain(self.r_anc)
+        idx = self
+        if idx.capacity % unit:
+            idx = idx.with_capacity(-(-idx.capacity // unit) * unit)
+        local = idx.capacity // n_shards
+        off = dist.get_rank(_dims_group(mesh, axes)) * local
+        cols = slice(off, off + local)
+        r = idx.r_anc
+        if isinstance(r, QuantizedRanc):
+            r_anc = QuantizedRanc(r.codes[:, off // r.packing:(off + local) // r.packing].clone(),
+                                  r.scales[off // r.tile:(off + local) // r.tile].clone(),
+                                  r.tile, r.code_dtype)
+        else:
+            r_anc = r[:, cols].clone()
+        emb, tok = idx.item_embeddings, idx.item_tokens
+        return dataclasses.replace(
+            idx, r_anc=r_anc, item_ids=idx.item_ids[cols].clone(),
+            item_embeddings=None if emb is None else emb[:, cols].clone(),
+            item_tokens=None if tok is None else tok[cols].clone(),
+            mesh=mesh, item_axes=axes)
+
+    def _item_sharding(self):
+        """(mesh, item axes) of a sharded index, else (None, None)."""
+        return (self.mesh, self.item_axes) if self.mesh is not None else (None, None)
+
+    def _moved_payload_local(self, src_local: torch.Tensor, keep_local: int):
+        """This rank's payload with column j taken from its own column
+        ``src_local[j]`` (-1: zero), a coded one re-quantized with the tiles
+        before ``keep_local`` restored (the local form of ``with_capacity``)."""
+        r = self.r_anc
+        keep = src_local >= 0
+        if not isinstance(r, QuantizedRanc):
+            return torch.where(keep[None, :], r, torch.zeros((), dtype=r.dtype, device=r.device))
+        dense = torch.where(keep[None, :], quant.dequantize(r), 0.0)
+        return quant.requantize_preserving_prefix(
+            r, dense, max(0, min(int(keep_local), self.local_capacity)))
 
     def engine_search(self, score_fn, query, cfg, key=None, **kw):
-        """One full multi-round search over this index (single device); for
-        repeated queries hold an ``AdaCURRetriever.from_index`` instead."""
+        """One full multi-round search over this index (the sharded engine
+        on a sharded index, every rank calling); for repeated queries hold an
+        ``AdaCURRetriever.from_index`` instead."""
         from .engine import AdaCURRetriever
 
         return AdaCURRetriever.from_index(self, score_fn, cfg).search(query, key, **kw)
@@ -514,6 +796,18 @@ class AnchorIndex:
         """Top-k of ``e_q @ R_anc`` over the valid items -> (values, positions),
         through the fused op (the CUDA kernel on the card).  The padded tail
         is suppressed by the ``n_valid`` bound, the same items as the
-        reference's broadcast valid mask, without a (B, capacity) mask."""
-        n_valid = self.n_items if self.n_items < self.capacity else None
-        return approx_topk_op(e_q, self.r_anc, None, k, tile=tile, n_valid=n_valid)
+        reference's broadcast valid mask, without a (B, capacity) mask.
+
+        On a sharded index each rank runs the fused op over its slab, with
+        its invalid columns masked, and the per-shard candidates merge over
+        the item shards by (max value, min global id); every rank passes the
+        same ``e_q`` and gets the global result."""
+        if self.mesh is None:
+            n_valid = self.n_items if self.n_items < self.capacity else None
+            return approx_topk_op(e_q, self.r_anc, None, k, tile=tile, n_valid=n_valid)
+        local = self.local_capacity
+        if k > local:
+            raise ValueError(f"k={k} > per-shard items {local}")
+        mask = (~self.valid_mask())[None, :].expand(e_q.shape[0], local).contiguous()
+        v, i = approx_topk_op(e_q, self.r_anc, None, k, tile=min(tile, local), mask=mask)
+        return _merge_topk(self._ctx(), v, i + self.item_offset, k)

@@ -1,6 +1,7 @@
-"""Cross-encoder scorers with measured CE-call accounting — port of the
-``ScorerStats``/``SyntheticScorer``/``TabulatedScorer`` part of
-``repro/core/scorer.py``.
+"""Cross-encoder scorers with measured CE-call accounting — port of
+``repro/core/scorer.py`` (``ScorerStats``, ``SyntheticScorer``,
+``TabulatedScorer``, ``CrossEncoderScorer``, ``DeviceCEScorer``,
+``CachingScorer``).
 
 The port runs eagerly, so every scorer counts ``ce_calls`` as the calls
 happen (the reference's pure-traced ``SyntheticScorer`` cannot).
@@ -17,6 +18,8 @@ from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
+
+from ..distributed.collectives import ShardCtx, _all_gather, _local_ctx, _owned, _psum_items
 
 
 @dataclass
@@ -211,6 +214,146 @@ class CrossEncoderScorer(_CountingScorer):
         q = query_ids.detach().cpu().numpy()
         items = item_ids.detach().cpu().numpy()
         return self._host(q, np.tile(items, (len(q), 1)))
+
+
+class DeviceCEScorer(_CountingScorer):
+    """The real transformer CE as a device-resident stage of the engine.
+
+    Where :class:`CrossEncoderScorer` builds pair tokens on the host from
+    query and item ids, this scorer keeps the corpus token table on the
+    device, assembles ``[CLS] q [SEP] i [SEP]`` pair rows there from engine
+    positions and runs the CE forward (the flash kernel on the card) inside
+    the engine (``engine._device_ce_score``).  Under the sharded engine the
+    flattened pair batch is split over the item shards, so every pair is
+    scored once across the mesh.
+
+    The engine's query operand is the (B, query_len) int32 token batch of
+    :meth:`tokenize_queries` (host side, once per request batch).  The
+    corpus table is the scorer's (``item_tokens=``) or, on the serving path,
+    the index's (``AnchorIndex.with_item_tokens``), position-aligned with
+    the payload through every mutation.
+
+    Accounting is measured: :meth:`count` records each scoring round that
+    ran, so ``stats.ce_calls`` equals ``engine.ce_call_plan`` x the rows,
+    with the item-shard pad rows counted apart (``batch_pad``).
+    ``n_traces`` is the number of distinct (rows, bucket) forward shapes
+    run so far."""
+
+    device_resident = True
+
+    def __init__(self, params, cfg, query_token_fn: Callable[[np.ndarray], np.ndarray],
+                 item_tokens=None, pad_id: int = 0, cls_id: int = 1, sep_id: int = 2,
+                 len_buckets: Tuple[int, ...] = (32, 64, 128, 256, 512),
+                 attn_impl: str = "flash", flash_block: Tuple[int, int] = (128, 128),
+                 flash_interpret: bool = True, record_pairs: bool = False):
+        super().__init__(record_pairs)
+        self.params = params
+        self.cfg = cfg
+        self.query_token_fn = query_token_fn
+        self.device = params["embed"].device
+        self.item_tokens = (None if item_tokens is None else
+                            torch.as_tensor(np.asarray(item_tokens)).to(self.device, torch.int32))
+        self.pad_id, self.cls_id, self.sep_id = pad_id, cls_id, sep_id
+        self.len_buckets = tuple(sorted(len_buckets))
+        self.attn_impl = attn_impl
+        self.flash_block = flash_block
+        self.flash_interpret = flash_interpret
+        self._shapes: set = set()
+
+    @property
+    def n_traces(self) -> int:
+        return len(self._shapes)
+
+    def tokenize_queries(self, query) -> torch.Tensor:
+        """Query ids (B,) -> (B, query_len) int32 token rows on the model's
+        device.  With a scorer-carried table the pair length is checked
+        here against the buckets; with the index's, at :meth:`build_pairs`."""
+        qids = np.asarray(query.detach().cpu().numpy() if isinstance(query, torch.Tensor)
+                          else query)
+        toks = np.asarray(self.query_token_fn(qids), dtype=np.int32)
+        if toks.ndim != 2 or toks.shape[0] != qids.shape[0]:
+            raise ValueError(f"query_token_fn must map (B,) ids to (B, query_len) tokens; "
+                             f"got {toks.shape} for B={qids.shape[0]}")
+        if self.item_tokens is not None:
+            bucket_for(toks.shape[1] + int(self.item_tokens.shape[1]) + 3, self.len_buckets)
+        return torch.from_numpy(toks).to(self.device)
+
+    def build_pairs(self, q_tokens, item_rows) -> torch.Tensor:
+        """(B, Lq) x (B, k, Li) -> (B, k, bucket) padded pair token rows."""
+        from ..models import cross_encoder
+
+        lq, li = int(q_tokens.shape[-1]), int(item_rows.shape[-1])
+        return cross_encoder.build_pair_tokens(
+            q_tokens, item_rows, pad_to=bucket_for(lq + li + 3, self.len_buckets),
+            cls_id=self.cls_id, sep_id=self.sep_id, pad_id=self.pad_id)
+
+    def forward(self, flat_tokens) -> torch.Tensor:
+        """(M, bucket) pair rows -> (M,) fp32 CE scores on the model's device."""
+        from ..models import cross_encoder
+
+        self._shapes.add(tuple(flat_tokens.shape))
+        return cross_encoder.score_tokens(
+            self.params, flat_tokens.to(self.device), self.cfg, pad_id=self.pad_id,
+            attn_impl=self.attn_impl, flash_block=self.flash_block,
+            flash_interpret=self.flash_interpret)
+
+    def count(self, item_idx, n_pad: int) -> None:
+        """Record one scoring round of ``item_idx`` (B, k) pairs; ``n_pad``
+        pad rows were scored beside them and are not CE calls."""
+        self.stats.requests += 1
+        self.stats.pairs += int(item_idx.numel())
+        self.stats.ce_calls += int(item_idx.numel())
+        self.stats.batch_pad += int(n_pad)
+        if self.record_pairs:
+            self.call_log.append((None, item_idx.detach().cpu().numpy().copy()))
+
+    def __call__(self, query_tokens, item_idx) -> torch.Tensor:
+        """A plain ScoreFn over the scorer-carried table (one device)."""
+        if self.item_tokens is None:
+            raise ValueError("DeviceCEScorer needs a corpus token table to score directly: "
+                             "construct it with item_tokens=, or search through an index "
+                             "that carries one (AnchorIndex.with_item_tokens)")
+        return _device_ce_score(_local_ctx(int(self.item_tokens.shape[0])), self,
+                                query_tokens, item_idx, self.item_tokens)
+
+
+def _gather_token_rows(ctx: ShardCtx, table, gidx):
+    """Corpus token rows of GLOBAL item positions -> (..., Li) int32: each
+    item shard gathers the rows it owns, zeros elsewhere, one sum."""
+    if ctx.item_group is None:
+        return table[gidx.long()]
+    local, owned = _owned(ctx, gidx)
+    return _psum_items(ctx, torch.where(owned[..., None], table[local], 0))
+
+
+def _device_ce_score(ctx: ShardCtx, scorer: DeviceCEScorer, q_tokens, gidx, item_tokens):
+    """Device-resident CE scores of a (B, k) position batch: gather the
+    items' token rows, assemble ``[CLS] q [SEP] i [SEP]`` pairs and run the
+    CE forward (the flash kernel on the card).  Under the mesh the
+    flattened pair batch is split over the item shards (each scores an
+    equal contiguous chunk, ``all_gather`` reassembles), so every pair is
+    scored once across the mesh; item shard 0 counts the batch, with the
+    item-shard pad rows excluded."""
+    rows = _gather_token_rows(ctx, item_tokens, gidx)           # (B, k, Li)
+    pairs = scorer.build_pairs(q_tokens, rows)                  # (B, k, Lb)
+    b, k, lb = pairs.shape
+    n = b * k
+    flat = pairs.reshape(n, lb)
+    if ctx.item_group is None:
+        scores = scorer.forward(flat)
+        scorer.count(gidx, 0)
+    else:
+        n_pad = -n % ctx.n_item_shards
+        if n_pad:
+            flat = torch.cat([flat, torch.full((n_pad, lb), scorer.pad_id, dtype=flat.dtype,
+                                               device=flat.device)])
+        chunk = (n + n_pad) // ctx.n_item_shards
+        local = flat[ctx.item_shard * chunk:(ctx.item_shard + 1) * chunk]
+        s = scorer.forward(local).to(torch.float32)
+        scores = _all_gather(ctx.item_group, s, 0)[:n]
+        if ctx.item_shard == 0:
+            scorer.count(gidx, n_pad)
+    return scores.reshape(b, k).to(torch.float32)
 
 
 class CachingScorer(_CountingScorer):

@@ -38,7 +38,23 @@ reference's); ``--retriever rerank`` reranks a stand-in dual-encoder order
 ``--first-stage de|bm25`` serves the hybrid: a dual-encoder shortlist
 (through the approx_topk kernel) or a BM25 one (over the domain's
 ``lexical_signatures``, seed 3) of ``4 x budget`` restricts ADACUR to each
-query's candidates.  ``--mesh`` is not ported (ROADMAP.md, queue 1).
+query's candidates.
+
+``--mesh DxI`` serves over a (data x items) mesh, one process per rank:
+
+    torchrun --nproc-per-node 4 -m repro_torch.launch.serve --mesh 2x2 --device cpu
+
+The index is sharded over the ``items`` dimension (each rank keeps its
+column slab) and the sharded engine splits each batch over ``data``.  Rank 0
+reads the requests and prints; at every flush its service broadcasts the
+batch to the other ranks, which run the same search in
+:meth:`AdaCURService.follow` until :meth:`AdaCURService.stop_followers`.
+The backend follows the device: NCCL on the card (one card a rank; NCCL
+refuses two ranks on one device), gloo on the CPU.
+``--cache`` under ``--mesh``, a mesh whose size is not the world's, and a
+``--batch`` whose buckets do not divide over the data shards are refused.
+With ``--scorer real-ce`` the CE runs device-resident in the engine
+(``DeviceCEScorer`` over the index's token table).
 ``--scorer real-ce`` serves the transformer cross-encoder over a
 ZESHEL-like token corpus with the reference CLI's reduced CE and sizes
 (``build_real_ce_domain``); ``--cache`` wraps it in a ``CachingScorer``.
@@ -56,13 +72,14 @@ from typing import Callable, List, Optional, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..configs.base import AdaCURConfig
 from ..core import prng
 from ..core.candidates import BM25Candidates, DualEncoderCandidates, HybridRetriever
 from ..core.engine import AdaCURRetriever, ANNCURRetriever, RerankRetriever, Retriever
 from ..core.index import AnchorIndex, clear_build_checkpoints
-from ..core.scorer import (CachingScorer, CrossEncoderScorer, ScorerStats,
+from ..core.scorer import (CachingScorer, CrossEncoderScorer, DeviceCEScorer, ScorerStats,
                            SyntheticScorer, scorer_stats)
 from ..device import resolve_device
 from ..kernels.approx_topk import quant
@@ -105,7 +122,19 @@ class AdaCURService:
     ``deterministic=True`` reuses the seed key at every flush instead of
     splitting it, so a query's search is a function of its batch row and
     query id alone: a repeat query re-requests the pairs a
-    ``CachingScorer`` already holds, and a batch replays bit for bit."""
+    ``CachingScorer`` already holds, and a batch replays bit for bit.
+
+    Over a sharded index (``AnchorIndex.shard`` / ``load(path, mesh)``)
+    every rank of the mesh runs every search.  Rank 0 takes the requests:
+    at each flush it broadcasts the batch (its query ids padded to the
+    bucket, and the key) over the world group, and the other ranks, in
+    :meth:`follow`, run the same search until :meth:`stop_followers`.  The
+    measured CE calls of a batch are summed over the ranks.  A search that
+    raises on any rank is fatal to the mesh (the ranks' collectives no
+    longer pair up): that rank tears the world down, which makes every
+    peer's pending or next collective fail, so each rank ends instead of
+    waiting; rank 0 answers the batch, and every later one, with the error
+    (``mesh_error``), and a follower's :meth:`follow` raises."""
 
     def __init__(self, score_fn: Optional[Callable] = None, r_anc=None,
                  cfg: Optional[AdaCURConfig] = None, max_batch: int = 32,
@@ -141,6 +170,8 @@ class AdaCURService:
             raise ValueError(f"largest bucket {self.batch_buckets[-1]} must "
                              f"equal max_batch={max_batch}")
         self._scorer = getattr(retriever, "score_fn", None)
+        self._spmd = index is not None and getattr(index, "mesh", None) is not None
+        self.mesh_error: Optional[str] = None   # why a sharded search tore the world down
         self.deterministic = deterministic
         self._key = prng.PRNGKey(seed)
         self._pending: List[RetrievalRequest] = []
@@ -237,6 +268,8 @@ class AdaCURService:
                         torch.cuda.current_stream(self.device).synchronize()
                     except RuntimeError as sync_err:
                         msg += f" (then, synchronizing the stream: {sync_err})"
+                if self._spmd:
+                    msg = self._fail_mesh(msg)
                 now = time.monotonic()
                 return [RetrievalResponse(query_id=r.query_id,
                                           latency_s=now - r.arrival_t,
@@ -256,6 +289,10 @@ class AdaCURService:
             sub = self._key
         else:
             self._key, sub = prng.split(self._key)
+        if self.mesh_error is not None:
+            raise RuntimeError(f"the mesh was torn down by an earlier batch: {self.mesh_error}")
+        if self._spmd:
+            self._announce(qids, sub)
         kw = {}
         if self.candidate_fn is not None:
             kw["candidate_idx"] = self.candidate_fn(qids)
@@ -268,6 +305,7 @@ class AdaCURService:
         before = before.copy() if before is not None else None
         res = self.retriever.search(qids, sub, **kw)
         top = idx.gather_item_ids(res.topk_idx) if idx is not None else res.topk_idx
+        ranks_delta = self._ranks_delta(before) if self._spmd else None
         # blocking copies: the search's work on this thread's stream has run
         # when they return, so no flush leaves work queued that reads an
         # index a concurrent swap_index may then free (the router's index
@@ -278,14 +316,14 @@ class AdaCURService:
         rounds = int(res.rounds_done)
         measured = cache_hits = None
         if before is not None:
-            delta = self.scorer_stats - before
+            delta = ranks_delta if ranks_delta is not None else self.scorer_stats - before
             # amortized over the real requests: padded rows are a cost of
             # serving them
             measured = delta.ce_calls // n_real
             cache_hits = delta.cache_hits
             self.batch_log.append(dict(rows=n_real, bucket=bucket, rounds=rounds,
                                        ce_calls=delta.ce_calls, pairs=delta.pairs,
-                                       cache_hits=delta.cache_hits,
+                                       cache_hits=delta.cache_hits, batch_pad=delta.batch_pad,
                                        seconds=time.perf_counter() - t0))
         now = time.monotonic()
         return [RetrievalResponse(
@@ -294,6 +332,81 @@ class AdaCURService:
             measured_ce_calls=measured, cache_hits=cache_hits, degraded=degraded,
             rounds_completed=rounds,
         ) for i, r in enumerate(batch)]
+
+
+    # -- the sharded service's ranks ------------------------------------------
+
+    _HEADER = 4          # (op, bucket, key word 0, key word 1)
+
+    def _announce(self, qids: torch.Tensor, key) -> None:
+        """Rank 0: send one batch to the following ranks."""
+        k = key.to(torch.int64).reshape(-1).tolist()
+        hdr = torch.tensor([1, qids.shape[0], k[0], k[1]], dtype=torch.int64,
+                           device=self.device)
+        dist.broadcast(hdr, src=0)
+        dist.broadcast(qids.contiguous(), src=0)
+
+    def _ranks_delta(self, before: Optional[ScorerStats]) -> Optional[ScorerStats]:
+        """This batch's scorer counts summed over the ranks (every rank
+        calls it after the search)."""
+        if before is None:
+            return None
+        d = self.scorer_stats - before
+        t = torch.tensor([d.ce_calls, d.pairs, d.cache_hits, d.requests, d.batch_pad],
+                         dtype=torch.int64, device=self.device)
+        dist.all_reduce(t)
+        d.ce_calls, d.pairs, d.cache_hits, d.requests, d.batch_pad = t.tolist()
+        return d
+
+    def _fail_mesh(self, msg: str) -> str:
+        """A sharded search raised on this rank: record why and tear the
+        world down (the first time), so every peer's pending or next
+        collective fails instead of waiting for this rank.  Returns the
+        message, with a failure of the teardown itself named beside it."""
+        if self.mesh_error is None:
+            self.mesh_error = msg
+            if dist.is_initialized():
+                try:
+                    dist.destroy_process_group()
+                except RuntimeError as err:
+                    msg += f" (then, tearing the world down: {err})"
+        return msg
+
+    def follow(self) -> int:
+        """Ranks other than 0: run each batch rank 0 announces, until it
+        stops the followers.  Returns the number of batches run.  A failure
+        here, or rank 0's teardown after one of its own, tears the world
+        down and raises."""
+        n = 0
+        try:
+            while True:
+                hdr = torch.empty(self._HEADER, dtype=torch.int64, device=self.device)
+                dist.broadcast(hdr, src=0)
+                op, bucket, k0, k1 = hdr.tolist()
+                if op == 0:
+                    return n
+                qids = torch.empty(bucket, dtype=torch.int64, device=self.device)
+                dist.broadcast(qids, src=0)
+                kw = {}
+                if self.candidate_fn is not None:
+                    kw["candidate_idx"] = self.candidate_fn(qids)
+                before = self.scorer_stats
+                before = before.copy() if before is not None else None
+                res = self.retriever.search(qids, torch.tensor([k0, k1], dtype=torch.int64),
+                                            **kw)
+                self.retriever.index.gather_item_ids(res.topk_idx)
+                self._ranks_delta(before)
+                n += 1
+        except Exception as e:
+            self._fail_mesh(f"{type(e).__name__}: {e}")
+            raise
+
+    def stop_followers(self) -> None:
+        """Rank 0: end every other rank's :meth:`follow` (a world already
+        torn down has no followers left)."""
+        if self._spmd and self.mesh_error is None:
+            dist.broadcast(torch.tensor([0, 0, 0, 0], dtype=torch.int64,
+                                        device=self.device), src=0)
 
 
 DEFAULT_N_ITEMS = 10000
@@ -310,7 +423,7 @@ def saved_n_items(index_path: Optional[str]) -> Optional[int]:
 
 def build_domain(n_items: int, device=None, n_queries: int = 600,
                  n_anchor_queries: int = 500, block_rows: int = 128,
-                 index_path: Optional[str] = None):
+                 index_path: Optional[str] = None, with_index: bool = True):
     """The CLI's synthetic domain and its AnchorIndex (anchor queries
     0..n_anchor_queries-1) on ``device``.  With ``index_path`` the index
     saved there is loaded; if none is, it is built resumably (row-block
@@ -324,6 +437,8 @@ def build_domain(n_items: int, device=None, n_queries: int = 600,
     dev = resolve_device(device)
     ce = make_synthetic_ce(prng.PRNGKey(0), n_queries=n_queries, n_items=n_items,
                            device=dev)
+    if not with_index:
+        return ce, None
     if saved is not None:
         print(f"loading AnchorIndex from {index_path}...")
         return ce, AnchorIndex.load(index_path, device=dev)
@@ -382,15 +497,16 @@ def build_real_ce_domain(n_items: int, n_anchor_q: int, n_serve_q: int, cfg=None
     return ds, params, scorer, index
 
 
-def quantize_for_serving(index: AnchorIndex, cfg: AdaCURConfig) -> AnchorIndex:
+def quantize_for_serving(index: AnchorIndex, cfg: AdaCURConfig, say=print) -> AnchorIndex:
     """The index under the config's payload policy, once before serving;
-    prints the payload's bytes against fp32's, as the reference CLI does."""
+    prints the payload's bytes against fp32's, as the reference CLI does
+    (a sharded index's: this rank's)."""
     if cfg.payload_dtype == "float32":
         return index
-    fp32_bytes = quant.payload_nbytes("float32", index.k_q, index.capacity)
+    fp32_bytes = quant.payload_nbytes("float32", index.k_q, index.local_capacity)
     index = index.quantize(cfg.payload_dtype, tile=cfg.payload_tile)
-    print(f"payload {cfg.payload_dtype}: {index.payload_nbytes / 1e6:.1f} MB "
-          f"(fp32 would be {fp32_bytes / 1e6:.1f} MB)")
+    say(f"payload {cfg.payload_dtype}: {index.payload_nbytes / 1e6:.1f} MB "
+        f"(fp32 would be {fp32_bytes / 1e6:.1f} MB)")
     return index
 
 
@@ -462,12 +578,12 @@ def main(argv=None) -> None:
     ap.add_argument("--index-path", default=None,
                     help="AnchorIndex directory: loaded when present, else built there "
                          "resumably and saved")
-    ap.add_argument("--mesh", default=None, metavar="DATAxITEMS")
+    ap.add_argument("--mesh", default=None, metavar="DATAxITEMS",
+                    help="serve over a (data x items) mesh, e.g. 2x2, one process per rank "
+                         "(torchrun): items shards the index payload, data the batches")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = ap.parse_args(argv)
-    if args.mesh:
-        raise SystemExit("--mesh is not ported yet: the sharded engine is ROADMAP.md, "
-                         "queue 1, item 7")
+    mesh = _serving_mesh(args) if args.mesh else None
     if args.first_stage != "none" and args.retriever != "adacur":
         raise SystemExit("--first-stage composes the hybrid on top of ADACUR; use "
                          "--retriever adacur (rerank already is a first-stage method)")
@@ -485,7 +601,7 @@ def main(argv=None) -> None:
     if args.cache and args.scorer != "real-ce":
         raise SystemExit("--cache wraps the real-CE scorer: pass --scorer real-ce")
     if args.scorer == "real-ce":
-        return _serve_real_ce(args)
+        return _serve_real_ce(args, mesh)
     cfg = AdaCURConfig(
         k_anchor=args.budget // 2, n_rounds=args.rounds, budget_ce=args.budget,
         strategy="topk", k_retrieve=100, loop_mode="fori",
@@ -493,9 +609,23 @@ def main(argv=None) -> None:
         round_kernel=args.round_kernel,
     )
     n_items = args.n_items or saved_n_items(args.index_path) or DEFAULT_N_ITEMS
-    print(f"building synthetic CE domain + AnchorIndex (|I|={n_items})...")
-    ce, index = build_domain(n_items, args.device, index_path=args.index_path)
-    index = quantize_for_serving(index, cfg)
+    say = _leader_print(mesh)
+    say(f"building synthetic CE domain + AnchorIndex (|I|={n_items})...")
+    if mesh is not None and args.index_path:
+        # rank 0 builds and saves the index once; every rank then reads only
+        # its columns
+        if dist.get_rank() == 0:
+            build_domain(n_items, args.device, index_path=args.index_path)
+        dist.barrier()
+        ce = build_domain(n_items, args.device, index_path=args.index_path,
+                          with_index=False)[0]
+        index = AnchorIndex.load(args.index_path, device=ce.device, mesh=mesh)
+        index = quantize_for_serving(index, cfg, say)
+    else:
+        ce, index = build_domain(n_items, args.device, index_path=args.index_path)
+        index = quantize_for_serving(index, cfg, say)
+        if mesh is not None:
+            index = _shard_for_serving(index, mesh, say)
     scorer = SyntheticScorer(ce)
     candidate_fn = None
     if args.first_stage != "none":
@@ -510,48 +640,139 @@ def main(argv=None) -> None:
                                        n_valid=index.n_items, device=ce.device)
         retriever = HybridRetriever(score_fn=scorer, generator=generator, cfg=cfg,
                                     index=index, shortlist_k=shortlist, mode="mask")
-        print(f"first stage: {args.first_stage} shortlist_k={shortlist} (CE budget "
-              "restricted to each query's candidates)")
+        say(f"first stage: {args.first_stage} shortlist_k={shortlist} (CE budget "
+            "restricted to each query's candidates)")
     else:
         retriever = make_retriever(args.retriever, index, scorer, cfg)
         if args.retriever == "rerank":
             candidate_fn = de_order(ce, cfg.budget_ce)
     svc = AdaCURService(retriever=retriever, max_batch=args.batch, candidate_fn=candidate_fn)
-    served = drive(svc, args.requests)
+    served = _serve(svc, args.requests)
+    if served is None:
+        return
     lat = np.array([r.latency_s for r in served])
     errors = sum(r.status != "ok" for r in served)
-    print(f"[{args.retriever}{'/' + args.first_stage if args.first_stage != 'none' else ''}] "
+    print(f"[{args.retriever}{'/' + args.first_stage if args.first_stage != 'none' else ''}"
+          f"{'/mesh ' + args.mesh if mesh is not None else ''}] "
           f"served {len(served)} requests ({errors} errors) | "
           f"p50={np.percentile(lat, 50) * 1e3:.1f}ms p99={np.percentile(lat, 99) * 1e3:.1f}ms "
           f"| {cfg.budget_ce} CE calls/request")
+    if mesh is not None:
+        print(f"measured: {sum(b['ce_calls'] for b in svc.batch_log)} CE calls over "
+              f"{dist.get_world_size()} ranks")
 
 
-def _serve_real_ce(args) -> None:
+def _serving_mesh(args):
+    """``--mesh DxI`` -> the (data x items) mesh over this process's world,
+    after the refusals that need no world: ``--cache`` (the sharded engine
+    scores device-resident or through item shard 0, never through a host
+    cache) and a batch whose buckets do not divide over the data shards."""
+    from .mesh import make_serving_mesh
+
+    try:
+        d, i = (int(x) for x in args.mesh.lower().split("x"))
+    except ValueError as e:
+        raise SystemExit(f"--mesh must be DATAxITEMS (e.g. 2x2): {e}")
+    if args.cache:
+        raise SystemExit("--cache wraps a host scorer; under --mesh the real CE scores "
+                         "device-resident in the sharded engine and its pairs never reach "
+                         "a host cache: drop --cache")
+    if args.batch % (4 * d):
+        raise SystemExit(f"--batch {args.batch} must divide into the service's batch buckets "
+                         f"over {d} data shards (make it a multiple of {4 * d})")
+    resolve_device(args.device)        # the device rule before any process group
+    if not dist.is_initialized() and "RANK" not in os.environ:
+        raise SystemExit(f"--mesh {args.mesh} runs one process per rank: launch it with "
+                         f"torchrun --nproc-per-node {d * i}")
+    try:
+        return make_serving_mesh(d, i, device=args.device)
+    except ValueError as e:
+        raise SystemExit(f"--mesh {args.mesh}: {e} (launch with torchrun --nproc-per-node "
+                         f"{d * i})")
+
+
+def _leader_print(mesh) -> Callable:
+    """``print`` on rank 0 (or without a mesh), silence elsewhere."""
+    if mesh is None or dist.get_rank() == 0:
+        return print
+    return lambda *a, **k: None
+
+
+def _shard_for_serving(index: AnchorIndex, mesh, say=print) -> AnchorIndex:
+    """Place the index's item axis over the mesh; the retriever then binds
+    the sharded engine (``engine.make_sharded_engine``)."""
+    sharded = index.shard(mesh)
+    say(f"sharding index over mesh {dict(zip(mesh.mesh_dim_names, tuple(mesh.shape)))} "
+        f"(payload per item shard {sharded.payload_nbytes / 1e6:.1f} MB)")
+    return sharded
+
+
+def _serve(svc: AdaCURService, n_requests: int, **kw) -> Optional[List[RetrievalResponse]]:
+    """Rank 0 (or a service without a mesh) drives the requests; the other
+    ranks follow until rank 0 stops them, and get None.  A search that
+    failed on any rank ends every rank with an error (the world is gone)."""
+    if not svc._spmd:
+        return drive(svc, n_requests, **kw)
+    if dist.get_rank() != 0:
+        svc.follow()
+        return None
+    try:
+        served = drive(svc, n_requests, **kw)
+    finally:
+        svc.stop_followers()
+    if svc.mesh_error is not None:
+        errors = sum(r.status != "ok" for r in served)
+        raise SystemExit(f"the mesh was torn down by a failed search ({errors} of "
+                         f"{len(served)} requests answered with its error): {svc.mesh_error}")
+    return served
+
+
+def _serve_real_ce(args, mesh=None) -> None:
     """Serve the real CE with the reference CLI's sizes: its reduced CE,
-    at most 500 items, 100 anchor + 100 served queries, k_retrieve 50."""
+    at most 500 items, 100 anchor + 100 served queries, k_retrieve 50.
+    Under a mesh the CE runs device-resident in the sharded engine: a
+    ``DeviceCEScorer`` over the index's token table, sharded with the
+    payload."""
+    say = _leader_print(mesh)
     n_items = min(args.n_items or DEFAULT_N_ITEMS, 500)
     n_anchor_q = n_serve_q = 100
-    print(f"building ZESHEL-like corpus (|I|={n_items}) + transformer CE + "
-          "AnchorIndex from the CE...")
-    _, _, scorer, index = build_real_ce_domain(n_items, n_anchor_q, n_serve_q,
-                                               device=args.device, micro_batch=64)
+    say(f"building ZESHEL-like corpus (|I|={n_items}) + transformer CE + "
+        "AnchorIndex from the CE...")
+    ds, params, scorer, index = build_real_ce_domain(n_items, n_anchor_q, n_serve_q,
+                                                     device=args.device, micro_batch=64)
     serve_scorer = CachingScorer(scorer) if args.cache else scorer
+    if mesh is not None:
+        serve_scorer = DeviceCEScorer(params, scorer.cfg,
+                                      query_token_fn=lambda q: ds.query_tokens[q],
+                                      flash_block=(64, 64))
+        index = index.with_item_tokens(torch.as_tensor(ds.item_tokens))
     cfg = AdaCURConfig(
         k_anchor=args.budget // 2, n_rounds=args.rounds, budget_ce=args.budget,
         strategy="topk", k_retrieve=50, loop_mode="fori",
         use_fused_topk=args.fused, payload_dtype=args.payload_dtype,
         round_kernel=args.round_kernel,
     )
-    index = quantize_for_serving(index, cfg)
+    index = quantize_for_serving(index, cfg, say)
+    if mesh is not None:
+        index = _shard_for_serving(index, mesh, say)
     svc = AdaCURService(retriever=make_retriever(args.retriever, index, serve_scorer, cfg),
                         max_batch=args.batch)
-    served = drive(svc, args.requests, qid_range=(n_anchor_q, n_anchor_q + n_serve_q))
+    served = _serve(svc, args.requests, qid_range=(n_anchor_q, n_anchor_q + n_serve_q))
+    if served is None:
+        return
     lat = np.array([r.latency_s for r in served])
     errors = sum(r.status != "ok" for r in served)
-    stats = svc.scorer_stats
-    print(f"[real-ce] served {len(served)} requests ({errors} errors) | "
+    print(f"[real-ce{'/mesh ' + args.mesh if mesh is not None else ''}] served {len(served)} "
+          f"requests ({errors} errors) | "
           f"p50={np.percentile(lat, 50) * 1e3:.1f}ms p99={np.percentile(lat, 99) * 1e3:.1f}ms "
           f"| {cfg.budget_ce} CE calls/request")
+    if mesh is not None:
+        log = svc.batch_log
+        print(f"device-resident CE: {sum(b['ce_calls'] for b in log)} measured CE calls over "
+              f"{dist.get_world_size()} ranks, {sum(b['batch_pad'] for b in log)} item-shard "
+              f"pad rows excluded; {serve_scorer.n_traces} CE shapes on rank 0")
+        return
+    stats = svc.scorer_stats
     print(f"measured: {stats.ce_calls} CE calls, {stats.cache_hits} cache hits "
           f"({stats.cache_size} resident pairs); {scorer.n_traces} CE shapes, "
           f"{scorer.stats.batch_pad} padded micro-batch rows")

@@ -116,3 +116,52 @@ def ragged_topk_inputs(dev, b, k_q, n, seed):
         mask[1, [3, n // 2, n - 6]] = False     # row 1: three valid items
         anchors[1] = n - 1
     return e, r, noise, mask, anchors
+
+
+def free_port() -> int:
+    """A TCP port on localhost that nothing listens on now."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_world(cmd, world: int, timeout: float, env=None) -> list:
+    """Run ``cmd`` (an argv list) as ``world`` ranks of one
+    ``torch.distributed`` world, each with the environment ``torchrun``
+    gives a rank (``RANK``, ``LOCAL_RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``,
+    ``MASTER_PORT`` on localhost).  Each rank's output goes to an unnamed
+    temporary file, so no rank blocks on a full pipe while another is
+    waited for.  Waits at most ``timeout`` seconds in all, then kills every
+    rank still running, so a hung rank fails its caller instead of hanging
+    it.  Returns ``[(returncode, stdout, stderr)]`` by rank; a killed rank's
+    code is None."""
+    import os
+    import subprocess
+    import tempfile
+    import time
+
+    base = dict(os.environ if env is None else env, MASTER_ADDR="127.0.0.1",
+                MASTER_PORT=str(free_port()), WORLD_SIZE=str(world))
+    files = [(tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")) for _ in range(world)]
+    procs = [subprocess.Popen(cmd, env=dict(base, RANK=str(r), LOCAL_RANK=str(r)),
+                              stdout=o, stderr=e, text=True)
+             for r, (o, e) in enumerate(files)]
+    end = time.monotonic() + timeout
+    codes = []
+    for p in procs:
+        try:
+            codes.append(p.wait(timeout=max(0.1, end - time.monotonic())))
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.wait()
+            codes.append(None)
+    out = []
+    for rc, (o, e) in zip(codes, files):
+        o.seek(0)
+        e.seek(0)
+        out.append((rc, o.read(), e.read()))
+        o.close()
+        e.close()
+    return out

@@ -436,6 +436,42 @@ def test_engine_on_the_card_matches_the_cpu(dev):
     assert np.isfinite(card.topk_scores.cpu().numpy()).all()
 
 
+@pytest.mark.parametrize("rows", [1, 2, 3, 16, 17, 37, 63, 64, 100, 128, 200])
+def test_estimate_state_rows_do_not_depend_on_their_batch(dev, rows):
+    """The engine's per-row estimate math (the first block's pinv, the
+    bordered update, e_q) at the serving shapes (k_q 500, 100 anchors in
+    rounds of 20): each row of a 256-row batch, computed in calls of
+    ``rows`` rows (the last call holds the rest), has the bits it has in
+    the whole batch.  The sharded
+    engine's bitwise contract rests on it: a data shard computes its rows
+    alone."""
+    from repro_torch.core import cur
+    from repro_torch.core.engine import _e_q, _rowwise
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    b, k_q, k_i, k_s, start = 256, 500, 100, 20, 60
+    a0 = torch.randn((b, k_q, k_s), generator=g, device=dev)
+    a_full = torch.zeros((b, k_q, k_i), device=dev)
+    a_full[:, :, :start] = torch.randn((b, k_q, start), generator=g, device=dev)
+    p_full = torch.zeros((b, k_i, k_q), device=dev)
+    p_full[:, :start] = cur.pinv(a_full[:, :, :start])
+    new = torch.randn((b, k_q, k_s), generator=g, device=dev)
+    c = torch.randn((b, k_i), generator=g, device=dev)
+    steps = {
+        "pinv": (lambda a: _rowwise(cur.incremental_pinv_init, a), (a0,)),
+        "bordered": (lambda a, q, n: _rowwise(
+            lambda *x: cur.block_pinv_extend_static(*x, start), a, q, n), (a_full, p_full, new)),
+        "e_q": (_e_q, (c, p_full)),
+    }
+    differ = {}
+    for name, (fn, xs) in steps.items():
+        whole = fn(*xs)
+        parts = torch.cat([fn(*(x[lo:lo + rows] for x in xs)) for lo in range(0, b, rows)])
+        differ[name] = int((parts != whole).sum())
+    assert differ == dict.fromkeys(steps, 0), f"entries differing in calls of {rows} rows"
+
+
 # flash attention: (B, Lq, Lk, H, KV, hd, causal, kv_lens) at small sizes;
 # tolerances: repro_torch.testing.FLASH_TOL, as in chip_smoke.py
 FLASH_CASES = {

@@ -32,7 +32,9 @@ def _modules():
 def test_importing_the_port_loads_no_jax_and_no_reference():
     mods = list(_modules())
     assert {"repro_torch.launch.serve", "repro_torch.core.engine",
-            "repro_torch.models.recsys.dlrm", "repro_torch.launch.steps"} <= set(mods)
+            "repro_torch.models.recsys.dlrm", "repro_torch.launch.steps",
+            "repro_torch.launch.mesh", "repro_torch.distributed.sharding",
+            "repro_torch.distributed.collectives"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(n for n in sys.modules if n == 'jax' or n.startswith('jax.')"
@@ -144,6 +146,31 @@ def test_real_ce_entry_points_refuse_to_fall_back_to_the_cpu(monkeypatch):
         serve.build_real_ce_domain(50, 4, 4)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve.main(["--scorer", "real-ce", "--n-items", "50", "--requests", "1"])
+
+
+def test_sharded_entry_points_refuse_to_fall_back_to_the_cpu(monkeypatch, tmp_path):
+    """``make_serving_mesh``, ``AnchorIndex.load(path, mesh)`` over a card
+    mesh and the CLI's ``--mesh`` land on the card unless the caller asks
+    for the CPU: without a card they raise before any process group
+    exists."""
+    from repro_torch.core.index import AnchorIndex
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import make_serving_mesh
+
+    class CardMesh:            # a card mesh's face, as load(path, mesh) reads it
+        device_type = "cuda"
+        mesh_dim_names = ("data", "items")
+        shape = (1, 1)
+
+    AnchorIndex.from_r_anc(torch.ones(4, 8)).save(str(tmp_path))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_serving_mesh(1, 1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        AnchorIndex.load(str(tmp_path), mesh=CardMesh())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(["--mesh", "1x1", "--batch", "4", "--requests", "1"])
+    assert not torch.distributed.is_initialized()
 
 
 def test_convert_follows_the_device_rule():

@@ -417,5 +417,6 @@ def test_serve_cli_serves_the_other_methods_on_the_cpu(flags, capsys):
                                    ["--mesh", "2x4"],
                                    ["--retriever", "rerank", "--first-stage", "de"]])
 def test_serve_cli_refuses_what_is_not_ported(flags):
-    with pytest.raises(SystemExit, match="ROADMAP|--retriever adacur"):
+    # --mesh is ported: without torchrun's ranks it is refused, naming torchrun
+    with pytest.raises(SystemExit, match="ROADMAP|--retriever adacur|torchrun"):
         serve.main(["--device", "cpu", *flags])
