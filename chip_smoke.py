@@ -93,11 +93,10 @@ Phases (one JSON line each):
    rank's resident payload is gated at 1.1x the ideal N / items.  For fp32
    and int8, staged and persistent, a B = 256 search (budget 200 in 5
    rounds; fp32 staged and int8 persistent also at B = 200, 100 rows a
-   data shard) through the tabulated 600 x 10^6 matrix must give every rank
-   the single-device engine's ``topk_idx``, ``topk_scores``,
-   ``anchor_idx`` and ``rounds_done`` bit for bit, with CE = plan; one
-   more search through the synthetic CE is reported beside them (its
-   batched einsum gives a pair other bits in a batch of 128).  Times,
+   data shard) through the tabulated 600 x 10^6 matrix, and fp32 staged
+   through the synthetic CE itself, must give every rank the
+   single-device engine's ``topk_idx``, ``topk_scores``, ``anchor_idx``
+   and ``rounds_done`` bit for bit, with CE = plan.  Times,
    launches and collectives per rank, beside the single-device search's
    ms.  Then ``ce-tiny`` (full width, fp32) through ``DeviceCEScorer``
    under a 1 x 2 mesh over 4,096 items: the single-device
@@ -140,6 +139,13 @@ Phases (one JSON line each):
    plain, library (``F.embedding_bag``) and bound times.  H=1 must be
    bitwise equal; fp32 within 1e-5 abs + 1e-5 rel, bf16 1e-6 + 2^-7 (one
    ulp).
+9a. ``kernel:embedding_bag_backward``: the bag's backward kernel (training's
+    gradient of the tables; deterministic, no atomics) against its plain
+    version (``index_add_`` in lookup order) for one DLRM field at
+    train_batch (B = 65,536, H = 1, dim 128) over a 2^22-row table and a
+    512-row one (128 lookups a row): max |d| <= 1e-5 x max |grad|, two
+    calls bitwise equal; kernel, plain, library (``index_add_``) and bound
+    (grad_out and ids read once, the touched rows written once) times.
 10. ``recsys_serve``: ``dlrm-mlperf`` at full width with every table capped
     at 2^24 rows (45.0 GB of fp32 tables on the card), the serve_p99
     (B=512) and serve_bulk (B=262,144) steps of ``build_recsys_serve``:
@@ -151,11 +157,32 @@ Phases (one JSON line each):
     (Algorithm 1, 500 CE calls each) with recall@{1,10,100} against the
     exact DLRM top-100 over 10^6 items (printed, not gated: the weights are
     random); the same 16 through ``engine_search`` with the dict query and
-    the fused kernels (approx_topk launches, top-k overlap printed).
+    the fused kernels (approx_topk launches, top-k overlap printed); each
+    loop after one warm-up search, ``per_search_ms`` the mean of the 16.
 12. ``dlrm_cpu_vs_card``: full width, tables capped at 2^16 rows, 512
     contexts x 64 candidates through ``score_candidates`` on the card
     (kernel) and on the CPU (plain): max |dscore| <= 1e-4 x max |score|
     with TF32 off, and the lookups bitwise equal.
+
+13. ``train``: (1) ``dlrm-mlperf`` at full width, tables capped at 2^22
+    rows (12.8 GB a copy; parameters, gradients and both AdamW moments
+    ~51 GB), ``build_recsys_train`` at train_batch (B = 65,536): 2 warm-up
+    and 10 timed steps (median ms, TFLOP/s against ``model_flops``, peak
+    memory, 26 bag forward and 26 backward launches a step, gated), one
+    step profiled, finite losses and every table's gradient non-zero
+    exactly on the rows a lookup hit (gated); (2) the same step with
+    tables capped at 2^16, B = 512, three steps on the card (kernels) and
+    on the CPU (plain): losses within 1e-5 relative, parameters within
+    1e-5 x the largest |parameter|, TF32 off; (3) two identical 3-step
+    runs bitwise equal, ``run_with_recovery`` with a step that raises once
+    at step 2 bitwise equal to the uninterrupted run, and
+    ``python -m repro_torch.launch.train --arch ce-tiny --steps 30
+    --save-every 10`` resumed by ``--steps 50`` bitwise equal to one
+    50-step run; (4) flash_attention, approx_topk and persistent_round
+    raise on a tensor that requires grad; (5) ce-tiny at train_4k (seq
+    4,096) at the largest batch, a multiple of 8, that fits in 80% of the
+    card (found from the peak memory of one step at B = 1 and 2): step ms,
+    tokens/s, peak memory.
 
 Then the card's ``name, power.limit`` line, a ``kernels`` summary line (one
 entry per kernel and, for the two top-k kernels, per payload: ``approx_topk``
@@ -187,6 +214,9 @@ REPLACES = {
     "persistent_round": "src/repro/kernels/approx_topk/persistent.py:232",
     "flash_attention": "src/repro/kernels/flash_attention/kernel.py:26",
     "embedding_bag": "src/repro/kernels/embedding_bag/kernel.py:26",
+    # the bag's gradient: the TPU kernel has no backward, the reference
+    # differentiates its gather (jnp.take) with XLA's scatter-add
+    "embedding_bag_backward": "src/repro/kernels/embedding_bag/kernel.py:26",
 }
 CUPTI_BOOKKEEPING = ("Command Buffer Full", "Buffer Flush", "Activity Buffer Request")
 SOURCES = {
@@ -194,6 +224,7 @@ SOURCES = {
     "persistent_round": "src/repro_torch/csrc/persistent_round.cu",
     "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
     "embedding_bag": "src/repro_torch/csrc/embedding_bag.cu",
+    "embedding_bag_backward": "src/repro_torch/csrc/embedding_bag.cu",
 }
 # kernel_ms of the earlier CUDA-core design of the two top-k kernels (fp32
 # FMA tiles, one-at-a-time list inserts) at the serving shape, recorded on
@@ -767,7 +798,7 @@ def serve_config(ce, index, payload, round_kernel, gt, launches, fp32_bytes, n_i
     expect = ({"approx_topk": 5 * n_search, "persistent_round": 0}
               if round_kernel == "staged"
               else {"approx_topk": n_search, "persistent_round": 4 * n_search})
-    expect.update(flash_attention=0, embedding_bag=0)
+    expect.update(flash_attention=0, embedding_bag=0, embedding_bag_backward=0)
     check(counts == expect, f"serve {label}: launches {counts}, expected {expect}")
     for name in launches:
         launches[name][payload] += counts[name]
@@ -1720,12 +1751,12 @@ def phase_engine_cpu_vs_card(dev):
                   f"early exit: card {card.rounds_done} rounds, CPU {cpu.rounds_done}, "
                   f"of {cfg.n_rounds}")
             expect = {"approx_topk": 1, "persistent_round": int(card.rounds_done),
-                      "flash_attention": 0, "embedding_bag": 0}
+                      "flash_attention": 0, "embedding_bag": 0, "embedding_bag_backward": 0}
         else:
             expect = ({"approx_topk": cfg.n_rounds, "persistent_round": 0}
                       if cfg.round_kernel == "staged"
                       else {"approx_topk": 1, "persistent_round": cfg.n_rounds - 1})
-            expect.update(flash_attention=0, embedding_bag=0)
+            expect.update(flash_attention=0, embedding_bag=0, embedding_bag_backward=0)
         check(counts == expect, f"engine {kw}: launches {counts}, expected {expect}")
         out.append(dict(config=kw or "fp32 staged", overlap=ov, launches=counts,
                         rounds_done_card=int(card.rounds_done),
@@ -1901,7 +1932,8 @@ def phase_serve_real_ce(dev):
         check(label != "cache" or hits > 0, "serve_real_ce cache: no cache hits")
         n_fwd = scorer.forwards
         expect = {"approx_topk": 5 * n_search, "persistent_round": 0,
-                  "flash_attention": CE_TINY.n_layers * n_fwd, "embedding_bag": 0}
+                  "flash_attention": CE_TINY.n_layers * n_fwd, "embedding_bag": 0,
+                  "embedding_bag_backward": 0}
         check(counts == expect and n_fwd > 0,
               f"serve_real_ce {label}: launches {counts}, expected {expect}")
         for name in launches:
@@ -2100,6 +2132,8 @@ def phase_recsys_retrieval(dev, params, cfg, n_search=16):
     queries = [{"dense": ctx["dense"][i:i + 1], "sparse": ctx["sparse"][i:i + 1]}
                for i in range(n_search)]
 
+    bundle.step(params, dict(queries[0], r_anc=r_anc), prng.PRNGKey(99))   # warm-up
+    torch.cuda.synchronize()
     kernels.reset_launches()
     ids, secs, calls, errors = [], [], [], []
     ce_before = bundle.stats.ce_calls
@@ -2135,6 +2169,9 @@ def phase_recsys_retrieval(dev, params, cfg, n_search=16):
         e_calls[0] += idx.numel()
         return dlrm.score_candidates(params, q["dense"], q["sparse"], idx, cfg)
 
+    engine_search(sf, r_anc, queries[0], ecfg, prng.PRNGKey(99), n_valid_items=n_cand)
+    torch.cuda.synchronize()                                             # warm-up
+    e_calls[0] = 0
     kernels.reset_launches()
     e_ids, e_secs = [], []
     for i, q in enumerate(queries):
@@ -2206,15 +2243,364 @@ def phase_dlrm_cpu_vs_card(dev):
 
 
 # ---------------------------------------------------------------------------
+# training on the card
+# ---------------------------------------------------------------------------
+
+TRAIN_WARMUP, TRAIN_TIMED = 2, 10        # DLRM train steps before and in the timing
+TRAIN_CPU_CAP, TRAIN_CPU_BATCH, TRAIN_CPU_STEPS = 1 << 16, 512, 3
+TRAIN_TOL = 1e-5          # card vs CPU: loss relative, params x the largest |param|
+BAG_BWD_TOL = 1e-5        # backward kernel vs plain: max |d| <= this x max |grad|
+LM_MEM_SHARE = 0.8        # of the card's memory the ce-tiny train_4k step may plan for
+CLI_STEPS = (30, 50)      # the ce-tiny CLI: a run cut at 30, resumed to 50
+CLI_SAVE_EVERY = 10
+
+
+def tree_max_diff(a, b) -> float:
+    """The largest |a - b| over two trees of tensors (any devices)."""
+    from repro_torch.tree import leaves
+
+    return max(float((x.detach().cpu().float() - y.detach().cpu().float()).abs().max())
+               for x, y in zip(leaves(a), leaves(b)))
+
+
+def tree_equal(a, b) -> bool:
+    from repro_torch.tree import leaves, leaves_with_paths
+
+    ka = [k for k, _ in leaves_with_paths(a)]
+    return ka == [k for k, _ in leaves_with_paths(b)] and all(
+        x.dtype == y.dtype and torch_equal(x, y) for x, y in zip(leaves(a), leaves(b)))
+
+
+def torch_equal(x, y) -> bool:
+    import torch
+
+    return bool(torch.equal(x.detach().cpu(), y.detach().cpu()))
+
+
+def bag_backward_case(dev, gen, case, rows, b, reps):
+    """The bag's backward kernel against its plain version (``index_add_``
+    in lookup order) for one DLRM field (H = 1, dim 128) on the card: error
+    gate, two calls bitwise equal, times beside the bound and
+    ``index_add_``'s."""
+    import torch
+
+    from repro_torch.kernels.embedding_bag.kernel import embedding_bag_backward_cuda
+    from repro_torch.kernels.embedding_bag.ref import embedding_bag_backward_plain, row_keys
+
+    dim = 128
+    g = torch.randn((b, dim), generator=gen, device=dev)
+    ids = torch.randint(0, rows, (b, 1), generator=gen, device=dev, dtype=torch.int32)
+    out = embedding_bag_backward_cuda(g, ids, rows)
+    again = embedding_bag_backward_cuda(g, ids, rows)
+    ref = embedding_bag_backward_plain(g, ids, rows)
+    torch.cuda.synchronize()
+    err, top = (out - ref).abs().max().item(), ref.abs().max().item()
+    check(err <= BAG_BWD_TOL * top, f"embedding_bag_backward {case}: max |d| {err} > "
+          f"{BAG_BWD_TOL} x max |grad| {top}")
+    check(bool(torch.equal(out, again)), f"embedding_bag_backward {case}: two calls differ")
+    keys = row_keys(ids, rows)
+    touched = int(torch.unique(keys).numel())
+    ms = cuda_ms(lambda: embedding_bag_backward_cuda(g, ids, rows), reps)
+    plain_ms = cuda_ms(lambda: embedding_bag_backward_plain(g, ids, rows), 3)
+    lib_ms = cuda_ms(lambda: torch.zeros((rows, dim), device=dev).index_add_(0, keys, g), reps)
+    nb = b * dim * 4 + b * 4 + touched * dim * 4
+    b_ms, b_by = bound(nb, float(b * dim))
+    return dict(case=case, B=b, H=1, dim=dim, rows=rows, rows_touched=touched,
+                lookups_per_touched_row=b / touched, kernel_ms=ms, plain_ms=plain_ms,
+                library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, bytes=nb, max_abs_err=err,
+                max_abs_grad=top, bitwise_across_calls=True,
+                bitwise_vs_plain=bool(torch.equal(out, ref)))
+
+
+def phase_bag_backward(gen, dev, quick):
+    """Returns (rows, worst max abs err); rows[0] is DLRM's largest training
+    table (2^22 rows) at train_batch."""
+    b = 4096 if quick else 65536
+    rows = [bag_backward_case(dev, gen, "(a) dlrm field, 2^22 rows", 1 << 22, b, 20),
+            bag_backward_case(dev, gen, "(b) dlrm small field, 512 rows", 512, b, 20)]
+    return rows, max(r["max_abs_err"] for r in rows)
+
+
+def params_copy(params, dev):
+    """A copy of a parameter tree on ``dev`` (a train step updates it in
+    place)."""
+    from repro_torch.tree import tree_map
+
+    return tree_map(lambda t: t.to(dev).clone(), params)
+
+
+def dlrm_train_run(cfg, params, batches, dev):
+    """``len(batches)`` DLRM train steps from ``params`` (copied to ``dev``)
+    -> (params, opt state, losses)."""
+    from repro_torch.configs.base import RecSysShape
+    from repro_torch.launch import steps
+
+    bundle = steps.build_recsys_train(DLRM, cfg, RecSysShape("train", "train", 1),
+                                      params=params_copy(params, dev))
+    params, state, _ = bundle.args
+    losses = []
+    for batch in batches:
+        params, state, met = bundle.step(params, state, {k: v.to(dev) for k, v in batch.items()})
+        losses.append(float(met["loss"]))
+    return params, state, losses
+
+
+def phase_train(dev):
+    """Training on the card: the full-width DLRM train step (tables capped at
+    2^22), card against CPU, determinism, recovery and the ce-tiny CLI's
+    resume, the forward-only kernels' autograd guard, and ce-tiny at
+    train_4k.  Returns (result, {kernel: launches} of the timed DLRM
+    steps)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import dlrm_mlperf
+    from repro_torch.configs.registry import CE_TINY
+    from repro_torch.configs.shapes import LM_SHAPES, RECSYS_SHAPES
+    from repro_torch.launch import steps
+    from repro_torch.models.recsys import dlrm
+    from repro_torch.tree import leaves
+
+    out = {}
+    # (1) dlrm-mlperf at full width, train_batch, tables capped at 2^22
+    cfg = dlrm_mlperf.capped(max_rows=dlrm_mlperf.TRAIN_ROW_CAP)
+    shape = RECSYS_SHAPES["train_batch"]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    bundle = steps.build_recsys_train(DLRM, cfg, shape, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    params, state, batch = bundle.args
+    losses = []
+    for _ in range(TRAIN_WARMUP):
+        params, state, met = bundle.step(params, state, batch)
+        losses.append(float(met["loss"]))
+    kernels.reset_launches()
+    secs = []
+    for _ in range(TRAIN_TIMED):
+        t0 = time.perf_counter()
+        params, state, met = bundle.step(params, state, batch)
+        losses.append(float(met["loss"]))          # waits for the step
+        secs.append(time.perf_counter() - t0)
+    counts = kernels.launch_counts()
+    check(all(np.isfinite(losses)), f"train: DLRM losses not finite: {losses}")
+    fwd, bwd = (counts["embedding_bag"] / TRAIN_TIMED,
+                counts["embedding_bag_backward"] / TRAIN_TIMED)
+    check(fwd == cfg.n_sparse and bwd == cfg.n_sparse,
+          f"train: {fwd} bag forward and {bwd} backward launches a step, expected "
+          f"{cfg.n_sparse} each")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    med = float(np.median(secs))
+    prof = profile_call(lambda: bundle.step(params, state, batch))
+    # every table's gradient is non-zero exactly on the rows a lookup hit
+    for p in leaves(params):
+        p.grad = None
+    dlrm.bce_loss(params, batch["dense"], batch["sparse"], batch["labels"], cfg).backward()
+    for f, t in enumerate(params["tables"]):
+        hit = torch.zeros(t.shape[0], dtype=torch.bool, device=dev)
+        hit[(batch["sparse"][:, f] % t.shape[0]).long()] = True
+        nonzero = t.grad.abs().amax(1) > 0
+        check(bool(torch.equal(nonzero, hit)),
+              f"train: table {f}'s gradient is not non-zero exactly on the rows hit "
+              f"({int((nonzero != hit).sum())} rows differ)")
+    tables_gb = sum(t.numel() * t.element_size() for t in params["tables"]) / 1e9
+    out["dlrm"] = dict(
+        model=DLRM, table_rows_cap=dlrm_mlperf.TRAIN_ROW_CAP, tables_gb=tables_gb,
+        batch=shape.batch, init_s=init_s, warmup_steps=TRAIN_WARMUP, steps=TRAIN_TIMED,
+        median_ms=med * 1e3, min_ms=min(secs) * 1e3, max_ms=max(secs) * 1e3,
+        model_flops=bundle.model_flops, tflops=bundle.model_flops / med / 1e12,
+        losses=losses, bag_forward_launches_per_step=fwd,
+        bag_backward_launches_per_step=bwd, max_memory_allocated_gb=peak_gb,
+        every_table_has_its_gradient=True, profile_step=prof)
+    launches = {"embedding_bag": counts["embedding_bag"],
+                "embedding_bag_backward": counts["embedding_bag_backward"]}
+    del bundle, params, state, batch, prof
+    torch.cuda.empty_cache()
+
+    # (2) card against CPU: tables capped at 2^16, B = 512, three steps
+    check(not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32,
+          "TF32 is on")
+    small = dlrm_mlperf.capped(max_rows=TRAIN_CPU_CAP)
+    init = dlrm.init_dlrm(small, torch.Generator().manual_seed(3), "cpu")
+    batches = [steps.recsys_train_inputs(small, TRAIN_CPU_BATCH, seed=4 + i, device="cpu")
+               for i in range(TRAIN_CPU_STEPS)]
+    cp, cs, cl = dlrm_train_run(small, init, batches, dev)
+    t0 = time.perf_counter()
+    hp, hs, hl = dlrm_train_run(small, init, batches, "cpu")
+    cpu_s = time.perf_counter() - t0
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(cl, hl))
+    p_diff = tree_max_diff(cp, hp)
+    p_top = max(float(t.detach().abs().max()) for t in leaves(hp))
+    check(loss_rel <= TRAIN_TOL and p_diff <= TRAIN_TOL * p_top,
+          f"train cpu_vs_card: loss rel {loss_rel}, params max |d| {p_diff} "
+          f"(bar {TRAIN_TOL} x {p_top})")
+    out["cpu_vs_card"] = dict(table_rows_cap=TRAIN_CPU_CAP, batch=TRAIN_CPU_BATCH,
+                              steps=TRAIN_CPU_STEPS, card_losses=cl, cpu_losses=hl,
+                              max_loss_rel=loss_rel, max_abs_dparam=p_diff, max_abs_param=p_top,
+                              tf32=False, cpu_s=cpu_s)
+    del cp, cs, hp, hs
+
+    # (3) determinism and resume on the card
+    det_batches = [steps.recsys_train_inputs(small, 8192, seed=20 + i, device="cpu")
+                   for i in range(3)]
+    runs = [dlrm_train_run(small, init, det_batches, dev) for _ in range(2)]
+    same = tree_equal(runs[0][0], runs[1][0]) and tree_equal(runs[0][1], runs[1][1])
+    check(same, "train: two identical 3-step DLRM runs differ on the card")
+    straight = runs[0]
+    del runs
+    tmp = tempfile.mkdtemp(prefix="adacur_train_")
+    try:
+        crashed = []
+
+        def step_fn(step, st):
+            if step == 2 and not crashed:
+                crashed.append(step)
+                raise RuntimeError("a step lost at step 2")
+            b = {k: v.to(dev) for k, v in det_batches[step].items()}
+            p, o, _ = step_bundle.step(st["params"], st["opt"], b)
+            return {"params": p, "opt": o}
+
+        from repro_torch.configs.base import RecSysShape
+
+        step_bundle = steps.build_recsys_train(DLRM, small, RecSysShape("train", "train", 1),
+                                               params=params_copy(init, dev))
+        mgr = CheckpointManager(os.path.join(tmp, "recovery"), save_every=1, keep=2)
+        rec = mgr.run_with_recovery(step_fn, {"params": step_bundle.args[0],
+                                              "opt": step_bundle.args[1]}, 3, device=dev)
+        recovered = bool(crashed) and tree_equal(rec["params"], straight[0]) and \
+            tree_equal(rec["opt"], straight[1])
+        check(recovered, "train: run_with_recovery (a step raised at step 2) is not bitwise "
+              "the uninterrupted run")
+        del rec, step_bundle, straight
+        torch.cuda.empty_cache()
+
+        # the ce-tiny CLI: 30 steps, resumed to 50, against one 50-step run
+        env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+        cli = []
+        for n, d in ((CLI_STEPS[0], "cut"), (CLI_STEPS[1], "cut"), (CLI_STEPS[1], "whole")):
+            t0 = time.perf_counter()
+            r = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", "--arch",
+                                "ce-tiny", "--steps", str(n), "--save-every", str(CLI_SAVE_EVERY),
+                                "--ckpt-dir", os.path.join(tmp, d)],
+                               env=env, capture_output=True, text=True, timeout=300)
+            check(r.returncode == 0, f"train CLI --steps {n} failed:\n{r.stderr[-3000:]}")
+            cli.append(dict(steps=n, dir=d, s=time.perf_counter() - t0,
+                            resumed=f"resumed from checkpoint at step {CLI_STEPS[0]}" in r.stderr))
+        check(cli[1]["resumed"], f"train CLI: the second run did not resume at step "
+              f"{CLI_STEPS[0]}")
+        a = os.path.join(tmp, "cut", f"step_{CLI_STEPS[1]}")
+        b = os.path.join(tmp, "whole", f"step_{CLI_STEPS[1]}")
+        manifest = json.load(open(os.path.join(a, "manifest.json")))["leaves"]
+        np_load = lambda d, m: np.load(os.path.join(d, m["file"]))  # noqa: E731
+        differ = [k for k, m in manifest.items()
+                  if not np.array_equal(np_load(a, m), np_load(b, m))]
+        check(not differ, f"train CLI: the resumed run's leaves differ: {differ[:5]}")
+        out["determinism"] = dict(two_runs_bitwise=same, recovery_bitwise=recovered,
+                                  recovery_failed_at=crashed, det_batch=8192,
+                                  cli=cli, cli_leaves=len(manifest), cli_resume_bitwise=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # (4) the forward-only kernels refuse autograd on the card
+    out["autograd_guard"] = autograd_guard(dev)
+
+    # (5) ce-tiny at train_4k: the largest batch (a multiple of 8) that fits
+    out["ce_tiny_train_4k"] = lm_train_4k(dev, CE_TINY, LM_SHAPES["train_4k"])
+    return out, launches
+
+
+def autograd_guard(dev) -> dict:
+    """flash_attention, approx_topk and persistent_round raise on a tensor
+    that requires grad under grad mode, and run under ``torch.no_grad()``."""
+    import torch
+
+    from repro_torch.kernels.approx_topk.ops import approx_topk_op
+    from repro_torch.kernels.approx_topk.persistent import persistent_round_op
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+
+    q = torch.randn((2, 64, 4, 32), device=dev, requires_grad=True)
+    kv = torch.randn((2, 64, 2, 32), device=dev)
+    e = torch.randn((4, 64), device=dev, requires_grad=True)
+    r = torch.randn((64, 4096), device=dev)
+    calls = {"flash_attention": lambda: flash_attention(q, kv, kv, causal=False),
+             "approx_topk": lambda: approx_topk_op(e, r, None, 8),
+             "persistent_round": lambda: persistent_round_op(e, r, k_sample=8, k_prov=8)}
+    raised = {}
+    for name, fn in calls.items():
+        try:
+            fn()
+            raised[name] = False
+        except RuntimeError as err:
+            raised[name] = "no backward" in str(err)
+        with torch.no_grad():
+            fn()
+    torch.cuda.synchronize()
+    check(all(raised.values()), f"train: a forward-only kernel took autograd inputs: {raised}")
+    return raised
+
+
+def lm_train_4k(dev, cfg, shape) -> dict:
+    """``build_lm_train`` on ce-tiny at train_4k: the batch is the largest
+    multiple of 8 whose step fits in ``LM_MEM_SHARE`` of the card, from the
+    peak memory of one step at B = 1 and at B = 2 (linear in B); then one
+    warm-up and three timed steps."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch import steps
+
+    def peak(b):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        bundle = steps.build_lm_train(cfg.name, cfg, shape, global_batch=b, device=dev)
+        bundle.step(*bundle.args)
+        torch.cuda.synchronize()
+        del bundle
+        return torch.cuda.max_memory_allocated()
+
+    p1, p2 = peak(1), peak(2)
+    total = torch.cuda.get_device_properties(dev).total_memory
+    per = p2 - p1
+    fit = int((LM_MEM_SHARE * total - (p1 - per)) // per) // 8 * 8
+    check(fit >= 8, f"train: ce-tiny train_4k fits only {fit} sequences (per {per / 1e9} GB)")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    bundle = steps.build_lm_train(cfg.name, cfg, shape, global_batch=fit, device=dev)
+    params, state, batch = bundle.args
+    params, state, met = bundle.step(params, state, batch)
+    losses, secs = [float(met["loss"])], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        params, state, met = bundle.step(params, state, batch)
+        losses.append(float(met["loss"]))
+        secs.append(time.perf_counter() - t0)
+    check(all(np.isfinite(losses)), f"train: ce-tiny losses not finite: {losses}")
+    med = float(np.median(secs))
+    res = dict(seq_len=shape.seq_len, reference_global_batch=shape.global_batch,
+               global_batch=fit, peak_gb_b1=p1 / 1e9, peak_gb_b2=p2 / 1e9,
+               card_gb=total / 1e9, median_ms=med * 1e3,
+               tokens_per_s=fit * shape.seq_len / med, model_flops=bundle.model_flops,
+               tflops=bundle.model_flops / med / 1e12, losses=losses,
+               max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9)
+    del bundle, params, state, batch
+    torch.cuda.empty_cache()
+    return res
+
+
+# ---------------------------------------------------------------------------
 # the sharded engine: (data x items) ranks over torch.distributed on one card
 # ---------------------------------------------------------------------------
 
 SHARDED_CONFIGS = (("float32", "staged"), ("float32", "persistent"),
                    ("int8", "staged"), ("int8", "persistent"))
-# the synthetic CE scores a pair with bits that depend on its batch on the
-# card (a batched einsum), so the bitwise gates score through the domain's
-# tabulated matrix; one configuration also runs the synthetic scorer,
-# reported beside them
+# one configuration also scores through the synthetic CE itself, gated
+# bitwise like the others: its score_pairs gives a pair the same bits in a
+# data shard's batch as in the whole batch (products and fixed-order sums)
 SHARDED_SYNTHETIC = ("float32", "staged")
 # two configurations also run a batch of 200 (100 rows a data shard, no
 # multiple of 128): a row's estimate-state bits must not depend on its batch
@@ -2487,12 +2873,11 @@ def phase_sharded(dev, ce, index):
                              for run in runs)
             anchors_moved = max(int((run["anchor_idx"] != ref.anchor_idx.cpu()).sum())
                                 for run in runs)
-            if scorer_kind == "tabulated":
-                faults += [f"{label}: rank {r}'s {f} differs from the single-device engine's"
-                           for f, per_rank in equal.items()
-                           for r, ok in enumerate(per_rank) if not ok]
-                faults += [f"{label}: rank {r} did not bind the sharded engine"
-                           for r, run in enumerate(runs) if not run["sharded"]]
+            faults += [f"{label}: rank {r}'s {f} differs from the single-device engine's"
+                       for f, per_rank in equal.items()
+                       for r, ok in enumerate(per_rank) if not ok]
+            faults += [f"{label}: rank {r} did not bind the sharded engine"
+                       for r, run in enumerate(runs) if not run["sharded"]]
             ce_calls = sum(run["ce_calls"] for run in runs)
             plan = 2 * ce_call_plan(sharded_cfg(payload, round_kernel)) * b   # two searches
             if ce_calls != plan:
@@ -2655,6 +3040,9 @@ def main() -> int:
         rows, err = phase_embedding_bag(gen, dev, args.quick)
         emit({"phase": "kernel:embedding_bag", "cases": rows})
         summary["embedding_bag"] = (rows[0], err)
+        rows, err = phase_bag_backward(gen, dev, args.quick)
+        emit({"phase": "kernel:embedding_bag_backward", "cases": rows})
+        summary["embedding_bag_backward"] = (rows[0], err)
         launches = dict.fromkeys(summary, 0)
         if not args.quick:
             from repro_torch.launch.serve import build_domain
@@ -2698,6 +3086,8 @@ def main() -> int:
             del params
             torch.cuda.empty_cache()
             emit({"phase": "dlrm_cpu_vs_card", **phase_dlrm_cpu_vs_card(dev)})
+            train, train_launches = phase_train(dev)
+            emit({"phase": "train", **train})
             for name, per_payload in serve_launches.items():
                 for dtype, n in per_payload.items():
                     # the serve drives, the index lifecycle's searches and
@@ -2714,7 +3104,9 @@ def main() -> int:
             launches["persistent_round"] += router_launches["persistent_round"]
             launches.update(flash_attention=ce_launches["flash_attention"]
                             + sum(sharded["real_ce_mesh"]["flash_launches_per_rank"]),
-                            embedding_bag=rs_bags + rr_launches["embedding_bag"])
+                            embedding_bag=rs_bags + rr_launches["embedding_bag"]
+                            + train_launches["embedding_bag"],
+                            embedding_bag_backward=train_launches["embedding_bag_backward"])
         for name, n in launches.items():
             check(args.quick or n > 0, f"{name} was never launched on the main path")
     except CheckFailed as e:

@@ -137,6 +137,10 @@ class LMConfig:
     def q_per_kv(self) -> int:
         return self.n_heads // self.n_kv_heads
 
+    def n_active_params(self) -> int:
+        """Parameters a token passes through: all of them in a dense model."""
+        return self.n_params()
+
     def n_params(self) -> int:
         """Analytic parameter count of the dense model."""
         hd = self.resolved_head_dim
@@ -188,3 +192,13 @@ class RecSysShape:
     kind: str          # "train" | "serve" | "retrieval"
     batch: int
     n_candidates: int = 0
+
+
+@dataclass(frozen=True)
+class LMShape:
+    """One named LM step shape (``configs/shapes.py``)."""
+
+    name: str
+    kind: str          # "train" | "prefill" | "decode"
+    seq_len: int
+    global_batch: int

@@ -13,6 +13,10 @@ One 80 GB card cannot hold them, so :func:`capped` caps each table at
 87,956,992 padded rows (45.0 GB in fp32).  Ids are taken modulo the padded
 row count either way, so the cap narrows only the hash space; widths and
 the number of fields are unchanged.
+
+Training holds four copies of the tables (parameters, gradients and
+AdamW's two moments), so it caps them at ``TRAIN_ROW_CAP`` = 2^22 rows:
+25,042,432 padded rows, 12.8 GB a copy, 51.3 GB for the four.
 """
 
 from __future__ import annotations
@@ -40,6 +44,7 @@ CONFIG = RecSysConfig(
 )
 
 CARD_ROW_CAP = 1 << 24
+TRAIN_ROW_CAP = 1 << 22
 
 
 def capped(cfg: RecSysConfig = CONFIG, max_rows: int = CARD_ROW_CAP) -> RecSysConfig:

@@ -1,9 +1,13 @@
-"""Named recsys step shapes — the port's copy of ``RECSYS_SHAPES``
-(``repro/configs/shapes.py``)."""
+"""Named step shapes — the port's copy of ``RECSYS_SHAPES`` and of
+``LM_SHAPES``' training shape (``repro/configs/shapes.py``)."""
 
 from __future__ import annotations
 
-from .base import RecSysShape
+from .base import LMShape, RecSysShape
+
+LM_SHAPES = {
+    "train_4k": LMShape("train_4k", "train", seq_len=4096, global_batch=256),
+}
 
 RECSYS_SHAPES = {
     "train_batch": RecSysShape("train_batch", "train", batch=65536),

@@ -98,6 +98,20 @@ def dlrm_params(tree: dict, device=None) -> dict:
             "tables": _tree(tree["tables"], device)}
 
 
+def adamw_state(step, mu, nu, params_fn=None, device=None):
+    """The port's ``AdamWState`` from the reference's: its step (a 0-d int)
+    and its two moment trees as numpy, each converted by ``params_fn``
+    (``dlrm_params`` or ``cross_encoder_params``: the moments have their
+    parameters' structure), so both packages' optimizers start from the same
+    state."""
+    from .training.optimizer import AdamWState
+
+    params_fn = dlrm_params if params_fn is None else params_fn
+    dev = resolve_device(device)
+    return AdamWState(torch.tensor(int(np.asarray(step)), dtype=torch.int32, device=dev),
+                      params_fn(mu, dev), params_fn(nu, dev))
+
+
 def config(kwargs: dict) -> AdaCURConfig:
     """An AdaCURConfig from a kwargs dict (the reference's field names)."""
     return AdaCURConfig(**kwargs)

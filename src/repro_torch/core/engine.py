@@ -345,10 +345,9 @@ def _make_round_steps(scored, r_anc, query, cfg, keys, k_s: int, n_valid,
         a_buf = state.a_buf.clone()
         a_buf[:, :, start:start + k_s] = cols_new
         if cfg.incremental_pinv:
-            p = _rowwise(lambda a, q, c: cur.block_pinv_extend_static(a, q, c, start),
-                         state.a_buf, state.p, cols_new)
+            p = _bordered(state.a_buf, state.p, cols_new, start)
         else:
-            p = _rowwise(lambda a: cur.pinv(a, cfg.pinv_rcond), a_buf)
+            p = cur.pinv(a_buf, cfg.pinv_rcond)
         return EngineState(anchor_idx, c_test, a_buf, p, _e_q(c_test, p), selected)
 
     def body(r, state):
@@ -357,25 +356,28 @@ def _make_round_steps(scored, r_anc, query, cfg, keys, k_s: int, n_valid,
     return sample, apply, body
 
 
-# the fewest rows a call of the per-row estimate math (pinv, its bordered
-# update, e_q) takes on the card: for a small batch cuSOLVER and cuBLAS
-# take other kernels (a per-matrix LU, a plain GEMM) than for a large one,
-# and so give a row other bits, while from 64 rows on a row's bits do not
-# depend on its batch (tests/test_torch_cuda.py holds 1-200 row calls to a
-# 256-row batch's bits).  That is what lets a data shard of any row count
-# reproduce the single-device engine bit for bit.
-STATE_MIN_ROWS = 64
+# the fewest rows a bordered pinv update takes on the card: for a batch of
+# one or two matrices cuSOLVER takes another LU than for more, and so gives
+# a row other bits, while from three rows on a row's bits do not depend on
+# its batch.  ``batch_bits.py`` found it by calling the update unpadded at
+# every size of 1-64 rows (k_q 500, blocks of 20 columns): only calls of 1
+# and 2 rows missed the 256-row call's bits.  The first block's pinv and e_q
+# missed at no size and run unpadded.  tests/test_torch_cuda.py holds the
+# engine's calls of 1-64, 100, 128 and 200 rows to a 256-row batch's bits:
+# what lets a data shard of any row count reproduce the single-device
+# engine bit for bit.
+BORDERED_MIN_ROWS = 3
 
 
-def _rowwise(fn, *xs):
-    """``fn(*xs)`` over a batch of per-row problems; on the card a batch of
-    fewer than ``STATE_MIN_ROWS`` rows runs padded to that many with copies
-    of its last row."""
-    b = xs[0].shape[0]
-    if b >= STATE_MIN_ROWS or xs[0].device.type != "cuda":
-        return fn(*xs)
-    pad = torch.arange(STATE_MIN_ROWS, device=xs[0].device).clamp(max=b - 1)
-    return fn(*(x[pad] for x in xs))[:b]
+def _bordered(a_full, p_full, cols_new, start: int):
+    """``cur.block_pinv_extend_static`` over a batch of per-row problems; on
+    the card a batch of fewer than ``BORDERED_MIN_ROWS`` rows runs padded to
+    that many with copies of its last row."""
+    b = a_full.shape[0]
+    if b >= BORDERED_MIN_ROWS or a_full.device.type != "cuda":
+        return cur.block_pinv_extend_static(a_full, p_full, cols_new, start)
+    pad = torch.arange(BORDERED_MIN_ROWS, device=a_full.device).clamp(max=b - 1)
+    return cur.block_pinv_extend_static(a_full[pad], p_full[pad], cols_new[pad], start)[:b]
 
 
 def _e_q(c_test, p):
@@ -383,7 +385,7 @@ def _e_q(c_test, p):
     product and a reduction over k_i: on the card its bits do not depend on
     the batch, where a batched GEMM's do (cuBLAS picks its kernel by the
     batch)."""
-    return _rowwise(lambda c, q: (c[:, :, None] * q).sum(1), c_test, p)
+    return (c_test[:, :, None] * p).sum(1)
 
 
 def _pad_short_ranking(top_idx, top_s):
@@ -554,7 +556,7 @@ def engine_search(score_fn: ScoreFn, r_anc, query, cfg: AdaCURConfig, key,
     e_q = torch.zeros((b, k_q), dtype=torch.float32, device=dev)
     if cfg.split_budget or return_scores or r_max > 1:
         init = cur.incremental_pinv_init if cfg.incremental_pinv else cur.pinv
-        p[:, :k_s, :] = _rowwise(lambda a: init(a, cfg.pinv_rcond), cols0)
+        p[:, :k_s, :] = init(cols0, cfg.pinv_rcond)
         e_q = _e_q(c_test, p)
     state = EngineState(anchor_idx, c_test, a_buf, p, e_q, selected)
 

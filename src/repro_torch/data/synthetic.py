@@ -7,7 +7,10 @@
 
 Bulk scoring is chunked over items so no temporary grows past a few
 hundred MB (the serving domain has 10^6 items); the background of a block
-is one (Q, R·r) x (R·r, N) fp32 matrix product.
+is one (Q, R·r) x (R·r, N) fp32 matrix product.  ``score_pairs`` (what a
+search scores) contracts with products and fixed-order sums of slices
+instead, so a pair's bits do not depend on how many rows share its call
+(on the card a GEMM or a reduction kernel picks its algorithm by shape).
 """
 
 from __future__ import annotations
@@ -51,19 +54,28 @@ class SyntheticCE:
                            t(self.mix_b), t(self.mix_w), self.gamma, self.sigma)
 
     def _proj(self, e, mix):
-        # (..., d) x (R, d, r) -> (..., R, r)
+        # (..., d) x (R, d, r) -> (..., R, r) as one GEMM (the bulk path)
         return torch.tanh(torch.einsum("...d,rdk->...rk", e, mix))
+
+    def _proj_rows(self, e, mix):
+        # (..., d) x (R, d, r) -> (..., R, r): a product and a fixed-order sum
+        # over d, element by element
+        return torch.tanh(_tree_sum(e[..., None, None, :] * mix.transpose(1, 2)))
 
     def _spike(self, d2):
         return self.gamma * torch.exp(-d2 / (2.0 * self.sigma ** 2))
 
     def score_pairs(self, query_ids, item_ids) -> torch.Tensor:
-        """Exact CE scores for (B,) query ids x (B, k) item ids -> (B, k)."""
+        """Exact CE scores for (B,) query ids x (B, k) item ids -> (B, k).
+        Elementwise kernels and sums of slices only: a row's bits do not
+        depend on its batch (``tests/test_torch_cuda.py`` holds it on the
+        card)."""
         qe = self.q_emb[query_ids.long()][:, None, :]         # (B, 1, d)
         ie = self.i_emb[item_ids.long()]                       # (B, k, d)
-        bg = torch.einsum("...rk,...rk,r->...", self._proj(qe, self.mix_a),
-                          self._proj(ie, self.mix_b), self.mix_w)
-        return bg + self._spike(((qe - ie) ** 2).sum(-1))
+        terms = (self._proj_rows(qe, self.mix_a) * self._proj_rows(ie, self.mix_b)
+                 * self.mix_w[:, None])                        # (B, k, R, r)
+        bg = _tree_sum(terms.flatten(-2))
+        return bg + self._spike(_tree_sum((qe - ie) ** 2))
 
     def score_block(self, query_ids, item_ids) -> torch.Tensor:
         """Bulk scores for (Q,) query ids x (N,) item ids -> (Q, N)."""
@@ -85,6 +97,17 @@ class SyntheticCE:
         items = torch.arange(self.n_items, device=self.device)
         return torch.cat([self.score_block(query_ids[lo:lo + chunk], items)
                           for lo in range(0, query_ids.shape[0], chunk)])
+
+
+def _tree_sum(x: torch.Tensor) -> torch.Tensor:
+    """The sum over the last axis by halving: each step adds the upper half
+    of the remaining slices onto the lower, an elementwise add, so every
+    output's order of additions is fixed by the axis' length alone."""
+    while x.shape[-1] > 1:
+        h = x.shape[-1] // 2
+        head = x[..., :h] + x[..., h:2 * h]
+        x = torch.cat([head, x[..., 2 * h:]], dim=-1) if x.shape[-1] % 2 else head
+    return x[..., 0]
 
 
 def make_synthetic_ce(key, n_queries: int = 1000, n_items: int = 10000,

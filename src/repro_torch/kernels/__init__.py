@@ -27,6 +27,18 @@ class LaunchCounter:
         return self._n
 
 
+def refuse_autograd(name: str, *tensors) -> None:
+    """Raise if grad mode is on and any of ``tensors`` requires grad: the
+    kernel ``name`` has no backward (nor has its TPU kernel), so its output
+    would silently carry no ``grad_fn``.  The plain versions, on the CPU,
+    stay differentiable."""
+    import torch
+
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(f"the {name} kernel has no backward: call it under "
+                           "torch.no_grad() or on tensors that do not require grad")
+
+
 def reset_launches() -> None:
     """Set every kernel wrapper's launch count to 0."""
     for counter in _counters().values():
@@ -45,4 +57,5 @@ def _counters() -> dict:
     return {"approx_topk": kernel.launches,
             "persistent_round": persistent.launches,
             "flash_attention": flash.launches,
-            "embedding_bag": bag.launches}
+            "embedding_bag": bag.launches,
+            "embedding_bag_backward": bag.backward_launches}

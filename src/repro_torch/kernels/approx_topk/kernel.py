@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import torch
 
-from .. import LaunchCounter, build
+from .. import LaunchCounter, build, refuse_autograd
 from . import quant
 from .quant import QuantizedRanc
 
@@ -104,13 +104,16 @@ def payload_operands(r_anc):
     return storage.contiguous(), kind, None, 1, r_anc.shape[1]
 
 
-def check_operands(e_q, codes, n, k_list, noise, masks, anchors, kmax: int = KMAX):
-    """Device, dtype and shape checks shared by both kernel wrappers; ``n``
-    is the payload's logical item count, ``kmax`` the wrapper's longest list."""
+def check_operands(e_q, codes, n, k_list, noise, masks, anchors, kmax: int = KMAX,
+                   name: str = "approx_topk"):
+    """Device, dtype, shape and autograd checks shared by both kernel
+    wrappers (``name``); ``n`` is the payload's logical item count, ``kmax``
+    the wrapper's longest list."""
     b, k_q = e_q.shape
     if not e_q.is_cuda:
         raise ValueError("the CUDA kernel needs CUDA tensors (the plain "
                          "version serves CPU tensors)")
+    refuse_autograd(name, e_q, codes, noise)
     if e_q.dtype != torch.float32 or codes.shape[0] != k_q:
         raise ValueError(f"e_q must be (B, k_q) fp32 matching the payload's "
                          f"k_q, got {tuple(e_q.shape)} {e_q.dtype}")

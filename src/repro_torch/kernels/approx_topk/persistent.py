@@ -85,7 +85,7 @@ def persistent_round_cuda(e_q, r_anc, *, k_sample=None, k_prov=None,
     codes, kind, scales, qtile, n = payload_operands(r_anc)
     ks, kp = k_sample or 0, k_prov or 0
     check_operands(e_q, codes, n, [k for k in (k_sample, k_prov) if k is not None],
-                   noise, [mask, prov_mask], anchors)
+                   noise, [mask, prov_mask], anchors, name="persistent_round")
     b, k_q = e_q.shape
     n_items = n if n_valid is None else min(int(n_valid), n)
     dev = e_q.device

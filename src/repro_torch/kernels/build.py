@@ -114,6 +114,8 @@ _SIGNATURES = {
                                _L, _L, _L, _L, _L, _L, _L, _L, _L, _I,
                                ctypes.c_float, _P],
     "embedding_bag_launch": [_P, _P, _P, _I, _L, _I, _L, _I, _I, _I, _P],
+    "embedding_bag_backward_launch": [_P, _P, _P, _P, _P, _P, _L, _I, _I, _L, _I, _I, _I,
+                                      _P],
 }
 
 

@@ -6,20 +6,55 @@ On a CUDA tensor it launches the hand-written kernel
 (``csrc/embedding_bag.cu`` through ``kernel.embedding_bag_cuda``), or
 raises; on a CPU tensor it runs ``ref.embedding_bag_plain``.  There is no
 fallback: a kernel that fails to build or launch raises.
+
+Differentiable in the table: where grad mode is on and the table requires
+grad, the op is a ``torch.autograd.Function`` whose backward writes the
+dense (rows, dim) fp32 gradient the reference's ``jnp.take`` gives — the
+backward kernel (``kernel.embedding_bag_backward_cuda``) on the card, its
+plain version (``index_add_`` in lookup order) on the CPU.  The ids get no
+gradient.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .kernel import embedding_bag_cuda
-from .ref import embedding_bag_plain
+from .kernel import embedding_bag_backward_cuda, embedding_bag_cuda
+from .ref import embedding_bag_backward_plain, embedding_bag_plain
+
+
+def _forward(table, ids, mode):
+    if table.is_cuda:
+        return embedding_bag_cuda(table, ids, mode)
+    return embedding_bag_plain(table, ids, mode)
+
+
+def embedding_bag_backward(grad_out: torch.Tensor, ids: torch.Tensor, rows: int,
+                           mode: str = "sum") -> torch.Tensor:
+    """d table (rows, dim) fp32 from the bag output's gradient; the backend
+    follows ``grad_out``'s device."""
+    if grad_out.is_cuda:
+        return embedding_bag_backward_cuda(grad_out, ids, rows, mode)
+    return embedding_bag_backward_plain(grad_out, ids, rows, mode)
+
+
+class _Bag(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, table, ids, mode):
+        ctx.save_for_backward(ids)
+        ctx.rows, ctx.mode = table.shape[0], mode
+        return _forward(table, ids, mode)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        (ids,) = ctx.saved_tensors
+        return embedding_bag_backward(grad_out, ids, ctx.rows, ctx.mode), None, None
 
 
 def embedding_bag_op(table: torch.Tensor, ids: torch.Tensor,
                      mode: str = "sum") -> torch.Tensor:
     """Fixed-width multi-hot bag lookup; the backend follows the table's
     device (both check their operands)."""
-    if table.is_cuda:
-        return embedding_bag_cuda(table, ids, mode)
-    return embedding_bag_plain(table, ids, mode)
+    if table.requires_grad and torch.is_grad_enabled():
+        return _Bag.apply(table, ids, mode)
+    return _forward(table, ids, mode)

@@ -51,3 +51,31 @@ def embedding_bag_plain(table: torch.Tensor, ids: torch.Tensor,
         # Python number becomes a multiply by its reciprocal
         acc /= torch.tensor(float(h), dtype=torch.float32, device=acc.device)
     return acc.to(table.dtype)
+
+
+def row_keys(ids: torch.Tensor, rows: int) -> torch.Tensor:
+    """The (B * H,) int64 table row of each lookup in lookup order (b, h):
+    an id in [-rows, 0) wraps once, one outside [-rows, rows) becomes
+    ``rows`` (its gather read NaN; it takes no part in the gradient, as
+    jnp.take's scatter-add drops it)."""
+    idx = ids.reshape(-1).long()
+    idx = torch.where(idx < 0, idx + rows, idx)
+    return torch.where((idx < 0) | (idx >= rows), rows, idx)
+
+
+def embedding_bag_backward_plain(grad_out: torch.Tensor, ids: torch.Tensor, rows: int,
+                                 mode: str = "sum") -> torch.Tensor:
+    """d table (rows, dim) fp32 of the bag: ``index_add_`` of each lookup's
+    ``grad_out[b]`` (``/ H`` for ``mean``, an fp32 divide) in lookup order,
+    dropped ids left out; any device."""
+    if mode not in MODES:
+        raise ValueError(f"embedding-bag mode must be one of {MODES}, got {mode!r}")
+    b, h = ids.shape
+    g = grad_out.float()
+    if mode == "mean":
+        g = g / torch.tensor(float(h), dtype=torch.float32, device=g.device)
+    keys = row_keys(ids, rows)
+    keep = keys < rows
+    src = g[:, None, :].expand(b, h, g.shape[1]).reshape(b * h, -1)
+    out = torch.zeros((rows, g.shape[1]), dtype=torch.float32, device=g.device)
+    return out.index_add_(0, keys[keep], src[keep])

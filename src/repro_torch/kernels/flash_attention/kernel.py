@@ -20,7 +20,7 @@ import ctypes
 
 import torch
 
-from .. import LaunchCounter, build
+from .. import LaunchCounter, build, refuse_autograd
 
 HEAD_DIMS = (16, 32, 64, 128)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -44,6 +44,7 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, kv_lens=None) -> torch
     if not q.is_cuda:
         raise ValueError("the CUDA kernel needs CUDA tensors (the plain version "
                          "serves CPU tensors)")
+    refuse_autograd("flash_attention", q, k, v)
     b, lq, h, hd = q.shape
     if k.dim() != 4 or k.shape != v.shape or k.shape[0] != b or k.shape[3] != hd:
         raise ValueError(f"k and v must be (B, Lk, KV, hd) matching q {tuple(q.shape)}, "

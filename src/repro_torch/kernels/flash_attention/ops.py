@@ -63,7 +63,7 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, block_q: int = 128,
             s = s.masked_fill(~mask, NEG_INF)
             m_cur = torch.maximum(m, s.amax(-1))
             alpha = torch.exp(m - m_cur)
-            p = torch.exp(s - m_cur[..., None]).masked_fill_(~mask, 0.0)
+            p = torch.exp(s - m_cur[..., None]).masked_fill(~mask, 0.0)
             l = l * alpha + p.sum(-1)
             acc = acc * alpha[..., None] + torch.matmul(p, vt)
             m = m_cur

@@ -1,17 +1,31 @@
-"""Step builders for the recsys family — port of the DLRM serve and
-retrieval builders of ``repro/launch/steps.py`` (``build_recsys_serve``
-:557, ``build_recsys_retrieval`` :575), on one device with no mesh.
+"""Step builders — port of the DLRM train, serve and retrieval builders
+and the LM train builder of ``repro/launch/steps.py``
+(``build_recsys_train`` :531, ``build_recsys_serve`` :557,
+``build_recsys_retrieval`` :575, ``build_lm_train`` :149), on one device
+with no mesh.
 
+  train_batch            -> BCE loss, its gradient and AdamW (lr 1e-3, no
+                            weight decay); the lookups' gradient through
+                            the bag kernel's backward
   serve_p99 / serve_bulk -> ``dlrm.forward`` over a batch of contexts
   retrieval_cand         -> ADACUR (``adacur.adacur_search``) over
                             ``n_candidates`` items with DLRM as the exact
                             cross-encoder-class scorer
+  LM train_4k            -> next-token NLL over sequence chunks (each
+                            chunk's logits recomputed in the backward), its
+                            gradient (accumulated over microbatches for the
+                            largest models) and AdamW
+
+A train step ``step(params, opt_state, batch) -> (params, opt_state,
+metrics)`` updates ``params`` and the optimizer state in place
+(``training.optimizer``); the parameters are leaf tensors that require
+grad.
 
 Each builder returns a :class:`StepBundle` whose ``args`` are concrete
 tensors (the reference's are abstract shapes for its dry run): weights
 drawn from a seed as ``_recsys_init`` does with ``PRNGKey(0)``, contexts
 from a seeded generator with raw sparse ids in [0, 2^31).  BST, BERT4Rec,
-MIND and the training step are later slices (ROADMAP.md, queue 1, item 13).
+MIND and training over a mesh are later slices (ROADMAP.md, queue 1).
 """
 
 from __future__ import annotations
@@ -21,11 +35,14 @@ from typing import Callable, Optional
 
 import torch
 
-from ..configs.base import AdaCURConfig, RecSysConfig, RecSysShape
+from ..configs.base import AdaCURConfig, LMConfig, LMShape, RecSysConfig, RecSysShape
 from ..core import adacur, prng
 from ..core.scorer import ScorerStats
 from ..device import resolve_device
+from ..models import transformer
 from ..models.recsys import dlrm, embedding
+from ..training import optimizer
+from ..tree import leaves, tree_map
 
 K_Q = 500                 # anchor contexts of the retrieval step's R_anc
 PAIRS_PER_CALL = 131072   # DLRM pairs a forward of the R_anc build (~6 GB live)
@@ -42,7 +59,7 @@ class StepBundle:
     name: str
     step: Callable
     args: tuple
-    model_flops: float                    # analytic forward FLOPs of a step
+    model_flops: float                    # analytic FLOPs of a step
     stats: Optional[ScorerStats] = None   # the retrieval step's CE calls
 
 
@@ -164,3 +181,145 @@ def build_recsys_retrieval(arch_id: str, cfg: RecSysConfig, shape: RecSysShape, 
              + recsys_flops(cfg, acfg.budget_ce))
     return StepBundle(f"{arch_id}:{shape.name}", step, (params, batch, prng.PRNGKey(seed)),
                       flops, stats)
+
+
+# ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+
+
+def require_grad(params):
+    """``params`` with every leaf set to require grad (in place)."""
+    for p in leaves(params):
+        p.requires_grad_(True)
+    return params
+
+
+def _set_grads_none(params) -> None:
+    for p in leaves(params):
+        p.grad = None
+
+
+def train_step(loss_fn: Callable, opt_cfg: optimizer.AdamWConfig, n_micro: int = 1):
+    """``step(params, opt_state, batch) -> (params, opt_state, {"loss",
+    "grad_norm", "lr"})``: the loss's gradient (the mean over ``n_micro``
+    microbatches split off the batch's leading axis through
+    ``optimizer.accumulate_grads`` when ``n_micro > 1``), then one AdamW
+    update in place.  The gradients are dropped after the update."""
+    def step(params, opt_state, batch):
+        _set_grads_none(params)
+        if n_micro > 1:
+            mb = tree_map(lambda x: x.reshape((n_micro, x.shape[0] // n_micro) + x.shape[1:]),
+                          batch)
+            grads, loss = optimizer.accumulate_grads(loss_fn, params, mb, n_micro)
+        else:
+            loss = loss_fn(params, batch)
+            loss.backward()
+            grads = tree_map(lambda p: torch.zeros_like(p) if p.grad is None else p.grad,
+                             params)
+        params, opt_state, metrics = optimizer.adamw_update(opt_cfg, params, grads, opt_state)
+        del grads
+        _set_grads_none(params)
+        return params, opt_state, {"loss": loss.detach(), **metrics}
+
+    return step
+
+
+def recsys_train_inputs(cfg: RecSysConfig, batch: int, seed: int = 1, device=None) -> dict:
+    """:func:`recsys_inputs` plus ``labels`` (B,) fp32 in {0, 1} from the
+    same seeded generator."""
+    dev = resolve_device(device)
+    ctx = recsys_inputs(cfg, batch, seed, dev)
+    g = _generator(seed + 1000, dev)
+    ctx["labels"] = torch.randint(0, 2, (batch,), generator=g, device=dev).to(torch.float32)
+    return ctx
+
+
+def _recsys_loss(cfg: RecSysConfig):
+    _dlrm_only(cfg)
+    return lambda p, b: dlrm.bce_loss(p, b["dense"], b["sparse"], b["labels"], cfg)
+
+
+def build_recsys_train(arch_id: str, cfg: RecSysConfig, shape: RecSysShape, *,
+                       params=None, seed: int = 0, device=None) -> StepBundle:
+    """``step(params, opt_state, batch)``: one DLRM train step at
+    ``shape.batch`` (BCE, its gradient, AdamW with lr 1e-3 and no weight
+    decay, as the reference).  ``args`` = (params requiring grad, a fresh
+    AdamW state, a seeded batch with labels); ``model_flops`` = 3 x the
+    forward's (forward + backward)."""
+    opt_cfg = optimizer.AdamWConfig(lr=1e-3, weight_decay=0.0)
+    loss_fn = _recsys_loss(cfg)
+    params = recsys_init(cfg, seed, device) if params is None else params
+    require_grad(params)
+    dev = params["tables"][0].device
+    batch = recsys_train_inputs(cfg, shape.batch, seed + 1, dev)
+    return StepBundle(f"{arch_id}:{shape.name}", train_step(loss_fn, opt_cfg),
+                      (params, optimizer.init_adamw(params), batch),
+                      3.0 * recsys_flops(cfg, shape.batch))
+
+
+def _chunked_nll(params, h: torch.Tensor, targets: torch.Tensor, cfg: LMConfig,
+                 chunk: int = 512) -> torch.Tensor:
+    """Mean next-token NLL over sequence chunks: each chunk's (B, chunk, V)
+    logits are recomputed in the backward (``torch.utils.checkpoint``, the
+    reference's ``jax.checkpoint``), so the full logits never live at once;
+    the chunk sums add in sequence order."""
+    from torch.utils.checkpoint import checkpoint
+
+    b, l, d = h.shape
+    chunk = min(chunk, l)
+    if l % chunk:
+        raise ValueError(f"sequence length {l} is not a multiple of the loss chunk {chunk}")
+
+    def one(hc, tc):
+        logits = transformer.lm_logits(params, hc, cfg)
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        return -torch.gather(logp, -1, tc[..., None].long()).sum()
+
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for i in range(l // chunk):
+        sl = slice(i * chunk, (i + 1) * chunk)
+        total = total + checkpoint(one, h[:, sl], targets[:, sl], use_reentrant=False)
+    return total / (b * l)
+
+
+def _lm_loss_fn(cfg: LMConfig):
+    def loss_fn(params, batch):
+        h, _ = transformer.encode(params, batch["tokens"], cfg)
+        return _chunked_nll(params, h, batch["targets"], cfg)
+
+    return loss_fn
+
+
+def lm_train_inputs(cfg: LMConfig, batch: int, seq_len: int, seed: int = 1,
+                    device=None) -> dict:
+    """``tokens`` (B, L) int32 drawn in [4, vocab) from a seeded generator
+    and ``targets`` the next token (the sequence shifted by one, wrapping)."""
+    dev = resolve_device(device)
+    g = _generator(seed, dev)
+    tokens = torch.randint(4, cfg.vocab_size, (batch, seq_len), generator=g, device=dev,
+                           dtype=torch.int32)
+    return {"tokens": tokens, "targets": torch.roll(tokens, -1, dims=1)}
+
+
+def build_lm_train(arch_id: str, cfg: LMConfig, shape: LMShape, *, params=None,
+                   global_batch: Optional[int] = None, n_micro: Optional[int] = None,
+                   seed: int = 0, device=None) -> StepBundle:
+    """``step(params, opt_state, batch)``: one LM train step (chunked NLL,
+    its gradient, AdamW at the reference's defaults).  ``global_batch``
+    cuts the shape's batch to what one card holds; ``n_micro`` defaults to
+    the reference's rule (4 microbatches above 4e10 parameters).
+    ``model_flops`` = 6 x active parameters x tokens."""
+    dev = resolve_device(device)
+    b = shape.global_batch if global_batch is None else global_batch
+    if n_micro is None:
+        n_micro = 4 if cfg.n_params() > 4e10 else 1
+    if b % n_micro:
+        raise ValueError(f"global batch {b} does not split into {n_micro} microbatches")
+    params = transformer.init_lm(cfg, _generator(seed, dev)) if params is None else params
+    require_grad(params)
+    batch = lm_train_inputs(cfg, b, shape.seq_len, seed + 1, dev)
+    step = train_step(_lm_loss_fn(cfg), optimizer.AdamWConfig(), n_micro)
+    return StepBundle(f"{arch_id}:{shape.name}", step,
+                      (params, optimizer.init_adamw(params), batch),
+                      6.0 * cfg.n_active_params() * b * shape.seq_len)

@@ -1,6 +1,5 @@
 """Cross-encoder scorer f(q, i) = head(T(concat(q, [SEP], i))) — port of
-``repro/models/cross_encoder.py`` (``ranking_loss`` waits for the training
-slice).
+``repro/models/cross_encoder.py``.
 
 The CE reads the joint query-item sequence bidirectionally and takes a
 scalar score off the [CLS] position.
@@ -69,3 +68,12 @@ def score_pairs(params, pair_tokens: torch.Tensor, cfg: LMConfig, pad_id: int = 
                         attn_impl=attn_impl, flash_block=flash_block,
                         flash_interpret=flash_interpret)
     return flat.reshape(b, k)
+
+
+def ranking_loss(params, pair_tokens: torch.Tensor, cfg: LMConfig,
+                 pad_id: int = 0) -> torch.Tensor:
+    """In-batch softmax ranking loss of (B, K, L) pair tokens whose item 0 is
+    the gold item.  Differentiable: it scores through the ``ref`` attention
+    path, as the reference does (the flash kernel has no backward)."""
+    scores = score_pairs(params, pair_tokens, cfg, pad_id)        # (B, K)
+    return -torch.log_softmax(scores, dim=-1)[:, 0].mean()

@@ -1,6 +1,5 @@
 """DLRM (MLPerf config): bottom MLP -> embedding lookups -> dot interaction
--> top MLP  [arXiv:1906.00091] — port of ``repro/models/recsys/dlrm.py``
-(``bce_loss`` waits for the training slice).
+-> top MLP  [arXiv:1906.00091] — port of ``repro/models/recsys/dlrm.py``.
 
 The (dense-features, sparse-ids) pair is a joint scorer: the dot
 interaction mixes query-side and item-side features non-factorizably,
@@ -73,6 +72,17 @@ def forward(params, dense: torch.Tensor, sparse_ids: torch.Tensor,
     flat = inter[:, iu, ju]                                            # (B, n(n-1)/2)
     x = torch.cat([bot, flat], dim=1)
     return _mlp_apply(params["top"], "t", x, len(cfg.top_mlp) - 1)[:, 0]
+
+
+def bce_loss(params, dense: torch.Tensor, sparse_ids: torch.Tensor, labels: torch.Tensor,
+             cfg: RecSysConfig) -> torch.Tensor:
+    """Mean binary cross-entropy of the logits against (B,) labels in
+    [0, 1], in the reference's stable form max(x, 0) - x y + log1p(e^-|x|).
+    Differentiable in every parameter: the lookups go through the bag
+    kernel's autograd function."""
+    logits = forward(params, dense, sparse_ids, cfg)
+    return torch.mean(torch.clamp(logits, min=0) - logits * labels
+                      + torch.log1p(torch.exp(-logits.abs())))
 
 
 def score_candidates(params, dense: torch.Tensor, sparse_ids: torch.Tensor,

@@ -7,8 +7,9 @@ per-layer dicts in the reference's layouts: ``attn`` with ``wq``/``wk``/
 ``wv`` (d, heads, hd) and ``wo`` (H, hd, d), ``ln1``/``ln2``, ``mlp``),
 ``final_norm`` and ``lm_head``.  The reference stacks the layers on a
 leading axis for ``lax.scan``; ``convert.cross_encoder_params`` unstacks
-them.  ``lm_logits``, the decode path and its KV cache, MoE, remat and the
-sharding constraints are not ported yet (ROADMAP.md, queue 1).
+them.  ``lm_logits`` serves the LM train step.  The decode path and its KV
+cache, MoE, remat and the sharding constraints are not ported yet
+(ROADMAP.md, queue 1).
 """
 
 from __future__ import annotations
@@ -133,7 +134,9 @@ def encode(params, tokens: torch.Tensor, cfg: LMConfig, *, positions=None,
     b, l = tokens.shape
     if positions is None:
         positions = torch.arange(l, device=tokens.device)[None, :].expand(b, l)
-    h = params["embed"][tokens.long()].to(torch_dtype(cfg))
+    # F.embedding: the same rows as indexing, and a deterministic backward on
+    # the card (a sort, not atomics), which training's bitwise resume needs
+    h = F.embedding(tokens.long(), params["embed"]).to(torch_dtype(cfg))
 
     if attn_impl == "flash":
         kv_lens = None if kv_mask is None else kv_mask.sum(-1).to(torch.int32)
@@ -153,3 +156,17 @@ def encode(params, tokens: torch.Tensor, cfg: LMConfig, *, positions=None,
         h = _encode_layer(cfg, attn_fn, h, lp, rope)
     h = _apply_norm(cfg, params["final_norm"], h)
     return h, torch.zeros((), device=h.device)
+
+
+def lm_logits(params, hidden: torch.Tensor, cfg: LMConfig) -> torch.Tensor:
+    """(..., padded vocab) logits of hidden states (..., d): the tied
+    embedding's transpose or ``lm_head``; the padded vocab rows are set to
+    -1e30, as the reference masks them."""
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    logits = hidden @ head
+    pv = padded_vocab(cfg)
+    if pv != cfg.vocab_size:
+        mask = torch.arange(pv, device=logits.device) < cfg.vocab_size
+        logits = torch.where(mask, logits, torch.tensor(-1e30, dtype=logits.dtype,
+                                                        device=logits.device))
+    return logits

@@ -165,3 +165,60 @@ def run_world(cmd, world: int, timeout: float, env=None) -> list:
         o.close()
         e.close()
     return out
+
+
+# call sizes the batch-invariance checks try against a 256-row call
+BATCH_BITS_ROWS = (*range(1, 65), 100, 128, 200)
+
+
+def estimate_state_calls(dev, raw: bool = False) -> dict:
+    """The engine's per-row estimate math at the serving shapes (k_q 500, 100
+    anchors in rounds of 20; the bordered update at its fourth block), over
+    a seeded batch of 256 rows: ``{name: (fn, inputs)}`` for the first
+    block's pinv, the bordered update and e_q.  ``raw=True`` calls
+    ``core/cur.py`` and the product-and-sum e_q directly, with no padding
+    (what ``batch_bits.py`` probes); else the engine's own calls."""
+    from .core import cur, engine
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    b, k_q, k_i, k_s, start = 256, 500, 100, 20, 60
+    a0 = torch.randn((b, k_q, k_s), generator=g, device=dev)
+    a_full = torch.zeros((b, k_q, k_i), device=dev)
+    a_full[:, :, :start] = torch.randn((b, k_q, start), generator=g, device=dev)
+    p_full = torch.zeros((b, k_i, k_q), device=dev)
+    p_full[:, :start] = cur.pinv(a_full[:, :, :start])
+    new = torch.randn((b, k_q, k_s), generator=g, device=dev)
+    c = torch.randn((b, k_i), generator=g, device=dev)
+    if raw:
+        bordered = lambda a, p, n: cur.block_pinv_extend_static(a, p, n, start)  # noqa: E731
+    else:
+        bordered = lambda a, p, n: engine._bordered(a, p, n, start)  # noqa: E731
+    return {"pinv": (cur.incremental_pinv_init, (a0,)),
+            "bordered": (bordered, (a_full, p_full, new)),
+            "e_q": (engine._e_q, (c, p_full))}
+
+
+def synthetic_pair_call(dev) -> tuple:
+    """``SyntheticCE.score_pairs`` over a seeded batch of 256 rows of 100
+    items (the serve domain's shapes: d 16, 4 mixtures of rank 8):
+    ``(fn, inputs)``."""
+    from .core import prng
+    from .data.synthetic import make_synthetic_ce
+
+    ce = make_synthetic_ce(prng.PRNGKey(0), n_queries=600, n_items=20000, device=dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(1)
+    qids = torch.randint(0, 600, (256,), generator=g, device=dev)
+    items = torch.randint(0, 20000, (256, 100), generator=g, device=dev)
+    return ce.score_pairs, (qids, items)
+
+
+def rows_differing(fn, xs, rows: int) -> int:
+    """Entries of ``fn(*xs)`` that differ when the batch (the inputs' first
+    axis) is computed in calls of ``rows`` rows (the last call holds the
+    rest) from one call over the whole batch."""
+    whole = fn(*xs)
+    b = xs[0].shape[0]
+    parts = torch.cat([fn(*(x[lo:lo + rows] for x in xs)) for lo in range(0, b, rows)])
+    return int((parts != whole).sum())

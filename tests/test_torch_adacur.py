@@ -3,7 +3,8 @@ the JAX package's, run live on the same inputs.
 
 With a tensor query: the synthetic domain, key and configuration of
 ``tests/test_torch_engine.py`` (N = 2,000, k_q = 200, B = 16; 40 anchors in
-4 rounds, budget 80), carried across by ``convert``.  With a DLRM dict
+4 rounds, budget 80), built from its seed by the port and handed to the
+JAX package (``tests/_torch_domains.py``).  With a DLRM dict
 query ``{"dense", "sparse"}``: the retrieval builder's smoke model, its
 R_anc built by the port, four contexts, ``n_valid_items`` below the padded
 width.  Bars (the reference's own, as in the engine tests): mean top-k
@@ -20,13 +21,13 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)   # one intra-op thread: the suite runs a process a core
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
 from repro.configs.base import AdaCURConfig as JConfig  # noqa: E402
 from repro.configs.base import RecSysConfig as JRecSysConfig  # noqa: E402
 from repro.core.adacur import adacur_search as j_search  # noqa: E402
-from repro.data.synthetic import make_synthetic_ce  # noqa: E402
 from repro.models.recsys import dlrm as j_dlrm  # noqa: E402
 from repro_torch import convert  # noqa: E402
 from repro_torch.configs import registry  # noqa: E402
@@ -36,28 +37,13 @@ from repro_torch.core.scorer import SyntheticScorer  # noqa: E402
 from repro_torch.launch import steps  # noqa: E402
 from repro_torch.models.recsys import dlrm, embedding  # noqa: E402
 from repro_torch.testing import topk_overlap  # noqa: E402
-from test_torch_engine import BASE, B, K_Q, KEY, N_ITEMS  # noqa: E402
+from _torch_domains import BASE, B, K_Q, KEY, N_ITEMS, engine_domain  # noqa: E402
 from test_torch_recsys import retrieval_smoke_config  # noqa: E402
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
 def domain():
-    ce = make_synthetic_ce(jax.random.PRNGKey(0), n_queries=K_Q + B, n_items=N_ITEMS)
-    m = np.asarray(ce.full_matrix(jnp.arange(K_Q + B)))
-    fields = {k: np.asarray(getattr(ce, k)) for k in convert.SYNTHETIC_CE_FIELDS}
-    fields.update(gamma=ce.gamma, sigma=ce.sigma)
-    noisy = m[K_Q:] + 2.0 * np.random.default_rng(0).standard_normal((B, N_ITEMS))
-    first = np.argsort(-noisy, axis=1, kind="stable")[:, :10].astype(np.int32)
-    return dict(ce=ce, tce=convert.synthetic_ce(fields, device="cpu"), r_anc=m[:K_Q],
-                q=np.arange(K_Q, K_Q + B), first=first)
+    return engine_domain()
 
 
 def _key():

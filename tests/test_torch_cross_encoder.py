@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)   # one intra-op thread: the suite runs a process a core
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
@@ -40,16 +41,6 @@ from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import cross_encoder as t_ce, layers as t_layers  # noqa: E402
 from repro_torch.testing import topk_overlap  # noqa: E402
 
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """One intra-op thread: the suite runs in several worker processes at
-    once, and many small ops on every core each thrash far more than they
-    gain."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 N_ITEMS, N_Q = 80, 24
 ENGINE_CFG = dict(k_anchor=12, n_rounds=3, budget_ce=24, k_retrieve=10)

@@ -36,7 +36,8 @@ from repro_torch.kernels.flash_attention.ops import (  # noqa: E402
     flash_attention, flash_attention_plain,
 )
 from repro_torch.testing import (  # noqa: E402
-    FLASH_TOL, assert_topk_agree, ragged_topk_inputs, topk_inputs, topk_report)
+    BATCH_BITS_ROWS, FLASH_TOL, assert_topk_agree, estimate_state_calls, ragged_topk_inputs,
+    rows_differing, synthetic_pair_call, topk_inputs, topk_report)
 
 pytestmark = pytest.mark.cuda
 
@@ -431,12 +432,13 @@ def test_engine_on_the_card_matches_the_cpu(dev):
                          prng.PRNGKey(3))
     assert card.rounds_done == cpu.rounds_done < cfg.n_rounds
     assert kernels.launch_counts() == {"approx_topk": 1, "persistent_round": card.rounds_done,
-                                       "flash_attention": 0, "embedding_bag": 0}
+                                       "flash_attention": 0, "embedding_bag": 0,
+                                       "embedding_bag_backward": 0}
     assert topk_overlap(cpu.topk_idx, card.topk_idx) >= 0.99
     assert np.isfinite(card.topk_scores.cpu().numpy()).all()
 
 
-@pytest.mark.parametrize("rows", [1, 2, 3, 16, 17, 37, 63, 64, 100, 128, 200])
+@pytest.mark.parametrize("rows", BATCH_BITS_ROWS)
 def test_estimate_state_rows_do_not_depend_on_their_batch(dev, rows):
     """The engine's per-row estimate math (the first block's pinv, the
     bordered update, e_q) at the serving shapes (k_q 500, 100 anchors in
@@ -445,31 +447,18 @@ def test_estimate_state_rows_do_not_depend_on_their_batch(dev, rows):
     the whole batch.  The sharded
     engine's bitwise contract rests on it: a data shard computes its rows
     alone."""
-    from repro_torch.core import cur
-    from repro_torch.core.engine import _e_q, _rowwise
+    differ = {name: rows_differing(fn, xs, rows)
+              for name, (fn, xs) in estimate_state_calls(dev).items()}
+    assert differ == dict.fromkeys(differ, 0), f"entries differing in calls of {rows} rows"
 
-    g = torch.Generator(device=dev)
-    g.manual_seed(0)
-    b, k_q, k_i, k_s, start = 256, 500, 100, 20, 60
-    a0 = torch.randn((b, k_q, k_s), generator=g, device=dev)
-    a_full = torch.zeros((b, k_q, k_i), device=dev)
-    a_full[:, :, :start] = torch.randn((b, k_q, start), generator=g, device=dev)
-    p_full = torch.zeros((b, k_i, k_q), device=dev)
-    p_full[:, :start] = cur.pinv(a_full[:, :, :start])
-    new = torch.randn((b, k_q, k_s), generator=g, device=dev)
-    c = torch.randn((b, k_i), generator=g, device=dev)
-    steps = {
-        "pinv": (lambda a: _rowwise(cur.incremental_pinv_init, a), (a0,)),
-        "bordered": (lambda a, q, n: _rowwise(
-            lambda *x: cur.block_pinv_extend_static(*x, start), a, q, n), (a_full, p_full, new)),
-        "e_q": (_e_q, (c, p_full)),
-    }
-    differ = {}
-    for name, (fn, xs) in steps.items():
-        whole = fn(*xs)
-        parts = torch.cat([fn(*(x[lo:lo + rows] for x in xs)) for lo in range(0, b, rows)])
-        differ[name] = int((parts != whole).sum())
-    assert differ == dict.fromkeys(steps, 0), f"entries differing in calls of {rows} rows"
+
+@pytest.mark.parametrize("rows", [1, 2, 3, 16, 17, 37, 64, 100, 128, 200])
+def test_synthetic_scores_do_not_depend_on_their_batch(dev, rows):
+    """``SyntheticCE.score_pairs`` (256 rows of 100 items): each row scored
+    in calls of ``rows`` rows has the bits it has in one 256-row call, so a
+    data shard's scores are the single-device engine's."""
+    fn, xs = synthetic_pair_call(dev)
+    assert rows_differing(fn, xs, rows) == 0
 
 
 # flash attention: (B, Lq, Lk, H, KV, hd, causal, kv_lens) at small sizes;
@@ -835,3 +824,136 @@ def test_router_swap_midflight_on_the_card_keeps_namespaces(dev):
         assert new or not after, "a request submitted after the swap saw the old index"
         if new:
             assert not set(ids.tolist()) & removed_set
+
+
+# the bag's backward: (rows, dim, B, H); "few-rows" puts hundreds of lookups
+# on each row (runs cut across many tiles), dim 36 and 21 take the scalar
+# path, dim 200 a ragged last chunk
+BAG_BWD_CASES = {
+    "dlrm-field": (1 << 20, 128, 65536, 1),
+    "few-rows": (7, 128, 5000, 3),
+    "multihot": (5000, 128, 700, 32),
+    "dim36": (500, 36, 123, 7),
+    "dim21": (64, 21, 300, 2),
+    "dim200": (400, 200, 33, 5),
+}
+
+
+@pytest.mark.parametrize("mode", ["sum", "mean"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(BAG_BWD_CASES))
+def test_bag_backward_kernel_matches_plain(dev, case, dtype, mode):
+    """The backward kernel against its plain version (``index_add_`` in
+    lookup order): within 1e-5 of the largest |grad| (a row's lookups cut
+    across tiles add in another grouping), two calls bitwise equal (no
+    atomics), one launch counted a call; grad_out in the table's dtype."""
+    from repro_torch.kernels.embedding_bag.kernel import embedding_bag_backward_cuda
+    from repro_torch.kernels.embedding_bag.ref import embedding_bag_backward_plain
+
+    rows, dim, b, h = BAG_BWD_CASES[case]
+    g = torch.Generator(device=dev)
+    g.manual_seed(sorted(BAG_BWD_CASES).index(case))
+    grad = torch.randn((b, dim), generator=g, device=dev).to(getattr(torch, dtype))
+    ids = torch.randint(-rows, rows, (b, h), generator=g, device=dev, dtype=torch.int32)
+    ids[0, 0] = rows + 3                      # dropped, as jnp.take's scatter drops it
+    before = kernels.launch_counts()["embedding_bag_backward"]
+    out = embedding_bag_backward_cuda(grad, ids, rows, mode)
+    again = embedding_bag_backward_cuda(grad, ids, rows, mode)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["embedding_bag_backward"] == before + 2
+    ref = embedding_bag_backward_plain(grad, ids, rows, mode)
+    assert out.dtype == torch.float32 and out.shape == (rows, dim)
+    assert torch.equal(out, again)
+    assert (out - ref).abs().max() <= 1e-5 * ref.abs().max()
+    touched = torch.zeros(rows, dtype=torch.bool, device=dev)
+    keys = ids.long() % rows
+    touched[keys[(ids >= -rows) & (ids < rows)]] = True
+    assert not out[~touched].any()
+
+
+def test_bag_op_gradient_on_the_card_matches_the_cpu(dev):
+    """``embedding_bag_op`` under autograd: the table's gradient on the card
+    (the backward kernel) against the CPU's (plain), for sum and mean."""
+    for mode in ("sum", "mean"):
+        gen = torch.Generator().manual_seed(5)
+        table = torch.randn((300, 64), generator=gen)
+        ids = torch.randint(0, 300, (2000, 4), generator=gen, dtype=torch.int32)
+        w = torch.randn((2000, 64), generator=gen)
+        grads = []
+        for d in ("cpu", dev):
+            t = table.to(d).detach().requires_grad_()
+            (embedding_bag_op(t, ids.to(d), mode) * w.to(d)).sum().backward()
+            grads.append(t.grad.cpu())
+        assert (grads[0] - grads[1]).abs().max() <= 1e-5 * grads[0].abs().max()
+
+
+def test_bag_backward_rejects_what_it_does_not_take(dev):
+    from repro_torch.kernels.embedding_bag.kernel import embedding_bag_backward_cuda
+
+    ids = torch.zeros((4, 2), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="int32"):
+        embedding_bag_backward_cuda(torch.zeros((4, 8), device=dev), ids.long(), 10)
+    with pytest.raises(ValueError, match="CUDA"):
+        embedding_bag_backward_cuda(torch.zeros((4, 8), device=dev), ids.cpu(), 10)
+
+
+@pytest.mark.parametrize("kernel", ["flash_attention", "approx_topk", "persistent_round"])
+def test_forward_only_kernels_refuse_autograd(dev, kernel):
+    """A kernel with no backward raises on an input that requires grad under
+    grad mode (instead of a result with no grad_fn), runs under
+    ``torch.no_grad()``; its plain version stays differentiable on the
+    CPU."""
+    q = torch.randn((2, 64, 4, 32), device=dev)
+    kv = torch.randn((2, 64, 2, 32), device=dev)
+    e = torch.randn((4, 64), device=dev)
+    r = torch.randn((64, 4096), device=dev)
+    calls = {"flash_attention": (lambda x: flash_attention(x, kv, kv, causal=False), q),
+             "approx_topk": (lambda x: approx_topk_op(x, r, None, 8), e),
+             "persistent_round": (lambda x: persistent_round_op(x, r, k_sample=8, k_prov=8), e)}
+    fn, x = calls[kernel]
+    x = x.requires_grad_()
+    with pytest.raises(RuntimeError, match="no backward"):
+        fn(x)
+    with torch.no_grad():
+        fn(x)
+    torch.cuda.synchronize()
+    if kernel == "flash_attention":
+        xc = x.detach().cpu().requires_grad_()
+        out = flash_attention(xc, kv.cpu(), kv.cpu(), causal=False)
+        out.sum().backward()
+        assert xc.grad is not None
+
+
+def test_dlrm_train_steps_on_the_card_match_the_cpu(dev):
+    """Three full-width DLRM train steps (tables capped at 4,096 rows, B =
+    256) on the card (bag kernels forward and backward, 26 each a step) and
+    on the CPU (plain): losses within 1e-5 relative, parameters within 1e-5
+    of the largest |parameter|; TF32 is off."""
+    from repro_torch.configs import dlrm_mlperf
+    from repro_torch.configs.base import RecSysShape
+    from repro_torch.launch import steps
+    from repro_torch.models.recsys import dlrm
+    from repro_torch.tree import leaves, tree_map
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg = dlrm_mlperf.capped(max_rows=4096)
+    init = dlrm.init_dlrm(cfg, torch.Generator().manual_seed(0), "cpu")
+    batches = [steps.recsys_train_inputs(cfg, 256, seed=i, device="cpu") for i in range(3)]
+    out = {}
+    for d in ("cpu", dev):
+        params = tree_map(lambda t: t.to(d).clone(), init)
+        bundle = steps.build_recsys_train("dlrm-mlperf", cfg, RecSysShape("t", "train", 1),
+                                          params=params)
+        p, s = bundle.args[0], bundle.args[1]
+        kernels.reset_launches()
+        losses = []
+        for b in batches:
+            p, s, met = bundle.step(p, s, {k: v.to(d) for k, v in b.items()})
+            losses.append(float(met["loss"]))
+        out[str(d)] = (p, losses, kernels.launch_counts())
+    (hp, hl, _), (cp, cl, counts) = out["cpu"], out[str(dev)]
+    assert counts["embedding_bag"] == counts["embedding_bag_backward"] == 3 * cfg.n_sparse
+    assert all(abs(a - b) <= 1e-5 * abs(b) for a, b in zip(cl, hl))
+    top = max(float(t.detach().abs().max()) for t in leaves(hp))
+    for a, b in zip(leaves(cp), leaves(hp)):
+        assert float((a.detach().cpu() - b.detach()).abs().max()) <= 1e-5 * top

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)   # one intra-op thread: the suite runs a process a core
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
@@ -27,14 +28,6 @@ from repro_torch.kernels.embedding_bag.ops import embedding_bag_op  # noqa: E402
 from repro_torch.kernels.embedding_bag.ref import embedding_bag_plain  # noqa: E402
 
 TOL = {"float32": dict(atol=1e-5, rtol=1e-5), "bfloat16": dict(atol=1e-6, rtol=2.0 ** -7)}
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _inputs(rows, dim, b, h, dtype, seed=0, low=0):
@@ -155,3 +148,49 @@ def test_op_raises_on_what_it_does_not_take(case, match):
         ids = ids[0]
     with pytest.raises(ValueError, match=match):
         embedding_bag_op(table, ids, **kw)
+
+
+@pytest.mark.parametrize("mode", ["sum", "mean"])
+@pytest.mark.parametrize("rows,dim,b,h", [(50, 16, 40, 1), (7, 32, 300, 3), (200, 24, 64, 6)])
+def test_bag_gradient_matches_jax_grad_of_the_oracle(rows, dim, b, h, mode):
+    """The bag op's table gradient on the CPU (its autograd function over
+    ``ref.embedding_bag_backward_plain``: ``index_add_`` in lookup order)
+    against ``jax.grad`` of the reference's oracle (``jnp.take``'s
+    scatter-add), with repeated and wrapped negative ids; fp32 within 1e-5
+    of the largest |grad|.  An id outside [-rows, rows) reads a row of NaN
+    in the forward and takes no part in the gradient."""
+    rng = np.random.default_rng(rows + h)
+    table = rng.standard_normal((rows, dim)).astype(np.float32)
+    ids = rng.integers(-rows, rows, (b, h)).astype(np.int32)
+    w = rng.standard_normal((b, dim)).astype(np.float32)
+    jg = jax.grad(lambda t: jnp.sum(j_ref(t, jnp.asarray(ids), mode=mode) * w))(jnp.asarray(table))
+    t = torch.from_numpy(table).requires_grad_()
+    (embedding_bag_op(t, torch.from_numpy(ids), mode) * torch.from_numpy(w)).sum().backward()
+    assert t.grad.dtype == torch.float32 and t.grad.shape == (rows, dim)
+    want = np.asarray(jg)
+    assert np.abs(t.grad.numpy() - want).max() <= 1e-5 * np.abs(want).max()
+    dropped = ids.copy()
+    dropped[0, 0] = rows + 5
+    t2 = torch.from_numpy(table).requires_grad_()
+    out = embedding_bag_op(t2, torch.from_numpy(dropped), mode)
+    assert torch.isnan(out[0]).all()
+    out[1:].sum().backward()
+    keep = np.ones(b, bool)
+    keep[0] = False
+    want2 = np.zeros((rows, dim), np.float32)
+    scale = 1.0 / h if mode == "mean" else 1.0
+    for bag in np.nonzero(keep)[0]:
+        for i in ids[bag]:
+            want2[i % rows] += scale
+    np.testing.assert_allclose(t2.grad.numpy(), want2, rtol=1e-6, atol=1e-6)
+
+
+def test_bag_op_outside_grad_mode_is_the_forward_alone():
+    """Without grad mode, or for a table that does not require grad, the op
+    is the forward kernel's call alone (no autograd node)."""
+    table = torch.randn(10, 4, requires_grad=True)
+    ids = torch.tensor([[1, 2]], dtype=torch.int32)
+    with torch.no_grad():
+        assert embedding_bag_op(table, ids).grad_fn is None
+    assert embedding_bag_op(table.detach(), ids).grad_fn is None
+    assert embedding_bag_op(table, ids).grad_fn is not None

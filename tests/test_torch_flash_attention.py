@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)   # one intra-op thread: the suite runs a process a core
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
@@ -29,16 +30,6 @@ from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
 )
 from repro_torch.testing import FLASH_TOL  # noqa: E402
 
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """One intra-op thread: the suite runs in several worker processes at
-    once, and many small ops on every core each thrash far more than they
-    gain."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 # the five shape cases of tests/test_kernels.py (the MHA case shrunk from
 # L = 256 to 128 to keep interpret mode cheap)
@@ -209,3 +200,23 @@ def test_cpu_tensors_run_the_plain_version_and_launch_nothing():
                                                   block_k=16))
     with pytest.raises(ValueError, match="CUDA tensors"):
         flash_kernel.flash_attention_cuda(q, k, v, causal=False)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_plain_version_is_differentiable_like_the_jax_oracle(causal):
+    """The plain version stays differentiable on the CPU (the CUDA kernel,
+    which has no backward, refuses autograd on the card): its gradients in
+    q, k and v over several key tiles match ``jax.grad`` of the reference's
+    dense oracle within the fp32 tolerance."""
+    rng = np.random.default_rng(7)
+    q, k, v = (rng.standard_normal(s).astype(np.float32)
+               for s in ((2, 40, 4, 16), (2, 40, 2, 16), (2, 40, 2, 16)))
+    w = rng.standard_normal((2, 40, 4, 16)).astype(np.float32)
+    jg = jax.grad(lambda a, b, c: jnp.sum(j_ref(a, b, c, causal=causal) * w),
+                  argnums=(0, 1, 2))(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    ts = [torch.from_numpy(x).requires_grad_() for x in (q, k, v)]
+    out = flash_attention(*ts, causal=causal, block_q=16, block_k=16)
+    (out * torch.from_numpy(w)).sum().backward()
+    atol, rtol = FLASH_TOL["float32"]
+    for t, g in zip(ts, jg):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(g), atol=atol, rtol=rtol)

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)   # one intra-op thread: the suite runs a process a core
 
 from repro_torch.kernels import build  # noqa: E402
 
@@ -34,7 +35,9 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
     assert {"repro_torch.launch.serve", "repro_torch.core.engine",
             "repro_torch.models.recsys.dlrm", "repro_torch.launch.steps",
             "repro_torch.launch.mesh", "repro_torch.distributed.sharding",
-            "repro_torch.distributed.collectives"} <= set(mods)
+            "repro_torch.distributed.collectives", "repro_torch.training.optimizer",
+            "repro_torch.data.loader", "repro_torch.checkpoint.manager",
+            "repro_torch.launch.train", "repro_torch.tree"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(n for n in sys.modules if n == 'jax' or n.startswith('jax.')"
@@ -173,6 +176,30 @@ def test_sharded_entry_points_refuse_to_fall_back_to_the_cpu(monkeypatch, tmp_pa
     assert not torch.distributed.is_initialized()
 
 
+def test_training_entry_points_refuse_to_fall_back_to_the_cpu(monkeypatch, tmp_path):
+    """The train builders, the trainer CLI, a checkpoint's restore into a
+    training tree and ``CheckpointManager.resume`` land on the card unless
+    the caller asks for the CPU: without a card they raise."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import LMShape, RecSysShape
+    from repro_torch.launch import steps, train
+
+    state = {"w": torch.ones(3), "opt": [torch.zeros(2)]}
+    CheckpointManager(str(tmp_path), save_every=1, async_save=False).maybe_save(1, state)
+    cfg = registry.smoke_config("dlrm-mlperf")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        steps.build_recsys_train("dlrm-mlperf", cfg, RecSysShape("t", "train", 4))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        steps.build_lm_train("ce-tiny", registry.CE_TINY, LMShape("t", "train", 8, 2))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.main(["--steps", "1", "--ckpt-dir", str(tmp_path / "cli")])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        CheckpointManager(str(tmp_path)).resume(state)
+    assert CheckpointManager(str(tmp_path)).resume(state, "cpu")[0] == 1
+
+
 def test_convert_follows_the_device_rule():
     """``convert`` lands the JAX package's state on the card unless the
     caller asks for the CPU: without a card it raises the rule's error."""
@@ -184,6 +211,10 @@ def test_convert_follows_the_device_rule():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         convert.r_anc(x)
     assert convert.r_anc(x, device="cpu").device == torch.device("cpu")
+    moments = {"bot": {"b0_w": x}, "top": {}, "tables": [x]}
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        convert.adamw_state(1, moments, moments)
+    assert convert.adamw_state(1, moments, moments, device="cpu").step.dtype == torch.int32
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):

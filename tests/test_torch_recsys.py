@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)   # one intra-op thread: the suite runs a process a core
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
@@ -38,14 +39,6 @@ from repro_torch.models.recsys import dlrm, embedding  # noqa: E402
 from repro_torch.testing import topk_overlap  # noqa: E402
 
 ARCH = "dlrm-mlperf"
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _configs():

@@ -1,7 +1,7 @@
 """The port's AnchorIndex build and AdaCURService on the CPU.
 
-``AnchorIndex.build`` over a SyntheticCE carried across from the JAX
-package matches ``repro.core.index.build_r_anc`` within atol 1e-5 (scores
+``AnchorIndex.build`` over a SyntheticCE built from its seed by the port
+and handed to the JAX package (``tests/_torch_domains.py``) matches ``repro.core.index.build_r_anc`` within atol 1e-5 (scores
 are O(1); the port computes the background as one matrix product, the
 reference as an einsum, so the sums round differently)."""
 
@@ -9,12 +9,12 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)   # one intra-op thread: the suite runs a process a core
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
 from repro.core.index import AnchorIndex as JIndex, build_r_anc  # noqa: E402
-from repro.data.synthetic import make_synthetic_ce  # noqa: E402
-from repro_torch import convert  # noqa: E402
+from _torch_domains import synthetic_domain  # noqa: E402
 from repro_torch.configs.base import AdaCURConfig  # noqa: E402
 from repro_torch.core.engine import AdaCURRetriever, ce_call_plan  # noqa: E402
 from repro_torch.core.index import AnchorIndex  # noqa: E402
@@ -26,10 +26,8 @@ N_ITEMS, K_Q = 1200, 100
 
 @pytest.fixture(scope="module")
 def carried():
-    ce = make_synthetic_ce(jax.random.PRNGKey(1), n_queries=K_Q + 20, n_items=N_ITEMS)
-    fields = {k: np.asarray(getattr(ce, k)) for k in convert.SYNTHETIC_CE_FIELDS}
-    fields.update(gamma=ce.gamma, sigma=ce.sigma)
-    return ce, convert.synthetic_ce(fields, device="cpu")
+    d = synthetic_domain(1, K_Q + 20, N_ITEMS)
+    return d["ce"], d["tce"]
 
 
 def _cfg(**kw):

@@ -120,6 +120,7 @@ def fault_worker(fault_rank: int, out_dir: str) -> None:
 
 if __name__ != "__main__":
     torch = pytest.importorskip("torch")
+    torch.set_num_threads(1)   # one intra-op thread: the suite runs a process a core
     jax = pytest.importorskip("jax")
     import jax.numpy as jnp  # noqa: E402
 
