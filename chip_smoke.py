@@ -140,12 +140,16 @@ Phases (one JSON line each):
    bitwise equal; fp32 within 1e-5 abs + 1e-5 rel, bf16 1e-6 + 2^-7 (one
    ulp).
 9a. ``kernel:embedding_bag_backward``: the bag's backward kernel (training's
-    gradient of the tables; deterministic, no atomics) against its plain
-    version (``index_add_`` in lookup order) for one DLRM field at
-    train_batch (B = 65,536, H = 1, dim 128) over a 2^22-row table and a
-    512-row one (128 lookups a row): max |d| <= 1e-5 x max |grad|, two
-    calls bitwise equal; kernel, plain, library (``index_add_``) and bound
-    (grad_out and ids read once, the touched rows written once) times.
+    gradient of the tables; deterministic, no floating-point atomics)
+    against its plain version (``index_add_`` in lookup order) for one DLRM
+    field at train_batch (B = 65,536, H = 1, dim 128) over (a) a 2^22-row
+    table, (b) a 512-row one (128 lookups a row) and (c) Criteo field 5's
+    3-row one (~21,845 lookups a row): max |d| <= 1e-5 x max |grad|, bitwise
+    equal to ``ref.embedding_bag_backward_emulated`` (the kernel's order of
+    additions) and across two calls; kernel, plain, library (``zeros`` +
+    ``index_add_``) and bound times.  The bound is the dense gradient
+    written, grad_out and the ids read (``bound_touched_ms``: the touched
+    rows only).
 10. ``recsys_serve``: ``dlrm-mlperf`` at full width with every table capped
     at 2^24 rows (45.0 GB of fp32 tables on the card), the serve_p99
     (B=512) and serve_bulk (B=262,144) steps of ``build_recsys_serve``:
@@ -169,7 +173,8 @@ Phases (one JSON line each):
     ~51 GB), ``build_recsys_train`` at train_batch (B = 65,536): 2 warm-up
     and 10 timed steps (median ms, TFLOP/s against ``model_flops``, peak
     memory, 26 bag forward and 26 backward launches a step, gated), one
-    step profiled, finite losses and every table's gradient non-zero
+    step profiled (the bag backward's device ms a step from its kernels,
+    ``bag_backward_device_ms``), finite losses and every table's gradient non-zero
     exactly on the rows a lookup hit (gated); (2) the same step with
     tables capped at 2^16, B = 512, three steps on the card (kernels) and
     on the CPU (plain): losses within 1e-5 relative, parameters within
@@ -687,11 +692,12 @@ def sharded_slabs(e_q, payloads, anchors):
         del slab, mask
 
 
-def profile_call(fn) -> dict:
+def profile_call(fn, sums=()) -> dict:
     """One call under torch.profiler: device time by kernel name, the
     device-busy share of the call's wall time (the union of the kernels'
     and copies' intervals: work on several streams overlaps, so their
-    summed time may exceed the wall), the kernels launched."""
+    summed time may exceed the wall), the kernels launched; ``sums``: name
+    fragments whose kernels' device ms are added up (``ms_by_name``)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -714,6 +720,7 @@ def profile_call(fn) -> dict:
         if us:
             rows.append((us, ev.key, ev.count))
     rows.sort(reverse=True)
+    by_name = {part: sum(r[0] for r in rows if part in r[1]) / 1e3 for part in sums}
     spans = sorted((ev.time_range.start, ev.time_range.end) for ev in prof.events()
                    if ev.device_type == DeviceType.CUDA and ev.name not in CUPTI_BOOKKEEPING)
     busy_us, end = 0.0, float("-inf")
@@ -726,7 +733,8 @@ def profile_call(fn) -> dict:
             "device_busy_share": busy_ms / wall_ms if wall_ms else None,
             "device_ms_summed": sum(r[0] for r in rows) / 1e3,
             "device_launches": sum(r[2] for r in rows),
-            "top": [{"name": k[:90], "ms": us / 1e3, "calls": c} for us, k, c in rows[:12]]}
+            "top": [{"name": k[:90], "ms": us / 1e3, "calls": c} for us, k, c in rows[:12]],
+            **({"ms_by_name": by_name} if sums else {})}
 
 
 def phase_serve(dev, ce, index, build_s):
@@ -2250,6 +2258,10 @@ TRAIN_WARMUP, TRAIN_TIMED = 2, 10        # DLRM train steps before and in the ti
 TRAIN_CPU_CAP, TRAIN_CPU_BATCH, TRAIN_CPU_STEPS = 1 << 16, 512, 3
 TRAIN_TOL = 1e-5          # card vs CPU: loss relative, params x the largest |param|
 BAG_BWD_TOL = 1e-5        # backward kernel vs plain: max |d| <= this x max |grad|
+# the DLRM train step's median ms with the earlier backward design (a library
+# sort, a zero fill, a serial walk a tile), on an H100 80GB HBM3 at 700 W:
+# printed beside this run's
+EARLIER_TRAIN_STEP_MS = 204.7
 LM_MEM_SHARE = 0.8        # of the card's memory the ce-tiny train_4k step may plan for
 CLI_STEPS = (30, 50)      # the ce-tiny CLI: a run cut at 30, resumed to 50
 CLI_SAVE_EVERY = 10
@@ -2280,12 +2292,13 @@ def torch_equal(x, y) -> bool:
 def bag_backward_case(dev, gen, case, rows, b, reps):
     """The bag's backward kernel against its plain version (``index_add_``
     in lookup order) for one DLRM field (H = 1, dim 128) on the card: error
-    gate, two calls bitwise equal, times beside the bound and
-    ``index_add_``'s."""
+    gate, bitwise equal to the emulation of its order and across two calls,
+    times beside the bound and ``zeros`` + ``index_add_``'s."""
     import torch
 
     from repro_torch.kernels.embedding_bag.kernel import embedding_bag_backward_cuda
-    from repro_torch.kernels.embedding_bag.ref import embedding_bag_backward_plain, row_keys
+    from repro_torch.kernels.embedding_bag.ref import (
+        embedding_bag_backward_emulated, embedding_bag_backward_plain, row_keys)
 
     dim = 128
     g = torch.randn((b, dim), generator=gen, device=dev)
@@ -2293,22 +2306,39 @@ def bag_backward_case(dev, gen, case, rows, b, reps):
     out = embedding_bag_backward_cuda(g, ids, rows)
     again = embedding_bag_backward_cuda(g, ids, rows)
     ref = embedding_bag_backward_plain(g, ids, rows)
+    emu = embedding_bag_backward_emulated(g, ids, rows)
     torch.cuda.synchronize()
     err, top = (out - ref).abs().max().item(), ref.abs().max().item()
     check(err <= BAG_BWD_TOL * top, f"embedding_bag_backward {case}: max |d| {err} > "
           f"{BAG_BWD_TOL} x max |grad| {top}")
-    check(bool(torch.equal(out, again)), f"embedding_bag_backward {case}: two calls differ")
+    bits = out.view(torch.int32)
+    check(bool(torch.equal(bits, again.view(torch.int32))),
+          f"embedding_bag_backward {case}: two calls differ")
+    check(bool(torch.equal(bits, emu.view(torch.int32))),
+          f"embedding_bag_backward {case}: not bitwise equal to the emulation of its order "
+          f"({int((bits != emu.view(torch.int32)).any(1).sum())} rows differ)")
+    del again, emu
     keys = row_keys(ids, rows)
     touched = int(torch.unique(keys).numel())
     ms = cuda_ms(lambda: embedding_bag_backward_cuda(g, ids, rows), reps)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):                 # the host's time to enqueue a call
+        embedding_bag_backward_cuda(g, ids, rows)
+    host_ms = (time.perf_counter() - t0) / reps * 1e3
+    prof = profile_call(lambda: embedding_bag_backward_cuda(g, ids, rows))
     plain_ms = cuda_ms(lambda: embedding_bag_backward_plain(g, ids, rows), 3)
     lib_ms = cuda_ms(lambda: torch.zeros((rows, dim), device=dev).index_add_(0, keys, g), reps)
-    nb = b * dim * 4 + b * 4 + touched * dim * 4
+    # the dense gradient written, grad_out and the ids read once
+    nb = rows * dim * 4 + b * dim * 4 + b * 4
     b_ms, b_by = bound(nb, float(b * dim))
+    touched_ms, _ = bound(b * dim * 4 + b * 4 + touched * dim * 4, float(b * dim))
     return dict(case=case, B=b, H=1, dim=dim, rows=rows, rows_touched=touched,
                 lookups_per_touched_row=b / touched, kernel_ms=ms, plain_ms=plain_ms,
-                library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, bytes=nb, max_abs_err=err,
-                max_abs_grad=top, bitwise_across_calls=True,
+                library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, bytes=nb,
+                bound_touched_ms=touched_ms, bound_share=b_ms / ms, host_ms=host_ms,
+                profile=prof, max_abs_err=err,
+                max_abs_grad=top, bitwise_across_calls=True, bitwise_vs_emulation=True,
                 bitwise_vs_plain=bool(torch.equal(out, ref)))
 
 
@@ -2317,7 +2347,8 @@ def phase_bag_backward(gen, dev, quick):
     table (2^22 rows) at train_batch."""
     b = 4096 if quick else 65536
     rows = [bag_backward_case(dev, gen, "(a) dlrm field, 2^22 rows", 1 << 22, b, 20),
-            bag_backward_case(dev, gen, "(b) dlrm small field, 512 rows", 512, b, 20)]
+            bag_backward_case(dev, gen, "(b) dlrm small field, 512 rows", 512, b, 20),
+            bag_backward_case(dev, gen, "(c) criteo field 5, 3 rows", 3, b, 20)]
     return rows, max(r["max_abs_err"] for r in rows)
 
 
@@ -2396,7 +2427,7 @@ def phase_train(dev):
           f"{cfg.n_sparse} each")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     med = float(np.median(secs))
-    prof = profile_call(lambda: bundle.step(params, state, batch))
+    prof = profile_call(lambda: bundle.step(params, state, batch), sums=("bag_bwd::",))
     # every table's gradient is non-zero exactly on the rows a lookup hit
     for p in leaves(params):
         p.grad = None
@@ -2413,6 +2444,8 @@ def phase_train(dev):
         model=DLRM, table_rows_cap=dlrm_mlperf.TRAIN_ROW_CAP, tables_gb=tables_gb,
         batch=shape.batch, init_s=init_s, warmup_steps=TRAIN_WARMUP, steps=TRAIN_TIMED,
         median_ms=med * 1e3, min_ms=min(secs) * 1e3, max_ms=max(secs) * 1e3,
+        earlier_design_median_ms=EARLIER_TRAIN_STEP_MS,
+        bag_backward_device_ms=prof["ms_by_name"]["bag_bwd::"],
         model_flops=bundle.model_flops, tflops=bundle.model_flops / med / 1e12,
         losses=losses, bag_forward_launches_per_step=fwd,
         bag_backward_launches_per_step=bwd, max_memory_allocated_gb=peak_gb,

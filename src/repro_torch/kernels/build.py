@@ -114,9 +114,11 @@ _SIGNATURES = {
                                _L, _L, _L, _L, _L, _L, _L, _L, _L, _I,
                                ctypes.c_float, _P],
     "embedding_bag_launch": [_P, _P, _P, _I, _L, _I, _L, _I, _I, _I, _P],
-    "embedding_bag_backward_launch": [_P, _P, _P, _P, _P, _P, _L, _I, _I, _L, _I, _I, _I,
-                                      _P],
+    "embedding_bag_backward_launch": [_P, _I, _L, _L, _P, _L, _L, _P, _P, _L, _I, _L, _I,
+                                      _I, _I, _P],
+    "embedding_bag_backward_scratch": [_L, _L, _I],
 }
+_RESTYPES = {"embedding_bag_backward_scratch": _L}   # the others return a cudaError_t
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -128,7 +130,7 @@ def load(name: str) -> ctypes.CDLL:
             for fn, argtypes in _SIGNATURES.items():
                 if hasattr(lib, fn):
                     getattr(lib, fn).argtypes = argtypes
-                    getattr(lib, fn).restype = ctypes.c_int
+                    getattr(lib, fn).restype = _RESTYPES.get(fn, ctypes.c_int)
             _libs[name] = lib
         return _libs[name]
 

@@ -8,6 +8,11 @@ fp32 for ``mean``, then one cast to the table's dtype, as the Pallas kernel
 does.  The CUDA kernel (``csrc/embedding_bag.cu``) adds in the same order,
 so the two agree bit for bit.  Ids follow ``jnp.take``: an id in
 [-rows, 0) wraps once, one outside [-rows, rows) reads as a row of NaN.
+
+``embedding_bag_backward_plain`` is the backward's plain version (the CPU
+backend of ``ops``); ``embedding_bag_backward_emulated`` repeats the
+backward kernel's order of additions, for the tests and ``chip_smoke.py``
+to hold the kernel to bit for bit.
 """
 
 from __future__ import annotations
@@ -15,6 +20,8 @@ from __future__ import annotations
 import torch
 
 MODES = ("sum", "mean")
+BACKWARD_CHUNK = 32    # csrc/embedding_bag.cu bag_bwd::CHUNK: sorted positions a window sums
+BACKWARD_GROUPS = 8    # bag_bwd::GROUPS: the warps that combine a long row's pieces
 
 
 def check_bag(table: torch.Tensor, ids: torch.Tensor, mode: str) -> None:
@@ -79,3 +86,64 @@ def embedding_bag_backward_plain(grad_out: torch.Tensor, ids: torch.Tensor, rows
     src = g[:, None, :].expand(b, h, g.shape[1]).reshape(b * h, -1)
     out = torch.zeros((rows, g.shape[1]), dtype=torch.float32, device=g.device)
     return out.index_add_(0, keys[keep], src[keep])
+
+
+def _ordered_sums(vals: torch.Tensor, starts: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
+    """(len(starts), dim): each segment ``vals[starts[i] : starts[i] + lens[i]]``
+    summed in order from +0.0, one fp32 add at a time."""
+    acc = vals.new_zeros((starts.numel(), vals.shape[1]))
+    for j in range(int(lens.max()) if lens.numel() else 0):
+        live = (lens > j).nonzero().squeeze(1)
+        acc[live] = acc[live] + vals[starts[live] + j]
+    return acc
+
+
+def embedding_bag_backward_emulated(grad_out: torch.Tensor, ids: torch.Tensor, rows: int,
+                                    mode: str = "sum", chunk: int = BACKWARD_CHUNK,
+                                    groups: int = BACKWARD_GROUPS) -> torch.Tensor:
+    """The backward kernel's d table in plain PyTorch, addition for addition.
+    Each lookup's value is ``grad_out[b]`` widened to fp32 (``/ H`` for
+    ``mean``, an fp32 divide).  The lookups are sorted stably by row
+    (dropped ids last) and the sorted array is cut into windows of
+    ``chunk`` positions; a row's piece in a window is summed in lookup order
+    from +0.0.  A row of one piece is that sum.  A row of m > 1 pieces puts
+    them in ``groups`` groups of q = ceil(m / groups) consecutive pieces,
+    each summed in piece order from +0.0, and adds the groups' sums in group
+    order from +0.0.  Untouched rows are +0.0.  Any device; for tests and
+    ``chip_smoke.py`` (the op's CPU backend is
+    ``embedding_bag_backward_plain``)."""
+    if mode not in MODES:
+        raise ValueError(f"embedding-bag mode must be one of {MODES}, got {mode!r}")
+    dev, h = grad_out.device, ids.shape[1]
+    g = grad_out.float()
+    if mode == "mean":
+        g = g / torch.tensor(float(h), dtype=torch.float32, device=dev)
+    keys, perm = torch.sort(row_keys(ids, rows), stable=True)
+    keep = keys < rows                             # a prefix: dropped ids sort last
+    keys, perm = keys[keep], perm[keep]
+    out = torch.zeros((rows, g.shape[1]), dtype=torch.float32, device=dev)
+    if not keys.numel():
+        return out
+    vals = g[perm // h]                            # each lookup's value, sorted by row
+    window = torch.arange(keys.numel(), device=dev) // chunk
+    _, piece_lens = torch.unique_consecutive(keys * (int(window[-1]) + 1) + window,
+                                             return_counts=True)
+    piece_starts = torch.cumsum(piece_lens, 0) - piece_lens
+    partial = _ordered_sums(vals, piece_starts, piece_lens)
+    row, n_pieces = torch.unique_consecutive(keys[piece_starts], return_counts=True)
+    first = torch.cumsum(n_pieces, 0) - n_pieces
+    light = n_pieces == 1
+    out[row[light]] = partial[first[light]]
+    heavy = (~light).nonzero().squeeze(1)
+    if heavy.numel():
+        m, p0 = n_pieces[heavy], first[heavy]
+        q = (m + groups - 1) // groups
+        n_groups = (m + q - 1) // q
+        first_group = torch.cumsum(n_groups, 0) - n_groups
+        group_row = torch.repeat_interleave(torch.arange(heavy.numel(), device=dev), n_groups)
+        group_i = torch.arange(group_row.numel(), device=dev) - first_group[group_row]
+        group_start = p0[group_row] + group_i * q[group_row]
+        group_len = torch.minimum(q[group_row], (p0 + m)[group_row] - group_start)
+        sums = _ordered_sums(partial, group_start, group_len)
+        out[row[heavy]] = _ordered_sums(sums, first_group, n_groups)
+    return out

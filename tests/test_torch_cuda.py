@@ -827,8 +827,10 @@ def test_router_swap_midflight_on_the_card_keeps_namespaces(dev):
 
 
 # the bag's backward: (rows, dim, B, H); "few-rows" puts hundreds of lookups
-# on each row (runs cut across many tiles), dim 36 and 21 take the scalar
-# path, dim 200 a ragged last chunk
+# on each row (runs cut across many windows), dim 36 and 21 take the scalar
+# path, dim 200 a ragged last chunk; "criteo-3rows" is Criteo field 5's
+# table at train_batch (~21,845 lookups a row), "heavy-h8" a multi-hot bag
+# (H = 8) whose rows span hundreds of windows
 BAG_BWD_CASES = {
     "dlrm-field": (1 << 20, 128, 65536, 1),
     "few-rows": (7, 128, 5000, 3),
@@ -836,6 +838,8 @@ BAG_BWD_CASES = {
     "dim36": (500, 36, 123, 7),
     "dim21": (64, 21, 300, 2),
     "dim200": (400, 200, 33, 5),
+    "criteo-3rows": (3, 128, 65536, 1),
+    "heavy-h8": (5, 64, 4096, 8),
 }
 
 
@@ -844,11 +848,14 @@ BAG_BWD_CASES = {
 @pytest.mark.parametrize("case", sorted(BAG_BWD_CASES))
 def test_bag_backward_kernel_matches_plain(dev, case, dtype, mode):
     """The backward kernel against its plain version (``index_add_`` in
-    lookup order): within 1e-5 of the largest |grad| (a row's lookups cut
-    across tiles add in another grouping), two calls bitwise equal (no
-    atomics), one launch counted a call; grad_out in the table's dtype."""
+    lookup order): within 1e-5 of the largest |grad| (a row's lookups add in
+    another grouping), bitwise equal to ``ref.embedding_bag_backward_emulated``
+    (the kernel's own order; compared as bits, so -0.0 against +0.0 fails),
+    two calls bitwise equal (no atomics), untouched rows zero, one launch
+    counted a call; grad_out in the table's dtype."""
     from repro_torch.kernels.embedding_bag.kernel import embedding_bag_backward_cuda
-    from repro_torch.kernels.embedding_bag.ref import embedding_bag_backward_plain
+    from repro_torch.kernels.embedding_bag.ref import (
+        embedding_bag_backward_emulated, embedding_bag_backward_plain)
 
     rows, dim, b, h = BAG_BWD_CASES[case]
     g = torch.Generator(device=dev)
@@ -862,13 +869,60 @@ def test_bag_backward_kernel_matches_plain(dev, case, dtype, mode):
     torch.cuda.synchronize()
     assert kernels.launch_counts()["embedding_bag_backward"] == before + 2
     ref = embedding_bag_backward_plain(grad, ids, rows, mode)
+    emu = embedding_bag_backward_emulated(grad, ids, rows, mode)
     assert out.dtype == torch.float32 and out.shape == (rows, dim)
-    assert torch.equal(out, again)
+    assert torch.equal(out.view(torch.int32), again.view(torch.int32))
+    assert torch.equal(out.view(torch.int32), emu.view(torch.int32))
     assert (out - ref).abs().max() <= 1e-5 * ref.abs().max()
     touched = torch.zeros(rows, dtype=torch.bool, device=dev)
     keys = ids.long() % rows
     touched[keys[(ids >= -rows) & (ids < rows)]] = True
     assert not out[~touched].any()
+
+
+def test_bag_backward_takes_strided_operands(dev):
+    """A column-major grad_out, a stride-0 (expanded) one and a column slice
+    of the ids give the bits of their contiguous copies."""
+    from repro_torch.kernels.embedding_bag.kernel import embedding_bag_backward_cuda
+
+    rows, dim, b, h = 300, 64, 2000, 4
+    g = torch.Generator(device=dev)
+    g.manual_seed(9)
+    col_major = torch.randn((dim, b), generator=g, device=dev).t()
+    expanded = torch.randn((), generator=g, device=dev).expand(b, dim)
+    ids = torch.randint(0, rows, (b, 2 * h), generator=g, device=dev, dtype=torch.int32)[:, ::2]
+    for grad in (col_major, expanded, col_major.to(torch.bfloat16)):
+        for mode in ("sum", "mean"):
+            out = embedding_bag_backward_cuda(grad, ids, rows, mode)
+            want = embedding_bag_backward_cuda(grad.contiguous(), ids.contiguous(), rows, mode)
+            assert torch.equal(out.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("rows", [3, 512, 1 << 22])
+def test_bag_backward_runs_only_its_own_kernels(dev, rows):
+    """One backward call under torch.profiler runs the port's own kernels
+    (``bag_bwd::``) and nothing else: no fill or zero kernel, no memset, no
+    library sort.  2^22 rows takes the path whose zero rows run on the
+    caller's stream beside the rest."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.embedding_bag.kernel import embedding_bag_backward_cuda
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(rows)
+    grad = torch.randn((65536, 128), generator=g, device=dev)
+    ids = torch.randint(0, rows, (65536, 1), generator=g, device=dev, dtype=torch.int32)
+    embedding_bag_backward_cuda(grad, ids, rows)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        embedding_bag_backward_cuda(grad, ids, rows)
+        torch.cuda.synchronize()
+    names = {ev.name for ev in prof.events() if ev.device_type == DeviceType.CUDA}
+    names -= {"Command Buffer Full", "Buffer Flush", "Activity Buffer Request"}
+    assert names and all("bag_bwd::" in n for n in names), sorted(names)
+    assert not any(re.search(r"(?i)fill|zero|sort|memset", n.replace("bag_bwd::", ""))
+                   for n in names), sorted(names)
 
 
 def test_bag_op_gradient_on_the_card_matches_the_cpu(dev):

@@ -12,6 +12,9 @@ fp32 and round once); a bag of one id is a copy of its row and must be
 bitwise equal.
 """
 
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 
@@ -23,7 +26,9 @@ import jax.numpy as jnp  # noqa: E402
 from repro.kernels.embedding_bag.ops import embedding_bag_op as j_bag  # noqa: E402
 from repro.kernels.embedding_bag.ref import embedding_bag_reference as j_ref  # noqa: E402
 from repro_torch import kernels  # noqa: E402
-from repro_torch.kernels.embedding_bag.kernel import embedding_bag_cuda  # noqa: E402
+from repro_torch.kernels.embedding_bag import ref  # noqa: E402
+from repro_torch.kernels.embedding_bag.kernel import (  # noqa: E402
+    embedding_bag_backward_cuda, embedding_bag_cuda)
 from repro_torch.kernels.embedding_bag.ops import embedding_bag_op  # noqa: E402
 from repro_torch.kernels.embedding_bag.ref import embedding_bag_plain  # noqa: E402
 
@@ -194,3 +199,91 @@ def test_bag_op_outside_grad_mode_is_the_forward_alone():
         assert embedding_bag_op(table, ids).grad_fn is None
     assert embedding_bag_op(table.detach(), ids).grad_fn is None
     assert embedding_bag_op(table, ids).grad_fn is not None
+
+
+# The backward kernel's order of additions (``ref.embedding_bag_backward_emulated``,
+# which the card tests hold the kernel to bit for bit) against jax.grad of the
+# reference's oracle.  (rows, dim, B, H, case): "repeats" has many lookups a row,
+# "wrapped" negative ids, "dropped" ids outside [-rows, rows), "multihot" H > 1,
+# "dim21" the scalar path's width, "long-row" one row with more than 2 * CHUNK
+# lookups (its pieces combined in groups).
+EMU_CASES = {
+    "repeats": (7, 16, 300, 1),
+    "wrapped": (50, 32, 200, 2),
+    "dropped": (40, 8, 120, 3),
+    "multihot": (300, 24, 64, 9),
+    "dim21": (64, 21, 150, 2),
+    "long-row": (5, 12, 600, 2),
+}
+
+
+def _emu_inputs(case):
+    rows, dim, b, h = EMU_CASES[case]
+    rng = np.random.default_rng(sorted(EMU_CASES).index(case) + 40)
+    table = rng.standard_normal((rows, dim)).astype(np.float32)
+    ids = rng.integers(-rows if case == "wrapped" else 0, rows, (b, h)).astype(np.int32)
+    if case == "dropped":
+        ids[::7, 0] = rows + 4                     # jnp.take's scatter drops them
+        ids[3, -1] = -rows - 1
+    if case == "long-row":
+        ids[: 2 * ref.BACKWARD_CHUNK + 9] = 2      # more than 2 * CHUNK lookups of row 2
+    w = rng.standard_normal((b, dim)).astype(np.float32)
+    return table, ids, w
+
+
+@pytest.mark.parametrize("mode", ["sum", "mean"])
+@pytest.mark.parametrize("case", sorted(EMU_CASES))
+def test_backward_emulation_matches_jax_grad_of_the_oracle(case, mode):
+    """The emulated backward kernel against ``jax.grad`` of the oracle (its
+    scatter-add through ``jnp.take``): fp32 within 1e-5 of the largest
+    |grad|; untouched rows are +0.0 (bit pattern 0)."""
+    table, ids, w = _emu_inputs(case)
+    rows = table.shape[0]
+    jg = np.asarray(jax.grad(
+        lambda t: jnp.sum(j_ref(t, jnp.asarray(ids), mode=mode) * w))(jnp.asarray(table)))
+    assert np.isfinite(jg).all()
+    got = ref.embedding_bag_backward_emulated(torch.from_numpy(w), torch.from_numpy(ids),
+                                              rows, mode)
+    assert got.dtype == torch.float32 and got.shape == table.shape
+    assert np.abs(got.numpy() - jg).max() <= 1e-5 * np.abs(jg).max()
+    keys = ref.row_keys(torch.from_numpy(ids), rows)
+    untouched = torch.ones(rows, dtype=torch.bool)
+    untouched[keys[keys < rows]] = False
+    assert not got.view(torch.int32)[untouched].any()
+
+
+def test_backward_emulation_is_no_less_accurate_on_a_heavy_row():
+    """Criteo field 5's three rows at train_batch (~21,845 lookups a row): the
+    emulated kernel's sums (32-lookup pieces, then groups, then the groups'
+    sums) are no further from a float64 sum than the plain version's single
+    running sum in lookup order (``index_add_``)."""
+    rng = np.random.default_rng(5)
+    b, dim, rows = 65536, 16, 3
+    g = rng.standard_normal((b, dim)).astype(np.float32)
+    ids = rng.integers(0, rows, (b, 1)).astype(np.int32)
+    assert np.bincount(ids[:, 0]).min() >= 20000
+    exact = np.zeros((rows, dim))
+    np.add.at(exact, ids[:, 0], g.astype(np.float64))
+    tg, ti = torch.from_numpy(g), torch.from_numpy(ids)
+    emu_err = np.abs(ref.embedding_bag_backward_emulated(tg, ti, rows).double().numpy() - exact)
+    plain_err = np.abs(ref.embedding_bag_backward_plain(tg, ti, rows).double().numpy() - exact)
+    assert emu_err.max() <= plain_err.max()
+
+
+def test_backward_emulation_constants_are_the_kernels():
+    """The emulation's CHUNK and GROUPS are the backward kernel's own
+    (``csrc/embedding_bag.cu``, namespace ``bag_bwd``)."""
+    src = (Path(ref.__file__).parents[2] / "csrc" / "embedding_bag.cu").read_text()
+    body = src[src.index("namespace bag_bwd {"):]
+    const = dict(re.findall(r"constexpr int (\w+) = (\w+);", body))
+    assert int(const["CHUNK"]) == ref.BACKWARD_CHUNK
+    groups = const["GROUPS"]
+    assert int(const.get(groups, groups)) == ref.BACKWARD_GROUPS
+
+
+def test_backward_kernel_wrapper_refuses_cpu_tensors():
+    """The backward kernel's wrapper serves CUDA tensors only (``ops`` sends
+    CPU tensors to the plain version), and takes fp32 or bf16 grad_out."""
+    g, ids = torch.zeros((4, 8)), torch.zeros((4, 2), dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        embedding_bag_backward_cuda(g, ids, 10)
