@@ -188,6 +188,43 @@ Phases (one JSON line each):
     4,096) at the largest batch, a multiple of 8, that fits in 80% of the
     card (found from the peak memory of one step at B = 1 and 2): step ms,
     tokens/s, peak memory.
+14. ``lm``: the LM family at full width in bf16 with seeded random weights
+    drawn on the card (one line an arch, ``lm:<arch>``): qwen3-8b,
+    starcoder2-3b, granite-moe-1b-a400m and moonshot-v1-16b-a3b (56.8 GB
+    of weights; qwen1.5-110b's 222 GB is not run).  First
+    ``lm:flash_prefill_32k``: the flash kernel at Qwen3-8B's prefill_32k
+    attention (B = 1, L = 32,768, causal) against its plain version over
+    the whole output (gate c), with SDPA's time and the bound.  Per arch:
+    (a) decode == prefill: a 2,048-token prefill, token 2,049 decoded into
+    its cache, the decode's logits against the 2,049-token prefill's last
+    position within atol = rtol = 2e-2 (the reference's own bar, in its
+    own test's fp32: the weights drawn again in fp32, moonshot's depth cut
+    to fit; MoE at a capacity factor of n_experts / top_k, so nothing
+    drops), and on the bf16 model with a norm-wise relative difference
+    within 2 x 2^-8 x sqrt(n_layers) (dense) or twice the model's own move
+    under one bf16 rounding a layer (MoE, the decode and the shorter
+    prefill replaying the full prefill's routing, the flips counted; the
+    run on their own routing printed); (b) flash vs ref: every layer's
+    attention output on the same q, k, v within the bf16 bound, and the
+    final hidden states' relative difference within the same bounds as
+    (a) in bf16 (MoE: the flash encode on the ref encode's routing);
+    ``build_lm_prefill`` at
+    prefill_32k (the largest batch, at most 8, that fits in 80% of the
+    card; moonshot one sequence at the longest power-of-two length that
+    fits), ``build_lm_decode`` at decode_32k (the largest batch that fits;
+    moonshot one sequence at the longest cache that fits) and at long_500k
+    (starcoder2-3b and granite: the full 524,288-entry cache): ms a step,
+    tokens/s, TFLOP/s against ``model_flops``, peak memory, device-busy
+    share, flash launches, the cuts; for qwen3-8b (d)
+    ``build_lm_adacur_serve`` at the reference's defaults (N = 10^6, B = 8,
+    budget 500 in 5 rounds, k_q = 500) on the bidirectional CE
+    (``causal=False``) and a seeded synthetic R_anc: ms a search, its CE
+    and e_q @ R_anc split, measured CE == plan, distinct ids < N, each
+    row's scores sorted, every returned score within 2 bf16 ulps of a
+    direct ``score_tokens`` of its pair, and the flash kernel against its
+    plain version at each CE call's batch (400 and 2,000 pairs of 67
+    tokens, 32/8 heads, hd 128, non-causal) and on a real call's first and
+    last layers' q, k, v.
 
 Then the card's ``name, power.limit`` line, a ``kernels`` summary line (one
 entry per kernel and, for the two top-k kernels, per payload: ``approx_topk``
@@ -198,6 +235,7 @@ Any failed check exits non-zero.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
 import json
 import os
@@ -2626,6 +2664,733 @@ def lm_train_4k(dev, cfg, shape) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# the LM family at full width: prefill, decode, and the paper's pipeline
+# with Qwen3-8B as the cross-encoder
+# ---------------------------------------------------------------------------
+
+LM_RUN = ("qwen3-8b", "starcoder2-3b", "granite-moe-1b-a400m", "moonshot-v1-16b-a3b")
+LM_LONG = ("starcoder2-3b", "granite-moe-1b-a400m")   # long_500k fits on one card
+LM_GATE_LEN = 2048        # prompt tokens of the decode == prefill and flash vs ref gates
+LM_GATE_TOL = 2e-2        # the reference's own decode == encode bar (tests/test_arch_smoke.py)
+LM_FP32_ROOM = 8e9        # bytes gate (a)'s fp32 run keeps free beside its weights
+LM_PREFILL_MAX_B = 8      # prefill batches beyond this are cut for the phase's time
+LM_DECODE_REPS = 5        # timed decode steps after a warm-up
+LM_FLASH_LEN = 32768      # gate (c): prefill_32k's sequence
+LM_FLASH_TAIL = 256       # its last query rows, the widest causal windows, reported apart
+ADACUR_SERVE_N = 1_000_000
+ADACUR_SERVE_B = 8
+LM_FLOOR_FACTOR = 2.0     # a MoE model's bf16 bar: this times its one-rounding floor
+CE_SCORE_ULPS = 2         # gate (d): returned score vs a direct score_tokens, bf16 ulps
+
+
+def lm_bf16_rel_tol(n_layers: int) -> float:
+    """The bf16 bound of gates (a) and (b) on the norm-wise relative
+    difference ||x - y|| / ||y|| of two bf16 computations of one function
+    at full width (hidden states or logits), once both follow the same
+    routing.  They part by about one rounding a layer: in gate (b) ``ref``
+    rounds the softmax probabilities to bf16 before the P V product (2^-8
+    relative) where the flash kernel carries p in three bf16 terms
+    (fp32-exact); in gate (a) a 1-token decode and a prefill run GEMMs of
+    other shapes, whose fp32 sums round to bf16 otherwise (at most one ulp,
+    2^-8 relative), and the decode's attention rounds p to bf16 where the
+    prefill's flash kernel does not.  Taken as independent across layers,
+    the residual stream's relative difference grows as 2^-8 x
+    sqrt(n_layers); the bound is twice that."""
+    return 2.0 * 2.0 ** -8 * n_layers ** 0.5
+
+
+@contextlib.contextmanager
+def rounding_noise(module, name: str, gen):
+    """While open, every call of the attention function ``module.name``
+    returns its output moved by one bf16 rounding's worth: o (1 + 2^-8 u),
+    u uniform in [-1, 1) drawn from ``gen``, in fp32, cast back to o's
+    dtype.  Run beside an unperturbed encode on the same routing, it
+    measures how far one rounding a layer moves this model's output
+    (:func:`lm_moe_bar`)."""
+    import torch
+
+    fn = getattr(module, name)
+
+    def noisy(*a, **kw):
+        o = fn(*a, **kw)
+        u = torch.rand(o.shape, generator=gen, device=o.device) * 2.0 - 1.0
+        return (o.float() * (1.0 + 2.0 ** -8 * u)).to(o.dtype)
+
+    setattr(module, name, noisy)
+    try:
+        yield
+    finally:
+        setattr(module, name, fn)
+
+
+def lm_moe_bar(floor: float) -> float:
+    """The bf16 bound of gates (a) and (b) for a MoE model, on the same
+    routing: ``LM_FLOOR_FACTOR`` x ``floor``, the model's own measured move
+    under one bf16 rounding a layer (:func:`rounding_noise`).  The dense
+    bound (:func:`lm_bf16_rel_tol`) assumes each layer passes a relative
+    difference on about unchanged, which a MoE model does not: its gates
+    re-weigh the experts, and on the H100 the MoE models' decode and
+    prefill part 15x (granite) and 300x (moonshot) further than the dense
+    ones' in fp32 too (norm-wise on the logits, 3.2e-5 and 6.3e-4 against
+    2.0e-6 and 1.4e-6), so their sensitivity is measured rather than
+    derived."""
+    return LM_FLOOR_FACTOR * floor
+
+
+class MoERouting:
+    """Records, then replays, the experts ``moe._route`` picks, call by
+    call: a model's MoE layers route in layer order in ``encode`` and in
+    ``decode_step`` alike, so call i is MoE layer i.  Routing is
+    discontinuous (a top-k choice flips where two experts' probabilities
+    cross), so two bf16 paths that part by one rounding can route a token
+    otherwise and then drift apart by far more than their rounding.
+    Replaying one path's choices into the other leaves only the rounding
+    to compare, and counts the flips: the (token, choice) assignments a
+    replayed call's own routing would have picked instead."""
+
+    def __init__(self):
+        self.recorded, self.flips, self.assignments = [], 0, 0
+
+    @contextlib.contextmanager
+    def record(self):
+        """Keep each call's experts (T, top_k)."""
+        from repro_torch.models import moe
+
+        route = moe._route
+
+        def recording(params, x, cfg):
+            top_e, top_p, aux = route(params, x, cfg)
+            self.recorded.append(top_e)
+            return top_e, top_p, aux
+
+        moe._route = recording
+        try:
+            yield self
+        finally:
+            moe._route = route
+
+    @contextlib.contextmanager
+    def replay(self, first_row: int):
+        """Call i takes rows ``first_row .. first_row + T`` of recorded call
+        i as its experts, weighted by its own probabilities there,
+        renormalised as ``_route`` does; every recorded call must be
+        replayed once."""
+        import torch
+
+        from repro_torch.models import moe
+
+        route, calls = moe._route, []
+
+        def replaying(params, x, cfg):
+            own, _, aux = route(params, x, cfg)
+            top_e = self.recorded[len(calls)][first_row:first_row + x.shape[0]]
+            calls.append(1)
+            probs = torch.softmax(x.float() @ params["router"].float(), dim=-1)
+            top_p = probs.gather(1, top_e)
+            top_p = top_p / (top_p.sum(-1, keepdim=True) + 1e-9)
+            self.flips += int((~(own[:, :, None] == top_e[:, None, :]).any(-1)).sum())
+            self.assignments += own.numel()
+            return top_e, top_p, aux
+
+        moe._route = replaying
+        try:
+            yield self
+        finally:
+            moe._route = route
+        check(len(calls) == len(self.recorded),
+              f"MoE routing replay: {len(calls)} calls replayed {len(self.recorded)} recorded")
+
+
+def no_drop(cfg):
+    """``cfg`` with a MoE capacity factor of n_experts / top_k: every
+    expert's capacity then exceeds the tokens of any call, so no
+    assignment drops (a dense config is returned as it is)."""
+    from repro_torch.configs.base import replace
+
+    if cfg.moe is None:
+        return cfg
+    return replace(cfg, moe=replace(cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
+
+
+def kv_bytes_per_token(cfg) -> int:
+    return 2 * cfg.n_layers * cfg.n_kv_heads * cfg.resolved_head_dim * 2   # k and v, bf16
+
+
+def tensor_bytes(tree) -> int:
+    from repro_torch.tree import leaves
+
+    return sum(t.numel() * t.element_size() for t in leaves(tree))
+
+
+def lm_step_run(dev, fn, profile: bool, reps: int = 1) -> dict:
+    """One profiled call of ``fn`` (wall, device-busy share) or ``reps``
+    timed calls after one warm-up (median ms); peak device memory and the
+    flash kernel's launches of the measured calls."""
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels
+
+    if not profile:
+        fn()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    res = {}
+    if profile:
+        prof = profile_call(fn)
+        res.update(ms=prof["wall_ms"], device_busy_share=prof["device_busy_share"],
+                   profile_top=prof["top"][:5])
+        calls = 1
+    else:
+        secs = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        res.update(ms=float(np.median(secs)) * 1e3, min_ms=min(secs) * 1e3)
+        calls = reps
+    res.update(peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+               flash_launches=kernels.launch_counts()["flash_attention"] // calls)
+    return res
+
+
+def lm_fp32_layers(cfg, total: float) -> int:
+    """The most layers (at most the config's) whose fp32 weights fit in
+    ``LM_MEM_SHARE`` of the card less ``LM_FP32_ROOM`` for the gate's
+    activations: all of them but for moonshot (113.6 GB in fp32)."""
+    from repro_torch.configs.base import replace
+
+    n = cfg.n_layers
+    while n > 1 and 4 * replace(cfg, n_layers=n).n_params() > LM_MEM_SHARE * total - LM_FP32_ROOM:
+        n -= 1
+    return n
+
+
+def lm_decode_equals_prefill(dev, cfg, params, gen, routing=None) -> dict:
+    """Prefill ``LM_GATE_LEN`` tokens (flash), decode token
+    ``LM_GATE_LEN + 1`` into that cache, and hold its logits to the prefill
+    of all ``LM_GATE_LEN + 1`` tokens at the last position, on the real
+    vocab columns: in fp32 within ``LM_GATE_TOL`` (abs and rel) everywhere,
+    in bf16 with a norm-wise relative difference within
+    :func:`lm_bf16_rel_tol` for a dense model and within :func:`lm_moe_bar`
+    for a MoE model (``ok``); both measures are reported either way.
+    ``cfg`` must be :func:`no_drop` for a MoE model: capacity depends on the
+    tokens of a call, so a 1-token decode and a 2,048-token prefill would
+    drop differently.  With ``routing`` (a fresh :class:`MoERouting`) the
+    full prefill records its routing and the shorter prefill and the decode
+    replay it, so the two paths route every token alike and the flips are
+    counted; the full prefill then runs again under :func:`rounding_noise`
+    on the same routing, and its move is the floor of :func:`lm_moe_bar`.
+    A bf16 MoE run without ``routing`` is reported, not gated (``ok``
+    None)."""
+    import torch
+
+    from repro_torch.configs.base import LMShape
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer
+
+    n = LM_GATE_LEN
+    tokens = torch.randint(4, cfg.vocab_size, (1, n + 1), generator=gen, device=dev,
+                           dtype=torch.int32)
+    step = steps.build_lm_prefill(cfg.name, cfg, LMShape("gate", "prefill", n, 1),
+                                  params=params, device=dev).step
+    record, replay = ((routing.record, routing.replay) if routing is not None
+                      else (contextlib.nullcontext, lambda _: contextlib.nullcontext()))
+    with record():
+        ref, _ = step(params, tokens)
+    with replay(0):
+        _, cache = step(params, tokens[:, :n])
+    full = transformer.init_cache(cfg, 1, n + 1, device=dev)
+    for part in cache:
+        for c, f in zip(cache[part], full[part]):
+            f["k"][:, :n], f["v"][:, :n] = c["k"], c["v"]
+    del cache
+    with torch.no_grad(), replay(n):
+        dec, _ = transformer.decode_step(params, full, tokens[:, n], n, cfg)
+    v = cfg.vocab_size
+    d, r = dec[:, :v].float(), ref[:, :v].float()
+    err = (d - r).abs()
+    outside = err > LM_GATE_TOL + LM_GATE_TOL * r.abs()
+    rel = ((d - r).norm() / r.norm()).item()
+    out = dict(dtype=cfg.dtype, n_layers=cfg.n_layers, prompt_len=n,
+               max_abs_diff=err.max().item(), max_abs_logit=r.abs().max().item(),
+               share_outside=outside.float().mean().item(), rel_norm_diff=rel,
+               argmax_equal=bool(torch.equal(d.argmax(-1), r.argmax(-1))),
+               capacity_factor=None if cfg.moe is None else cfg.moe.capacity_factor)
+    if routing is not None:
+        flips, assignments = routing.flips, routing.assignments
+        with replay(0), rounding_noise(transformer, "flash_attention",
+                                       torch.Generator(device=dev).manual_seed(13)):
+            noisy, _ = step(params, tokens)
+        floor = ((noisy[:, :v].float() - r).norm() / r.norm()).item()
+        out.update(routing_replayed=True, routing_flips=flips, routing_assignments=assignments,
+                   rounding_floor=floor, rel_tol=lm_moe_bar(floor))
+    elif cfg.dtype == "bfloat16" and cfg.moe is None:
+        out["rel_tol"] = lm_bf16_rel_tol(cfg.n_layers)
+    if cfg.dtype != "bfloat16":
+        out["ok"] = not bool(outside.any())
+    else:
+        out["ok"] = rel <= out["rel_tol"] if "rel_tol" in out else None
+    return out
+
+
+def lm_gate_a(dev, cfg, gen) -> dict:
+    """Gate (a), decode == prefill, at full width in fp32, at the
+    reference's own bar: it holds its decode to its encode in fp32
+    (``smoke_config``'s dtype), and there 2e-2 measures the two paths, not
+    bf16's rounding.  In bf16 any two orders of the same sums part by about
+    one rounding (2^-8) a layer, which puts a few hundred of qwen3-8b's
+    151,936 logits past 2e-2; :func:`lm_gate_a_bf16` holds the bf16 paths
+    to the bf16 bound instead.  fp32 weights drawn on the card from the
+    same seed; moonshot's depth is cut to what fits
+    (:func:`lm_fp32_layers`); MoE at the no-drop capacity."""
+    import torch
+
+    from repro_torch.configs.base import replace
+    from repro_torch.models import transformer
+
+    total = torch.cuda.get_device_properties(dev).total_memory
+    cfg32 = replace(no_drop(cfg), dtype="float32", n_layers=lm_fp32_layers(cfg, total))
+    params = transformer.init_lm(cfg32, torch.Generator(device=dev).manual_seed(0))
+    out = lm_decode_equals_prefill(dev, cfg32, params, gen)
+    del params
+    torch.cuda.empty_cache()
+    out["depth_cut"] = None if cfg32.n_layers == cfg.n_layers else \
+        f"{cfg.n_layers} -> {cfg32.n_layers}"
+    return out
+
+
+def lm_gate_a_bf16(dev, cfg, params) -> dict:
+    """Gate (a) on the bf16 model the phase serves: decode == prefill within
+    :func:`lm_bf16_rel_tol` (norm-wise, on the logits).  A MoE model's
+    decode and shorter prefill replay the full prefill's routing
+    (:class:`MoERouting`), and the run on their own routing is printed
+    beside it (``own_routing``, not gated), with the same tokens."""
+    import torch
+
+    cfg = no_drop(cfg)
+
+    def gen():
+        return torch.Generator(device=dev).manual_seed(12)
+
+    if cfg.moe is None:
+        return lm_decode_equals_prefill(dev, cfg, params, gen())
+    out = lm_decode_equals_prefill(dev, cfg, params, gen(), MoERouting())
+    out["own_routing"] = lm_decode_equals_prefill(dev, cfg, params, gen())
+    return out
+
+
+def lm_flash_vs_ref(dev, cfg, params, gen) -> dict:
+    """Gate (b): ``encode`` with ``attn_impl="flash"`` against ``"ref"`` on
+    the same weights and ``LM_GATE_LEN`` tokens (no-drop capacity for a MoE
+    config).  Two checks:
+
+    - every layer of the flash encode, the kernel's output against
+      ``attention_ref`` on the same q, k, v, element by element within
+      2^-8 max|v| + 2^-7 max(|o_flash|, |o_ref|): ``ref``'s bf16 p is off by
+      at most bf16's unit roundoff 2^-8 relative (and a sum of p_j |v_j| is
+      at most max|v|), and each output is rounded to bf16 once (2^-8
+      relative each);
+    - the final hidden states' norm-wise relative difference within
+      :func:`lm_bf16_rel_tol` for a dense model.  A MoE model's flash
+      encode replays the ref encode's routing (:class:`MoERouting`, the
+      flips counted) and is held within :func:`lm_moe_bar`, whose floor is
+      a third, ref encode under :func:`rounding_noise` on the same routing;
+      its flash encode on its own routing is printed beside it
+      (``rel_norm_diff_own_routing``, not gated)."""
+    import torch
+
+    from repro_torch.models import layers, transformer
+
+    cfg = no_drop(cfg)
+    tokens = torch.randint(4, cfg.vocab_size, (1, LM_GATE_LEN), generator=gen, device=dev,
+                           dtype=torch.int32)
+    kernel, excess, rel_layers = transformer.flash_attention, [], []
+
+    def both(q, k, v, **kw):
+        o = kernel(q, k, v, **kw)
+        of, orf = o.float(), layers.attention_ref(q, k, v, causal=kw["causal"]).float()
+        bound = 2.0 ** -8 * v.float().abs().max() + 2.0 ** -7 * torch.maximum(of.abs(),
+                                                                              orf.abs())
+        excess.append(((of - orf).abs() - bound).max().item())
+        rel_layers.append(((of - orf).norm() / orf.norm()).item())
+        return o
+
+    routing = MoERouting() if cfg.moe is not None else None
+    with torch.no_grad(), (routing.record() if routing else contextlib.nullcontext()):
+        hr, _ = transformer.encode(params, tokens, cfg, attn_impl="ref")
+    transformer.flash_attention = both
+    try:
+        with torch.no_grad(), (routing.replay(0) if routing else contextlib.nullcontext()):
+            hf, _ = transformer.encode(params, tokens, cfg, attn_impl="flash")
+    finally:
+        transformer.flash_attention = kernel
+    hf, hr = hf.float(), hr.float()
+    rel = ((hf - hr).norm() / hr.norm()).item()
+    layers_ok = len(excess) == cfg.n_layers and max(excess) <= 0.0
+    out = dict(len=LM_GATE_LEN, layers_checked=len(excess), layer_max_excess=max(excess),
+               layer_max_rel_norm=max(rel_layers), layers_ok=layers_ok, rel_norm_diff=rel,
+               max_abs_diff=(hf - hr).abs().max().item(), max_abs_hidden=hr.abs().max().item())
+    if routing is None:
+        out["tol"] = lm_bf16_rel_tol(cfg.n_layers)
+    else:
+        out.update(routing_replayed=True, routing_flips=routing.flips,
+                   routing_assignments=routing.assignments)
+        with torch.no_grad(), routing.replay(0), rounding_noise(
+                layers, "attention_ref", torch.Generator(device=dev).manual_seed(14)):
+            noisy, _ = transformer.encode(params, tokens, cfg, attn_impl="ref")
+        floor = ((noisy.float() - hr).norm() / hr.norm()).item()
+        with torch.no_grad():
+            own, _ = transformer.encode(params, tokens, cfg, attn_impl="flash")
+        out.update(rounding_floor=floor, tol=lm_moe_bar(floor),
+                   rel_norm_diff_own_routing=((own.float() - hr).norm() / hr.norm()).item())
+    out["ok"] = layers_ok and rel <= out["tol"]
+    return out
+
+
+def lm_fit(total: float, base: float, per: float, cap: int) -> int:
+    """The largest count (<= cap) whose need ``base + n x per`` fits in
+    ``LM_MEM_SHARE`` of the card (0 if none)."""
+    return max(0, min(cap, int((LM_MEM_SHARE * total - base) // per)))
+
+
+def lm_prefill(dev, arch, cfg, params, shape) -> dict:
+    """prefill_32k at the largest batch (at most ``LM_PREFILL_MAX_B``) that
+    fits in ``LM_MEM_SHARE`` of the card, found from one B = 1 step's peak
+    memory (the step returns the whole KV cache); the B = 1 step is the
+    warm-up, the chosen batch's step is profiled.  A model whose B = 1 step would not fit (moonshot's
+    weights leave too little) prefills one sequence at the longest power-
+    of-two length that fits, sized from a 2,048-token step."""
+    import torch
+
+    from repro_torch.configs.base import LMShape
+    from repro_torch.launch import steps
+
+    total = torch.cuda.get_device_properties(dev).total_memory
+    base = torch.cuda.memory_allocated()
+    b1 = steps.build_lm_prefill(arch, cfg, LMShape("probe", "prefill", LM_GATE_LEN, 1),
+                                params=params, device=dev)
+    probe = lm_step_run(dev, lambda: b1.step(*b1.args), profile=False, reps=1)
+    per_tok = (probe["peak_gb"] * 1e9 - base) / LM_GATE_LEN
+    out = dict(reference_global_batch=shape.global_batch, reference_seq_len=shape.seq_len)
+    seq = shape.seq_len
+    if base + per_tok * seq > LM_MEM_SHARE * total:
+        seq = 1 << (int((LM_MEM_SHARE * total - base) // per_tok).bit_length() - 1)
+        seq = min(seq, shape.seq_len)
+        check(seq >= LM_GATE_LEN, f"lm: {arch} fits no {LM_GATE_LEN}-token prefill")
+        b, per_seq = 1, per_tok * seq
+    else:
+        b1 = steps.build_lm_prefill(arch, cfg, LMShape("probe", "prefill", seq, 1),
+                                    params=params, device=dev)
+        probe = lm_step_run(dev, lambda: b1.step(*b1.args), profile=False, reps=1)
+        per_seq = probe["peak_gb"] * 1e9 - base
+        out["b1_ms"] = probe["ms"]
+        b = lm_fit(total, base, per_seq, min(shape.global_batch, LM_PREFILL_MAX_B))
+    del b1
+    bundle = steps.build_lm_prefill(arch, cfg, LMShape(shape.name, "prefill", seq, b),
+                                    params=params, global_batch=b, device=dev)
+    run = lm_step_run(dev, lambda: bundle.step(*bundle.args), profile=True)
+    tokens = b * seq
+    out.update(batch=b, seq_len=seq, batch_cut=f"{shape.global_batch} -> {b}",
+               seq_cut=None if seq == shape.seq_len else f"{shape.seq_len} -> {seq}",
+               est_gb_per_seq=per_seq / 1e9, tokens_per_s=tokens / run["ms"] * 1e3,
+               model_flops=bundle.model_flops,
+               tflops=bundle.model_flops / run["ms"] * 1e-9, **run)
+    check(run["flash_launches"] == cfg.n_layers,
+          f"lm: {arch} prefill launched flash {run['flash_launches']} times, not once a layer")
+    return out
+
+
+def lm_decode(dev, arch, cfg, params, shape) -> dict:
+    """One decode step against a cache of ``shape.seq_len`` entries at the
+    largest batch that fits (from a 4,096-entry B = 1 probe: the step's own
+    overhead beside the cache); a model whose B = 1 cache would not fit
+    decodes one sequence at the longest cache (a multiple of 1,024) that
+    does.  ``LM_DECODE_REPS`` timed steps after a warm-up, then one
+    profiled."""
+    import torch
+
+    from repro_torch.configs.base import LMShape
+    from repro_torch.launch import steps
+
+    total = torch.cuda.get_device_properties(dev).total_memory
+    base = torch.cuda.memory_allocated()
+    kv = kv_bytes_per_token(cfg)
+    probe = steps.build_lm_decode(arch, cfg, LMShape("probe", "decode", 4096, 1),
+                                  params=params, device=dev)
+    p = lm_step_run(dev, lambda: probe.step(*probe.args), profile=False, reps=1)
+    overhead = p["peak_gb"] * 1e9 - base - kv * 4096
+    del probe
+    seq = shape.seq_len
+    b = lm_fit(total, base + overhead, kv * seq, shape.global_batch)
+    if b == 0:
+        seq = int((LM_MEM_SHARE * total - base - overhead) // kv) // 1024 * 1024
+        check(seq >= 4096, f"lm: {arch} fits no 4,096-entry cache")
+        b = 1
+    bundle = steps.build_lm_decode(arch, cfg, LMShape(shape.name, "decode", seq, b),
+                                   params=params, global_batch=b, device=dev)
+    run = lm_step_run(dev, lambda: bundle.step(*bundle.args), profile=False,
+                      reps=LM_DECODE_REPS)
+    prof = lm_step_run(dev, lambda: bundle.step(*bundle.args), profile=True)
+    logits, _ = bundle.step(*bundle.args)
+    check(bool(torch.isfinite(logits[:, :cfg.vocab_size].float()).all()),
+          f"lm: {arch} {shape.name} logits not finite")
+    moved = tensor_bytes(params) + tensor_bytes(bundle.args[1])
+    del bundle, logits
+    return dict(reference_global_batch=shape.global_batch, reference_seq_len=shape.seq_len,
+                batch=b, seq_len=seq, batch_cut=f"{shape.global_batch} -> {b}",
+                seq_cut=None if seq == shape.seq_len else f"{shape.seq_len} -> {seq}",
+                cache_gb=kv * seq * b / 1e9, overhead_gb=overhead / 1e9,
+                tokens_per_s=b / run["ms"] * 1e3,
+                model_flops=2.0 * cfg.n_active_params() * b,
+                tflops=2.0 * cfg.n_active_params() * b / run["ms"] * 1e-9,
+                bytes_read_gb=moved / 1e9, read_gbps=moved / run["ms"] * 1e-6,
+                device_busy_share=prof["device_busy_share"], profile_top=prof["profile_top"],
+                **{k: run[k] for k in ("ms", "min_ms", "peak_gb", "flash_launches")})
+
+
+def lm_adacur_serve(dev, cfg, params) -> dict:
+    """The paper's pipeline with Qwen3-8B as the cross-encoder
+    (``build_lm_adacur_serve`` at the reference's defaults: N = 10^6, B =
+    8, items of 48 tokens, queries of 16, k_q = 500, budget 500 in 5
+    rounds) on ``replace(cfg, causal=False)`` (the bidirectional CE; the
+    registry's causal config would give every pair one score) and a seeded
+    synthetic R_anc.  One search, each CE call timed between syncs; the
+    e_q @ R_anc passes timed alone.  Gate (d): measured CE calls ==
+    ``ce_call_plan`` x B; distinct ids below N; each row's scores sorted
+    descending; each returned score within ``CE_SCORE_ULPS`` bf16 ulps of
+    its own magnitude from a direct ``score_tokens`` of its pair, one call
+    over all B x 100 returned pairs (on the H100 the difference reads 0.0:
+    the CE's GEMMs give the search's batches and this one the same bits),
+    so a score attached to another pair fails.  The flash kernel against
+    its plain version at this path's shapes (:func:`lm_ce_flash_checks`):
+    each CE call size the search made, on random q, k, v, and the first
+    and last layers' own q, k, v of the direct call."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.configs.base import replace
+    from repro_torch.core.engine import ce_call_plan
+    from repro_torch.launch import steps
+    from repro_torch.models import cross_encoder, layers, transformer
+
+    ce_cfg = replace(cfg, causal=False)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    ce_params = dict(params, score_head=layers.dense_init(gen, (cfg.d_model, 1), scale=0.02))
+    bundle = steps.build_lm_adacur_serve(cfg.name, ce_cfg, params=ce_params,
+                                         n_items=ADACUR_SERVE_N, batch=ADACUR_SERVE_B,
+                                         device=dev)
+    params_, batch_in, key = bundle.args
+    plain_score = cross_encoder.score_tokens
+    ce_secs, ce_sizes = [], []
+
+    def timed_score(params, pair_tokens, *a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = plain_score(params, pair_tokens, *a, **kw)
+        torch.cuda.synchronize()
+        ce_secs.append(time.perf_counter() - t0)
+        ce_sizes.append(pair_tokens.shape[0])
+        return out
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    cross_encoder.score_tokens = timed_score
+    try:
+        t0 = time.perf_counter()
+        idx, scores = bundle.step(params_, batch_in, key)
+        torch.cuda.synchronize()
+        search_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        cross_encoder.score_tokens = plain_score
+    flash = kernels.launch_counts()["flash_attention"]
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    acfg = steps.ADACUR_SERVE_CFG
+    plan = ce_call_plan(acfg) * ADACUR_SERVE_B
+    e_q = torch.randn((ADACUR_SERVE_B, batch_in["r_anc"].shape[0]), device=dev)
+    eq_ms = cuda_ms(lambda: e_q @ batch_in["r_anc"], 5) * acfg.n_rounds
+    pair_len = batch_in["query_tokens"].shape[1] + batch_in["corpus_tokens"].shape[1] + 3
+    pairs = cross_encoder.build_pair_tokens(batch_in["query_tokens"],
+                                            batch_in["corpus_tokens"][idx.long()],
+                                            pad_to=pair_len).reshape(-1, pair_len)
+    kernel, layer_qkv = transformer.flash_attention, []
+
+    def keep_qkv(q, k, v, **kw):      # the first and the last layer's operands
+        layer_qkv[1:] = []
+        layer_qkv.append((q, k, v, kw))
+        return kernel(q, k, v, **kw)
+
+    transformer.flash_attention = keep_qkv
+    try:
+        with torch.no_grad():
+            direct = cross_encoder.score_tokens(ce_params, pairs, ce_cfg,
+                                                attn_impl="flash").reshape(idx.shape)
+    finally:
+        transformer.flash_attention = kernel
+    diff = (direct - scores).abs()
+    bar = CE_SCORE_ULPS * torch.exp2((torch.frexp(direct).exponent - 8).float())
+    distinct = all(len(set(r)) == r.__len__() for r in idx.tolist())
+    check(bundle.stats.ce_calls == plan,
+          f"lm adacur_serve: measured CE {bundle.stats.ce_calls} != plan {plan}")
+    check(distinct and int(idx.max()) < ADACUR_SERVE_N and int(idx.min()) >= 0,
+          "lm adacur_serve: returned ids repeat or fall outside [0, N)")
+    check(bool((scores[:, :-1] >= scores[:, 1:]).all()),
+          "lm adacur_serve: a row's returned scores are not sorted descending")
+    check(bool((diff <= bar).all()),
+          f"lm adacur_serve: a returned score is {diff.max().item()} from its direct score "
+          f"(bar {CE_SCORE_ULPS} bf16 ulps of each score)")
+    flash_rows = lm_ce_flash_checks(dev, gen, cfg, pair_len, sorted(set(ce_sizes)), layer_qkv)
+    del layer_qkv
+    ce_ms = sum(ce_secs) * 1e3
+    return dict(n_items=ADACUR_SERVE_N, batch=ADACUR_SERVE_B, k_q=batch_in["r_anc"].shape[0],
+                pair_len=pair_len, causal=False, r_anc="seeded synthetic (standard normal)",
+                search_ms=search_ms, ce_ms=ce_ms, ce_calls_timed=len(ce_secs),
+                ce_call_ms=[s * 1e3 for s in ce_secs], rest_ms=search_ms - ce_ms,
+                eq_ranc_passes_ms=eq_ms, ce_calls=bundle.stats.ce_calls, ce_plan=plan,
+                ce_pairs_per_s=plan / ce_ms * 1e3,
+                ce_tflops=2.0 * cfg.n_active_params() * plan * pair_len / ce_ms * 1e-9,
+                ce_call_sizes=ce_sizes, model_flops=bundle.model_flops, flash_launches=flash,
+                peak_gb=peak, max_score_diff=diff.max().item(), score_tol_ulps=CE_SCORE_ULPS,
+                max_abs_score=scores.abs().max().item(), ids_distinct=distinct,
+                flash_checks=flash_rows)
+
+
+def lm_ce_flash_checks(dev, gen, cfg, pair_len, sizes, layer_qkv) -> list:
+    """The flash kernel against its plain version at ``adacur_serve``'s
+    shapes (non-causal bf16 pairs of ``pair_len`` tokens at ``cfg``'s
+    heads), over the whole output within ``FLASH_TOL['bfloat16']``: one
+    :func:`flash_case` (random q, k, v, timed beside its plain version and
+    SDPA) for each CE call size in ``sizes``, and the captured
+    ``layer_qkv`` (a real call's first and last layers)."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention, flash_attention_plain
+    from repro_torch.testing import FLASH_TOL
+
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    rows = [flash_case(dev, gen, 3, f"{cfg.name} CE call B={b}", b, pair_len, pair_len,
+                       h, kv, hd, False, None, "bfloat16") for b in sizes]
+    atol, rtol = FLASH_TOL["bfloat16"]
+    for i, (q, k, v, kw) in enumerate(layer_qkv):
+        kw = dict(causal=kw["causal"], kv_lens=kw["kv_lens"])
+        out, ref = flash_attention(q, k, v, **kw).float(), flash_attention_plain(q, k, v, **kw)
+        err = (out - ref.float()).abs()
+        ok = bool((err <= atol + rtol * ref.float().abs()).all())
+        name = f"{cfg.name} CE direct call B={q.shape[0]} {('first', 'last')[i]} layer"
+        check(ok, f"flash_attention {name} disagrees with its plain version: max abs err "
+                  f"{err.max().item()}")
+        rows.append(dict(case=name, B=q.shape[0], Lq=q.shape[1], H=q.shape[2],
+                         KV=k.shape[2], hd=q.shape[3], causal=kw["causal"],
+                         max_abs_err=err.max().item()))
+    check(len(layer_qkv) == 2, "lm adacur_serve: the direct call's layers were not captured")
+    return rows
+
+
+def flash_prefill_32k(dev, gen) -> dict:
+    """Gate (c) and the kernel table's prefill_32k row: the flash kernel at
+    Qwen3-8B's prefill_32k attention (B = 1, L = 32,768, 32/8 heads, hd 128,
+    causal, bf16) against its plain version over the whole output (the
+    plain version with 1,024-row tiles: its tiles shape only its own
+    loops), the last ``LM_FLASH_TAIL`` query rows (the widest causal
+    windows) reported apart; kernel, plain and SDPA (``is_causal``) times
+    and the bound (operations)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs.registry import QWEN3_8B_ATTENTION
+    from repro_torch.kernels.flash_attention.ops import flash_attention, flash_attention_plain
+    from repro_torch.testing import FLASH_TOL
+
+    h, kv, hd = (QWEN3_8B_ATTENTION[k] for k in ("n_heads", "n_kv_heads", "head_dim"))
+    n = LM_FLASH_LEN
+    q = torch.randn((1, n, h, hd), generator=gen, device=dev).bfloat16()
+    k = torch.randn((1, n, kv, hd), generator=gen, device=dev).bfloat16()
+    v = torch.randn((1, n, kv, hd), generator=gen, device=dev).bfloat16()
+    out = flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = flash_attention_plain(q, k, v, causal=True, block_q=1024, block_k=1024)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    atol, rtol = FLASH_TOL["bfloat16"]
+    err = (out.float() - ref.float()).abs()
+    ok = bool((err <= atol + rtol * ref.float().abs()).all())
+    tail, max_err = err[:, -LM_FLASH_TAIL:].max().item(), err.max().item()
+    check(ok, f"flash_attention at prefill_32k disagrees with its plain version: max abs err "
+              f"{max_err}")
+    del ref, err
+    ms = cuda_ms(lambda: flash_attention(q, k, v, causal=True), 3)
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                            enable_gqa=True), 3)
+    nb, flops = flash_work(1, n, n, h, kv, hd, True, None, 2)
+    b_ms, b_by = bound(nb, flops, PEAK_BF16_FLOPS)
+    split_ms = bound(nb, flops * (1 + FLASH_P_TERMS) / 2, PEAK_BF16_FLOPS)[0]
+    return dict(case="qwen3-8b prefill_32k", dtype="bfloat16", B=1, Lq=n, Lk=n, H=h, KV=kv,
+                hd=hd, causal=True, kernel_ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                bound_ms=b_ms, bound_by=b_by, bound_split_ms=split_ms, bytes=nb, flops=flops,
+                max_abs_err=max_err, tail_rows=LM_FLASH_TAIL, tail_max_abs_err=tail, ok=ok)
+
+
+def phase_lm(dev):
+    """The LM family at full width in bf16, seeded random weights drawn on
+    the card: qwen3-8b, starcoder2-3b, granite-moe-1b-a400m and
+    moonshot-v1-16b-a3b (qwen1.5-110b's 222 GB of weights need several
+    cards).  Per arch: gates (a) decode == prefill (in fp32, the bf16 run
+    printed) and (b) flash vs ref,
+    prefill_32k and decode_32k (batch and length cut to the card),
+    long_500k for the two that hold its 524,288-entry cache, and for
+    qwen3-8b the paper's pipeline (gate (d)).  Gate (c), the flash kernel
+    at L = 32,768, runs first.  One line an arch.  Returns (result, flash
+    launches of the driven prefill and search steps)."""
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.configs.shapes import LM_SHAPES
+    from repro_torch.models import transformer
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    out = {"flash_prefill_32k": flash_prefill_32k(dev, gen)}
+    emit({"phase": "lm:flash_prefill_32k", **out["flash_prefill_32k"]})
+    torch.cuda.empty_cache()
+    flash = 0
+    for arch in LM_RUN:
+        cfg = registry.get(arch).config
+        gate_a = lm_gate_a(dev, cfg, gen)
+        t0 = time.perf_counter()
+        params = transformer.init_lm(cfg, torch.Generator(device=dev).manual_seed(0))
+        torch.cuda.synchronize()
+        res = dict(n_params=cfg.n_params(), n_active_params=cfg.n_active_params(),
+                   weights_gb=tensor_bytes(params) / 1e9, init_s=time.perf_counter() - t0,
+                   decode_equals_prefill=gate_a,
+                   decode_equals_prefill_bf16=lm_gate_a_bf16(dev, cfg, params))
+        res["flash_vs_ref"] = lm_flash_vs_ref(dev, cfg, params, gen)
+        torch.cuda.empty_cache()
+        res["prefill_32k"] = lm_prefill(dev, arch, cfg, params, LM_SHAPES["prefill_32k"])
+        flash += res["prefill_32k"]["flash_launches"]
+        torch.cuda.empty_cache()
+        res["decode_32k"] = lm_decode(dev, arch, cfg, params, LM_SHAPES["decode_32k"])
+        torch.cuda.empty_cache()
+        if arch in LM_LONG:
+            res["long_500k"] = lm_decode(dev, arch, cfg, params, LM_SHAPES["long_500k"])
+            check(res["long_500k"]["seq_len"] == LM_SHAPES["long_500k"].seq_len,
+                  f"lm: {arch} long_500k did not run at its full cache")
+            torch.cuda.empty_cache()
+        if arch == "qwen3-8b":
+            res["adacur_serve"] = lm_adacur_serve(dev, cfg, params)
+            flash += res["adacur_serve"]["flash_launches"]
+        del params
+        torch.cuda.empty_cache()
+        emit({"phase": f"lm:{arch}", **res})
+        out[arch] = res
+        for gate in ("decode_equals_prefill", "decode_equals_prefill_bf16", "flash_vs_ref"):
+            check(res[gate]["ok"], f"lm: {arch} {gate} failed: {res[gate]}")
+    out["qwen1.5-110b"] = "not run: 222 GB of bf16 weights (ROADMAP.md queue 1)"
+    return out, flash
+
+
+# ---------------------------------------------------------------------------
 # the sharded engine: (data x items) ranks over torch.distributed on one card
 # ---------------------------------------------------------------------------
 
@@ -3121,6 +3886,10 @@ def main() -> int:
             emit({"phase": "dlrm_cpu_vs_card", **phase_dlrm_cpu_vs_card(dev)})
             train, train_launches = phase_train(dev)
             emit({"phase": "train", **train})
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            _, lm_flash = phase_lm(dev)
+            emit({"phase": "lm", "seconds": time.perf_counter() - t0, "flash_launches": lm_flash})
             for name, per_payload in serve_launches.items():
                 for dtype, n in per_payload.items():
                     # the serve drives, the index lifecycle's searches and
@@ -3136,7 +3905,8 @@ def main() -> int:
             launches["approx_topk"] += router_launches["approx_topk"]
             launches["persistent_round"] += router_launches["persistent_round"]
             launches.update(flash_attention=ce_launches["flash_attention"]
-                            + sum(sharded["real_ce_mesh"]["flash_launches_per_rank"]),
+                            + sum(sharded["real_ce_mesh"]["flash_launches_per_rank"])
+                            + lm_flash,
                             embedding_bag=rs_bags + rr_launches["embedding_bag"]
                             + train_launches["embedding_bag"],
                             embedding_bag_backward=train_launches["embedding_bag_backward"])

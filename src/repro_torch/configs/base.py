@@ -1,6 +1,6 @@
 """Configs — the port's own copies of the reference's ``AdaCURConfig``,
-``LMConfig``, ``RecSysConfig``, ``RecSysShape`` and ``replace``
-(``repro/configs/base.py``), with the same field names, defaults and
+``MoEConfig``, ``LMConfig``, ``RecSysConfig``, ``LMShape``, ``RecSysShape``
+and ``replace`` (``repro/configs/base.py``), with the same field names, defaults and
 checks, so both packages can be built from one kwargs dict.
 
 ``fused_interpret`` and ``distributed_gather`` are kept only for that
@@ -88,15 +88,31 @@ def replace(cfg, **kw):
 
 
 @dataclass(frozen=True)
+class MoEConfig:
+    """Mixture-of-experts FFN configuration — the port's copy of the
+    reference's ``MoEConfig`` (GShard-style dispatch with a per-expert
+    capacity), same field names and defaults."""
+
+    n_experts: int
+    top_k: int
+    d_expert: int                    # per-expert FFN hidden dim
+    n_shared_experts: int = 0        # DeepSeek/Moonlight-style shared experts
+    first_k_dense: int = 0           # first K layers use a dense FFN instead
+    d_ff_dense: int = 0              # hidden dim of those dense layers
+    router_jitter: float = 0.0
+    aux_loss_coef: float = 0.01
+    capacity_factor: float = 1.25    # GShard per-expert capacity (drop beyond)
+
+
+@dataclass(frozen=True)
 class LMConfig:
     """Decoder (or encoder) transformer LM configuration — the port's copy
     of the reference's ``LMConfig``, same field names and defaults.
 
-    ``moe`` is kept as a field so one kwargs dict builds both packages'
-    configs, but the port serves dense models only: a config with ``moe``
-    set raises (MoE is listed in ROADMAP.md, queue 1).  ``remat`` and
-    ``scan_layers`` have no effect in the port (it runs eagerly, forward
-    only, over a list of per-layer parameter dicts).
+    ``remat`` and ``scan_layers`` have no effect in the port (it runs
+    eagerly over a list of per-layer parameter dicts); they are kept so one
+    kwargs dict builds both packages' configs.  ``moe`` takes a
+    :class:`MoEConfig` (a ``dict`` of its fields is converted).
     """
 
     name: str
@@ -116,18 +132,15 @@ class LMConfig:
     act: str = "swiglu"              # "swiglu" | "gelu"
     norm: str = "rmsnorm"            # "rmsnorm" | "layernorm"
     mlp_bias: bool = False           # bias on MLP projections
-    moe: Optional[object] = None     # not ported (see class doc)
+    moe: Optional[MoEConfig] = None
     max_seq_len: int = 524288
     dtype: str = "bfloat16"          # activation / param dtype for serving
     remat: bool = True
     scan_layers: bool = True
 
     def __post_init__(self):
-        if self.moe is not None:
-            raise NotImplementedError(
-                f"{self.name}: MoE layers are not ported yet (ROADMAP.md, "
-                "queue 1); the port serves dense LMConfigs"
-            )
+        if isinstance(self.moe, dict):   # dataclasses.asdict of a config nests it
+            object.__setattr__(self, "moe", MoEConfig(**self.moe))
 
     @property
     def resolved_head_dim(self) -> int:
@@ -137,22 +150,48 @@ class LMConfig:
     def q_per_kv(self) -> int:
         return self.n_heads // self.n_kv_heads
 
-    def n_active_params(self) -> int:
-        """Parameters a token passes through: all of them in a dense model."""
-        return self.n_params()
+    def _attn_params(self) -> int:
+        hd = self.resolved_head_dim
+        attn = self.d_model * hd * (self.n_heads + 2 * self.n_kv_heads)  # qkv
+        return attn + self.n_heads * hd * self.d_model                     # out
 
     def n_params(self) -> int:
-        """Analytic parameter count of the dense model."""
+        """Analytic parameter count (the reference's formula)."""
         hd = self.resolved_head_dim
         emb = self.vocab_size * self.d_model * (1 if self.tie_embeddings else 2)
-        attn = self.d_model * hd * (self.n_heads + 2 * self.n_kv_heads)  # qkv
-        attn += self.n_heads * hd * self.d_model                          # out
+        attn = self._attn_params()
         if self.qkv_bias:
             attn += hd * (self.n_heads + 2 * self.n_kv_heads)
         n_ff = 3 if self.act == "swiglu" else 2
-        per_layer = attn + n_ff * self.d_model * self.d_ff
+        if self.moe is None:
+            total_ffn = (attn + n_ff * self.d_model * self.d_ff) * self.n_layers
+        else:
+            moe_ffn = n_ff * self.d_model * self.moe.d_expert * (
+                self.moe.n_experts + self.moe.n_shared_experts
+            ) + self.d_model * self.moe.n_experts  # router
+            dense_ffn = n_ff * self.d_model * (self.moe.d_ff_dense or self.d_ff)
+            n_moe = self.n_layers - self.moe.first_k_dense
+            total_ffn = (attn * self.n_layers + moe_ffn * n_moe
+                         + dense_ffn * self.moe.first_k_dense)
         norms = self.n_layers * 2 * self.d_model + self.d_model
-        return emb + per_layer * self.n_layers + norms
+        return emb + total_ffn + norms
+
+    def n_active_params(self) -> int:
+        """Parameters a token passes through (the reference's formula): all
+        of them in a dense model; the routed top-k and shared experts in a
+        MoE layer (the reference's formula, which counts no QKV bias
+        there)."""
+        if self.moe is None:
+            return self.n_params()
+        emb = self.vocab_size * self.d_model * (1 if self.tie_embeddings else 2)
+        n_ff = 3 if self.act == "swiglu" else 2
+        active_ffn = n_ff * self.d_model * self.moe.d_expert * (
+            self.moe.top_k + self.moe.n_shared_experts
+        )
+        dense_ffn = n_ff * self.d_model * (self.moe.d_ff_dense or self.d_ff)
+        n_moe = self.n_layers - self.moe.first_k_dense
+        return (emb + self._attn_params() * self.n_layers + active_ffn * n_moe
+                + dense_ffn * self.moe.first_k_dense)
 
 
 @dataclass(frozen=True)

@@ -1,5 +1,12 @@
-"""Named step shapes — the port's copy of ``RECSYS_SHAPES`` and of
-``LM_SHAPES``' training shape (``repro/configs/shapes.py``)."""
+"""Named step shapes — the port's copy of ``LM_SHAPES`` and
+``RECSYS_SHAPES`` (``repro/configs/shapes.py``).
+
+``decode_*`` / ``long_*`` are one new token against a KV cache of
+``seq_len`` entries (``launch/steps.py::build_lm_decode``), not a train
+step.  The reference serves long_500k with a sequence-parallel cache over
+a mesh; the port decodes on one card, where the full cache fits for the
+smaller models only (PERF.md §4).
+"""
 
 from __future__ import annotations
 
@@ -7,6 +14,9 @@ from .base import LMShape, RecSysShape
 
 LM_SHAPES = {
     "train_4k": LMShape("train_4k", "train", seq_len=4096, global_batch=256),
+    "prefill_32k": LMShape("prefill_32k", "prefill", seq_len=32768, global_batch=32),
+    "decode_32k": LMShape("decode_32k", "decode", seq_len=32768, global_batch=128),
+    "long_500k": LMShape("long_500k", "decode", seq_len=524288, global_batch=1),
 }
 
 RECSYS_SHAPES = {
@@ -16,4 +26,11 @@ RECSYS_SHAPES = {
     "retrieval_cand": RecSysShape(
         "retrieval_cand", "retrieval", batch=1, n_candidates=1_000_000
     ),
+}
+
+# the families the port serves (the reference's GNN shapes wait for the
+# GNN slice, ROADMAP.md queue 1)
+SHAPES_BY_FAMILY = {
+    "lm": LM_SHAPES,
+    "recsys": RECSYS_SHAPES,
 }

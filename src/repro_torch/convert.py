@@ -69,22 +69,40 @@ def _tree(tree, device):
     return _leaf(tree, device)
 
 
-def cross_encoder_params(tree: dict, device=None) -> dict:
-    """The port's CE params from the reference's (``init_cross_encoder``'s
-    pytree as numpy arrays): the stacked ``layers`` are unstacked into a
-    list of per-layer dicts, every other leaf keeps its name, layout and
-    dtype."""
-    if "prefix" in tree:
-        raise NotImplementedError("MoE dense-prefix layers are not ported yet "
-                                  "(ROADMAP.md, queue 1)")
-    device = resolve_device(device)
-    stacked = _tree(tree["layers"], device)
+def _unstack(tree, device) -> list:
+    """A stacked pytree (every leaf with a leading layer axis) as a list of
+    per-layer pytrees."""
+    stacked = _tree(tree, device)
+
+    def first_leaf(t):
+        return first_leaf(next(iter(t.values()))) if isinstance(t, dict) else t
 
     def layer(i, t):
         return {k: layer(i, v) for k, v in t.items()} if isinstance(t, dict) else t[i]
 
+    return [layer(i, stacked) for i in range(first_leaf(stacked).shape[0])]
+
+
+def lm_params(tree: dict, device=None) -> dict:
+    """The port's LM params from the reference's (``init_lm``'s or
+    ``init_cross_encoder``'s pytree as numpy arrays): the stacked ``layers``
+    are unstacked into a list of per-layer dicts, ``prefix`` (the dense
+    layers of a MoE config, already a list) and every other leaf keep their
+    names, layouts and dtypes; a ``score_head`` comes along when present."""
+    device = resolve_device(device)
     out = {k: _tree(v, device) for k, v in tree.items() if k != "layers"}
-    out["layers"] = [layer(i, stacked) for i in range(stacked["ln1"]["w"].shape[0])]
+    out["layers"] = _unstack(tree["layers"], device)
+    return out
+
+
+def lm_cache(tree: dict, device=None) -> dict:
+    """The port's KV cache from the reference's (``init_cache``'s or a
+    prefill's, as numpy): the stacked ``k``/``v`` (n_layers, B, S, KV, hd)
+    become ``{"layers": [{"k", "v"}, ...]}``, ``prefix`` stays a list."""
+    device = resolve_device(device)
+    out = {"layers": _unstack({"k": tree["k"], "v": tree["v"]}, device)}
+    if "prefix" in tree:
+        out["prefix"] = _tree(tree["prefix"], device)
     return out
 
 
@@ -101,7 +119,7 @@ def dlrm_params(tree: dict, device=None) -> dict:
 def adamw_state(step, mu, nu, params_fn=None, device=None):
     """The port's ``AdamWState`` from the reference's: its step (a 0-d int)
     and its two moment trees as numpy, each converted by ``params_fn``
-    (``dlrm_params`` or ``cross_encoder_params``: the moments have their
+    (``dlrm_params`` or ``lm_params``: the moments have their
     parameters' structure), so both packages' optimizers start from the same
     state."""
     from .training.optimizer import AdamWState

@@ -1,8 +1,9 @@
-"""Step builders — port of the DLRM train, serve and retrieval builders
-and the LM train builder of ``repro/launch/steps.py``
-(``build_recsys_train`` :531, ``build_recsys_serve`` :557,
-``build_recsys_retrieval`` :575, ``build_lm_train`` :149), on one device
-with no mesh.
+"""Step builders — port of ``repro/launch/steps.py``'s DLRM train, serve
+and retrieval builders (``build_recsys_train`` :531, ``build_recsys_serve``
+:557, ``build_recsys_retrieval`` :575), its LM builders (``build_lm_train``
+:149, ``build_lm_prefill`` :219, ``build_lm_decode`` :256), the paper's
+full pipeline with a model-zoo cross-encoder (``build_lm_adacur_serve``
+:661) and the dispatcher ``build_cell`` (:745), on one device with no mesh.
 
   train_batch            -> BCE loss, its gradient and AdamW (lr 1e-3, no
                             weight decay); the lookups' gradient through
@@ -12,9 +13,17 @@ with no mesh.
                             ``n_candidates`` items with DLRM as the exact
                             cross-encoder-class scorer
   LM train_4k            -> next-token NLL over sequence chunks (each
-                            chunk's logits recomputed in the backward), its
-                            gradient (accumulated over microbatches for the
-                            largest models) and AdamW
+                            chunk's logits recomputed in the backward), plus
+                            the MoE aux loss, its gradient (accumulated over
+                            microbatches for the largest models) and AdamW
+  LM prefill_32k         -> ``encode`` through the flash kernel, returning
+                            the last position's logits and every layer's KV
+  LM decode_32k/long_500k-> one KV-cached ``decode_step`` (the local decode
+                            core; the reference's sequence-parallel core is
+                            its mesh path)
+  LM adacur_serve        -> ADACUR over ``n_items`` items whose exact scorer
+                            is the LM as a cross-encoder (a prefill of
+                            ``[CLS] q [SEP] i [SEP]`` per call, flash)
 
 A train step ``step(params, opt_state, batch) -> (params, opt_state,
 metrics)`` updates ``params`` and the optimizer state in place
@@ -24,8 +33,9 @@ grad.
 Each builder returns a :class:`StepBundle` whose ``args`` are concrete
 tensors (the reference's are abstract shapes for its dry run): weights
 drawn from a seed as ``_recsys_init`` does with ``PRNGKey(0)``, contexts
-from a seeded generator with raw sparse ids in [0, 2^31).  BST, BERT4Rec,
-MIND and training over a mesh are later slices (ROADMAP.md, queue 1).
+and tokens from a seeded generator (raw sparse ids in [0, 2^31)).  The
+serving steps run under ``torch.no_grad()``.  NequIP, BST, BERT4Rec, MIND
+and everything over a mesh are later slices (ROADMAP.md, queue 1).
 """
 
 from __future__ import annotations
@@ -35,11 +45,12 @@ from typing import Callable, Optional
 
 import torch
 
+from ..configs import registry
 from ..configs.base import AdaCURConfig, LMConfig, LMShape, RecSysConfig, RecSysShape
 from ..core import adacur, prng
 from ..core.scorer import ScorerStats
 from ..device import resolve_device
-from ..models import transformer
+from ..models import cross_encoder, transformer
 from ..models.recsys import dlrm, embedding
 from ..training import optimizer
 from ..tree import leaves, tree_map
@@ -284,21 +295,30 @@ def _chunked_nll(params, h: torch.Tensor, targets: torch.Tensor, cfg: LMConfig,
 
 
 def _lm_loss_fn(cfg: LMConfig):
+    """Next-token NLL, plus ``aux_loss_coef`` x the MoE layers' summed
+    load-balance loss for a MoE config (the reference's ``_lm_loss_fn``)."""
     def loss_fn(params, batch):
-        h, _ = transformer.encode(params, batch["tokens"], cfg)
-        return _chunked_nll(params, h, batch["targets"], cfg)
+        h, aux = transformer.encode(params, batch["tokens"], cfg)
+        loss = _chunked_nll(params, h, batch["targets"], cfg)
+        if cfg.moe is not None:
+            loss = loss + cfg.moe.aux_loss_coef * aux
+        return loss
 
     return loss_fn
+
+
+def lm_tokens(cfg: LMConfig, shape: tuple, seed: int, device, low: int = 4) -> torch.Tensor:
+    """int32 tokens of ``shape`` drawn in [low, vocab) from a seeded
+    generator on ``device``."""
+    return torch.randint(low, cfg.vocab_size, tuple(shape), generator=_generator(seed, device),
+                         device=device, dtype=torch.int32)
 
 
 def lm_train_inputs(cfg: LMConfig, batch: int, seq_len: int, seed: int = 1,
                     device=None) -> dict:
     """``tokens`` (B, L) int32 drawn in [4, vocab) from a seeded generator
     and ``targets`` the next token (the sequence shifted by one, wrapping)."""
-    dev = resolve_device(device)
-    g = _generator(seed, dev)
-    tokens = torch.randint(4, cfg.vocab_size, (batch, seq_len), generator=g, device=dev,
-                           dtype=torch.int32)
+    tokens = lm_tokens(cfg, (batch, seq_len), seed, resolve_device(device))
     return {"tokens": tokens, "targets": torch.roll(tokens, -1, dims=1)}
 
 
@@ -323,3 +343,154 @@ def build_lm_train(arch_id: str, cfg: LMConfig, shape: LMShape, *, params=None,
     return StepBundle(f"{arch_id}:{shape.name}", step,
                       (params, optimizer.init_adamw(params), batch),
                       6.0 * cfg.n_active_params() * b * shape.seq_len)
+
+
+# ---------------------------------------------------------------------------
+# LM serving: prefill, decode, and the paper's pipeline with an LM as CE
+# ---------------------------------------------------------------------------
+
+
+def _lm_params(cfg: LMConfig, params, seed: int, device):
+    if params is not None:
+        return params
+    return transformer.init_lm(cfg, _generator(seed, resolve_device(device)))
+
+
+def build_lm_prefill(arch_id: str, cfg: LMConfig, shape: LMShape, *, params=None,
+                     global_batch: Optional[int] = None, seed: int = 0,
+                     device=None) -> StepBundle:
+    """``step(params, tokens) -> (logits (B, padded vocab) of the last
+    position, cache)``: one prefill of (B, seq_len) tokens through the flash
+    kernel (``attn_impl="flash"``; the reference's builder uses ``ref``,
+    the same function for unpadded tokens), the cache every layer's (k, v)
+    in ``init_cache``'s layout, seq_len entries long.  ``global_batch`` cuts
+    the shape's batch to what one card holds.  ``model_flops`` = 2 x active
+    parameters x tokens."""
+    dev = resolve_device(device)
+    params = _lm_params(cfg, params, seed, dev)
+    b = shape.global_batch if global_batch is None else global_batch
+
+    @torch.no_grad()
+    def step(params, tokens):
+        h, _, (prefix_kv, layers_kv) = transformer.encode(params, tokens, cfg, return_kv=True,
+                                                          attn_impl="flash")
+        last = transformer.lm_logits(params, h[:, -1:, :], cfg)[:, 0]
+        cache = {"layers": [{"k": k, "v": v} for k, v in layers_kv]}
+        if prefix_kv:
+            cache["prefix"] = [{"k": k, "v": v} for k, v in prefix_kv]
+        return last, cache
+
+    tokens = lm_tokens(cfg, (b, shape.seq_len), seed + 1, dev)
+    return StepBundle(f"{arch_id}:{shape.name}", step, (params, tokens),
+                      2.0 * cfg.n_active_params() * b * shape.seq_len)
+
+
+def build_lm_decode(arch_id: str, cfg: LMConfig, shape: LMShape, *, params=None,
+                    global_batch: Optional[int] = None, seed: int = 0,
+                    device=None) -> StepBundle:
+    """``step(params, cache, token, pos) -> (logits (B, padded vocab),
+    cache)``: one ``decode_step`` against a KV cache of ``seq_len`` entries,
+    written in place at ``pos``.  ``args`` = (params, a zero cache
+    (``init_cache``), seeded tokens (B,), ``pos`` = seq_len - 1 as a 0-d
+    tensor: the new token attends over the whole cache).  ``model_flops``
+    = 2 x active parameters x B."""
+    dev = resolve_device(device)
+    params = _lm_params(cfg, params, seed, dev)
+    b, s = (shape.global_batch if global_batch is None else global_batch), shape.seq_len
+
+    @torch.no_grad()
+    def step(params, cache, token, pos):
+        return transformer.decode_step(params, cache, token, pos, cfg)
+
+    cache = transformer.init_cache(cfg, b, s, device=dev)
+    token = lm_tokens(cfg, (b,), seed + 1, dev)
+    pos = torch.tensor(s - 1, dtype=torch.int32, device=dev)
+    return StepBundle(f"{arch_id}:{shape.name}", step, (params, cache, token, pos),
+                      2.0 * cfg.n_active_params() * b)
+
+
+ADACUR_SERVE_CFG = AdaCURConfig(
+    k_anchor=250, n_rounds=5, budget_ce=500, strategy="topk",
+    split_budget=True, k_retrieve=100,
+)
+
+
+def build_lm_adacur_serve(arch_id: str, cfg: LMConfig, *, params=None,
+                          n_items: int = 1_000_000, batch: int = 8, item_len: int = 48,
+                          query_len: int = 16, k_q: int = 500, seed: int = 0,
+                          device=None) -> StepBundle:
+    """The paper's full pipeline: ``step(params, batch_in, key) ->
+    (topk_idx, topk_scores)``, Algorithm 1 (``adacur.adacur_search``,
+    ``ADACUR_SERVE_CFG``: 250 anchors in 5 rounds, budget 500, top 100)
+    over ``n_items`` items whose exact scorer is the LM as a cross-encoder:
+    each round's B x k_s calls are one batch of ``[CLS] q [SEP] i [SEP]``
+    pairs (``query_len + item_len + 3`` tokens) through ``score_tokens``
+    with ``attn_impl="flash"``.
+
+    ``batch_in``: ``corpus_tokens`` (N padded to a multiple of 512,
+    item_len) and ``query_tokens`` (batch, query_len), seeded draws in
+    [3, vocab) so no ``pad_id`` 0 falls inside a pair (the flash path's
+    length mask stays trailing-only), and ``r_anc`` (k_q, N padded) fp32.
+    A real R_anc is k_q x N CE calls, so it is a seeded standard normal
+    stand-in (padded columns 0); the reference's step takes it as an input
+    too, and a caller may put its own in ``batch_in``.
+    The config is used as given: a causal one gives every pair one score
+    (``cross_encoder``'s doc), so serve ``replace(cfg, causal=False)``.
+    ``stats`` counts the CE calls of every step.  ``model_flops`` =
+    budget_ce prefills a query plus the rounds' e_q @ R_anc passes."""
+    dev = resolve_device(device)
+    acfg = ADACUR_SERVE_CFG
+    if params is None:
+        params = cross_encoder.init_cross_encoder(cfg, _generator(seed, dev), dev)
+    n_pad = (n_items + 511) // 512 * 512
+    pair_len = query_len + item_len + 3
+    stats = ScorerStats()
+
+    @torch.no_grad()
+    def step(params, batch_in, key):
+        corpus = batch_in["corpus_tokens"]
+
+        def score_fn(q_tokens, item_idx):
+            stats.requests += 1
+            stats.pairs += item_idx.numel()
+            stats.ce_calls += item_idx.numel()
+            pairs = cross_encoder.build_pair_tokens(q_tokens, corpus[item_idx.long()],
+                                                    pad_to=pair_len)
+            return cross_encoder.score_tokens(params, pairs.reshape(-1, pair_len), cfg,
+                                              attn_impl="flash").reshape(item_idx.shape)
+
+        res = adacur.adacur_search(score_fn, batch_in["r_anc"], batch_in["query_tokens"],
+                                   acfg, key, batch=batch, n_valid_items=n_items)
+        return res.topk_idx, res.topk_scores
+
+    r_anc = torch.randn((k_q, n_pad), generator=_generator(seed + 3, dev), device=dev)
+    r_anc[:, n_items:] = 0.0
+    batch_in = {"corpus_tokens": lm_tokens(cfg, (n_pad, item_len), seed + 1, dev, low=3),
+                "query_tokens": lm_tokens(cfg, (batch, query_len), seed + 2, dev, low=3),
+                "r_anc": r_anc}
+    ce_flops = 2.0 * cfg.n_active_params() * batch * acfg.budget_ce * pair_len
+    return StepBundle(f"{arch_id}:adacur_serve", step, (params, batch_in, prng.PRNGKey(seed)),
+                      ce_flops + 2.0 * batch * k_q * n_pad * acfg.n_rounds, stats)
+
+
+def build_cell(arch_id: str, shape_name: str, *, params=None, global_batch=None,
+               seed: int = 0, device=None) -> StepBundle:
+    """The bundle of one (arch, shape) cell of a family the port serves
+    (``registry.get`` raises for the others); ``adacur_serve`` is the LM
+    family's extra cell."""
+    entry = registry.get(arch_id)
+    cfg = entry.config
+    kw = dict(params=params, seed=seed, device=device)
+    if entry.family == "lm":
+        if shape_name == "adacur_serve":
+            return build_lm_adacur_serve(arch_id, cfg, **kw)
+        shape = registry.shapes_for(arch_id)[shape_name]
+        builder = {"train": build_lm_train, "prefill": build_lm_prefill,
+                   "decode": build_lm_decode}[shape.kind]
+        return builder(arch_id, cfg, shape, global_batch=global_batch, **kw)
+    shape = registry.shapes_for(arch_id)[shape_name]
+    if shape.kind == "train":
+        return build_recsys_train(arch_id, cfg, shape, **kw)
+    if shape.kind == "serve":
+        return build_recsys_serve(arch_id, cfg, shape, **kw)
+    return build_recsys_retrieval(arch_id, cfg, shape, **kw)

@@ -2,7 +2,13 @@
 ``repro/models/cross_encoder.py``.
 
 The CE reads the joint query-item sequence bidirectionally and takes a
-scalar score off the [CLS] position.
+scalar score off the [CLS] position.  Any LM backbone of the registry can
+serve, MoE ones included: ``encode`` runs their MoE layers on one device
+(the reference's ``moe_fn=None``), and the load-balance loss is dropped.
+A causal config (the registry's LMs as they are) lets position 0 see only
+``[CLS]``, so every pair gets the same score: serve a backbone as a CE with
+``causal=False``, as ``launch/steps.py::build_lm_adacur_serve``'s callers
+do.
 """
 
 from __future__ import annotations

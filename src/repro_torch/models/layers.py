@@ -3,7 +3,7 @@ RoPE, GQA attention (the plain reference path), MLPs.
 
 Parameters are plain dicts of tensors in the reference's layouts (``wq``
 (d, H, hd), ``wo`` (H, hd, d), MLP weights (d_in, d_out)), so carrying
-weights across is a rename (``convert.cross_encoder_params``).  bf16 is
+weights across is a rename (``convert.lm_params``).  bf16 is
 rounded where the reference rounds: the functions below state where.
 """
 
@@ -86,8 +86,8 @@ def attention_ref(q, k, v, causal: bool, kv_mask: Optional[torch.Tensor] = None,
     q (B, Lq, H, hd), k/v (B, Lk, KV, hd), ``kv_mask`` (B, Lk) per-token
     validity.  Logits and softmax in fp32; the PV product in the activation
     dtype, as the reference does.  The causal mask is the encoder's (query
-    i sees keys <= i); the reference's decode-time ``q_offset``/``kv_len``
-    wait for the decode path.
+    i sees keys <= i); decoding attends through
+    :func:`decode_attention_local` instead.
     """
     b, lq, n_heads, hd = q.shape
     q_per_kv = n_heads // k.shape[2]
@@ -112,6 +112,55 @@ def attention_ref(q, k, v, causal: bool, kv_mask: Optional[torch.Tensor] = None,
         probs = torch.softmax(logits, dim=-1)
         outs.append(torch.einsum("bhcl,blhd->bchd", probs.to(v.dtype), v))
     return torch.cat(outs, dim=1).to(q.dtype)
+
+
+def _bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """fp32 ``bmm`` of two operands of one dtype with fp32 accumulation.  A
+    bf16 pair on the card goes through ``out_dtype=torch.float32`` (no fp32
+    copy of either operand, no bf16 rounding of the result); on the CPU the
+    operands are cast (the CPU holds only the tests' small caches)."""
+    if a.dtype == torch.float32 and b.dtype == torch.float32:
+        return torch.bmm(a, b)
+    if a.is_cuda:
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    return torch.bmm(a.float(), b.float())
+
+
+def decode_attention_local(q: torch.Tensor, k_shard: torch.Tensor, v_shard: torch.Tensor,
+                           shard_offset, kv_len):
+    """Partial flash-decode over one KV chunk (the reference's
+    ``decode_attention_local``): q (B, H, hd), one new token; k/v (B, Lc,
+    KV, hd), cache entries at absolute positions ``shard_offset + j``, of
+    which those below ``kv_len`` (an int or a 0-d tensor) are valid.
+
+    Returns (numerator (B, H, hd) fp32, denominator (B, H) fp32, running max
+    (B, H) fp32); a combiner merges chunks by the LSE-weighted sum.
+
+    The dots are the cache's dtype times itself with fp32 accumulation and
+    fp32 results: the cache is never cast.  An fp32 copy of a bf16 cache
+    would double its bytes (on qwen3-8b decode_32k at B = 8 the cache is
+    38.6 GB).  The products run one batch row at a time, every KV head's
+    query group at once, on strided views of the cache (a batched product
+    over (B, KV) would need a reordered copy), each row's fp32 temporaries
+    freed before the next.  ``p`` is cast to the cache's dtype for the P V
+    product, as the reference casts it.
+    """
+    b, lc, n_kv, hd = k_shard.shape
+    n_heads = q.shape[1]
+    g = n_heads // n_kv
+    qg = q.reshape(b, n_kv, g, hd)
+    invalid = ~(shard_offset + torch.arange(lc, device=q.device) < kv_len)      # (Lc,)
+    nums, dens, ms = [], [], []
+    for i in range(b):   # one row's (KV, G, Lc) fp32 temporaries live at a time
+        logits = _bmm_f32(qg[i], k_shard[i].permute(1, 2, 0)).mul_(1.0 / hd ** 0.5)
+        logits.masked_fill_(invalid, NEG_INF)
+        m = logits.amax(-1)
+        p = logits.sub_(m[..., None]).exp_().masked_fill_(invalid, 0.0)
+        nums.append(_bmm_f32(p.to(v_shard.dtype), v_shard[i].transpose(0, 1)))
+        dens.append(p.sum(-1))
+        ms.append(m)
+    return (torch.stack(nums).reshape(b, n_heads, hd), torch.stack(dens).reshape(b, n_heads),
+            torch.stack(ms).reshape(b, n_heads))
 
 
 def mlp_apply(params, x, act: str):

@@ -1,15 +1,20 @@
-"""Dense transformer encoder — port of the forward path of
-``repro/models/transformer.py`` (``padded_vocab``, ``init_lm``,
-``_project_qkv``, ``_mlp_block``, ``encode``).
+"""Decoder/encoder transformer LM — port of ``repro/models/transformer.py``
+on one device: ``padded_vocab``, ``init_lm``, ``_project_qkv``,
+``_mlp_block`` (dense and MoE), ``encode`` (train / prefill, optionally
+returning every layer's K/V), ``lm_logits``, and the KV-cached decode path
+(``init_cache``, ``_local_decode_core``, ``_decode_layer``,
+``decode_step``).
 
-Parameters are a dict: ``embed`` (padded vocab, d), ``layers`` (a list of
-per-layer dicts in the reference's layouts: ``attn`` with ``wq``/``wk``/
-``wv`` (d, heads, hd) and ``wo`` (H, hd, d), ``ln1``/``ln2``, ``mlp``),
-``final_norm`` and ``lm_head``.  The reference stacks the layers on a
-leading axis for ``lax.scan``; ``convert.cross_encoder_params`` unstacks
-them.  ``lm_logits`` serves the LM train step.  The decode path and its KV
-cache, MoE, remat and the sharding constraints are not ported yet
-(ROADMAP.md, queue 1).
+Parameters are a dict: ``embed`` (padded vocab, d), ``prefix`` (MoE
+configs with ``first_k_dense``: the dense layers that come first) and
+``layers`` (lists of per-layer dicts in the reference's layouts: ``attn``
+with ``wq``/``wk``/``wv`` (d, heads, hd) and ``wo`` (H, hd, d),
+``ln1``/``ln2``, and ``mlp`` or ``moe``), ``final_norm`` and ``lm_head``.
+The reference stacks ``layers`` on a leading axis for ``lax.scan``;
+``convert.lm_params`` unstacks them.  A KV cache follows the same layout:
+``{"layers": [{"k", "v"}, ...], "prefix": [...]}``, each (B, S, KV, hd).
+The reference's pluggable ``moe_fn`` / ``decode_core`` (its mesh paths),
+remat and the sharding constraints are not ported (ROADMAP.md, queue 1).
 """
 
 from __future__ import annotations
@@ -21,7 +26,7 @@ import torch.nn.functional as F
 
 from ..configs.base import LMConfig
 from ..kernels.flash_attention.ops import flash_attention
-from . import layers
+from . import layers, moe as moe_lib
 
 
 def torch_dtype(cfg: LMConfig) -> torch.dtype:
@@ -46,7 +51,7 @@ def _apply_norm(cfg: LMConfig, p, x):
     return layers.rmsnorm(x, p["w"], cfg.rms_eps)
 
 
-def _layer_init(gen: torch.Generator, cfg: LMConfig):
+def _layer_init(gen: torch.Generator, cfg: LMConfig, use_moe: bool = False):
     hd, d, dt = cfg.resolved_head_dim, cfg.d_model, torch_dtype(cfg)
     dev = gen.device
     attn = {
@@ -62,24 +67,36 @@ def _layer_init(gen: torch.Generator, cfg: LMConfig):
     if cfg.qk_norm:
         attn["q_norm"] = torch.ones(hd, device=dev)
         attn["k_norm"] = torch.ones(hd, device=dev)
-    mlp = layers.mlp_init(gen, d, cfg.d_ff, cfg.act, dtype=dt)
+    out = {"attn": attn, "ln1": _norm_init(cfg, d, dev), "ln2": _norm_init(cfg, d, dev)}
+    if use_moe:
+        out["moe"] = moe_lib.moe_init(gen, d, cfg.moe, dtype=dt)
+        return out
+    d_ff = cfg.d_ff if cfg.moe is None else (cfg.moe.d_ff_dense or cfg.d_ff)
+    out["mlp"] = layers.mlp_init(gen, d, d_ff, cfg.act, dtype=dt)
     if cfg.mlp_bias:
-        mlp["bu"] = torch.zeros(cfg.d_ff, dtype=dt, device=dev)
-        mlp["bd"] = torch.zeros(d, dtype=dt, device=dev)
-    return {"attn": attn, "ln1": _norm_init(cfg, d, dev), "ln2": _norm_init(cfg, d, dev),
-            "mlp": mlp}
+        out["mlp"]["bu"] = torch.zeros(d_ff, dtype=dt, device=dev)
+        out["mlp"]["bd"] = torch.zeros(d, dtype=dt, device=dev)
+    return out
+
+
+def n_prefix_layers(cfg: LMConfig) -> int:
+    """Dense layers before the homogeneous stack (Moonlight's first dense
+    block); 0 for a dense model."""
+    return cfg.moe.first_k_dense if cfg.moe is not None else 0
 
 
 def init_lm(cfg: LMConfig, generator: torch.Generator):
     """Parameters drawn from ``generator`` on its device (the reference's
     shapes, dtypes and scales; the port's own draws)."""
     dt = torch_dtype(cfg)
-    params = {
-        "embed": layers.dense_init(generator, (padded_vocab(cfg), cfg.d_model),
-                                   scale=0.02, dtype=dt),
-        "layers": [_layer_init(generator, cfg) for _ in range(cfg.n_layers)],
-        "final_norm": _norm_init(cfg, cfg.d_model, generator.device),
-    }
+    n_prefix = n_prefix_layers(cfg)
+    params = {"embed": layers.dense_init(generator, (padded_vocab(cfg), cfg.d_model),
+                                         scale=0.02, dtype=dt)}
+    if n_prefix:
+        params["prefix"] = [_layer_init(generator, cfg) for _ in range(n_prefix)]
+    params["layers"] = [_layer_init(generator, cfg, cfg.moe is not None)
+                        for _ in range(cfg.n_layers - n_prefix)]
+    params["final_norm"] = _norm_init(cfg, cfg.d_model, generator.device)
     if not cfg.tie_embeddings:
         params["lm_head"] = layers.dense_init(
             generator, (cfg.d_model, padded_vocab(cfg)), scale=0.02, dtype=dt)
@@ -102,27 +119,42 @@ def _project_qkv(cfg: LMConfig, attn, x, rope):
 
 
 def _mlp_block(cfg: LMConfig, layer_params, x2d):
+    """FFN of (T, d) tokens -> ((T, d), aux loss): the layer's MoE or dense
+    MLP."""
+    if "moe" in layer_params:
+        return moe_lib.moe_apply_local(layer_params["moe"], x2d, cfg.moe)
     p = layer_params["mlp"]
+    zero = torch.zeros((), device=x2d.device)
     if cfg.mlp_bias:
-        return F.gelu(x2d @ p["wu"] + p["bu"], approximate="tanh") @ p["wd"] + p["bd"]
-    return layers.mlp_apply(p, x2d, cfg.act)
+        return F.gelu(x2d @ p["wu"] + p["bu"], approximate="tanh") @ p["wd"] + p["bd"], zero
+    return layers.mlp_apply(p, x2d, cfg.act), zero
+
+
+def _out_proj(o, wo):
+    """"...hk,hkd->...d" of attention heads o (..., H, hd)."""
+    return o.reshape(*o.shape[:-2], -1) @ wo.reshape(-1, wo.shape[-1])
 
 
 def _encode_layer(cfg: LMConfig, attn_fn, h, lp, rope):
     b, l, d = h.shape
     x = _apply_norm(cfg, lp["ln1"], h)
     q, k, v = _project_qkv(cfg, lp["attn"], x, rope)
-    o = attn_fn(q, k, v)
-    wo = lp["attn"]["wo"]                 # "...hk,hkd->...d"
-    h = h + (o.reshape(b, l, -1) @ wo.reshape(-1, wo.shape[-1]))
+    h = h + _out_proj(attn_fn(q, k, v), lp["attn"]["wo"])
     x2 = _apply_norm(cfg, lp["ln2"], h).reshape(b * l, d)
-    return h + _mlp_block(cfg, lp, x2).reshape(b, l, d)
+    ffn, aux = _mlp_block(cfg, lp, x2)
+    return h + ffn.reshape(b, l, d), (k, v, aux)
 
 
 def encode(params, tokens: torch.Tensor, cfg: LMConfig, *, positions=None,
-           kv_mask=None, q_chunk: int = 1024, attn_impl: str = "ref",
-           flash_block: Tuple[int, int] = (128, 128), flash_interpret: bool = True):
-    """Full forward pass -> (hidden (B, L, d), aux loss 0).
+           kv_mask=None, q_chunk: int = 1024, return_kv: bool = False,
+           attn_impl: str = "ref", flash_block: Tuple[int, int] = (128, 128),
+           flash_interpret: bool = True):
+    """Full forward pass -> (hidden (B, L, d), aux loss[, kv]).
+
+    The aux loss is the MoE layers' load-balance terms summed (0 for a
+    dense model).  With ``return_kv`` the third item is ``(prefix_kv,
+    layers_kv)``: lists of each layer's (k, v), (B, L, KV, hd) after RoPE,
+    as the reference returns them (its scanned ones stacked).
 
     ``attn_impl='flash'`` routes attention through ``flash_attention`` (the
     CUDA kernel on the card, its plain version on the CPU); ``kv_mask`` must
@@ -152,10 +184,18 @@ def encode(params, tokens: torch.Tensor, cfg: LMConfig, *, positions=None,
         raise ValueError(f"unknown attn_impl '{attn_impl}' (ref|flash)")
 
     rope = layers.rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta)
-    for lp in params["layers"]:
-        h = _encode_layer(cfg, attn_fn, h, lp, rope)
+    aux_total = torch.zeros((), device=h.device)
+    kvs = {"prefix": [], "layers": []}
+    for part in ("prefix", "layers"):
+        for lp in params.get(part, []):
+            h, (k, v, aux) = _encode_layer(cfg, attn_fn, h, lp, rope)
+            aux_total = aux_total + aux
+            if return_kv:
+                kvs[part].append((k, v))
     h = _apply_norm(cfg, params["final_norm"], h)
-    return h, torch.zeros((), device=h.device)
+    if return_kv:
+        return h, aux_total, (kvs["prefix"], kvs["layers"])
+    return h, aux_total
 
 
 def lm_logits(params, hidden: torch.Tensor, cfg: LMConfig) -> torch.Tensor:
@@ -170,3 +210,69 @@ def lm_logits(params, hidden: torch.Tensor, cfg: LMConfig) -> torch.Tensor:
         logits = torch.where(mask, logits, torch.tensor(-1e30, dtype=logits.dtype,
                                                         device=logits.device))
     return logits
+
+
+# ---------------------------------------------------------------------------
+# decode: KV-cached single-token step
+# ---------------------------------------------------------------------------
+
+
+def init_cache(cfg: LMConfig, batch: int, max_len: int, device=None) -> dict:
+    """A zero KV cache in the params' layout: ``{"layers": [{"k", "v"}],
+    "prefix": [...]}`` (``prefix`` only for a model with dense prefix
+    layers), each (batch, max_len, KV, hd) in the model's dtype."""
+    dt = torch_dtype(cfg)
+    shape = (batch, max_len, cfg.n_kv_heads, cfg.resolved_head_dim)
+    n_prefix = n_prefix_layers(cfg)
+
+    def layer():
+        return {"k": torch.zeros(shape, dtype=dt, device=device),
+                "v": torch.zeros(shape, dtype=dt, device=device)}
+
+    cache = {"layers": [layer() for _ in range(cfg.n_layers - n_prefix)]}
+    if n_prefix:
+        cache["prefix"] = [layer() for _ in range(n_prefix)]
+    return cache
+
+
+def _local_decode_core(q, k_new, v_new, ck, cv, pos):
+    """Write the new token's K/V at ``pos`` of ck/cv (in place), attend over
+    the cache's first ``pos + 1`` entries -> (B, H, hd) in q's dtype."""
+    ck.index_copy_(1, pos.reshape(1), k_new[:, None])
+    cv.index_copy_(1, pos.reshape(1), v_new[:, None])
+    num, den, _ = layers.decode_attention_local(q, ck, cv, shard_offset=0, kv_len=pos + 1)
+    return (num / (den[..., None] + 1e-30)).to(q.dtype)
+
+
+def _decode_layer(cfg: LMConfig, h, lp, c, pos, rope):
+    """One decode layer: h (B, d); c the layer's cache {"k", "v"} (B, S,
+    KV, hd), written in place."""
+    x = _apply_norm(cfg, lp["ln1"], h)
+    q, k, v = _project_qkv(cfg, lp["attn"], x[:, None, :], rope)
+    o = _local_decode_core(q[:, 0], k[:, 0], v[:, 0], c["k"], c["v"], pos)
+    h = h + _out_proj(o, lp["attn"]["wo"])
+    ffn, _ = _mlp_block(cfg, lp, _apply_norm(cfg, lp["ln2"], h))
+    return h + ffn
+
+
+def decode_step(params, cache: dict, token: torch.Tensor, pos, cfg: LMConfig):
+    """One autoregressive step: token (B,) int at position ``pos`` (an int or
+    a 0-d tensor) -> (logits (B, padded vocab), cache).
+
+    The new K/V are written into ``cache`` IN PLACE at ``pos`` (the
+    reference returns an updated copy; a preallocated cache here holds the
+    one copy a long context has room for), and the same dict is returned.
+    ``pos`` must lie inside the cache (checked when it is an int; a tensor
+    is not read back to the host)."""
+    dev = token.device
+    size = (cache.get("prefix") or cache["layers"])[0]["k"].shape[1]
+    if isinstance(pos, int) and not 0 <= pos < size:
+        raise ValueError(f"pos={pos} lies outside a cache of {size} entries")
+    pos = torch.as_tensor(pos, device=dev).long().reshape(())
+    h = F.embedding(token.long(), params["embed"]).to(torch_dtype(cfg))
+    rope = layers.rope_tables(pos.reshape(1, 1), cfg.resolved_head_dim, cfg.rope_theta)
+    for part in ("prefix", "layers"):
+        for lp, c in zip(params.get(part, []), cache.get(part, [])):
+            h = _decode_layer(cfg, h, lp, c, pos, rope)
+    h = _apply_norm(cfg, params["final_norm"], h)
+    return lm_logits(params, h, cfg), cache

@@ -1,6 +1,6 @@
 """The port's real cross-encoder path against the JAX package, on the CPU:
 layers, the ZESHEL-like token data, ``score_tokens`` through
-``convert.cross_encoder_params``, the ``CrossEncoderScorer`` and
+``convert.lm_params``, the ``CrossEncoderScorer`` and
 ``CachingScorer`` and a real-CE engine search.
 
 The model is the reference scorer tests' CE (``tests/test_scorer.py``:
@@ -56,7 +56,7 @@ def _port_cfg(jcfg):
 
 
 def _carry(jparams):
-    return convert.cross_encoder_params(jax.tree.map(np.asarray, jparams), device="cpu")
+    return convert.lm_params(jax.tree.map(np.asarray, jparams), device="cpu")
 
 
 @pytest.fixture(scope="module")
@@ -158,8 +158,16 @@ def test_config_copies_the_reference():
     assert dataclasses.asdict(CE_TINY) == dataclasses.asdict(j_registry.CE_TINY)
     assert CE_TINY.n_params() == j_registry.CE_TINY.n_params()
     assert CE_TINY.resolved_head_dim == 32 and CE_TINY.q_per_kv == 2
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        LMConfig(**{**dataclasses.asdict(CE_TINY), "moe": object()})
+    # a MoE config is served since the LM slice: a dict of MoEConfig fields
+    # (what dataclasses.asdict nests) becomes the port's MoEConfig
+    from repro.configs.base import LMConfig as JLMConfig, MoEConfig as JMoEConfig
+    from repro_torch.configs.base import MoEConfig
+
+    moe = dict(n_experts=4, top_k=2, d_expert=64, n_shared_experts=1, first_k_dense=1)
+    cfg = LMConfig(**{**dataclasses.asdict(CE_TINY), "moe": moe})
+    jcfg = JLMConfig(**{**dataclasses.asdict(CE_TINY), "moe": JMoEConfig(**moe)})
+    assert isinstance(cfg.moe, MoEConfig) and dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
+    assert (cfg.n_params(), cfg.n_active_params()) == (jcfg.n_params(), jcfg.n_active_params())
 
 
 # ---------------------------------------------------------------- scores

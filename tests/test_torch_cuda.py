@@ -575,6 +575,23 @@ def test_bf16_flash_kernel_copies_an_unaligned_operand(dev):
     torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=rtol)
 
 
+def test_bf16_flash_kernel_addresses_past_2_gib(dev):
+    """Qwen3-8B's prefill_32k attention at B = 9 (causal, 32/8 heads, hd
+    128, bf16): q and the output are 2.4 GB each, past 2^31 bytes.  The
+    last example's last 128 query rows (the highest addresses, the widest
+    causal windows) against the plain version on that example alone."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    b, n = 9, 32768
+    q = torch.randn((b, n, 32, 128), generator=g, device=dev, dtype=torch.bfloat16)
+    k, v = (torch.randn((b, n, 8, 128), generator=g, device=dev, dtype=torch.bfloat16)
+            for _ in range(2))
+    assert q.numel() * q.element_size() > 2 ** 31
+    out = flash_attention(q, k, v, causal=True)
+    ref = flash_attention_plain(q[-1:, -128:], k[-1:], v[-1:], causal=True, block_k=1024)
+    atol, rtol = FLASH_TOL["bfloat16"]
+    torch.testing.assert_close(out[-1:, -128:].float(), ref.float(), atol=atol, rtol=rtol)
+
+
 def test_bf16_flash_kernel_runs_on_wgmma(dev):
     """Every head-dim instantiation of the bf16 kernel holds HGMMA (the
     wgmma tensor-core instruction) in the built library's SASS."""
@@ -1011,3 +1028,97 @@ def test_dlrm_train_steps_on_the_card_match_the_cpu(dev):
     top = max(float(t.detach().abs().max()) for t in leaves(hp))
     for a, b in zip(leaves(cp), leaves(hp)):
         assert float((a.detach().cpu() - b.detach()).abs().max()) <= 1e-5 * top
+
+
+# ---------------------------------------------------------------------------
+# the LM family: decode attention, the MoE combine, prefill and decode
+# ---------------------------------------------------------------------------
+
+
+def test_decode_attention_keeps_a_bf16_cache_in_bf16(dev):
+    """``decode_attention_local`` over a bf16 cache (B = 2, 65,536 entries,
+    8 KV heads of 128: 537 MB for k and v) makes no fp32 copy of it: the
+    peak device memory of the call stays below 1.5x the cache.  Its result
+    is the fp32 computation's on the same values within bf16 rounding of p
+    (2^-7 of the largest |output|), as the reference rounds p."""
+    from repro_torch.models import layers
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    k = torch.randn((2, 65536, 8, 128), generator=g, device=dev).bfloat16()
+    v = torch.randn((2, 65536, 8, 128), generator=g, device=dev).bfloat16()
+    q = torch.randn((2, 32, 128), generator=g, device=dev).bfloat16()
+    cache_bytes = 2 * k.numel() * k.element_size()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    num, den, m = layers.decode_attention_local(q, k, v, 0, 60000)
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated() < 1.5 * cache_bytes
+    assert num.dtype == den.dtype == m.dtype == torch.float32
+    out = num / den[..., None]
+    num32, den32, _ = layers.decode_attention_local(q.float(), k.float(), v.float(), 0, 60000)
+    ref = num32 / den32[..., None]
+    assert float((out - ref).abs().max()) <= 2 ** -7 * float(ref.abs().max())
+
+
+def test_moe_combine_is_bitwise_deterministic(dev):
+    """The MoE layer at granite's width (32 experts, top 8, d 1,024, bf16)
+    over 4,096 tokens at capacity factor 1.0, where some expert overflows
+    (checked): two calls give the same bits (the combine adds each token's
+    slots in a fixed order, no float atomics), and at least 99% of the
+    tokens agree with the CPU within bf16 rounding (a router near-tie, fp32
+    summed in another order, may send a token elsewhere, and the capacity
+    then shifts that expert's later tokens)."""
+    from repro_torch.configs import granite_moe_1b_a400m
+    from repro_torch.models import moe
+
+    cfg = granite_moe_1b_a400m.CONFIG.moe
+    gen = torch.Generator().manual_seed(0)
+    params = moe.moe_init(gen, 1024, cfg, dtype=torch.bfloat16)
+    x = torch.randn((4096, 1024), generator=gen).bfloat16()
+    top_e, _, _ = moe._route(params, x, cfg)
+    assert torch.bincount(top_e.reshape(-1)).max() > moe._capacity(4096, cfg, 1.0)
+    card = {k: (v.to(dev) if torch.is_tensor(v) else {n: w.to(dev) for n, w in v.items()})
+            for k, v in params.items()}
+    a, aux_a = moe.moe_apply_local(card, x.to(dev), cfg, 1.0)
+    b, aux_b = moe.moe_apply_local(card, x.to(dev), cfg, 1.0)
+    assert torch.equal(a, b) and torch.equal(aux_a, aux_b)
+    cpu, _ = moe.moe_apply_local(params, x, cfg, 1.0)
+    row_err = (a.cpu().float() - cpu.float()).abs().amax(1)
+    assert float((row_err <= 2 ** -6 * float(cpu.float().abs().max())).float().mean()) >= 0.99
+
+
+@pytest.mark.parametrize("arch", ["qwen3-8b", "granite-moe-1b-a400m", "moonshot-v1-16b-a3b"])
+def test_lm_prefill_and_decode_on_the_card_match_the_cpu(dev, arch):
+    """``build_lm_prefill`` (flash kernel) and eight ``decode_step`` calls
+    on the card against the CPU (plain versions) at ``smoke_config`` width
+    (fp32, TF32 off): the last logits and every decode step's logits within
+    1e-4 of the largest |logit|, the flash kernel launched once a layer."""
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import LMShape
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer
+    from repro_torch.tree import tree_map
+
+    cfg = registry.smoke_config(arch)
+    init = transformer.init_lm(cfg, torch.Generator().manual_seed(0))
+    tokens = torch.randint(3, cfg.vocab_size, (2, 40), generator=torch.Generator().manual_seed(1))
+    out = {}
+    for d in ("cpu", dev):
+        params = tree_map(lambda t: t.to(d), init)
+        b = steps.build_lm_prefill(arch, cfg, LMShape("p", "prefill", 32, 2), params=params,
+                                   device=d)
+        kernels.reset_launches()
+        last, cache = b.step(params, tokens[:, :32].to(d).int())
+        flash = kernels.launch_counts()["flash_attention"]
+        full = transformer.init_cache(cfg, 2, 40, device=d)
+        for part in cache:
+            for c, f in zip(cache[part], full[part]):
+                f["k"][:, :32], f["v"][:, :32] = c["k"], c["v"]
+        steps_out = [transformer.decode_step(params, full, tokens[:, t].to(d), t, cfg)[0]
+                     for t in range(32, 40)]
+        out[str(d)] = (last, steps_out, flash)
+    (hl, hs, _), (cl, cs, flash) = out["cpu"], out[str(dev)]
+    assert flash == cfg.n_layers
+    top = float(hl.abs()[:, :cfg.vocab_size].max())
+    for a, b in zip([cl] + cs, [hl] + hs):
+        assert float((a.cpu() - b)[:, :cfg.vocab_size].abs().max()) <= 1e-4 * max(top, 1.0)

@@ -37,7 +37,10 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
             "repro_torch.launch.mesh", "repro_torch.distributed.sharding",
             "repro_torch.distributed.collectives", "repro_torch.training.optimizer",
             "repro_torch.data.loader", "repro_torch.checkpoint.manager",
-            "repro_torch.launch.train", "repro_torch.tree"} <= set(mods)
+            "repro_torch.launch.train", "repro_torch.tree", "repro_torch.models.moe",
+            "repro_torch.configs.qwen3_8b", "repro_torch.configs.qwen1_5_110b",
+            "repro_torch.configs.starcoder2_3b", "repro_torch.configs.granite_moe_1b_a400m",
+            "repro_torch.configs.moonshot_v1_16b_a3b"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(n for n in sys.modules if n == 'jax' or n.startswith('jax.')"
@@ -198,6 +201,32 @@ def test_training_entry_points_refuse_to_fall_back_to_the_cpu(monkeypatch, tmp_p
     with pytest.raises(RuntimeError, match="device='cpu'"):
         CheckpointManager(str(tmp_path)).resume(state)
     assert CheckpointManager(str(tmp_path)).resume(state, "cpu")[0] == 1
+
+
+def test_lm_entry_points_refuse_to_fall_back_to_the_cpu(monkeypatch):
+    """The LM builders (prefill, decode, the paper pipeline with an LM as
+    CE, ``build_cell``), ``init_cross_encoder`` of a model-zoo LM and
+    ``convert.lm_params`` / ``lm_cache`` land on the card unless the caller
+    asks for the CPU: without a card they raise before drawing anything."""
+    from repro_torch import convert
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import LMShape
+    from repro_torch.launch import steps
+    from repro_torch.models.cross_encoder import init_cross_encoder
+
+    cfg = registry.smoke_config("granite-moe-1b-a400m")
+    x = np.zeros((2, 1, 3, 1, 4), np.float32)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (lambda: steps.build_lm_prefill("g", cfg, LMShape("p", "prefill", 8, 1)),
+                 lambda: steps.build_lm_decode("g", cfg, LMShape("d", "decode", 8, 1)),
+                 lambda: steps.build_lm_adacur_serve("g", cfg, n_items=64, batch=1),
+                 lambda: steps.build_cell("qwen3-8b", "decode_32k"),
+                 lambda: init_cross_encoder(cfg, torch.Generator()),
+                 lambda: convert.lm_params({"layers": {"w": x}}),
+                 lambda: convert.lm_cache({"k": x, "v": x})):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    assert convert.lm_cache({"k": x, "v": x}, device="cpu")["layers"][1]["k"].shape == (1, 3, 1, 4)
 
 
 def test_convert_follows_the_device_rule():

@@ -147,7 +147,7 @@ def ce(tmp_path_factory):
     jcfg = _lm_cfg(ds.vocab_size)
     jparams, _ = cross_encoder.init_cross_encoder(jax.random.PRNGKey(0), jcfg)
     cfg = LMConfig(**dataclasses.asdict(jcfg))
-    params = convert.cross_encoder_params(jax.tree.map(np.asarray, jparams), device="cpu")
+    params = convert.lm_params(jax.tree.map(np.asarray, jparams), device="cpu")
     host = CrossEncoderScorer(params, cfg, ds.pair_tokens, micro_batch=16,
                               flash_block=(16, 16), len_buckets=(32, 64))
     m = host._host(np.arange(N_Q), np.tile(np.arange(N_ITEMS), (N_Q, 1))).numpy()

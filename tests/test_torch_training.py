@@ -224,7 +224,7 @@ def lm():
 
 
 def _lm_params(lm):
-    return steps.require_grad(convert.cross_encoder_params(lm["tree"], device="cpu"))
+    return steps.require_grad(convert.lm_params(lm["tree"], device="cpu"))
 
 
 def test_lm_logits_and_gradient_match_jax(lm):
@@ -261,14 +261,14 @@ def test_ranking_loss_and_gradient_match_jax(lm):
     toks[1, 2, 6:] = 0
     jl, jg = jax.jit(jax.value_and_grad(lambda p, t: j_ce.ranking_loss(p, t, lm["jcfg"])))(
         jparams, jnp.asarray(toks))
-    params = steps.require_grad(convert.cross_encoder_params(_np_tree(jparams), device="cpu"))
+    params = steps.require_grad(convert.lm_params(_np_tree(jparams), device="cpu"))
     tl = cross_encoder.ranking_loss(params, torch.from_numpy(toks), lm["cfg"])
     tl.backward()
     assert _rel(tl, jl) <= 1e-5
     # lm_head takes no part in a CE score: no gradient in the port, zeros in JAX
     _assert_leaves_close(tree_map(lambda p: torch.zeros_like(p) if p.grad is None else p.grad,
                                   params),
-                         _np_tree(convert.cross_encoder_params(_np_tree(jg), device="cpu")),
+                         _np_tree(convert.lm_params(_np_tree(jg), device="cpu")),
                          1e-5, "d params")
 
 
@@ -401,7 +401,7 @@ def test_lm_train_steps_match_jax(lm_train, run):
     _, (tp, ts, tl) = lm_train["port"][run]
     for a, b in zip(tl, jl):
         assert _rel(a, b) <= 1e-5, (tl, jl)
-    want = tree_map(lambda t: t.numpy(), convert.cross_encoder_params(jp, device="cpu"))
+    want = tree_map(lambda t: t.numpy(), convert.lm_params(jp, device="cpu"))
     _assert_params_close(tp, want, 1e-5, run)
     assert int(ts.step) == TRAIN_STEPS
 
