@@ -167,6 +167,36 @@ Phases (one JSON line each):
     contexts x 64 candidates through ``score_candidates`` on the card
     (kernel) and on the CPU (plain): max |dscore| <= 1e-4 x max |score|
     with TF32 off, and the lookups bitwise equal.
+12a. ``recsys:bst``, ``recsys:bert4rec``, ``recsys:mind``: each model at
+    its published config (1,000,000 items) with seeded random weights drawn
+    on the card.  serve_p99 (B = 512) and serve_bulk (B = 262,144) of
+    ``build_recsys_serve``, on the card in batch chunks whose estimated
+    temporaries fit in 60% of it (``steps.serve_chunk_rows``; peak gated
+    at 75%): median ms, TFLOP/s against ``model_flops`` (the reference's
+    ``_recsys_flops``; BST's also against its own count, with the
+    formula's 1.7x overstatement beside it; MIND's against its retrieval's
+    products too), the chunk rows, peak memory, a profile (MIND's
+    serve_bulk: two timed steps, no warm-up or profile of its own).
+    retrieval_cand: BST over a real R_anc (500 anchor histories x
+    1,000,448 columns built on the card), BERT4Rec over a real R_anc of
+    the first 2^13 items and over a seeded standard-normal one at full N;
+    16 single-context searches each, 500 CE calls and a well-formed
+    top-100 a search (gated), recall@{1,10,100} against the exact top-100
+    where R_anc is real; the same searches through ``engine_search`` with
+    the fused kernels (approx_topk launches == 5 x 16, gated).  MIND: 16
+    B = 1 retrievals over 10^6 items, each equal to an index-stable
+    top-100 of ``score_all_items`` (gated), and item 999,999 (past the
+    reference's last whole tile) set to win must come first.  train_batch
+    (B = 65,536) in the fewest power-of-two microbatches that fit (from
+    the peak of one step at 1,024 and 2,048 rows): 2 warm-up and 10 timed
+    steps on one batch, finite losses that fall (gated), step ms, TFLOP/s,
+    peak memory.
+12b. ``recsys_cpu_vs_card``: the three at their published widths over
+    2,048 items, the same weights and inputs on the card and on the CPU,
+    TF32 off: scores within 1e-5 of the largest |value|, losses within
+    rtol 1e-5, each gradient leaf within 1e-4 of its largest |value|,
+    BERT4Rec's negatives bitwise, MIND's top-100 under the tie-aware
+    comparator.
 
 13. ``train``: (1) ``dlrm-mlperf`` at full width, tables capped at 2^22
     rows (12.8 GB a copy; parameters, gradients and both AdamW moments
@@ -1275,9 +1305,10 @@ def phase_index_lifecycle(dev, ce, index):
 ROUTER_N_REQUESTS = 256
 # capacity: closed loops of 2,048 requests (32 full batches, ~5 s on the
 # card), each configuration run CAPACITY_REPEATS times interleaved, so the
-# spread across runs shows beside the 1-vs-2-replica ratio
+# spread across runs shows beside the 1-vs-2-replica ratio (twice, not
+# three times: the recsys phases need the smoke's time)
 CAPACITY_REQUESTS = 2048
-CAPACITY_REPEATS = 3
+CAPACITY_REPEATS = 2
 SWAP_OFFSET = 10 ** 7          # the swapped index's external ids: item_ids + 10^7
 # the watchdog of the scenarios that do not test it: a threshold far above
 # the spread of healthy batch times across buckets 16-64
@@ -2145,17 +2176,13 @@ def phase_recsys_serve(dev, params, cfg):
 def phase_recsys_retrieval(dev, params, cfg, n_search=16):
     """ADACUR over 10^6 candidates with DLRM as the scorer; returns
     (result, {kernel: launches})."""
-    import numpy as np
     import torch
 
-    from repro_torch import kernels
-    from repro_torch.configs.base import replace
     from repro_torch.configs.shapes import RECSYS_SHAPES
     from repro_torch.core import prng
-    from repro_torch.core.engine import engine_search
-    from repro_torch.eval.metrics import exact_topk, topk_recall
+    from repro_torch.eval.metrics import exact_topk
     from repro_torch.launch import steps
-    from repro_torch.models.recsys import dlrm, embedding
+    from repro_torch.models.recsys import embedding
     from repro_torch.testing import topk_overlap
 
     shape = RECSYS_SHAPES["retrieval_cand"]
@@ -2175,77 +2202,20 @@ def phase_recsys_retrieval(dev, params, cfg, n_search=16):
     exact_s = time.perf_counter() - t0
     _, gt = exact_topk(exact, 100)
     del exact
-    queries = [{"dense": ctx["dense"][i:i + 1], "sparse": ctx["sparse"][i:i + 1]}
-               for i in range(n_search)]
-
-    bundle.step(params, dict(queries[0], r_anc=r_anc), prng.PRNGKey(99))   # warm-up
-    torch.cuda.synchronize()
-    kernels.reset_launches()
-    ids, secs, calls, errors = [], [], [], []
-    ce_before = bundle.stats.ce_calls
-    for i, q in enumerate(queries):
-        before = bundle.stats.ce_calls
-        t0 = time.perf_counter()
-        idx, sc = bundle.step(params, dict(q, r_anc=r_anc), prng.PRNGKey(100 + i))
-        torch.cuda.synchronize()
-        secs.append(time.perf_counter() - t0)
-        calls.append(bundle.stats.ce_calls - before)
-        row = idx[0].tolist()
-        if calls[-1] != steps.RETRIEVAL_CFG.budget_ce:
-            errors.append(f"search {i} made {calls[-1]} CE calls, expected "
-                          f"{steps.RETRIEVAL_CFG.budget_ce}")
-        if not (idx.shape == (1, 100) and len(set(row)) == 100 and max(row) < n_cand
-                and min(row) >= 0 and bool(torch.isfinite(sc).all())):
-            errors.append(f"search {i} returned a malformed top-100")
-        ids.append(idx)
-    check(not errors, "recsys_retrieval: " + "; ".join(errors))
-    ce_per_search = (bundle.stats.ce_calls - ce_before) / n_search
-    counts = kernels.launch_counts()
+    res, ids, counts = retrieval_searches(bundle, r_anc, ctx, n_cand, gt)
     # one DLRM forward per CE request: 5 rounds + the rerank
     expect = 26 * (steps.RETRIEVAL_CFG.n_rounds + 1) * n_search
     check(counts["embedding_bag"] == expect,
           f"recsys_retrieval: {counts['embedding_bag']} bag launches, expected {expect}")
-    ids = torch.cat(ids)
-    recall = {f"recall@{k}": topk_recall(ids, gt, k) for k in (1, 10, 100)}
-
-    ecfg = replace(steps.RETRIEVAL_CFG, use_fused_topk=True)
-    e_calls = [0]
-
-    def sf(q, idx):
-        e_calls[0] += idx.numel()
-        return dlrm.score_candidates(params, q["dense"], q["sparse"], idx, cfg)
-
-    engine_search(sf, r_anc, queries[0], ecfg, prng.PRNGKey(99), n_valid_items=n_cand)
-    torch.cuda.synchronize()                                             # warm-up
-    e_calls[0] = 0
-    kernels.reset_launches()
-    e_ids, e_secs = [], []
-    for i, q in enumerate(queries):
-        t0 = time.perf_counter()
-        res = engine_search(sf, r_anc, q, ecfg, prng.PRNGKey(100 + i), n_valid_items=n_cand)
-        torch.cuda.synchronize()
-        e_secs.append(time.perf_counter() - t0)
-        e_ids.append(res.topk_idx)
-    e_counts = kernels.launch_counts()
-    check(e_calls[0] == ecfg.budget_ce * n_search,
-          f"recsys_retrieval engine: {e_calls[0]} CE calls for {n_search} searches")
-    check(e_counts["approx_topk"] == ecfg.n_rounds * n_search,
-          f"recsys_retrieval engine: approx_topk launches {e_counts}")
-    e_ids = torch.cat(e_ids)
-    prof = profile_call(lambda: bundle.step(params, dict(queries[0], r_anc=r_anc),
+    engine, e_ids, e_counts = retrieval_engine("recsys_retrieval", cfg, params, r_anc, ctx,
+                                               n_cand, gt)
+    engine["overlap_with_adacur_search"] = topk_overlap(ids, e_ids)
+    prof = profile_call(lambda: bundle.step(params, dict(row_slice(ctx, 0), r_anc=r_anc),
                                             prng.PRNGKey(100)))
     return dict(
         n_candidates=n_cand, k_q=steps.K_Q, r_anc_build_s=build_s,
-        r_anc_pairs=steps.K_Q * n_cand, exact_scores_s=exact_s, searches=n_search,
-        per_search_ms=float(np.mean(secs) * 1e3),
-        per_search_p50_ms=float(np.percentile(secs, 50) * 1e3),
-        per_search_max_ms=max(secs) * 1e3,
-        ce_calls_per_search=ce_per_search,
-        ce_calls_min=min(calls), ce_calls_max=max(calls), errors=len(errors), **recall,
-        bag_launches=counts["embedding_bag"], profile_search=prof,
-        engine=dict(per_search_ms=float(np.mean(e_secs) * 1e3), launches=e_counts,
-                    overlap_with_adacur_search=topk_overlap(ids, e_ids),
-                    **{f"recall@{k}": topk_recall(e_ids, gt, k) for k in (1, 10, 100)}),
+        r_anc_pairs=steps.K_Q * n_cand, exact_scores_s=exact_s, **res, errors=0,
+        bag_launches=counts["embedding_bag"], profile_search=prof, engine=engine,
     ), {"embedding_bag": counts["embedding_bag"] + e_counts["embedding_bag"],
         "approx_topk": e_counts["approx_topk"]}
 
@@ -2286,6 +2256,520 @@ def phase_dlrm_cpu_vs_card(dev):
     check(same, "dlrm_cpu_vs_card: lookups differ between the card and the CPU")
     return dict(pairs=512 * 64, max_abs_dscore=d, max_abs_score=top, rel=d / top,
                 lookups_bitwise=same, cpu_s=cpu_s, tf32=False)
+
+
+# ---------------------------------------------------------------------------
+# the rest of the recsys family: BST and BERT4Rec as ADACUR's scorers, MIND's
+# native retrieval, their serve and train steps
+# ---------------------------------------------------------------------------
+
+SEQ_ARCHS = ("bst", "bert4rec")
+RECSYS_SERVE_STEPS = {"serve_p99": 20, "serve_bulk": 3}   # timed steps after a warm-up
+MIND_BULK_STEPS = 2          # MIND's serve_bulk is ~134 TFLOP a step: two timed, none warm
+RECSYS_TRAIN_WARMUP, RECSYS_TRAIN_TIMED = 2, 10
+RECSYS_SEARCHES = 16
+BERT4REC_PREFIX = 1 << 13    # items of BERT4Rec's real R_anc (5 x 10^8 pairs is ~3e16 FLOP)
+RECSYS_SERVE_MEM_GATE = 0.75  # a chunked serve step's peak / the card's memory, at most
+RECSYS_CPU_N_ITEMS = 2048    # card vs CPU: the published widths over a cut catalogue
+RECSYS_CPU_B = 8
+RECSYS_TOL = 1e-5            # scores and losses (of the largest |value| / relative)
+RECSYS_GRAD_TOL = 1e-4       # each gradient leaf, of its largest |value|
+
+
+def bst_forward_flops(cfg) -> float:
+    """A BST forward's FLOPs a row as the model computes them: attention and
+    its 4d-wide FFN over L + 1 positions, then the head MLP.  The
+    reference's ``_recsys_flops`` counts the FFN at mlp_dims[0] over L."""
+    d, pos = cfg.embed_dim, cfg.seq_len + 1
+    widths = (d * pos,) + tuple(cfg.mlp_dims) + (1,)
+    return 2.0 * (4 * pos * d * d + 2 * pos * pos * d + 2 * pos * d * 4 * d
+                  + sum(a * b for a, b in zip(widths[:-1], widths[1:])))
+
+
+def mind_retrieval_flops(cfg, batch: int) -> float:
+    """MIND's retrieval over the padded table: every interest against every
+    row (``retrieve``'s products; ``_recsys_flops`` leaves them out)."""
+    rows = -(-cfg.n_items // 512) * 512
+    return 2.0 * batch * cfg.n_interests * cfg.embed_dim * rows
+
+
+def timed_steps(fn, n: int) -> list:
+    import torch
+
+    secs = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    return secs
+
+
+def recsys_serve_run(dev, arch, cfg, params, name) -> dict:
+    """One serve shape of ``build_recsys_serve`` at the published batch:
+    median ms, TFLOP/s against ``model_flops`` (the reference's formula),
+    the chunk rows, peak memory and a profile of one step."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.shapes import RECSYS_SHAPES
+    from repro_torch.launch import steps
+
+    shape = RECSYS_SHAPES[name]
+    bundle = steps.build_recsys_serve(arch, cfg, shape, params=params)
+    rows = steps.serve_chunk_rows(cfg, dev)
+    chunk_rows = rows if rows is not None and rows < shape.batch else None
+    run = lambda: bundle.step(*bundle.args)                           # noqa: E731
+    mind_bulk = arch == "mind" and name == "serve_bulk"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    if mind_bulk:                   # warmed by serve_p99's steps
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        secs = [time.perf_counter() - t0] + timed_steps(run, MIND_BULK_STEPS - 1)
+    else:
+        out = run()
+        torch.cuda.synchronize()
+        secs = timed_steps(run, RECSYS_SERVE_STEPS[name])
+    if arch == "mind":
+        vals, ids = out
+        rows = ids[:64].tolist()
+        check(tuple(ids.shape) == (shape.batch, 100) and bool(torch.isfinite(vals).all())
+              and int(ids.min()) >= 0 and int(ids.max()) < cfg.n_items
+              and all(len(set(r)) == 100 for r in rows)
+              and bool((vals[:, :-1] >= vals[:, 1:]).all()),
+              f"{arch} {name}: a malformed top-100")
+    else:
+        check(tuple(out.shape) == (shape.batch,) and bool(torch.isfinite(out).all()),
+              f"{arch} {name}: scores not finite of shape ({shape.batch},)")
+    del out
+    peak = torch.cuda.max_memory_allocated()
+    total = torch.cuda.get_device_properties(dev).total_memory
+    if chunk_rows:
+        check(peak <= RECSYS_SERVE_MEM_GATE * total,
+              f"{arch} {name}: peak {peak / 1e9} GB over {RECSYS_SERVE_MEM_GATE} of the card")
+    med = float(np.median(secs))
+    res = dict(shape=name, batch=shape.batch, steps=len(secs), warm_up=0 if mind_bulk else 1,
+               chunk_rows=chunk_rows, median_ms=med * 1e3, min_ms=min(secs) * 1e3,
+               model_flops=bundle.model_flops, tflops=bundle.model_flops / med / 1e12,
+               max_memory_allocated_gb=peak / 1e9, step_memory_gb=(peak - base) / 1e9,
+               card_gb=total / 1e9,
+               profile=profile_call(run) if not mind_bulk else "not profiled (a step is the "
+               "timed steps' median; the serve_p99 profile has the same kernels)")
+    if arch == "bst":
+        true = bst_forward_flops(cfg) * shape.batch
+        res.update(formula_over_model_flops=bundle.model_flops / true,
+                   tflops_model_counted=true / med / 1e12)
+    if arch == "mind":
+        res.update(retrieval_flops=mind_retrieval_flops(cfg, shape.batch),
+                   retrieval_tflops=mind_retrieval_flops(cfg, shape.batch) / med / 1e12)
+    del bundle
+    torch.cuda.empty_cache()
+    return res
+
+
+def recsys_fit_micro(dev, arch, cfg, params, batch: int) -> dict:
+    """The smallest power-of-two count of microbatches whose train step fits
+    in ``LM_MEM_SHARE`` of the card, from the peak memory of one step (on a
+    copy of the weights) at 1,024 and 2,048 rows (linear in the rows)."""
+    import torch
+
+    from repro_torch.configs.base import RecSysShape
+    from repro_torch.launch import steps
+
+    def peak(b):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        bundle = steps.build_recsys_train(arch, cfg, RecSysShape("probe", "train", b),
+                                          params=params_copy(params, dev))
+        bundle.step(*bundle.args)
+        torch.cuda.synchronize()
+        del bundle
+        return torch.cuda.max_memory_allocated()
+
+    p1, p2 = peak(1024), peak(2048)
+    per = (p2 - p1) / 1024
+    total = torch.cuda.get_device_properties(dev).total_memory
+    base = p1 - 1024 * per
+    n = 1
+    while n < batch and base + per * batch / n > LM_MEM_SHARE * total:
+        n *= 2
+    check(base + per * batch / n <= LM_MEM_SHARE * total,
+          f"{arch} train: no microbatch count fits (per row {per} bytes)")
+    torch.cuda.empty_cache()
+    return dict(n_micro=n, micro_rows=batch // n, peak_gb_1024=p1 / 1e9, peak_gb_2048=p2 / 1e9,
+                per_row_bytes=per, planned_gb=(base + per * batch / n) / 1e9)
+
+
+def recsys_train_run(dev, arch, cfg, params) -> dict:
+    """``build_recsys_train`` at train_batch (B = 65,536) with the fitted
+    microbatches: warm-up and timed steps on one batch, finite losses that
+    fall, step ms, TFLOP/s against ``model_flops``, peak memory.  Updates
+    ``params`` in place."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.shapes import RECSYS_SHAPES
+    from repro_torch.launch import steps
+
+    shape = RECSYS_SHAPES["train_batch"]
+    fit = recsys_fit_micro(dev, arch, cfg, params, shape.batch)
+    torch.cuda.reset_peak_memory_stats()
+    bundle = steps.build_recsys_train(arch, cfg, shape, params=params, n_micro=fit["n_micro"])
+    p, state, batch = bundle.args
+    losses, secs = [], []
+    for i in range(RECSYS_TRAIN_WARMUP + RECSYS_TRAIN_TIMED):
+        t0 = time.perf_counter()
+        p, state, met = bundle.step(p, state, batch)
+        losses.append(float(met["loss"]))
+        if i >= RECSYS_TRAIN_WARMUP:
+            secs.append(time.perf_counter() - t0)
+    check(all(np.isfinite(losses)), f"{arch} train: losses not finite: {losses}")
+    check(losses[-1] < losses[0], f"{arch} train: the loss did not fall: {losses}")
+    med = float(np.median(secs))
+    res = dict(batch=shape.batch, **fit, warm_up=RECSYS_TRAIN_WARMUP, steps=len(secs),
+               median_ms=med * 1e3, min_ms=min(secs) * 1e3, model_flops=bundle.model_flops,
+               tflops=bundle.model_flops / med / 1e12, losses=losses,
+               max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9)
+    for t in steps.leaves(p):
+        t.requires_grad_(False)
+    del bundle, state, batch
+    torch.cuda.empty_cache()
+    return res
+
+
+def row_slice(queries: dict, i: int) -> dict:
+    return {k: v[i:i + 1] for k, v in queries.items()}
+
+
+def retrieval_searches(bundle, r_anc, queries: dict, n_cand: int, gt=None) -> tuple:
+    """Single-context searches through a retrieval step (one a row of
+    ``queries``, a dict of context tensors) after a warm-up, the kernels'
+    counts zeroed after it: each must make ``budget_ce`` CE calls and
+    return 100 distinct ids in range with finite scores; recall@{1,10,100}
+    against ``gt`` where R_anc is real.  -> (result, ids, launch counts)."""
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.core import prng
+    from repro_torch.eval.metrics import topk_recall
+    from repro_torch.launch import steps
+
+    params = bundle.args[0]
+    budget = steps.RETRIEVAL_CFG.budget_ce
+    bundle.step(params, dict(row_slice(queries, 0), r_anc=r_anc), prng.PRNGKey(99))  # warm-up
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    n = next(iter(queries.values())).shape[0]
+    ids, secs, calls, errors = [], [], [], []
+    for i in range(n):
+        before = bundle.stats.ce_calls
+        t0 = time.perf_counter()
+        idx, sc = bundle.step(params, dict(row_slice(queries, i), r_anc=r_anc),
+                              prng.PRNGKey(100 + i))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        calls.append(bundle.stats.ce_calls - before)
+        row = idx[0].tolist()
+        if calls[-1] != budget:
+            errors.append(f"search {i} made {calls[-1]} CE calls, expected {budget}")
+        if not (idx.shape == (1, 100) and len(set(row)) == 100 and min(row) >= 0
+                and max(row) < n_cand and bool(torch.isfinite(sc).all())):
+            errors.append(f"search {i} returned a malformed top-100")
+        ids.append(idx)
+    counts = kernels.launch_counts()
+    check(not errors, "; ".join(errors))
+    ids = torch.cat(ids)
+    out = dict(searches=n, per_search_ms=float(np.mean(secs) * 1e3),
+               per_search_p50_ms=float(np.percentile(secs, 50) * 1e3),
+               per_search_max_ms=max(secs) * 1e3, ce_calls_per_search=float(np.mean(calls)),
+               ce_calls_min=min(calls), ce_calls_max=max(calls))
+    if gt is not None:
+        out.update({f"recall@{k}": topk_recall(ids, gt, k) for k in (1, 10, 100)})
+    return out, ids, counts
+
+
+def retrieval_engine(what, cfg, params, r_anc, queries: dict, n_cand: int, gt=None) -> tuple:
+    """The same searches through ``engine_search`` with the fused kernels
+    (``RETRIEVAL_CFG``, ``use_fused_topk``) after a warm-up, the counts
+    zeroed after it: measured CE must be the budget and approx_topk's
+    launches ``n_rounds`` x searches.  -> (result, ids, launch counts)."""
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.configs.base import replace
+    from repro_torch.core import prng
+    from repro_torch.core.engine import engine_search
+    from repro_torch.eval.metrics import topk_recall
+    from repro_torch.launch import steps
+
+    ecfg = replace(steps.RETRIEVAL_CFG, use_fused_topk=True)
+    sf, calls = steps.score_fn(cfg), [0]
+
+    def counted(q, idx):
+        calls[0] += idx.numel()
+        return sf(params, q, idx)
+
+    n = next(iter(queries.values())).shape[0]
+    with torch.no_grad():
+        engine_search(counted, r_anc, row_slice(queries, 0), ecfg, prng.PRNGKey(99),
+                      n_valid_items=n_cand)
+        torch.cuda.synchronize()
+        calls[0] = 0
+        kernels.reset_launches()
+        ids, secs = [], []
+        for i in range(n):
+            t0 = time.perf_counter()
+            res = engine_search(counted, r_anc, row_slice(queries, i), ecfg,
+                                prng.PRNGKey(100 + i), n_valid_items=n_cand)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            ids.append(res.topk_idx)
+        counts = kernels.launch_counts()
+    check(calls[0] == ecfg.budget_ce * n, f"{what} engine: {calls[0]} CE calls for {n} searches")
+    check(counts["approx_topk"] == ecfg.n_rounds * n,
+          f"{what} engine: approx_topk launches {counts['approx_topk']}, expected "
+          f"{ecfg.n_rounds * n}")
+    ids = torch.cat(ids)
+    out = dict(per_search_ms=float(np.mean(secs) * 1e3), launches=counts, ce_calls=calls[0])
+    if gt is not None:
+        out.update({f"recall@{k}": topk_recall(ids, gt, k) for k in (1, 10, 100)})
+    return out, ids, counts
+
+
+def seq_retrieval(dev, arch, cfg, params) -> tuple:
+    """ADACUR over the catalogue with BST or BERT4Rec as the exact scorer.
+    BST: a real R_anc (500 anchor histories x 1,000,448 columns) built on
+    the card, 16 searches with recall against the exact top-100 over 10^6
+    items, and the engine.  BERT4Rec: a real R_anc over the first
+    ``BERT4REC_PREFIX`` items (recall there), then a seeded standard-normal
+    R_anc at full N for the searches' time and the engine.  Returns
+    (result, approx_topk launches)."""
+    import torch
+
+    from repro_torch.configs.base import replace as cfg_replace
+    from repro_torch.configs.shapes import RECSYS_SHAPES
+    from repro_torch.eval.metrics import exact_topk
+    from repro_torch.launch import steps
+    from repro_torch.testing import topk_overlap
+
+    shape = RECSYS_SHAPES["retrieval_cand"]
+    queries = {"history": steps.recsys_inputs(cfg, RECSYS_SEARCHES, seed=7,
+                                              device=dev)["history"]}
+    real_n = shape.n_candidates if arch == "bst" else BERT4REC_PREFIX
+    t0 = time.perf_counter()
+    bundle = steps.build_recsys_retrieval(arch, cfg, cfg_replace(shape, n_candidates=real_n),
+                                          params=params)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    r_anc = bundle.args[1]["r_anc"]
+    check(tuple(r_anc.shape) == (steps.K_Q, -(-real_n // 512) * 512)
+          and bool(torch.isfinite(r_anc).all()) and not bool(r_anc[:, real_n:].any()),
+          f"{arch} retrieval: R_anc malformed")
+    t0 = time.perf_counter()
+    exact = steps.anchor_scores(params, cfg, queries, real_n)[:, :real_n]
+    torch.cuda.synchronize()
+    exact_s = time.perf_counter() - t0
+    _, gt = exact_topk(exact, 100)
+    del exact
+    real, real_ids, _ = retrieval_searches(bundle, r_anc, queries, real_n, gt)
+    out = dict(n_candidates=shape.n_candidates, k_q=steps.K_Q,
+               real_r_anc=dict(n_candidates=real_n, pairs=steps.K_Q * real_n,
+                               build_s=build_s, exact_scores_s=exact_s, **real))
+    if arch != "bst":
+        del bundle, r_anc
+        torch.cuda.empty_cache()
+        n_pad = -(-shape.n_candidates // 512) * 512
+        g = torch.Generator(device=dev)
+        g.manual_seed(13)
+        r_anc = torch.randn((steps.K_Q, n_pad), generator=g, device=dev)
+        r_anc[:, shape.n_candidates:] = 0.0
+        bundle = steps.build_recsys_retrieval(arch, cfg, shape, params=params, r_anc=r_anc)
+        out["synthetic_r_anc_full_n"], real_ids, _ = retrieval_searches(
+            bundle, r_anc, queries, shape.n_candidates)
+        gt = None
+    engine, e_ids, counts = retrieval_engine(arch, cfg, params, r_anc, queries,
+                                             shape.n_candidates, gt)
+    engine["overlap_with_adacur_search"] = topk_overlap(real_ids, e_ids)
+    out.update(engine=engine, profile_search=profile_call(lambda: bundle.step(
+        bundle.args[0], dict(row_slice(queries, 0), r_anc=r_anc), bundle.args[2])))
+    return out, counts["approx_topk"]
+
+
+def mind_retrieval(dev, cfg, params) -> dict:
+    """MIND's native retrieval at retrieval_cand (B = 1 over 10^6 items), 16
+    histories: each top-100 must equal an index-stable top-100 of
+    ``score_all_items`` (the same products), items past the reference's
+    last whole tile (>= 999,424) included; then a copy of the table with
+    item 999,999 set along the first history's first interest must rank it
+    first."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.shapes import RECSYS_SHAPES
+    from repro_torch.kernels.approx_topk.select import stable_topk
+    from repro_torch.launch import steps
+    from repro_torch.models.recsys import mind
+
+    shape = RECSYS_SHAPES["retrieval_cand"]
+    bundle = steps.build_recsys_retrieval("mind", cfg, shape, params=params)
+    queries = steps.recsys_inputs(cfg, RECSYS_SEARCHES, seed=7, device=dev)["history"]
+    tail = (-(-cfg.n_items // 512) * 512) // mind.ITEM_TILE * mind.ITEM_TILE
+    bundle.step(params, {"history": queries[:1]})                      # warm-up
+    torch.cuda.synchronize()
+    secs, equal, tail_hits = [], 0, 0
+    with torch.no_grad():
+        for i in range(RECSYS_SEARCHES):
+            h = queries[i:i + 1]
+            t0 = time.perf_counter()
+            vals, ids = bundle.step(params, {"history": h})
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            sv, si = stable_topk(mind.score_all_items(params, h, cfg), 100)
+            equal += int(torch.equal(ids, si) and torch.equal(vals, sv))
+            tail_hits += int((ids >= tail).sum())
+        check(equal == RECSYS_SEARCHES,
+              f"mind retrieval: {RECSYS_SEARCHES - equal} top-100s differ from score_all_items'")
+        v = mind.interest_vectors(params, queries[:1], cfg)[0, 0]
+        rigged = dict(params, item_emb=params["item_emb"].clone())
+        rigged["item_emb"][cfg.n_items - 1] = v / v.norm() * 1e3
+        _, ids = bundle.step(rigged, {"history": queries[:1]})
+        check(int(ids[0, 0]) == cfg.n_items - 1,
+              f"mind retrieval: item {cfg.n_items - 1} set to win came {ids[0, :3].tolist()}")
+        del rigged
+    return dict(batch=shape.batch, n_items=cfg.n_items, searches=RECSYS_SEARCHES,
+                per_search_ms=float(np.mean(secs) * 1e3),
+                per_search_p50_ms=float(np.percentile(secs, 50) * 1e3),
+                equal_to_score_all_items=equal, reference_tail_start=tail,
+                ids_past_reference_tail=tail_hits, rigged_tail_item_first=True,
+                model_flops=bundle.model_flops,
+                profile_search=profile_call(lambda: bundle.step(params, {"history": queries[:1]})))
+
+
+def phase_recsys_model(dev, arch) -> tuple:
+    """One recsys model at its published config with seeded random weights
+    drawn on the card: serve_p99 and serve_bulk, retrieval_cand, then
+    train_batch (last: it updates the weights).  Returns (result,
+    approx_topk launches)."""
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.launch import steps
+
+    cfg = registry.get(arch).config
+    t0 = time.perf_counter()
+    params = steps.recsys_init(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    res = dict(model=arch, init_s=time.perf_counter() - t0,
+               params_mb=sum(t.numel() * 4 for t in steps.leaves(params)) / 1e6,
+               serve=[recsys_serve_run(dev, arch, cfg, params, name)
+                      for name in ("serve_p99", "serve_bulk")])
+    launches = 0
+    if arch == "mind":
+        res["retrieval"] = mind_retrieval(dev, cfg, params)
+    else:
+        res["retrieval"], launches = seq_retrieval(dev, arch, cfg, params)
+    res["train"] = recsys_train_run(dev, arch, cfg, params)
+    del params
+    torch.cuda.empty_cache()
+    return res, launches
+
+
+def _rel_max(got, want) -> float:
+    return float((got.detach().cpu() - want.detach()).abs().max() / want.detach().abs().max())
+
+
+def _grads(loss_fn, params):
+    import torch
+
+    from repro_torch.tree import leaves
+
+    ps = leaves(params)
+    for p in ps:
+        p.requires_grad_(True)
+    loss = loss_fn(params)
+    gs = torch.autograd.grad(loss, ps, allow_unused=True)
+    for p in ps:
+        p.requires_grad_(False)
+    return loss.detach(), [torch.zeros_like(p) if g is None else g for p, g in zip(ps, gs)]
+
+
+def phase_recsys_models_cpu_vs_card(dev) -> dict:
+    """BST, BERT4Rec and MIND at their published widths over a catalogue cut
+    to 2,048 items, the same seeded weights and inputs on the card and on
+    the CPU, TF32 off: scores within 1e-5 of the largest |value|, losses
+    within rtol 1e-5, each gradient leaf within 1e-4 of its largest
+    |value|, BERT4Rec's negatives bitwise, MIND's top-k under the tie-aware
+    comparator."""
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import replace
+    from repro_torch.device import to_device
+    from repro_torch.launch import steps
+    from repro_torch.models.recsys import bert4rec, bst, mind
+    from repro_torch.testing import topk_report
+
+    check(not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32,
+          "TF32 is on")
+    b, out = RECSYS_CPU_B, {}
+    for arch in ("bst", "bert4rec", "mind"):
+        cfg = replace(registry.get(arch).config, n_items=RECSYS_CPU_N_ITEMS)
+        cpu_p = steps.recsys_init(cfg, seed=3, device="cpu")
+        card_p = to_device(cpu_p, dev)
+        cpu_in = steps.recsys_train_inputs(cfg, b, seed=4, device="cpu")
+        card_in = {k: v.to(dev) for k, v in cpu_in.items()}
+        cand = torch.randint(0, cfg.n_items, (b, 16), generator=torch.Generator().manual_seed(5),
+                             dtype=torch.int32)
+        row, rels = {}, {}
+        with torch.no_grad():
+            if arch == "bst":
+                rels["forward"] = _rel_max(bst.forward(card_p, card_in["history"],
+                                                       card_in["target"], cfg),
+                                           bst.forward(cpu_p, cpu_in["history"],
+                                                       cpu_in["target"], cfg))
+            if arch in SEQ_ARCHS:
+                mod = bst if arch == "bst" else bert4rec
+                rels["score_candidates"] = _rel_max(
+                    mod.score_candidates(card_p, card_in["history"], cand.to(dev), cfg),
+                    mod.score_candidates(cpu_p, cpu_in["history"], cand, cfg))
+            if arch == "bert4rec":
+                n = cfg.n_items
+                rels["user_logits"] = _rel_max(
+                    bert4rec.user_logits(card_p, card_in["history"], cfg)[:, :n],
+                    bert4rec.user_logits(cpu_p, cpu_in["history"], cfg)[:, :n])
+                neg_same = torch.equal(bert4rec.negatives(4096, cfg, device=dev).cpu(),
+                                       bert4rec.negatives(4096, cfg, device="cpu"))
+                check(neg_same, "recsys cpu_vs_card: BERT4Rec's negatives differ")
+                row["negatives_bitwise_4096_rows"] = neg_same
+            if arch == "mind":
+                rels["interest_vectors"] = _rel_max(
+                    mind.interest_vectors(card_p, card_in["history"], cfg),
+                    mind.interest_vectors(cpu_p, cpu_in["history"], cfg))
+                cv, ci = mind.retrieve(card_p, card_in["history"], 100, cfg)
+                pv, pi = mind.retrieve(cpu_p, cpu_in["history"], 100, cfg)
+                rep = topk_report(ci.cpu(), cv.cpu(), pi, pv,
+                                  mind.score_all_items(cpu_p, cpu_in["history"], cfg))
+                check(rep["ok"], f"recsys cpu_vs_card: MIND's retrieve disagrees {rep}")
+                row["retrieve"] = rep
+        loss = steps._recsys_loss(cfg)
+        cl, cg = _grads(lambda p: loss(p, card_in), card_p)
+        pl, pg = _grads(lambda p: loss(p, cpu_in), cpu_p)
+        rels["loss"] = abs(float(cl) - float(pl)) / abs(float(pl))
+        grad_rel = max(float((g.cpu() - h).abs().max() / max(float(h.abs().max()), 1e-30))
+                       for g, h in zip(cg, pg))
+        bad = {k: v for k, v in rels.items() if v > RECSYS_TOL}
+        check(not bad, f"recsys cpu_vs_card: {arch} past 1e-5: {bad}")
+        check(grad_rel <= RECSYS_GRAD_TOL,
+              f"recsys cpu_vs_card: {arch} gradient leaf {grad_rel} past 1e-4")
+        out[arch] = dict(n_items=cfg.n_items, batch=b, rel=rels, grad_rel_max=grad_rel, **row)
+        del card_p, card_in
+    torch.cuda.empty_cache()
+    return dict(tf32=False, **out)
 
 
 # ---------------------------------------------------------------------------
@@ -3884,6 +4368,12 @@ def main() -> int:
             del params
             torch.cuda.empty_cache()
             emit({"phase": "dlrm_cpu_vs_card", **phase_dlrm_cpu_vs_card(dev)})
+            recsys_topk = 0
+            for arch in ("bst", "bert4rec", "mind"):
+                res, n = phase_recsys_model(dev, arch)
+                emit({"phase": f"recsys:{arch}", **res})
+                recsys_topk += n
+            emit({"phase": "recsys_cpu_vs_card", **phase_recsys_models_cpu_vs_card(dev)})
             train, train_launches = phase_train(dev)
             emit({"phase": "train", **train})
             torch.cuda.empty_cache()
@@ -3897,6 +4387,7 @@ def main() -> int:
                     launches[topk_entry(name, dtype)] = (n + life_launches[name][dtype]
                                                          + sharded_launches[name][dtype])
             launches["approx_topk"] += rr_launches["approx_topk"]     # DLRM retrieval, fp32
+            launches["approx_topk"] += recsys_topk      # BST and BERT4Rec retrieval, fp32
             # the comparison, its subset searches and the anytime drives, fp32
             launches["approx_topk"] += retr_launches["approx_topk"]
             launches["approx_topk"] += sum(run["launches"]["approx_topk"]

@@ -197,9 +197,9 @@ class LMConfig:
 @dataclass(frozen=True)
 class RecSysConfig:
     """Recommender configuration — the port's copy of the reference's
-    ``RecSysConfig``, same field names and defaults.  The port serves the
-    ``dlrm`` kind; BST, BERT4Rec and MIND are later slices (ROADMAP.md,
-    queue 1, item 13)."""
+    ``RecSysConfig``, same field names and defaults.  The port serves every
+    kind: ``dlrm`` (``models/recsys/dlrm.py``), ``bst``, ``bert4rec`` and
+    ``mind`` (``models/recsys/{bst,bert4rec,mind}.py``)."""
 
     name: str
     kind: str                        # "bst" | "mind" | "bert4rec" | "dlrm"

@@ -3,12 +3,14 @@ the port's copy of ``repro/configs/registry.py`` for the families it
 serves: the five model-zoo LMs (qwen3-8b, the paper pipeline's primary
 cross-encoder backbone in ``launch/steps.py::build_lm_adacur_serve``;
 qwen1.5-110b; starcoder2-3b; the MoE moonshot-v1-16b-a3b and
-granite-moe-1b-a400m), ``ce-tiny`` and ``dlrm-mlperf``, field for field,
+granite-moe-1b-a400m), ``ce-tiny`` and the recsys family (``bst`` and
+``bert4rec``, ADACUR's cross-encoder-class scorers; ``mind``, the
+dual-encoder first-round retriever; ``dlrm-mlperf``), field for field,
 and ``smoke_config``'s LM and recsys branches.
 
-nequip, bst, mind and bert4rec are the reference's too, but the port does
-not serve them yet: :func:`get` raises ``NotImplementedError`` for them
-(ROADMAP.md, queue 1).
+nequip is the reference's too, but the port does not serve the GNN family
+yet: :func:`get` raises ``NotImplementedError`` for it (ROADMAP.md,
+queue 1).
 
 ``QWEN3_8B_ATTENTION`` is Qwen3-8B's attention shape (32 query heads, 8 KV
 heads, head_dim 128), read off its config: the flash kernel's checks at a
@@ -21,8 +23,11 @@ from dataclasses import dataclass
 from typing import Any, Dict
 
 from . import (
+    bert4rec,
+    bst,
     dlrm_mlperf,
     granite_moe_1b_a400m,
+    mind,
     moonshot_v1_16b_a3b,
     qwen1_5_110b,
     qwen3_8b,
@@ -72,14 +77,20 @@ REGISTRY: Dict[str, ArchEntry] = {
     "granite-moe-1b-a400m": ArchEntry(
         "granite-moe-1b-a400m", "lm", granite_moe_1b_a400m.CONFIG, True, "MoE CE backbone"
     ),
+    "bst": ArchEntry("bst", "recsys", bst.CONFIG, True, "cross-encoder-class scorer"),
+    "mind": ArchEntry(
+        "mind", "recsys", mind.CONFIG, False,
+        "dual-encoder; used as first-round anchor retriever (DESIGN.md §4.1)",
+    ),
+    "bert4rec": ArchEntry("bert4rec", "recsys", bert4rec.CONFIG, True),
     "dlrm-mlperf": ArchEntry("dlrm-mlperf", "recsys", dlrm_mlperf.CONFIG, True),
     "ce-tiny": ArchEntry("ce-tiny", "lm", CE_TINY, True, "paper repro backbone"),
 }
 
 LM_ARCHS = tuple(a for a, e in REGISTRY.items() if e.family == "lm" and a != "ce-tiny")
 
-# the reference's other architectures, not ported yet
-NOT_PORTED = ("nequip", "bst", "mind", "bert4rec")
+# the reference's GNN family, not ported yet
+NOT_PORTED = ("nequip",)
 
 
 def get(arch_id: str) -> ArchEntry:
@@ -99,7 +110,9 @@ def smoke_config(arch_id: str):
     """Reduced config of the same family for CPU tests (the reference's
     ``smoke_config``): an LM at 2 layers, d_model 64, 4 heads of 16, fp32,
     its MoE cut to 4 experts (top 2, d_expert 64) with a generous capacity
-    factor of 8, so decode equals encode (no batch-dependent drops)."""
+    factor of 8, so decode equals encode (no batch-dependent drops); a
+    recsys model at embed_dim 16, 1,000 items and histories of at most 8,
+    BST's MLP cut to (32, 16) and BERT4Rec's FFN to 32."""
     entry = get(arch_id)
     cfg = entry.config
     if entry.family == "lm":
@@ -123,4 +136,6 @@ def smoke_config(arch_id: str):
             bot_mlp=(13, 32, 16), top_mlp=(64, 32, 1),
             table_sizes=tuple(min(s, 100) for s in cfg.table_sizes),
         )
+    if cfg.kind in ("bst", "bert4rec"):
+        kw.update(mlp_dims=(32, 16) if cfg.kind == "bst" else (32,))
     return replace(cfg, **kw)

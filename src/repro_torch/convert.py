@@ -116,6 +116,33 @@ def dlrm_params(tree: dict, device=None) -> dict:
             "tables": _tree(tree["tables"], device)}
 
 
+def _recsys_tree(tree: dict, device) -> dict:
+    device = resolve_device(device)
+    return {k: _tree(v, device) for k, v in tree.items()}
+
+
+def bst_params(tree: dict, device=None) -> dict:
+    """The port's BST params from the reference's (``init_bst``'s pytree as
+    numpy arrays), leaf for leaf: ``item_emb``, ``pos_emb``, ``blocks`` (a
+    list of per-block dicts) and the head's ``mlp{i}_w`` / ``mlp{i}_b``
+    keep their names and layouts."""
+    return _recsys_tree(tree, device)
+
+
+def bert4rec_params(tree: dict, device=None) -> dict:
+    """The port's BERT4Rec params from the reference's (``init_bert4rec``'s
+    pytree as numpy), leaf for leaf: ``item_emb`` (row 0 the [MASK]),
+    ``pos_emb``, ``blocks`` (a list) and ``score_head``."""
+    return _recsys_tree(tree, device)
+
+
+def mind_params(tree: dict, device=None) -> dict:
+    """The port's MIND params from the reference's (``init_mind``'s pytree as
+    numpy), leaf for leaf: ``item_emb``, ``bilinear``, ``b_init``,
+    ``proj``."""
+    return _recsys_tree(tree, device)
+
+
 def adamw_state(step, mu, nu, params_fn=None, device=None):
     """The port's ``AdamWState`` from the reference's: its step (a 0-d int)
     and its two moment trees as numpy, each converted by ``params_fn``

@@ -1,17 +1,28 @@
-"""Step builders — port of ``repro/launch/steps.py``'s DLRM train, serve
+"""Step builders — port of ``repro/launch/steps.py``'s recsys train, serve
 and retrieval builders (``build_recsys_train`` :531, ``build_recsys_serve``
-:557, ``build_recsys_retrieval`` :575), its LM builders (``build_lm_train``
-:149, ``build_lm_prefill`` :219, ``build_lm_decode`` :256), the paper's
-full pipeline with a model-zoo cross-encoder (``build_lm_adacur_serve``
-:661) and the dispatcher ``build_cell`` (:745), on one device with no mesh.
+:557, ``build_recsys_retrieval`` :575, over the per-kind dispatch
+``_recsys_init`` :419, ``_recsys_inputs`` :432, ``_recsys_loss`` :465,
+``_recsys_forward`` :479 and ``_recsys_flops`` :511), its LM builders
+(``build_lm_train`` :149, ``build_lm_prefill`` :219, ``build_lm_decode``
+:256), the paper's full pipeline with a model-zoo cross-encoder
+(``build_lm_adacur_serve`` :661) and the dispatcher ``build_cell`` (:745),
+on one device with no mesh.
 
-  train_batch            -> BCE loss, its gradient and AdamW (lr 1e-3, no
-                            weight decay); the lookups' gradient through
-                            the bag kernel's backward
-  serve_p99 / serve_bulk -> ``dlrm.forward`` over a batch of contexts
+  recsys train_batch     -> the kind's loss (DLRM and BST: BCE; BERT4Rec:
+                            the masked item's sampled softmax; MIND: the
+                            label-aware sampled softmax), its gradient
+                            (microbatched when asked) and AdamW (lr 1e-3,
+                            no weight decay); DLRM's lookups' gradient
+                            through the bag kernel's backward
+  serve_p99 / serve_bulk -> DLRM and BST ``forward``, BERT4Rec
+                            ``score_candidates`` of the target, MIND's
+                            ``retrieve`` of its top 100 over every item; on
+                            the card in batch chunks that fit
+                            (``serve_chunk_rows``)
   retrieval_cand         -> ADACUR (``adacur.adacur_search``) over
-                            ``n_candidates`` items with DLRM as the exact
-                            cross-encoder-class scorer
+                            ``n_candidates`` items with DLRM, BST or
+                            BERT4Rec as the exact cross-encoder-class
+                            scorer; MIND's native brute retrieval
   LM train_4k            -> next-token NLL over sequence chunks (each
                             chunk's logits recomputed in the backward), plus
                             the MoE aux loss, its gradient (accumulated over
@@ -32,9 +43,9 @@ grad.
 
 Each builder returns a :class:`StepBundle` whose ``args`` are concrete
 tensors (the reference's are abstract shapes for its dry run): weights
-drawn from a seed as ``_recsys_init`` does with ``PRNGKey(0)``, contexts
-and tokens from a seeded generator (raw sparse ids in [0, 2^31)).  The
-serving steps run under ``torch.no_grad()``.  NequIP, BST, BERT4Rec, MIND
+drawn from a seed as ``_recsys_init`` does with ``PRNGKey(0)``, inputs
+from a seeded generator (DLRM's raw sparse ids in [0, 2^31), item ids in
+[0, n_items)).  The serving steps run under ``torch.no_grad()``.  NequIP
 and everything over a mesh are later slices (ROADMAP.md, queue 1).
 """
 
@@ -51,12 +62,14 @@ from ..core import adacur, prng
 from ..core.scorer import ScorerStats
 from ..device import resolve_device
 from ..models import cross_encoder, transformer
-from ..models.recsys import dlrm, embedding
+from ..models.recsys import bert4rec, bst, dlrm, embedding, mind
 from ..training import optimizer
 from ..tree import leaves, tree_map
 
 K_Q = 500                 # anchor contexts of the retrieval step's R_anc
-PAIRS_PER_CALL = 131072   # DLRM pairs a forward of the R_anc build (~6 GB live)
+PAIRS_PER_CALL = 131072   # pairs a forward of the R_anc build, at most (DLRM: ~6 GB live)
+MEM_SHARE = 0.6           # of the card's memory a serve chunk's temporaries may take
+MIND_NEGATIVES = 64       # MIND's sampled negatives a training row
 RETRIEVAL_CFG = AdaCURConfig(
     k_anchor=250, n_rounds=5, budget_ce=500, strategy="topk",
     split_budget=True, k_retrieve=100,
@@ -74,10 +87,16 @@ class StepBundle:
     stats: Optional[ScorerStats] = None   # the retrieval step's CE calls
 
 
-def _dlrm_only(cfg: RecSysConfig) -> None:
-    if cfg.kind != "dlrm":
-        raise NotImplementedError(f"{cfg.name}: only the dlrm kind is ported "
-                                  "(ROADMAP.md, queue 1, item 13)")
+_INIT = {"dlrm": dlrm.init_dlrm, "bst": bst.init_bst,
+         "bert4rec": bert4rec.init_bert4rec, "mind": mind.init_mind}
+
+
+def _kind(cfg: RecSysConfig) -> str:
+    """``cfg.kind``; an unknown kind raises ``KeyError``, as the
+    reference's dispatch does."""
+    if cfg.kind not in _INIT:
+        raise KeyError(cfg.kind)
+    return cfg.kind
 
 
 def _generator(seed: int, device) -> torch.Generator:
@@ -86,66 +105,198 @@ def _generator(seed: int, device) -> torch.Generator:
     return g
 
 
+def _device_of(params) -> torch.device:
+    return leaves(params)[0].device
+
+
 def recsys_init(cfg: RecSysConfig, seed: int = 0, device=None) -> dict:
-    """DLRM weights drawn on ``device``'s own generator seeded with
-    ``seed`` (one seed gives other weights on the card than on the CPU)."""
-    _dlrm_only(cfg)
+    """The kind's weights drawn on ``device``'s own generator seeded with
+    ``seed`` (one seed gives other weights on the card than on the CPU).
+    An unknown kind raises ``KeyError``, as the reference's dispatch does."""
+    init = _INIT[_kind(cfg)]
     dev = resolve_device(device)
-    return dlrm.init_dlrm(cfg, _generator(seed, dev), dev)
+    return init(cfg, _generator(seed, dev), dev)
+
+
+def _ids(g, high: int, shape, dev) -> torch.Tensor:
+    return torch.randint(0, high, shape, generator=g, device=dev, dtype=torch.int32)
 
 
 def recsys_inputs(cfg: RecSysConfig, batch: int, seed: int = 1, device=None) -> dict:
-    """A batch of DLRM contexts: ``dense`` (B, n_dense) fp32 standard
-    normal, ``sparse`` (B, n_sparse) int32 raw ids in [0, 2^31)."""
-    _dlrm_only(cfg)
+    """A batch of serving contexts (the reference's ``_recsys_inputs`` with
+    ``train=False``) from a generator seeded with ``seed``.  DLRM:
+    ``dense`` (B, n_dense) fp32 standard normal, ``sparse`` (B, n_sparse)
+    int32 raw ids in [0, 2^31).  The sequence models: ``history`` (B,
+    seq_len) int32 item ids in [0, n_items), and for BST and BERT4Rec a
+    ``target`` (B,) item."""
+    kind = _kind(cfg)
     dev = resolve_device(device)
     g = _generator(seed, dev)
-    return {"dense": torch.randn((batch, cfg.n_dense), generator=g, device=dev),
-            "sparse": torch.randint(0, 2 ** 31, (batch, cfg.n_sparse), generator=g,
-                                    device=dev, dtype=torch.int32)}
+    if kind == "dlrm":
+        return {"dense": torch.randn((batch, cfg.n_dense), generator=g, device=dev),
+                "sparse": torch.randint(0, 2 ** 31, (batch, cfg.n_sparse), generator=g,
+                                        device=dev, dtype=torch.int32)}
+    out = {"history": _ids(g, cfg.n_items, (batch, cfg.seq_len), dev)}
+    if kind in ("bst", "bert4rec"):
+        out["target"] = _ids(g, cfg.n_items, (batch,), dev)
+    return out
+
+
+def recsys_train_inputs(cfg: RecSysConfig, batch: int, seed: int = 1, device=None) -> dict:
+    """A training batch (the reference's ``_recsys_inputs`` with
+    ``train=True``): :func:`recsys_inputs` plus, from a second generator
+    seeded with ``seed + 1000``, ``labels`` (B,) fp32 in {0, 1} for DLRM
+    and BST, ``target`` (B,) for MIND and ``neg_ids`` (B, 64) its sampled
+    negatives.  BERT4Rec gets ``neg``, its loss's 512 negatives a row drawn
+    once for the whole batch (``bert4rec.negatives``): a microbatched step
+    slices them with the batch, so its loss is the reference's."""
+    dev = resolve_device(device)
+    out = recsys_inputs(cfg, batch, seed, dev)
+    g = _generator(seed + 1000, dev)
+    if cfg.kind in ("dlrm", "bst"):
+        out["labels"] = torch.randint(0, 2, (batch,), generator=g, device=dev).to(torch.float32)
+    elif cfg.kind == "bert4rec":
+        out["neg"] = bert4rec.negatives(batch, cfg, device=dev)
+    else:
+        out["target"] = _ids(g, cfg.n_items, (batch,), dev)
+        out["neg_ids"] = _ids(g, cfg.n_items, (batch, MIND_NEGATIVES), dev)
+    return out
 
 
 def recsys_flops(cfg: RecSysConfig, batch: int) -> float:
-    """Analytic forward FLOPs of ``batch`` DLRM scores (the reference's
-    ``_recsys_flops``): MLPs plus the (F+1)^2 x dim dot interaction."""
-    _dlrm_only(cfg)
-    mlp = sum(a * b for a, b in zip(cfg.bot_mlp[:-1], cfg.bot_mlp[1:]))
-    n = cfg.n_sparse + 1
-    mlp += (n * (n - 1) // 2 + cfg.bot_mlp[-1]) * cfg.top_mlp[1]
-    mlp += sum(a * b for a, b in zip(cfg.top_mlp[1:-1], cfg.top_mlp[2:]))
-    inter = n * n * cfg.embed_dim
-    return 2.0 * batch * (mlp + inter)
+    """Analytic forward FLOPs of ``batch`` rows, the reference's
+    ``_recsys_flops``.  DLRM: MLPs plus the (F+1)^2 x dim dot interaction.
+    The sequence models: attention and FFN over L = seq_len positions, the
+    FFN at ``mlp_dims[0]`` wide (BST: 1,024, though its FFN is 4d = 128
+    wide over L + 1 = 21 positions, so the formula overstates a BST forward
+    about 1.7x: 5.5 against 3.3 MFLOP a row), plus BST's head MLP or a
+    d x d head (MIND's retrieval over N items is not counted here)."""
+    if _kind(cfg) == "dlrm":
+        mlp = sum(a * b for a, b in zip(cfg.bot_mlp[:-1], cfg.bot_mlp[1:]))
+        n = cfg.n_sparse + 1
+        mlp += (n * (n - 1) // 2 + cfg.bot_mlp[-1]) * cfg.top_mlp[1]
+        mlp += sum(a * b for a, b in zip(cfg.top_mlp[1:-1], cfg.top_mlp[2:]))
+        inter = n * n * cfg.embed_dim
+        return 2.0 * batch * (mlp + inter)
+    d, L = cfg.embed_dim, cfg.seq_len
+    attn = cfg.n_blocks * (4 * L * d * d + 2 * L * L * d)
+    ffn = cfg.n_blocks * 2 * L * d * (cfg.mlp_dims[0] if cfg.mlp_dims else 4 * d)
+    if cfg.kind == "bst":
+        widths = (d * (L + 1),) + tuple(cfg.mlp_dims) + (1,)
+        head = sum(a * b for a, b in zip(widths[:-1], widths[1:]))
+    else:
+        head = d * d
+    return 2.0 * batch * (attn + ffn + head)
+
+
+def serve_row_bytes(cfg: RecSysConfig) -> int:
+    """Bytes of temporaries one served row (or one scored pair) holds at the
+    peak of a forward, an upper estimate from the shapes: a block's fp32
+    attention logits twice (the scaled and the masked copy), its hidden
+    states and FFN activations a few times over; MIND's scores of one item
+    tile for every interest, their max and the merge's operands.  0 for
+    DLRM (its rows are never chunked)."""
+    if cfg.kind == "dlrm":
+        return 0
+    if cfg.kind == "mind":
+        t = min(mind.ITEM_TILE, embedding.padded_rows(cfg.n_items))
+        return 4 * t * (cfg.n_interests + 4) + 16 * (t + 100)
+    pos, d = cfg.seq_len + 1, cfg.embed_dim
+    ffn = cfg.mlp_dims[0] if cfg.kind == "bert4rec" else 4 * d
+    head = 2 * sum(cfg.mlp_dims) if cfg.kind == "bst" else 0
+    return 4 * (2 * cfg.n_heads * pos * pos + pos * (8 * d + 3 * ffn) + head)
+
+
+def serve_chunk_rows(cfg: RecSysConfig, device) -> Optional[int]:
+    """The rows a serve chunk takes: the largest power of two whose
+    :func:`serve_row_bytes` fit in ``MEM_SHARE`` of the card's memory;
+    None (no chunking) on the CPU and for DLRM.  Rows are independent, so
+    chunking changes no result."""
+    per_row = serve_row_bytes(cfg)
+    dev = torch.device(device)
+    if dev.type != "cuda" or not per_row:
+        return None
+    total = torch.cuda.get_device_properties(dev).total_memory
+    return 1 << max(0, int(MEM_SHARE * total // per_row).bit_length() - 1)
+
+
+def _in_chunks(fn: Callable, batch: dict, rows: Optional[int]):
+    """``fn(batch)`` over row chunks of ``rows`` (every leaf sliced alike),
+    the outputs (a tensor or a tuple of tensors) concatenated."""
+    b = leaves(batch)[0].shape[0]
+    if rows is None or rows >= b:
+        return fn(batch)
+    outs = [fn({k: v[i:i + rows] for k, v in batch.items()}) for i in range(0, b, rows)]
+    if isinstance(outs[0], tuple):
+        return tuple(torch.cat(parts) for parts in zip(*outs))
+    return torch.cat(outs)
+
+
+def score_fn(cfg: RecSysConfig) -> Callable:
+    """``sf(params, query, idx) -> (B, K)`` exact scores of a query batch
+    (``query`` a dict of the kind's context tensors) against item ids
+    ``idx`` (B, K): the kind's ``score_candidates``.  MIND is a
+    dual-encoder, not ADACUR's scorer: it raises ``ValueError``."""
+    if cfg.kind == "dlrm":
+        return lambda p, q, idx: dlrm.score_candidates(p, q["dense"], q["sparse"], idx, cfg)
+    if cfg.kind == "bst":
+        return lambda p, q, idx: bst.score_candidates(p, q["history"], idx, cfg)
+    if cfg.kind == "bert4rec":
+        return lambda p, q, idx: bert4rec.score_candidates(p, q["history"], idx, cfg)
+    raise ValueError(f"{cfg.name}: a {_kind(cfg)} model is not a cross-encoder-class scorer")
 
 
 def anchor_scores(params, cfg: RecSysConfig, contexts: dict, n_items: int) -> torch.Tensor:
-    """The offline R_anc (k_q, padded_rows(n_items)) fp32: exact DLRM scores
-    of each anchor context against items 0..n_items-1 (the candidate id goes
-    into sparse field 0), in forwards of about ``PAIRS_PER_CALL`` pairs;
-    padded columns are 0 (the search never samples them)."""
-    dense, sparse = contexts["dense"], contexts["sparse"]
-    k_q, dev = dense.shape[0], dense.device
+    """The offline R_anc (k_q, padded_rows(n_items)) fp32: exact scores of
+    each anchor context (``contexts``, a dict of the kind's context
+    tensors) against items 0..n_items-1, in forwards of about
+    ``PAIRS_PER_CALL`` pairs (fewer on the card where a pair's temporaries
+    are large); padded columns are 0 (the search never samples them)."""
+    sf = score_fn(cfg)
+    first = leaves(contexts)[0]
+    k_q, dev = first.shape[0], first.device
     out = torch.zeros((k_q, embedding.padded_rows(n_items)), dtype=torch.float32, device=dev)
-    cols = min(n_items, PAIRS_PER_CALL)
-    rows = max(1, PAIRS_PER_CALL // cols)
-    for r0 in range(0, k_q, rows):
-        r1 = min(k_q, r0 + rows)
-        for c0 in range(0, n_items, cols):
-            c1 = min(n_items, c0 + cols)
-            items = torch.arange(c0, c1, dtype=torch.int32, device=dev).expand(r1 - r0, -1)
-            out[r0:r1, c0:c1] = dlrm.score_candidates(params, dense[r0:r1], sparse[r0:r1],
-                                                      items, cfg)
+    pairs = min(PAIRS_PER_CALL, serve_chunk_rows(cfg, dev) or PAIRS_PER_CALL)
+    cols = min(n_items, pairs)
+    rows = max(1, pairs // cols)
+    with torch.no_grad():
+        for r0 in range(0, k_q, rows):
+            r1 = min(k_q, r0 + rows)
+            q = {k: v[r0:r1] for k, v in contexts.items()}
+            for c0 in range(0, n_items, cols):
+                c1 = min(n_items, c0 + cols)
+                items = torch.arange(c0, c1, dtype=torch.int32, device=dev).expand(r1 - r0, -1)
+                out[r0:r1, c0:c1] = sf(params, q, items)
     return out
+
+
+def _recsys_forward(cfg: RecSysConfig) -> Callable:
+    """``fwd(params, batch)``: the serve step's function of one chunk."""
+    if cfg.kind == "dlrm":
+        return lambda p, b: dlrm.forward(p, b["dense"], b["sparse"], cfg)
+    if cfg.kind == "bst":
+        return lambda p, b: bst.forward(p, b["history"], b["target"], cfg)
+    if cfg.kind == "bert4rec":
+        return lambda p, b: bert4rec.score_candidates(p, b["history"], b["target"][:, None],
+                                                      cfg)[:, 0]
+    if _kind(cfg) == "mind":
+        return lambda p, b: mind.retrieve(p, b["history"], 100, cfg)
 
 
 def build_recsys_serve(arch_id: str, cfg: RecSysConfig, shape: RecSysShape, *,
                        params=None, seed: int = 0, device=None) -> StepBundle:
-    """``step(params, batch) -> (B,)`` logits of ``shape.batch`` contexts."""
-    _dlrm_only(cfg)
+    """``step(params, batch)``: DLRM and BST (B,) logits, BERT4Rec (B,)
+    scores of each context's target, MIND (values (B, 100), ids (B, 100))
+    of its retrieval over every item, for ``shape.batch`` seeded contexts,
+    in chunks of :func:`serve_chunk_rows` rows run one after the other."""
+    fwd = _recsys_forward(cfg)
     params = recsys_init(cfg, seed, device) if params is None else params
-    dev = params["tables"][0].device
+    dev = _device_of(params)
+    rows = serve_chunk_rows(cfg, dev)
 
+    @torch.no_grad()
     def step(params, batch):
-        return dlrm.forward(params, batch["dense"], batch["sparse"], cfg)
+        return _in_chunks(lambda b: fwd(params, b), batch, rows)
 
     batch = recsys_inputs(cfg, shape.batch, seed + 1, dev)
     return StepBundle(f"{arch_id}:{shape.name}", step, (params, batch),
@@ -157,40 +308,59 @@ def build_recsys_retrieval(arch_id: str, cfg: RecSysConfig, shape: RecSysShape, 
                            device=None) -> StepBundle:
     """The paper's technique at scale: ``step(params, batch, key) ->
     (topk_idx, topk_scores)``, ADACUR over ``shape.n_candidates`` items
-    (the candidate axis padded by ``embedding.padded_rows``) with DLRM as
-    the exact scorer, ``RETRIEVAL_CFG``'s budget of 500 CE calls per
-    context.
+    (the candidate axis padded by ``embedding.padded_rows``) with DLRM, BST
+    or BERT4Rec as the exact scorer, ``RETRIEVAL_CFG``'s budget of 500 CE
+    calls per context.
 
     ``r_anc`` defaults to :func:`anchor_scores` of ``K_Q`` seeded anchor
-    contexts (other contexts than the served ones).  ``stats`` counts the
-    CE calls of every step."""
-    _dlrm_only(cfg)
+    contexts (other contexts than the served ones): K_Q x n_candidates
+    exact calls (about 3 x 10^16 FLOP for BERT4Rec at 10^6 candidates, so
+    pass one in there).  A sequence model's candidates are the first
+    n_candidates rows of its catalogue (at most ``n_items``).  ``stats``
+    counts the CE calls of every step.
+
+    MIND (a dual-encoder) runs its native retrieval instead, as the
+    reference does: ``step(params, batch) -> (values, ids)``, its top 100
+    over every item (``mind.retrieve``)."""
     params = recsys_init(cfg, seed, device) if params is None else params
-    dev = params["tables"][0].device
+    dev = _device_of(params)
     n_cand, b = shape.n_candidates, shape.batch
+    name = f"{arch_id}:{shape.name}"
+    if cfg.kind == "mind":
+        @torch.no_grad()
+        def mind_step(params, batch):
+            return mind.retrieve(params, batch["history"], 100, cfg)
+
+        return StepBundle(name, mind_step, (params, recsys_inputs(cfg, b, seed + 1, dev)),
+                          2.0 * b * cfg.n_interests * cfg.embed_dim * n_cand)
+    sf = score_fn(cfg)
+    if cfg.kind != "dlrm":    # a sequence model's candidates are rows of its item table
+        n_cand = min(n_cand, cfg.n_items)
     if r_anc is None:
         anchors = recsys_inputs(cfg, K_Q, seed + 2, dev)
         r_anc = anchor_scores(params, cfg, anchors, n_cand)
     stats = ScorerStats()
 
+    @torch.no_grad()
     def step(params, batch, key):
-        def sf(q, idx):
+        def counted(q, idx):
             stats.requests += 1
             stats.pairs += idx.numel()
             stats.ce_calls += idx.numel()
-            return dlrm.score_candidates(params, q["dense"], q["sparse"], idx, cfg)
+            return sf(params, q, idx)
 
-        query = {"dense": batch["dense"], "sparse": batch["sparse"]}
-        res = adacur.adacur_search(sf, batch["r_anc"], query, RETRIEVAL_CFG, key,
+        query = {k: v for k, v in batch.items() if k not in ("r_anc", "target")}
+        res = adacur.adacur_search(counted, batch["r_anc"], query, RETRIEVAL_CFG, key,
                                    batch=b, n_valid_items=n_cand)
         return res.topk_idx, res.topk_scores
 
-    batch = dict(recsys_inputs(cfg, b, seed + 1, dev), r_anc=r_anc)
+    ctx = recsys_inputs(cfg, b, seed + 1, dev)
+    ctx.pop("target", None)
     acfg = RETRIEVAL_CFG
-    # dominant: n_rounds passes of e_q @ R_anc plus budget_ce DLRM scores
+    # dominant: n_rounds passes of e_q @ R_anc plus budget_ce exact scores
     flops = (2.0 * b * r_anc.shape[0] * n_cand * acfg.n_rounds
              + recsys_flops(cfg, acfg.budget_ce))
-    return StepBundle(f"{arch_id}:{shape.name}", step, (params, batch, prng.PRNGKey(seed)),
+    return StepBundle(name, step, (params, dict(ctx, r_anc=r_anc), prng.PRNGKey(seed)),
                       flops, stats)
 
 
@@ -236,35 +406,37 @@ def train_step(loss_fn: Callable, opt_cfg: optimizer.AdamWConfig, n_micro: int =
     return step
 
 
-def recsys_train_inputs(cfg: RecSysConfig, batch: int, seed: int = 1, device=None) -> dict:
-    """:func:`recsys_inputs` plus ``labels`` (B,) fp32 in {0, 1} from the
-    same seeded generator."""
-    dev = resolve_device(device)
-    ctx = recsys_inputs(cfg, batch, seed, dev)
-    g = _generator(seed + 1000, dev)
-    ctx["labels"] = torch.randint(0, 2, (batch,), generator=g, device=dev).to(torch.float32)
-    return ctx
-
-
-def _recsys_loss(cfg: RecSysConfig):
-    _dlrm_only(cfg)
-    return lambda p, b: dlrm.bce_loss(p, b["dense"], b["sparse"], b["labels"], cfg)
+def _recsys_loss(cfg: RecSysConfig) -> Callable:
+    if cfg.kind == "dlrm":
+        return lambda p, b: dlrm.bce_loss(p, b["dense"], b["sparse"], b["labels"], cfg)
+    if cfg.kind == "bst":
+        return lambda p, b: bst.bce_loss(p, b["history"], b["target"], b["labels"], cfg)
+    if cfg.kind == "bert4rec":
+        return lambda p, b: bert4rec.mlm_loss(p, b["history"], b["target"], cfg, neg=b["neg"])
+    if _kind(cfg) == "mind":
+        return lambda p, b: mind.sampled_softmax_loss(p, b["history"], b["target"],
+                                                      b["neg_ids"], cfg)
 
 
 def build_recsys_train(arch_id: str, cfg: RecSysConfig, shape: RecSysShape, *,
-                       params=None, seed: int = 0, device=None) -> StepBundle:
-    """``step(params, opt_state, batch)``: one DLRM train step at
-    ``shape.batch`` (BCE, its gradient, AdamW with lr 1e-3 and no weight
-    decay, as the reference).  ``args`` = (params requiring grad, a fresh
-    AdamW state, a seeded batch with labels); ``model_flops`` = 3 x the
-    forward's (forward + backward)."""
+                       params=None, n_micro: int = 1, seed: int = 0,
+                       device=None) -> StepBundle:
+    """``step(params, opt_state, batch)``: one train step at ``shape.batch``
+    (the kind's loss, its gradient, AdamW with lr 1e-3 and no weight decay,
+    as the reference), the gradient the mean over ``n_micro`` microbatches
+    (a divisor of the batch) when the whole batch's activations do not fit.
+    ``args`` = (params requiring grad, a fresh AdamW state, a seeded batch
+    from :func:`recsys_train_inputs`); ``model_flops`` = 3 x the forward's
+    (forward + backward)."""
+    if shape.batch % n_micro:
+        raise ValueError(f"batch {shape.batch} does not split into {n_micro} microbatches")
     opt_cfg = optimizer.AdamWConfig(lr=1e-3, weight_decay=0.0)
     loss_fn = _recsys_loss(cfg)
     params = recsys_init(cfg, seed, device) if params is None else params
     require_grad(params)
-    dev = params["tables"][0].device
+    dev = _device_of(params)
     batch = recsys_train_inputs(cfg, shape.batch, seed + 1, dev)
-    return StepBundle(f"{arch_id}:{shape.name}", train_step(loss_fn, opt_cfg),
+    return StepBundle(f"{arch_id}:{shape.name}", train_step(loss_fn, opt_cfg, n_micro),
                       (params, optimizer.init_adamw(params), batch),
                       3.0 * recsys_flops(cfg, shape.batch))
 

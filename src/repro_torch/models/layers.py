@@ -163,10 +163,45 @@ def decode_attention_local(q: torch.Tensor, k_shard: torch.Tensor, v_shard: torc
             torch.stack(ms).reshape(b, n_heads))
 
 
+def attention_block_init(generator: torch.Generator, d: int, n_heads: int) -> dict:
+    """The attention half of a post-LN encoder block (BST's and BERT4Rec's):
+    ``wq``/``wk``/``wv`` (d, H, d/H), ``wo`` (H, d/H, d), ``ln1`` ones and
+    ``ln1b`` zeros, on the generator's device."""
+    hd = d // n_heads
+    dev = generator.device
+    blk = {name: dense_init(generator, (d, n_heads, hd)) for name in ("wq", "wk", "wv")}
+    blk["wo"] = dense_init(generator, (n_heads, hd, d))
+    blk["ln1"] = torch.ones((d,), device=dev)
+    blk["ln1b"] = torch.zeros((d,), device=dev)
+    return blk
+
+
+def post_ln_attention(blk, x: torch.Tensor) -> torch.Tensor:
+    """``layernorm(x + attention(x) @ wo)``: bidirectional multi-head
+    self-attention through :func:`attention_ref`, as the reference's BST and
+    BERT4Rec blocks compute it."""
+    q = torch.einsum("bld,dhk->blhk", x, blk["wq"])
+    k = torch.einsum("bld,dhk->blhk", x, blk["wk"])
+    v = torch.einsum("bld,dhk->blhk", x, blk["wv"])
+    o = attention_ref(q, k, v, causal=False)
+    return layernorm(x + torch.einsum("blhk,hkd->bld", o, blk["wo"]), blk["ln1"], blk["ln1b"])
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``'s default, the tanh approximation (torch's default,
+    the erf form, differs by about 1e-3)."""
+    return F.gelu(x, approximate="tanh")
+
+
+def leaky_relu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.leaky_relu`` at its default slope, 0.01."""
+    return F.leaky_relu(x, negative_slope=0.01)
+
+
 def mlp_apply(params, x, act: str):
     if act == "swiglu":
         return (F.silu(x @ params["wg"]) * (x @ params["wu"])) @ params["wd"]
-    return F.gelu(x @ params["wu"], approximate="tanh") @ params["wd"]
+    return gelu(x @ params["wu"]) @ params["wd"]
 
 
 def mlp_init(generator, d_model: int, d_ff: int, act: str, dtype=torch.float32):

@@ -46,8 +46,7 @@ def init_dlrm(cfg: RecSysConfig, generator: torch.Generator, device=None) -> Dic
     tables: tens of GB."""
     dev = resolve_device(device)
     if cfg.kind != "dlrm":
-        raise NotImplementedError(f"{cfg.name}: only the dlrm kind is ported "
-                                  "(ROADMAP.md, queue 1, item 13)")
+        raise ValueError(f"init_dlrm: {cfg.name} is a {cfg.kind} config, not a dlrm one")
     # top_mlp[0] is replaced by the dot interaction's width n(n-1)/2 +
     # bot_mlp[-1] with n = n_sparse + 1 (479 for MLPerf)
     n_int = cfg.n_sparse + 1

@@ -129,10 +129,11 @@ def accumulate_grads(loss_fn: Callable, params, microbatches, n_micro: int):
     for i in range(n_micro):
         mb = tree_map(lambda x: x[i], microbatches)
         loss = loss_fn(params, mb)
-        gs = torch.autograd.grad(loss, ps)
+        gs = torch.autograd.grad(loss, ps, allow_unused=True)
         with torch.no_grad():
             for a, g in zip(acc, gs):
-                a.add_(g.float())
+                if g is not None:         # a leaf the loss does not read adds 0
+                    a.add_(g.float())
             acc_l = acc_l + loss.detach()
     scale = 1.0 / n_micro
     with torch.no_grad():

@@ -1122,3 +1122,134 @@ def test_lm_prefill_and_decode_on_the_card_match_the_cpu(dev, arch):
     top = float(hl.abs()[:, :cfg.vocab_size].max())
     for a, b in zip([cl] + cs, [hl] + hs):
         assert float((a.cpu() - b)[:, :cfg.vocab_size].abs().max()) <= 1e-4 * max(top, 1.0)
+
+
+# ---------------------------------------------------------------------------
+# BST, BERT4Rec and MIND on the card
+# ---------------------------------------------------------------------------
+
+RECSYS_SEQ = ("bst", "bert4rec", "mind")
+
+
+def _recsys_full_width(arch, n_items=2048):
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import replace
+
+    return replace(registry.get(arch).config, n_items=n_items)
+
+
+@pytest.mark.parametrize("arch", RECSYS_SEQ)
+def test_recsys_chunked_serve_equals_the_whole_step(dev, arch, monkeypatch):
+    """``build_recsys_serve`` in chunks of 512 rows against one pass over
+    4,096 rows that fit on the card whole: rows are independent, so the
+    scores agree within 1e-5 of the largest |value| (cuBLAS may pick
+    another kernel for another row count) and MIND's top-100 under the
+    tie-aware comparator."""
+    from repro_torch.configs.base import RecSysShape
+    from repro_torch.launch import steps
+    from repro_torch.models.recsys import mind
+
+    cfg = _recsys_full_width(arch, n_items=100_000)
+    shape = RecSysShape("serve_4096", "serve", 4096)
+    params = steps.recsys_init(cfg, seed=0, device=dev)
+    steps_of = {}
+    for rows in (4096, 512):
+        monkeypatch.setattr(steps, "serve_chunk_rows", lambda cfg, device, rows=rows: rows)
+        steps_of[rows] = steps.build_recsys_serve(arch, cfg, shape, params=params)
+    batch = steps_of[4096].args[1]
+    a, b = steps_of[4096].step(params, batch), steps_of[512].step(params, batch)
+    if arch == "mind":
+        assert_topk_agree(a[1], a[0], b[1], b[0],
+                          mind.score_all_items(params, batch["history"], cfg))
+    else:
+        assert a.shape == (4096,)
+        assert (a - b).abs().max() <= 1e-5 * a.abs().max()
+
+
+def test_recsys_serve_chunks_fit_the_card(dev):
+    """``serve_chunk_rows`` at the published configs: BST's serve_bulk runs
+    whole, BERT4Rec's and MIND's in power-of-two chunks whose estimated
+    temporaries take at most 60% of the card."""
+    from repro_torch.launch import steps
+
+    total = torch.cuda.get_device_properties(dev).total_memory
+    rows = {a: steps.serve_chunk_rows(_recsys_full_width(a, 1_000_000), dev)
+            for a in RECSYS_SEQ}
+    assert rows["bst"] >= 262144
+    for arch in ("bert4rec", "mind"):
+        r = rows[arch]
+        assert r & (r - 1) == 0 and r < 262144
+        assert r * steps.serve_row_bytes(_recsys_full_width(arch, 1_000_000)) <= 0.6 * total
+
+
+def test_mind_retrieve_covers_the_tail_on_the_card(dev):
+    """MIND at its published config (10^6 items): ``retrieve``'s top-100
+    equals an index-stable top-100 of ``score_all_items`` bit for bit, and
+    item 999,999, past the reference's last whole tile, set to win comes
+    first."""
+    from repro_torch.configs import registry
+    from repro_torch.kernels.approx_topk.select import stable_topk
+    from repro_torch.launch import steps
+    from repro_torch.models.recsys import mind
+
+    cfg = registry.get("mind").config
+    params = steps.recsys_init(cfg, seed=1, device=dev)
+    hist = steps.recsys_inputs(cfg, 4, seed=2, device=dev)["history"]
+    with torch.no_grad():
+        vals, ids = mind.retrieve(params, hist, 100, cfg)
+        sv, si = stable_topk(mind.score_all_items(params, hist, cfg), 100)
+        assert torch.equal(ids, si) and torch.equal(vals, sv)
+        v = mind.interest_vectors(params, hist[:1], cfg)[0, 0]
+        params["item_emb"][999_999] = v / v.norm() * 1e3
+        _, ids = mind.retrieve(params, hist[:1], 100, cfg)
+    assert int(ids[0, 0]) == 999_999
+
+
+def test_bert4rec_negatives_on_the_card_are_the_cpus(dev):
+    """``bert4rec.negatives`` (JAX's ``randint`` bits) bitwise on both
+    devices; the train batch's (65,536, 512) draw in range."""
+    from repro_torch.configs import registry
+    from repro_torch.models.recsys import bert4rec
+
+    cfg = registry.get("bert4rec").config
+    assert torch.equal(bert4rec.negatives(4096, cfg, device=dev).cpu(),
+                       bert4rec.negatives(4096, cfg, device="cpu"))
+    full = bert4rec.negatives(65536, cfg, device=dev)
+    assert full.shape == (65536, 512) and full.dtype == torch.int32
+    assert int(full.min()) >= 0 and int(full.max()) < cfg.n_items
+
+
+@pytest.mark.parametrize("arch", RECSYS_SEQ)
+def test_recsys_models_on_the_card_match_the_cpu(dev, arch):
+    """The published widths over 2,048 items, the same weights and batch:
+    the train loss within rtol 1e-5 and each gradient leaf within 1e-4 of
+    its largest |value|, TF32 off; a microbatched step's loss (2
+    microbatches) equals the whole batch's."""
+    from repro_torch.device import to_device
+    from repro_torch.launch import steps
+    from repro_torch.tree import leaves
+
+    cfg = _recsys_full_width(arch)
+    cpu_p = steps.recsys_init(cfg, seed=3, device="cpu")
+    card_p = to_device(cpu_p, dev)
+    batch = steps.recsys_train_inputs(cfg, 64, seed=4, device="cpu")
+    loss = steps._recsys_loss(cfg)
+    out = []
+    for p, b in ((card_p, {k: v.to(dev) for k, v in batch.items()}), (cpu_p, batch)):
+        ps = steps.require_grad(p)
+        val = loss(ps, b)
+        out.append((float(val), torch.autograd.grad(val, leaves(ps), allow_unused=True)))
+    (cl, cg), (pl, pg) = out
+    assert abs(cl - pl) <= 1e-5 * abs(pl)
+    for g, h in zip(cg, pg):
+        if h is None:
+            assert g is None
+            continue
+        assert (g.cpu() - h).abs().max() <= 1e-4 * h.abs().max()
+    from repro_torch.configs.base import RecSysShape
+    from repro_torch.tree import tree_map
+
+    tb = steps.build_recsys_train(arch, cfg, RecSysShape("t", "train", 64), n_micro=2,
+                                  params=tree_map(lambda t: t.detach().to(dev).clone(), cpu_p))
+    _, _, met = tb.step(tb.args[0], tb.args[1], {k: v.to(dev) for k, v in batch.items()})
+    assert abs(float(met["loss"]) - pl) <= 1e-5 * abs(pl)

@@ -40,7 +40,10 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
             "repro_torch.launch.train", "repro_torch.tree", "repro_torch.models.moe",
             "repro_torch.configs.qwen3_8b", "repro_torch.configs.qwen1_5_110b",
             "repro_torch.configs.starcoder2_3b", "repro_torch.configs.granite_moe_1b_a400m",
-            "repro_torch.configs.moonshot_v1_16b_a3b"} <= set(mods)
+            "repro_torch.configs.moonshot_v1_16b_a3b", "repro_torch.configs.bst",
+            "repro_torch.configs.bert4rec", "repro_torch.configs.mind",
+            "repro_torch.models.recsys.bst", "repro_torch.models.recsys.bert4rec",
+            "repro_torch.models.recsys.mind"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(n for n in sys.modules if n == 'jax' or n.startswith('jax.')"
@@ -227,6 +230,42 @@ def test_lm_entry_points_refuse_to_fall_back_to_the_cpu(monkeypatch):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
     assert convert.lm_cache({"k": x, "v": x}, device="cpu")["layers"][1]["k"].shape == (1, 3, 1, 4)
+
+
+def test_recsys_entry_points_refuse_to_fall_back_to_the_cpu(monkeypatch):
+    """BST, BERT4Rec and MIND (their inits, ``convert``'s carriers,
+    BERT4Rec's negatives, the recsys builders and ``build_cell``) land on
+    the card unless the caller asks for the CPU: without a card they raise
+    before drawing anything."""
+    from repro_torch import convert
+    from repro_torch.configs import registry
+    from repro_torch.configs.shapes import RECSYS_SHAPES
+    from repro_torch.launch import steps
+    from repro_torch.models.recsys import bert4rec, bst, mind
+
+    cfgs = {a: registry.smoke_config(a) for a in ("bst", "bert4rec", "mind")}
+    x = {"w": np.zeros((2, 3), np.float32)}
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    calls = [lambda: bst.init_bst(cfgs["bst"], torch.Generator()),
+             lambda: bert4rec.init_bert4rec(cfgs["bert4rec"], torch.Generator()),
+             lambda: mind.init_mind(cfgs["mind"], torch.Generator()),
+             lambda: bert4rec.negatives(2, cfgs["bert4rec"]),
+             lambda: convert.bst_params(x), lambda: convert.bert4rec_params(x),
+             lambda: convert.mind_params(x)]
+    for arch, cfg in cfgs.items():
+        calls += [lambda cfg=cfg: steps.recsys_init(cfg),
+                  lambda cfg=cfg: steps.recsys_train_inputs(cfg, 2),
+                  lambda arch=arch, cfg=cfg: steps.build_recsys_serve(
+                      arch, cfg, RECSYS_SHAPES["serve_p99"]),
+                  lambda arch=arch, cfg=cfg: steps.build_recsys_retrieval(
+                      arch, cfg, RECSYS_SHAPES["retrieval_cand"]),
+                  lambda arch=arch, cfg=cfg: steps.build_recsys_train(
+                      arch, cfg, RECSYS_SHAPES["train_batch"]),
+                  lambda arch=arch: steps.build_cell(arch, "serve_p99")]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    assert convert.mind_params(x, device="cpu")["w"].device == torch.device("cpu")
 
 
 def test_convert_follows_the_device_rule():

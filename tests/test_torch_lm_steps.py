@@ -169,7 +169,7 @@ def test_lm_loss_adds_the_moe_aux_term(name):
     assert (p["layers"][-1]["moe"]["wg"] != before).any(dim=(1, 2)).all()
 
 
-def test_build_cell_dispatches_and_refuses_unported_families():
+def test_build_cell_dispatches_and_refuses_unported_families(monkeypatch):
     ce = registry.CE_TINY
     for shape, fn in (("train_4k", "build_lm_train"), ("prefill_32k", "build_lm_prefill"),
                       ("decode_32k", "build_lm_decode")):
@@ -182,9 +182,14 @@ def test_build_cell_dispatches_and_refuses_unported_families():
     dlrm_params = steps.recsys_init(smoke, device="cpu")
     assert steps.build_cell("dlrm-mlperf", "serve_p99", params=dlrm_params,
                             device="cpu").name == "dlrm-mlperf:serve_p99"
-    for arch in ("nequip", "bst", "mind", "bert4rec"):
-        with pytest.raises(NotImplementedError, match="queue 1"):
-            steps.build_cell(arch, "serve_p99", device="cpu")
+    with pytest.raises(NotImplementedError, match="queue 1"):
+        steps.build_cell("nequip", "serve_p99", device="cpu")
+    from _torch_recsys import smoke_registry
+
+    for arch in ("bst", "mind", "bert4rec"):      # served since the recsys slice
+        cfg = smoke_registry(monkeypatch, arch)
+        b = steps.build_cell(arch, "serve_p99", device="cpu")
+        assert b.name == f"{arch}:serve_p99" and b.args[1]["history"].shape == (512, cfg.seq_len)
 
 
 @pytest.fixture(scope="module")

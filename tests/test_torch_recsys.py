@@ -181,7 +181,7 @@ def test_init_dlrm_shapes_and_devices():
             k: tuple(v.shape) for k, v in jparams[part].items()}
     assert [tuple(t.shape) for t in params["tables"]] == [
         tuple(t.shape) for t in jparams["tables"]]
-    with pytest.raises(NotImplementedError, match="dlrm"):
+    with pytest.raises(ValueError, match="dlrm"):
         dlrm.init_dlrm(replace(cfg, kind="bst"), torch.Generator(), "cpu")
 
 
@@ -243,11 +243,15 @@ def test_retrieval_builder_matches():
 
 
 def test_builders_refuse_other_kinds():
-    cfg = RecSysConfig(name="bst", kind="bst", embed_dim=8)
-    with pytest.raises(NotImplementedError, match="queue 1"):
+    """An unknown kind raises ``KeyError``, as the reference's dispatch
+    does (every kind the reference has is served)."""
+    cfg = RecSysConfig(name="gru4rec", kind="gru4rec", embed_dim=8)
+    with pytest.raises(KeyError, match="gru4rec"):
         steps.recsys_flops(cfg, 4)
-    with pytest.raises(NotImplementedError, match="queue 1"):
-        steps.build_recsys_serve("bst", cfg, RECSYS_SHAPES["serve_p99"], device="cpu")
+    with pytest.raises(KeyError, match="gru4rec"):
+        steps.build_recsys_serve("gru4rec", cfg, RECSYS_SHAPES["serve_p99"], device="cpu")
+    with pytest.raises(KeyError, match="gru4rec"):
+        j_steps._recsys_init("gru4rec", _jcfg(cfg))
 
 
 def test_entry_points_refuse_to_fall_back_to_the_cpu(monkeypatch):
