@@ -106,6 +106,24 @@ Phases (one JSON line each):
    --nproc-per-node 1 ... --mesh 1x1`` on NCCL.  The ``kernel:*`` phases
    hold both top-k kernels at a rank's shape too (``case: sharded``: B =
    128 over one item shard's slab, fp32 and int8, the selected mask).
+   After its searches the world saves its fp32 and int8 indexes sharded
+   (each rank its columns); loaded unsharded here, every leaf must be
+   bit-equal to the single-device index of the same capacity and
+   ``index_meta.json`` equal (``sharded_saves``, with the save's GB/s).
+   The gloo probe also tries the uneven all-to-all (the pipeline's shift)
+   and, last, ``send`` / ``recv`` of a CUDA tensor.
+4e'. ``router_sharded``: the ``Router`` over two sharded replicas of 1
+   (data) x 2 (items) on 4 gloo ranks (rank 0 leads replica 0 and reaches
+   replica 1's leader through ``RemoteReplica``), over the serve index
+   (N = 10^6), buckets 16/32/64, 256 requests a scenario: a baseline, a
+   scorer fault in replica 1, a stalled replica 1 (4 x the baseline's
+   median batch), a swap mid-flight (persistent round kernel) and a close
+   with tickets in flight.  Gated: every request ends once; every ``ok``
+   answer bitwise the single-device engine's on the same batch rows and
+   key (each logged batch searched again here); the faulty or stalled
+   replica quarantined while the other serves on, the fault confined to
+   its replica's ranks; both top-k kernels launched on the ranks.  QPS
+   beside the one-card router's 2-replica capacity.
 4f. ``retrievers_cpu_vs_card``: the five methods and both hybrids in
    subset mode at N = 20,000, B = 64, fp32 and int8, full pinv, on the
    card (kernels) and on the CPU (plain versions): top-k overlap >= 0.99
@@ -118,8 +136,9 @@ Phases (one JSON line each):
    the card at the cross-encoder serving shape (64 and 1024 pairs, L=64,
    8/4 heads, hd=32, bf16 and fp32, real pair lengths plus length-0 pad
    rows, which must come out as zeros), the Qwen3-8B attention shape
-   (B=2, L=2048, 32/8 heads, hd=128; bf16 causal and not, fp32 not) and a
-   decode chunk (Lq=64 < Lk=192, causal); kernel, plain, library (SDPA with
+   (B=2, L=2048, 32/8 heads, hd=128; bf16 causal and not, fp32 not), the
+   mesh phase's pipeline stage (B=1, L=512, the same heads, bf16 causal)
+   and a decode chunk (Lq=64 < Lk=192, causal); kernel, plain, library (SDPA with
    a boolean mask) and bound times; bf16 rows also ``bound_split_ms``, the
    bound of the kernel's own tensor-core work (P V three times: p in three
    bf16 terms, 2x the FLOPs).
@@ -256,6 +275,27 @@ Phases (one JSON line each):
     tokens, 32/8 heads, hd 128, non-causal) and on a real call's first and
     last layers' q, k, v.
 
+15. ``mesh``: the reference's four distributed primitives on 4 gloo ranks
+    (``rank_worker("mesh")``): (i) granite-moe-1b-a400m decode_32k on
+    data 2 x model 2 (batch on data, the cache's sequence and the experts
+    on model: ``build_lm_decode(mesh=)``), its fp32 logits at 4 of 24
+    layers and 4 rows on a seeded cache within 2e-4 of the largest |logit|
+    of one rank's ``decode_step`` (gate), the bf16 step at B = 16 (of 128)
+    timed; (ii) qwen3-8b's decode core at B = 1 over a 524,288-entry cache
+    split four ways, fp32 within 2e-4 of ``_local_decode_core`` on one
+    rank (gate), bf16 ms; (iii) qwen3-8b layers 0-7 at full width in 4
+    GPipe stages, 8 microbatches of 512 tokens, fp32 within 2e-4 relative
+    of the layers in sequence on one rank (gate); in bf16 on the flash
+    kernel, every flash call of one run held to its plain version within
+    ``FLASH_TOL`` (gate; the output beside the pipeline on
+    ``attention_ref``), then a warm-up and 3 timed runs whose flash
+    launches the ``kernels`` line counts, ms and the measured bubble share
+    (1 - the stage calls' synchronised time / the wall) beside
+    (S - 1) / (S + M - 1); (iv) the int8
+    cross-pod reduce on pod 2 x data 2 x model 1 over ce-tiny's full-width
+    gradients, 10 steps within 5% accumulated error of the fp32 mean
+    (gate), the pod link's bytes a step, int8 against fp32.
+
 Then the card's ``name, power.limit`` line, a ``kernels`` summary line (one
 entry per kernel and, for the two top-k kernels, per payload: ``approx_topk``
 is fp32, ``approx_topk[int8]`` etc. the others), and last the result line.
@@ -268,6 +308,7 @@ import argparse
 import contextlib
 import ctypes
 import json
+import math
 import os
 import re
 import subprocess
@@ -1936,6 +1977,9 @@ def phase_flash(gen, dev, quick):
         cases.append(dict(case="qwen3-8b attention", b=2, lq=lq_big, lk=lq_big,
                           causal=causal, lens=[lq_big, lq_big * 2 // 3],
                           dtype=dtype, **qw))
+    # a stage of the mesh phase's qwen3-8b pipeline: one 512-token sequence
+    cases.append(dict(case="qwen3-8b pipeline stage", b=1, lq=512, lk=512, causal=True,
+                      lens=None, dtype="bfloat16", **qw))
     for dtype in ("float32", "bfloat16"):
         cases.append(dict(case="decode chunk", b=4, lq=64, lk=192, h=8, kv=4, hd=64,
                           causal=True, lens=[192, 150, 100, 40], dtype=dtype))
@@ -3889,6 +3933,7 @@ SHARDED_SYNTHETIC = ("float32", "staged")
 SHARDED_ODD_BATCH = (("float32", "staged", 200), ("int8", "persistent", 200))
 SHARDED_TIMEOUT_S = 600          # a world still running then is deadlocked: its ranks die
 SHARDED_MEM_GATE = 1.1           # resident payload bytes a rank / (N / items), at most
+SHARDED_SAVES = ("float32", "int8")   # the world saves these, each rank its columns
 CE_MESH = (1, 2)                 # the real-CE case's (data, items) ranks
 CE_MESH_ITEMS, CE_MESH_QUERIES = 4096, 16
 
@@ -4001,6 +4046,11 @@ def rank_worker(kind: str, out_dir: str) -> int:
             "reduce_scatter_tensor": lambda: dist.reduce_scatter_tensor(
                 torch.empty(8, device=dev), x),
             "all_to_all_single": lambda: dist.all_to_all_single(torch.empty_like(x), x),
+            # the pipeline's shift: everything to the next rank, nothing elsewhere
+            "all_to_all_single_uneven": lambda: dist.all_to_all_single(
+                torch.empty_like(x), x, [8 * w if j == (dist.get_rank() - 1) % w else 0
+                                         for j in range(w)],
+                [8 * w if j == (dist.get_rank() + 1) % w else 0 for j in range(w)]),
             "reduce": lambda: dist.reduce(x.clone(), dst=0),
         }
         for name, op in ops.items():
@@ -4012,9 +4062,25 @@ def rank_worker(kind: str, out_dir: str) -> int:
                 out[name] = f"{type(e).__name__}: {str(e).splitlines()[0][:200]}"
             dist.barrier()
         torch.save(out, os.path.join(out_dir, f"{kind}_rank{rank}.pt"))
-        dist.destroy_process_group()
-        return 0
-    if kind == "ce_mesh":
+        # last, send / recv: gloo writes a CUDA tensor's device pointer to its
+        # socket, which may break the pair, so nothing follows but the exit
+        try:
+            if rank == 0:
+                dist.send(x, dst=1)
+            elif rank == 1:
+                dist.recv(torch.empty_like(x), src=0)
+            dist.barrier()
+            torch.cuda.synchronize()
+            out["send_recv"] = "ok"
+        except Exception as e:  # noqa: BLE001 — the error text is the result
+            out["send_recv"] = f"{type(e).__name__}: {str(e).splitlines()[0][:200]}"
+        torch.save(out, os.path.join(out_dir, f"{kind}_rank{rank}.pt"))
+        os._exit(0)
+    if kind == "router_sharded":
+        out.update(router_sharded_worker(out_dir))
+    elif kind == "mesh":
+        out.update(mesh_worker(out_dir))
+    elif kind == "ce_mesh":
         mesh = make_serving_mesh(*CE_MESH, backend="gloo")
         dev = torch.device("cuda", torch.cuda.current_device())
         ds, cfg, params = ce_mesh_model(dev)
@@ -4055,6 +4121,14 @@ def rank_worker(kind: str, out_dir: str) -> int:
                 topk_idx=res.topk_idx.cpu(), topk_scores=res.topk_scores.cpu(),
                 anchor_idx=res.anchor_idx.cpu(), rounds=res.rounds_done, ms=ms,
                 launches=counts, ce_calls=scorer.stats.ce_calls, sharded=retriever._sharded)
+        # the world saves both indexes, each rank its own columns
+        for payload in SHARDED_SAVES:
+            torch.cuda.synchronize()
+            dist.barrier()
+            t0 = time.perf_counter()
+            indexes[payload].save(os.path.join(out_dir, f"sharded_save_{payload}"))
+            out[f"save_{payload}"] = dict(seconds=time.perf_counter() - t0,
+                                          capacity=indexes[payload].capacity)
     torch.save(out, os.path.join(out_dir, f"{kind}_rank{rank}.pt"))
     dist.barrier()
     dist.destroy_process_group()
@@ -4097,6 +4171,58 @@ def probe_world(kind, tmp, world, timeout=120):
         else:
             found.append({"exit": rc, "stderr_tail": e[-600:]})
     return found
+
+
+def sharded_saves(dev, index, tmp, ranks) -> tuple:
+    """Each index the sharded world saved (each rank writing its columns),
+    loaded unsharded here: every leaf must be bit-equal to the single-device
+    index of the same capacity (the serve index re-padded as ``shard`` pads
+    it; for int8 that, quantized), and ``index_meta.json`` equal to the one
+    that index's save writes.  The save's GB/s: the saved bytes over the
+    slowest rank's seconds.  -> (rows, faults)."""
+    import torch
+
+    from repro_torch.core.index import AnchorIndex
+    from repro_torch.kernels.approx_topk.quant import QuantizedRanc
+
+    def parts(x):
+        r = x.r_anc
+        pay = [r.codes, r.scales] if isinstance(r, QuantizedRanc) else [r]
+        return pay + [x.item_ids, x.n_valid, x.anchor_query_ids]
+
+    rows, faults = [], []
+    for payload in SHARDED_SAVES:
+        path = os.path.join(tmp, f"sharded_save_{payload}")
+        cap = ranks[0][f"save_{payload}"]["capacity"]
+        secs = max(r[f"save_{payload}"]["seconds"] for r in ranks)
+        single = index.with_capacity(cap)
+        if payload != "float32":
+            single = single.quantize(payload)
+        t0 = time.perf_counter()
+        loaded = AnchorIndex.load(path, device=dev)
+        _sync(dev)
+        load_s = time.perf_counter() - t0
+        pa, pb = parts(loaded), parts(single)
+        equal = len(pa) == len(pb) and all(
+            a.dtype == b.dtype and a.shape == b.shape and bool(torch.equal(a, b))
+            for a, b in zip(pa, pb))
+        meta_dir = os.path.join(tmp, f"single_meta_{payload}")
+        os.makedirs(meta_dir)
+        single._write_meta(meta_dir)
+        with open(os.path.join(meta_dir, "index_meta.json")) as f, \
+                open(os.path.join(path, "index_meta.json")) as g:
+            meta_equal = f.read() == g.read()
+        nbytes = dir_bytes(path)
+        rows.append(dict(payload=payload, capacity=cap, n_items=index.n_items,
+                         saved_bytes=nbytes, save_s_slowest_rank=secs,
+                         save_gbps=nbytes / secs / 1e9, unsharded_load_s=load_s,
+                         leaves_bit_equal=equal, index_meta_equal=meta_equal))
+        if not (equal and meta_equal):
+            faults.append(f"sharded save {payload}: leaves equal {equal}, meta equal "
+                          f"{meta_equal}")
+        del single, loaded, pa, pb
+        _empty(dev)
+    return rows, faults
 
 
 def phase_sharded(dev, ce, index):
@@ -4186,6 +4312,8 @@ def phase_sharded(dev, ce, index):
                 local_capacity=ranks[0]["local_capacity"][payload]))
         load_s = [r["load_s"] for r in ranks]
         quantize_s = [r["quantize_s"] for r in ranks]
+        saves, save_faults = sharded_saves(dev, index, tmp, ranks)
+        faults += save_faults
         del ranks
 
         # the real CE device-resident under a 1 x 2 mesh
@@ -4244,7 +4372,8 @@ def phase_sharded(dev, ce, index):
                       "host memory), every rank on one card", n_items=index.n_items,
                       k_q=index.k_q, b=sorted({run[3] for run in sharded_runs()}),
                       save_s=save_s, world_s=world_s, load_s=load_s,
-                      quantize_s=quantize_s, configs=configs, real_ce_mesh=real_ce,
+                      quantize_s=quantize_s, sharded_saves=saves, configs=configs,
+                      real_ce_mesh=real_ce,
                       gloo_cuda_collectives=probe, nccl_two_ranks_one_card=nccl,
                       nccl_world1_cli=[ln for ln in cli.stdout.splitlines()
                                        if "served" in ln or "measured" in ln])
@@ -4252,6 +4381,746 @@ def phase_sharded(dev, ce, index):
             emit({"phase": "sharded", **result})
         check(not faults, "; ".join(faults))
         return result, launches
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+
+# ---------------------------------------------------------------------------
+# the mesh paths: the router over sharded replicas and the reference's four
+# distributed primitives, each world of 4 gloo ranks on the one card
+# ---------------------------------------------------------------------------
+
+ROUTER_SHARDED = (2, 1, 2)            # replicas x (data x items), on 4 ranks
+ROUTER_SHARDED_REQUESTS = 256         # a scenario's requests
+ROUTER_SHARDED_TIMEOUT_S = 420
+# (scenario, round kernel): the baseline's batches set the straggler's stall
+ROUTER_SHARDED_SCENARIOS = (("baseline", "staged"), ("scorer_fault", "staged"),
+                            ("slow_replica", "staged"), ("swap_midflight", "persistent"),
+                            ("close", "staged"))
+MESH_TIMEOUT_S = 420
+MESH_TOL = 2e-4                       # the reference's multidevice TOL
+MESH_DECODE_ARCH = "granite-moe-1b-a400m"
+MESH_DECODE_B = 16                    # decode_32k's batch 128 cut: 4 ranks share one card
+MESH_DECODE_REPS = 10
+MESH_GATE_LAYERS = 4                  # the fp32 gate's depth (of 24) and batch
+MESH_GATE_B = 4
+MESH_LONG_LEN = 524_288               # long_500k's cache
+MESH_PIPE_LAYERS = 8                  # qwen3-8b layers 0-7 in 4 stages of 2
+MESH_PIPE_M = 8                       # microbatches of one 512-token sequence
+MESH_PIPE_TOKENS = 512
+MESH_PIPE_REPS = 3                    # timed bf16 runs after a warm-up
+MESH_XPOD_STEPS = 10
+MESH_XPOD_BATCH = (4, 256)            # ce-tiny sequences x tokens, a rank a step
+
+
+def _sync(dev) -> None:
+    """Wait for the card's queued work (nothing to wait for on the CPU)."""
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _empty(dev) -> None:
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def _router_sharded_drive(rank, rm, slab, ce, scenario, round_kernel, stall, healthy):
+    """One scenario on every rank: rank 0 routes over its own replica (it
+    leads replica 0) and a ``RemoteReplica`` of replica 1 (led by rank 2,
+    through ``serve_remote``); the other ranks follow.  Returns this rank's
+    record."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.core.engine import AdaCURRetriever
+    from repro_torch.core.scorer import SyntheticScorer
+    from repro_torch.launch.faults import (FaultPlan, FaultyScorer, ScorerFault, SleepFault,
+                                           SwapFault)
+    from repro_torch.launch.router import RemoteReplica, Router, serve_remote
+    from repro_torch.launch.serve import AdaCURService
+
+    class NamespaceScorer(SyntheticScorer):
+        def __call__(self, query, item_idx):
+            return super().__call__(query, item_idx % SWAP_OFFSET)
+
+    # replica 1's leader is its item shard 0, the rank that calls the scorer
+    plan = (FaultPlan([ScorerFault(call_k=2)])
+            if scenario == "scorer_fault" and rank == ROUTER_SHARDED[1] * ROUTER_SHARDED[2]
+            else None)
+    index = dataclasses.replace(slab, mesh=rm.mesh)
+    cfg = router_cfg(round_kernel)
+    svc = AdaCURService(retriever=AdaCURRetriever.from_index(
+        index, FaultyScorer(NamespaceScorer(ce), plan), cfg),
+        max_batch=ROUTER_BUCKETS[-1], batch_buckets=list(ROUTER_BUCKETS), max_wait_s=60.0,
+        deterministic=True, group=rm.group, control=rm.control)
+    if scenario == "swap_midflight":
+        svc.stage_index(dataclasses.replace(index, item_ids=torch.where(
+            index.item_ids >= 0, index.item_ids + SWAP_OFFSET, -1)))
+    del index
+    dev = slab.device
+    _sync(dev)
+    kernels.reset_launches()
+    out = dict(rank=rank, replica=rm.replica)
+    t0 = time.monotonic()
+    if rank == 0:
+        n = ROUTER_SHARDED_REQUESTS
+        qids = [int(q) for q in np.random.default_rng(11).integers(500, 600, n)]
+        kw = dict(queue_limit=n, **LAX_WATCHDOG)
+        if scenario == "scorer_fault":
+            kw.update(max_retries=2, max_consecutive_errors=1)
+        if scenario == "slow_replica":
+            kw = dict(queue_limit=n, plan=FaultPlan(sleep_faults=[SleepFault(1, stall)]),
+                      hedge_after_s=stall / 4, watchdog_threshold=3.0, watchdog_patience=1)
+        if scenario == "swap_midflight":
+            kw.update(plan=FaultPlan(swap_faults=[SwapFault(at_seq=n // 2)]),
+                      swap_index_fn=lambda: None)
+        leader_1 = ROUTER_SHARDED[1] * ROUTER_SHARDED[2]
+        router = Router([svc, RemoteReplica(rm.links[1], leader_1, ROUTER_BUCKETS[-1])], **kw)
+        if scenario == "slow_replica":
+            # the fleet baseline: the baseline's healthy batches (repeated to
+            # the watchdog's 5 entries; the median stays theirs)
+            router.replicas[0].watchdog.window.extend(healthy * -(-5 // len(healthy)))
+        tickets = [router.submit(q) for q in qids]
+        if scenario != "close":
+            for tk in tickets:
+                router.result(tk, timeout=300.0)
+        wall = time.monotonic() - t0
+        router.close()
+        outs = [tk.outcome for tk in tickets]
+        out.update(qids=qids, wall_s=wall, stats=dict(router.stats),
+                   quarantined=list(router.quarantined), log=svc.batch_log,
+                   outcomes=[None if o is None else dict(
+                       seq=o.seq, query_id=o.query_id, status=o.status, replica=o.replica,
+                       hedged=o.hedged, retried=o.retried,
+                       error=None if o.response is None else o.response.error,
+                       item_ids=None if o.response is None else o.response.item_ids,
+                       scores=None if o.response is None else o.response.scores,
+                       batch=None if o.response is None else (o.response.batch_id,
+                                                              o.response.batch_row))
+                       for o in outs])
+    elif rank == rm.leader:
+        out["served"] = serve_remote(svc, rm.links[1])
+        out["log"] = svc.batch_log
+    else:
+        try:
+            out["batches"] = svc.follow()
+        except Exception as e:  # noqa: BLE001 — a follower of a torn-down mesh raises
+            out["raised"] = f"{type(e).__name__}: {str(e)[:300]}"
+    _sync(dev)
+    out.update(seconds=time.monotonic() - t0, mesh_error=svc.mesh_error,
+               launches=kernels.launch_counts())
+    return out
+
+
+def router_sharded_worker(out_dir: str, device=None) -> dict:
+    """The ``router_sharded`` rank: every scenario over fresh replica
+    meshes (a scenario that tears a replica down leaves the world up), on
+    the card unless ``device="cpu"`` (a rehearsal)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core.index import AnchorIndex
+    from repro_torch.launch.mesh import make_replica_meshes, mesh_device
+    from repro_torch.launch.serve import build_domain, saved_n_items
+
+    res = {}
+    slab = ce = None
+    stall, healthy = 0.0, []
+    for scenario, round_kernel in ROUTER_SHARDED_SCENARIOS:
+        rm = make_replica_meshes(*ROUTER_SHARDED, device=device, backend="gloo")
+        if slab is None:
+            path = os.path.join(out_dir, "index")
+            dev = mesh_device(rm.mesh)
+            ce = build_domain(saved_n_items(path), dev, with_index=False)[0]
+            slab = AnchorIndex.load(path, mesh=rm.mesh)
+        rec = _router_sharded_drive(dist.get_rank(), rm, slab, ce, scenario, round_kernel,
+                                    stall, healthy)
+        if scenario == "baseline" and dist.get_rank() == 0:
+            healthy = [bl["seconds"] for bl in rec["log"]]
+            stall = 4 * float(np.percentile(healthy, 50))
+        res[scenario] = rec
+        dist.barrier()                      # the world outlives every replica
+        t = torch.tensor([stall], dtype=torch.float64)
+        dist.broadcast(t, src=0)            # rank 0's baseline sets the stall
+        stall = float(t[0])
+        del rm
+    return res
+
+
+def _single_device_answers(index, ce, logs, round_kernel):
+    """Each logged batch of a scenario searched again on one device with
+    the service's key: {(replica, batch id, row): (ids, scores)}."""
+    import torch
+
+    from repro_torch.core import prng
+    from repro_torch.core.engine import AdaCURRetriever
+    from repro_torch.core.scorer import SyntheticScorer
+
+    ret = AdaCURRetriever.from_index(index, SyntheticScorer(ce), router_cfg(round_kernel))
+    out = {}
+    for rid, log in logs.items():
+        for bl in log:
+            res = ret.search(torch.tensor(bl["query_ids"], device=index.device),
+                             prng.PRNGKey(0))
+            ids = index.gather_item_ids(res.topk_idx).cpu().numpy()
+            sc = res.topk_scores.cpu().numpy()
+            for i in range(bl["rows"]):
+                out[(rid, bl["batch_id"], i)] = (ids[i], sc[i])
+    return out
+
+
+def phase_router_sharded(dev, ce, index, one_card_qps):
+    """The ``Router`` over two sharded replicas of 1 (data) x 2 (items)
+    on 4 gloo ranks on the card, over the serve domain's index (N = 10^6):
+    the router phase's buckets and its fault scenarios (a scorer fault in
+    replica 1, a stalled replica 1, a swap mid-flight, a close with tickets
+    in flight).  Gates: every request ends once; every ``ok`` answer is
+    bitwise the single-device engine's on the same batch rows and key; the
+    healthy replica serves on after the other is quarantined.  Returns
+    (result, {kernel: launches} summed over the ranks)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    tmp = tempfile.mkdtemp(prefix="adacur_router_sharded_")
+    launches = {"approx_topk": 0, "persistent_round": 0}
+    try:
+        index.save(os.path.join(tmp, "index"))
+        _empty(dev)
+        t0 = time.perf_counter()
+        ranks = start_world("router_sharded", tmp, math.prod(ROUTER_SHARDED),
+                            timeout=ROUTER_SHARDED_TIMEOUT_S)
+        world_s = time.perf_counter() - t0
+        rows, faults = [], []
+        for scenario, round_kernel in ROUTER_SHARDED_SCENARIOS:
+            recs = [r[scenario] for r in ranks]
+            lead = recs[0]
+            for name in launches:
+                launches[name] += sum(r["launches"][name] for r in recs)
+            outs = lead["outcomes"]
+            n = len(lead["qids"])
+            ended = [o for o in outs if o is not None]
+            if len(ended) != n or any(o["query_id"] != q for o, q in zip(ended, lead["qids"])):
+                faults.append(f"{scenario}: {n - len(ended)} requests without an outcome, or "
+                              "an outcome answering another request")
+            by = {s: sum(o["status"] == s for o in ended) for s in ("ok", "error", "rejected")}
+            st = lead["stats"]
+            if st["ok"] != by["ok"] or st["errors"] != by["error"] or st["submitted"] != n:
+                faults.append(f"{scenario}: stats {st} against outcomes {by}")
+            want = _single_device_answers(index, ce, {0: lead["log"], 1: recs[2]["log"]},
+                                          round_kernel)
+            mismatched = 0
+            for o in ended:
+                if o["status"] != "ok":
+                    continue
+                ids = np.asarray(o["item_ids"])
+                if scenario == "swap_midflight" and ids.min() >= SWAP_OFFSET:
+                    ids = ids - SWAP_OFFSET
+                w_ids, w_sc = want[(o["replica"], *o["batch"])]
+                mismatched += not (np.array_equal(ids, w_ids)
+                                   and np.array_equal(np.asarray(o["scores"]), w_sc))
+            if mismatched:
+                faults.append(f"{scenario}: {mismatched} ok answers differ from the "
+                              "single-device engine's")
+            after_q = [o for o in ended[n // 2:] if o["status"] == "ok"]
+            row = dict(scenario=scenario, round_kernel=round_kernel, requests=n,
+                       wall_s=lead["wall_s"], qps=n / lead["wall_s"], **by,
+                       hedges=st["hedges"], retries=st["retries"], swaps=st["swaps"],
+                       quarantined=lead["quarantined"],
+                       batches=[len(lead["log"]), len(recs[2]["log"])],
+                       bitwise_checked=sum(o["status"] == "ok" for o in ended),
+                       mesh_errors=[bool(r["mesh_error"]) for r in recs],
+                       follower_raised=["raised" in r for r in recs],
+                       seconds_per_rank=[r["seconds"] for r in recs])
+            if scenario in ("baseline", "swap_midflight") and by["ok"] != n:
+                faults.append(f"{scenario}: {by['ok']} ok of {n}")
+            if scenario in ("scorer_fault", "slow_replica"):
+                if lead["quarantined"] != [1] or by["ok"] != n:
+                    faults.append(f"{scenario}: quarantined {lead['quarantined']}, "
+                                  f"{by['ok']} ok of {n}")
+                if any(o["replica"] != 0 for o in after_q[-8:]):
+                    faults.append(f"{scenario}: the healthy replica did not serve on")
+            if scenario == "scorer_fault" and (recs[0]["mesh_error"] or recs[1]["mesh_error"]
+                                               or not recs[2]["mesh_error"]):
+                faults.append(f"scorer_fault: the fault reached the wrong replica: "
+                              f"{row['mesh_errors']}")
+            if scenario == "close" and any(o["status"] == "error" and o["error"] !=
+                                           "router shutdown" for o in ended):
+                faults.append("close: an error other than the shutdown's")
+            rows.append(row)
+        for name in launches:
+            if not launches[name]:
+                faults.append(f"{name} never launched")
+        result = dict(replicas=ROUTER_SHARDED[0], mesh=list(ROUTER_SHARDED[1:]),
+                      buckets=list(ROUTER_BUCKETS), n_items=index.n_items, world_s=world_s,
+                      scenarios=rows, baseline_qps=rows[0]["qps"],
+                      one_card_router_qps_2_replicas=one_card_qps, launches=launches)
+        if faults:
+            emit({"phase": "router_sharded", **result})
+        check(not faults, "router over sharded replicas: " + "; ".join(faults))
+        return result, launches
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _seeded(shape, seed, dev, dtype=None):
+    import torch
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    t = torch.randn(shape, generator=g, device=dev)
+    return t if dtype is None else t.to(dtype)
+
+
+def _mesh_sp_ep_decode(mesh, dev, rank) -> dict:
+    """(i): granite's decode_32k on (data 2 x model 2): batch on data, the
+    cache's sequence and the experts on model.  The fp32 gate at
+    ``MESH_GATE_LAYERS`` layers and ``MESH_GATE_B`` rows on a seeded cache
+    (capacity widened so no assignment drops: a data group's capacity
+    counts its own tokens) against one rank's single-device
+    ``decode_step``; then the published config in bf16 at
+    ``MESH_DECODE_B`` rows, timed."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import LMShape, replace
+    from repro_torch.distributed.collectives import _all_gather, _dims_group
+    from repro_torch.distributed.decode_attention import make_decode_core
+    from repro_torch.launch import steps
+    from repro_torch.models import moe, transformer
+
+    base = registry.get(MESH_DECODE_ARCH).config
+    s = registry.shapes_for(MESH_DECODE_ARCH)["decode_32k"].seq_len
+    cfg = no_drop(replace(base, n_layers=MESH_GATE_LAYERS, dtype="float32"))
+    di = dist.get_rank(_dims_group(mesh, ("data",)))
+    b_loc = MESH_GATE_B // 2
+    core = make_decode_core(mesh, ("data",), ("model",), s, device=dev)
+    params = transformer.init_lm(cfg, steps._generator(21, dev))
+    mine = dict(params, layers=[dict(lp, moe=moe.expert_slice(lp["moe"], mesh))
+                                for lp in params["layers"]])
+    shape = (MESH_GATE_B, s, cfg.n_kv_heads, cfg.resolved_head_dim)
+    full = [{kv: _seeded(shape, 100 + 2 * i + j, dev) for j, kv in enumerate(("k", "v"))}
+            for i in range(cfg.n_layers)]
+    rows = slice(di * b_loc, (di + 1) * b_loc)
+    cols = slice(core.offset, core.offset + core.local_len)
+    cache = {"layers": [{kv: c[kv][rows, cols].clone() for kv in c} for c in full]}
+    token = steps.lm_tokens(cfg, (MESH_GATE_B,), 22, dev)
+    pos = torch.tensor(s - 1, device=dev)
+    with torch.no_grad():
+        got = transformer.decode_step(mine, cache, token[rows], pos, cfg,
+                                      moe_fn=moe.make_moe_fn(mesh, cfg.moe, ("data",),
+                                                             device=dev),
+                                      decode_core=core)[0]
+    gathered = _all_gather(None, got, 0)              # rank order: data-major
+    out = {}
+    if rank == 0:
+        del cache
+        with torch.no_grad():
+            want = transformer.decode_step(params, {"layers": full}, token, pos, cfg)[0]
+        v = cfg.vocab_size
+        per_rank = gathered.reshape(4, b_loc, -1)
+        mesh_logits = torch.cat([per_rank[0], per_rank[2]])
+        replicas_agree = bool(torch.equal(per_rank[0], per_rank[1])
+                              and torch.equal(per_rank[2], per_rank[3]))
+        err = float((mesh_logits[:, :v] - want[:, :v]).abs().max())
+        scale = float(want[:, :v].abs().max())
+        out["fp32_gate"] = dict(layers=f"{MESH_GATE_LAYERS} of {base.n_layers}",
+                                batch=MESH_GATE_B, seq_len=s, max_abs_err=err,
+                                max_abs_logit=scale, rel=err / scale, tol=MESH_TOL,
+                                model_replicas_bitwise_equal=replicas_agree,
+                                capacity_factor=cfg.moe.capacity_factor)
+        del want
+    del params, mine, full, gathered, got
+    _empty(dev)
+    dist.barrier()
+    # the published config in bf16, batch cut to MESH_DECODE_B
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    shape = LMShape("decode_32k", "decode", s, MESH_DECODE_B)
+    bundle = steps.build_lm_decode(MESH_DECODE_ARCH, base, shape, global_batch=MESH_DECODE_B,
+                                   device=dev, mesh=mesh)
+    bundle.step(*bundle.args)
+    _sync(dev)
+    dist.barrier()
+    secs = []
+    for _ in range(MESH_DECODE_REPS):
+        t0 = time.perf_counter()
+        logits, _ = bundle.step(*bundle.args)
+        _sync(dev)
+        secs.append(time.perf_counter() - t0)
+    finite = bool(torch.isfinite(logits[:, :base.vocab_size].float()).all())
+    ms = sorted(secs)[len(secs) // 2] * 1e3
+    out["bf16"] = dict(batch=MESH_DECODE_B, batch_cut=f"128 -> {MESH_DECODE_B}",
+                       seq_len=s, layers=base.n_layers, step_ms=ms, min_ms=min(secs) * 1e3,
+                       tokens_per_s=MESH_DECODE_B / ms * 1e3, finite=finite,
+                       peak_gb_this_rank=(torch.cuda.max_memory_allocated() / 1e9
+                                          if dev.type == "cuda" else None),
+                       cache_gb_this_rank=tensor_bytes(bundle.args[1]) / 1e9)
+    del bundle, logits
+    _empty(dev)
+    return out
+
+
+def _mesh_long_500k(mesh, dev, rank) -> dict:
+    """(ii): qwen3-8b's decode core (32 heads, 8 KV heads, hd 128) at
+    B = 1 with a 524,288-entry cache over all four ranks, against
+    ``_local_decode_core`` on rank 0 over the whole cache, in fp32; the
+    bf16 core timed."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import registry
+    from repro_torch.distributed.decode_attention import make_decode_core
+    from repro_torch.models import transformer
+
+    att = registry.QWEN3_8B_ATTENTION
+    h, kv, hd = att["n_heads"], att["n_kv_heads"], att["head_dim"]
+    core = make_decode_core(mesh, (), ("data", "model"), MESH_LONG_LEN, device=dev)
+    local = core.local_len
+    chunk = core.offset // local
+    q, k_new, v_new = (_seeded((1, n, hd), 300 + i, dev) for i, n in enumerate((h, kv, kv)))
+    ck, cv = (_seeded((1, local, kv, hd), 310 + 2 * chunk + j, dev) for j in range(2))
+    pos = torch.tensor(MESH_LONG_LEN - 1, device=dev)
+    with torch.no_grad():
+        o = core(q, k_new, v_new, ck, cv, pos)
+    out = {}
+    if rank == 0:
+        n = MESH_LONG_LEN // local
+        fk = torch.cat([_seeded((1, local, kv, hd), 310 + 2 * c, dev) for c in range(n)], 1)
+        fv = torch.cat([_seeded((1, local, kv, hd), 311 + 2 * c, dev) for c in range(n)], 1)
+        with torch.no_grad():
+            want = transformer._local_decode_core(q, k_new, v_new, fk, fv, pos)
+        err = (o - want).abs()
+        out["fp32_gate"] = dict(max_abs_err=float(err.max()),
+                                within_tol=bool((err <= MESH_TOL + MESH_TOL * want.abs()).all()),
+                                tol=MESH_TOL, cache_entries=MESH_LONG_LEN,
+                                entries_per_rank=local, heads=h, kv_heads=kv, head_dim=hd)
+        del fk, fv, want
+    dist.barrier()
+    ckb, cvb = ck.to(torch.bfloat16), cv.to(torch.bfloat16)
+    qb, kb, vb = (t.to(torch.bfloat16) for t in (q, k_new, v_new))
+    secs = []
+    with torch.no_grad():
+        for _ in range(4):
+            _sync(dev)
+            t0 = time.perf_counter()
+            core(qb, kb, vb, ckb, cvb, pos)
+            _sync(dev)
+            secs.append(time.perf_counter() - t0)
+    out["bf16_core_ms"] = sorted(secs[1:])[1] * 1e3
+    return out
+
+
+def _qwen_stage_fn(cfg, attn_fn=None):
+    """A pipeline stage over qwen3-8b layers: each layer of the span in
+    turn, attention by ``attn_fn(q, k, v)`` (causal; default the plain
+    ``attention_ref``)."""
+    import torch
+
+    from repro_torch.models import layers, transformer
+
+    if attn_fn is None:
+        def attn_fn(q, k, v):
+            return layers.attention_ref(q, k, v, causal=True)
+
+    def stage_fn(span, h):
+        rope = layers.rope_tables(torch.arange(h.shape[1], device=h.device)[None],
+                                  cfg.resolved_head_dim, cfg.rope_theta)
+        for lp in span:
+            h, _ = transformer._encode_layer(cfg, attn_fn, h, lp, rope)
+        return h
+
+    return stage_fn
+
+
+def _mesh_pipeline(dev, rank) -> dict:
+    """(iii): qwen3-8b layers 0-7 at full width in 4 stages (a (stage 4,)
+    mesh), ``MESH_PIPE_M`` microbatches of one sequence each: fp32 against
+    the same layers run in sequence on rank 0; bf16 (flash) timed, with the
+    measured bubble share beside (S - 1) / (S + M - 1)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import replace
+    from repro_torch.distributed.pipeline import pipeline_forward
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import transformer
+
+    mesh = make_mesh((4,), ("stage",), device=dev.type, backend="gloo")
+    group = mesh.get_group("stage")
+    s_idx = dist.get_rank(group)
+    per = MESH_PIPE_LAYERS // 4
+    cfg = replace(registry.get("qwen3-8b").config, dtype="float32")
+
+    def layer(i, c):
+        with torch.no_grad():
+            return transformer._layer_init(steps._generator(400 + i, dev), c)
+
+    x = _seeded((MESH_PIPE_M, MESH_PIPE_TOKENS, cfg.d_model), 401, dev) * 0.5
+    mine = [layer(i, cfg) for i in range(s_idx * per, (s_idx + 1) * per)]
+    with torch.no_grad():
+        got = pipeline_forward(mesh, _qwen_stage_fn(cfg), "stage", MESH_PIPE_M,
+                               device=dev)(mine, x)
+    out = {}
+    if rank == 0:
+        h = x
+        with torch.no_grad():
+            for i in range(MESH_PIPE_LAYERS):
+                h = _qwen_stage_fn(cfg)([mine[i] if i < per else layer(i, cfg)], h)
+        rel = float((got - h).abs().max() / h.abs().max())
+        out["fp32_gate"] = dict(rel=rel, tol=MESH_TOL, stages=4, layers=MESH_PIPE_LAYERS,
+                                microbatches=MESH_PIPE_M, tokens=MESH_PIPE_TOKENS)
+        del h
+    del got
+    dist.barrier(group=group)
+    out["bf16"] = _mesh_pipeline_bf16(mesh, dev, [{k: _to_bf16(v) for k, v in lp.items()}
+                                                  for lp in mine], x.to(torch.bfloat16))
+    return out
+
+
+def _mesh_pipeline_bf16(mesh, dev, mine, xb) -> dict:
+    """(iii) in bf16 on the flash kernel: one run with every flash call held
+    to its plain version on the q, k, v the pipeline gives it (within
+    ``FLASH_TOL``; these launches are not counted), its output beside the
+    same pipeline on the plain ``attention_ref``; then, the launch count
+    zeroed, a warm-up and ``MESH_PIPE_REPS`` timed runs, each stage call
+    synchronised and timed for the measured bubble share."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import kernels
+    from repro_torch.configs import registry
+    from repro_torch.distributed.pipeline import pipeline_forward
+    from repro_torch.kernels.flash_attention.ops import flash_attention, flash_attention_plain
+    from repro_torch.testing import FLASH_TOL
+
+    cfg = registry.get("qwen3-8b").config
+    group = mesh.get_group("stage")
+    atol, rtol = FLASH_TOL["bfloat16"]
+    held = dict(calls=0, max_abs_err=0.0, within_tol=True)
+
+    def checked_flash(q, k, v):
+        o = flash_attention(q, k, v, causal=True)
+        ref = flash_attention_plain(q, k, v, causal=True).float()
+        err = (o.float() - ref).abs()
+        held["calls"] += 1
+        held["max_abs_err"] = max(held["max_abs_err"], float(err.max()))
+        held["within_tol"] &= bool((err <= atol + rtol * ref.abs()).all())
+        return o
+
+    def flash(q, k, v):
+        return flash_attention(q, k, v, causal=True)
+
+    with torch.no_grad():
+        y_held = pipeline_forward(mesh, _qwen_stage_fn(cfg, checked_flash), "stage",
+                                  MESH_PIPE_M, device=dev)(mine, xb).float()
+        y_ref = pipeline_forward(mesh, _qwen_stage_fn(cfg), "stage", MESH_PIPE_M,
+                                 device=dev)(mine, xb).float()
+    vs_ref = float((y_held - y_ref).abs().max() / y_ref.abs().max())
+    del y_held, y_ref
+    stage = _qwen_stage_fn(cfg, flash)
+    busy = []
+
+    def timed_stage(span, h):
+        _sync(dev)
+        t0 = time.perf_counter()
+        y = stage(span, h)
+        _sync(dev)
+        busy.append(time.perf_counter() - t0)
+        return y
+
+    piped = pipeline_forward(mesh, timed_stage, "stage", MESH_PIPE_M, device=dev)
+    walls, shares = [], []
+    with torch.no_grad():
+        _sync(dev)
+        dist.barrier(group=group)
+        kernels.reset_launches()
+        piped(mine, xb)                      # warm-up
+        for _ in range(MESH_PIPE_REPS):
+            _sync(dev)
+            dist.barrier(group=group)
+            busy.clear()
+            t0 = time.perf_counter()
+            y = piped(mine, xb)
+            _sync(dev)
+            walls.append(time.perf_counter() - t0)
+            shares.append(1.0 - sum(busy) / walls[-1])
+        launches = kernels.launch_counts()["flash_attention"]
+    return dict(ms=sorted(walls)[len(walls) // 2] * 1e3, ms_runs=[w * 1e3 for w in walls],
+                finite=bool(torch.isfinite(y.float()).all()),
+                flash_held=dict(held, tol=[atol, rtol], shape=dict(
+                    B=1, L=MESH_PIPE_TOKENS, H=cfg.n_heads, KV=cfg.n_kv_heads,
+                    hd=cfg.resolved_head_dim, causal=True, dtype="bfloat16")),
+                vs_attention_ref_pipeline_rel=vs_ref, flash_launches=launches,
+                stage_calls=len(busy), measured_bubble_share=sorted(shares)[len(shares) // 2],
+                measured_bubble_share_runs=shares,
+                gpipe_bubble_share=3 / (3 + MESH_PIPE_M))
+
+
+def _to_bf16(v):
+    import torch
+
+    if isinstance(v, dict):
+        return {k: _to_bf16(x) for k, x in v.items()}
+    return v.to(torch.bfloat16)
+
+
+def _mesh_cross_pod(dev, rank) -> dict:
+    """(iv): the int8 cross-pod reduce on (pod 2 x data 2 x model 1) over
+    ce-tiny's full-width gradient tree (fp32), each rank's gradient from
+    its own seeded batch: 10 steps' reduced sums against the plain fp32
+    mean over the 4 ranks, and the bytes a step on the pod link."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import replace
+    from repro_torch.distributed.compression import init_error_feedback
+    from repro_torch.distributed.cross_pod import make_hierarchical_grad_reduce, pod_link_bytes
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import transformer
+    from repro_torch.tree import leaves, unflatten_like
+
+    mesh = make_mesh((2, 2, 1), ("pod", "data", "model"), device=dev.type, backend="gloo")
+    cfg = replace(registry.CE_TINY, dtype="float32")
+    params = transformer.init_lm(cfg, steps._generator(500, dev))
+    for p in leaves(params):
+        p.requires_grad_(True)
+    loss_fn = steps._lm_loss_fn(cfg)
+    reduce_fn = make_hierarchical_grad_reduce(mesh, device=dev)
+    err = None
+    tot_true = tot_comp = None
+    secs = []
+    for step in range(MESH_XPOD_STEPS):
+        batch = steps.lm_train_inputs(cfg, *MESH_XPOD_BATCH, seed=600 + 10 * step + rank,
+                                      device=dev)
+        grads = unflatten_like(params, list(torch.autograd.grad(loss_fn(params, batch),
+                                                                leaves(params))))
+        if err is None:
+            err = init_error_feedback(grads)
+        true = [g.clone() for g in leaves(grads)]
+        for g in true:
+            dist.all_reduce(g)
+            g /= 4
+        _sync(dev)
+        t0 = time.perf_counter()
+        out, err = reduce_fn(grads, err)
+        _sync(dev)
+        secs.append(time.perf_counter() - t0)
+        comp = [g.detach() for g in leaves(out)]
+        tot_true = true if tot_true is None else [a + b for a, b in zip(tot_true, true)]
+        tot_comp = comp if tot_comp is None else [a + b for a, b in zip(tot_comp, comp)]
+    diff = max(float((a - b).abs().max()) for a, b in zip(tot_comp, tot_true))
+    scale = max(float(a.abs().max()) for a in tot_true)
+    link = pod_link_bytes(grads)
+    return dict(mesh="pod 2 x data 2 x model 1", steps=MESH_XPOD_STEPS,
+                leaves=len(tot_true), params=sum(g.numel() for g in tot_true),
+                accumulated_rel_err=diff / scale, gate=0.05,
+                pod_link_bytes_int8=link["int8"], pod_link_bytes_fp32=link["fp32"],
+                reduce_ms=sorted(secs)[len(secs) // 2] * 1e3)
+
+
+def mesh_worker(out_dir: str, device=None) -> dict:
+    """The ``mesh`` rank: (i)-(iv), each on its own mesh over one world, on
+    the card unless ``device="cpu"`` (a rehearsal)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh, mesh_device
+
+    mesh = make_mesh((2, 2), ("data", "model"), device=device, backend="gloo")
+    dev = mesh_device(mesh)
+    rank = dist.get_rank()
+    res, secs = {}, {}
+    for name, fn in (("sp_ep_decode", lambda: _mesh_sp_ep_decode(mesh, dev, rank)),
+                     ("long_500k", lambda: _mesh_long_500k(mesh, dev, rank)),
+                     ("pipeline", lambda: _mesh_pipeline(dev, rank)),
+                     ("cross_pod", lambda: _mesh_cross_pod(dev, rank))):
+        t0 = time.perf_counter()
+        res[name] = fn()
+        _sync(dev)
+        secs[name] = time.perf_counter() - t0
+        _empty(dev)
+        dist.barrier()
+    res["seconds"] = secs
+    return res
+
+
+def phase_mesh(dev) -> dict:
+    """The reference's four distributed primitives at full width on 4 gloo
+    ranks on the card (``rank_worker("mesh")``): (i) granite decode_32k
+    with the sequence-parallel decode core and expert-parallel MoE; (ii)
+    the long_500k layout of qwen3-8b's decode core; (iii) a GPipe pipeline
+    of qwen3-8b layers; (iv) the int8 cross-pod reduce over ce-tiny's
+    gradients.  Gates: (i)-(iii) within ``MESH_TOL`` of one rank's plain
+    computation in fp32, (iv) accumulated error under 5%, every bf16
+    output finite, each of the bf16 pipeline's flash calls within
+    ``FLASH_TOL`` of its plain version and the counted runs' flash launches
+    one a layer and microbatch.  Returns (result, the ranks' flash
+    launches)."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    tmp = tempfile.mkdtemp(prefix="adacur_mesh_")
+    try:
+        _empty(dev)
+        t0 = time.perf_counter()
+        ranks = start_world("mesh", tmp, 4, timeout=MESH_TIMEOUT_S)
+        world_s = time.perf_counter() - t0
+        r0 = ranks[0]
+        faults = []
+        gate = r0["sp_ep_decode"]["fp32_gate"]
+        if not (gate["rel"] <= MESH_TOL and gate["model_replicas_bitwise_equal"]):
+            faults.append(f"SP decode + EP MoE: {gate}")
+        if not all(r["sp_ep_decode"]["bf16"]["finite"] for r in ranks):
+            faults.append("SP decode + EP MoE: bf16 logits not finite")
+        if not r0["long_500k"]["fp32_gate"]["within_tol"]:
+            faults.append(f"long_500k decode core: {r0['long_500k']['fp32_gate']}")
+        if not r0["pipeline"]["fp32_gate"]["rel"] <= MESH_TOL:
+            faults.append(f"pipeline: {r0['pipeline']['fp32_gate']}")
+        if not all(r["pipeline"]["bf16"]["finite"] for r in ranks):
+            faults.append("pipeline: bf16 output not finite")
+        faults += [f"pipeline: rank {i}'s flash calls disagree with the plain version: "
+                   f"{r['pipeline']['bf16']['flash_held']}"
+                   for i, r in enumerate(ranks)
+                   if not (r["pipeline"]["bf16"]["flash_held"]["within_tol"]
+                           and r["pipeline"]["bf16"]["flash_held"]["calls"] > 0)]
+        flash_want = (1 + MESH_PIPE_REPS) * MESH_PIPE_M * (MESH_PIPE_LAYERS // 4)
+        faults += [f"pipeline: rank {i} launched flash {r['pipeline']['bf16']['flash_launches']}"
+                   f" times, not {flash_want}"
+                   for i, r in enumerate(ranks)
+                   if r["pipeline"]["bf16"]["flash_launches"] != flash_want]
+        if not all(r["cross_pod"]["accumulated_rel_err"] < 0.05 for r in ranks):
+            faults.append(f"cross-pod reduce: {[r['cross_pod'] for r in ranks]}")
+        result = dict(
+            world_s=world_s, seconds=r0["seconds"],
+            sp_ep_decode=dict(arch=MESH_DECODE_ARCH, mesh="data 2 x model 2",
+                              fp32_gate=gate, bf16=[r["sp_ep_decode"]["bf16"] for r in ranks]),
+            long_500k=dict(r0["long_500k"], bf16_core_ms_per_rank=[
+                r["long_500k"]["bf16_core_ms"] for r in ranks]),
+            pipeline=dict(fp32_gate=r0["pipeline"]["fp32_gate"],
+                          bf16=[r["pipeline"]["bf16"] for r in ranks]),
+            cross_pod=r0["cross_pod"])
+        if faults:
+            emit({"phase": "mesh", **result})
+        check(not faults, "mesh: " + "; ".join(faults))
+        return result, sum(r["pipeline"]["bf16"]["flash_launches"] for r in ranks)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -4344,6 +5213,10 @@ def main() -> int:
             emit({"phase": "router", **router})
             sharded, sharded_launches = phase_sharded(dev, ce, index)
             emit({"phase": "sharded", **sharded})
+            one_card_qps = next(c["qps_median"] for c in router["capacity"]
+                                if c["round_kernel"] == "staged" and c["replicas"] == 2)
+            router_sharded, rs_launches = phase_router_sharded(dev, ce, index, one_card_qps)
+            emit({"phase": "router_sharded", **router_sharded})
             del ce, index
             torch.cuda.empty_cache()
             emit({"phase": "retrievers_cpu_vs_card", "runs": phase_retrievers_cpu_vs_card(dev)})
@@ -4380,6 +5253,9 @@ def main() -> int:
             t0 = time.perf_counter()
             _, lm_flash = phase_lm(dev)
             emit({"phase": "lm", "seconds": time.perf_counter() - t0, "flash_launches": lm_flash})
+            torch.cuda.empty_cache()
+            mesh_res, mesh_flash = phase_mesh(dev)
+            emit({"phase": "mesh", **mesh_res})
             for name, per_payload in serve_launches.items():
                 for dtype, n in per_payload.items():
                     # the serve drives, the index lifecycle's searches and
@@ -4392,12 +5268,14 @@ def main() -> int:
             launches["approx_topk"] += retr_launches["approx_topk"]
             launches["approx_topk"] += sum(run["launches"]["approx_topk"]
                                            for run in anytime.values())
-            # the router's replica threads, fp32
-            launches["approx_topk"] += router_launches["approx_topk"]
-            launches["persistent_round"] += router_launches["persistent_round"]
+            # the router's replica threads, and every rank of the router over
+            # sharded replicas, fp32
+            launches["approx_topk"] += router_launches["approx_topk"] + rs_launches["approx_topk"]
+            launches["persistent_round"] += (router_launches["persistent_round"]
+                                             + rs_launches["persistent_round"])
             launches.update(flash_attention=ce_launches["flash_attention"]
                             + sum(sharded["real_ce_mesh"]["flash_launches_per_rank"])
-                            + lm_flash,
+                            + lm_flash + mesh_flash,
                             embedding_bag=rs_bags + rr_launches["embedding_bag"]
                             + train_launches["embedding_bag"],
                             embedding_bag_backward=train_launches["embedding_bag_backward"])

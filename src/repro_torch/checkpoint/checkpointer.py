@@ -38,10 +38,11 @@ import json
 import os
 import shutil
 import threading
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..device import resolve_device
 from ..tree import SEP, leaves_with_paths, unflatten_like
@@ -70,6 +71,15 @@ def to_host(t: torch.Tensor) -> np.ndarray:
     if t.is_cuda:
         return t.cpu().numpy()
     return t.numpy().copy()
+
+
+def _disk_layout(dtype: torch.dtype, shape) -> tuple:
+    """(numpy dtype, shape) of the ``.npy`` :func:`to_host` writes for a
+    tensor of ``dtype`` and ``shape``."""
+    if dtype in _TORCH_NAMES:
+        size = torch.empty((), dtype=dtype).element_size()
+        return np.dtype(np.uint8), tuple(shape[:-1]) + (shape[-1] * size,)
+    return torch.empty((), dtype=dtype).numpy().dtype, tuple(shape)
 
 
 def from_host(arr: np.ndarray, dtype: str, shape, device) -> torch.Tensor:
@@ -126,6 +136,103 @@ class Checkpointer:
             self._thread.start()
         else:
             write()
+
+    def save_sharded(self, step: int, tree: Any, specs: Dict[str, list],
+                     placed: Dict[str, tuple], group, write_pieces: bool,
+                     on_commit: Optional[Callable[[], None]] = None) -> None:
+        """Save a tree whose ``placed`` leaves are split over the ranks of
+        ``group`` (every rank calls this; synchronous).  ``placed`` maps a
+        leaf to ``(axis, global length, offset)``: this rank's leaf is the
+        piece [offset, offset + its length) of that axis; the other leaves
+        are whole on every rank.  The files are the ones :meth:`save` would
+        write for the whole tree, byte for byte: the group's rank 0 lays out
+        each placed leaf's ``.npy`` at its global shape (a memory map) and
+        writes the whole leaves, then every rank with ``write_pieces`` (one
+        a piece) writes its piece into the maps, and rank 0 writes the
+        manifest and renames the directory into place.  Between the stages
+        the ranks agree that every rank's writes succeeded (an all-reduce
+        MIN of a flag), so a failure anywhere raises on every rank and
+        leaves no committed step; no rank holds another's piece.  Rank 0
+        calls ``on_commit`` after the rename, inside the last stage."""
+        lead = dist.get_rank(group) == 0
+        dev = next(iter(leaves_with_paths(tree)))[1].device
+        tmp = os.path.join(self.dir, f"step_{step}.tmp")
+        final = os.path.join(self.dir, f"step_{step}")
+        entries = [(key, leaf, key.replace(SEP, "__") + ".npy")
+                   for key, leaf in leaves_with_paths(tree)]
+
+        def agree(stage: str, fn) -> None:
+            err = None
+            try:
+                fn()
+            except Exception as e:  # noqa: BLE001 — every rank must hear of it
+                err = f"{type(e).__name__}: {e}"
+            flag = torch.tensor([0 if err else 1], dtype=torch.int32, device=dev)
+            dist.all_reduce(flag, op=dist.ReduceOp.MIN, group=group)
+            if not int(flag[0]):
+                if lead:
+                    shutil.rmtree(tmp, ignore_errors=True)
+                dist.all_reduce(flag, group=group)     # every rank leaves after the cleanup
+                raise RuntimeError(f"sharded save failed at {stage}: "
+                                   f"{err or 'another rank failed'}")
+
+        def layout():
+            if os.path.exists(tmp):
+                shutil.rmtree(tmp)
+            os.makedirs(tmp)
+            for key, leaf, fn in entries:
+                if key not in placed:
+                    np.save(os.path.join(tmp, fn), to_host(leaf))
+                    continue
+                axis, total, _ = placed[key]
+                shape = list(leaf.shape)
+                shape[axis] = total
+                dtype, shape = _disk_layout(leaf.dtype, shape)
+                mm = np.lib.format.open_memmap(os.path.join(tmp, fn), mode="w+",
+                                               dtype=dtype, shape=shape)
+                mm.flush()
+                del mm
+
+        def pieces():
+            if not write_pieces:
+                return
+            for key, leaf, fn in entries:
+                if key not in placed:
+                    continue
+                axis, _, off = placed[key]
+                host = to_host(leaf)
+                # a raw-byte leaf's last axis counts bytes
+                scale = leaf.element_size() if (leaf.dtype in _TORCH_NAMES
+                                                and axis == leaf.dim() - 1) else 1
+                mm = np.load(os.path.join(tmp, fn), mmap_mode="r+")
+                index = [slice(None)] * host.ndim
+                index[axis] = slice(off * scale, (off + leaf.shape[axis]) * scale)
+                mm[tuple(index)] = host
+                mm.flush()
+                del mm
+
+        def commit():
+            manifest = {"step": step, "leaves": {}}
+            for key, leaf, fn in entries:
+                shape = list(leaf.shape)
+                if key in placed:
+                    shape[placed[key][0]] = placed[key][1]
+                manifest["leaves"][key] = {"file": fn, "shape": shape, "dtype": dtype_name(leaf),
+                                           "spec": specs.get(key)}
+            with open(os.path.join(tmp, "manifest.json"), "w") as f:
+                json.dump(manifest, f)
+                f.flush()
+                os.fsync(f.fileno())
+            if os.path.exists(final):
+                shutil.rmtree(final)
+            os.replace(tmp, final)
+            if on_commit is not None:
+                on_commit()
+
+        self.wait()
+        agree("layout", layout if lead else lambda: None)
+        agree("pieces", pieces)
+        agree("commit", commit if lead else lambda: None)
 
     def wait(self) -> None:
         """Block until the last asynchronous save is on disk."""

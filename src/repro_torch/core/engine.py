@@ -703,10 +703,8 @@ def make_sharded_engine(score_fn: ScoreFn, cfg: AdaCURConfig, mesh, *,
     data_axes = tuple(a for a in sharding.batch_axes(mesh) if a not in item_axes)
     n_item_shards = sharding.axis_size(mesh, item_axes)
     n_data_shards = sharding.axis_size(mesh, data_axes) if data_axes else 1
-    item_group = _dims_group(mesh, item_axes)
-    data_group = _dims_group(mesh, data_axes) if data_axes else None
-    item_shard = _axes_index(item_group)
-    data_shard = _axes_index(data_group) if data_group is not None else 0
+    item_shard = _axes_index(_dims_group(mesh, item_axes))
+    data_shard = _axes_index(_dims_group(mesh, data_axes)) if data_axes else 0
     k_i = cfg.budget_ce if not cfg.split_budget else cfg.k_anchor
     k_s = k_i // cfg.n_rounds
     k_r = cfg.budget_ce - k_i if cfg.split_budget else 0
@@ -757,8 +755,11 @@ def make_sharded_engine(score_fn: ScoreFn, cfg: AdaCURConfig, mesh, *,
             eligible = torch.as_tensor(eligible, device=dev).to(torch.bool)
             eligible = (eligible[off:off + n_local] if eligible.dim() == 1
                         else eligible[lo:lo + b_local, off:off + n_local])
-        ctx = ShardCtx(item_group, data_group, n_local, n_item_shards, item_shard, lo,
-                       None, n_data_shards)
+        # the groups are looked up at each call, not held by the engine: a
+        # service that tears its mesh down must drop the last reference
+        ctx = ShardCtx(_dims_group(mesh, item_axes),
+                       _dims_group(mesh, data_axes) if data_axes else None,
+                       n_local, n_item_shards, item_shard, lo, None, n_data_shards)
         res = engine_search(
             score_fn, r_anc, _rows(query, lo, lo + b_local), cfg, key,
             first_anchors=None if first_anchors is None else first_anchors[lo:lo + b_local],

@@ -616,17 +616,43 @@ class AnchorIndex:
     def save(self, path: str) -> None:
         """Persist atomically under ``path``: one ``.npy`` per leaf and a
         manifest with each leaf's reference partition spec (``step_0/``),
-        then ``index_meta.json``, written as the reference writes them.  A
-        sharded index is saved before it is sharded (no rank holds the
-        whole payload to write)."""
-        if self.mesh is not None:
-            raise ValueError("save the index before sharding it: a sharded index holds "
-                             "only this rank's columns (load(path, mesh) re-shards a "
-                             "saved one)")
+        then ``index_meta.json``, written as the reference writes them.
+
+        A sharded index is saved by every rank of its mesh together, and
+        the files are byte for byte those the unsharded save of the same
+        index (the same capacity) writes: each item shard's first rank
+        writes its columns of every item-axis leaf into the one global
+        ``.npy``, the mesh's first rank writes the rest; no rank holds
+        another's columns (``Checkpointer.save_sharded``).  The manifest
+        records the item-axis leaves' placement, as the reference's does."""
         tree = self._tree()
-        Checkpointer(path).save(_CKPT_STEP, tree, {k: _LEAF_SPECS[k] for k in tree})
+        specs = {k: _LEAF_SPECS[k] for k in tree}
+        if self.mesh is None:
+            Checkpointer(path).save(_CKPT_STEP, tree, specs)
+            self._write_meta(path)
+            return
+        sharding.check_mesh_device(self.mesh, self.mesh.device_type)
+        axes = list(self.item_axes)
+        off, cap = self.item_offset, self.capacity
+        r = self.r_anc
+        pack = r.packing if isinstance(r, QuantizedRanc) else 1
+        tile = r.tile if isinstance(r, QuantizedRanc) else 1
+        placed = {"r_anc": (1, cap, off), "r_codes": (1, cap // pack, off // pack),
+                  "r_scales": (0, cap // tile, off // tile), "item_ids": (0, cap, off),
+                  "item_embeddings": (1, cap, off), "item_tokens": (0, cap, off)}
+        placed = {k: v for k, v in placed.items() if k in tree}
+        for k, (axis, _, _) in placed.items():
+            specs[k] = [None] * axis + [axes] + ([None] if k == "item_tokens" else [])
+        everyone = _dims_group(self.mesh, tuple(self.mesh.mesh_dim_names))
+        others = tuple(a for a in self.mesh.mesh_dim_names if a not in self.item_axes)
+        first_copy = not others or dist.get_rank(_dims_group(self.mesh, others)) == 0
+        Checkpointer(path).save_sharded(_CKPT_STEP, tree, specs, placed, everyone, first_copy,
+                                        on_commit=lambda: self._write_meta(path))
+
+    def _write_meta(self, path: str) -> None:
+        """``index_meta.json``, stamped with the lowest format version whose
+        on-disk features this index uses."""
         coded = isinstance(self.r_anc, QuantizedRanc)
-        # the lowest version whose on-disk features this index uses
         if coded and self.r_anc.code_dtype != "int8":
             version = 4          # sub-int8 codes: packed int4 / fp8 e4m3
         elif self.item_tokens is not None:

@@ -18,6 +18,10 @@ from __future__ import annotations
 
 from typing import Dict, Optional, Sequence, Tuple, Union
 
+import torch
+
+from ..device import resolve_device
+
 Axes = Union[str, Tuple[str, ...], None]
 
 # logical axis -> preferred mesh dimensions, tried in order.  On a serving
@@ -77,3 +81,12 @@ def batch_axes(mesh) -> Tuple[str, ...]:
     """Mesh dimensions that shard the batch (pod composes with data)."""
     dims = mesh_dims(mesh)
     return tuple(a for a in ("pod", "data") if a in dims)
+
+
+def check_mesh_device(mesh, device=None) -> torch.device:
+    """The device rule for an entry point over a mesh: ``device`` (the card
+    unless the caller passes ``"cpu"``), which the mesh must live on."""
+    dev = resolve_device(device)
+    if mesh is not None and mesh.device_type != dev.type:
+        raise ValueError(f"a {mesh.device_type} mesh cannot run on device {dev}")
+    return dev

@@ -7,14 +7,17 @@ per rank (``torchrun --nproc-per-node D*I``), and a mesh is a
 NCCL on ``cuda``, gloo on ``cpu``; ``backend=`` overrides it.  Several
 ranks on one card need the override: NCCL refuses two ranks on one device,
 so they run gloo over CUDA tensors (gloo stages each collective through
-host memory).  The pod mesh (``make_production_mesh``) belongs to
-training and is not ported.
+host memory).  ``make_replica_meshes`` splits one world into serving
+replicas, each a mesh with groups of its own.  The pod mesh
+(``make_production_mesh``) belongs to training and is not ported.
 """
 
 from __future__ import annotations
 
 import math
 import os
+from datetime import timedelta
+from typing import Dict, NamedTuple
 
 import torch
 import torch.distributed as dist
@@ -62,6 +65,77 @@ def make_serving_mesh(data: int, items: int, device=None, backend=None):
     slabs (``core.engine.make_sharded_engine``).  ``data * items`` must
     equal the world size."""
     return make_mesh((data, items), ("data", "items"), device=device, backend=backend)
+
+
+class ReplicaMesh(NamedTuple):
+    """This rank's place in a world of serving replicas."""
+
+    replica: int               # which replica this rank serves in
+    mesh: object               # that replica's (data x items) DeviceMesh
+    group: str                 # the name of the process group over that replica's
+                               # ranks (AdaCURService(group=)): a name, so that
+                               # holding this tuple keeps no group alive
+    control: str               # the name of the group its followers wait on for
+                               # each batch (AdaCURService(control=))
+    leader: int                # the global rank of its leader (its first rank)
+    links: Dict[int, object]   # replica -> the two-rank group {0, its leader} (replicas 1..)
+
+
+REPLICA_TIMEOUT_S = 60.0
+
+
+def make_replica_meshes(replicas: int, data: int, items: int, device=None,
+                        backend=None, timeout_s: float = REPLICA_TIMEOUT_S) -> ReplicaMesh:
+    """A world of ``replicas x data x items`` ranks as ``replicas``
+    serving meshes of ``data x items`` each, replica r on the world's ranks
+    [r * data * items, (r + 1) * data * items), row-major; ``launch/router.py``
+    serves them from rank 0.  Every rank creates every group, in one order
+    (``new_group`` is collective over the world), and each replica's mesh is
+    built from its own groups (``DeviceMesh.from_group``): a replica whose
+    service ends its groups after a failed search
+    (``AdaCURService._fail_mesh``) ends no other replica's.  The groups a
+    batch's collectives run on (the mesh's dimensions and the replica's
+    ``group``) time out after ``timeout_s``, so a peer of a failed rank
+    fails then at the latest, even where something still holds the failed
+    rank's groups open.  The ``control`` group, where the followers wait
+    for the next batch, keeps the backend's default timeout, so the bound
+    does not end an idle replica.  The links carry the router's traffic to
+    the replicas rank 0 does not lead.  ``device`` is the card unless the
+    caller passes ``"cpu"``; the backend follows it, as in
+    :func:`make_mesh`."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        local = int(os.environ.get("LOCAL_RANK", dist.get_rank() if dist.is_initialized() else 0))
+        torch.cuda.set_device(local % torch.cuda.device_count())
+    _init_world(dev, backend)
+    size = data * items
+    if replicas * size != dist.get_world_size():
+        raise ValueError(f"{replicas} replicas of {data}x{items} need {replicas * size} ranks, "
+                         f"but the world has {dist.get_world_size()}")
+    rank = dist.get_rank()
+    mine = rank // size
+    grid = torch.arange(replicas * size).reshape(replicas, data, items)
+    own = {}
+    bound = timedelta(seconds=timeout_s)
+    for r in range(replicas):
+        groups = {
+            "data": [dist.new_group(grid[r, :, i].tolist(), timeout=bound)
+                     for i in range(items)],
+            "items": [dist.new_group(grid[r, d, :].tolist(), timeout=bound)
+                      for d in range(data)],
+            "all": dist.new_group(grid[r].reshape(-1).tolist(), timeout=bound),
+            "control": dist.new_group(grid[r].reshape(-1).tolist()),
+        }
+        if r == mine:
+            own = groups
+    links = {r: dist.new_group([0, r * size]) for r in range(1, replicas)}
+    d, i = divmod(rank - mine * size, items)
+    mesh = DeviceMesh.from_group([own["data"][i], own["items"][d]], dev.type,
+                                 mesh=grid[mine].tolist(), mesh_dim_names=("data", "items"))
+    return ReplicaMesh(mine, mesh, own["all"].group_name, own["control"].group_name,
+                       mine * size, links)
 
 
 def mesh_device(mesh) -> torch.device:

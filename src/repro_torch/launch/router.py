@@ -46,6 +46,7 @@ admission n).
 from __future__ import annotations
 
 import contextlib
+import json
 import queue
 import threading
 import time
@@ -53,6 +54,7 @@ from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional, Sequence
 
 import torch
+import torch.distributed as dist
 
 from ..device import resolve_device
 from ..distributed.fault_tolerance import StragglerWatchdog
@@ -295,7 +297,9 @@ class Router:
 
     def close(self, timeout: float = 10.0) -> None:
         """Stop workers; any ticket still unresolved is resolved as an
-        error: even shutdown may not lose a request."""
+        error: even shutdown may not lose a request.  Then every sharded
+        replica's followers are stopped (a replica whose mesh a failure
+        tore down has none left)."""
         self._running = False
         for rep in self.replicas:
             rep.q.put(_POISON)
@@ -309,6 +313,8 @@ class Router:
             if tk.resolve(ERROR, RetrievalResponse(query_id=tk.query_id, status="error",
                                                    error="router shutdown"), None):
                 self._finish(tk)
+        for rep in self.replicas:
+            rep.service.stop_followers()
 
     # ------------------------------------------------------- dispatch plane
 
@@ -494,3 +500,150 @@ class Router:
                 elif due_hedge:
                     self._dispatch(tk, exclude=tk.replicas_tried, hedge=True)
             time.sleep(self.monitor_interval_s)
+
+
+# ---------------------------------------------------------------------------
+# replicas that are meshes led by another rank
+# ---------------------------------------------------------------------------
+
+_LINK_HEADER = 3           # (op, count, payload length); op 0 stop, 1 batch, 2 swap
+_META = ("query_id", "status", "degraded", "rounds_completed", "ce_calls",
+         "measured_ce_calls", "cache_hits", "batch_id", "batch_row")
+
+
+def _link_send(link, src: int, *tensors) -> None:
+    """Broadcast host tensors from ``src`` over the link (empty ones are
+    skipped: both ends know every shape from the header before them)."""
+    for t in tensors:
+        if t.numel():
+            dist.broadcast(t, src=src, group=link)
+
+
+def _link_recv(link, src: int, *shapes_dtypes):
+    out = []
+    for shape, dtype in shapes_dtypes:
+        t = torch.empty(shape, dtype=dtype)
+        if t.numel():
+            dist.broadcast(t, src=src, group=link)
+        out.append(t)
+    return out
+
+
+class RemoteReplica:
+    """A sharded replica whose leader is another rank, as rank 0's router
+    sees it: the service interface the router calls (``max_batch``,
+    ``device``, ``submit_and_flush``, ``swap_index``, ``stop_followers``,
+    ``batch_log``), carried over ``link``, the two-rank group {0, leader}
+    (``launch.mesh.make_replica_meshes``), to :func:`serve_remote` on the
+    leader, which runs its ``AdaCURService``.
+
+    The traffic is host tensors through broadcasts on the link (rank 0
+    sends a request list, the leader answers with the responses), one
+    operation at a time under a lock, so the router's order of batches and
+    swaps is the order the replica runs them in.  A deadline travels as
+    the budget left when the list is sent.  The link is never torn down:
+    a failure inside the replica comes back as error responses, and the
+    router quarantines the replica as it would any other."""
+
+    def __init__(self, link, leader: int, max_batch: int):
+        self.link = link
+        self.leader = leader
+        self.max_batch = max_batch
+        self.device = torch.device("cpu")     # the link's tensors; the replica's are its own
+        self.batch_log: List[dict] = []
+        self._lock = threading.Lock()
+        self._stopped = False
+
+    def _header(self, op: int, count: int = 0, length: int = 0) -> None:
+        _link_send(self.link, 0, torch.tensor([op, count, length], dtype=torch.int64))
+
+    def submit_and_flush(self, requests: List[RetrievalRequest]) -> List[RetrievalResponse]:
+        with self._lock:
+            now = time.monotonic()
+            left = [float("nan") if r.deadline_t is None else r.deadline_t - now
+                    for r in requests]
+            self._header(1, len(requests))
+            _link_send(self.link, 0, torch.tensor(
+                [[r.query_id, b] for r, b in zip(requests, left)], dtype=torch.float64))
+            (hdr,) = _link_recv(self.link, self.leader, ((_LINK_HEADER,), torch.int64))
+            n, k, length = hdr.tolist()
+            meta, ids, scores, text = _link_recv(
+                self.link, self.leader, ((n, len(_META)), torch.int64), ((n, k), torch.int64),
+                ((n, k), torch.float32), ((length,), torch.uint8))
+            errors = json.loads(bytes(text.tolist()).decode()) if length else [None] * n
+            done = time.monotonic()
+            out = []
+            for i, req in enumerate(requests[:n]):
+                m = dict(zip(_META, meta[i].tolist()))
+                ok = m["status"] == 0
+                opt = {f: (None if m[f] < 0 else m[f])
+                       for f in ("rounds_completed", "measured_ce_calls", "cache_hits",
+                                 "batch_id", "batch_row")}
+                out.append(RetrievalResponse(
+                    query_id=req.query_id, item_ids=ids[i].numpy() if ok else None,
+                    scores=scores[i].numpy() if ok else None,
+                    latency_s=done - req.arrival_t, ce_calls=m["ce_calls"],
+                    status="ok" if ok else "error", degraded=bool(m["degraded"]),
+                    error=errors[i], **opt))
+            return out
+
+    def swap_index(self, index=None) -> List[RetrievalResponse]:
+        """The leader swaps to the index its ranks staged
+        (``AdaCURService.stage_index``); ``index`` must be None (it lives
+        on the replica's ranks, not here)."""
+        if index is not None:
+            raise ValueError("a remote replica swaps to the index its own ranks staged: "
+                             "pass None")
+        with self._lock:
+            self._header(2)
+        return []
+
+    def stop_followers(self) -> None:
+        """End the leader's :func:`serve_remote` (which stops its own
+        followers)."""
+        with self._lock:
+            if not self._stopped:
+                self._stopped = True
+                self._header(0)
+
+
+def serve_remote(service: AdaCURService, link) -> int:
+    """The replica leader's loop: run each operation rank 0's
+    :class:`RemoteReplica` sends over ``link`` on ``service`` (a sharded
+    service over the replica's group), until it stops; then stop the
+    service's followers.  Returns the number of request lists served."""
+    n = 0
+    me = dist.get_rank()
+    while True:
+        (hdr,) = _link_recv(link, 0, ((_LINK_HEADER,), torch.int64))
+        op, count, _ = hdr.tolist()
+        if op == 0:
+            service.stop_followers()
+            return n
+        if op == 2:
+            service.swap_index(None)
+            continue
+        (reqs,) = _link_recv(link, 0, ((count, 2), torch.float64))
+        now = time.monotonic()
+        responses = service.submit_and_flush([
+            RetrievalRequest(query_id=int(q), arrival_t=now,
+                             deadline_t=None if b != b else now + float(b))
+            for q, b in reqs.tolist()])
+        k = max((len(r.item_ids) for r in responses if r.item_ids is not None), default=0)
+        meta = torch.tensor([[r.query_id, int(r.status != "ok"), int(r.degraded),
+                              *(-1 if v is None else int(v) for v in (
+                                  r.rounds_completed, r.ce_calls, r.measured_ce_calls,
+                                  r.cache_hits, r.batch_id, r.batch_row))]
+                             for r in responses], dtype=torch.int64).reshape(-1, len(_META))
+        ids = torch.zeros((len(responses), k), dtype=torch.int64)
+        scores = torch.zeros((len(responses), k), dtype=torch.float32)
+        for i, r in enumerate(responses):
+            if r.item_ids is not None:
+                ids[i] = torch.as_tensor(r.item_ids, dtype=torch.int64)
+                scores[i] = torch.as_tensor(r.scores, dtype=torch.float32)
+        errors = [r.error for r in responses]
+        text = (torch.tensor(list(json.dumps(errors).encode()), dtype=torch.uint8)
+                if any(errors) else torch.zeros(0, dtype=torch.uint8))
+        _link_send(link, me, torch.tensor([len(responses), k, text.numel()], dtype=torch.int64),
+                   meta, ids, scores, text)
+        n += 1

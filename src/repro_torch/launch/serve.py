@@ -49,6 +49,11 @@ column slab) and the sharded engine splits each batch over ``data``.  Rank 0
 reads the requests and prints; at every flush its service broadcasts the
 batch to the other ranks, which run the same search in
 :meth:`AdaCURService.follow` until :meth:`AdaCURService.stop_followers`.
+Several sharded services may share one world as replicas behind
+``launch/router.py`` (``launch.mesh.make_replica_meshes``): each follows
+its own leader over its own group (``AdaCURService(group=)``), and rank 0
+reaches the leaders of the replicas it does not lead through
+``router.RemoteReplica``.
 The backend follows the device: NCCL on the card (one card a rank; NCCL
 refuses two ranks on one device), gloo on the CPU.
 ``--cache`` under ``--mesh``, a mesh whose size is not the world's, and a
@@ -63,6 +68,7 @@ ZESHEL-like token corpus with the reference CLI's reduced CE and sizes
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import os
 import threading
@@ -108,6 +114,8 @@ class RetrievalResponse:
     degraded: bool = False                     # a deadline cut the round loop
     rounds_completed: Optional[int] = None
     error: Optional[str] = None
+    batch_id: Optional[int] = None             # the service's count of batches fired before it
+    batch_row: Optional[int] = None            # its row in that batch (batch_log's query_ids)
 
 
 class AdaCURService:
@@ -127,14 +135,34 @@ class AdaCURService:
     Over a sharded index (``AnchorIndex.shard`` / ``load(path, mesh)``)
     every rank of the mesh runs every search.  Rank 0 takes the requests:
     at each flush it broadcasts the batch (its query ids padded to the
-    bucket, and the key) over the world group, and the other ranks, in
-    :meth:`follow`, run the same search until :meth:`stop_followers`.  The
-    measured CE calls of a batch are summed over the ranks.  A search that
-    raises on any rank is fatal to the mesh (the ranks' collectives no
-    longer pair up): that rank tears the world down, which makes every
-    peer's pending or next collective fail, so each rank ends instead of
-    waiting; rank 0 answers the batch, and every later one, with the error
-    (``mesh_error``), and a follower's :meth:`follow` raises."""
+    bucket, and the key) over the service's ``group`` (the world unless
+    given), and the other ranks, in :meth:`follow`, run the same search
+    until :meth:`stop_followers`.  The leader is the group's first rank.
+    The followers wait for each batch's header over ``control`` (``group``
+    unless given): a replica's ``group`` and mesh may bound every
+    collective of a batch by a short timeout while its followers wait for
+    the next batch as long as traffic is idle.
+    The measured CE calls of a batch are summed over the ranks.  A search
+    that raises on any rank is fatal to the mesh (the ranks' collectives no
+    longer pair up): that rank ends the mesh's process groups, which makes
+    every peer's pending or next collective fail, so each rank ends instead
+    of waiting; the leader answers the batch, and every later one, with the
+    error (``mesh_error``), and a follower's :meth:`follow` raises.  Over
+    the world group that means destroying the world, as when one service
+    is the whole world; a service given its own ``group`` (a replica
+    behind ``launch/router.py``: ``launch.mesh.make_replica_meshes``) ends
+    only its groups and its index mesh's, so the other replicas of the
+    world serve on.  Ending a gloo group may close its connections only
+    once its last reference goes, which the service arranges as far as it
+    can; the bound is the groups' own timeout (``make_replica_meshes`` gives a
+    replica's batch groups a short one), after which a peer still waiting
+    fails as well.
+
+    A sharded service swaps its index on every rank at one point of the
+    batch sequence: each rank stages its slab of the new index
+    (:meth:`stage_index`) beforehand, and the leader's :meth:`swap_index`
+    announces the swap, after which each follower serves its next staged
+    index."""
 
     def __init__(self, score_fn: Optional[Callable] = None, r_anc=None,
                  cfg: Optional[AdaCURConfig] = None, max_batch: int = 32,
@@ -142,7 +170,7 @@ class AdaCURService:
                  index: Optional[Union[AnchorIndex, str, os.PathLike]] = None,
                  candidate_fn: Optional[Callable] = None,
                  batch_buckets: Optional[List[int]] = None, deterministic: bool = False,
-                 device=None):
+                 device=None, group=None, control=None):
         if index is not None and not isinstance(index, AnchorIndex):
             index = AnchorIndex.load(os.fspath(index), device=device)
         if retriever is None:
@@ -171,7 +199,16 @@ class AdaCURService:
                              f"equal max_batch={max_batch}")
         self._scorer = getattr(retriever, "score_fn", None)
         self._spmd = index is not None and getattr(index, "mesh", None) is not None
-        self.mesh_error: Optional[str] = None   # why a sharded search tore the world down
+        self.mesh_error: Optional[str] = None   # why a sharded search tore the mesh down
+        # the ranks of a sharded service (None: the world), held by name:
+        # a group's connections close only when its last reference goes
+        self._group_name = getattr(group, "group_name", group)
+        self._control_name = (self._group_name if control is None
+                              else getattr(control, "group_name", control))
+        self._leader = (0 if not self._spmd or group is None
+                        else dist.get_global_rank(self._group, 0))
+        self._staged: List[AnchorIndex] = []
+        self._n_batches = 0
         self.deterministic = deterministic
         self._key = prng.PRNGKey(seed)
         self._pending: List[RetrievalRequest] = []
@@ -186,11 +223,18 @@ class AdaCURService:
     def scorer_stats(self) -> Optional[ScorerStats]:
         return scorer_stats(self._scorer) if self._scorer is not None else None
 
-    def swap_index(self, index: AnchorIndex) -> List[RetrievalResponse]:
+    def stage_index(self, index: AnchorIndex) -> None:
+        """Queue this rank's slab of a sharded service's next index (every
+        rank stages, in the same order); the leader's :meth:`swap_index`
+        switches each rank to it."""
+        self._staged.append(index)
+
+    def swap_index(self, index: Optional[AnchorIndex] = None) -> List[RetrievalResponse]:
         """Serve ``index`` (a mutated one: same capacity, so the search's
-        shapes hold) from the next batch on.  The requests already queued
-        were admitted under the live index: they are flushed against it
-        first, and their responses returned."""
+        shapes hold; None: the next staged one) from the next batch on.
+        The requests already queued were admitted under the live index:
+        they are flushed against it first, and their responses returned.  A
+        sharded service's leader announces the swap to its followers."""
         if getattr(self.retriever, "index", None) is None:
             raise ValueError("swap_index needs an index-backed retriever (from_index); this "
                              "one was built on a bare r_anc and would keep searching it")
@@ -198,9 +242,19 @@ class AdaCURService:
             drained: List[RetrievalResponse] = []
             while self._pending:
                 drained += self.flush()
-            self.index = index
-            self.retriever.index = index
+            if index is None:
+                if not self._staged:
+                    raise ValueError("swap_index() without an index needs a staged one "
+                                     "(stage_index)")
+                index = self._staged.pop(0)
+            if self._spmd and self.mesh_error is None:
+                self._broadcast_header(2, 0, (0, 0))
+            self._use_index(index)
             return drained
+
+    def _use_index(self, index: AnchorIndex) -> None:
+        self.index = index
+        self.retriever.index = index
 
     def _due(self) -> bool:
         if not self._pending:
@@ -268,13 +322,14 @@ class AdaCURService:
                         torch.cuda.current_stream(self.device).synchronize()
                     except RuntimeError as sync_err:
                         msg += f" (then, synchronizing the stream: {sync_err})"
-                if self._spmd:
-                    msg = self._fail_mesh(msg)
-                now = time.monotonic()
-                return [RetrievalResponse(query_id=r.query_id,
-                                          latency_s=now - r.arrival_t,
-                                          status="error", error=msg)
-                        for r in batch]
+            # outside the handler, so the failed search's frames (and the
+            # process groups they hold) are gone when the mesh is ended
+            if self._spmd:
+                msg = self._fail_mesh(msg)
+            now = time.monotonic()
+            return [RetrievalResponse(query_id=r.query_id, latency_s=now - r.arrival_t,
+                                      status="error", error=msg)
+                    for r in batch]
 
     def _flush_batch(self, batch: List[RetrievalRequest]) -> List[RetrievalResponse]:
         t0 = time.perf_counter()
@@ -293,6 +348,8 @@ class AdaCURService:
             raise RuntimeError(f"the mesh was torn down by an earlier batch: {self.mesh_error}")
         if self._spmd:
             self._announce(qids, sub)
+        batch_id = self._n_batches
+        self._n_batches += 1
         kw = {}
         if self.candidate_fn is not None:
             kw["candidate_idx"] = self.candidate_fn(qids)
@@ -324,27 +381,37 @@ class AdaCURService:
             self.batch_log.append(dict(rows=n_real, bucket=bucket, rounds=rounds,
                                        ce_calls=delta.ce_calls, pairs=delta.pairs,
                                        cache_hits=delta.cache_hits, batch_pad=delta.batch_pad,
-                                       seconds=time.perf_counter() - t0))
+                                       seconds=time.perf_counter() - t0, batch_id=batch_id,
+                                       query_ids=raw))
         now = time.monotonic()
         return [RetrievalResponse(
             query_id=r.query_id, item_ids=item_ids[i], scores=scores[i],
             latency_s=now - r.arrival_t, ce_calls=res.ce_calls,
             measured_ce_calls=measured, cache_hits=cache_hits, degraded=degraded,
-            rounds_completed=rounds,
+            rounds_completed=rounds, batch_id=batch_id, batch_row=i,
         ) for i, r in enumerate(batch)]
 
 
     # -- the sharded service's ranks ------------------------------------------
 
-    _HEADER = 4          # (op, bucket, key word 0, key word 1)
+    _HEADER = 4          # (op, bucket, key word 0, key word 1); op 0 stop, 1 batch, 2 swap
+
+    @property
+    def _group(self):
+        return _resolve_group(self._group_name)
+
+    @property
+    def _control(self):
+        return _resolve_group(self._control_name)
+
+    def _broadcast_header(self, op: int, bucket: int, key_words) -> None:
+        hdr = torch.tensor([op, bucket, *key_words], dtype=torch.int64, device=self.device)
+        dist.broadcast(hdr, src=self._leader, group=self._control)
 
     def _announce(self, qids: torch.Tensor, key) -> None:
-        """Rank 0: send one batch to the following ranks."""
-        k = key.to(torch.int64).reshape(-1).tolist()
-        hdr = torch.tensor([1, qids.shape[0], k[0], k[1]], dtype=torch.int64,
-                           device=self.device)
-        dist.broadcast(hdr, src=0)
-        dist.broadcast(qids.contiguous(), src=0)
+        """The leader: send one batch to the following ranks."""
+        self._broadcast_header(1, qids.shape[0], key.to(torch.int64).reshape(-1).tolist())
+        dist.broadcast(qids.contiguous(), src=self._leader, group=self._group)
 
     def _ranks_delta(self, before: Optional[ScorerStats]) -> Optional[ScorerStats]:
         """This batch's scorer counts summed over the ranks (every rank
@@ -354,39 +421,76 @@ class AdaCURService:
         d = self.scorer_stats - before
         t = torch.tensor([d.ce_calls, d.pairs, d.cache_hits, d.requests, d.batch_pad],
                          dtype=torch.int64, device=self.device)
-        dist.all_reduce(t)
+        dist.all_reduce(t, group=self._group)
         d.ce_calls, d.pairs, d.cache_hits, d.requests, d.batch_pad = t.tolist()
         return d
 
+    def _mesh_groups(self) -> list:
+        """The process groups this service's ranks share: its own group, its
+        control group and its index mesh's dimensions' (the world's, without
+        a group)."""
+        mesh = getattr(self.retriever, "index", None)
+        mesh = getattr(mesh, "mesh", None)
+        groups = [self._group, self._control] + (list(mesh.get_all_groups())
+                                                 if mesh is not None else [])
+        out = []
+        for g in groups:
+            if g is not None and all(g is not h for h in out):
+                out.append(g)
+        return out
+
     def _fail_mesh(self, msg: str) -> str:
-        """A sharded search raised on this rank: record why and tear the
-        world down (the first time), so every peer's pending or next
-        collective fails instead of waiting for this rank.  Returns the
-        message, with a failure of the teardown itself named beside it."""
-        if self.mesh_error is None:
-            self.mesh_error = msg
-            if dist.is_initialized():
-                try:
-                    dist.destroy_process_group()
-                except RuntimeError as err:
-                    msg += f" (then, tearing the world down: {err})"
+        """A sharded search raised on this rank: record why and end the
+        mesh's process groups (the first time), so every peer's pending or
+        next collective fails instead of waiting for this rank: the world
+        for a service over the world, else only the service's own groups
+        (a group's connections may close only when its last reference
+        goes, so the engine looks its groups up at each call and the caller
+        holds no failed search's frames; where a reference survives, the
+        groups' timeout bounds the peers' wait).  Returns the message, with a
+        failure of the teardown itself named beside it."""
+        if self.mesh_error is not None:
+            return msg
+        self.mesh_error = msg
+        if not dist.is_initialized():
+            return msg
+        try:
+            if self._group_name is None and self._control_name is None:
+                dist.destroy_process_group()
+                return msg
+            groups = self._mesh_groups()
+            self._group_name = self._control_name = None
+            # a DeviceMesh built from groups may keep them in a registry of
+            # its own (_pg_registry), which would keep their connections open
+            mesh = getattr(getattr(self.retriever, "index", None), "mesh", None)
+            for g in groups:
+                getattr(mesh, "_pg_registry", {}).pop(g.group_name, None)
+            gc.collect()
+            for g in groups:
+                dist.destroy_process_group(g)
+        except (RuntimeError, ValueError) as err:
+            msg += f" (then, ending the mesh's groups: {err})"
         return msg
 
     def follow(self) -> int:
-        """Ranks other than 0: run each batch rank 0 announces, until it
-        stops the followers.  Returns the number of batches run.  A failure
-        here, or rank 0's teardown after one of its own, tears the world
-        down and raises."""
+        """Ranks other than the leader: run each batch it announces, until
+        it stops the followers.  Returns the number of batches run.  A
+        failure here, or the leader's teardown after one of its own, ends
+        the mesh's groups and raises."""
         n = 0
+        failed = None
         try:
             while True:
                 hdr = torch.empty(self._HEADER, dtype=torch.int64, device=self.device)
-                dist.broadcast(hdr, src=0)
+                dist.broadcast(hdr, src=self._leader, group=self._control)
                 op, bucket, k0, k1 = hdr.tolist()
                 if op == 0:
                     return n
+                if op == 2:
+                    self._use_index(self._staged.pop(0))
+                    continue
                 qids = torch.empty(bucket, dtype=torch.int64, device=self.device)
-                dist.broadcast(qids, src=0)
+                dist.broadcast(qids, src=self._leader, group=self._group)
                 kw = {}
                 if self.candidate_fn is not None:
                     kw["candidate_idx"] = self.candidate_fn(qids)
@@ -397,16 +501,37 @@ class AdaCURService:
                 self.retriever.index.gather_item_ids(res.topk_idx)
                 self._ranks_delta(before)
                 n += 1
-        except Exception as e:
-            self._fail_mesh(f"{type(e).__name__}: {e}")
-            raise
+        except Exception as e:  # noqa: BLE001 — re-raised below, after the teardown
+            failed = _without_frames(e)
+        # outside the handler: the failed search's frames are gone
+        self._fail_mesh(f"{type(failed).__name__}: {failed}")
+        raise failed
 
     def stop_followers(self) -> None:
-        """Rank 0: end every other rank's :meth:`follow` (a world already
+        """The leader: end every other rank's :meth:`follow` (a mesh already
         torn down has no followers left)."""
-        if self._spmd and self.mesh_error is None:
-            dist.broadcast(torch.tensor([0, 0, 0, 0], dtype=torch.int64,
-                                        device=self.device), src=0)
+        with self._lock:
+            if self._spmd and self.mesh_error is None:
+                self._broadcast_header(0, 0, (0, 0))
+
+
+def _resolve_group(name: Optional[str]):
+    """The live process group named ``name`` (None: the world)."""
+    if name is None:
+        return None
+    from torch.distributed.distributed_c10d import _resolve_process_group
+    return _resolve_process_group(name)
+
+
+def _without_frames(e: BaseException) -> BaseException:
+    """``e`` with its traceback, and its context's, dropped: the frames of
+    a failed search hold its process groups."""
+    seen, x = set(), e
+    while x is not None and id(x) not in seen:
+        seen.add(id(x))
+        x.__traceback__ = None
+        x = x.__context__
+    return e
 
 
 DEFAULT_N_ITEMS = 10000

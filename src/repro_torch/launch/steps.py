@@ -55,6 +55,7 @@ from dataclasses import dataclass
 from typing import Callable, Optional
 
 import torch
+import torch.distributed as dist
 
 from ..configs import registry
 from ..configs.base import AdaCURConfig, LMConfig, LMShape, RecSysConfig, RecSysShape
@@ -559,24 +560,60 @@ def build_lm_prefill(arch_id: str, cfg: LMConfig, shape: LMShape, *, params=None
 
 def build_lm_decode(arch_id: str, cfg: LMConfig, shape: LMShape, *, params=None,
                     global_batch: Optional[int] = None, seed: int = 0,
-                    device=None) -> StepBundle:
+                    device=None, mesh=None) -> StepBundle:
     """``step(params, cache, token, pos) -> (logits (B, padded vocab),
     cache)``: one ``decode_step`` against a KV cache of ``seq_len`` entries,
     written in place at ``pos``.  ``args`` = (params, a zero cache
     (``init_cache``), seeded tokens (B,), ``pos`` = seq_len - 1 as a 0-d
     tensor: the new token attends over the whole cache).  ``model_flops``
-    = 2 x active parameters x B."""
+    = 2 x active parameters x B.
+
+    With ``mesh`` (a ``DeviceMesh``; every rank calls this) the step is
+    the reference's mesh decode: the cache's sequence over ``model`` and
+    the batch over the batch dimensions (``pod``, ``data``) that divide it
+    (at ``long_500k``, batch 1, the sequence over every dimension), through
+    ``make_decode_core``, and for a MoE config the experts over ``model``
+    (``make_moe_fn``, each rank holding its experts: ``moe.expert_slice``).
+    ``args`` are this rank's: its experts, its chunk of the cache, its rows
+    of the tokens, and the logits are those rows'.  The dense weights are
+    whole on every rank in this slice (their TP / FSDP placement comes with
+    the mesh's parameter specs, ``tree_specs``, in training over a mesh)."""
     dev = resolve_device(device)
     params = _lm_params(cfg, params, seed, dev)
     b, s = (shape.global_batch if global_batch is None else global_batch), shape.seq_len
+    token = lm_tokens(cfg, (b,), seed + 1, dev)
+    pos = torch.tensor(s - 1, dtype=torch.int32, device=dev)
+    hooks = {}
+    if mesh is not None:
+        from ..distributed import sharding
+        from ..distributed.collectives import _dims_group
+        from ..distributed.decode_attention import make_decode_core
+        from ..models import moe as moe_lib
+
+        dims = sharding.mesh_dims(mesh)
+        bp = sharding.batch_axes(mesh)
+        if shape.name == "long_500k":
+            batch_axes, seq_axes = (), bp + ("model",)
+        else:
+            batch_axes = tuple(a for a in bp if b % dims[a] == 0)
+            seq_axes = ("model",)
+        hooks["decode_core"] = make_decode_core(mesh, batch_axes, seq_axes, s, device=dev)
+        if cfg.moe is not None:
+            hooks["moe_fn"] = moe_lib.make_moe_fn(mesh, cfg.moe, batch_axes, device=dev)
+            params = dict(params)
+            for part in ("prefix", "layers"):
+                params[part] = [dict(lp, moe=moe_lib.expert_slice(lp["moe"], mesh))
+                                if "moe" in lp else lp for lp in params.get(part, [])]
+        n_b = sharding.axis_size(mesh, batch_axes) if batch_axes else 1
+        lo = (dist.get_rank(_dims_group(mesh, batch_axes)) * (b // n_b)) if batch_axes else 0
+        token = token[lo:lo + b // n_b]
+        b, s = b // n_b, hooks["decode_core"].local_len
 
     @torch.no_grad()
     def step(params, cache, token, pos):
-        return transformer.decode_step(params, cache, token, pos, cfg)
+        return transformer.decode_step(params, cache, token, pos, cfg, **hooks)
 
     cache = transformer.init_cache(cfg, b, s, device=dev)
-    token = lm_tokens(cfg, (b,), seed + 1, dev)
-    pos = torch.tensor(s - 1, dtype=torch.int32, device=dev)
     return StepBundle(f"{arch_id}:{shape.name}", step, (params, cache, token, pos),
                       2.0 * cfg.n_active_params() * b)
 

@@ -23,16 +23,20 @@ reference's function, and what the port does instead:
   and within fp32 rounding of the reference (which adds the same terms in
   slot order).
 
-The expert-parallel path (``make_moe_fn`` / ``moe_apply_ep``) waits for
-training over a mesh (ROADMAP.md, queue 1).
+The expert-parallel path (``make_moe_fn`` / ``moe_apply_ep``) splits the
+experts over a mesh dimension, one process per rank (``expert_slice``
+gives each rank its experts).
 """
 
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from ..configs.base import MoEConfig
+from ..distributed.collectives import _dims_group
+from ..distributed.sharding import check_mesh_device
 from ..kernels.approx_topk.select import stable_topk
 from . import layers
 
@@ -77,21 +81,27 @@ def _expert_ffn(wg, wu, wd, xin: torch.Tensor) -> torch.Tensor:
 
 
 def _dispatch_compute_combine(x: torch.Tensor, top_e: torch.Tensor, top_p: torch.Tensor,
-                              wg, wu, wd, capacity: int) -> torch.Tensor:
-    """Sort-based dispatch over every expert (one device): static shapes,
-    assignments past an expert's ``capacity`` dropped."""
+                              wg, wu, wd, capacity: int, expert_offset: int = 0) -> torch.Tensor:
+    """Sort-based dispatch over the experts ``wg`` holds, global ids
+    ``expert_offset ..`` (all of them on one device): static shapes,
+    assignments past an expert's ``capacity`` dropped, assignments to
+    another rank's experts left to that rank.  Returns the (T, d) sum of
+    this rank's expert outputs in fp32."""
     t, d = x.shape
     k = top_e.shape[1]
     n_exp = wg.shape[0]
     n_slots = n_exp * capacity
     dev = x.device
-    e_flat = top_e.reshape(-1)                                    # (T*k,)
+    e_flat = top_e.reshape(-1) - expert_offset                    # (T*k,) local ids
+    # another rank's experts sort into one bucket past the local ones, so
+    # each local expert's assignments keep their arrival positions
+    e_flat = torch.where((e_flat >= 0) & (e_flat < n_exp), e_flat, n_exp)
     order = torch.sort(e_flat, stable=True).indices               # by (expert, arrival)
     e_sorted = e_flat[order]
-    counts = torch.bincount(e_sorted, minlength=n_exp)
+    counts = torch.bincount(e_sorted, minlength=n_exp + 1)
     starts = torch.cumsum(counts, 0) - counts
     pos = torch.arange(t * k, device=dev) - starts[e_sorted]
-    keep = pos < capacity
+    keep = (pos < capacity) & (e_sorted < n_exp)
     slot_sorted = torch.where(keep, e_sorted * capacity + pos, n_slots)
     # each assignment's slot (n_slots: dropped), back in (token, choice) order
     slot = torch.empty_like(slot_sorted).scatter_(0, order, slot_sorted).reshape(t, k)
@@ -109,7 +119,7 @@ def _dispatch_compute_combine(x: torch.Tensor, top_e: torch.Tensor, top_p: torch
     y = torch.zeros((t, d), dtype=torch.float32, device=dev)
     for j in range(k):
         y += (out[slot[:, j]] * w[:, j:j + 1]).float()
-    return y.to(x.dtype)
+    return y
 
 
 def moe_apply_local(params, x: torch.Tensor, cfg: MoEConfig, capacity_factor: float = None):
@@ -119,7 +129,85 @@ def moe_apply_local(params, x: torch.Tensor, cfg: MoEConfig, capacity_factor: fl
     t, _ = x.shape
     top_e, top_p, aux = _route(params, x, cfg)
     cap = _capacity(t, cfg, capacity_factor or cfg.capacity_factor)
-    y = _dispatch_compute_combine(x, top_e, top_p, params["wg"], params["wu"], params["wd"], cap)
+    y = _dispatch_compute_combine(x, top_e, top_p, params["wg"], params["wu"], params["wd"],
+                                  cap).to(x.dtype)
     if "shared" in params:
         y = y + layers.mlp_apply(params["shared"], x, "swiglu")
+    return y, aux
+
+
+def expert_slice(params, mesh, ep_axis: str = "model") -> dict:
+    """This rank's part of MoE ``params`` for ``make_moe_fn``: the experts
+    ``wg`` / ``wu`` / ``wd`` split evenly over ``ep_axis`` (rank i of the
+    dimension holds experts [i * E / n, (i + 1) * E / n)), the router and
+    the shared experts whole."""
+    group = _dims_group(mesh, (ep_axis,))
+    n, r = dist.get_world_size(group), dist.get_rank(group)
+    e = params["wg"].shape[0]
+    if e % n:
+        raise ValueError(f"{e} experts do not split over {n} ranks of '{ep_axis}'")
+    lo, hi = r * e // n, (r + 1) * e // n
+    return {k: (v[lo:hi].clone() if k in ("wg", "wu", "wd") else v) for k, v in params.items()}
+
+
+def make_moe_fn(mesh, cfg: MoEConfig, batch_axes, ep_axis: str = "model",
+                capacity_factor: float = None, scatter_tokens: bool = False, device=None):
+    """The expert-parallel MoE for ``transformer._mlp_block``:
+    ``moe_fn(params, x) -> (y, aux)`` with this rank's experts
+    (``expert_slice``) and its tokens x (T_local, d): tokens split over
+    ``batch_axes`` (the caller hands each rank its rows) and whole over
+    ``ep_axis``, so dispatch needs no collective.  Each rank runs its
+    experts on the tokens routed to them, and the combine is one all-reduce
+    over ``ep_axis`` (y (T_local, d)); with ``scatter_tokens`` it is a
+    reduce-scatter, y is this rank's chunk of T_local / n_ep token rows
+    (row-major over ``ep_axis``), and the shared experts run once on that
+    chunk.  ``aux`` (per data group, GShard's definition) is averaged over
+    every mesh dimension.
+
+    The local path adds a token's slots in ascending slot order; the
+    all-reduce adds the ranks' partial sums in its own order, so y equals
+    the single-device MoE to fp32 rounding, not bit for bit.  The partial
+    sums are fp32 and y is cast to x's dtype once.  ``device`` is the card
+    unless the caller passes ``"cpu"`` (the device rule)."""
+    check_mesh_device(mesh, device)
+    ep_group = _dims_group(mesh, (ep_axis,))
+    all_group = _dims_group(mesh, tuple(mesh.mesh_dim_names))
+    n_ep, ep_rank = dist.get_world_size(ep_group), dist.get_rank(ep_group)
+    n_all = dist.get_world_size(all_group)
+
+    def moe_fn(params, x):
+        y, aux = moe_apply_ep(params, x, cfg, ep_group, ep_rank, n_ep, capacity_factor,
+                              scatter_tokens)
+        aux = aux.reshape(1).clone()
+        dist.all_reduce(aux, group=all_group)
+        return y, (aux / n_all)[0]
+
+    return moe_fn
+
+
+def moe_apply_ep(params, x: torch.Tensor, cfg: MoEConfig, ep_group, ep_rank: int, n_ep: int,
+                 capacity_factor: float = None, scatter_tokens: bool = False):
+    """The expert-parallel body on one rank: its experts (global ids from
+    ``ep_rank * E_local``) over its tokens x (T_local, d), combined over
+    ``ep_group`` -> (y, this data group's aux)."""
+    t, d = x.shape
+    top_e, top_p, aux = _route(params, x, cfg)
+    cap = _capacity(t, cfg, capacity_factor or cfg.capacity_factor)
+    y = _dispatch_compute_combine(x, top_e, top_p, params["wg"], params["wu"], params["wd"],
+                                  cap, expert_offset=ep_rank * params["wg"].shape[0])
+    if scatter_tokens:
+        if t % n_ep:
+            raise ValueError(f"{t} tokens do not scatter over {n_ep} ranks")
+        chunk = t // n_ep
+        part = torch.empty((chunk, d), dtype=y.dtype, device=y.device)
+        dist.reduce_scatter_tensor(part, y.contiguous(), group=ep_group)
+        y = part.to(x.dtype)
+        if "shared" in params:
+            y = y + layers.mlp_apply(params["shared"],
+                                     x[ep_rank * chunk:(ep_rank + 1) * chunk], "swiglu")
+    else:
+        dist.all_reduce(y, group=ep_group)
+        y = y.to(x.dtype)
+        if "shared" in params:
+            y = y + layers.mlp_apply(params["shared"], x, "swiglu")
     return y, aux

@@ -13,8 +13,9 @@ with ``wq``/``wk``/``wv`` (d, heads, hd) and ``wo`` (H, hd, d),
 The reference stacks ``layers`` on a leading axis for ``lax.scan``;
 ``convert.lm_params`` unstacks them.  A KV cache follows the same layout:
 ``{"layers": [{"k", "v"}, ...], "prefix": [...]}``, each (B, S, KV, hd).
-The reference's pluggable ``moe_fn`` / ``decode_core`` (its mesh paths),
-remat and the sharding constraints are not ported (ROADMAP.md, queue 1).
+The reference's pluggable ``moe_fn`` / ``decode_core`` (its mesh paths)
+are ``encode``'s and ``decode_step``'s keywords; remat and the sharding
+constraints wait for training over a mesh (ROADMAP.md, queue 1).
 """
 
 from __future__ import annotations
@@ -118,10 +119,13 @@ def _project_qkv(cfg: LMConfig, attn, x, rope):
     return layers.rotate(q, *rope), layers.rotate(k, *rope), v
 
 
-def _mlp_block(cfg: LMConfig, layer_params, x2d):
+def _mlp_block(cfg: LMConfig, layer_params, x2d, moe_fn=None):
     """FFN of (T, d) tokens -> ((T, d), aux loss): the layer's MoE or dense
-    MLP."""
+    MLP.  ``moe_fn(params, x)`` replaces the single-device MoE (the
+    expert-parallel ``moe.make_moe_fn``)."""
     if "moe" in layer_params:
+        if moe_fn is not None:
+            return moe_fn(layer_params["moe"], x2d)
         return moe_lib.moe_apply_local(layer_params["moe"], x2d, cfg.moe)
     p = layer_params["mlp"]
     zero = torch.zeros((), device=x2d.device)
@@ -135,20 +139,20 @@ def _out_proj(o, wo):
     return o.reshape(*o.shape[:-2], -1) @ wo.reshape(-1, wo.shape[-1])
 
 
-def _encode_layer(cfg: LMConfig, attn_fn, h, lp, rope):
+def _encode_layer(cfg: LMConfig, attn_fn, h, lp, rope, moe_fn=None):
     b, l, d = h.shape
     x = _apply_norm(cfg, lp["ln1"], h)
     q, k, v = _project_qkv(cfg, lp["attn"], x, rope)
     h = h + _out_proj(attn_fn(q, k, v), lp["attn"]["wo"])
     x2 = _apply_norm(cfg, lp["ln2"], h).reshape(b * l, d)
-    ffn, aux = _mlp_block(cfg, lp, x2)
+    ffn, aux = _mlp_block(cfg, lp, x2, moe_fn)
     return h + ffn.reshape(b, l, d), (k, v, aux)
 
 
 def encode(params, tokens: torch.Tensor, cfg: LMConfig, *, positions=None,
            kv_mask=None, q_chunk: int = 1024, return_kv: bool = False,
            attn_impl: str = "ref", flash_block: Tuple[int, int] = (128, 128),
-           flash_interpret: bool = True):
+           flash_interpret: bool = True, moe_fn=None):
     """Full forward pass -> (hidden (B, L, d), aux loss[, kv]).
 
     The aux loss is the MoE layers' load-balance terms summed (0 for a
@@ -161,7 +165,8 @@ def encode(params, tokens: torch.Tensor, cfg: LMConfig, *, positions=None,
     then describe trailing padding only, and is collapsed to per-example
     ``kv_lens = kv_mask.sum(-1)``.  ``flash_block`` shapes only the plain
     version's tiles; ``flash_interpret`` has no effect in the port (kept so
-    one kwargs dict drives both packages).
+    one kwargs dict drives both packages).  ``moe_fn`` replaces the MoE
+    layers' single-device FFN (``_mlp_block``).
     """
     b, l = tokens.shape
     if positions is None:
@@ -188,7 +193,7 @@ def encode(params, tokens: torch.Tensor, cfg: LMConfig, *, positions=None,
     kvs = {"prefix": [], "layers": []}
     for part in ("prefix", "layers"):
         for lp in params.get(part, []):
-            h, (k, v, aux) = _encode_layer(cfg, attn_fn, h, lp, rope)
+            h, (k, v, aux) = _encode_layer(cfg, attn_fn, h, lp, rope, moe_fn)
             aux_total = aux_total + aux
             if return_kv:
                 kvs[part].append((k, v))
@@ -244,18 +249,22 @@ def _local_decode_core(q, k_new, v_new, ck, cv, pos):
     return (num / (den[..., None] + 1e-30)).to(q.dtype)
 
 
-def _decode_layer(cfg: LMConfig, h, lp, c, pos, rope):
+def _decode_layer(cfg: LMConfig, h, lp, c, pos, rope, moe_fn=None,
+                  decode_core=_local_decode_core):
     """One decode layer: h (B, d); c the layer's cache {"k", "v"} (B, S,
-    KV, hd), written in place."""
+    KV, hd), written in place.  ``decode_core`` is pluggable: the local
+    core above or the sequence-parallel one
+    (``distributed.decode_attention.make_decode_core``)."""
     x = _apply_norm(cfg, lp["ln1"], h)
     q, k, v = _project_qkv(cfg, lp["attn"], x[:, None, :], rope)
-    o = _local_decode_core(q[:, 0], k[:, 0], v[:, 0], c["k"], c["v"], pos)
+    o = decode_core(q[:, 0], k[:, 0], v[:, 0], c["k"], c["v"], pos)
     h = h + _out_proj(o, lp["attn"]["wo"])
-    ffn, _ = _mlp_block(cfg, lp, _apply_norm(cfg, lp["ln2"], h))
+    ffn, _ = _mlp_block(cfg, lp, _apply_norm(cfg, lp["ln2"], h), moe_fn)
     return h + ffn
 
 
-def decode_step(params, cache: dict, token: torch.Tensor, pos, cfg: LMConfig):
+def decode_step(params, cache: dict, token: torch.Tensor, pos, cfg: LMConfig, *,
+                moe_fn=None, decode_core=None):
     """One autoregressive step: token (B,) int at position ``pos`` (an int or
     a 0-d tensor) -> (logits (B, padded vocab), cache).
 
@@ -263,9 +272,15 @@ def decode_step(params, cache: dict, token: torch.Tensor, pos, cfg: LMConfig):
     reference returns an updated copy; a preallocated cache here holds the
     one copy a long context has room for), and the same dict is returned.
     ``pos`` must lie inside the cache (checked when it is an int; a tensor
-    is not read back to the host)."""
+    is not read back to the host).  ``moe_fn`` and ``decode_core`` are the
+    reference's mesh hooks: on a mesh each rank passes its batch rows, its
+    chunk of the cache and its experts (``launch.steps.build_lm_decode``
+    with ``mesh=``)."""
     dev = token.device
-    size = (cache.get("prefix") or cache["layers"])[0]["k"].shape[1]
+    if decode_core is None:
+        decode_core = _local_decode_core
+    size = getattr(decode_core, "seq_len",
+                   (cache.get("prefix") or cache["layers"])[0]["k"].shape[1])
     if isinstance(pos, int) and not 0 <= pos < size:
         raise ValueError(f"pos={pos} lies outside a cache of {size} entries")
     pos = torch.as_tensor(pos, device=dev).long().reshape(())
@@ -273,6 +288,6 @@ def decode_step(params, cache: dict, token: torch.Tensor, pos, cfg: LMConfig):
     rope = layers.rope_tables(pos.reshape(1, 1), cfg.resolved_head_dim, cfg.rope_theta)
     for part in ("prefix", "layers"):
         for lp, c in zip(params.get(part, []), cache.get(part, [])):
-            h = _decode_layer(cfg, h, lp, c, pos, rope)
+            h = _decode_layer(cfg, h, lp, c, pos, rope, moe_fn, decode_core)
     h = _apply_norm(cfg, params["final_norm"], h)
     return lm_logits(params, h, cfg), cache

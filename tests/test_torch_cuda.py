@@ -1253,3 +1253,101 @@ def test_recsys_models_on_the_card_match_the_cpu(dev, arch):
                                   params=tree_map(lambda t: t.detach().to(dev).clone(), cpu_p))
     _, _, met = tb.step(tb.args[0], tb.args[1], {k: v.to(dev) for k, v in batch.items()})
     assert abs(float(met["loss"]) - pl) <= 1e-5 * abs(pl)
+
+
+# -- the mesh primitives ----------------------------------------------------
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_compression_codes_on_the_card_equal_the_cpus(dev, seed):
+    """int8 codes bit for bit, scales equal, and the top-k kept sets equal
+    (ties included), on the card as on the CPU."""
+    from repro_torch.distributed import compression
+
+    g = torch.randn((257, 33), generator=torch.Generator().manual_seed(seed))
+    g[3, :5] = g.abs().max()                       # ties at the top
+    q, s = compression.int8_quantize(g)
+    qc, sc = compression.int8_quantize(g.to(dev))
+    assert torch.equal(qc.cpu(), q) and float(sc) == float(s)
+    err = compression.init_error_feedback({"g": g})
+    for frac in (0.01, 0.1):
+        kept, _ = compression.topk_sparsify_with_feedback({"g": g}, err, frac)
+        kc, _ = compression.topk_sparsify_with_feedback(
+            {"g": g.to(dev)}, {"g": err["g"].to(dev)}, frac)
+        assert torch.equal(kc["g"].cpu() != 0, kept["g"] != 0)
+        assert torch.equal(kc["g"].cpu(), kept["g"])
+
+
+DECODE_CORE = dict(b=4, s=64, kv=2, h=4, hd=16, pos=37)
+
+
+def _decode_core_rank(out_dir: str) -> None:
+    """One rank of a 4-rank gloo world on the card: the decode core over a
+    (data 2 x model 2) card mesh and a CPU mesh of the same world, both
+    layouts, on seeded inputs."""
+    import os
+
+    import torch.distributed as dist
+
+    from repro_torch.distributed.decode_attention import make_decode_core
+    from repro_torch.launch.mesh import make_mesh
+
+    d = DECODE_CORE
+    rng = np.random.default_rng(0)
+    x = {k: torch.tensor(rng.standard_normal(shape).astype(np.float32)) for k, shape in (
+        ("q", (d["b"], d["h"], d["hd"])), ("k", (d["b"], d["kv"], d["hd"])),
+        ("v", (d["b"], d["kv"], d["hd"])), ("ck", (d["b"], d["s"], d["kv"], d["hd"])),
+        ("cv", (d["b"], d["s"], d["kv"], d["hd"])))}
+    meshes = {"cuda": make_mesh((2, 2), ("data", "model"), backend="gloo")}
+    meshes["cpu"] = make_mesh((2, 2), ("data", "model"), device="cpu", backend="gloo")
+    rank = dist.get_rank()
+    out = {}
+    for name, mesh in meshes.items():
+        device = torch.device("cuda", 0) if name == "cuda" else torch.device("cpu")
+        for layout, batch_axes, seq_axes in (("data/model", ("data",), ("model",)),
+                                             ("long_500k", (), ("data", "model"))):
+            core = make_decode_core(mesh, batch_axes, seq_axes, d["s"], device=device.type)
+            rows = slice(rank // 2 * 2, rank // 2 * 2 + 2) if batch_axes else slice(None)
+            cols = slice(core.offset, core.offset + core.local_len)
+            o = core(*(x[k][rows].to(device) for k in ("q", "k", "v")),
+                     x["ck"][rows, cols].to(device).clone(),
+                     x["cv"][rows, cols].to(device).clone(), torch.tensor(d["pos"]))
+            out[(name, layout)] = (o.cpu(), rows)
+    torch.save(dict(out=out, inputs=x), os.path.join(out_dir, f"rank{rank}.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def test_decode_core_combine_on_the_card_equals_the_cpus(dev, tmp_path):
+    """The sequence-parallel decode core's LSE combine over 4 gloo ranks on
+    the card (CUDA tensors) against the same world's CPU mesh and against
+    the local core on the card, within the reference's 2e-4."""
+    import os
+    import sys
+
+    from repro_torch.models import transformer
+    from repro_torch.testing import run_world
+
+    ranks = run_world([sys.executable, __file__, "decode-core", str(tmp_path)], 4, 240,
+                      env=dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parents[1]
+                                                          / "src")))
+    for r, (rc, o, e) in enumerate(ranks):
+        assert rc == 0, f"rank {r} exited {rc}\n{o}\n{e[-4000:]}"
+    res = [torch.load(tmp_path / f"rank{r}.pt", weights_only=False) for r in range(4)]
+    x = res[0]["inputs"]
+    want = transformer._local_decode_core(
+        *(x[k].to(dev) for k in ("q", "k", "v")), x["ck"].to(dev).clone(),
+        x["cv"].to(dev).clone(), torch.tensor(DECODE_CORE["pos"], device=dev)).cpu()
+    for r in res:
+        for layout in ("data/model", "long_500k"):
+            card, rows = r["out"][("cuda", layout)]
+            cpu, _ = r["out"][("cpu", layout)]
+            assert torch.allclose(card, cpu, rtol=2e-4, atol=2e-4), layout
+            assert torch.allclose(card, want[rows], rtol=2e-4, atol=2e-4), layout
+
+
+if __name__ == "__main__":
+    import sys
+
+    if len(sys.argv) == 3 and sys.argv[1] == "decode-core":
+        _decode_core_rank(sys.argv[2])

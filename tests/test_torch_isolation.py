@@ -43,7 +43,9 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
             "repro_torch.configs.moonshot_v1_16b_a3b", "repro_torch.configs.bst",
             "repro_torch.configs.bert4rec", "repro_torch.configs.mind",
             "repro_torch.models.recsys.bst", "repro_torch.models.recsys.bert4rec",
-            "repro_torch.models.recsys.mind"} <= set(mods)
+            "repro_torch.models.recsys.mind", "repro_torch.distributed.compression",
+            "repro_torch.distributed.cross_pod", "repro_torch.distributed.decode_attention",
+            "repro_torch.distributed.pipeline"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(n for n in sys.modules if n == 'jax' or n.startswith('jax.')"
@@ -180,6 +182,40 @@ def test_sharded_entry_points_refuse_to_fall_back_to_the_cpu(monkeypatch, tmp_pa
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve.main(["--mesh", "1x1", "--batch", "4", "--requests", "1"])
     assert not torch.distributed.is_initialized()
+
+
+def test_mesh_entry_points_refuse_to_fall_back_to_the_cpu(monkeypatch, tmp_path):
+    """The sequence-parallel decode core, the expert-parallel MoE, the
+    pipeline, the cross-pod reduce, the sharded save of an index over a
+    card mesh and the replica meshes the router serves land on the card
+    unless the caller asks for the CPU: without a card they raise before any
+    process group exists."""
+    from repro_torch.configs.base import MoEConfig
+    from repro_torch.core.index import AnchorIndex
+    from repro_torch.distributed.cross_pod import make_hierarchical_grad_reduce
+    from repro_torch.distributed.decode_attention import make_decode_core
+    from repro_torch.distributed.pipeline import pipeline_forward
+    from repro_torch.launch.mesh import make_replica_meshes
+    from repro_torch.models.moe import make_moe_fn
+
+    class CardMesh:            # a card mesh's face
+        device_type = "cuda"
+        mesh_dim_names = ("data", "items")
+        shape = (1, 1)
+
+    index = AnchorIndex.from_r_anc(torch.ones(4, 8))
+    sharded = AnchorIndex(**{**index.__dict__, "mesh": CardMesh(), "item_axes": ("items",)})
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (lambda: make_decode_core(CardMesh(), ("data",), ("items",), 8),
+                 lambda: make_moe_fn(CardMesh(), MoEConfig(4, 2, 8), ("data",), "items"),
+                 lambda: pipeline_forward(CardMesh(), lambda p, x: x, "data", 2),
+                 lambda: make_hierarchical_grad_reduce(CardMesh()),
+                 lambda: sharded.save(str(tmp_path / "sharded")),
+                 lambda: make_replica_meshes(2, 1, 1)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    assert not torch.distributed.is_initialized()
+    assert not (tmp_path / "sharded").exists()
 
 
 def test_training_entry_points_refuse_to_fall_back_to_the_cpu(monkeypatch, tmp_path):
