@@ -9,7 +9,9 @@ Run from the repository root on a machine with an NVIDIA H100:
 Phases (one JSON line each):
 
 1. ``env``: torch/CUDA versions, the card's name and power limit, kernel
-   build seconds and ptxas resource lines, the count of ``HGMMA``
+   build seconds (the whole and each nvcc's, ``nvcc_s``: the top-k sources
+   build by payload kinds into several libraries, side by side) and ptxas
+   resource lines, the count of ``HGMMA``
    instructions in the flash library's SASS (``cuobjdump -sass``), and the
    card's ``mma.sync`` TF32 rate (a register-only loop of
    ``mma.sync.m16n8k8`` TF32 on every SM, built beside the kernels): the
@@ -84,7 +86,9 @@ Phases (one JSON line each):
    one terminal outcome per request, ``router.stats`` adds up, CE = plan x
    bucket per batch.  Then degraded answers bitwise equal to
    ``search(n_rounds=rounds_completed)`` (prefix consistency), under a
-   faulthandler watchdog.
+   faulthandler watchdog.  Each scenario row carries the host's load
+   averages before and after it and this process's CPU seconds per wall
+   second, to attribute a latency gate's failure.
 4e. ``sharded``: the sharded engine on one card.  The serve domain's index
    (N = 10^6, k_q = 500) is saved to local disk and loaded by a 2 (data) x
    2 (items) world of ranks on ``cuda:0`` (gloo over CUDA tensors; NCCL
@@ -111,7 +115,13 @@ Phases (one JSON line each):
    bit-equal to the single-device index of the same capacity and
    ``index_meta.json`` equal (``sharded_saves``, with the save's GB/s).
    The gloo probe also tries the uneven all-to-all (the pipeline's shift)
-   and, last, ``send`` / ``recv`` of a CUDA tensor.
+   and, last, ``send`` / ``recv`` of a CUDA tensor.  The real-CE mesh,
+   which is timed, runs alone (``real_ce_mesh.world_s``); the two probe
+   worlds and the CLI, which are not, run side by side
+   (``side_worlds_s``).  The 2 x 2 world is spawned once
+   (``--rank-worker worlds``) and runs the router_sharded and mesh drives
+   after its own (``world_s`` covers all three); their phases read their
+   ranks' results.
 4e'. ``router_sharded``: the ``Router`` over two sharded replicas of 1
    (data) x 2 (items) on 4 gloo ranks (rank 0 leads replica 0 and reaches
    replica 1's leader through ``RemoteReplica``), over the serve index
@@ -158,6 +168,8 @@ Phases (one JSON line each):
    plain, library (``F.embedding_bag``) and bound times.  H=1 must be
    bitwise equal; fp32 within 1e-5 abs + 1e-5 rel, bf16 1e-6 + 2^-7 (one
    ulp).
+   (d) NequIP's sender gather at ogb_products: a chunk of 262,144 rows
+   of its 2,449,408 x 416 fp32 node table.
 9a. ``kernel:embedding_bag_backward``: the bag's backward kernel (training's
     gradient of the tables; deterministic, no floating-point atomics)
     against its plain version (``index_add_`` in lookup order) for one DLRM
@@ -168,7 +180,15 @@ Phases (one JSON line each):
     additions) and across two calls; kernel, plain, library (``zeros`` +
     ``index_add_``) and bound times.  The bound is the dense gradient
     written, grad_out and the ids read (``bound_touched_ms``: the touched
-    rows only).
+    rows only).  NequIP's scatter at ogb_products: (d) a receiver-sorted
+    chunk of 262,144 messages of 416 floats into its 10,380 rows, (e) the
+    same chunk into the whole 2,449,408-row table.
+9b. ``kernel:tensor_product``: NequIP's messages (``cases``) and their
+    gradient (``backward_cases``, dx and dw) against the plain versions at
+    (a) a chunk of 262,144 edges at d_hidden 32, (b) the molecule batch's
+    8,192 edges, (c) 3,000 edges at d_hidden 4: within 1e-5 of the largest
+    |value|, bitwise across two calls; kernel, plain and bound times (no
+    library call computes the function).
 10. ``recsys_serve``: ``dlrm-mlperf`` at full width with every table capped
     at 2^24 rows (45.0 GB of fp32 tables on the card), the serve_p99
     (B=512) and serve_bulk (B=262,144) steps of ``build_recsys_serve``:
@@ -237,6 +257,19 @@ Phases (one JSON line each):
     4,096) at the largest batch, a multiple of 8, that fits in 80% of the
     card (found from the peak memory of one step at B = 1 and 2): step ms,
     tokens/s, peak memory.
+13a. ``gnn``: NequIP at the published config (5 layers, d_hidden 32,
+    l_max 2, 8 radial bases, cutoff 5.0), fp32, seeded weights, on all four
+    ``GNN_SHAPES`` at full size, each graph drawn on the card with
+    ``random_graph``'s law (minibatch_lg: the 232,965 / 114,615,892 graph,
+    its CSR built on the card and copied to the host, one fanout-15-10
+    subgraph of 1,024 seeds sampled there and padded to 196,608): one
+    warm-up, 5 timed steps (ogb_products: 2), a profiled step (busy share,
+    the gather's, scatter's and tensor product's shares), peak memory,
+    TFLOP/s against ``model_flops``, the edges inside the cutoff, the
+    sampler's host seconds; gates: every loss finite, two runs of two
+    steps bitwise on full_graph_sm, molecule and minibatch_lg, and card vs
+    CPU at ``smoke_config`` on one numpy graph (loss 1e-5 relative,
+    gradients and forces 1e-4 of the largest).
 14. ``lm``: the LM family at full width in bf16 with seeded random weights
     drawn on the card (one line an arch, ``lm:<arch>``): qwen3-8b,
     starcoder2-3b, granite-moe-1b-a400m and moonshot-v1-16b-a3b (56.8 GB
@@ -275,8 +308,9 @@ Phases (one JSON line each):
     tokens, 32/8 heads, hd 128, non-causal) and on a real call's first and
     last layers' q, k, v.
 
-15. ``mesh``: the reference's four distributed primitives on 4 gloo ranks
-    (``rank_worker("mesh")``): (i) granite-moe-1b-a400m decode_32k on
+15. ``mesh`` (after ``router_sharded``; on the sharded phase's world): the
+    reference's four distributed primitives on 4 gloo ranks
+    (``mesh_worker``): (i) granite-moe-1b-a400m decode_32k on
     data 2 x model 2 (batch on data, the cache's sequence and the experts
     on model: ``build_lm_decode(mesh=)``), its fp32 logits at 4 of 24
     layers and 4 rows on a seeded cache within 2e-4 of the largest |logit|
@@ -308,9 +342,9 @@ import argparse
 import contextlib
 import ctypes
 import json
-import math
 import os
 import re
+import resource
 import subprocess
 import sys
 import time
@@ -331,6 +365,10 @@ REPLACES = {
     # the bag's gradient: the TPU kernel has no backward, the reference
     # differentiates its gather (jnp.take) with XLA's scatter-add
     "embedding_bag_backward": "src/repro/kernels/embedding_bag/kernel.py:26",
+    # NequIP's messages and their gradient: no TPU kernel, the reference's
+    # jnp einsums (`messages`), which XLA fuses, and their autodiff
+    "tensor_product": "src/repro/models/gnn/nequip.py:257",
+    "tensor_product_backward": "src/repro/models/gnn/nequip.py:257",
 }
 CUPTI_BOOKKEEPING = ("Command Buffer Full", "Buffer Flush", "Activity Buffer Request")
 SOURCES = {
@@ -339,6 +377,8 @@ SOURCES = {
     "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
     "embedding_bag": "src/repro_torch/csrc/embedding_bag.cu",
     "embedding_bag_backward": "src/repro_torch/csrc/embedding_bag.cu",
+    "tensor_product": "src/repro_torch/csrc/tensor_product.cu",
+    "tensor_product_backward": "src/repro_torch/csrc/tensor_product.cu",
 }
 # kernel_ms of the earlier CUDA-core design of the two top-k kernels (fp32
 # FMA tiles, one-at-a-time list inserts) at the serving shape, recorded on
@@ -801,6 +841,55 @@ def sharded_slabs(e_q, payloads, anchors):
         del slab, mask
 
 
+def profile_trace(fn, sums=()) -> dict:
+    """``profile_call``'s numbers for a call of many launches (a NequIP step
+    at ogb_products: ~2.5 x 10^4 kernels), read from the profiler's Chrome
+    trace of the device's activity alone: the trace is written by the
+    profiler's C++ side, where building Python events for every kernel
+    takes tens of seconds.  A trace with no device activity is read the
+    slow way instead (``profile_call``, one more call)."""
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            trace = json.load(f)
+    events = trace["traceEvents"] if isinstance(trace, dict) else trace
+    dev = [(float(e["ts"]), float(e["dur"]), e["cat"], e.get("name", ""))
+           for e in events if e.get("ph") == "X"
+           and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    if not dev:
+        return profile_call(fn, sums)
+    by_key = {}
+    for _, dur, cat, name in dev:
+        us, n = by_key.get(name, (0.0, 0))
+        by_key[name] = (us + dur, n + 1)
+    rows = sorted(((us, k, n) for k, (us, n) in by_key.items()), reverse=True)
+    busy_us, end = 0.0, float("-inf")
+    for start, dur, _, _ in sorted(dev):
+        if start + dur > end:
+            busy_us += start + dur - max(start, end)
+            end = start + dur
+    busy_ms = busy_us / 1e3
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "device_busy_share": busy_ms / wall_ms if wall_ms else None,
+            "device_ms_summed": sum(r[0] for r in rows) / 1e3,
+            "device_launches": sum(1 for e in dev if e[2] == "kernel"),
+            "top": [{"name": k[:90], "ms": us / 1e3, "calls": c} for us, k, c in rows[:12]],
+            **({"ms_by_name": {part: sum(r[0] for r in rows if part in r[1]) / 1e3
+                               for part in sums}} if sums else {})}
+
+
 def profile_call(fn, sums=()) -> dict:
     """One call under torch.profiler: device time by kernel name, the
     device-busy share of the call's wall time (the union of the kernels'
@@ -915,7 +1004,8 @@ def serve_config(ce, index, payload, round_kernel, gt, launches, fp32_bytes, n_i
     expect = ({"approx_topk": 5 * n_search, "persistent_round": 0}
               if round_kernel == "staged"
               else {"approx_topk": n_search, "persistent_round": 4 * n_search})
-    expect.update(flash_attention=0, embedding_bag=0, embedding_bag_backward=0)
+    expect.update(flash_attention=0, embedding_bag=0, embedding_bag_backward=0, tensor_product=0,
+                  tensor_product_backward=0)
     check(counts == expect, f"serve {label}: launches {counts}, expected {expect}")
     for name in launches:
         launches[name][payload] += counts[name]
@@ -1473,13 +1563,24 @@ def run_router(name, services, cfg, qids, router_kw, rate=None, seed=0, deadline
             before_drive(router)
         torch.cuda.synchronize()
         kernels.reset_launches()
+        load_before, cpu_before = os.getloadavg(), resource.getrusage(resource.RUSAGE_SELF)
+        t0 = time.perf_counter()
         tickets, outs, wall, swapped = drive_router(router, qids, rate, seed, deadline_s)
         torch.cuda.synchronize()
+        host_wall = time.perf_counter() - t0
+        cpu_after = resource.getrusage(resource.RUSAGE_SELF)
         launches = kernels.launch_counts()
     finally:
         router.close()
-    return router_gates(name, router, cfg, tickets, outs, wall, launches), router, tickets, \
-        outs, swapped
+    row = router_gates(name, router, cfg, tickets, outs, wall, launches)
+    # what the host was doing beside the scenario, to attribute a latency
+    # gate's failure: the load averages (1, 5, 15 min) before and after, and
+    # this process's CPU seconds (user + system, all threads) per wall second
+    cpu_s = (cpu_after.ru_utime - cpu_before.ru_utime) + (cpu_after.ru_stime
+                                                          - cpu_before.ru_stime)
+    row.update(host_loadavg_before=list(load_before), host_loadavg_after=list(os.getloadavg()),
+               process_cpu_s_per_wall_s=cpu_s / host_wall)
+    return row, router, tickets, outs, swapped
 
 
 MID_SEARCH_ATTEMPTS = 8
@@ -1869,12 +1970,14 @@ def phase_engine_cpu_vs_card(dev):
                   f"early exit: card {card.rounds_done} rounds, CPU {cpu.rounds_done}, "
                   f"of {cfg.n_rounds}")
             expect = {"approx_topk": 1, "persistent_round": int(card.rounds_done),
-                      "flash_attention": 0, "embedding_bag": 0, "embedding_bag_backward": 0}
+                      "flash_attention": 0, "embedding_bag": 0, "embedding_bag_backward": 0,
+                      "tensor_product": 0, "tensor_product_backward": 0}
         else:
             expect = ({"approx_topk": cfg.n_rounds, "persistent_round": 0}
                       if cfg.round_kernel == "staged"
                       else {"approx_topk": 1, "persistent_round": cfg.n_rounds - 1})
-            expect.update(flash_attention=0, embedding_bag=0, embedding_bag_backward=0)
+            expect.update(flash_attention=0, embedding_bag=0, embedding_bag_backward=0,
+                          tensor_product=0, tensor_product_backward=0)
         check(counts == expect, f"engine {kw}: launches {counts}, expected {expect}")
         out.append(dict(config=kw or "fp32 staged", overlap=ov, launches=counts,
                         rounds_done_card=int(card.rounds_done),
@@ -2054,7 +2157,8 @@ def phase_serve_real_ce(dev):
         n_fwd = scorer.forwards
         expect = {"approx_topk": 5 * n_search, "persistent_round": 0,
                   "flash_attention": CE_TINY.n_layers * n_fwd, "embedding_bag": 0,
-                  "embedding_bag_backward": 0}
+                  "embedding_bag_backward": 0, "tensor_product": 0,
+                  "tensor_product_backward": 0}
         check(counts == expect and n_fwd > 0,
               f"serve_real_ce {label}: launches {counts}, expected {expect}")
         for name in launches:
@@ -2170,6 +2274,14 @@ def phase_embedding_bag(gen, dev, quick):
         del t
     del table
     torch.cuda.empty_cache()
+    if not quick:
+        # NequIP's sender gather at ogb_products: a chunk of 262,144 rows of
+        # the node table (2,449,408 x 416 fp32)
+        table = torch.randn((GNN_TABLE_ROWS, GNN_ROW), generator=gen, device=dev)
+        out.append(bag_case(dev, gen, 10, "(d) nequip gather, a chunk", table, GNN_EDGE_CHUNK,
+                            1, "sum"))
+        del table
+        torch.cuda.empty_cache()
     return out, max(r["max_abs_err"] for r in out)
 
 
@@ -2855,20 +2967,22 @@ def torch_equal(x, y) -> bool:
     return bool(torch.equal(x.detach().cpu(), y.detach().cpu()))
 
 
-def bag_backward_case(dev, gen, case, rows, b, reps):
+def bag_backward_case(dev, gen, case, rows, b, reps, dim=128, sort_ids=False):
     """The bag's backward kernel against its plain version (``index_add_``
-    in lookup order) for one DLRM field (H = 1, dim 128) on the card: error
-    gate, bitwise equal to the emulation of its order and across two calls,
-    times beside the bound and ``zeros`` + ``index_add_``'s."""
+    in lookup order) for one DLRM field (H = 1, dim 128), or NequIP's
+    scatter (dim 416; ``sort_ids``: a receiver-sorted chunk) on the card:
+    error gate, bitwise equal to the emulation of its order and across two
+    calls, times beside the bound and ``zeros`` + ``index_add_``'s."""
     import torch
 
     from repro_torch.kernels.embedding_bag.kernel import embedding_bag_backward_cuda
     from repro_torch.kernels.embedding_bag.ref import (
         embedding_bag_backward_emulated, embedding_bag_backward_plain, row_keys)
 
-    dim = 128
     g = torch.randn((b, dim), generator=gen, device=dev)
     ids = torch.randint(0, rows, (b, 1), generator=gen, device=dev, dtype=torch.int32)
+    if sort_ids:
+        ids = torch.sort(ids, dim=0).values
     out = embedding_bag_backward_cuda(g, ids, rows)
     again = embedding_bag_backward_cuda(g, ids, rows)
     ref = embedding_bag_backward_plain(g, ids, rows)
@@ -2915,6 +3029,20 @@ def phase_bag_backward(gen, dev, quick):
     rows = [bag_backward_case(dev, gen, "(a) dlrm field, 2^22 rows", 1 << 22, b, 20),
             bag_backward_case(dev, gen, "(b) dlrm small field, 512 rows", 512, b, 20),
             bag_backward_case(dev, gen, "(c) criteo field 5, 3 rows", 3, b, 20)]
+    if not quick:
+        import torch
+
+        # NequIP's scatter at ogb_products: a chunk of 262,144 messages of
+        # 416 floats summed into its receivers' row range (the edges sorted
+        # by receiver: ~25 messages a node), and the same chunk into the
+        # whole node table
+        chunk, n_rows = GNN_EDGE_CHUNK, GNN_TABLE_ROWS
+        rows += [bag_backward_case(dev, gen, "(d) nequip scatter, a receiver-sorted chunk",
+                                   -(-chunk * n_rows // GNN_OGB_EDGES), chunk, 10,
+                                   dim=GNN_ROW, sort_ids=True),
+                 bag_backward_case(dev, gen, "(e) nequip scatter, a chunk into the whole table",
+                                   n_rows, chunk, 3, dim=GNN_ROW)]
+        torch.cuda.empty_cache()
     return rows, max(r["max_abs_err"] for r in rows)
 
 
@@ -3110,6 +3238,273 @@ def phase_train(dev):
 
     # (5) ce-tiny at train_4k: the largest batch (a multiple of 8) that fits
     out["ce_tiny_train_4k"] = lm_train_4k(dev, CE_TINY, LM_SHAPES["train_4k"])
+    return out, launches
+
+
+# ---------------------------------------------------------------------------
+# the GNN family (NequIP) and its tensor-product kernel
+# ---------------------------------------------------------------------------
+
+GNN_ARCH = "nequip"
+GNN_EDGE_CHUNK = 262144         # nequip.EDGE_CHUNK: edges a message-passing chunk
+GNN_TABLE_ROWS = 2449408        # ogb_products' nodes padded to a multiple of 512
+GNN_OGB_EDGES = 61859328        # its edges, padded
+GNN_ROW = 13 * 32               # a node table row: s, v, t of d_hidden 32 channels
+GNN_TIMED = {"ogb_products": 2}   # timed steps after one warm-up (5 elsewhere)
+GNN_TIMED_DEFAULT = 5
+GNN_DETERMINISM = ("full_graph_sm", "molecule", "minibatch_lg")   # 2 runs x 2 steps, bitwise
+GNN_CPU = dict(n_nodes=400, n_edges=3000, n_graphs=4, chunk=512)   # card vs CPU, smoke_config
+GNN_TOL = 1e-5                  # card vs CPU: the loss, relative
+GNN_GRAD_TOL = 1e-4             # card vs CPU: gradients and forces, x the largest |value|
+TP_TOL = 1e-5                   # tensor-product kernel vs plain, x the largest |value|
+# the kernels' arithmetic a (edge, channel), about, counted from
+# csrc/tensor_product.cu (the bytes bound them either way)
+TP_FWD_FLOPS, TP_BWD_FLOPS = 251, 620
+
+
+def tp_case(dev, gen, case, e, h, reps) -> tuple:
+    """The tensor-product kernels against their plain versions at ``e``
+    edges of ``h`` channels: (forward row, backward row)."""
+    import torch
+
+    from repro_torch.kernels.tensor_product import kernel as tpk, ref as tpr
+
+    x = torch.randn((e, 13, h), generator=gen, device=dev)
+    w = torch.randn((e, 11, h), generator=gen, device=dev)
+    rel = torch.randn((e, 3), generator=gen, device=dev)
+    rhat = rel / rel.norm(dim=1, keepdim=True)
+    y2 = rhat[:, :, None] * rhat[:, None, :] - torch.eye(3, device=dev) / 3.0
+    g = torch.randn((e, 13, h), generator=gen, device=dev)
+    m = tpk.tensor_product_cuda(x, w, rhat, y2)
+    same = torch.equal(m, tpk.tensor_product_cuda(x, w, rhat, y2))
+    want = tpr.tensor_product_plain(x, w, rhat, y2)
+    err, top = (m - want).abs().max().item(), want.abs().max().item()
+    check(same and err <= TP_TOL * top, f"tensor_product {case}: max |d| {err} > {TP_TOL} x "
+          f"{top}, or two calls differ")
+    got = tpk.tensor_product_backward_cuda(x, w, rhat, y2, g, False)
+    again = tpk.tensor_product_backward_cuda(x, w, rhat, y2, g, False)
+    ref = tpr.tensor_product_backward_plain(x, w, rhat, y2, g, False)
+    berr = 0.0
+    for name, a, b, c in zip(("dx", "dw"), got[:2], ref[:2], again[:2]):
+        d, t = (a - b).abs().max().item(), b.abs().max().item()
+        check(d <= TP_TOL * t and torch.equal(a, c),
+              f"tensor_product_backward {case} {name}: max |d| {d} > {TP_TOL} x {t}, or two "
+              f"calls differ")
+        berr = max(berr, d)
+    del again, ref
+    fwd_bytes = 4 * e * (13 + 11 + 13) * h + 4 * e * 12
+    bwd_bytes = 4 * e * (13 + 11 + 13 + 13 + 11) * h + 4 * e * 12
+    rows = []
+    for name, fn, plain, nb, fl, err_ in (
+            ("tensor_product", lambda: tpk.tensor_product_cuda(x, w, rhat, y2),
+             lambda: tpr.tensor_product_plain(x, w, rhat, y2), fwd_bytes, TP_FWD_FLOPS, err),
+            ("tensor_product_backward",
+             lambda: tpk.tensor_product_backward_cuda(x, w, rhat, y2, g, False),
+             lambda: tpr.tensor_product_backward_plain(x, w, rhat, y2, g, False), bwd_bytes,
+             TP_BWD_FLOPS, berr)):
+        b_ms, b_by = bound(nb, float(fl * e * h))
+        rows.append(dict(case=case, edges=e, h=h, kernel_ms=cuda_ms(fn, reps),
+                         plain_ms=cuda_ms(plain, 2), library_ms=None, bound_ms=b_ms,
+                         bound_by=b_by, bytes=nb, max_abs_err=err_, max_abs_value=top,
+                         bitwise_across_calls=True))
+    return rows[0], rows[1]
+
+
+def phase_tensor_product(gen, dev, quick):
+    """Returns ([forward rows], [backward rows]); rows[0] is NequIP's chunk
+    at ogb_products (262,144 edges, d_hidden 32)."""
+    import torch
+
+    cases = [("(a) nequip chunk", 4096 if quick else GNN_EDGE_CHUNK, 32, 10),
+             ("(b) molecule batch", 8192, 32, 20), ("(c) smoke width", 3000, 4, 20)]
+    fwd, bwd = [], []
+    for case, e, h, reps in cases:
+        f, b = tp_case(dev, gen, case, e, h, reps)
+        fwd.append(f)
+        bwd.append(b)
+    torch.cuda.empty_cache()
+    return fwd, bwd
+
+
+def _gnn_cpu_graph(seed):
+    """A seeded numpy graph of ``GNN_CPU``'s size in ``GNN_CPU["n_graphs"]``
+    molecules, without self-loops (a self-loop's rhat gradient is 1e6 and
+    its two opposite force terms cancel to fp32 noise in either order)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    n, e, k = GNN_CPU["n_nodes"], GNN_CPU["n_edges"], GNN_CPU["n_graphs"]
+    per = n // k
+    gid = np.arange(n) // per
+    s = rng.integers(0, n, e)
+    r = gid[s] * per + (s % per + rng.integers(1, per, e)) % per
+    return dict(positions=rng.standard_normal((n, 3)).astype(np.float32),
+                node_attr=rng.integers(0, 8, n).astype(np.int32), senders=s.astype(np.int32),
+                receivers=r.astype(np.int32), graph_ids=gid.astype(np.int32),
+                edge_mask=(rng.random(e) < 0.95).astype(np.float32),
+                node_mask=np.ones(n, np.float32),
+                energy=rng.standard_normal(k).astype(np.float32))
+
+
+def gnn_cpu_vs_card(dev) -> dict:
+    """NequIP at ``smoke_config`` on one numpy graph (4 molecules, edge
+    chunks of 512) on the card and on the CPU: the loss within ``GNN_TOL``
+    relative, every gradient leaf and the forces within ``GNN_GRAD_TOL`` of
+    their largest |value|."""
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.launch import steps
+    from repro_torch.models.gnn import nequip
+    from repro_torch.tree import leaves, tree_map
+
+    cfg = registry.smoke_config(GNN_ARCH)
+    arrays = _gnn_cpu_graph(5)
+    init = nequip.init_nequip(cfg, torch.Generator().manual_seed(5), device="cpu")
+    res = []
+    for d in ("cpu", dev):
+        p = steps.require_grad(tree_map(lambda t: t.to(d, copy=True), init))
+        b = {k: torch.from_numpy(v).to(d) for k, v in arrays.items()}
+        loss = nequip.energy_mse_loss(p, cfg, b, n_graphs=GNN_CPU["n_graphs"],
+                                      edge_chunk=GNN_CPU["chunk"])
+        grads = [g.cpu() for g in torch.autograd.grad(loss, leaves(p))]
+        _, f = nequip.energy_and_forces(p, cfg, b["positions"], b["node_attr"], b["senders"],
+                                        b["receivers"], edge_mask=b["edge_mask"],
+                                        graph_ids=b["graph_ids"], n_graphs=GNN_CPU["n_graphs"],
+                                        edge_chunk=GNN_CPU["chunk"])
+        res.append((float(loss.detach()), grads, f.cpu()))
+    (cl, cg, cf), (gl, gg, gf) = res
+
+    def rel(a, b):     # a leaf no output depends on (the last block's v and t mixes) is 0
+        d, top = float((a - b).abs().max()), float(b.abs().max())
+        return d / top if top else (0.0 if d == 0 else float("inf"))
+
+    loss_rel = abs(gl - cl) / abs(cl)
+    grad_rel = max(rel(a, b) for a, b in zip(gg, cg))
+    force_rel = float((gf - cf).abs().max()) / float(cf.abs().max())
+    check(loss_rel <= GNN_TOL and grad_rel <= GNN_GRAD_TOL and force_rel <= GNN_GRAD_TOL,
+          f"gnn card vs CPU: loss rel {loss_rel}, gradients {grad_rel}, forces {force_rel}")
+    return dict(**GNN_CPU, card_loss=gl, cpu_loss=cl, loss_rel=loss_rel,
+                max_grad_rel=grad_rel, forces_rel=force_rel)
+
+
+def gnn_shape_run(dev, cfg, shape) -> tuple:
+    """One ``GNN_SHAPES`` cell at the published config: the graph built on
+    the card (a minibatch subgraph sampled on the host), one warm-up and the
+    timed steps, a profiled step, and for ``GNN_DETERMINISM`` two runs of two
+    steps bitwise.  Returns (row, {kernel: launches})."""
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.launch import steps
+    from repro_torch.tree import leaves
+
+    row = dict(shape=shape.name, kind=shape.kind)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    graph = None
+    if shape.kind != "molecule":
+        graph = steps.gnn_graph(shape, seed=1, device=dev)
+        torch.cuda.synchronize()
+        row["graph_build_s"] = time.perf_counter() - t0
+        if shape.kind == "minibatch":
+            host = {}
+            graph = steps.gnn_sample(shape, *graph, seed=1, seconds=host)
+            row.update(csr_s=host["csr"], csr_copy_s=host["copy"], sampler_host_s=host["sample"],
+                       sampled_nodes=int(graph.node_mask.sum()),
+                       sampled_edges=int(graph.edge_mask.sum()))
+    batch = steps.gnn_inputs(cfg, shape, seed=1, device=dev, graph=graph)
+    del graph
+    torch.cuda.synchronize()
+    row["inputs_s"] = time.perf_counter() - t0
+    n, e, n_graphs = steps.gnn_sizes(shape)
+    real = batch["edge_mask"] > 0
+    pos, s, r = batch["positions"], batch["senders"][real].long(), batch["receivers"][real].long()
+    dist_ = (pos[r] - pos[s]).norm(dim=1)
+    row.update(nodes=n, edges=e, real_edges=int(real.sum()), n_graphs=n_graphs,
+               edges_inside_cutoff_share=float((dist_ < cfg.cutoff).float().mean()))
+    del real, s, r, dist_
+    if shape.name in GNN_DETERMINISM:
+        runs = []
+        for _ in range(2):
+            b = steps.build_gnn_train(GNN_ARCH, cfg, shape, batch=batch, device=dev)
+            p, o, _ = b.args
+            losses = []
+            for _ in range(2):
+                p, o, met = b.step(p, o, batch)
+                losses.append(met["loss"])
+            runs.append([t.detach() for t in leaves(p)] + [o.step, *leaves(o.mu),
+                                                           *leaves(o.nu)] + losses)
+            del b, p, o
+        same = all(torch.equal(x, y) for x, y in zip(*runs))
+        check(same, f"gnn {shape.name}: two runs of two train steps differ on the card")
+        row["two_runs_of_two_steps_bitwise"] = same
+        del runs
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    bundle = steps.build_gnn_train(GNN_ARCH, cfg, shape, batch=batch, device=dev)
+    params, opt, _ = bundle.args
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    params, opt, met = bundle.step(params, opt, batch)
+    losses = [float(met["loss"])]
+    warm_s = time.perf_counter() - t0
+    secs = []
+    for _ in range(GNN_TIMED.get(shape.name, GNN_TIMED_DEFAULT)):
+        t0 = time.perf_counter()
+        params, opt, met = bundle.step(params, opt, batch)
+        losses.append(float(met["loss"]))           # waits for the step
+        secs.append(time.perf_counter() - t0)
+    sums = ("bag::bag_kernel", "bag_bwd::", "tp::forward", "tp::backward")
+    holder = {}
+
+    def one():
+        holder["state"] = bundle.step(params, opt, batch)
+
+    t0 = time.perf_counter()
+    prof = profile_trace(one, sums=sums)
+    prof["with_post_processing_s"] = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(all(np.isfinite(losses)), f"gnn {shape.name}: losses not finite: {losses}")
+    med = float(np.median(secs))
+    wall = prof["wall_ms"]
+    by = prof["ms_by_name"]
+    row.update(warmup_s=warm_s, steps=len(secs), median_ms=med * 1e3, min_ms=min(secs) * 1e3,
+               max_ms=max(secs) * 1e3, model_flops=bundle.model_flops,
+               tflops=bundle.model_flops / med / 1e12, losses=losses,
+               max_memory_allocated_gb=peak_gb, device_busy_share=prof["device_busy_share"],
+               gather_share=by["bag::bag_kernel"] / wall, scatter_share=by["bag_bwd::"] / wall,
+               tensor_product_share=(by["tp::forward"] + by["tp::backward"]) / wall,
+               launches_per_step={k: v / (len(secs) + 2) for k, v in counts.items() if v},
+               profile_step=prof)
+    launches = {k: counts[k] for k in ("embedding_bag", "embedding_bag_backward",
+                                       "tensor_product", "tensor_product_backward")}
+    del bundle, params, opt, batch, holder
+    torch.cuda.empty_cache()
+    return row, launches
+
+
+def phase_gnn(dev) -> tuple:
+    """NequIP (the published config: 5 layers, d_hidden 32, l_max 2, 8 radial
+    bases, 64 species; fp32, seeded weights) on all four ``GNN_SHAPES`` at
+    full size, the graphs drawn on the card, then card vs CPU at
+    ``smoke_config``.  Returns (result, {kernel: launches} over the
+    shapes' drives)."""
+    from repro_torch.configs import registry
+
+    cfg = registry.get(GNN_ARCH).config
+    out, launches = {"config": dict(n_layers=cfg.n_layers, d_hidden=cfg.d_hidden,
+                                    l_max=cfg.l_max, n_rbf=cfg.n_rbf, cutoff=cfg.cutoff)}, {}
+    for name in ("full_graph_sm", "molecule", "minibatch_lg", "ogb_products"):
+        t0 = time.perf_counter()
+        row, counts = gnn_shape_run(dev, cfg, registry.shapes_for(GNN_ARCH)[name])
+        row["seconds"] = time.perf_counter() - t0
+        out[name] = row
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+    out["cpu_vs_card"] = gnn_cpu_vs_card(dev)
     return out, launches
 
 
@@ -4004,9 +4399,10 @@ def device_ce_scorer(ds, cfg, params):
                           flash_block=(64, 64))
 
 
-def rank_worker(kind: str, out_dir: str) -> int:
-    """One rank of a world the sharded phase starts (``run_world`` gives it
-    the torchrun environment); writes its results under ``out_dir``."""
+def sharded_worker(out_dir: str) -> dict:
+    """The ``sharded`` rank: the serving configuration at N = 10^6 on a
+    2 x 2 mesh, each configuration's search, then both indexes saved
+    sharded."""
     import torch
     import torch.distributed as dist
 
@@ -4017,6 +4413,59 @@ def rank_worker(kind: str, out_dir: str) -> int:
     from repro_torch.core.scorer import SyntheticScorer, TabulatedScorer
     from repro_torch.launch.mesh import make_serving_mesh
     from repro_torch.launch.serve import build_domain
+
+    out = {}
+    mesh = make_serving_mesh(*SHARDED_MESH, backend="gloo")
+    dev = torch.device("cuda", torch.cuda.current_device())
+    ce = build_domain(1_000_000, dev, with_index=False)[0]
+    table = ce.full_matrix(torch.arange(600, device=dev))
+    t0 = time.perf_counter()
+    fp32 = AnchorIndex.load(os.path.join(out_dir, "index"), mesh=mesh)
+    torch.cuda.synchronize()
+    out["load_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    indexes = {"float32": fp32, "int8": fp32.quantize("int8")}
+    torch.cuda.synchronize()
+    out["quantize_s"] = time.perf_counter() - t0
+    out["payload_bytes"] = {k: v.payload_nbytes for k, v in indexes.items()}
+    out["local_capacity"] = {k: v.local_capacity for k, v in indexes.items()}
+    for payload, round_kernel, scorer_kind, b in sharded_runs():
+        scorer = TabulatedScorer(table) if scorer_kind == "tabulated" else SyntheticScorer(ce)
+        retriever = AdaCURRetriever.from_index(indexes[payload], scorer,
+                                               sharded_cfg(payload, round_kernel))
+        kernels.reset_launches()
+        collective_calls.reset()
+        res, ms = timed_search(retriever, sharded_qids(b, dev), prng.PRNGKey(5))
+        counts = kernels.launch_counts()
+        out[sharded_label(payload, round_kernel, scorer_kind, b)] = dict(
+            collectives=collective_calls.value // 2,        # a search
+            topk_idx=res.topk_idx.cpu(), topk_scores=res.topk_scores.cpu(),
+            anchor_idx=res.anchor_idx.cpu(), rounds=res.rounds_done, ms=ms,
+            launches=counts, ce_calls=scorer.stats.ce_calls, sharded=retriever._sharded)
+    # the world saves both indexes, each rank its own columns
+    for payload in SHARDED_SAVES:
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        indexes[payload].save(os.path.join(out_dir, f"sharded_save_{payload}"))
+        out[f"save_{payload}"] = dict(seconds=time.perf_counter() - t0,
+                                      capacity=indexes[payload].capacity)
+    return out
+
+
+def rank_worker(kind: str, out_dir: str) -> int:
+    """One rank of a world the sharded phase starts (``run_world`` gives it
+    the torchrun environment); writes its results under ``out_dir``."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import kernels
+    from repro_torch.core import prng
+    from repro_torch.core.engine import AdaCURRetriever
+    from repro_torch.core.index import AnchorIndex
+    from repro_torch.launch.mesh import make_serving_mesh
+
+    import gc
 
     rank = int(os.environ["RANK"])
     out = {"rank": rank}
@@ -4076,11 +4525,21 @@ def rank_worker(kind: str, out_dir: str) -> int:
             out["send_recv"] = f"{type(e).__name__}: {str(e).splitlines()[0][:200]}"
         torch.save(out, os.path.join(out_dir, f"{kind}_rank{rank}.pt"))
         os._exit(0)
-    if kind == "router_sharded":
-        out.update(router_sharded_worker(out_dir))
-    elif kind == "mesh":
-        out.update(mesh_worker(out_dir))
-    elif kind == "ce_mesh":
+    if kind == "worlds":
+        # the sharded, router_sharded and mesh drives in turn on one world:
+        # each saves its own results as its own world did
+        for sub, fn in (("sharded", sharded_worker), ("router_sharded", router_sharded_worker),
+                        ("mesh", mesh_worker)):
+            t0 = time.perf_counter()
+            res = {"rank": rank, **fn(out_dir), "drive_s": time.perf_counter() - t0}
+            torch.save(res, os.path.join(out_dir, f"{sub}_rank{rank}.pt"))
+            del res
+            gc.collect()
+            torch.cuda.empty_cache()
+            dist.barrier()
+        dist.destroy_process_group()
+        return 0
+    if kind == "ce_mesh":
         mesh = make_serving_mesh(*CE_MESH, backend="gloo")
         dev = torch.device("cuda", torch.cuda.current_device())
         ds, cfg, params = ce_mesh_model(dev)
@@ -4093,46 +4552,38 @@ def rank_worker(kind: str, out_dir: str) -> int:
         out.update(topk_idx=res.topk_idx.cpu(), rounds=res.rounds_done, ms=ms,
                    launches=kernels.launch_counts(), ce_calls=scorer.stats.ce_calls,
                    batch_pad=scorer.stats.batch_pad)
-    else:                      # "sharded": the serving configuration at N = 10^6
-        mesh = make_serving_mesh(*SHARDED_MESH, backend="gloo")
-        dev = torch.device("cuda", torch.cuda.current_device())
-        ce = build_domain(1_000_000, dev, with_index=False)[0]
-        table = ce.full_matrix(torch.arange(600, device=dev))
-        t0 = time.perf_counter()
-        fp32 = AnchorIndex.load(os.path.join(out_dir, "index"), mesh=mesh)
-        torch.cuda.synchronize()
-        out["load_s"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        indexes = {"float32": fp32, "int8": fp32.quantize("int8")}
-        torch.cuda.synchronize()
-        out["quantize_s"] = time.perf_counter() - t0
-        out["payload_bytes"] = {k: v.payload_nbytes for k, v in indexes.items()}
-        out["local_capacity"] = {k: v.local_capacity for k, v in indexes.items()}
-        for payload, round_kernel, scorer_kind, b in sharded_runs():
-            scorer = TabulatedScorer(table) if scorer_kind == "tabulated" else SyntheticScorer(ce)
-            retriever = AdaCURRetriever.from_index(indexes[payload], scorer,
-                                                   sharded_cfg(payload, round_kernel))
-            kernels.reset_launches()
-            collective_calls.reset()
-            res, ms = timed_search(retriever, sharded_qids(b, dev), prng.PRNGKey(5))
-            counts = kernels.launch_counts()
-            out[sharded_label(payload, round_kernel, scorer_kind, b)] = dict(
-                collectives=collective_calls.value // 2,        # a search
-                topk_idx=res.topk_idx.cpu(), topk_scores=res.topk_scores.cpu(),
-                anchor_idx=res.anchor_idx.cpu(), rounds=res.rounds_done, ms=ms,
-                launches=counts, ce_calls=scorer.stats.ce_calls, sharded=retriever._sharded)
-        # the world saves both indexes, each rank its own columns
-        for payload in SHARDED_SAVES:
-            torch.cuda.synchronize()
-            dist.barrier()
-            t0 = time.perf_counter()
-            indexes[payload].save(os.path.join(out_dir, f"sharded_save_{payload}"))
-            out[f"save_{payload}"] = dict(seconds=time.perf_counter() - t0,
-                                          capacity=indexes[payload].capacity)
     torch.save(out, os.path.join(out_dir, f"{kind}_rank{rank}.pt"))
     dist.barrier()
     dist.destroy_process_group()
     return 0
+
+
+# each drive's per-rank results from the one world of the sharded,
+# router_sharded and mesh drives (start_worlds), until its phase reads them
+_WORLDS: dict = {}
+
+
+def start_worlds(tmp) -> float:
+    """Run the sharded, router_sharded and mesh drives in turn on one world
+    of 4 ranks (``rank_worker("worlds")``, spawned once; the serve index
+    saved under ``tmp`` as each drive expects) and keep each drive's
+    per-rank results for its phase; returns the world's wall seconds."""
+    import torch
+
+    from repro_torch.testing import run_world
+
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+    t0 = time.perf_counter()
+    ranks = run_world([sys.executable, os.path.abspath(__file__), "--rank-worker", "worlds",
+                       tmp], 4, SHARDED_TIMEOUT_S, env=env)
+    wall = time.perf_counter() - t0
+    for r, (rc, o, e) in enumerate(ranks):
+        check(rc == 0, f"the sharded drives' world: rank {r} exited {rc}\n{o[-2000:]}\n"
+                       f"{e[-4000:]}")
+    for kind in ("sharded", "router_sharded", "mesh"):
+        _WORLDS[kind] = [torch.load(os.path.join(tmp, f"{kind}_rank{r}.pt"), weights_only=False)
+                         for r in range(4)]
+    return wall
 
 
 def start_world(kind, tmp, world, timeout=SHARDED_TIMEOUT_S) -> list:
@@ -4236,6 +4687,7 @@ def phase_sharded(dev, ce, index):
     Returns (result, {kernel: {payload: launches}})."""
     import shutil
     import tempfile
+    from concurrent.futures import ThreadPoolExecutor
 
     import torch
 
@@ -4264,9 +4716,8 @@ def phase_sharded(dev, ce, index):
             del retriever
         del table
         torch.cuda.empty_cache()
-        t0 = time.perf_counter()
-        ranks = start_world("sharded", tmp, SHARDED_MESH[0] * SHARDED_MESH[1])
-        world_s = time.perf_counter() - t0
+        world_s = start_worlds(tmp)       # the router_sharded and mesh drives run there too
+        ranks = _WORLDS.pop("sharded")
         items = SHARDED_MESH[1]
         configs, faults = [], []
         for run in sharded_runs():
@@ -4331,7 +4782,25 @@ def phase_sharded(dev, ce, index):
                                  prng.PRNGKey(5))
         hres, hms = timed_search(AdaCURRetriever.from_index(ce_index, host, ce_cfg), cq,
                                  prng.PRNGKey(5))
+        # the real-CE mesh is timed, so it runs alone; then the two probe
+        # worlds and the NCCL serve CLI, which are not, run side by side
+        t0 = time.perf_counter()
         ce_ranks = start_world("ce_mesh", tmp, CE_MESH[0] * CE_MESH[1])
+        ce_world_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(3) as pool:
+            side = [pool.submit(probe_world, "gloo_probe", tmp, 2),
+                    pool.submit(probe_world, "nccl_two", tmp, 2),
+                    pool.submit(
+                        subprocess.run,
+                        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                         "--nproc-per-node", "1", "-m", "repro_torch.launch.serve", "--mesh",
+                         "1x1", "--fused", "--n-items", "100000", "--requests", "64",
+                         "--batch", "16"],
+                        env=dict(os.environ, PYTHONPATH=os.path.join(HERE, "src")),
+                        capture_output=True, text=True, timeout=300)]
+            probe, nccl, cli = (f.result() for f in side)
+        side_s = time.perf_counter() - t0
         plan = 2 * ce_call_plan(ce_cfg) * CE_MESH_QUERIES
         mesh_equal = [bool(torch.equal(run["topk_idx"], dres.topk_idx.cpu()))
                       for run in ce_ranks]
@@ -4346,7 +4815,8 @@ def phase_sharded(dev, ce, index):
         if ce_sum != plan:
             faults.append(f"real-CE mesh: measured CE {ce_sum} != plan {plan}")
         real_ce = dict(mesh=list(CE_MESH), n_items=CE_MESH_ITEMS, b=CE_MESH_QUERIES,
-                       index_build_s=ce_build_s, measured_ce=ce_sum, ce_plan=plan,
+                       index_build_s=ce_build_s, world_s=ce_world_s, measured_ce=ce_sum,
+                       ce_plan=plan,
                        pad_rows_excluded=sum(run["batch_pad"] for run in ce_ranks),
                        mesh_ms=[run["ms"] for run in ce_ranks], device_ce_ms=dms,
                        cross_encoder_scorer_ms=hms, mesh_ids_equal=mesh_equal,
@@ -4356,14 +4826,6 @@ def phase_sharded(dev, ce, index):
                                                 for run in ce_ranks])
         del host, ce_index, dsc, params
 
-        probe = probe_world("gloo_probe", tmp, 2)
-        nccl = probe_world("nccl_two", tmp, 2)
-        cli = subprocess.run(
-            [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
-             "1", "-m", "repro_torch.launch.serve", "--mesh", "1x1", "--fused",
-             "--n-items", "100000", "--requests", "64", "--batch", "16"],
-            env=dict(os.environ, PYTHONPATH=os.path.join(HERE, "src")),
-            capture_output=True, text=True, timeout=300)
         if not (cli.returncode == 0 and "served 64 requests (0 errors)" in cli.stdout
                 and "measured: 12800 CE calls over 1 ranks" in cli.stdout):
             faults.append(f"NCCL 1x1 serve CLI failed:\n{cli.stdout[-2000:]}\n"
@@ -4371,7 +4833,7 @@ def phase_sharded(dev, ce, index):
         result = dict(mesh=list(SHARDED_MESH), backend="gloo (CUDA tensors staged through "
                       "host memory), every rank on one card", n_items=index.n_items,
                       k_q=index.k_q, b=sorted({run[3] for run in sharded_runs()}),
-                      save_s=save_s, world_s=world_s, load_s=load_s,
+                      save_s=save_s, world_s=world_s, side_worlds_s=side_s, load_s=load_s,
                       quantize_s=quantize_s, sharded_saves=saves, configs=configs,
                       real_ce_mesh=real_ce,
                       gloo_cuda_collectives=probe, nccl_two_ranks_one_card=nccl,
@@ -4393,12 +4855,10 @@ def phase_sharded(dev, ce, index):
 
 ROUTER_SHARDED = (2, 1, 2)            # replicas x (data x items), on 4 ranks
 ROUTER_SHARDED_REQUESTS = 256         # a scenario's requests
-ROUTER_SHARDED_TIMEOUT_S = 420
 # (scenario, round kernel): the baseline's batches set the straggler's stall
 ROUTER_SHARDED_SCENARIOS = (("baseline", "staged"), ("scorer_fault", "staged"),
                             ("slow_replica", "staged"), ("swap_midflight", "persistent"),
                             ("close", "staged"))
-MESH_TIMEOUT_S = 420
 MESH_TOL = 2e-4                       # the reference's multidevice TOL
 MESH_DECODE_ARCH = "granite-moe-1b-a400m"
 MESH_DECODE_B = 16                    # decode_32k's batch 128 cut: 4 ranks share one card
@@ -4587,91 +5047,79 @@ def phase_router_sharded(dev, ce, index, one_card_qps):
     bitwise the single-device engine's on the same batch rows and key; the
     healthy replica serves on after the other is quarantined.  Returns
     (result, {kernel: launches} summed over the ranks)."""
-    import shutil
-    import tempfile
-
     import numpy as np
-    import torch
 
-    tmp = tempfile.mkdtemp(prefix="adacur_router_sharded_")
     launches = {"approx_topk": 0, "persistent_round": 0}
-    try:
-        index.save(os.path.join(tmp, "index"))
-        _empty(dev)
-        t0 = time.perf_counter()
-        ranks = start_world("router_sharded", tmp, math.prod(ROUTER_SHARDED),
-                            timeout=ROUTER_SHARDED_TIMEOUT_S)
-        world_s = time.perf_counter() - t0
-        rows, faults = [], []
-        for scenario, round_kernel in ROUTER_SHARDED_SCENARIOS:
-            recs = [r[scenario] for r in ranks]
-            lead = recs[0]
-            for name in launches:
-                launches[name] += sum(r["launches"][name] for r in recs)
-            outs = lead["outcomes"]
-            n = len(lead["qids"])
-            ended = [o for o in outs if o is not None]
-            if len(ended) != n or any(o["query_id"] != q for o, q in zip(ended, lead["qids"])):
-                faults.append(f"{scenario}: {n - len(ended)} requests without an outcome, or "
-                              "an outcome answering another request")
-            by = {s: sum(o["status"] == s for o in ended) for s in ("ok", "error", "rejected")}
-            st = lead["stats"]
-            if st["ok"] != by["ok"] or st["errors"] != by["error"] or st["submitted"] != n:
-                faults.append(f"{scenario}: stats {st} against outcomes {by}")
-            want = _single_device_answers(index, ce, {0: lead["log"], 1: recs[2]["log"]},
-                                          round_kernel)
-            mismatched = 0
-            for o in ended:
-                if o["status"] != "ok":
-                    continue
-                ids = np.asarray(o["item_ids"])
-                if scenario == "swap_midflight" and ids.min() >= SWAP_OFFSET:
-                    ids = ids - SWAP_OFFSET
-                w_ids, w_sc = want[(o["replica"], *o["batch"])]
-                mismatched += not (np.array_equal(ids, w_ids)
-                                   and np.array_equal(np.asarray(o["scores"]), w_sc))
-            if mismatched:
-                faults.append(f"{scenario}: {mismatched} ok answers differ from the "
-                              "single-device engine's")
-            after_q = [o for o in ended[n // 2:] if o["status"] == "ok"]
-            row = dict(scenario=scenario, round_kernel=round_kernel, requests=n,
-                       wall_s=lead["wall_s"], qps=n / lead["wall_s"], **by,
-                       hedges=st["hedges"], retries=st["retries"], swaps=st["swaps"],
-                       quarantined=lead["quarantined"],
-                       batches=[len(lead["log"]), len(recs[2]["log"])],
-                       bitwise_checked=sum(o["status"] == "ok" for o in ended),
-                       mesh_errors=[bool(r["mesh_error"]) for r in recs],
-                       follower_raised=["raised" in r for r in recs],
-                       seconds_per_rank=[r["seconds"] for r in recs])
-            if scenario in ("baseline", "swap_midflight") and by["ok"] != n:
-                faults.append(f"{scenario}: {by['ok']} ok of {n}")
-            if scenario in ("scorer_fault", "slow_replica"):
-                if lead["quarantined"] != [1] or by["ok"] != n:
-                    faults.append(f"{scenario}: quarantined {lead['quarantined']}, "
-                                  f"{by['ok']} ok of {n}")
-                if any(o["replica"] != 0 for o in after_q[-8:]):
-                    faults.append(f"{scenario}: the healthy replica did not serve on")
-            if scenario == "scorer_fault" and (recs[0]["mesh_error"] or recs[1]["mesh_error"]
-                                               or not recs[2]["mesh_error"]):
-                faults.append(f"scorer_fault: the fault reached the wrong replica: "
-                              f"{row['mesh_errors']}")
-            if scenario == "close" and any(o["status"] == "error" and o["error"] !=
-                                           "router shutdown" for o in ended):
-                faults.append("close: an error other than the shutdown's")
-            rows.append(row)
+    ranks = _WORLDS.pop("router_sharded")      # run on the sharded phase's world
+    world_s = max(r["drive_s"] for r in ranks)
+    rows, faults = [], []
+    for scenario, round_kernel in ROUTER_SHARDED_SCENARIOS:
+        recs = [r[scenario] for r in ranks]
+        lead = recs[0]
         for name in launches:
-            if not launches[name]:
-                faults.append(f"{name} never launched")
-        result = dict(replicas=ROUTER_SHARDED[0], mesh=list(ROUTER_SHARDED[1:]),
-                      buckets=list(ROUTER_BUCKETS), n_items=index.n_items, world_s=world_s,
-                      scenarios=rows, baseline_qps=rows[0]["qps"],
-                      one_card_router_qps_2_replicas=one_card_qps, launches=launches)
-        if faults:
-            emit({"phase": "router_sharded", **result})
-        check(not faults, "router over sharded replicas: " + "; ".join(faults))
-        return result, launches
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+            launches[name] += sum(r["launches"][name] for r in recs)
+        outs = lead["outcomes"]
+        n = len(lead["qids"])
+        ended = [o for o in outs if o is not None]
+        if len(ended) != n or any(o["query_id"] != q for o, q in zip(ended, lead["qids"])):
+            faults.append(f"{scenario}: {n - len(ended)} requests without an outcome, or "
+                          "an outcome answering another request")
+        by = {s: sum(o["status"] == s for o in ended) for s in ("ok", "error", "rejected")}
+        st = lead["stats"]
+        if st["ok"] != by["ok"] or st["errors"] != by["error"] or st["submitted"] != n:
+            faults.append(f"{scenario}: stats {st} against outcomes {by}")
+        want = _single_device_answers(index, ce, {0: lead["log"], 1: recs[2]["log"]},
+                                      round_kernel)
+        mismatched = 0
+        for o in ended:
+            if o["status"] != "ok":
+                continue
+            ids = np.asarray(o["item_ids"])
+            if scenario == "swap_midflight" and ids.min() >= SWAP_OFFSET:
+                ids = ids - SWAP_OFFSET
+            w_ids, w_sc = want[(o["replica"], *o["batch"])]
+            mismatched += not (np.array_equal(ids, w_ids)
+                               and np.array_equal(np.asarray(o["scores"]), w_sc))
+        if mismatched:
+            faults.append(f"{scenario}: {mismatched} ok answers differ from the "
+                          "single-device engine's")
+        after_q = [o for o in ended[n // 2:] if o["status"] == "ok"]
+        row = dict(scenario=scenario, round_kernel=round_kernel, requests=n,
+                   wall_s=lead["wall_s"], qps=n / lead["wall_s"], **by,
+                   hedges=st["hedges"], retries=st["retries"], swaps=st["swaps"],
+                   quarantined=lead["quarantined"],
+                   batches=[len(lead["log"]), len(recs[2]["log"])],
+                   bitwise_checked=sum(o["status"] == "ok" for o in ended),
+                   mesh_errors=[bool(r["mesh_error"]) for r in recs],
+                   follower_raised=["raised" in r for r in recs],
+                   seconds_per_rank=[r["seconds"] for r in recs])
+        if scenario in ("baseline", "swap_midflight") and by["ok"] != n:
+            faults.append(f"{scenario}: {by['ok']} ok of {n}")
+        if scenario in ("scorer_fault", "slow_replica"):
+            if lead["quarantined"] != [1] or by["ok"] != n:
+                faults.append(f"{scenario}: quarantined {lead['quarantined']}, "
+                              f"{by['ok']} ok of {n}")
+            if any(o["replica"] != 0 for o in after_q[-8:]):
+                faults.append(f"{scenario}: the healthy replica did not serve on")
+        if scenario == "scorer_fault" and (recs[0]["mesh_error"] or recs[1]["mesh_error"]
+                                           or not recs[2]["mesh_error"]):
+            faults.append(f"scorer_fault: the fault reached the wrong replica: "
+                          f"{row['mesh_errors']}")
+        if scenario == "close" and any(o["status"] == "error" and o["error"] !=
+                                       "router shutdown" for o in ended):
+            faults.append("close: an error other than the shutdown's")
+        rows.append(row)
+    for name in launches:
+        if not launches[name]:
+            faults.append(f"{name} never launched")
+    result = dict(replicas=ROUTER_SHARDED[0], mesh=list(ROUTER_SHARDED[1:]),
+                  buckets=list(ROUTER_BUCKETS), n_items=index.n_items, world_s=world_s,
+                  scenarios=rows, baseline_qps=rows[0]["qps"],
+                  one_card_router_qps_2_replicas=one_card_qps, launches=launches)
+    if faults:
+        emit({"phase": "router_sharded", **result})
+    check(not faults, "router over sharded replicas: " + "; ".join(faults))
+    return result, launches
 
 
 def _seeded(shape, seed, dev, dtype=None):
@@ -5072,57 +5520,46 @@ def phase_mesh(dev) -> dict:
     ``FLASH_TOL`` of its plain version and the counted runs' flash launches
     one a layer and microbatch.  Returns (result, the ranks' flash
     launches)."""
-    import shutil
-    import tempfile
-
-    import torch
-
-    tmp = tempfile.mkdtemp(prefix="adacur_mesh_")
-    try:
-        _empty(dev)
-        t0 = time.perf_counter()
-        ranks = start_world("mesh", tmp, 4, timeout=MESH_TIMEOUT_S)
-        world_s = time.perf_counter() - t0
-        r0 = ranks[0]
-        faults = []
-        gate = r0["sp_ep_decode"]["fp32_gate"]
-        if not (gate["rel"] <= MESH_TOL and gate["model_replicas_bitwise_equal"]):
-            faults.append(f"SP decode + EP MoE: {gate}")
-        if not all(r["sp_ep_decode"]["bf16"]["finite"] for r in ranks):
-            faults.append("SP decode + EP MoE: bf16 logits not finite")
-        if not r0["long_500k"]["fp32_gate"]["within_tol"]:
-            faults.append(f"long_500k decode core: {r0['long_500k']['fp32_gate']}")
-        if not r0["pipeline"]["fp32_gate"]["rel"] <= MESH_TOL:
-            faults.append(f"pipeline: {r0['pipeline']['fp32_gate']}")
-        if not all(r["pipeline"]["bf16"]["finite"] for r in ranks):
-            faults.append("pipeline: bf16 output not finite")
-        faults += [f"pipeline: rank {i}'s flash calls disagree with the plain version: "
-                   f"{r['pipeline']['bf16']['flash_held']}"
-                   for i, r in enumerate(ranks)
-                   if not (r["pipeline"]["bf16"]["flash_held"]["within_tol"]
-                           and r["pipeline"]["bf16"]["flash_held"]["calls"] > 0)]
-        flash_want = (1 + MESH_PIPE_REPS) * MESH_PIPE_M * (MESH_PIPE_LAYERS // 4)
-        faults += [f"pipeline: rank {i} launched flash {r['pipeline']['bf16']['flash_launches']}"
-                   f" times, not {flash_want}"
-                   for i, r in enumerate(ranks)
-                   if r["pipeline"]["bf16"]["flash_launches"] != flash_want]
-        if not all(r["cross_pod"]["accumulated_rel_err"] < 0.05 for r in ranks):
-            faults.append(f"cross-pod reduce: {[r['cross_pod'] for r in ranks]}")
-        result = dict(
-            world_s=world_s, seconds=r0["seconds"],
-            sp_ep_decode=dict(arch=MESH_DECODE_ARCH, mesh="data 2 x model 2",
-                              fp32_gate=gate, bf16=[r["sp_ep_decode"]["bf16"] for r in ranks]),
-            long_500k=dict(r0["long_500k"], bf16_core_ms_per_rank=[
-                r["long_500k"]["bf16_core_ms"] for r in ranks]),
-            pipeline=dict(fp32_gate=r0["pipeline"]["fp32_gate"],
-                          bf16=[r["pipeline"]["bf16"] for r in ranks]),
-            cross_pod=r0["cross_pod"])
-        if faults:
-            emit({"phase": "mesh", **result})
-        check(not faults, "mesh: " + "; ".join(faults))
-        return result, sum(r["pipeline"]["bf16"]["flash_launches"] for r in ranks)
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+    ranks = _WORLDS.pop("mesh")                # run on the sharded phase's world
+    world_s = max(r["drive_s"] for r in ranks)
+    r0 = ranks[0]
+    faults = []
+    gate = r0["sp_ep_decode"]["fp32_gate"]
+    if not (gate["rel"] <= MESH_TOL and gate["model_replicas_bitwise_equal"]):
+        faults.append(f"SP decode + EP MoE: {gate}")
+    if not all(r["sp_ep_decode"]["bf16"]["finite"] for r in ranks):
+        faults.append("SP decode + EP MoE: bf16 logits not finite")
+    if not r0["long_500k"]["fp32_gate"]["within_tol"]:
+        faults.append(f"long_500k decode core: {r0['long_500k']['fp32_gate']}")
+    if not r0["pipeline"]["fp32_gate"]["rel"] <= MESH_TOL:
+        faults.append(f"pipeline: {r0['pipeline']['fp32_gate']}")
+    if not all(r["pipeline"]["bf16"]["finite"] for r in ranks):
+        faults.append("pipeline: bf16 output not finite")
+    faults += [f"pipeline: rank {i}'s flash calls disagree with the plain version: "
+               f"{r['pipeline']['bf16']['flash_held']}"
+               for i, r in enumerate(ranks)
+               if not (r["pipeline"]["bf16"]["flash_held"]["within_tol"]
+                       and r["pipeline"]["bf16"]["flash_held"]["calls"] > 0)]
+    flash_want = (1 + MESH_PIPE_REPS) * MESH_PIPE_M * (MESH_PIPE_LAYERS // 4)
+    faults += [f"pipeline: rank {i} launched flash {r['pipeline']['bf16']['flash_launches']}"
+               f" times, not {flash_want}"
+               for i, r in enumerate(ranks)
+               if r["pipeline"]["bf16"]["flash_launches"] != flash_want]
+    if not all(r["cross_pod"]["accumulated_rel_err"] < 0.05 for r in ranks):
+        faults.append(f"cross-pod reduce: {[r['cross_pod'] for r in ranks]}")
+    result = dict(
+        world_s=world_s, seconds=r0["seconds"],
+        sp_ep_decode=dict(arch=MESH_DECODE_ARCH, mesh="data 2 x model 2",
+                          fp32_gate=gate, bf16=[r["sp_ep_decode"]["bf16"] for r in ranks]),
+        long_500k=dict(r0["long_500k"], bf16_core_ms_per_rank=[
+            r["long_500k"]["bf16_core_ms"] for r in ranks]),
+        pipeline=dict(fp32_gate=r0["pipeline"]["fp32_gate"],
+                      bf16=[r["pipeline"]["bf16"] for r in ranks]),
+        cross_pod=r0["cross_pod"])
+    if faults:
+        emit({"phase": "mesh", **result})
+    check(not faults, "mesh: " + "; ".join(faults))
+    return result, sum(r["pipeline"]["bf16"]["flash_launches"] for r in ranks)
 
 
 def main() -> int:
@@ -5169,9 +5606,11 @@ def main() -> int:
         emit({"phase": "env", "torch": torch.__version__, "cuda": torch.version.cuda,
               "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
               "build_s": build_s, "ptxas": ptxas, "flash_sass_hgmma": hgmma,
+              "nvcc_s": {name: info["seconds"] for name, info in build.build_info.items()},
               "mma_sync_tf32_tflops": mma_tf32_tflops(probe_lib)})
-        spills = [ln for name in ("approx_topk", "persistent_round", "flash_attention")
-                  for ln in ptxas.get(name, []) if re.search(r"[1-9][0-9]* bytes spill", ln)]
+        spills = [ln for name, lines in ptxas.items()
+                  if name.startswith(("approx_topk", "persistent_round", "flash_attention"))
+                  for ln in lines if re.search(r"[1-9][0-9]* bytes spill", ln)]
         check(not spills, f"the top-k or flash kernels spill registers: {spills}")
         check(hgmma > 0, "the bf16 flash kernel holds no HGMMA (wgmma) instruction")
         rows, errs = phase_approx_topk(shape, gen, dev, reps, earlier)
@@ -5194,6 +5633,10 @@ def main() -> int:
         rows, err = phase_bag_backward(gen, dev, args.quick)
         emit({"phase": "kernel:embedding_bag_backward", "cases": rows})
         summary["embedding_bag_backward"] = (rows[0], err)
+        fwd, bwd = phase_tensor_product(gen, dev, args.quick)
+        emit({"phase": "kernel:tensor_product", "cases": fwd, "backward_cases": bwd})
+        summary["tensor_product"] = (fwd[0], max(r["max_abs_err"] for r in fwd))
+        summary["tensor_product_backward"] = (bwd[0], max(r["max_abs_err"] for r in bwd))
         launches = dict.fromkeys(summary, 0)
         if not args.quick:
             from repro_torch.launch.serve import build_domain
@@ -5217,6 +5660,8 @@ def main() -> int:
                                 if c["round_kernel"] == "staged" and c["replicas"] == 2)
             router_sharded, rs_launches = phase_router_sharded(dev, ce, index, one_card_qps)
             emit({"phase": "router_sharded", **router_sharded})
+            mesh_res, mesh_flash = phase_mesh(dev)
+            emit({"phase": "mesh", **mesh_res})
             del ce, index
             torch.cuda.empty_cache()
             emit({"phase": "retrievers_cpu_vs_card", "runs": phase_retrievers_cpu_vs_card(dev)})
@@ -5250,12 +5695,12 @@ def main() -> int:
             train, train_launches = phase_train(dev)
             emit({"phase": "train", **train})
             torch.cuda.empty_cache()
+            gnn, gnn_launches = phase_gnn(dev)
+            emit({"phase": "gnn", **gnn})
+            torch.cuda.empty_cache()
             t0 = time.perf_counter()
             _, lm_flash = phase_lm(dev)
             emit({"phase": "lm", "seconds": time.perf_counter() - t0, "flash_launches": lm_flash})
-            torch.cuda.empty_cache()
-            mesh_res, mesh_flash = phase_mesh(dev)
-            emit({"phase": "mesh", **mesh_res})
             for name, per_payload in serve_launches.items():
                 for dtype, n in per_payload.items():
                     # the serve drives, the index lifecycle's searches and
@@ -5277,8 +5722,11 @@ def main() -> int:
                             + sum(sharded["real_ce_mesh"]["flash_launches_per_rank"])
                             + lm_flash + mesh_flash,
                             embedding_bag=rs_bags + rr_launches["embedding_bag"]
-                            + train_launches["embedding_bag"],
-                            embedding_bag_backward=train_launches["embedding_bag_backward"])
+                            + train_launches["embedding_bag"] + gnn_launches["embedding_bag"],
+                            embedding_bag_backward=train_launches["embedding_bag_backward"]
+                            + gnn_launches["embedding_bag_backward"],
+                            tensor_product=gnn_launches["tensor_product"],
+                            tensor_product_backward=gnn_launches["tensor_product_backward"])
         for name, n in launches.items():
             check(args.quick or n > 0, f"{name} was never launched on the main path")
     except CheckFailed as e:

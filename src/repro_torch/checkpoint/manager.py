@@ -35,9 +35,11 @@ class CheckpointManager:
         self.keep = keep
 
     def maybe_save(self, step: int, state: Any, specs=None) -> bool:
+        """Save ``state`` at every ``save_every``-th step; ``state`` may be
+        a callable that builds it, called only on those steps."""
         if step % self.save_every != 0:
             return False
-        self.ckpt.save(step, state, specs)
+        self.ckpt.save(step, state() if callable(state) else state, specs)
         self._gc()
         return True
 

@@ -1,6 +1,6 @@
 """Configs — the port's own copies of the reference's ``AdaCURConfig``,
-``MoEConfig``, ``LMConfig``, ``RecSysConfig``, ``LMShape``, ``RecSysShape``
-and ``replace`` (``repro/configs/base.py``), with the same field names, defaults and
+``MoEConfig``, ``LMConfig``, ``GNNConfig``, ``RecSysConfig``, ``LMShape``,
+``GraphShape``, ``RecSysShape`` and ``replace`` (``repro/configs/base.py``), with the same field names, defaults and
 checks, so both packages can be built from one kwargs dict.
 
 ``fused_interpret`` and ``distributed_gather`` are kept only for that
@@ -195,6 +195,29 @@ class LMConfig:
 
 
 @dataclass(frozen=True)
+class GNNConfig:
+    """NequIP configuration — the port's copy of the reference's
+    ``GNNConfig`` (``models/gnn/nequip.py``), same field names and
+    defaults."""
+
+    name: str
+    n_layers: int
+    d_hidden: int                    # multiplicity per irrep channel
+    l_max: int                       # max spherical-harmonic degree
+    n_rbf: int                       # radial basis functions
+    cutoff: float                    # radial cutoff (Angstrom)
+    d_feat: int = 0                  # raw input node-feature dim (0 => species embed)
+    n_species: int = 64
+    equivariance: str = "E(3)-tensor-product"
+    dtype: str = "float32"
+
+    @property
+    def irrep_dim(self) -> int:
+        """Total feature dim per channel over l = 0..l_max: sum(2l+1)."""
+        return sum(2 * l + 1 for l in range(self.l_max + 1))
+
+
+@dataclass(frozen=True)
 class RecSysConfig:
     """Recommender configuration — the port's copy of the reference's
     ``RecSysConfig``, same field names and defaults.  The port serves every
@@ -241,3 +264,17 @@ class LMShape:
     kind: str          # "train" | "prefill" | "decode"
     seq_len: int
     global_batch: int
+
+
+@dataclass(frozen=True)
+class GraphShape:
+    """One named GNN step shape (``configs/shapes.py``)."""
+
+    name: str
+    kind: str          # "full" | "minibatch" | "molecule"
+    n_nodes: int
+    n_edges: int
+    d_feat: int = 0
+    batch_nodes: int = 0
+    fanout: Tuple[int, ...] = ()
+    batch_graphs: int = 0

@@ -3,14 +3,11 @@ the port's copy of ``repro/configs/registry.py`` for the families it
 serves: the five model-zoo LMs (qwen3-8b, the paper pipeline's primary
 cross-encoder backbone in ``launch/steps.py::build_lm_adacur_serve``;
 qwen1.5-110b; starcoder2-3b; the MoE moonshot-v1-16b-a3b and
-granite-moe-1b-a400m), ``ce-tiny`` and the recsys family (``bst`` and
-``bert4rec``, ADACUR's cross-encoder-class scorers; ``mind``, the
-dual-encoder first-round retriever; ``dlrm-mlperf``), field for field,
-and ``smoke_config``'s LM and recsys branches.
-
-nequip is the reference's too, but the port does not serve the GNN family
-yet: :func:`get` raises ``NotImplementedError`` for it (ROADMAP.md,
-queue 1).
+granite-moe-1b-a400m), ``ce-tiny``, the GNN family (``nequip``) and the
+recsys family (``bst`` and ``bert4rec``, ADACUR's cross-encoder-class
+scorers; ``mind``, the dual-encoder first-round retriever;
+``dlrm-mlperf``), field for field, and ``smoke_config``'s LM, GNN and
+recsys branches.
 
 ``QWEN3_8B_ATTENTION`` is Qwen3-8B's attention shape (32 query heads, 8 KV
 heads, head_dim 128), read off its config: the flash kernel's checks at a
@@ -28,6 +25,7 @@ from . import (
     dlrm_mlperf,
     granite_moe_1b_a400m,
     mind,
+    nequip,
     moonshot_v1_16b_a3b,
     qwen1_5_110b,
     qwen3_8b,
@@ -40,7 +38,7 @@ from .shapes import SHAPES_BY_FAMILY
 @dataclass(frozen=True)
 class ArchEntry:
     arch_id: str
-    family: str            # "lm" | "recsys"
+    family: str            # "lm" | "gnn" | "recsys"
     config: Any
     adacur_applicable: bool
     notes: str = ""
@@ -77,6 +75,10 @@ REGISTRY: Dict[str, ArchEntry] = {
     "granite-moe-1b-a400m": ArchEntry(
         "granite-moe-1b-a400m", "lm", granite_moe_1b_a400m.CONFIG, True, "MoE CE backbone"
     ),
+    "nequip": ArchEntry(
+        "nequip", "gnn", nequip.CONFIG, False,
+        "no query/item factorization — ADACUR inapplicable (DESIGN.md §4.1)",
+    ),
     "bst": ArchEntry("bst", "recsys", bst.CONFIG, True, "cross-encoder-class scorer"),
     "mind": ArchEntry(
         "mind", "recsys", mind.CONFIG, False,
@@ -89,13 +91,7 @@ REGISTRY: Dict[str, ArchEntry] = {
 
 LM_ARCHS = tuple(a for a, e in REGISTRY.items() if e.family == "lm" and a != "ce-tiny")
 
-# the reference's GNN family, not ported yet
-NOT_PORTED = ("nequip",)
-
-
 def get(arch_id: str) -> ArchEntry:
-    if arch_id in NOT_PORTED:
-        raise NotImplementedError(f"{arch_id} is not ported yet (ROADMAP.md, queue 1)")
     if arch_id not in REGISTRY:
         raise KeyError(f"unknown arch '{arch_id}'; known: {sorted(REGISTRY)}")
     return REGISTRY[arch_id]
@@ -130,6 +126,8 @@ def smoke_config(arch_id: str):
             head_dim=16, d_ff=128, vocab_size=256, moe=moe,
             max_seq_len=1024, dtype="float32",
         )
+    if entry.family == "gnn":
+        return replace(cfg, n_layers=2, d_hidden=4, n_rbf=4, n_species=8)
     kw = dict(embed_dim=16, n_items=1000, seq_len=min(cfg.seq_len, 8))
     if cfg.kind == "dlrm":
         kw.update(

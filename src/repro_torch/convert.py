@@ -69,11 +69,9 @@ def _tree(tree, device):
     return _leaf(tree, device)
 
 
-def _unstack(tree, device) -> list:
-    """A stacked pytree (every leaf with a leading layer axis) as a list of
-    per-layer pytrees."""
-    stacked = _tree(tree, device)
-
+def _layer_list(stacked) -> list:
+    """A stacked tree of tensors (every leaf with a leading layer axis) as a
+    list of per-layer trees (views)."""
     def first_leaf(t):
         return first_leaf(next(iter(t.values()))) if isinstance(t, dict) else t
 
@@ -81,6 +79,11 @@ def _unstack(tree, device) -> list:
         return {k: layer(i, v) for k, v in t.items()} if isinstance(t, dict) else t[i]
 
     return [layer(i, stacked) for i in range(first_leaf(stacked).shape[0])]
+
+
+def _unstack(tree, device) -> list:
+    """A stacked numpy pytree as a list of per-layer pytrees on ``device``."""
+    return _layer_list(_tree(tree, device))
 
 
 def lm_params(tree: dict, device=None) -> dict:
@@ -95,6 +98,25 @@ def lm_params(tree: dict, device=None) -> dict:
     return out
 
 
+def stack_layers(params: dict) -> dict:
+    """The port's LM params (a list of per-layer dicts under ``layers``) in
+    the reference's layout: each leaf of ``layers`` stacked on a leading
+    layer axis (new tensors, not requiring grad); the other leaves as they
+    are."""
+    def stack(layers):
+        if isinstance(layers[0], dict):
+            return {k: stack([lp[k] for lp in layers]) for k in layers[0]}
+        return torch.stack([t.detach() for t in layers])
+
+    return {**params, "layers": stack(params["layers"])}
+
+
+def unstack_layers(params: dict) -> dict:
+    """:func:`stack_layers`' inverse: the stacked ``layers`` as a list of
+    per-layer dicts (views of the stacked tensors)."""
+    return {**params, "layers": _layer_list(params["layers"])}
+
+
 def lm_cache(tree: dict, device=None) -> dict:
     """The port's KV cache from the reference's (``init_cache``'s or a
     prefill's, as numpy): the stacked ``k``/``v`` (n_layers, B, S, KV, hd)
@@ -104,6 +126,13 @@ def lm_cache(tree: dict, device=None) -> dict:
     if "prefix" in tree:
         out["prefix"] = _tree(tree["prefix"], device)
     return out
+
+
+def nequip_params(tree: dict, device=None) -> dict:
+    """The port's NequIP params from the reference's (``init_nequip``'s
+    pytree as numpy arrays): the same tree (``embed``, ``readout1``,
+    ``readout2`` and the list ``layers`` of {"lin", "radial"} dicts)."""
+    return _tree(tree, resolve_device(device))
 
 
 def dlrm_params(tree: dict, device=None) -> dict:

@@ -39,9 +39,11 @@
 // scales / noise / mask / anchors may be null (A = 0 without anchors).
 // range_cols: columns per block (a multiple of TCOLS); blk_v / blk_i hold
 // (B, ceil(N / range_cols), k) scratch, gthr (B,) int32 scratch.
-// 1 <= k <= KMAX_LARGE (1024): k <= KMAX (256) runs the sweep whose lists
-// are read in one register chunk (the serving path's kernel), a larger k
-// the same sweep instantiated for lists of up to four chunks (warp_merge).
+// 1 <= k <= KMAX (256): the sweep whose lists are read in one register
+// chunk (the serving path's kernel).  A larger k, up to KMAX_LARGE (1024),
+// is approx_topk_large.cu's approx_topk_large_launch, the same sweep
+// instantiated for lists of up to four chunks (warp_merge): a file of its
+// own, so its five instantiations compile in an nvcc beside this one's.
 extern "C" int approx_topk_launch(const float* a_hi, const float* a_lo,
                                   const void* payload,
                                   int payload_kind, const float* scales,
@@ -51,13 +53,12 @@ extern "C" int approx_topk_launch(const float* a_hi, const float* a_lo,
                                   int k, int range_cols, float* blk_v,
                                   int* blk_i, int* gthr, float* out_v, int* out_i,
                                   void* stream) {
-  if (k < 1 || k > adacur::KMAX_LARGE) return (int)cudaErrorInvalidValue;
+  if (k < 1 || k > adacur::KMAX) return (int)cudaErrorInvalidValue;
   const adacur::SweepArgs a = adacur::sweep_args(a_hi, a_lo, payload, scales,
                                                  qtile, B, KQ, N, n_items, range_cols);
   const adacur::ListDesc l{noise, mask, anchors, A, k, blk_v, blk_i, gthr};
   float* const ov[2] = {out_v, nullptr};
   int* const oi[2] = {out_i, nullptr};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (k <= adacur::KMAX) return adacur::launch_kind<1>(payload_kind, a, l, l, ov, oi, s);
-  return adacur::launch_kind<1, adacur::KCH_LARGE>(payload_kind, a, l, l, ov, oi, s);
+  return adacur::launch_kind<1>(payload_kind, a, l, l, ov, oi, s);
 }

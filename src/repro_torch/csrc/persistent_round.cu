@@ -23,14 +23,17 @@
 // on it once per list, so each list equals the corresponding approx_topk
 // call bit for bit.  The second list costs one more queue (16.8 KB of
 // shared memory) and a second epilogue pass over the fragments.  The Gumbel noise
-// is materialized before the launch, as the TPU path does.
+// is materialized before the launch, as the TPU path does.  A call with one
+// list (k_sample or k_prov 0) is the one-list sweep, which approx_topk.cu
+// compiles: the wrapper (kernels/approx_topk/persistent.py) launches it
+// there, so this file holds only the five two-list instantiations.
 
 #include "topk_common.cuh"
 
 // As approx_topk_launch (payload kinds 0-4, logical N), with a second
-// (provisional) list: ks / kp are the
-// list lengths (0 = not requested), prov_mask may be null; gthr_s / gthr_p
-// are (B,) int32 scratch.
+// (provisional) list: ks / kp are the list lengths (both >= 1; one list is
+// approx_topk_launch's sweep), prov_mask may be null; gthr_s / gthr_p are
+// (B,) int32 scratch.
 extern "C" int persistent_round_launch(
     const float* a_hi, const float* a_lo, const void* payload, int payload_kind,
     const float* scales, int qtile, const float* noise, const uint8_t* mask,
@@ -39,20 +42,14 @@ extern "C" int persistent_round_launch(
     float* blk_pv, int* blk_pi, int* gthr_s, int* gthr_p, float* out_sv,
     int* out_si, float* out_pv,
     int* out_pi, void* stream) {
-  if (ks < 0 || kp < 0 || ks > adacur::KMAX || kp > adacur::KMAX || ks + kp == 0)
+  if (ks < 1 || kp < 1 || ks > adacur::KMAX || kp > adacur::KMAX)
     return (int)cudaErrorInvalidValue;
   const adacur::SweepArgs a = adacur::sweep_args(a_hi, a_lo, payload, scales,
                                                  qtile, B, KQ, N, n_items, range_cols);
   const adacur::ListDesc sample{noise, mask, anchors, A, ks, blk_sv, blk_si, gthr_s};
   const adacur::ListDesc prov{nullptr, prov_mask, nullptr, 0, kp, blk_pv, blk_pi, gthr_p};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (ks > 0 && kp > 0) {
-    float* const ov[2] = {out_sv, out_pv};
-    int* const oi[2] = {out_si, out_pi};
-    return adacur::launch_kind<2>(payload_kind, a, sample, prov, ov, oi, s);
-  }
-  const adacur::ListDesc& one = ks > 0 ? sample : prov;
-  float* const ov[2] = {ks > 0 ? out_sv : out_pv, nullptr};
-  int* const oi[2] = {ks > 0 ? out_si : out_pi, nullptr};
-  return adacur::launch_kind<1>(payload_kind, a, one, one, ov, oi, s);
+  float* const ov[2] = {out_sv, out_pv};
+  int* const oi[2] = {out_si, out_pi};
+  return adacur::launch_kind<2>(payload_kind, a, sample, prov, ov, oi, s);
 }

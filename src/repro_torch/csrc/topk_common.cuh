@@ -967,17 +967,35 @@ inline SweepArgs sweep_args(const float* a_hi, const float* a_lo, const void* pa
                    0, n_items, range_cols, 0};
 }
 
+// The payload kinds a build instantiates, a bitmask of 1 << PayloadKind
+// (all five unless the build defines it): kernels/build.py compiles each
+// top-k source more than once, each build a few kinds (VARIANTS there),
+// so the sweep's instantiations spread over more nvcc processes.  A call
+// on a kind the build left out is refused.
+#ifndef ADACUR_KINDS
+#define ADACUR_KINDS 0x1f
+#endif
+
+template <int PK, int NL, int KCH>
+int launch_if_built(const SweepArgs& a, const ListDesc& l0, const ListDesc& l1,
+                    float* const out_v[2], int* const out_i[2], cudaStream_t stream) {
+  if constexpr (((ADACUR_KINDS) >> PK) & 1)
+    return launch_sweep<PK, NL, KCH>(a, l0, l1, out_v, out_i, stream);
+  else
+    return (int)cudaErrorInvalidValue;
+}
+
 // launch_sweep for a payload kind known at run time; KCH list chunks
 // (KCH_LARGE for approx_topk's large-k lists).
 template <int NL, int KCH = 1>
 int launch_kind(int kind, const SweepArgs& a, const ListDesc& l0, const ListDesc& l1,
                 float* const out_v[2], int* const out_i[2], cudaStream_t stream) {
   switch (kind) {
-    case PK_F32: return launch_sweep<PK_F32, NL, KCH>(a, l0, l1, out_v, out_i, stream);
-    case PK_I8: return launch_sweep<PK_I8, NL, KCH>(a, l0, l1, out_v, out_i, stream);
-    case PK_BF16: return launch_sweep<PK_BF16, NL, KCH>(a, l0, l1, out_v, out_i, stream);
-    case PK_FP8: return launch_sweep<PK_FP8, NL, KCH>(a, l0, l1, out_v, out_i, stream);
-    case PK_I4: return launch_sweep<PK_I4, NL, KCH>(a, l0, l1, out_v, out_i, stream);
+    case PK_F32: return launch_if_built<PK_F32, NL, KCH>(a, l0, l1, out_v, out_i, stream);
+    case PK_I8: return launch_if_built<PK_I8, NL, KCH>(a, l0, l1, out_v, out_i, stream);
+    case PK_BF16: return launch_if_built<PK_BF16, NL, KCH>(a, l0, l1, out_v, out_i, stream);
+    case PK_FP8: return launch_if_built<PK_FP8, NL, KCH>(a, l0, l1, out_v, out_i, stream);
+    case PK_I4: return launch_if_built<PK_I4, NL, KCH>(a, l0, l1, out_v, out_i, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }

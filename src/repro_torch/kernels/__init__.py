@@ -53,9 +53,12 @@ def _counters() -> dict:
     from .approx_topk import kernel, persistent
     from .embedding_bag import kernel as bag
     from .flash_attention import kernel as flash
+    from .tensor_product import kernel as tp
 
     return {"approx_topk": kernel.launches,
             "persistent_round": persistent.launches,
             "flash_attention": flash.launches,
             "embedding_bag": bag.launches,
-            "embedding_bag_backward": bag.backward_launches}
+            "embedding_bag_backward": bag.backward_launches,
+            "tensor_product": tp.launches,
+            "tensor_product_backward": tp.backward_launches}

@@ -161,9 +161,11 @@ def approx_topk_cuda(e_q, r_anc, anchors, k: int, noise=None, mask=None,
     # operands and scratch may be freed when this returns, before the kernel
     # ran: the caching allocator hands their memory only to later work on the
     # same stream, which runs after it
-    lib = build.load("approx_topk")
     p = build.ptr
-    err = lib.approx_topk_launch(
+    launch = (build.load(build.topk_library("approx_topk", kind)).approx_topk_launch
+              if k <= KMAX else
+              build.load(build.topk_library("approx_topk_large", kind)).approx_topk_large_launch)
+    err = launch(
         p(a_hi), p(a_lo), p(codes), kind, p(scales), qtile, p(noise), p(m8),
         p(anchors), n_anc, b, k_q, n, n_items, k, cols,
         p(blk_v), p(blk_i), p(gthr), p(out_v), p(out_i),

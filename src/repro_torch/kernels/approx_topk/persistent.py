@@ -107,14 +107,24 @@ def persistent_round_cuda(e_q, r_anc, *, k_sample=None, k_prov=None,
     bsv, bsi, gs, osv, osi = buffers(ks)
     bpv, bpi, gp, opv, opi = buffers(kp)
     m8, pm8 = as_u8(mask), as_u8(prov_mask)
-    lib = build.load("persistent_round")
     p = build.ptr
-    err = lib.persistent_round_launch(
-        p(a_hi), p(a_lo), p(codes), kind, p(scales), qtile, p(noise), p(m8),
-        p(anchors), n_anc, p(pm8), b, k_q, n, n_items, ks, kp, cols,
-        p(bsv), p(bsi), p(bpv), p(bpi), p(gs), p(gp), p(osv), p(osi), p(opv), p(opi),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if ks and kp:
+        err = build.load(build.topk_library("persistent_round", kind)).persistent_round_launch(
+            p(a_hi), p(a_lo), p(codes), kind, p(scales), qtile, p(noise), p(m8),
+            p(anchors), n_anc, p(pm8), b, k_q, n, n_items, ks, kp, cols,
+            p(bsv), p(bsi), p(bpv), p(bpi), p(gs), p(gp), p(osv), p(osi), p(opv), p(opi),
+            stream)
+    elif ks:     # one list: the same sweep with one list, compiled in approx_topk.cu
+        err = build.load(build.topk_library("approx_topk", kind)).approx_topk_launch(
+            p(a_hi), p(a_lo), p(codes), kind, p(scales), qtile, p(noise), p(m8),
+            p(anchors), n_anc, b, k_q, n, n_items, ks, cols, p(bsv), p(bsi), p(gs),
+            p(osv), p(osi), stream)
+    else:        # the provisional list alone: no noise, no anchors, prov_mask
+        err = build.load(build.topk_library("approx_topk", kind)).approx_topk_launch(
+            p(a_hi), p(a_lo), p(codes), kind, p(scales), qtile, None, p(pm8),
+            None, 0, b, k_q, n, n_items, kp, cols, p(bpv), p(bpi), p(gp),
+            p(opv), p(opi), stream)
     build.check(err, "persistent_round")
     launches.add()
     return ((osv, osi) if ks else None), ((opv, opi) if kp else None)

@@ -6,6 +6,11 @@ Each ``src/repro_torch/csrc/*.cu`` is compiled by its own ``nvcc`` process
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC -Xptxas -v -o lib<name>.so <name>.cu
 
+The top-k sources are compiled more than once (``VARIANTS``), each build
+instantiating part of the sweep's payload kinds into a library of its own
+(``lib<name>.so``, ``lib<name>_coded.so``, ...): the longest nvcc sets
+the build's time.
+
 The libraries go to ``build/kernels/<hash of the sources>/`` under the
 repository root, so an edited source rebuilds and an unchanged one is
 reused.  A missing ``nvcc`` or a
@@ -29,6 +34,16 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
+
+# sources built more than once: {source stem: {library: payload kinds}}, the
+# kinds (topk_common.cuh's PayloadKind: 0 fp32, 1 int8, 2 bf16, 3 fp8, 4
+# int4) a build instantiates (nvcc -DADACUR_KINDS=<bitmask>); the two-list
+# persistent sweep, the slowest to compile, in three builds
+_TWO = {"": (0, 1), "_coded": (2, 3, 4)}
+VARIANTS = {"approx_topk": _TWO, "approx_topk_large": _TWO,
+            "persistent_round": {"": (0, 1), "_coded": (2, 3), "_int4": (4,)}}
+VARIANTS = {stem: {stem + suffix: kinds for suffix, kinds in v.items()}
+            for stem, v in VARIANTS.items()}
 
 _lock = threading.Lock()
 _libs: dict = {}
@@ -65,6 +80,7 @@ def build_dir() -> Path:
         h.update(p.name.encode())
         h.update(p.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(repr(VARIANTS).encode())
     return _REPO / "build" / "kernels" / h.hexdigest()[:16]
 
 
@@ -76,37 +92,67 @@ def build_all() -> dict:
     out = build_dir()
     out.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for src in cus:
-        lib = out / f"lib{src.stem}.so"
+    for src, name, flags in _libraries(cus):
+        lib = out / f"lib{name}.so"
         if lib.exists():
             log = lib.with_suffix(".ptxas.txt")
-            build_info.setdefault(src.stem, {
+            build_info.setdefault(name, {
                 "seconds": 0.0, "cached": True,
                 "ptxas": log.read_text() if log.exists() else ""})
             continue
-        tmp = out / f".lib{src.stem}.{os.getpid()}.so"
-        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(src)]
-        procs[src.stem] = (subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
-        ), tmp, lib, time.perf_counter())
+        tmp = out / f".lib{name}.{os.getpid()}.so"
+        log_path = out / f".lib{name}.{os.getpid()}.log"
+        cmd = [nvcc, *NVCC_FLAGS, *flags, "-I", str(CSRC), "-o", str(tmp), str(src)]
+        with open(log_path, "w") as log_file:
+            procs[name] = (subprocess.Popen(
+                cmd, stdout=log_file, stderr=subprocess.STDOUT, text=True
+            ), tmp, lib, log_path, time.perf_counter())
+    ended = {}                      # each nvcc's own wall seconds
+    while len(ended) < len(procs):
+        for name, (proc, *_, t0) in procs.items():
+            if name not in ended and proc.poll() is not None:
+                ended[name] = time.perf_counter() - t0
+        time.sleep(0.05)
     failed = []
-    for name, (proc, tmp, lib, t0) in procs.items():
-        log, _ = proc.communicate()
-        build_info[name] = {"seconds": time.perf_counter() - t0, "ptxas": log}
+    for name, (proc, tmp, lib, log_path, _) in procs.items():
+        log = log_path.read_text()
+        log_path.unlink()
+        build_info[name] = {"seconds": ended[name], "ptxas": log}
         if proc.returncode != 0:
-            failed.append(f"--- {name}.cu (exit {proc.returncode}) ---\n{log}")
+            failed.append(f"--- lib{name} (exit {proc.returncode}) ---\n{log}")
             continue
         lib.with_suffix(".ptxas.txt").write_text(log)
         os.replace(tmp, lib)
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
-    return {src.stem: out / f"lib{src.stem}.so" for src in cus}
+    return {name: out / f"lib{name}.so" for _, name, _ in _libraries(cus)}
+
+
+def _libraries(cus):
+    """(source, library name, extra nvcc flags) of every library to build."""
+    out = []
+    for src in cus:
+        if src.stem not in VARIANTS:
+            out.append((src, src.stem, []))
+            continue
+        for name, kinds in VARIANTS[src.stem].items():
+            mask = sum(1 << k for k in kinds)
+            out.append((src, name, [f"-DADACUR_KINDS={mask:#x}"]))
+    return out
+
+
+def topk_library(stem: str, kind: int) -> str:
+    """The library of a top-k source (``VARIANTS``) built for payload kind
+    ``kind``."""
+    return next(name for name, kinds in VARIANTS[stem].items() if kind in kinds)
 
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     "approx_topk_launch": [_P, _P, _P, _I, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I,
                            _I, _I, _P, _P, _P, _P, _P, _P],
+    "approx_topk_large_launch": [_P, _P, _P, _I, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I,
+                                 _I, _I, _P, _P, _P, _P, _P, _P],
     "persistent_round_launch": [_P, _P, _P, _I, _P, _I, _P, _P, _P, _I, _P, _I, _I,
                                 _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
                                 _P, _P, _P, _P],
@@ -117,6 +163,8 @@ _SIGNATURES = {
     "embedding_bag_backward_launch": [_P, _I, _L, _L, _P, _L, _L, _P, _P, _L, _I, _L, _I,
                                       _I, _I, _P],
     "embedding_bag_backward_scratch": [_L, _L, _I],
+    "tensor_product_launch": [_P, _P, _P, _P, _P, _L, _I, _P],
+    "tensor_product_backward_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _P],
 }
 _RESTYPES = {"embedding_bag_backward_scratch": _L}   # the others return a cudaError_t
 

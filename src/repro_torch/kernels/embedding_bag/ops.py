@@ -13,6 +13,11 @@ dense (rows, dim) fp32 gradient the reference's ``jnp.take`` gives — the
 backward kernel (``kernel.embedding_bag_backward_cuda``) on the card, its
 plain version (``index_add_`` in lookup order) on the CPU.  The ids get no
 gradient.
+
+``gather_rows`` (a bag of one id a row) and ``segment_sum`` (the
+backward's sum by row, differentiable, whose own backward is the gather)
+are NequIP's gather and scatter (``models/gnn/nequip.py``): both
+deterministic on the card, since neither kernel adds with atomics.
 """
 
 from __future__ import annotations
@@ -58,3 +63,31 @@ def embedding_bag_op(table: torch.Tensor, ids: torch.Tensor,
     if table.requires_grad and torch.is_grad_enabled():
         return _Bag.apply(table, ids, mode)
     return _forward(table, ids, mode)
+
+
+def gather_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``table[ids]`` (M, dim) for int32 ``ids`` (M,): the bag kernel with one
+    id a bag, so its gradient is the backward kernel's deterministic sum."""
+    return embedding_bag_op(table, ids[:, None], "sum")
+
+
+class _SegmentSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, data, ids, n):
+        ctx.save_for_backward(ids)
+        return embedding_bag_backward(data, ids[:, None], n)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (ids,) = ctx.saved_tensors
+        return _forward(grad.contiguous(), ids[:, None], "sum"), None, None
+
+
+def segment_sum(data: torch.Tensor, ids: torch.Tensor, n: int) -> torch.Tensor:
+    """(n, dim) fp32 sums of ``data`` (M, dim)'s rows by int32 segment
+    ``ids`` (M,) — ``jax.ops.segment_sum`` with an id outside [-n, n)
+    dropped — through the bag's backward (no atomics on the card);
+    differentiable in ``data``, its gradient the bag gather."""
+    if data.requires_grad and torch.is_grad_enabled():
+        return _SegmentSum.apply(data, ids, n)
+    return embedding_bag_backward(data, ids[:, None], n)

@@ -17,7 +17,7 @@ from __future__ import annotations
 import math
 import os
 from datetime import timedelta
-from typing import Dict, NamedTuple
+from typing import Dict, NamedTuple, Optional
 
 import torch
 import torch.distributed as dist
@@ -85,7 +85,8 @@ REPLICA_TIMEOUT_S = 60.0
 
 
 def make_replica_meshes(replicas: int, data: int, items: int, device=None,
-                        backend=None, timeout_s: float = REPLICA_TIMEOUT_S) -> ReplicaMesh:
+                        backend=None, timeout_s: float = REPLICA_TIMEOUT_S,
+                        control_timeout_s: Optional[float] = None) -> ReplicaMesh:
     """A world of ``replicas x data x items`` ranks as ``replicas``
     serving meshes of ``data x items`` each, replica r on the world's ranks
     [r * data * items, (r + 1) * data * items), row-major; ``launch/router.py``
@@ -98,9 +99,12 @@ def make_replica_meshes(replicas: int, data: int, items: int, device=None,
     ``group``) time out after ``timeout_s``, so a peer of a failed rank
     fails then at the latest, even where something still holds the failed
     rank's groups open.  The ``control`` group, where the followers wait
-    for the next batch, keeps the backend's default timeout, so the bound
-    does not end an idle replica.  The links carry the router's traffic to
-    the replicas rank 0 does not lead.  ``device`` is the card unless the
+    for the next batch, and the links, which carry the router's traffic to
+    the replicas rank 0 does not lead, keep the backend's default timeout
+    unless ``control_timeout_s`` is given, so the batch bound does not end
+    an idle replica; keep-alive headers every sixth of that timeout hold an
+    idle replica's followers (the leader's ``AdaCURService``) and its
+    leader (``router.RemoteReplica``) past it.  ``device`` is the card unless the
     caller passes ``"cpu"``; the backend follows it, as in
     :func:`make_mesh`."""
     from torch.distributed.device_mesh import DeviceMesh
@@ -119,6 +123,8 @@ def make_replica_meshes(replicas: int, data: int, items: int, device=None,
     grid = torch.arange(replicas * size).reshape(replicas, data, items)
     own = {}
     bound = timedelta(seconds=timeout_s)
+    control = ({} if control_timeout_s is None
+               else {"timeout": timedelta(seconds=control_timeout_s)})
     for r in range(replicas):
         groups = {
             "data": [dist.new_group(grid[r, :, i].tolist(), timeout=bound)
@@ -126,11 +132,11 @@ def make_replica_meshes(replicas: int, data: int, items: int, device=None,
             "items": [dist.new_group(grid[r, d, :].tolist(), timeout=bound)
                       for d in range(data)],
             "all": dist.new_group(grid[r].reshape(-1).tolist(), timeout=bound),
-            "control": dist.new_group(grid[r].reshape(-1).tolist()),
+            "control": dist.new_group(grid[r].reshape(-1).tolist(), **control),
         }
         if r == mine:
             own = groups
-    links = {r: dist.new_group([0, r * size]) for r in range(1, replicas)}
+    links = {r: dist.new_group([0, r * size], **control) for r in range(1, replicas)}
     d, i = divmod(rank - mine * size, items)
     mesh = DeviceMesh.from_group([own["data"][i], own["items"][d]], dev.type,
                                  mesh=grid[mine].tolist(), mesh_dim_names=("data", "items"))

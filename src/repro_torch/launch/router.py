@@ -59,7 +59,8 @@ import torch.distributed as dist
 from ..device import resolve_device
 from ..distributed.fault_tolerance import StragglerWatchdog
 from .faults import FaultPlan
-from .serve import AdaCURService, RetrievalRequest, RetrievalResponse
+from .serve import (AdaCURService, KeepAlive, RetrievalRequest, RetrievalResponse,
+                    keepalive_interval_s)
 
 OK = "ok"
 ERROR = "error"
@@ -506,7 +507,8 @@ class Router:
 # replicas that are meshes led by another rank
 # ---------------------------------------------------------------------------
 
-_LINK_HEADER = 3           # (op, count, payload length); op 0 stop, 1 batch, 2 swap
+_LINK_HEADER = 3           # (op, count, payload length); op 0 stop, 1 batch, 2 swap,
+                           # 3 keep-alive
 _META = ("query_id", "status", "degraded", "rounds_completed", "ce_calls",
          "measured_ce_calls", "cache_hits", "batch_id", "batch_row")
 
@@ -543,7 +545,11 @@ class RemoteReplica:
     swaps is the order the replica runs them in.  A deadline travels as
     the budget left when the list is sent.  The link is never torn down:
     a failure inside the replica comes back as error responses, and the
-    router quarantines the replica as it would any other."""
+    router quarantines the replica as it would any other.  The leader waits
+    for the next operation on the link as long as traffic is idle: a
+    :class:`~repro_torch.launch.serve.KeepAlive` thread sends a keep-alive
+    header (op 3, which :func:`serve_remote` skips) whenever nothing went
+    out for a sixth of the link's timeout."""
 
     def __init__(self, link, leader: int, max_batch: int):
         self.link = link
@@ -553,9 +559,29 @@ class RemoteReplica:
         self.batch_log: List[dict] = []
         self._lock = threading.Lock()
         self._stopped = False
+        self.keepalives = 0                     # keep-alive headers sent
+        self._last_sent = time.monotonic()
+        self._keepalive = KeepAlive(self, keepalive_interval_s(link))
 
     def _header(self, op: int, count: int = 0, length: int = 0) -> None:
         _link_send(self.link, 0, torch.tensor([op, count, length], dtype=torch.int64))
+        self._last_sent = time.monotonic()
+
+    def _keepalive_tick(self) -> bool:
+        """A keep-alive header once nothing went out for the interval; False
+        once stopped.  A busy link (its lock held) carries headers of its
+        own."""
+        if not self._lock.acquire(blocking=False):
+            return True
+        try:
+            if self._stopped:
+                return False
+            if time.monotonic() - self._last_sent >= self._keepalive.interval_s:
+                self._header(3)
+                self.keepalives += 1
+            return True
+        finally:
+            self._lock.release()
 
     def submit_and_flush(self, requests: List[RetrievalRequest]) -> List[RetrievalResponse]:
         with self._lock:
@@ -601,6 +627,7 @@ class RemoteReplica:
     def stop_followers(self) -> None:
         """End the leader's :func:`serve_remote` (which stops its own
         followers)."""
+        self._keepalive.stop()
         with self._lock:
             if not self._stopped:
                 self._stopped = True
@@ -622,6 +649,8 @@ def serve_remote(service: AdaCURService, link) -> int:
             return n
         if op == 2:
             service.swap_index(None)
+            continue
+        if op == 3:          # rank 0's keep-alive
             continue
         (reqs,) = _link_recv(link, 0, ((count, 2), torch.float64))
         now = time.monotonic()

@@ -68,11 +68,13 @@ ZESHEL-like token corpus with the reference CLI's reduced CE and sizes
 from __future__ import annotations
 
 import argparse
+import atexit
 import gc
 import json
 import os
 import threading
 import time
+import weakref
 from dataclasses import dataclass, field
 from typing import Callable, List, Optional, Union
 
@@ -90,6 +92,61 @@ from ..core.scorer import (CachingScorer, CrossEncoderScorer, DeviceCEScorer, Sc
 from ..device import resolve_device
 from ..kernels.approx_topk import quant
 from ..kernels.approx_topk.select import stable_topk
+
+
+# an idle sharded service's leader sends its followers a header this often
+# at most, and at least six times in the timeout of the group they wait on
+KEEPALIVE_S = 60.0
+
+
+def keepalive_interval_s(group) -> float:
+    """How often an idle sender keeps a receiver waiting on ``group`` (a
+    process group or its name): a sixth of the group's own timeout, at most
+    :data:`KEEPALIVE_S`."""
+    pg = _resolve_group(getattr(group, "group_name", group))
+    dev = torch.device("cuda" if dist.get_backend(pg) == "nccl" else "cpu")
+    return min(KEEPALIVE_S, pg._get_backend(dev).options._timeout.total_seconds() / 6)
+
+
+class KeepAlive:
+    """A daemon thread that calls ``owner._keepalive_tick()`` four times an
+    ``interval_s`` until :meth:`stop`, until the tick returns False, or
+    until the owner goes: it holds the owner weakly, so an owner nobody
+    holds goes (and its process groups with it) as it would without one.
+    The tick must not wait on a lock that :meth:`stop`'s caller may hold.
+    :meth:`stop` joins the thread, and so does the interpreter's exit, so
+    no keep-alive is inside a collective when the process ends."""
+
+    def __init__(self, owner, interval_s: float):
+        self.interval_s = interval_s
+        self._stop = threading.Event()
+        self._thread = threading.Thread(
+            target=_keepalive_loop, args=(weakref.ref(owner), self._stop, interval_s / 4),
+            daemon=True, name="adacur-keepalive")
+        _KEEPALIVES.add(self)
+        self._thread.start()
+
+    def stop(self) -> None:
+        self._stop.set()
+        if self._thread is not threading.current_thread():
+            self._thread.join(timeout=self.interval_s)
+
+
+def _keepalive_loop(ref, stop: threading.Event, every_s: float) -> None:
+    while not stop.wait(every_s):
+        owner = ref()
+        if owner is None or not owner._keepalive_tick():
+            return
+        del owner
+
+
+_KEEPALIVES: "weakref.WeakSet[KeepAlive]" = weakref.WeakSet()
+
+
+@atexit.register
+def _stop_keepalives() -> None:
+    for k in list(_KEEPALIVES):
+        k.stop()
 
 
 @dataclass
@@ -141,7 +198,15 @@ class AdaCURService:
     The followers wait for each batch's header over ``control`` (``group``
     unless given): a replica's ``group`` and mesh may bound every
     collective of a batch by a short timeout while its followers wait for
-    the next batch as long as traffic is idle.
+    the next batch as long as traffic is idle.  A replica's idle leader
+    (a service given its ``control`` group) keeps them waiting past that
+    group's own timeout: a :class:`KeepAlive` thread of its service
+    broadcasts a keep-alive header (op 3, which a follower skips) whenever
+    no header went out for a sixth of that timeout
+    (:func:`keepalive_interval_s`; gloo's default is 30 minutes,
+    ``make_replica_meshes(control_timeout_s=)`` sets a replica's).  A
+    service over the world (the serve CLI under torchrun) drives its
+    batches back to back and keeps the world group's bound.
     The measured CE calls of a batch are summed over the ranks.  A search
     that raises on any rank is fatal to the mesh (the ranks' collectives no
     longer pair up): that rank ends the mesh's process groups, which makes
@@ -209,6 +274,8 @@ class AdaCURService:
                         else dist.get_global_rank(self._group, 0))
         self._staged: List[AnchorIndex] = []
         self._n_batches = 0
+        self.keepalives = 0                     # keep-alive headers sent
+        self._last_header = time.monotonic()
         self.deterministic = deterministic
         self._key = prng.PRNGKey(seed)
         self._pending: List[RetrievalRequest] = []
@@ -218,6 +285,29 @@ class AdaCURService:
         self._lock = threading.RLock()
         # per fired batch: rows, bucket, rounds, CE calls, seconds
         self.batch_log: List[dict] = []
+        self._keepalive = (KeepAlive(self, keepalive_interval_s(self._control_name))
+                           if self._spmd and control is not None
+                           and dist.get_rank() == self._leader else None)
+
+    def _keepalive_tick(self) -> bool:
+        """The leader's keep-alive: a header on the control group once none
+        went out for the interval; False once the mesh has failed.  A busy
+        service (its lock held) sends headers of its own."""
+        if not self._lock.acquire(blocking=False):
+            return True
+        try:
+            if self.mesh_error is not None:
+                return False
+            if time.monotonic() - self._last_header >= self._keepalive.interval_s:
+                self._broadcast_header(3, 0, (0, 0))
+                self.keepalives += 1
+            return True
+        finally:
+            self._lock.release()
+
+    def _stop_keepalive(self) -> None:
+        if self._keepalive is not None:
+            self._keepalive.stop()
 
     @property
     def scorer_stats(self) -> Optional[ScorerStats]:
@@ -394,7 +484,8 @@ class AdaCURService:
 
     # -- the sharded service's ranks ------------------------------------------
 
-    _HEADER = 4          # (op, bucket, key word 0, key word 1); op 0 stop, 1 batch, 2 swap
+    # (op, bucket, key word 0, key word 1); op 0 stop, 1 batch, 2 swap, 3 keep-alive
+    _HEADER = 4
 
     @property
     def _group(self):
@@ -407,6 +498,7 @@ class AdaCURService:
     def _broadcast_header(self, op: int, bucket: int, key_words) -> None:
         hdr = torch.tensor([op, bucket, *key_words], dtype=torch.int64, device=self.device)
         dist.broadcast(hdr, src=self._leader, group=self._control)
+        self._last_header = time.monotonic()
 
     def _announce(self, qids: torch.Tensor, key) -> None:
         """The leader: send one batch to the following ranks."""
@@ -452,6 +544,7 @@ class AdaCURService:
         if self.mesh_error is not None:
             return msg
         self.mesh_error = msg
+        self._stop_keepalive()
         if not dist.is_initialized():
             return msg
         try:
@@ -489,6 +582,8 @@ class AdaCURService:
                 if op == 2:
                     self._use_index(self._staged.pop(0))
                     continue
+                if op == 3:          # the leader's keep-alive
+                    continue
                 qids = torch.empty(bucket, dtype=torch.int64, device=self.device)
                 dist.broadcast(qids, src=self._leader, group=self._group)
                 kw = {}
@@ -510,6 +605,7 @@ class AdaCURService:
     def stop_followers(self) -> None:
         """The leader: end every other rank's :meth:`follow` (a mesh already
         torn down has no followers left)."""
+        self._stop_keepalive()
         with self._lock:
             if self._spmd and self.mesh_error is None:
                 self._broadcast_header(0, 0, (0, 0))

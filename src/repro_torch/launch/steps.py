@@ -4,7 +4,8 @@ and retrieval builders (``build_recsys_train`` :531, ``build_recsys_serve``
 ``_recsys_init`` :419, ``_recsys_inputs`` :432, ``_recsys_loss`` :465,
 ``_recsys_forward`` :479 and ``_recsys_flops`` :511), its LM builders
 (``build_lm_train`` :149, ``build_lm_prefill`` :219, ``build_lm_decode``
-:256), the paper's full pipeline with a model-zoo cross-encoder
+:256), its GNN builder (``build_gnn_train`` :363 over ``_gnn_batch``
+:309), the paper's full pipeline with a model-zoo cross-encoder
 (``build_lm_adacur_serve`` :661) and the dispatcher ``build_cell`` (:745),
 on one device with no mesh.
 
@@ -32,6 +33,11 @@ on one device with no mesh.
   LM decode_32k/long_500k-> one KV-cached ``decode_step`` (the local decode
                             core; the reference's sequence-parallel core is
                             its mesh path)
+  nequip (all four)      -> the per-graph energy MSE, its gradient and AdamW
+                            (lr 1e-3); graphs above 100,000 nodes in edge
+                            chunks of 262,144 with each interaction block
+                            recomputed in the backward; message passing
+                            deterministic (no atomics on the card)
   LM adacur_serve        -> ADACUR over ``n_items`` items whose exact scorer
                             is the LM as a cross-encoder (a prefill of
                             ``[CLS] q [SEP] i [SEP]`` per call, flash)
@@ -45,24 +51,29 @@ Each builder returns a :class:`StepBundle` whose ``args`` are concrete
 tensors (the reference's are abstract shapes for its dry run): weights
 drawn from a seed as ``_recsys_init`` does with ``PRNGKey(0)``, inputs
 from a seeded generator (DLRM's raw sparse ids in [0, 2^31), item ids in
-[0, n_items)).  The serving steps run under ``torch.no_grad()``.  NequIP
-and everything over a mesh are later slices (ROADMAP.md, queue 1).
+[0, n_items); a GNN batch's graph from ``models/gnn/sampler.py``).  The
+serving steps run under ``torch.no_grad()``.  Everything over a mesh
+(training, the sharded interact) is a later slice (ROADMAP.md, queue 1).
 """
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
 from ..configs import registry
-from ..configs.base import AdaCURConfig, LMConfig, LMShape, RecSysConfig, RecSysShape
+from ..configs.base import (AdaCURConfig, GNNConfig, GraphShape, LMConfig, LMShape,
+                            RecSysConfig, RecSysShape)
 from ..core import adacur, prng
 from ..core.scorer import ScorerStats
 from ..device import resolve_device
 from ..models import cross_encoder, transformer
+from ..models.gnn import nequip, sampler
 from ..models.recsys import bert4rec, bst, dlrm, embedding, mind
 from ..training import optimizer
 from ..tree import leaves, tree_map
@@ -519,6 +530,158 @@ def build_lm_train(arch_id: str, cfg: LMConfig, shape: LMShape, *, params=None,
 
 
 # ---------------------------------------------------------------------------
+# GNN family (NequIP)
+# ---------------------------------------------------------------------------
+
+GNN_BIG_NODES = 100_000       # above this, edge chunks and remat (the reference's rule)
+MINIBATCH_PAD = 196608        # the padded fanout subgraph's nodes and edges
+
+
+def gnn_init(cfg: GNNConfig, shape: GraphShape, seed: int = 0, device=None) -> dict:
+    """NequIP's weights for ``shape`` (a ``d_feat`` projection or the species
+    embedding) drawn on ``device``'s generator seeded with ``seed``."""
+    dev = resolve_device(device)
+    return nequip.init_nequip(cfg, _generator(seed, dev), shape.d_feat, dev)
+
+
+def _pad512(n: int) -> int:
+    return (n + 511) // 512 * 512
+
+
+def gnn_sizes(shape: GraphShape) -> tuple:
+    """(nodes, edges, n_graphs) of a batch, padded to multiples of 512 as
+    the reference's ``_gnn_batch`` pads them."""
+    if shape.kind == "molecule":
+        g = shape.batch_graphs
+        n, e, n_graphs = g * shape.n_nodes, g * shape.n_edges, g
+    elif shape.kind == "minibatch":
+        n = e = MINIBATCH_PAD
+        n_graphs = 1
+    else:
+        n, e, n_graphs = shape.n_nodes, shape.n_edges, 1
+    return _pad512(n), _pad512(e), n_graphs
+
+
+def gnn_graph(shape: GraphShape, seed: int, device=None):
+    """(senders, receivers) int32 of the whole graph behind a full or
+    minibatch shape: ``random_graph``'s law (Pareto(2) + 1 senders,
+    uniform receivers) drawn on ``device``'s generator."""
+    dev = resolve_device(device)
+    return sampler.random_graph_device(shape.n_nodes, shape.n_edges, _generator(seed, dev))
+
+
+def gnn_sample(shape: GraphShape, senders, receivers, seed: int,
+               seconds: Optional[dict] = None) -> sampler.SampledSubgraph:
+    """One padded fanout subgraph of a minibatch shape: the CSR built on the
+    edges' device (``csr_from_edge_index``), copied to the host, sampled there
+    by the numpy ``sample_subgraph`` from ``default_rng(seed)``'s seeds.
+    ``seconds`` gets each stage's host seconds (``csr``, ``copy``, ``sample``)."""
+    seconds = {} if seconds is None else seconds
+    t0 = time.perf_counter()
+    indptr, indices = sampler.csr_from_edge_index(senders, receivers, shape.n_nodes)
+    indptr[-1].item()                     # waits for the CSR
+    t1 = time.perf_counter()
+    graph = sampler.to_host_csr(indptr, indices, shape.n_nodes)
+    t2 = time.perf_counter()
+    rng = np.random.default_rng(seed)
+    seeds = rng.choice(shape.n_nodes, size=shape.batch_nodes, replace=False)
+    sub = sampler.sample_subgraph(graph, seeds, shape.fanout, MINIBATCH_PAD, MINIBATCH_PAD, rng)
+    seconds.update(csr=t1 - t0, copy=t2 - t1, sample=time.perf_counter() - t2)
+    return sub
+
+
+def gnn_inputs(cfg: GNNConfig, shape: GraphShape, seed: int = 1, device=None,
+               graph=None) -> dict:
+    """A concrete batch in ``_gnn_batch``'s layout: nodes and edges padded
+    to multiples of 512 (padded edges 0 -> 0 with ``edge_mask`` 0, padded
+    nodes ``node_mask`` 0), standard-normal positions (most edges then lie
+    within the cutoff), a seeded ``energy`` target a graph, and ``node_attr``
+    species ids or standard-normal features (``d_feat``).  A molecule batch
+    draws ``n_edges`` edges inside each of its graphs and carries
+    ``graph_ids``; a full shape uses ``graph`` ((senders, receivers)) or
+    :func:`gnn_graph`'s; a minibatch shape uses ``graph`` when it is a
+    ``SampledSubgraph``, else one :func:`gnn_sample` of ``graph`` (or of
+    :func:`gnn_graph`'s)."""
+    dev = resolve_device(device)
+    n, e, n_graphs = gnn_sizes(shape)
+    g = _generator(seed, dev)
+    senders = torch.zeros(e, dtype=torch.int32, device=dev)
+    receivers = torch.zeros(e, dtype=torch.int32, device=dev)
+    edge_mask = torch.zeros(e, dtype=torch.float32, device=dev)
+    node_mask = torch.zeros(n, dtype=torch.float32, device=dev)
+    batch = {}
+    if shape.kind == "molecule":
+        nb, eb = shape.batch_graphs, shape.batch_graphs * shape.n_edges
+        base = torch.arange(nb, device=dev).repeat_interleave(shape.n_edges) * shape.n_nodes
+        senders[:eb] = (torch.randint(0, shape.n_nodes, (eb,), generator=g, device=dev)
+                        + base).to(torch.int32)
+        receivers[:eb] = (torch.randint(0, shape.n_nodes, (eb,), generator=g, device=dev)
+                          + base).to(torch.int32)
+        real_n, real_e = nb * shape.n_nodes, eb
+        ids = torch.zeros(n, dtype=torch.int32, device=dev)
+        ids[:real_n] = torch.arange(real_n, device=dev).div(shape.n_nodes,
+                                                            rounding_mode="floor").to(torch.int32)
+        batch["graph_ids"] = ids
+    elif shape.kind == "minibatch":
+        sub = graph
+        if not isinstance(sub, sampler.SampledSubgraph):
+            sub = gnn_sample(shape, *(graph or gnn_graph(shape, seed, dev)), seed)
+        senders.copy_(torch.from_numpy(sub.senders))
+        receivers.copy_(torch.from_numpy(sub.receivers))
+        edge_mask.copy_(torch.from_numpy(sub.edge_mask.astype(np.float32)))
+        node_mask.copy_(torch.from_numpy(sub.node_mask.astype(np.float32)))
+        real_n = real_e = None
+    else:
+        gs, gr = graph if graph is not None else gnn_graph(shape, seed, dev)
+        real_n, real_e = shape.n_nodes, shape.n_edges
+        senders[:real_e], receivers[:real_e] = gs, gr
+    if real_n is not None:
+        node_mask[:real_n] = 1.0
+        edge_mask[:real_e] = 1.0
+    batch["positions"] = torch.randn((n, 3), generator=g, device=dev)
+    if shape.d_feat:
+        batch["node_attr"] = torch.randn((n, shape.d_feat), generator=g, device=dev)
+    else:
+        batch["node_attr"] = torch.randint(0, cfg.n_species, (n,), generator=g, device=dev,
+                                           dtype=torch.int32)
+    batch.update(senders=senders, receivers=receivers, edge_mask=edge_mask,
+                 node_mask=node_mask,
+                 energy=torch.randn((n_graphs,), generator=g, device=dev))
+    return batch
+
+
+def gnn_flops(cfg: GNNConfig, n_edges: int) -> float:
+    """The reference's ``model_flops``: ~(paths x irrep_dim x h) MACs an edge."""
+    return 2.0 * n_edges * 11 * 9 * cfg.d_hidden * cfg.n_layers
+
+
+def build_gnn_train(arch_id: str, cfg: GNNConfig, shape: GraphShape, *, params=None,
+                    batch=None, seed: int = 0, device=None) -> StepBundle:
+    """``step(params, opt_state, batch)``: one NequIP train step (the
+    per-graph energy MSE, its gradient and AdamW with lr 1e-3, as the
+    reference).  A graph above 100,000 nodes runs in edge chunks of
+    ``nequip.EDGE_CHUNK`` with each interaction block recomputed in the
+    backward (the reference shards it over a mesh instead).  ``args`` =
+    (params requiring grad, a fresh AdamW state, ``batch`` or
+    :func:`gnn_inputs`'s); ``model_flops`` is the reference's."""
+    dev = resolve_device(device)
+    params = gnn_init(cfg, shape, seed, dev) if params is None else params
+    require_grad(params)
+    batch = gnn_inputs(cfg, shape, seed + 1, dev) if batch is None else batch
+    _, e, n_graphs = gnn_sizes(shape)
+    big = shape.n_nodes > GNN_BIG_NODES
+    chunk = nequip.EDGE_CHUNK if big else None
+
+    def loss_fn(p, b):
+        return nequip.energy_mse_loss(p, cfg, b, n_graphs=n_graphs, remat=big,
+                                      edge_chunk=chunk)
+
+    step = train_step(loss_fn, optimizer.AdamWConfig(lr=1e-3))
+    return StepBundle(f"{arch_id}:{shape.name}", step,
+                      (params, optimizer.init_adamw(params), batch), gnn_flops(cfg, e))
+
+
+# ---------------------------------------------------------------------------
 # LM serving: prefill, decode, and the paper's pipeline with an LM as CE
 # ---------------------------------------------------------------------------
 
@@ -690,6 +853,8 @@ def build_cell(arch_id: str, shape_name: str, *, params=None, global_batch=None,
     entry = registry.get(arch_id)
     cfg = entry.config
     kw = dict(params=params, seed=seed, device=device)
+    if entry.family == "gnn":
+        return build_gnn_train(arch_id, cfg, registry.shapes_for(arch_id)[shape_name], **kw)
     if entry.family == "lm":
         if shape_name == "adacur_serve":
             return build_lm_adacur_serve(arch_id, cfg, **kw)

@@ -13,6 +13,11 @@ A second run with the same ``--ckpt-dir`` and more ``--steps`` resumes at
 the last checkpoint; on the card the resumed run ends with the bits of an
 uninterrupted one (every op of the step is deterministic there).  The
 default checkpoint directory lies under the temporary directory.
+
+A checkpoint holds the state in the reference's layout (the layers
+stacked, under its leaf paths: ``params/layers/attn/wq``,
+``opt/.mu/layers/...``), so either package's trainer resumes the other's
+(:func:`checkpoint_tree`, :func:`state_from_checkpoint`).
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ import time
 import numpy as np
 import torch
 
+from .. import convert
 from ..checkpoint import CheckpointManager
 from ..configs import registry
 from ..data.loader import Prefetcher, ShardedBatcher
@@ -51,6 +57,23 @@ def make_lm_train_step(cfg, opt_cfg):
         return nll.mean()
 
     return steps.train_step(loss_fn, opt_cfg)
+
+
+def checkpoint_tree(state: dict) -> dict:
+    """The LM training state {"params", "opt"} in the reference's layout:
+    the params' and both moments' ``layers`` stacked on a leading axis."""
+    opt = state["opt"]
+    return {"params": convert.stack_layers(state["params"]),
+            "opt": opt._replace(mu=convert.stack_layers(opt.mu),
+                                nu=convert.stack_layers(opt.nu))}
+
+
+def state_from_checkpoint(tree: dict) -> dict:
+    """:func:`checkpoint_tree`'s inverse, the params requiring grad."""
+    opt = tree["opt"]
+    return {"params": steps.require_grad(convert.unstack_layers(tree["params"])),
+            "opt": opt._replace(mu=convert.unstack_layers(opt.mu),
+                                nu=convert.unstack_layers(opt.nu))}
 
 
 def main(argv=None) -> None:
@@ -87,8 +110,10 @@ def main(argv=None) -> None:
     watchdog = StragglerWatchdog(
         on_straggler=lambda st: log.warning("straggler: step %d %.2fs", st.step, st.seconds)
     )
-    start, state = mgr.resume({"params": params, "opt": opt_state}, dev)
-    params, opt_state = state["params"], state["opt"]
+    start, tree = mgr.resume(checkpoint_tree({"params": params, "opt": opt_state}), dev)
+    if start:
+        state = state_from_checkpoint(tree)
+        params, opt_state = state["params"], state["opt"]
     if start:
         log.info("resumed from checkpoint at step %d", start)
     prefetch = Prefetcher(
@@ -105,7 +130,8 @@ def main(argv=None) -> None:
             params, opt_state, metrics = step_fn(params, opt_state, batch)
             loss = float(metrics["loss"])         # waits for the step
             watchdog.observe(step, time.monotonic() - t0)
-            mgr.maybe_save(step + 1, {"params": params, "opt": opt_state})
+            mgr.maybe_save(step + 1,
+                           lambda: checkpoint_tree({"params": params, "opt": opt_state}))
             if step % 10 == 0 or step == args.steps - 1:
                 log.info("step %d loss %.4f gnorm %.3f lr %.2e", step, loss,
                          float(metrics["grad_norm"]), float(metrics["lr"]))

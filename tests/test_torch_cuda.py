@@ -164,6 +164,8 @@ def test_sweep_ragged_shapes_match_plain(dev, shape, k, n_anc, dtype):
     (rv, ri), _ = persistent_round_op(e, pay, k_sample=k, anchors=anc, n_valid=n - 5,
                                       noise=noise, mask=mask)
     assert torch.equal(rv, kv) and torch.equal(ri, ki)
+    _, (tv, ti) = persistent_round_op(e, pay, k_prov=k, prov_mask=prov_mask, n_valid=n - 5)
+    assert torch.equal(tv, bv) and torch.equal(ti, bi)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -393,10 +395,13 @@ def test_sweep_decodes_fp8_and_int4_exactly(dev):
 
 def test_topk_kernels_do_not_spill(dev):
     """ptxas reports no spill for any instantiation of the sweep (5 payload
-    kinds x {k <= 256, large k} in approx_topk, 5 x {1, 2} lists in
-    persistent_round)."""
+    kinds at k <= 256 in approx_topk, at a large k in approx_topk_large and
+    with two lists in persistent_round, each source built by payload kinds
+    into several libraries, ``build.VARIANTS``; persistent_round's one-list
+    calls run approx_topk's)."""
     build.build_all()
-    for name, n_sweeps in (("approx_topk", 10), ("persistent_round", 10)):
+    for name, kinds in [lib for libs in build.VARIANTS.values() for lib in libs.items()]:
+        n_sweeps = len(kinds)
         log = build.build_info[name]["ptxas"]
         entries = re.findall(r"Compiling entry function '(_ZN6adacur12sweep_kernel[^']*)'", log)
         assert len(set(entries)) == n_sweeps, sorted(set(entries))
@@ -433,7 +438,8 @@ def test_engine_on_the_card_matches_the_cpu(dev):
     assert card.rounds_done == cpu.rounds_done < cfg.n_rounds
     assert kernels.launch_counts() == {"approx_topk": 1, "persistent_round": card.rounds_done,
                                        "flash_attention": 0, "embedding_bag": 0,
-                                       "embedding_bag_backward": 0}
+                                       "embedding_bag_backward": 0, "tensor_product": 0,
+                                       "tensor_product_backward": 0}
     assert topk_overlap(cpu.topk_idx, card.topk_idx) >= 0.99
     assert np.isfinite(card.topk_scores.cpu().numpy()).all()
 
@@ -1351,3 +1357,156 @@ if __name__ == "__main__":
 
     if len(sys.argv) == 3 and sys.argv[1] == "decode-core":
         _decode_core_rank(sys.argv[2])
+
+
+# ---------------------------------------------------------------------------
+# the GNN family: the gather, the segment sum, the tensor product and a step
+# ---------------------------------------------------------------------------
+
+
+def _segment_case(case, dev, dim):
+    g = torch.Generator(device=dev).manual_seed(dim)
+    n_rows, m = (2000, 5000) if case != "chunk" else (2_449_408, 262_144)
+    ids = torch.randint(0, n_rows, (m,), generator=g, device=dev, dtype=torch.int32)
+    if case == "heavy":
+        ids[: m // 2] = 17                     # one receiver takes half the messages
+    if case == "empty":
+        ids = ids % (n_rows // 4) * 4          # three rows of four get nothing
+    if case == "sorted":
+        ids = torch.sort(ids).values           # a receiver-sorted chunk
+    data = torch.randn((m, dim), generator=g, device=dev)
+    return data, ids, n_rows
+
+
+@pytest.mark.parametrize("case", ["repeated", "heavy", "empty", "sorted", "chunk"])
+@pytest.mark.parametrize("dim", [1, 3, 52, 416])
+def test_segment_sum_and_gather_are_bitwise_their_emulated_order(dev, case, dim):
+    """NequIP's scatter (``segment_sum``: the bag's backward kernel) bitwise
+    ``ref.embedding_bag_backward_emulated`` and equal over two calls, its
+    gradient the gather; the gather (``gather_rows``: the bag kernel, one
+    id a bag) bitwise ``table[ids]``, its gradient the scatter."""
+    from repro_torch.kernels.embedding_bag.ops import gather_rows, segment_sum
+    from repro_torch.kernels.embedding_bag.ref import embedding_bag_backward_emulated
+
+    if case == "chunk" and dim != 416:
+        pytest.skip("the phase's own shape: a chunk of 262,144 lookups of 416 floats")
+    data, ids, n = _segment_case(case, dev, dim)
+    d = data.clone().requires_grad_()
+    got = segment_sum(d, ids, n)
+    assert torch.equal(got, segment_sum(data, ids, n))
+    assert torch.equal(got, embedding_bag_backward_emulated(data, ids[:, None], n))
+    gout = torch.randn_like(got)
+    (dd,) = torch.autograd.grad(got, d, gout)
+    assert torch.equal(dd, gout[ids.long()])
+    table = torch.randn((n, dim), device=dev).requires_grad_()
+    rows = gather_rows(table, ids)
+    assert torch.equal(rows, table.detach()[ids.long()])
+    (dt,) = torch.autograd.grad(rows, table, data)
+    assert torch.equal(dt, got)
+
+
+def _tp_inputs(dev, e, h, seed=0):
+    from repro_torch.models.gnn import nequip
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((e, 13, h), generator=g, device=dev)
+    w = torch.randn((e, 11, h), generator=g, device=dev)
+    rel = torch.randn((e, 3), generator=g, device=dev)
+    rhat = rel / rel.norm(dim=1, keepdim=True)
+    y2 = nequip._sym_traceless(rhat[:, :, None] * rhat[:, None, :])
+    return x, w, rhat, y2, torch.randn((e, 13, h), generator=g, device=dev)
+
+
+TP_TOL = 1e-5      # kernel vs plain: max |d| <= this x the plain result's max |value|
+
+
+@pytest.mark.parametrize("e, h", [(1, 4), (1000, 4), (4096, 32), (777, 40), (262_144, 32)])
+def test_tensor_product_kernel_matches_plain(dev, e, h):
+    """The fused messages and their gradient against the plain version
+    (fp32 in another order: fused multiply-adds), and bitwise over two
+    calls (dr and dy summed over the channels in a fixed order)."""
+    from repro_torch.kernels.tensor_product import kernel as tpk, ref as tpr
+
+    x, w, rhat, y2, g = _tp_inputs(dev, e, h)
+    before = kernels.launch_counts()
+    m = tpk.tensor_product_cuda(x, w, rhat, y2)
+    assert torch.equal(m, tpk.tensor_product_cuda(x, w, rhat, y2))
+    want = tpr.tensor_product_plain(x, w, rhat, y2)
+    assert (m - want).abs().max() <= TP_TOL * want.abs().max()
+    got = tpk.tensor_product_backward_cuda(x, w, rhat, y2, g, True)
+    again = tpk.tensor_product_backward_cuda(x, w, rhat, y2, g, True)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    ref = tpr.tensor_product_backward_plain(x, w, rhat, y2, g, True)
+    for name, a, b in zip(("dx", "dw", "drhat", "dy2"), got, ref):
+        assert (a - b).abs().max() <= TP_TOL * b.abs().max(), name
+    no_geom = tpk.tensor_product_backward_cuda(x, w, rhat, y2, g, False)
+    assert no_geom[2] is None and torch.equal(no_geom[0], got[0])
+    after = kernels.launch_counts()
+    assert after["tensor_product"] == before["tensor_product"] + 2
+    assert after["tensor_product_backward"] == before["tensor_product_backward"] + 3
+
+
+def test_nequip_card_matches_cpu_and_is_deterministic(dev):
+    """At ``smoke_config`` with edge chunks of 64 on a seeded numpy graph:
+    energies, the loss's gradients and the forces on the card against the
+    CPU (1e-5 relative; 1e-4 of the largest), twice bitwise."""
+    from repro_torch.configs import registry
+    from repro_torch.launch import steps
+    from repro_torch.models.gnn import nequip
+    from repro_torch.tree import leaves, tree_map
+
+    cfg = registry.smoke_config("nequip")
+    rng = np.random.default_rng(0)
+    n, e = 200, 1500
+    s = rng.integers(0, n, e)
+    arrays = dict(positions=rng.standard_normal((n, 3)).astype(np.float32),
+                  node_attr=rng.integers(0, 8, n).astype(np.int32), senders=s.astype(np.int32),
+                  receivers=((s + rng.integers(1, n, e)) % n).astype(np.int32),
+                  energy=rng.standard_normal(1).astype(np.float32))
+    params = nequip.init_nequip(cfg, torch.Generator().manual_seed(0), device="cpu")
+    out = []
+    for d in ("cpu", dev, dev):
+        p = steps.require_grad(tree_map(lambda t: t.to(d, copy=True), params))
+        batch = {k: torch.from_numpy(v).to(d) for k, v in arrays.items()}
+        loss = nequip.energy_mse_loss(p, cfg, batch, edge_chunk=64)
+        grads = torch.autograd.grad(loss, leaves(p))
+        _, f = nequip.energy_and_forces(p, cfg, batch["positions"], batch["node_attr"],
+                                        batch["senders"], batch["receivers"], edge_chunk=64)
+        out.append((loss.detach().cpu(), [x.cpu() for x in grads], f.cpu()))
+    (cl, cg, cf), (al, ag, af), (bl, bg, bf) = out
+    assert torch.equal(al, bl) and all(torch.equal(x, y) for x, y in zip(ag, bg))
+    assert torch.equal(af, bf)
+    assert abs(float(al) - float(cl)) <= 1e-5 * abs(float(cl))
+    for x, y in zip(ag, cg):
+        assert (x - y).abs().max() <= 1e-4 * y.abs().max()
+    assert (af - cf).abs().max() <= 1e-4 * cf.abs().max()
+
+
+@pytest.mark.parametrize("shape", ["molecule", "full_graph_sm"])
+def test_gnn_train_steps_are_bitwise_and_make_no_atomic_adds(dev, shape):
+    """Two runs of two ``build_gnn_train`` steps from the same state give
+    the same bits, and a profiled step runs no atomic-add kernel
+    (``index_add_`` / ``scatter_add_`` / ``index_put_(accumulate=True)``)
+    and no kernel but the bag and tensor-product kernels for its gathers,
+    scatters and messages."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch import steps
+    from repro_torch.tree import leaves
+
+    runs = []
+    for _ in range(2):
+        b = steps.build_cell("nequip", shape, device=dev)
+        params, opt, batch = b.args
+        for _ in range(2):
+            params, opt, met = b.step(params, opt, batch)
+        runs.append([t.detach().clone() for t in leaves(params)] + [met["loss"]])
+    assert all(torch.equal(x, y) for x, y in zip(*runs))
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        b.step(params, opt, batch)
+        torch.cuda.synchronize()
+    names = {e.key for e in prof.key_averages()}
+    bad = [k for k in names if re.search(r"indexFunc|index_add|scatter_add|index_put|atomic",
+                                         k, re.I)]
+    assert not bad, bad
+    assert any("forward_kernel" in k for k in names) and any("bag_kernel" in k for k in names)

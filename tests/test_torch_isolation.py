@@ -304,6 +304,31 @@ def test_recsys_entry_points_refuse_to_fall_back_to_the_cpu(monkeypatch):
     assert convert.mind_params(x, device="cpu")["w"].device == torch.device("cpu")
 
 
+def test_gnn_entry_points_refuse_to_fall_back_to_the_cpu(monkeypatch):
+    """NequIP's init, ``convert.nequip_params``, the GNN builders' inputs,
+    graphs and train step and ``build_cell`` land on the card unless the
+    caller asks for the CPU: without a card they raise before drawing
+    anything."""
+    from repro_torch import convert
+    from repro_torch.configs import registry
+    from repro_torch.configs.shapes import GNN_SHAPES
+    from repro_torch.launch import steps
+    from repro_torch.models.gnn import nequip
+
+    cfg = registry.smoke_config("nequip")
+    mol, full = GNN_SHAPES["molecule"], GNN_SHAPES["full_graph_sm"]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (lambda: nequip.init_nequip(cfg, torch.Generator()),
+                 lambda: convert.nequip_params({"embed": np.zeros((2, 3), np.float32)}),
+                 lambda: steps.gnn_init(cfg, mol), lambda: steps.gnn_inputs(cfg, mol),
+                 lambda: steps.gnn_graph(full, 0),
+                 lambda: steps.build_gnn_train("nequip", cfg, mol),
+                 lambda: steps.build_cell("nequip", "molecule")):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    assert nequip.init_nequip(cfg, torch.Generator(), device="cpu")["embed"].shape == (8, 4)
+
+
 def test_convert_follows_the_device_rule():
     """``convert`` lands the JAX package's state on the card unless the
     caller asks for the CPU: without a card it raises the rule's error."""
@@ -335,5 +360,7 @@ def test_build_dir_is_keyed_by_the_sources(monkeypatch, tmp_path):
     monkeypatch.setattr(build, "_REPO", tmp_path)
     d = build.build_dir()
     assert d.parent == tmp_path / "build" / "kernels" and len(d.name) == 16
-    assert {p.name for p in build._sources()[0]} == {"approx_topk.cu", "persistent_round.cu",
-                                                     "flash_attention.cu", "embedding_bag.cu"}
+    assert {p.name for p in build._sources()[0]} == {"approx_topk.cu", "approx_topk_large.cu",
+                                                     "persistent_round.cu",
+                                                     "flash_attention.cu", "embedding_bag.cu",
+                                                     "tensor_product.cu"}

@@ -110,16 +110,19 @@ def test_configs_are_copies():
 
 @pytest.mark.parametrize("arch", ["nequip", "bst", "mind", "bert4rec"])
 def test_unported_archs_raise_naming_the_roadmap(arch, monkeypatch):
-    """nequip (the GNN family) is still refused, naming the roadmap; bst,
-    mind and bert4rec are served since the recsys slice: ``registry.get``
-    and ``steps.build_cell`` work for them at ``smoke_config``."""
+    """Every arch the reference registers is served now: nequip (the GNN
+    family, since the GNN slice: ``registry.get`` and
+    ``steps.build_cell("nequip", "molecule")`` work), bst, mind and bert4rec
+    (since the recsys slice: ``registry.get`` and ``steps.build_cell`` work
+    for them at ``smoke_config``)."""
     assert arch in j_registry.REGISTRY
-    if arch == "nequip":
-        assert arch not in registry.REGISTRY
-        with pytest.raises(NotImplementedError, match="ROADMAP.md, queue 1"):
-            registry.get(arch)
-        return
     from repro_torch.launch import steps
+
+    if arch == "nequip":
+        assert registry.get(arch).family == "gnn" and not hasattr(registry, "NOT_PORTED")
+        b = steps.build_cell(arch, "molecule", device="cpu")
+        assert b.name == "nequip:molecule" and b.args[2]["graph_ids"].shape == (4096,)
+        return
     from _torch_recsys import smoke_registry
 
     assert registry.get(arch).family == "recsys"

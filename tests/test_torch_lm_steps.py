@@ -182,8 +182,8 @@ def test_build_cell_dispatches_and_refuses_unported_families(monkeypatch):
     dlrm_params = steps.recsys_init(smoke, device="cpu")
     assert steps.build_cell("dlrm-mlperf", "serve_p99", params=dlrm_params,
                             device="cpu").name == "dlrm-mlperf:serve_p99"
-    with pytest.raises(NotImplementedError, match="queue 1"):
-        steps.build_cell("nequip", "serve_p99", device="cpu")
+    gnn = steps.build_cell("nequip", "molecule", device="cpu")     # served since the GNN slice
+    assert gnn.name == "nequip:molecule" and gnn.model_flops == 2.0 * 8192 * 11 * 9 * 32 * 5
     from _torch_recsys import smoke_registry
 
     for arch in ("bst", "mind", "bert4rec"):      # served since the recsys slice

@@ -23,9 +23,10 @@ inputs (its mesh checks are ``tests/test_multidevice.py``'s):
   (``make_replica_meshes``, ``RemoteReplica`` / ``serve_remote``): a scorer
   fault in one replica (also with the faulty rank holding its groups
   open, so that only their timeout releases its follower), a straggler, a
-  swap mid-flight and a close with tickets in flight; every request ends
-  once, the healthy replica serves on, and every ``ok`` answer is bitwise
-  the single-device engine's.
+  swap mid-flight, a close with tickets in flight, and both replicas idle
+  past their control groups' timeout (the leaders' keep-alives hold the
+  followers); every request ends once, the healthy replica serves on, and
+  every ``ok`` answer is bitwise the single-device engine's.
 
 Each rank runs every case (this file, run as ``python
 tests/test_torch_mesh.py worker DIR``) and saves its results; the tests
@@ -69,9 +70,12 @@ ROUTER_REQUESTS = 32
 # still over 15x them
 STALL_S, STRAGGLER_THRESHOLD = 1.0, 8.0
 SWAP_OFFSET = 10_000
-# "fault_held": the fault, with the faulty rank holding its groups open
-SCENARIOS = ("fault", "fault_held", "straggler", "swap", "close")
+# "fault_held": the fault, with the faulty rank holding its groups open;
+# "idle": both replicas idle past their control groups' timeout mid-traffic
+SCENARIOS = ("fault", "fault_held", "straggler", "swap", "close", "idle")
 GROUP_TIMEOUT_S = 8.0                        # each replica's batch groups time out
+IDLE_CONTROL_S = 3.0                         # "idle": the control groups and links time out
+IDLE_S = 2 * IDLE_CONTROL_S                  # "idle": the pause between two halves of traffic
 
 
 def _moe_cfg(n_shared):
@@ -321,7 +325,9 @@ def _router_case(d, scenario, res):
 
     rank = dist.get_rank()
     NamespaceScorer = _namespace_scorer()
-    rm = make_replica_meshes(2, 1, 2, device="cpu", timeout_s=GROUP_TIMEOUT_S)
+    idle = scenario == "idle"
+    rm = make_replica_meshes(2, 1, 2, device="cpu", timeout_s=GROUP_TIMEOUT_S,
+                             control_timeout_s=IDLE_CONTROL_S if idle else None)
     m = torch.tensor(d["m"])
     base = AnchorIndex.from_r_anc(m[:ROUTER_KQ])
     index = base.shard(rm.mesh)
@@ -366,7 +372,13 @@ def _router_case(d, scenario, res):
             router.replicas[0].watchdog.window.extend([STALL_S / 10] * 20)
         qids = _qids(ROUTER_REQUESTS, seed=SCENARIOS.index(scenario))
         tickets = []
-        for q in qids:
+        for i, q in enumerate(qids):
+            if idle and i == len(qids) // 2:
+                for t in tickets:       # the first half answered, then no traffic
+                    router.result(t, timeout=60.0)
+                out["idle_s"] = time.monotonic()
+                time.sleep(IDLE_S)
+                out["idle_s"] = time.monotonic() - out["idle_s"]
             tickets.append(router.submit(q))
             if scenario == "straggler":
                 time.sleep(0.02)
@@ -388,7 +400,7 @@ def _router_case(d, scenario, res):
                                                               o.response.batch_row))
                        for o in outs],
                    stats=dict(router.stats), quarantined=list(router.quarantined),
-                   log=svc.batch_log)
+                   log=svc.batch_log, link_keepalives=remote.keepalives)
     elif rank == rm.leader:
         try:
             out["served"] = serve_remote(svc, rm.links[1])
@@ -401,7 +413,7 @@ def _router_case(d, scenario, res):
         except Exception as e:  # noqa: BLE001 — the raise is the result
             out["raised"] = f"{type(e).__name__}: {e}"
     out.update(seconds=time.monotonic() - t0, mesh_error=svc.mesh_error,
-               world_alive=dist.is_initialized())
+               world_alive=dist.is_initialized(), keepalives=svc.keepalives)
     res[scenario] = out
     dist.destroy_process_group = destroy
     del held
@@ -982,6 +994,27 @@ def test_close_with_tickets_in_flight_stops_every_follower(world):
     assert world["ranks"][1]["router"]["close"]["batches"] >= 0
     assert world["ranks"][2]["router"]["close"]["served"] >= 0
     assert world["ranks"][3]["router"]["close"]["batches"] >= 0
+
+
+def test_an_idle_replica_keeps_its_followers_past_the_control_timeout(world):
+    """Both replicas sit idle for twice their control groups' and the link's
+    timeout between two halves of the traffic: each leader's keep-alive
+    headers hold its follower, and rank 0's on the link hold replica 1's
+    leader, so no rank raises and the second half is served too (its
+    answers bitwise the single-device engine's: the parametrized test
+    above)."""
+    ranks = [r["router"]["idle"] for r in world["ranks"]]
+    lead = ranks[0]
+    assert lead["idle_s"] >= IDLE_S > IDLE_CONTROL_S
+    assert all(o["status"] == "ok" for o in lead["outcomes"]) and not lead["quarantined"]
+    assert lead["keepalives"] >= 2 and ranks[2]["keepalives"] >= 2
+    assert lead["link_keepalives"] >= 2
+    assert ranks[1]["keepalives"] == ranks[3]["keepalives"] == 0
+    assert all("raised" not in r and r["mesh_error"] is None for r in ranks)
+    first = {o["batch"][0] for o in lead["outcomes"][:ROUTER_REQUESTS // 2]}
+    later = {o["batch"][0] for o in lead["outcomes"][ROUTER_REQUESTS // 2:]}
+    assert max(first) < min(later)           # served after the pause, in new batches
+    assert ranks[1]["batches"] >= 2 and ranks[3]["batches"] >= 1
 
 
 def test_the_world_ran_within_its_budget(world):

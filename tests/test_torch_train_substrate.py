@@ -249,3 +249,116 @@ def test_train_cli_resumes_bit_for_bit_on_the_cpu(tmp_path):
     assert all(np.array_equal(la[k], lb[k]) for k in la)
     assert int(la["opt/.step"]) == 10
     assert {"step_8", "step_10"} <= set(os.listdir(a))
+
+
+# ---------------------------------------------------------------------------
+# LM training checkpoints across the packages
+# ---------------------------------------------------------------------------
+
+# ce-tiny in fp32 (the CLI's model holds bf16 weights; fp32 lets the next
+# step be held to test_torch_training.py's LM train-step bars: the loss
+# within 1e-5 relative, every parameter within 1e-5 of the largest)
+CE_FP32 = dataclasses.replace(registry.CE_TINY, dtype="float32")
+LM_CKPT_STEPS = 2
+
+
+@pytest.fixture(scope="module")
+def lm_ckpt():
+    """ce-tiny (fp32) weights drawn by the port and handed to the reference
+    stacked; one batch of 4 x 32 tokens; both packages' jitted / eager
+    train steps of the CLI."""
+    from repro.configs.base import LMConfig as JLMConfig
+    from repro.launch import train as j_train
+    from _torch_lm import lm_params, ref_tree
+
+    params = lm_params(CE_FP32, seed=4)
+    tokens = np.random.default_rng(5).integers(4, CE_FP32.vocab_size, (4, 32)).astype(np.int32)
+    jcfg = JLMConfig(**dataclasses.asdict(CE_FP32))
+    opt = dict(lr=3e-4, total_steps=50)
+    jstep = j_train.make_lm_train_step(jcfg, j_opt.AdamWConfig(**opt))
+    tstep = train.make_lm_train_step(CE_FP32, optimizer.AdamWConfig(**opt))
+    jparams = jax.tree.map(jnp.asarray, ref_tree(params))
+    return dict(params=params, jparams=jparams, tokens=tokens, jstep=jstep, tstep=tstep)
+
+
+def _port_state(params):
+    p = steps.require_grad(tree_map(lambda t: t.detach().clone(), params))
+    return {"params": p, "opt": optimizer.init_adamw(p)}
+
+
+def _port_steps(state, tokens, n):
+    params, opt, losses = state["params"], state["opt"], []
+    for _ in range(n):
+        params, opt, met = train.make_lm_train_step(CE_FP32, optimizer.AdamWConfig(
+            lr=3e-4, total_steps=50))(params, opt, {"tokens": torch.from_numpy(tokens)})
+        losses.append(float(met["loss"]))
+    return {"params": params, "opt": opt}, losses
+
+
+def _ref_steps(d, state, n):
+    params, opt, losses = state["params"], state["opt"], []
+    for _ in range(n):
+        params, opt, met = d["jstep"](params, opt, {"tokens": jnp.asarray(d["tokens"])})
+        losses.append(float(met["loss"]))
+    return {"params": params, "opt": opt}, losses
+
+
+def _assert_next_step_equal(port_state, ref_state, d):
+    """One more step in each package from the restored states: the loss
+    within 1e-5 relative, the parameters within 1e-5 of the largest."""
+    tstate, tl = _port_steps(port_state, d["tokens"], 1)
+    jstate, jl = _ref_steps(d, ref_state, 1)
+    assert abs(tl[0] - jl[0]) <= 1e-5 * abs(jl[0]), (tl, jl)
+    want = jax.tree.map(np.asarray, jstate["params"])
+    got = train.checkpoint_tree(tstate)["params"]
+    top = max(float(np.abs(x).max()) for x in leaves(want))
+    for (key, a), (_, b) in zip(leaves_with_paths(got), leaves_with_paths(want)):
+        assert a.shape == b.shape, key
+        assert float(np.abs(a.detach().numpy() - b).max()) <= 1e-5 * top, key
+    assert int(tstate["opt"].step) == int(jstate["opt"].step) == LM_CKPT_STEPS + 1
+
+
+def test_lm_checkpoints_have_the_references_leaves_and_bytes(tmp_path, lm_ckpt):
+    """The same ce-tiny state saved by each package: one set of leaf paths
+    (the layers stacked: ``params/layers/attn/wq``, ``opt/.mu/layers/...``)
+    and every file's bytes equal."""
+    d = lm_ckpt
+    a, b = str(tmp_path / "port"), str(tmp_path / "ref")
+    Checkpointer(a).save(0, train.checkpoint_tree(_port_state(d["params"])))
+    JCheckpointer(b, async_save=False).save(
+        0, {"params": d["jparams"], "opt": j_opt.init_adamw(d["jparams"])})
+    la, lb = _ckpt_leaves(os.path.join(a, "step_0")), _ckpt_leaves(os.path.join(b, "step_0"))
+    assert la.keys() == lb.keys() and "params/layers/attn/wq" in la
+    for k in la:
+        assert la[k].dtype == lb[k].dtype and np.array_equal(la[k], lb[k]), k
+
+
+def test_lm_checkpoint_of_the_port_resumes_in_the_reference(tmp_path, lm_ckpt):
+    """The port trains two steps and saves (``checkpoint_tree``); the
+    reference restores that step into its own structure, and both take the
+    next step."""
+    d = lm_ckpt
+    tstate, _ = _port_steps(_port_state(d["params"]), d["tokens"], LM_CKPT_STEPS)
+    Checkpointer(str(tmp_path)).save(LM_CKPT_STEPS, train.checkpoint_tree(tstate))
+    like = {"params": d["jparams"], "opt": j_opt.init_adamw(d["jparams"])}
+    jstate = JCheckpointer(str(tmp_path), async_save=False).restore(LM_CKPT_STEPS, like)
+    assert int(jstate["opt"].step) == LM_CKPT_STEPS
+    _assert_next_step_equal(tstate, jstate, d)
+
+
+def test_lm_checkpoint_of_the_reference_resumes_in_the_port(tmp_path, lm_ckpt):
+    """The reference trains two steps and saves; the port's CLI resume path
+    (``CheckpointManager.resume`` of ``checkpoint_tree``, then
+    ``state_from_checkpoint``) restores it, and both take the next step."""
+    d = lm_ckpt
+    jstate, _ = _ref_steps(d, {"params": d["jparams"], "opt": j_opt.init_adamw(d["jparams"])},
+                           LM_CKPT_STEPS)
+    JCheckpointer(str(tmp_path), async_save=False).save(LM_CKPT_STEPS, jstate)
+    like = train.checkpoint_tree(_port_state(d["params"]))
+    step, tree = CheckpointManager(str(tmp_path)).resume(like, "cpu")
+    assert step == LM_CKPT_STEPS
+    tstate = train.state_from_checkpoint(tree)
+    p = tstate["params"]
+    assert isinstance(p["layers"], list) and len(p["layers"]) == CE_FP32.n_layers
+    assert all(t.requires_grad and t.is_leaf for t in leaves(p))
+    _assert_next_step_equal(tstate, jstate, d)
