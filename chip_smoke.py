@@ -119,13 +119,15 @@ Phases (one JSON line each):
    which is timed, runs alone (``real_ce_mesh.world_s``); the two probe
    worlds and the CLI, which are not, run side by side
    (``side_worlds_s``).  The 2 x 2 world is spawned once
-   (``--rank-worker worlds``) and runs the router_sharded and mesh drives
-   after its own (``world_s`` covers all three); their phases read their
-   ranks' results.
+   (``--rank-worker worlds``) and runs the router_sharded, mesh and
+   mesh_train drives after its own (``world_s`` covers all four); their
+   phases read their ranks' results.  Before it, NequIP minibatch_lg's
+   batch is drawn and sampled once (``mesh_train_prepare``) for the
+   mesh_train drive and the gnn phase.
 4e'. ``router_sharded``: the ``Router`` over two sharded replicas of 1
    (data) x 2 (items) on 4 gloo ranks (rank 0 leads replica 0 and reaches
    replica 1's leader through ``RemoteReplica``), over the serve index
-   (N = 10^6), buckets 16/32/64, 256 requests a scenario: a baseline, a
+   (N = 10^6), buckets 16/32/64, 128 requests a scenario: a baseline, a
    scorer fault in replica 1, a stalled replica 1 (4 x the baseline's
    median batch), a swap mid-flight (persistent round kernel) and a close
    with tickets in flight.  Gated: every request ends once; every ``ok``
@@ -154,7 +156,7 @@ Phases (one JSON line each):
    bf16 terms, 2x the FLOPs).
 7. ``serve_real_ce``: ``ce-tiny`` at full width in bf16 over a ZESHEL-like
    corpus of 10,000 items, its AnchorIndex built from the CE itself on the
-   card, answering 200 requests through ``AdaCURService(max_batch=16)``
+   card, answering 100 requests through ``AdaCURService(max_batch=16)``
    without and with a ``CachingScorer``; CE calls against the plan, launch
    counts (flash_attention == n_layers x forwards), error responses,
    latency, CE forwards/s and recall@{1,10,50} against the exact CE top-k.
@@ -215,7 +217,7 @@ Phases (one JSON line each):
     ``_recsys_flops``; BST's also against its own count, with the
     formula's 1.7x overstatement beside it; MIND's against its retrieval's
     products too), the chunk rows, peak memory, a profile (MIND's
-    serve_bulk: two timed steps, no warm-up or profile of its own).
+    serve_bulk: one timed step, no warm-up or profile of its own).
     retrieval_cand: BST over a real R_anc (500 anchor histories x
     1,000,448 columns built on the card), BERT4Rec over a real R_anc of
     the first 2^13 items and over a seeded standard-normal one at full N;
@@ -227,7 +229,7 @@ Phases (one JSON line each):
     top-100 of ``score_all_items`` (gated), and item 999,999 (past the
     reference's last whole tile) set to win must come first.  train_batch
     (B = 65,536) in the fewest power-of-two microbatches that fit (from
-    the peak of one step at 1,024 and 2,048 rows): 2 warm-up and 10 timed
+    the peak of one step at 1,024 and 2,048 rows): 2 warm-up and 5 timed
     steps on one batch, finite losses that fall (gated), step ms, TFLOP/s,
     peak memory.
 12b. ``recsys_cpu_vs_card``: the three at their published widths over
@@ -240,7 +242,7 @@ Phases (one JSON line each):
 13. ``train``: (1) ``dlrm-mlperf`` at full width, tables capped at 2^22
     rows (12.8 GB a copy; parameters, gradients and both AdamW moments
     ~51 GB), ``build_recsys_train`` at train_batch (B = 65,536): 2 warm-up
-    and 10 timed steps (median ms, TFLOP/s against ``model_flops``, peak
+    and 5 timed steps (median ms, TFLOP/s against ``model_flops``, peak
     memory, 26 bag forward and 26 backward launches a step, gated), one
     step profiled (the bag backward's device ms a step from its kernels,
     ``bag_backward_device_ms``), finite losses and every table's gradient non-zero
@@ -250,9 +252,9 @@ Phases (one JSON line each):
     1e-5 x the largest |parameter|, TF32 off; (3) two identical 3-step
     runs bitwise equal, ``run_with_recovery`` with a step that raises once
     at step 2 bitwise equal to the uninterrupted run, and
-    ``python -m repro_torch.launch.train --arch ce-tiny --steps 30
-    --save-every 10`` resumed by ``--steps 50`` bitwise equal to one
-    50-step run; (4) flash_attention, approx_topk and persistent_round
+    ``python -m repro_torch.launch.train --arch ce-tiny --steps 10
+    --save-every 10`` resumed by ``--steps 20`` bitwise equal to one
+    20-step run; (4) flash_attention, approx_topk and persistent_round
     raise on a tensor that requires grad; (5) ce-tiny at train_4k (seq
     4,096) at the largest batch, a multiple of 8, that fits in 80% of the
     card (found from the peak memory of one step at B = 1 and 2): step ms,
@@ -263,7 +265,7 @@ Phases (one JSON line each):
     ``random_graph``'s law (minibatch_lg: the 232,965 / 114,615,892 graph,
     its CSR built on the card and copied to the host, one fanout-15-10
     subgraph of 1,024 seeds sampled there and padded to 196,608): one
-    warm-up, 5 timed steps (ogb_products: 2), a profiled step (busy share,
+    warm-up, 5 timed steps (ogb_products: 1), a profiled step (busy share,
     the gather's, scatter's and tensor product's shares), peak memory,
     TFLOP/s against ``model_flops``, the edges inside the cutoff, the
     sampler's host seconds; gates: every loss finite, two runs of two
@@ -329,6 +331,28 @@ Phases (one JSON line each):
     cross-pod reduce on pod 2 x data 2 x model 1 over ce-tiny's full-width
     gradients, 10 steps within 5% accumulated error of the fp32 mean
     (gate), the pod link's bytes a step, int8 against fp32.
+16. ``mesh_train`` (after ``gnn``; its drive on the sharded phase's
+    world, ``mesh_train_worker``): training over data 2 x model 2 on 4 gloo
+    ranks of the card.  (a) NequIP minibatch_lg at the published config
+    (196,608 padded nodes and edges) through ``make_sharded_interact``
+    (the edges partitioned by receiver, the channels split over model);
+    (b) dlrm-mlperf at full width, B = 65,536, tables at 2^22 rows
+    row-sharded over the whole mesh (each rank's bags over its own rows
+    through the bag kernel); each: two value-and-gradient calls at the
+    initial state bitwise equal (gate; the second profiled for the rank's
+    busy share), applied as the warm-up step, then 2 timed steps (ms,
+    TFLOP/s against ``model_flops``, peak memory a rank, the collectives'
+    bytes a step).  The loss within 1e-5 relative and every gradient within
+    1e-4 of the largest of the one-card step's at the same state and
+    inputs, which ``train`` (DLRM) and ``gnn`` (minibatch_lg) compute
+    once the world is gone (gate), DLRM's non-zero table rows those of the
+    one-card gradient (gate).  (c) The elastic restore: a DLRM state
+    (tables at 2^18 rows, B = 65,536) saved after one step on 2 x 2 in the
+    reference's layout, restored on data 4 x model 1 and, whole, on one
+    rank: every leaf bitwise the saved one, and the next step's loss and
+    gradients within (b)'s bars of the uninterrupted run's (gates).  The
+    drive's bag, bag backward and tensor-product launches join the
+    ``kernels`` line.
 
 Then the card's ``name, power.limit`` line, a ``kernels`` summary line (one
 entry per kernel and, for the two top-k kernels, per payload: ``approx_topk``
@@ -1434,12 +1458,10 @@ def phase_index_lifecycle(dev, ce, index):
 
 
 ROUTER_N_REQUESTS = 256
-# capacity: closed loops of 2,048 requests (32 full batches, ~5 s on the
-# card), each configuration run CAPACITY_REPEATS times interleaved, so the
-# spread across runs shows beside the 1-vs-2-replica ratio (twice, not
-# three times: the recsys phases need the smoke's time)
-CAPACITY_REQUESTS = 2048
-CAPACITY_REPEATS = 2
+# capacity: one closed loop of 1,024 requests a configuration (16 full
+# batches, ~3.5 s on the card), so no spread is measured (two loops of
+# 2,048 before the mesh_train drive took the room)
+CAPACITY_REQUESTS = 1024
 SWAP_OFFSET = 10 ** 7          # the swapped index's external ids: item_ids + 10^7
 # the watchdog of the scenarios that do not test it: a threshold far above
 # the spread of healthy batch times across buckets 16-64
@@ -1679,9 +1701,9 @@ def phase_router(dev, ce, index):
     fused)``, anytime retrievers, ``max_batch=64``, buckets [16, 32, 64] and
     one FaultyScorer over the domain each.  Scenarios (256 requests each,
     arrivals Poisson from a seeded generator unless closed-loop):
-    capacity (closed loops of 2,048 requests, 1 and 2 replicas, staged and
-    persistent, each run three times interleaved: QPS with its spread and
-    the 2-over-1-replica ratio of each repeat, p50/p99, peak memory; the
+    capacity (closed loops of ``CAPACITY_REQUESTS`` requests, 1 and 2
+    replicas, staged and persistent, one loop each: QPS and the
+    2-over-1-replica ratio, p50/p99, peak memory; the
     device-busy share from one profiled 256-request run each); baseline (2
     staged replicas at half the 2-replica closed-loop QPS); scorer_fault
     (replica 0 raises on every call: quarantined, every request ok);
@@ -1724,11 +1746,11 @@ def phase_router(dev, ce, index):
                        router_cfg(rk), qids[:128], closed)
 
         cap_qids = np.random.default_rng(1).integers(500, 600, CAPACITY_REQUESTS)
-        runs = {(rk, reps): [] for rk in ("staged", "persistent") for reps in (1, 2)}
-        for attempt in range(CAPACITY_REPEATS):
-            for (rk, reps), done in runs.items():
+        runs = {}
+        for rk in ("staged", "persistent"):
+            for reps in (1, 2):
                 cfg = router_cfg(rk)
-                name = f"capacity {rk} x{reps} run {attempt}"
+                name = f"capacity {rk} x{reps}"
                 base_mem = torch.cuda.memory_allocated()
                 torch.cuda.reset_peak_memory_stats()
                 row, *_ = run_router(name, router_services(ce, index, cfg, reps), cfg,
@@ -1743,31 +1765,26 @@ def phase_router(dev, ce, index):
                 check(got == expect, f"router {name}: launches {got}, expected {expect}")
                 check(row["ok"] == CAPACITY_REQUESTS,
                       f"router {name}: {row['ok']} ok of {CAPACITY_REQUESTS}")
-                done.append(counted(row))
+                runs[(rk, reps)] = counted(row)
         capacity = []
-        for (rk, reps), done in runs.items():
+        for (rk, reps), row in runs.items():
             cfg = router_cfg(rk)
             name = f"capacity {rk} x{reps}"
-            qps = [r["qps"] for r in done]
             busy = profile_call(lambda: run_router(
                 name + " profiled", router_services(ce, index, cfg, reps), cfg, qids, closed))
             # the profiler slows the host loop: the device's busy time per
-            # request at the unprofiled runs' median rate is the other estimate
+            # request at the unprofiled run's rate is the other estimate
             busy["device_busy_share_at_unprofiled_rate"] = (
-                busy["device_busy_ms"] / 1e3 / n * float(np.median(qps)))
+                busy["device_busy_ms"] / 1e3 / n * row["qps"])
             keep = ("wall_s", "qps", "p50_ms", "p99_ms", "batches", "peak_memory_gb",
                     "peak_over_resident_gb")
             capacity.append(dict(round_kernel=rk, replicas=reps, requests=CAPACITY_REQUESTS,
-                                 qps_median=float(np.median(qps)), qps_min=min(qps),
-                                 qps_max=max(qps),
-                                 runs=[{k: r[k] for k in keep} for r in done],
-                                 launches=done[-1]["launches"],
+                                 **{k: row[k] for k in keep}, launches=row["launches"],
                                  profiled_requests=n, profiled=busy))
-        # each round's 2-replica QPS over the 1-replica QPS of the same repeat
-        ratios = {rk: [two["qps"] / one["qps"] for one, two in zip(runs[(rk, 1)], runs[(rk, 2)])]
+        # the 2-replica QPS over the 1-replica QPS
+        ratios = {rk: runs[(rk, 2)]["qps"] / runs[(rk, 1)]["qps"]
                   for rk in ("staged", "persistent")}
-        qps2 = next(c["qps_median"] for c in capacity
-                    if c["round_kernel"] == "staged" and c["replicas"] == 2)
+        qps2 = runs[("staged", 2)]["qps"]
         rate = 0.5 * qps2
         cfg = router_cfg()
         lax = dict(queue_limit=n, **LAX_WATCHDOG)
@@ -2104,7 +2121,7 @@ def phase_serve_real_ce(dev):
     from repro_torch.eval.metrics import exact_topk, topk_recall
     from repro_torch.launch.serve import AdaCURService, build_real_ce_domain, drive
 
-    n_items, n_anchor, n_serve, n_requests = 10_000, 100, 100, 200
+    n_items, n_anchor, n_serve, n_requests = 10_000, 100, 100, 100
     t0 = time.perf_counter()
     ds, params, scorer, index = build_real_ce_domain(
         n_items, n_anchor, n_serve, cfg=CE_TINY, device=dev, micro_batch=64,
@@ -2257,6 +2274,85 @@ def bag_case(dev, gen, reps, case, table, b, h, mode):
                 bound_by=b_by, bytes=nb, max_abs_err=err.max().item(), bitwise=bitwise)
 
 
+# DLRM's row-sharded lookup in the mesh_train drive: one rank's piece of
+# 2^20 rows of a table of 2^22 (data 2 x model 2), B = 65,536 (quick: 1,024
+# of 4,096 rows, B = 4,096)
+ROW_SHARD_TABLE, ROW_SHARD_PIECE, ROW_SHARD_B = 1 << 22, 1 << 20, 65536
+
+
+def owned_ids(dev, gen, rows, lo, local, b) -> tuple:
+    """Ids drawn over the whole int32 range (taken modulo ``rows``, as the
+    row-sharded lookup takes them) and their local ids on the piece of
+    rows [lo, lo + local) as ``owned_rows_bag`` forms them: (ids, (b, 1)
+    local ids, a foreign id as the dropped id ``local``, owned mask)."""
+    import torch
+
+    ids = torch.randint(0, 2 ** 31 - 1, (b,), generator=gen, device=dev, dtype=torch.int32)
+    local_ids = ids.long() % rows - lo
+    owned = (local_ids >= 0) & (local_ids < local)
+    local_ids = torch.where(owned, local_ids, local).to(torch.int32)[:, None]
+    return ids, local_ids, owned
+
+
+def owned_bag_case(dev, gen, reps, case, rows, local, b) -> dict:
+    """The bag kernel on one rank's piece of a row-sharded table, as the
+    mesh train step runs it (``owned_rows_bag``: about (rows - local) /
+    rows of the ids are another rank's, passed as dropped ids, read as NaN
+    and masked to 0): the kernel's raw output against its plain version on
+    the same local ids (NaN exactly at the foreign ids, the rest within
+    ``BAG_TOL`` and bitwise, one id a bag), the masked lookup against the
+    masked plain one, and the piece's gradient through the wrapper (the
+    bag's backward over the local rows only) against
+    ``embedding_bag_backward_plain`` within ``BAG_BWD_TOL``."""
+    import torch
+
+    from repro_torch.kernels.embedding_bag.ops import embedding_bag_op
+    from repro_torch.kernels.embedding_bag.ref import (embedding_bag_backward_plain,
+                                                       embedding_bag_plain)
+    from repro_torch.models.recsys.embedding import owned_rows_bag
+
+    lo = local          # rank 1's piece
+    piece = torch.randn((local, 128), generator=gen, device=dev)
+    ids, local_ids, owned = owned_ids(dev, gen, rows, lo, local, b)
+    raw = embedding_bag_op(piece, local_ids, "sum")
+    ref = embedding_bag_plain(piece, local_ids, "sum")
+    torch.cuda.synchronize()
+    nan = raw.isnan().any(1)
+    check(bool(torch.equal(nan, ref.isnan().any(1))) and bool(torch.equal(nan, ~owned)),
+          f"embedding_bag {case}: NaN rows are not exactly the foreign ids")
+    err = (raw[owned] - ref[owned]).abs()
+    atol, rtol = BAG_TOL["float32"]
+    check(bool((err <= atol + rtol * ref[owned].abs()).all()),
+          f"embedding_bag {case} disagrees with its plain version: max abs err "
+          f"{err.max().item()}")
+    bitwise = torch.equal(raw[owned], ref[owned])
+    check(bitwise, f"embedding_bag {case}: a one-id bag is not bitwise equal")
+    p = piece.clone().requires_grad_()
+    out = owned_rows_bag(p, ids, lo, rows)
+    want = torch.where(owned[:, None], ref, 0.0)
+    check(bool(torch.equal(out.detach(), want)),
+          f"embedding_bag {case}: the masked lookup differs from the masked plain bag")
+    g = torch.randn((b, 128), generator=gen, device=dev)
+    (dp,) = torch.autograd.grad(out, p, g)
+    dref = embedding_bag_backward_plain(g, local_ids, local)
+    berr, top = (dp - dref).abs().max().item(), dref.abs().max().item()
+    check(berr <= BAG_BWD_TOL * top, f"embedding_bag_backward {case} (through owned_rows_bag):"
+          f" max |d| {berr} > {BAG_BWD_TOL} x max |grad| {top}")
+    del p, out, dp, dref
+    ms = cuda_ms(lambda: embedding_bag_op(piece, local_ids, "sum"), reps)
+    plain_ms = cuda_ms(lambda: embedding_bag_plain(piece, local_ids, "sum"), 2)
+    n_owned = int(owned.sum())
+    # the owned rows read, the output and the ids once (a foreign id reads
+    # no row)
+    nb = n_owned * 128 * 4 + b * 128 * 4 + 4 * b
+    b_ms, b_by = bound(nb, float(n_owned * 128))
+    return dict(case=case, dtype="float32", mode="sum", B=b, H=1, dim=128, rows=local,
+                table_rows=rows, owned=n_owned, kernel_ms=ms, plain_ms=plain_ms,
+                library_ms=None, bound_ms=b_ms, bound_by=b_by, bytes=nb,
+                max_abs_err=err.max().item(), bitwise=bitwise,
+                backward_max_abs_err=berr, backward_max_abs_grad=top)
+
+
 def phase_embedding_bag(gen, dev, quick):
     """Returns (rows, worst max abs err); rows[0] is case (a), DLRM's
     per-field lookup at serve_bulk."""
@@ -2282,6 +2378,11 @@ def phase_embedding_bag(gen, dev, quick):
                             1, "sum"))
         del table
         torch.cuda.empty_cache()
+    rows, piece, b = ((4096, 1024, 4096) if quick
+                      else (ROW_SHARD_TABLE, ROW_SHARD_PIECE, ROW_SHARD_B))
+    out.append(owned_bag_case(dev, gen, 20, "(e) dlrm row shard, foreign ids masked", rows,
+                              piece, b))
+    torch.cuda.empty_cache()
     return out, max(r["max_abs_err"] for r in out)
 
 
@@ -2420,9 +2521,9 @@ def phase_dlrm_cpu_vs_card(dev):
 # ---------------------------------------------------------------------------
 
 SEQ_ARCHS = ("bst", "bert4rec")
-RECSYS_SERVE_STEPS = {"serve_p99": 20, "serve_bulk": 3}   # timed steps after a warm-up
-MIND_BULK_STEPS = 2          # MIND's serve_bulk is ~134 TFLOP a step: two timed, none warm
-RECSYS_TRAIN_WARMUP, RECSYS_TRAIN_TIMED = 2, 10
+RECSYS_SERVE_STEPS = {"serve_p99": 20, "serve_bulk": 2}   # timed steps after a warm-up
+MIND_BULK_STEPS = 1          # MIND's serve_bulk is ~134 TFLOP a step: one timed, none warm
+RECSYS_TRAIN_WARMUP, RECSYS_TRAIN_TIMED = 2, 5
 RECSYS_SEARCHES = 16
 BERT4REC_PREFIX = 1 << 13    # items of BERT4Rec's real R_anc (5 x 10^8 pairs is ~3e16 FLOP)
 RECSYS_SERVE_MEM_GATE = 0.75  # a chunked serve step's peak / the card's memory, at most
@@ -2932,7 +3033,7 @@ def phase_recsys_models_cpu_vs_card(dev) -> dict:
 # training on the card
 # ---------------------------------------------------------------------------
 
-TRAIN_WARMUP, TRAIN_TIMED = 2, 10        # DLRM train steps before and in the timing
+TRAIN_WARMUP, TRAIN_TIMED = 2, 5         # DLRM train steps before and in the timing
 TRAIN_CPU_CAP, TRAIN_CPU_BATCH, TRAIN_CPU_STEPS = 1 << 16, 512, 3
 TRAIN_TOL = 1e-5          # card vs CPU: loss relative, params x the largest |param|
 BAG_BWD_TOL = 1e-5        # backward kernel vs plain: max |d| <= this x max |grad|
@@ -2941,7 +3042,7 @@ BAG_BWD_TOL = 1e-5        # backward kernel vs plain: max |d| <= this x max |gra
 # printed beside this run's
 EARLIER_TRAIN_STEP_MS = 204.7
 LM_MEM_SHARE = 0.8        # of the card's memory the ce-tiny train_4k step may plan for
-CLI_STEPS = (30, 50)      # the ce-tiny CLI: a run cut at 30, resumed to 50
+CLI_STEPS = (10, 20)      # the ce-tiny CLI: a run cut at 10, resumed to 20
 CLI_SAVE_EVERY = 10
 
 
@@ -2967,12 +3068,13 @@ def torch_equal(x, y) -> bool:
     return bool(torch.equal(x.detach().cpu(), y.detach().cpu()))
 
 
-def bag_backward_case(dev, gen, case, rows, b, reps, dim=128, sort_ids=False):
+def bag_backward_case(dev, gen, case, rows, b, reps, dim=128, sort_ids=False, ids=None):
     """The bag's backward kernel against its plain version (``index_add_``
     in lookup order) for one DLRM field (H = 1, dim 128), or NequIP's
     scatter (dim 416; ``sort_ids``: a receiver-sorted chunk) on the card:
     error gate, bitwise equal to the emulation of its order and across two
-    calls, times beside the bound and ``zeros`` + ``index_add_``'s."""
+    calls, times beside the bound and ``zeros`` + ``index_add_``'s.  Given
+    ``ids`` ((b, 1), ids outside [0, rows) dropped), it takes those."""
     import torch
 
     from repro_torch.kernels.embedding_bag.kernel import embedding_bag_backward_cuda
@@ -2980,7 +3082,8 @@ def bag_backward_case(dev, gen, case, rows, b, reps, dim=128, sort_ids=False):
         embedding_bag_backward_emulated, embedding_bag_backward_plain, row_keys)
 
     g = torch.randn((b, dim), generator=gen, device=dev)
-    ids = torch.randint(0, rows, (b, 1), generator=gen, device=dev, dtype=torch.int32)
+    if ids is None:
+        ids = torch.randint(0, rows, (b, 1), generator=gen, device=dev, dtype=torch.int32)
     if sort_ids:
         ids = torch.sort(ids, dim=0).values
     out = embedding_bag_backward_cuda(g, ids, rows)
@@ -2998,8 +3101,9 @@ def bag_backward_case(dev, gen, case, rows, b, reps, dim=128, sort_ids=False):
           f"embedding_bag_backward {case}: not bitwise equal to the emulation of its order "
           f"({int((bits != emu.view(torch.int32)).any(1).sum())} rows differ)")
     del again, emu
-    keys = row_keys(ids, rows)
-    touched = int(torch.unique(keys).numel())
+    keys = row_keys(ids, rows)                # a dropped id: key ``rows``
+    kept = int((keys < rows).sum())
+    touched = int(torch.unique(keys[keys < rows]).numel())
     ms = cuda_ms(lambda: embedding_bag_backward_cuda(g, ids, rows), reps)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -3008,13 +3112,17 @@ def bag_backward_case(dev, gen, case, rows, b, reps, dim=128, sort_ids=False):
     host_ms = (time.perf_counter() - t0) / reps * 1e3
     prof = profile_call(lambda: embedding_bag_backward_cuda(g, ids, rows))
     plain_ms = cuda_ms(lambda: embedding_bag_backward_plain(g, ids, rows), 3)
-    lib_ms = cuda_ms(lambda: torch.zeros((rows, dim), device=dev).index_add_(0, keys, g), reps)
-    # the dense gradient written, grad_out and the ids read once
-    nb = rows * dim * 4 + b * dim * 4 + b * 4
-    b_ms, b_by = bound(nb, float(b * dim))
-    touched_ms, _ = bound(b * dim * 4 + b * 4 + touched * dim * 4, float(b * dim))
-    return dict(case=case, B=b, H=1, dim=dim, rows=rows, rows_touched=touched,
-                lookups_per_touched_row=b / touched, kernel_ms=ms, plain_ms=plain_ms,
+    # a dropped id's key lands in a spare row
+    out_rows = rows + int(kept < b)
+    lib_ms = cuda_ms(lambda: torch.zeros((out_rows, dim), device=dev).index_add_(0, keys, g),
+                     reps)
+    # the dense gradient written, grad_out and the ids read once (a dropped
+    # id's grad_out row is not needed)
+    nb = rows * dim * 4 + kept * dim * 4 + b * 4
+    b_ms, b_by = bound(nb, float(kept * dim))
+    touched_ms, _ = bound(kept * dim * 4 + b * 4 + touched * dim * 4, float(kept * dim))
+    return dict(case=case, B=b, H=1, dim=dim, rows=rows, rows_touched=touched, kept=kept,
+                lookups_per_touched_row=kept / touched, kernel_ms=ms, plain_ms=plain_ms,
                 library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, bytes=nb,
                 bound_touched_ms=touched_ms, bound_share=b_ms / ms, host_ms=host_ms,
                 profile=prof, max_abs_err=err,
@@ -3043,6 +3151,13 @@ def phase_bag_backward(gen, dev, quick):
                  bag_backward_case(dev, gen, "(e) nequip scatter, a chunk into the whole table",
                                    n_rows, chunk, 3, dim=GNN_ROW)]
         torch.cuda.empty_cache()
+    # DLRM's row-sharded table gradient in the mesh_train drive: one rank's
+    # piece, the foreign ids dropped
+    whole, piece, bs = ((4096, 1024, 4096) if quick
+                        else (ROW_SHARD_TABLE, ROW_SHARD_PIECE, ROW_SHARD_B))
+    _, local_ids, _ = owned_ids(dev, gen, whole, piece, piece, bs)
+    rows.append(bag_backward_case(dev, gen, "(f) dlrm row shard, foreign ids dropped", piece,
+                                  bs, 20, ids=local_ids))
     return rows, max(r["max_abs_err"] for r in rows)
 
 
@@ -3101,6 +3216,9 @@ def phase_train(dev):
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     params, state, batch = bundle.args
+    # the mesh_train drive's DLRM step, held to this one at the same state
+    mesh_train_hold("dlrm", params, lambda p: dlrm.bce_loss(p, batch["dense"], batch["sparse"],
+                                                             batch["labels"], cfg))
     losses = []
     for _ in range(TRAIN_WARMUP):
         params, state, met = bundle.step(params, state, batch)
@@ -3206,7 +3324,7 @@ def phase_train(dev):
         del rec, step_bundle, straight
         torch.cuda.empty_cache()
 
-        # the ce-tiny CLI: 30 steps, resumed to 50, against one 50-step run
+        # the ce-tiny CLI: CLI_STEPS[0] steps, resumed to CLI_STEPS[1], against one run
         env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
         cli = []
         for n, d in ((CLI_STEPS[0], "cut"), (CLI_STEPS[1], "cut"), (CLI_STEPS[1], "whole")):
@@ -3250,7 +3368,7 @@ GNN_EDGE_CHUNK = 262144         # nequip.EDGE_CHUNK: edges a message-passing chu
 GNN_TABLE_ROWS = 2449408        # ogb_products' nodes padded to a multiple of 512
 GNN_OGB_EDGES = 61859328        # its edges, padded
 GNN_ROW = 13 * 32               # a node table row: s, v, t of d_hidden 32 channels
-GNN_TIMED = {"ogb_products": 2}   # timed steps after one warm-up (5 elsewhere)
+GNN_TIMED = {"ogb_products": 1}   # timed steps after one warm-up (5 elsewhere)
 GNN_TIMED_DEFAULT = 5
 GNN_DETERMINISM = ("full_graph_sm", "molecule", "minibatch_lg")   # 2 runs x 2 steps, bitwise
 GNN_CPU = dict(n_nodes=400, n_edges=3000, n_graphs=4, chunk=512)   # card vs CPU, smoke_config
@@ -3316,7 +3434,9 @@ def phase_tensor_product(gen, dev, quick):
     import torch
 
     cases = [("(a) nequip chunk", 4096 if quick else GNN_EDGE_CHUNK, 32, 10),
-             ("(b) molecule batch", 8192, 32, 20), ("(c) smoke width", 3000, 4, 20)]
+             ("(b) molecule batch", 8192, 32, 20), ("(c) smoke width", 3000, 4, 20),
+             ("(d) mesh_train channel block", 4096 if quick else MESH_TRAIN_RANK_EDGES, 16,
+              10)]
     fwd, bwd = [], []
     for case, e, h, reps in cases:
         f, b = tp_case(dev, gen, case, e, h, reps)
@@ -3404,7 +3524,12 @@ def gnn_shape_run(dev, cfg, shape) -> tuple:
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     graph = None
-    if shape.kind != "molecule":
+    prepared = _MESH_TRAIN_PREP.get("gnn_batch") if shape.name == "minibatch_lg" else None
+    if prepared is not None:
+        # drawn and sampled as below, before the mesh_train drive's world
+        batch = {k: v.to(dev) for k, v in prepared.items()}
+        row.update(_MESH_TRAIN_PREP["host"], drawn_before_the_world=True)
+    elif shape.kind != "molecule":
         graph = steps.gnn_graph(shape, seed=1, device=dev)
         torch.cuda.synchronize()
         row["graph_build_s"] = time.perf_counter() - t0
@@ -3414,11 +3539,20 @@ def gnn_shape_run(dev, cfg, shape) -> tuple:
             row.update(csr_s=host["csr"], csr_copy_s=host["copy"], sampler_host_s=host["sample"],
                        sampled_nodes=int(graph.node_mask.sum()),
                        sampled_edges=int(graph.edge_mask.sum()))
-    batch = steps.gnn_inputs(cfg, shape, seed=1, device=dev, graph=graph)
+    if prepared is None:
+        batch = steps.gnn_inputs(cfg, shape, seed=1, device=dev, graph=graph)
     del graph
     torch.cuda.synchronize()
     row["inputs_s"] = time.perf_counter() - t0
     n, e, n_graphs = steps.gnn_sizes(shape)
+    if prepared is not None:
+        # the mesh_train drive's NequIP step, held to this one at the same state
+        from repro_torch.models.gnn import nequip
+
+        b = steps.build_gnn_train(GNN_ARCH, cfg, shape, batch=batch, device=dev)
+        mesh_train_hold("gnn", b.args[0], lambda p: nequip.energy_mse_loss(
+            p, cfg, batch, n_graphs=n_graphs, remat=True, edge_chunk=nequip.EDGE_CHUNK))
+        del b
     real = batch["edge_mask"] > 0
     pos, s, r = batch["positions"], batch["senders"][real].long(), batch["receivers"][real].long()
     dist_ = (pos[r] - pos[s]).norm(dim=1)
@@ -3597,7 +3731,7 @@ LM_GATE_LEN = 2048        # prompt tokens of the decode == prefill and flash vs 
 LM_GATE_TOL = 2e-2        # the reference's own decode == encode bar (tests/test_arch_smoke.py)
 LM_FP32_ROOM = 8e9        # bytes gate (a)'s fp32 run keeps free beside its weights
 LM_PREFILL_MAX_B = 8      # prefill batches beyond this are cut for the phase's time
-LM_DECODE_REPS = 5        # timed decode steps after a warm-up
+LM_DECODE_REPS = 3        # timed decode steps after a warm-up
 LM_FLASH_LEN = 32768      # gate (c): prefill_32k's sequence
 LM_FLASH_TAIL = 256       # its last query rows, the widest causal windows, reported apart
 ADACUR_SERVE_N = 1_000_000
@@ -4529,7 +4663,7 @@ def rank_worker(kind: str, out_dir: str) -> int:
         # the sharded, router_sharded and mesh drives in turn on one world:
         # each saves its own results as its own world did
         for sub, fn in (("sharded", sharded_worker), ("router_sharded", router_sharded_worker),
-                        ("mesh", mesh_worker)):
+                        ("mesh", mesh_worker), ("mesh_train", mesh_train_worker)):
             t0 = time.perf_counter()
             res = {"rank": rank, **fn(out_dir), "drive_s": time.perf_counter() - t0}
             torch.save(res, os.path.join(out_dir, f"{sub}_rank{rank}.pt"))
@@ -4564,8 +4698,8 @@ _WORLDS: dict = {}
 
 
 def start_worlds(tmp) -> float:
-    """Run the sharded, router_sharded and mesh drives in turn on one world
-    of 4 ranks (``rank_worker("worlds")``, spawned once; the serve index
+    """Run the sharded, router_sharded, mesh and mesh_train drives in turn
+    on one world of 4 ranks (``rank_worker("worlds")``, spawned once; the serve index
     saved under ``tmp`` as each drive expects) and keep each drive's
     per-rank results for its phase; returns the world's wall seconds."""
     import torch
@@ -4580,7 +4714,7 @@ def start_worlds(tmp) -> float:
     for r, (rc, o, e) in enumerate(ranks):
         check(rc == 0, f"the sharded drives' world: rank {r} exited {rc}\n{o[-2000:]}\n"
                        f"{e[-4000:]}")
-    for kind in ("sharded", "router_sharded", "mesh"):
+    for kind in ("sharded", "router_sharded", "mesh", "mesh_train"):
         _WORLDS[kind] = [torch.load(os.path.join(tmp, f"{kind}_rank{r}.pt"), weights_only=False)
                          for r in range(4)]
     return wall
@@ -4716,7 +4850,8 @@ def phase_sharded(dev, ce, index):
             del retriever
         del table
         torch.cuda.empty_cache()
-        world_s = start_worlds(tmp)       # the router_sharded and mesh drives run there too
+        _MESH_TRAIN_PREP.update(mesh_train_prepare(dev, tmp))
+        world_s = start_worlds(tmp)       # the router_sharded, mesh and mesh_train drives too
         ranks = _WORLDS.pop("sharded")
         items = SHARDED_MESH[1]
         configs, faults = [], []
@@ -4854,7 +4989,7 @@ def phase_sharded(dev, ce, index):
 # ---------------------------------------------------------------------------
 
 ROUTER_SHARDED = (2, 1, 2)            # replicas x (data x items), on 4 ranks
-ROUTER_SHARDED_REQUESTS = 256         # a scenario's requests
+ROUTER_SHARDED_REQUESTS = 128         # a scenario's requests
 # (scenario, round kernel): the baseline's batches set the straggler's stall
 ROUTER_SHARDED_SCENARIOS = (("baseline", "staged"), ("scorer_fault", "staged"),
                             ("slow_replica", "staged"), ("swap_midflight", "persistent"),
@@ -4862,7 +4997,7 @@ ROUTER_SHARDED_SCENARIOS = (("baseline", "staged"), ("scorer_fault", "staged"),
 MESH_TOL = 2e-4                       # the reference's multidevice TOL
 MESH_DECODE_ARCH = "granite-moe-1b-a400m"
 MESH_DECODE_B = 16                    # decode_32k's batch 128 cut: 4 ranks share one card
-MESH_DECODE_REPS = 10
+MESH_DECODE_REPS = 5
 MESH_GATE_LAYERS = 4                  # the fp32 gate's depth (of 24) and batch
 MESH_GATE_B = 4
 MESH_LONG_LEN = 524_288               # long_500k's cache
@@ -5562,6 +5697,473 @@ def phase_mesh(dev) -> dict:
     return result, sum(r["pipeline"]["bf16"]["flash_launches"] for r in ranks)
 
 
+# ---------------------------------------------------------------------------
+# training over a mesh: NequIP's sharded interact, DLRM's row-sharded
+# tables and the elastic restore, on the sharded phase's 4-rank world
+# ---------------------------------------------------------------------------
+
+MESH_TRAIN_MESH = (2, 2)              # (data, model) ranks, all on one card
+MESH_TRAIN_TIMED = 2                  # timed steps after one warm-up
+MESH_TRAIN_TOL = 1e-5                 # loss, relative, against the one-card step
+MESH_TRAIN_GRAD_TOL = 1e-4            # every gradient, x the largest |gradient|
+MESH_TRAIN_ELASTIC_ROWS = 1 << 18     # the elastic round trip's table cap (reduced)
+MESH_TRAIN_ELASTIC_B = 65536          # its batch: the train cell's
+# a rank's edge block of minibatch_lg (196,608 padded edges by receiver over
+# data 2), the tensor product's edges at its 16 of 32 channels
+MESH_TRAIN_RANK_EDGES = 98304
+
+
+def _mesh_train_gnn_batch_path(tmp: str) -> str:
+    return os.path.join(tmp, "mesh_train_gnn_batch.pt")
+
+
+def mesh_train_prepare(dev, tmp: str) -> dict:
+    """The parent, before the world: NequIP minibatch_lg's batch at the
+    published config (the ogb-size graph drawn on the card, the subgraph
+    sampled on the host, as the gnn phase draws it) saved for the ranks.
+    Returns it (on the host: the gnn phase's minibatch_lg runs on it and
+    holds the world's step to its own) and its seconds."""
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.launch import steps
+
+    t0 = time.perf_counter()
+    cfg = registry.get(GNN_ARCH).config
+    shape = registry.shapes_for(GNN_ARCH)["minibatch_lg"]
+    graph = steps.gnn_graph(shape, seed=1, device=dev)
+    _sync(dev)
+    host = {"graph_build_s": time.perf_counter() - t0}
+    seconds = {}
+    sub = steps.gnn_sample(shape, *graph, seed=1, seconds=seconds)
+    del graph
+    host.update(csr_s=seconds["csr"], csr_copy_s=seconds["copy"],
+                sampler_host_s=seconds["sample"], sampled_nodes=int(sub.node_mask.sum()),
+                sampled_edges=int(sub.edge_mask.sum()))
+    batch = {k: v.cpu() for k, v in steps.gnn_inputs(cfg, shape, seed=1, device=dev,
+                                                       graph=sub).items()}
+    torch.save(batch, _mesh_train_gnn_batch_path(tmp))
+    _empty(dev)       # the graph's blocks go back to the card before the world starts
+    return {"gnn_batch": batch, "host": host, "info": {"prepare_s": time.perf_counter() - t0,
+                                                       **host}}
+
+
+# the minibatch_lg batch the world's drive ran on (for the gnn phase), and
+# the world's steps held to the one-card steps (by phase_train and the gnn
+# phase, for phase_mesh_train)
+_MESH_TRAIN_PREP: dict = {}
+_MESH_TRAIN_HELD: dict = {}
+
+
+def mesh_train_hold(model: str, params, loss_fn) -> None:
+    """Hold the world's ``model`` step (its loss and gradients at the
+    initial state, every rank's) to the one-card step's at the same state:
+    ``params`` the one-card step's (requiring grad), ``loss_fn(params)``
+    its loss.  A no-op unless the world ran the drive."""
+    import torch
+
+    from repro_torch.tree import leaves, unflatten_like
+
+    ranks = _WORLDS.get("mesh_train")
+    if ranks is None:
+        return
+    loss = loss_fn(params)
+    grads = unflatten_like(params, list(torch.autograd.grad(loss, leaves(params))))
+    held = [_held(r[model], grads, float(loss.detach()), f"{model} rank {i}")
+            for i, r in enumerate(ranks)]
+    rows_hit = _table_rows_hit(ranks, grads) if model == "dlrm" else None
+    _MESH_TRAIN_HELD[model] = dict(held=held, rows_hit=rows_hit)
+    del grads, loss
+    torch.cuda.empty_cache()
+
+
+def _leaf_max(tree) -> float:
+    from repro_torch.tree import leaves
+
+    return max(float(x.detach().abs().max()) for x in leaves(tree))
+
+
+def _grads_record(grads, shardings) -> dict:
+    """What the parent holds a rank's gradient pieces to: each leaf whole
+    (gathered) where it is small, else (a table's rows over the mesh) this
+    rank's non-zero rows as (global row ids, values) on the host."""
+    from repro_torch.tree import leaves_with_paths
+
+    out = {}
+    for (key, g), (_, sh) in zip(leaves_with_paths(grads), leaves_with_paths(shardings)):
+        if key.startswith("tables/") and sh.parts(0) > 1:
+            lo = sh.index(0) * g.shape[0]
+            rows = (g.abs().amax(1) > 0).nonzero().squeeze(1)
+            out[key] = ("rows", (rows + lo).cpu(), g[rows].cpu())
+        else:
+            out[key] = ("whole", sh.gather(g.detach()).cpu())
+    return out
+
+
+def _matches_record(grads, shardings, rec) -> bool:
+    """Whether gradient pieces are bitwise the ones ``rec`` holds
+    (:func:`_grads_record`): each whole leaf equal, each table piece's
+    non-zero rows exactly the recorded ones, with the recorded values."""
+    import torch
+
+    from repro_torch.tree import leaves_with_paths
+
+    for (key, g), (_, sh) in zip(leaves_with_paths(grads), leaves_with_paths(shardings)):
+        kind, *vals = rec[key]
+        if kind == "whole":
+            if not torch.equal(sh.gather(g.detach()).cpu(), vals[0]):
+                return False
+            continue
+        ids, rows = vals
+        local = (ids - sh.index(0) * g.shape[0]).to(g.device)
+        nonzero = (g.abs().amax(1) > 0).nonzero().squeeze(1)
+        if not (torch.equal(nonzero, local) and torch.equal(g[local].cpu(), rows)):
+            return False
+    return True
+
+
+def _mesh_train_run(bundle) -> dict:
+    """Two value-and-gradient calls at the initial state (bitwise equal; the
+    second under the profiler, for the rank's busy share of a forward and
+    backward), the first's gradients kept on the host for the parent (so
+    one set lives on the card at a time), the second's applied (the
+    warm-up step), then the timed steps: step ms, TFLOP/s
+    against ``model_flops``, peak memory and the collectives' bytes a
+    step."""
+    import numpy as np
+    import torch
+
+    from repro_torch.distributed.collectives import collective_bytes
+    from repro_torch.tree import leaves
+
+    pieces, state, batch = bundle.args
+    vg, secs = bundle.step.value_and_grad, {}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    loss_a, grads_a = vg(pieces, batch)
+    rec = _grads_record(grads_a, bundle.shardings)     # on the host: every bit of them
+    del grads_a
+    secs["vg_a_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    held = {}
+
+    def second():
+        held["vg"] = vg(pieces, batch)
+
+    prof = profile_trace(second)
+    loss_b, grads_b = held.pop("vg")
+    bitwise = bool(torch.equal(loss_a, loss_b)) and _matches_record(grads_b, bundle.shardings,
+                                                                     rec)
+    pieces, state, met = bundle.step.apply(pieces, grads_b, state)   # the warm-up step
+    del grads_b
+    losses = [float(loss_b)]
+    first_norm = float(met["grad_norm"])
+    secs["vg_b_profiled_and_warmup_s"] = time.perf_counter() - t0
+    steps_s, comm = [], []
+    for _ in range(MESH_TRAIN_TIMED):
+        collective_bytes.reset()
+        t0 = time.perf_counter()
+        pieces, state, met = bundle.step(pieces, state, batch)
+        losses.append(float(met["loss"]))          # waits for the step
+        steps_s.append(time.perf_counter() - t0)
+        comm.append(collective_bytes.value)
+    med = float(np.median(steps_s))
+    return dict(loss=float(loss_a), grads=rec, two_runs_bitwise=bitwise,
+                first_step_grad_norm=first_norm, losses=losses, steps=len(steps_s),
+                median_ms=med * 1e3, min_ms=min(steps_s) * 1e3, max_ms=max(steps_s) * 1e3,
+                model_flops=bundle.model_flops, tflops=bundle.model_flops / med / 1e12,
+                max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
+                device_busy_share=prof["device_busy_share"],
+                profiled_forward_backward_ms=prof["wall_ms"],
+                collective_bytes_per_step=comm[-1],
+                params_local_gb=sum(p.numel() * p.element_size() for p in leaves(pieces)) / 1e9,
+                **secs)
+
+
+def _same_pieces(got, want, got_sh, want_sh, whole=None) -> bool:
+    """Bitwise: ``got`` (pieces under ``got_sh``) against ``want`` (pieces
+    under ``want_sh``), each leaf compared where both pieces are the same
+    range, else gathered; with ``whole`` (the leaves whole), ``want`` is
+    held to its slices instead."""
+    import torch
+
+    from repro_torch.tree import leaves
+
+    ok = True
+    for g, w, gs, ws in zip(leaves(got), leaves(want), leaves(got_sh), leaves(want_sh)):
+        shape = gs.whole_shape(g.shape)
+        if gs.piece(shape) == ws.piece(shape):
+            ok &= bool(torch.equal(g, w))
+        else:
+            ok &= bool(torch.equal(gs.gather(g), ws.gather(w)))
+    return ok
+
+
+def _pieces_of(whole, shardings):
+    from repro_torch.tree import tree_map
+
+    return tree_map(lambda x, sh: sh.local(x), whole, shardings)
+
+
+def _grad_gap(got, got_sh, want, want_sh) -> tuple:
+    """(max |got - want|, the leaf where it is, that leaf's max |want|)
+    over two gradient trees of pieces (see :func:`_same_pieces`)."""
+    from repro_torch.tree import leaves, leaves_with_paths
+
+    gap, where = 0.0, (None, 0.0)
+    for (key, g), w, gs, ws in zip(leaves_with_paths(got), leaves(want), leaves(got_sh),
+                                   leaves(want_sh)):
+        shape = gs.whole_shape(g.shape)
+        if gs.piece(shape) != ws.piece(shape):
+            g, w = gs.gather(g), ws.gather(w)
+        d = float((g - w).abs().max())
+        if d > gap:
+            gap, where = d, (key, float(w.abs().max()))
+    return gap, where[0], where[1]
+
+
+def _mesh_train_elastic(dev, mesh, rank, tmp) -> dict:
+    """(c) A DLRM train state (tables capped at 2^18, B = 65,536) saved
+    after one step on data 2 x model 2, restored on data 4 x model 1 and on one
+    rank (every rank restores it whole): every leaf bitwise the saved
+    piece, and the next step's loss and gradients within the drive's bars
+    of the uninterrupted run's."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import dlrm_mlperf
+    from repro_torch.configs.base import RecSysShape
+    from repro_torch.distributed.sharding import replicated
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.recsys import dlrm
+    from repro_torch.training import optimizer
+    from repro_torch.tree import leaves, tree_map
+
+    m41 = make_mesh((4, 1), ("data", "model"), device=dev.type, backend="gloo")
+    cfg = dlrm_mlperf.capped(max_rows=MESH_TRAIN_ELASTIC_ROWS)
+    shape = RecSysShape("train_batch", "train", MESH_TRAIN_ELASTIC_B)
+    b22 = steps.build_recsys_train(DLRM, cfg, shape, device=dev, mesh=mesh)
+    pieces, state, batch = b22.args
+    pieces, state, _ = b22.step(pieces, state, batch)
+    tree = {"params": pieces, "opt": state}
+    specs = {"params": b22.shardings,
+             "opt": optimizer.AdamWState(replicated(mesh), b22.shardings, b22.shardings)}
+    d = os.path.join(tmp, "mesh_train_ckpt")
+    mgr = CheckpointManager(d, save_every=1, async_save=False)
+    _sync(dev)
+    t0 = time.perf_counter()
+    mgr.maybe_save(1, tree, specs, mesh=mesh)
+    save_s = time.perf_counter() - t0
+    loss_u, grads_u = b22.step.value_and_grad(pieces, batch)
+    like = tree_map(lambda x, sh: torch.empty(sh.whole_shape(x.shape), dtype=x.dtype,
+                                              device="meta").requires_grad_(x.requires_grad),
+                    tree, specs)
+    state_gb = sum(x.numel() * x.element_size() for x in leaves(like)) / 1e9
+    # data 4 x model 1
+    t0 = time.perf_counter()
+    _, r41 = mgr.resume(like, device=dev, mesh=m41)
+    _sync(dev)
+    restore41_s = time.perf_counter() - t0
+    sh41 = mgr.ckpt.shardings(1, like, m41)
+    same41 = _same_pieces(r41, tree, sh41, specs)
+    b41 = steps.build_recsys_train(DLRM, cfg, shape, device=dev, mesh=m41)
+    loss41, grads41 = b41.step.value_and_grad(r41["params"], b41.args[2])
+    gap41, leaf41, leaf41_max = _grad_gap(grads41, b41.shardings, grads_u, b22.shardings)
+    sh41_params = b41.shardings
+    del r41, b41
+    _empty(dev)
+    # one rank: every rank restores the whole state and runs the one-device
+    # step from it
+    t0 = time.perf_counter()
+    _, whole = CheckpointManager(d, async_save=False).resume(like, device=dev)
+    _sync(dev)
+    restore1_s = time.perf_counter() - t0
+    same1 = _same_pieces(_pieces_of(whole, specs), tree, specs, specs)
+    full = steps.recsys_train_inputs(cfg, shape.batch, 1, dev)
+    loss1 = dlrm.bce_loss(whole["params"], full["dense"], full["sparse"], full["labels"], cfg)
+    loss1.backward()
+    g1 = tree_map(lambda p: p.grad, whole["params"])
+    top = _leaf_max(g1)
+    gap1, leaf1, leaf1_max = _grad_gap(_pieces_of(g1, b22.shardings), b22.shardings, grads_u,
+                                       b22.shardings)
+    gap41_1 = _grad_gap(grads41, sh41_params, _pieces_of(g1, sh41_params), sh41_params)
+    del whole, g1, grads41
+    _empty(dev)
+    dist.barrier()
+    if rank == 0:
+        import shutil
+
+        shutil.rmtree(d, ignore_errors=True)
+    return dict(table_rows_cap=MESH_TRAIN_ELASTIC_ROWS, batch=MESH_TRAIN_ELASTIC_B,
+                state_gb=state_gb, save_s=save_s, restore_4x1_s=restore41_s,
+                restore_one_rank_s=restore1_s, bitwise_4x1=same41, bitwise_one_rank=same1,
+                loss_uninterrupted=float(loss_u), loss_4x1=float(loss41),
+                loss_one_rank=float(loss1.detach()), grad_gap_4x1=gap41,
+                grad_gap_one_rank=gap1, grad_max=top,
+                worst_leaf_4x1=(leaf41, leaf41_max), worst_leaf_one_rank=(leaf1, leaf1_max),
+                gap_4x1_against_one_rank=gap41_1)
+
+
+def mesh_train_worker(out_dir: str, device=None) -> dict:
+    """The ``mesh_train`` rank: (a) NequIP minibatch_lg through
+    ``make_sharded_interact``, (b) dlrm-mlperf at full width with
+    row-sharded tables, both on data 2 x model 2, then (c) the elastic
+    round trip; the kernels' launches of (a) and (b) counted."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import kernels
+    from repro_torch.configs import dlrm_mlperf, registry
+    from repro_torch.configs.shapes import RECSYS_SHAPES
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_mesh, mesh_device
+
+    mesh = make_mesh(MESH_TRAIN_MESH, ("data", "model"), device=device, backend="gloo")
+    dev = mesh_device(mesh)
+    rank = dist.get_rank()
+    res, secs = {}, {}
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    cfg = registry.get(GNN_ARCH).config
+    shape = registry.shapes_for(GNN_ARCH)["minibatch_lg"]
+    whole = {k: v.to(dev) for k, v in torch.load(_mesh_train_gnn_batch_path(out_dir),
+                                                  weights_only=False).items()}
+    b = steps.build_gnn_train(GNN_ARCH, cfg, shape, batch=whole, device=dev, mesh=mesh)
+    del whole
+    res["gnn"] = dict(_mesh_train_run(b), edges_local=int(b.args[2]["senders"].shape[0]),
+                      nodes_local=int(b.args[2]["positions"].shape[0]))
+    del b
+    _empty(dev)
+    secs["gnn"] = time.perf_counter() - t0
+    dist.barrier()
+    t0 = time.perf_counter()
+    cfg = dlrm_mlperf.capped(max_rows=dlrm_mlperf.TRAIN_ROW_CAP)
+    b = steps.build_recsys_train(DLRM, cfg, RECSYS_SHAPES["train_batch"], device=dev, mesh=mesh)
+    _sync(dev)
+    init_s = time.perf_counter() - t0
+    res["dlrm"] = dict(_mesh_train_run(b), init_s=init_s)
+    del b
+    _empty(dev)
+    secs["dlrm"] = time.perf_counter() - t0
+    res["launches"] = kernels.launch_counts()
+    dist.barrier()
+    t0 = time.perf_counter()
+    res["elastic"] = _mesh_train_elastic(dev, mesh, rank, out_dir)
+    secs["elastic"] = time.perf_counter() - t0
+    res["seconds"] = secs
+    return res
+
+
+def _held(world_rec, one_grads, one_loss, what) -> dict:
+    """A rank's recorded loss and gradients against the one-card step's."""
+    from repro_torch.tree import leaves_with_paths
+
+    one = dict(leaves_with_paths(one_grads))
+    top = max(float(g.abs().max()) for g in one.values())
+    gap = 0.0
+    for key, rec in world_rec["grads"].items():
+        g = one[key]
+        if rec[0] == "whole":
+            gap = max(gap, float((rec[1].to(g.device) - g).abs().max()))
+            continue
+        ids, vals = rec[1].to(g.device), rec[2].to(g.device)
+        gap = max(gap, float((vals - g[ids]).abs().max())) if ids.numel() else gap
+    rel = abs(world_rec["loss"] - one_loss) / abs(one_loss)
+    return dict(what=what, loss_rel=rel, grad_gap=gap, grad_max=top,
+                within=rel <= MESH_TRAIN_TOL and gap <= MESH_TRAIN_GRAD_TOL * top)
+
+
+def _table_rows_hit(world_ranks, one_grads) -> bool:
+    """The ranks' non-zero table rows, together, are the one-card
+    gradient's non-zero rows."""
+    import torch
+
+    for f, g in enumerate(one_grads["tables"]):
+        key = f"tables/{f}"
+        ids = [r["dlrm"]["grads"][key] for r in world_ranks]
+        if ids[0][0] == "whole":
+            continue
+        got = torch.cat([i[1] for i in ids]).to(g.device).sort().values
+        want = (g.abs().amax(1) > 0).nonzero().squeeze(1)
+        if not torch.equal(got, want):
+            return False
+    return True
+
+
+def phase_mesh_train(dev) -> tuple:
+    """Training over a mesh on the card: the world's ``mesh_train`` drive
+    (``mesh_train_worker``, run on the sharded phase's world) held to the
+    one-card steps, which ``phase_train`` (dlrm-mlperf at 2^22 rows, B =
+    65,536) and the gnn phase (NequIP minibatch_lg) built from the same
+    seeds and batch once the world was gone (the tables' four copies and
+    the parent's would not fit at once).  Gates: loss within 1e-5 relative
+    and every gradient within 1e-4 of the largest, the ranks' non-zero
+    table rows the one-card gradient's, the two sharded runs bitwise, the
+    elastic round trip bitwise and its next step within those bars.
+    Returns (result, the world's {kernel: launches})."""
+    from repro_torch.configs import dlrm_mlperf
+    from repro_torch.configs.shapes import RECSYS_SHAPES
+
+    ranks = _WORLDS.pop("mesh_train")
+    faults = []
+    for model in ("gnn", "dlrm"):
+        if model not in _MESH_TRAIN_HELD:
+            faults.append(f"{model}: the one-card step never held the world's")
+            continue
+        faults += [f"{model}: {h}" for h in _MESH_TRAIN_HELD[model]["held"] if not h["within"]]
+        faults += [f"{model}: rank {i}'s two sharded runs differ"
+                   for i, r in enumerate(ranks) if not r[model]["two_runs_bitwise"]]
+        faults += [f"{model}: rank {i}'s losses not finite: {r[model]['losses']}"
+                   for i, r in enumerate(ranks)
+                   if not all(x == x and abs(x) < float("inf") for x in r[model]["losses"])]
+    if _MESH_TRAIN_HELD.get("dlrm", {}).get("rows_hit") is False:
+        faults.append("dlrm: the ranks' non-zero table rows are not the one-card gradient's")
+    for i, r in enumerate(ranks):
+        e = r["elastic"]
+        if not (e["bitwise_4x1"] and e["bitwise_one_rank"]):
+            faults.append(f"elastic rank {i}: a restored leaf differs from the saved one")
+        for where in ("4x1", "one_rank"):
+            rel = abs(e[f"loss_{where}"] - e["loss_uninterrupted"]) / abs(e["loss_uninterrupted"])
+            if not (rel <= MESH_TRAIN_TOL
+                    and e[f"grad_gap_{where}"] <= MESH_TRAIN_GRAD_TOL * e["grad_max"]):
+                faults.append(f"elastic rank {i} {where}: loss rel {rel}, grad gap "
+                              f"{e[f'grad_gap_{where}']} (bar {MESH_TRAIN_GRAD_TOL} x "
+                              f"{e['grad_max']}; worst leaf {e[f'worst_leaf_{where}']})")
+    launches = {}
+    for r in ranks:
+        for k, v in r["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    for k in ("embedding_bag", "embedding_bag_backward", "tensor_product",
+              "tensor_product_backward"):
+        if not launches.get(k):
+            faults.append(f"the drive launched no {k}")
+
+    def run_row(model):
+        keep = ("median_ms", "min_ms", "max_ms", "tflops", "model_flops",
+                "max_memory_allocated_gb", "device_busy_share", "collective_bytes_per_step",
+                "losses", "first_step_grad_norm", "params_local_gb",
+                "profiled_forward_backward_ms", "vg_a_s", "vg_b_profiled_and_warmup_s",
+                "edges_local", "nodes_local", "init_s")
+        return dict(per_rank=[{k: r[model][k] for k in keep if k in r[model]} for r in ranks],
+                    **_MESH_TRAIN_HELD.get(model, {}),
+                    two_runs_bitwise=all(r[model]["two_runs_bitwise"] for r in ranks))
+
+    result = dict(mesh="data 2 x model 2, gloo on one card",
+                  world_drive_s=max(r["drive_s"] for r in ranks), seconds=ranks[0]["seconds"],
+                  prepare=_MESH_TRAIN_PREP.get("info"),
+                  gnn=dict(arch=GNN_ARCH, shape="minibatch_lg", **run_row("gnn")),
+                  dlrm=dict(model=DLRM, table_rows_cap=dlrm_mlperf.TRAIN_ROW_CAP,
+                            batch=RECSYS_SHAPES["train_batch"].batch, **run_row("dlrm")),
+                  elastic=[r["elastic"] for r in ranks], launches=launches,
+                  nvidia_smi=smi_line())
+    if faults:
+        emit({"phase": "mesh_train", **result})
+    check(not faults, "mesh_train: " + "; ".join(faults))
+    return result, launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--quick", action="store_true",
@@ -5656,7 +6258,7 @@ def main() -> int:
             emit({"phase": "router", **router})
             sharded, sharded_launches = phase_sharded(dev, ce, index)
             emit({"phase": "sharded", **sharded})
-            one_card_qps = next(c["qps_median"] for c in router["capacity"]
+            one_card_qps = next(c["qps"] for c in router["capacity"]
                                 if c["round_kernel"] == "staged" and c["replicas"] == 2)
             router_sharded, rs_launches = phase_router_sharded(dev, ce, index, one_card_qps)
             emit({"phase": "router_sharded", **router_sharded})
@@ -5698,6 +6300,9 @@ def main() -> int:
             gnn, gnn_launches = phase_gnn(dev)
             emit({"phase": "gnn", **gnn})
             torch.cuda.empty_cache()
+            mesh_train, mt_launches = phase_mesh_train(dev)
+            emit({"phase": "mesh_train", **mesh_train})
+            torch.cuda.empty_cache()
             t0 = time.perf_counter()
             _, lm_flash = phase_lm(dev)
             emit({"phase": "lm", "seconds": time.perf_counter() - t0, "flash_launches": lm_flash})
@@ -5722,11 +6327,15 @@ def main() -> int:
                             + sum(sharded["real_ce_mesh"]["flash_launches_per_rank"])
                             + lm_flash + mesh_flash,
                             embedding_bag=rs_bags + rr_launches["embedding_bag"]
-                            + train_launches["embedding_bag"] + gnn_launches["embedding_bag"],
+                            + train_launches["embedding_bag"] + gnn_launches["embedding_bag"]
+                            + mt_launches["embedding_bag"],
                             embedding_bag_backward=train_launches["embedding_bag_backward"]
-                            + gnn_launches["embedding_bag_backward"],
-                            tensor_product=gnn_launches["tensor_product"],
-                            tensor_product_backward=gnn_launches["tensor_product_backward"])
+                            + gnn_launches["embedding_bag_backward"]
+                            + mt_launches["embedding_bag_backward"],
+                            tensor_product=gnn_launches["tensor_product"]
+                            + mt_launches["tensor_product"],
+                            tensor_product_backward=gnn_launches["tensor_product_backward"]
+                            + mt_launches["tensor_product_backward"])
         for name, n in launches.items():
             check(args.quick or n > 0, f"{name} was never launched on the main path")
     except CheckFailed as e:

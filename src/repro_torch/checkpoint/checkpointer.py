@@ -25,11 +25,13 @@ dtype is needed on either side.
 
 A spec is the JSON form of the reference's ``PartitionSpec`` (``[null,
 "data"]``, ``["data"]``, ``[]``): the port writes what it is given, so the
-reference can restore a port-written tree onto a mesh.  The port's
-counterpart of the reference's ``restore(..., mesh)`` is ``restore(...,
-slices=)``: each rank names the range of a leaf's axis it holds and reads
-only those bytes (the ``.npy`` is memory-mapped), so no rank ever holds a
-whole sharded leaf.
+reference can restore a port-written tree onto a mesh.
+``restore(..., mesh=)`` is the reference's elastic restore: each leaf's
+saved spec is re-resolved on the new mesh (the dimensions it lacks
+dropped) and each rank reads only its piece (``restore(..., slices=)``:
+the ranges of a leaf's axes it holds; the ``.npy`` is memory-mapped), so
+no rank ever holds a whole sharded leaf.  ``save_pieces`` writes a sharded
+train state in the unsharded layout with its specs.
 """
 
 from __future__ import annotations
@@ -92,6 +94,14 @@ def from_host(arr: np.ndarray, dtype: str, shape, device) -> torch.Tensor:
     return t.to(device)
 
 
+class _Like:
+    """A leaf's expected piece: its shape on this rank, the dtype and grad
+    flag of the leaf it stands for."""
+
+    def __init__(self, shape, ref):
+        self.shape, self.dtype, self.requires_grad = tuple(shape), ref.dtype, ref.requires_grad
+
+
 class Checkpointer:
     """``save(step, tree, specs)`` / ``restore(step, like=None, device=None)``
     with atomic writes, synchronous unless ``async_save``."""
@@ -137,19 +147,35 @@ class Checkpointer:
         else:
             write()
 
+    @staticmethod
+    def _into(step: int, flat: Dict[str, torch.Tensor], like: Any) -> Any:
+        out = []
+        for key, ref in leaves_with_paths(like):
+            if key not in flat:
+                raise KeyError(f"checkpoint step {step} has no leaf {key}")
+            t = flat[key]
+            if tuple(t.shape) != tuple(ref.shape):
+                raise ValueError(f"checkpoint leaf {key} shape {tuple(t.shape)} != "
+                                 f"expected {tuple(ref.shape)}")
+            t = t.to(ref.dtype)
+            out.append(t.requires_grad_() if ref.requires_grad else t)
+        return unflatten_like(like, out)
+
     def save_sharded(self, step: int, tree: Any, specs: Dict[str, list],
-                     placed: Dict[str, tuple], group, write_pieces: bool,
+                     placed: Dict[str, Any], group, write_pieces,
                      on_commit: Optional[Callable[[], None]] = None) -> None:
         """Save a tree whose ``placed`` leaves are split over the ranks of
         ``group`` (every rank calls this; synchronous).  ``placed`` maps a
-        leaf to ``(axis, global length, offset)``: this rank's leaf is the
-        piece [offset, offset + its length) of that axis; the other leaves
-        are whole on every rank.  The files are the ones :meth:`save` would
-        write for the whole tree, byte for byte: the group's rank 0 lays out
-        each placed leaf's ``.npy`` at its global shape (a memory map) and
-        writes the whole leaves, then every rank with ``write_pieces`` (one
-        a piece) writes its piece into the maps, and rank 0 writes the
-        manifest and renames the directory into place.  Between the stages
+        leaf to ``(axis, global length, offset)``, or to a list of them (one
+        per split axis): this rank's leaf is the piece [offset, offset + its
+        length) of each such axis; the other leaves are whole on every rank.
+        The files are the ones :meth:`save` would write for the whole tree,
+        byte for byte: the group's rank 0 lays out each placed leaf's
+        ``.npy`` at its global shape (a memory map) and writes the whole
+        leaves, then every rank with ``write_pieces`` (True, or the set of
+        leaves it writes: one rank a piece) writes its pieces into the maps,
+        and rank 0 writes the manifest and renames the directory into
+        place.  Between the stages
         the ranks agree that every rank's writes succeeded (an all-reduce
         MIN of a flag), so a failure anywhere raises on every rank and
         leaves no committed step; no rank holds another's piece.  Rank 0
@@ -160,6 +186,13 @@ class Checkpointer:
         final = os.path.join(self.dir, f"step_{step}")
         entries = [(key, leaf, key.replace(SEP, "__") + ".npy")
                    for key, leaf in leaves_with_paths(tree)]
+        placed = {k: ([v] if isinstance(v, tuple) else list(v)) for k, v in placed.items()}
+
+        def whole_shape(key, leaf):
+            shape = list(leaf.shape)
+            for axis, total, _ in placed.get(key, ()):
+                shape[axis] = total
+            return shape
 
         def agree(stage: str, fn) -> None:
             err = None
@@ -184,10 +217,7 @@ class Checkpointer:
                 if key not in placed:
                     np.save(os.path.join(tmp, fn), to_host(leaf))
                     continue
-                axis, total, _ = placed[key]
-                shape = list(leaf.shape)
-                shape[axis] = total
-                dtype, shape = _disk_layout(leaf.dtype, shape)
+                dtype, shape = _disk_layout(leaf.dtype, whole_shape(key, leaf))
                 mm = np.lib.format.open_memmap(os.path.join(tmp, fn), mode="w+",
                                                dtype=dtype, shape=shape)
                 mm.flush()
@@ -197,16 +227,16 @@ class Checkpointer:
             if not write_pieces:
                 return
             for key, leaf, fn in entries:
-                if key not in placed:
+                if key not in placed or (write_pieces is not True and key not in write_pieces):
                     continue
-                axis, _, off = placed[key]
                 host = to_host(leaf)
-                # a raw-byte leaf's last axis counts bytes
-                scale = leaf.element_size() if (leaf.dtype in _TORCH_NAMES
-                                                and axis == leaf.dim() - 1) else 1
                 mm = np.load(os.path.join(tmp, fn), mmap_mode="r+")
                 index = [slice(None)] * host.ndim
-                index[axis] = slice(off * scale, (off + leaf.shape[axis]) * scale)
+                for axis, _, off in placed[key]:
+                    # a raw-byte leaf's last axis counts bytes
+                    scale = leaf.element_size() if (leaf.dtype in _TORCH_NAMES
+                                                    and axis == leaf.dim() - 1) else 1
+                    index[axis] = slice(off * scale, (off + leaf.shape[axis]) * scale)
                 mm[tuple(index)] = host
                 mm.flush()
                 del mm
@@ -214,11 +244,8 @@ class Checkpointer:
         def commit():
             manifest = {"step": step, "leaves": {}}
             for key, leaf, fn in entries:
-                shape = list(leaf.shape)
-                if key in placed:
-                    shape[placed[key][0]] = placed[key][1]
-                manifest["leaves"][key] = {"file": fn, "shape": shape, "dtype": dtype_name(leaf),
-                                           "spec": specs.get(key)}
+                manifest["leaves"][key] = {"file": fn, "shape": whole_shape(key, leaf),
+                                           "dtype": dtype_name(leaf), "spec": specs.get(key)}
             with open(os.path.join(tmp, "manifest.json"), "w") as f:
                 json.dump(manifest, f)
                 f.flush()
@@ -233,6 +260,43 @@ class Checkpointer:
         agree("layout", layout if lead else lambda: None)
         agree("pieces", pieces)
         agree("commit", commit if lead else lambda: None)
+
+    def save_pieces(self, step: int, tree: Any, shardings: Any) -> None:
+        """Save a tree of this rank's pieces (a sharded train state) in the
+        unsharded layout, byte for byte, with each leaf's spec in the
+        manifest, so the reference's ``Checkpointer.restore`` reads it and
+        :meth:`restore` re-places it on another mesh.  ``shardings`` is a
+        tree of ``distributed.sharding.Sharding`` shaped like ``tree``
+        (``sharding.replicated(mesh)`` for a whole leaf); every rank of the
+        mesh calls this, and of the ranks holding one piece the first writes
+        it."""
+        from ..distributed.fsdp import mesh_group
+        from ..distributed.sharding import spec_json
+
+        specs, placed, mine, mesh = {}, {}, set(), None
+        for (key, leaf), (_, sh) in zip(leaves_with_paths(tree), leaves_with_paths(shardings)):
+            mesh = sh.mesh
+            specs[key] = spec_json(sh.spec)
+            whole = sh.whole_shape(leaf.shape)
+            parts = [(d, whole[d], sh.index(d) * leaf.shape[d])
+                     for d in range(len(sh.spec)) if sh.parts(d) > 1]
+            if parts:
+                placed[key] = parts
+                if sh.is_writer():
+                    mine.add(key)
+        self.save_sharded(step, tree, specs, placed, mesh_group(mesh, mesh.mesh_dim_names),
+                          mine)
+
+    def shardings(self, step: int, like: Any, mesh) -> Any:
+        """The shardings :meth:`restore` places ``like``'s leaves with on
+        ``mesh``: each leaf's saved spec re-resolved there, the mesh
+        dimensions it lacks dropped (the reference's elastic restore)."""
+        from ..distributed.sharding import Sharding, respec
+
+        with open(os.path.join(self.dir, f"step_{step}", "manifest.json")) as f:
+            manifest = json.load(f)["leaves"]
+        return unflatten_like(like, [Sharding(mesh, respec(mesh, manifest[key]["spec"]))
+                                     for key, _ in leaves_with_paths(like)])
 
     def wait(self) -> None:
         """Block until the last asynchronous save is on disk."""
@@ -251,30 +315,38 @@ class Checkpointer:
                     pass
         return sorted(steps)
 
-    def restore(self, step: int, device=None, slices: Optional[Dict[str, tuple]] = None,
-                like: Any = None) -> Any:
+    def restore(self, step: int, device=None, slices: Optional[Dict[str, Any]] = None,
+                like: Any = None, mesh=None) -> Any:
         """Every leaf saved at ``step``, on ``device`` (the card unless
         ``device="cpu"``), as a flat ``{path: tensor}`` dict; with ``like``
-        (a tree of tensors), in ``like``'s structure, each leaf checked
-        against its shape, cast to its dtype and, where it requires grad,
-        requiring grad.  ``slices`` maps a leaf to ``(axis, lo, hi)``, a
-        range of its logical axis: only that range is read (through a memory
-        map; a raw-byte leaf's last axis scales by its element size).
-        ``bytes_read`` is what the last restore copied off the disk."""
+        (a tree of tensors, or of anything with ``shape``, ``dtype`` and
+        ``requires_grad``, such as ``meta`` tensors), in ``like``'s
+        structure, each leaf checked against its shape, cast to its dtype
+        and, where it requires grad, requiring grad.  ``slices`` maps a leaf
+        to ``(axis, lo, hi)``, a range of its logical axis, or to a list of
+        them: only that range is read (through a memory map; a raw-byte
+        leaf's last axis scales by its element size).
+
+        With ``mesh`` (and ``like`` at the leaves' whole shapes, as the
+        reference's ``restore(step, like, mesh)`` takes them) each leaf's
+        saved spec is re-resolved on ``mesh`` (:meth:`shardings`: the mesh
+        dimensions it lacks dropped) and this rank reads only its piece,
+        which is what is returned.  ``bytes_read`` is what the last restore
+        copied off the disk."""
         device = resolve_device(device)
+        if mesh is not None:
+            if like is None:
+                raise ValueError("a restore onto a mesh needs like (the leaves' whole shapes)")
+            shardings = leaves_with_paths(self.shardings(step, like, mesh))
+            slices = {key: sh.piece(ref.shape)
+                      for (key, ref), (_, sh) in zip(leaves_with_paths(like), shardings)}
+            pieces = self.restore(step, device, slices)
+            like = unflatten_like(like, [_Like(sh.local_shape(ref.shape), ref)
+                                         for (_, ref), (_, sh)
+                                         in zip(leaves_with_paths(like), shardings)])
+            return self._into(step, pieces, like)
         if like is not None:
-            flat = self.restore(step, device, slices)
-            out = []
-            for key, ref in leaves_with_paths(like):
-                if key not in flat:
-                    raise KeyError(f"checkpoint step {step} has no leaf {key}")
-                t = flat[key]
-                if tuple(t.shape) != tuple(ref.shape):
-                    raise ValueError(f"checkpoint leaf {key} shape {tuple(t.shape)} != "
-                                     f"expected {tuple(ref.shape)}")
-                t = t.to(ref.dtype)
-                out.append(t.requires_grad_() if ref.requires_grad else t)
-            return unflatten_like(like, out)
+            return self._into(step, self.restore(step, device, slices), like)
         slices = slices or {}
         path = os.path.join(self.dir, f"step_{step}")
         with open(os.path.join(path, "manifest.json")) as f:
@@ -284,11 +356,12 @@ class Checkpointer:
             arr = np.load(os.path.join(path, meta["file"]), mmap_mode="r")
             shape = list(meta["shape"])
             if key in slices:
-                axis, lo, hi = slices[key]
-                shape[axis] = hi - lo
-                scale = arr.shape[axis] // meta["shape"][axis] if meta["shape"][axis] else 1
+                ranges = slices[key]
                 index = [slice(None)] * arr.ndim
-                index[axis] = slice(lo * scale, hi * scale)
+                for axis, lo, hi in ([ranges] if isinstance(ranges, tuple) else ranges):
+                    shape[axis] = hi - lo
+                    scale = arr.shape[axis] // meta["shape"][axis] if meta["shape"][axis] else 1
+                    index[axis] = slice(lo * scale, hi * scale)
                 arr = arr[tuple(index)]
             self.bytes_read += arr.nbytes
             out[key] = from_host(arr, meta["dtype"], shape, device)

@@ -22,6 +22,8 @@ import os
 import shutil
 from typing import Any, Callable, Optional, Tuple
 
+import torch.distributed as dist
+
 from .checkpointer import Checkpointer
 
 log = logging.getLogger(__name__)
@@ -34,12 +36,21 @@ class CheckpointManager:
         self.save_every = save_every
         self.keep = keep
 
-    def maybe_save(self, step: int, state: Any, specs=None) -> bool:
+    def maybe_save(self, step: int, state: Any, specs=None, mesh=None) -> bool:
         """Save ``state`` at every ``save_every``-th step; ``state`` may be
-        a callable that builds it, called only on those steps."""
+        a callable that builds it, called only on those steps.  With
+        ``mesh``, ``state`` is this rank's pieces and ``specs`` their tree
+        of ``Sharding``: every rank calls this, and the save is sharded
+        (``Checkpointer.save_pieces``) and synchronous."""
         if step % self.save_every != 0:
             return False
-        self.ckpt.save(step, state() if callable(state) else state, specs)
+        state = state() if callable(state) else state
+        if mesh is not None:
+            self.ckpt.save_pieces(step, state, specs)
+            if dist.get_rank() == 0:
+                self._gc()
+            return True
+        self.ckpt.save(step, state, specs)
         self._gc()
         return True
 
@@ -52,36 +63,51 @@ class CheckpointManager:
         steps = self.ckpt.available_steps()
         return steps[-1] if steps else None
 
-    def resume(self, like: Any, device=None) -> Tuple[int, Any]:
+    def resume(self, like: Any, device=None, mesh=None) -> Tuple[int, Any]:
         """(start_step, state): ``like`` itself when starting cold, else the
         latest checkpoint in ``like``'s structure on ``device`` (default:
-        the card)."""
+        the card); with ``mesh``, this rank's pieces of it re-placed on
+        ``mesh`` (``Checkpointer.restore(mesh=)``), ``like`` at the leaves'
+        whole shapes."""
         last = self.latest()
         if last is None:
             return 0, like
         self.ckpt.wait()
-        return last, self.ckpt.restore(last, device, like=like)
+        return last, self.ckpt.restore(last, device, like=like, mesh=mesh)
 
     def run_with_recovery(self, step_fn: Callable[[int, Any], Any], state: Any,
-                          n_steps: int, specs=None, device=None,
+                          n_steps: int, specs=None, device=None, mesh=None,
                           max_restarts: int = 3) -> Any:
         """Drive a training loop; on an exception, restore the last
         checkpoint and go on (node-failure recovery).
-        ``step_fn(step, state) -> state``."""
-        start, state = self.resume(state, device)
+        ``step_fn(step, state) -> state``.  With ``mesh``, ``state`` is this
+        rank's pieces and ``specs`` their shardings (saves are sharded, a
+        restore re-places them on ``mesh``); a step that fails on one rank
+        must fail on every rank, as a collective's failure does."""
+        like = state
+        if mesh is not None:
+            import torch
+
+            from ..tree import tree_map
+
+            like = tree_map(lambda x, sh: torch.empty(
+                sh.whole_shape(x.shape), dtype=x.dtype,
+                device="meta").requires_grad_(x.requires_grad), state, specs)
+        start, restored = self.resume(like, device, mesh)
+        state = state if start == 0 else restored
         restarts = 0
         step = start
         while step < n_steps:
             try:
                 state = step_fn(step, state)
                 step += 1
-                self.maybe_save(step, state, specs)
+                self.maybe_save(step, state, specs, mesh)
             except Exception as e:  # noqa: BLE001 — any step failure
                 restarts += 1
                 if restarts > max_restarts or self.latest() is None:
                     raise
                 log.warning("step %d failed (%s); restoring last checkpoint", step, e)
                 self.ckpt.wait()
-                step, state = self.resume(state, device)
+                step, state = self.resume(like, device, mesh)
         self.ckpt.wait()
         return state

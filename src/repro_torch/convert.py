@@ -111,6 +111,22 @@ def stack_layers(params: dict) -> dict:
     return {**params, "layers": stack(params["layers"])}
 
 
+def stack_layer_specs(specs: dict) -> dict:
+    """:func:`stack_layers` for a logical-spec tree (``param_specs``): the
+    per-layer trees, which must agree, as one tree with the reference's
+    leading "layers" axis on every leaf."""
+    layers = specs["layers"]
+    if any(lp != layers[0] for lp in layers):
+        raise ValueError("the layers' spec trees differ: they do not stack")
+
+    def stack(tree):
+        if isinstance(tree, dict):
+            return {k: stack(v) for k, v in tree.items()}
+        return ("layers",) + tuple(tree)
+
+    return {**specs, "layers": stack(layers[0])}
+
+
 def unstack_layers(params: dict) -> dict:
     """:func:`stack_layers`' inverse: the stacked ``layers`` as a list of
     per-layer dicts (views of the stacked tensors)."""

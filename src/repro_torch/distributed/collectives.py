@@ -47,9 +47,18 @@ class ShardCtx(NamedTuple):
     n_data_shards: int = 1
 
 
-# collectives issued by these helpers and the engine's (each all_reduce,
-# all_gather and broadcast counts one), read by chip_smoke per search
+# collectives issued by these helpers, the engine's and ``fsdp``'s (each
+# all_reduce, all_gather, all_to_all and broadcast counts one), read by
+# chip_smoke per search; ``collective_bytes``: the bytes this rank handed to
+# the ones that go through :func:`_count` (these helpers and ``fsdp``'s),
+# read by chip_smoke per train step
 collective_calls = LaunchCounter()
+collective_bytes = LaunchCounter()
+
+
+def _count(x: torch.Tensor) -> None:
+    collective_calls.add()
+    collective_bytes.add(x.numel() * x.element_size())
 
 
 def _local_ctx(n_items: int, col_map=None) -> ShardCtx:
@@ -82,7 +91,7 @@ def _psum_items(ctx: ShardCtx, x: torch.Tensor) -> torch.Tensor:
         return x
     y = x.contiguous().clone()
     dist.all_reduce(y, group=ctx.item_group)
-    collective_calls.add()
+    _count(y)
     return y
 
 
@@ -92,7 +101,7 @@ def _all_gather(group, x: torch.Tensor, dim: int) -> torch.Tensor:
     x = x.contiguous()
     parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
     dist.all_gather(parts, x, group=group)
-    collective_calls.add()
+    _count(x)
     return torch.cat(parts, dim)
 
 

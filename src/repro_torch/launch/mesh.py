@@ -8,12 +8,18 @@ NCCL on ``cuda``, gloo on ``cpu``; ``backend=`` overrides it.  Several
 ranks on one card need the override: NCCL refuses two ranks on one device,
 so they run gloo over CUDA tensors (gloo stages each collective through
 host memory).  ``make_replica_meshes`` splits one world into serving
-replicas, each a mesh with groups of its own.  The pod mesh
-(``make_production_mesh``) belongs to training and is not ported.
+replicas, each a mesh with groups of its own.  ``make_production_mesh`` is
+the training mesh over the reference's axes.
+
+An entry point that makes the default process group ends it on every
+path, normal or failed (:func:`end_world`): a process that exits with a
+gloo group still live may abort in the group's threads at exit
+("terminate called without an active exception").
 """
 
 from __future__ import annotations
 
+import gc
 import math
 import os
 from datetime import timedelta
@@ -34,6 +40,45 @@ def _init_world(device: torch.device, backend) -> None:
     if backend is None:
         backend = "nccl" if device.type == "cuda" else "gloo"
     dist.init_process_group(backend=backend)
+
+
+def end_world(sync: bool = True) -> None:
+    """End this process's default process group and every group made from
+    it (a no-op without one).  ``sync`` (the normal path) first waits at a
+    barrier, so no peer is still inside a collective with this rank; a
+    failed path passes ``sync=False`` (a peer may never arrive).  Objects
+    no longer referenced that hold groups are collected first, so the
+    groups' connections close here, not at the interpreter's exit."""
+    if not dist.is_initialized():
+        return
+    try:
+        if sync:
+            dist.barrier()
+    finally:
+        gc.collect()
+        dist.destroy_process_group()
+        gc.collect()
+
+
+PRODUCTION_SHAPE = (16, 16)              # chips of one pod: (data, model)
+PRODUCTION_MULTI_POD_SHAPE = (2, 16, 16)  # (pod, data, model)
+
+
+def make_production_mesh(*, multi_pod: bool = False, shape=None, device=None, backend=None):
+    """The training mesh over the reference's axes: ``("data", "model")``,
+    or ``("pod", "data", "model")`` when ``multi_pod`` ("data" = DP/FSDP,
+    "model" = TP/EP, "pod" = cross-pod DP).  Without ``shape`` it is the
+    reference's (16, 16) or (2, 16, 16) and needs that many ranks; a given
+    ``shape`` must have one size per axis.  Either way a world of another
+    size raises (:func:`make_mesh`)."""
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    if shape is None:
+        shape = PRODUCTION_MULTI_POD_SHAPE if multi_pod else PRODUCTION_SHAPE
+    shape = tuple(int(s) for s in shape)
+    if len(shape) != len(axes) or any(s < 1 for s in shape):
+        raise ValueError(f"a production mesh of axes {axes} needs {len(axes)} positive sizes, "
+                         f"got {shape}")
+    return make_mesh(shape, axes, device=device, backend=backend)
 
 
 def make_mesh(shape, axes, device=None, backend=None):

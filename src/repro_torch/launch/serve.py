@@ -547,15 +547,21 @@ class AdaCURService:
         self._stop_keepalive()
         if not dist.is_initialized():
             return msg
+        # a DeviceMesh built from groups may keep them in a registry of its
+        # own (_pg_registry), which would keep their connections open
+        mesh = getattr(getattr(self.retriever, "index", None), "mesh", None)
         try:
             if self._group_name is None and self._control_name is None:
+                names = [g.group_name for g in self._mesh_groups()]
                 dist.destroy_process_group()
+                # the world's groups, ended, go now rather than at the
+                # interpreter's exit
+                for name in names:
+                    getattr(mesh, "_pg_registry", {}).pop(name, None)
+                gc.collect()
                 return msg
             groups = self._mesh_groups()
             self._group_name = self._control_name = None
-            # a DeviceMesh built from groups may keep them in a registry of
-            # its own (_pg_registry), which would keep their connections open
-            mesh = getattr(getattr(self.retriever, "index", None), "mesh", None)
             for g in groups:
                 getattr(mesh, "_pg_registry", {}).pop(g.group_name, None)
             gc.collect()
@@ -804,7 +810,23 @@ def main(argv=None) -> None:
                          "(torchrun): items shards the index payload, data the batches")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = ap.parse_args(argv)
-    mesh = _serving_mesh(args) if args.mesh else None
+    owns_world = not dist.is_initialized()
+    mesh = _serving_mesh(args, owns_world) if args.mesh else None
+    if mesh is None or not owns_world:
+        return _main(args, mesh)
+    from .mesh import end_world
+
+    # the world this CLI made ends on every path (a failed search already
+    # ended it; an error elsewhere may leave a peer that never arrives)
+    try:
+        _main(args, mesh)
+    except BaseException:
+        end_world(sync=False)
+        raise
+    end_world()
+
+
+def _main(args, mesh) -> None:
     if args.first_stage != "none" and args.retriever != "adacur":
         raise SystemExit("--first-stage composes the hybrid on top of ADACUR; use "
                          "--retriever adacur (rerank already is a first-stage method)")
@@ -883,12 +905,14 @@ def main(argv=None) -> None:
               f"{dist.get_world_size()} ranks")
 
 
-def _serving_mesh(args):
+def _serving_mesh(args, owns_world: bool = False):
     """``--mesh DxI`` -> the (data x items) mesh over this process's world,
     after the refusals that need no world: ``--cache`` (the sharded engine
     scores device-resident or through item shard 0, never through a host
-    cache) and a batch whose buckets do not divide over the data shards."""
-    from .mesh import make_serving_mesh
+    cache) and a batch whose buckets do not divide over the data shards.
+    A world made here (``owns_world``) for a mesh it cannot hold is ended
+    before the refusal."""
+    from .mesh import end_world, make_serving_mesh
 
     try:
         d, i = (int(x) for x in args.mesh.lower().split("x"))
@@ -908,6 +932,8 @@ def _serving_mesh(args):
     try:
         return make_serving_mesh(d, i, device=args.device)
     except ValueError as e:
+        if owns_world:
+            end_world(sync=False)
         raise SystemExit(f"--mesh {args.mesh}: {e} (launch with torchrun --nproc-per-node "
                          f"{d * i})")
 

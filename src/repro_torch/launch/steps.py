@@ -60,7 +60,7 @@ from __future__ import annotations
 
 import time
 from dataclasses import dataclass
-from typing import Callable, Optional
+from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
@@ -72,11 +72,12 @@ from ..configs.base import (AdaCURConfig, GNNConfig, GraphShape, LMConfig, LMSha
 from ..core import adacur, prng
 from ..core.scorer import ScorerStats
 from ..device import resolve_device
+from ..distributed import fsdp, sharding
 from ..models import cross_encoder, transformer
 from ..models.gnn import nequip, sampler
 from ..models.recsys import bert4rec, bst, dlrm, embedding, mind
 from ..training import optimizer
-from ..tree import leaves, tree_map
+from ..tree import leaves, leaves_with_paths, tree_map, unflatten_like
 
 K_Q = 500                 # anchor contexts of the retrieval step's R_anc
 PAIRS_PER_CALL = 131072   # pairs a forward of the R_anc build, at most (DLRM: ~6 GB live)
@@ -97,6 +98,7 @@ class StepBundle:
     args: tuple
     model_flops: float                    # analytic FLOPs of a step
     stats: Optional[ScorerStats] = None   # the retrieval step's CE calls
+    shardings: Any = None                 # over a mesh: the parameters' shardings
 
 
 _INIT = {"dlrm": dlrm.init_dlrm, "bst": bst.init_bst,
@@ -432,25 +434,77 @@ def _recsys_loss(cfg: RecSysConfig) -> Callable:
 
 def build_recsys_train(arch_id: str, cfg: RecSysConfig, shape: RecSysShape, *,
                        params=None, n_micro: int = 1, seed: int = 0,
-                       device=None) -> StepBundle:
+                       device=None, mesh=None, batch=None) -> StepBundle:
     """``step(params, opt_state, batch)``: one train step at ``shape.batch``
     (the kind's loss, its gradient, AdamW with lr 1e-3 and no weight decay,
     as the reference), the gradient the mean over ``n_micro`` microbatches
     (a divisor of the batch) when the whole batch's activations do not fit.
-    ``args`` = (params requiring grad, a fresh AdamW state, a seeded batch
-    from :func:`recsys_train_inputs`); ``model_flops`` = 3 x the forward's
-    (forward + backward)."""
+    ``args`` = (params requiring grad, a fresh AdamW state, ``batch`` or a
+    seeded one from :func:`recsys_train_inputs`); ``model_flops`` = 3 x the
+    forward's (forward + backward)."""
     if shape.batch % n_micro:
         raise ValueError(f"batch {shape.batch} does not split into {n_micro} microbatches")
     opt_cfg = optimizer.AdamWConfig(lr=1e-3, weight_decay=0.0)
+    if mesh is not None:
+        if _kind(cfg) != "dlrm" or n_micro != 1:
+            raise NotImplementedError(
+                f"{cfg.kind} training over a mesh (and microbatches over one) is not "
+                "ported yet: ROADMAP.md, queue 1, item 2b")
+        return _build_dlrm_train_mesh(arch_id, cfg, shape, params, seed, device, mesh, opt_cfg,
+                                      batch)
     loss_fn = _recsys_loss(cfg)
     params = recsys_init(cfg, seed, device) if params is None else params
     require_grad(params)
     dev = _device_of(params)
-    batch = recsys_train_inputs(cfg, shape.batch, seed + 1, dev)
+    batch = recsys_train_inputs(cfg, shape.batch, seed + 1, dev) if batch is None else batch
     return StepBundle(f"{arch_id}:{shape.name}", train_step(loss_fn, opt_cfg, n_micro),
                       (params, optimizer.init_adamw(params), batch),
                       3.0 * recsys_flops(cfg, shape.batch))
+
+
+def batch_shard(batch: dict, mesh) -> dict:
+    """This rank's rows of a batch split over the mesh's batch axes."""
+    b, n_b = _flat_index(mesh, sharding.batch_axes(mesh))
+    rows = next(iter(batch.values())).shape[0]
+    if rows % n_b:
+        raise ValueError(f"a batch of {rows} does not split over {n_b} batch shards")
+    rl = rows // n_b
+    return {k: v[b * rl:(b + 1) * rl] for k, v in batch.items()}
+
+
+def _build_dlrm_train_mesh(arch_id, cfg, shape, params, seed, device, mesh,
+                           opt_cfg, batch=None) -> StepBundle:
+    dev = resolve_device(device)
+    sharding.check_mesh_device(mesh, dev)
+    specs = dlrm.param_specs(cfg)
+    if params is None:
+        logical, placed = sharding.logical_by_path(specs), {}
+
+        def place(path, leaf):
+            placed[path] = sharding.Sharding(
+                mesh, sharding.spec_for(mesh, logical[path], tuple(leaf.shape)))
+            return placed[path].local(leaf).contiguous().clone()
+
+        pieces = dlrm.init_dlrm(cfg, _generator(seed, dev), dev, place=place)
+        shardings = unflatten_like(pieces, [placed[k] for k, _ in leaves_with_paths(pieces)])
+        require_grad(pieces)
+    else:
+        pieces, shardings = shard_params(params, specs, mesh)
+    batch = batch_shard(recsys_train_inputs(cfg, shape.batch, seed + 1, dev)
+                        if batch is None else batch, mesh)
+
+    def lookup(tables, ids):
+        return embedding.lookup_row_sharded(tables, shardings["tables"], ids, mesh)
+
+    def loss_fn(p, b):
+        whole = {"bot": gather_params(p["bot"], shardings["bot"]),
+                 "top": gather_params(p["top"], shardings["top"]), "tables": p["tables"]}
+        return dlrm.bce_loss(whole, b["dense"], b["sparse"], b["labels"], cfg, lookup=lookup)
+
+    step = fsdp.sharded_adamw_step(loss_fn, opt_cfg, shardings, mesh)
+    return StepBundle(f"{arch_id}:{shape.name}", step,
+                      (pieces, optimizer.init_adamw(pieces), batch),
+                      3.0 * recsys_flops(cfg, shape.batch), shardings=shardings)
 
 
 def _chunked_nll(params, h: torch.Tensor, targets: torch.Tensor, cfg: LMConfig,
@@ -591,7 +645,7 @@ def gnn_sample(shape: GraphShape, senders, receivers, seed: int,
 
 
 def gnn_inputs(cfg: GNNConfig, shape: GraphShape, seed: int = 1, device=None,
-               graph=None) -> dict:
+               graph=None, mesh=None, receiver_partitioned: bool = False) -> dict:
     """A concrete batch in ``_gnn_batch``'s layout: nodes and edges padded
     to multiples of 512 (padded edges 0 -> 0 with ``edge_mask`` 0, padded
     nodes ``node_mask`` 0), standard-normal positions (most edges then lie
@@ -601,7 +655,22 @@ def gnn_inputs(cfg: GNNConfig, shape: GraphShape, seed: int = 1, device=None,
     ``graph_ids``; a full shape uses ``graph`` ((senders, receivers)) or
     :func:`gnn_graph`'s; a minibatch shape uses ``graph`` when it is a
     ``SampledSubgraph``, else one :func:`gnn_sample` of ``graph`` (or of
-    :func:`gnn_graph`'s)."""
+    :func:`gnn_graph`'s).
+
+    With ``mesh``, this rank's piece of that batch (every rank draws the
+    same one), laid out as the reference's ``_gnn_batch`` places it: the
+    nodes (``positions``, ``node_attr``, ``node_mask``, ``graph_ids``)
+    sharded over ``data``, the graphs' ``energy`` over the batch axes where
+    they divide (else whole), and the edges spread over every axis, or with
+    ``receiver_partitioned`` (the sharded interact's contract) sharded over
+    ``data`` by their receiver's node shard.  A real graph's receivers do
+    not fall evenly into node shards, so there each shard's edge block
+    keeps only its real edges (``edge_mask`` 1, in their order) and is
+    padded to the largest block with edges (0 -> the shard's first node,
+    ``edge_mask`` 0)."""
+    if mesh is not None:
+        whole = gnn_inputs(cfg, shape, seed, device, graph)
+        return _gnn_piece(whole, shape, mesh, receiver_partitioned)
     dev = resolve_device(device)
     n, e, n_graphs = gnn_sizes(shape)
     g = _generator(seed, dev)
@@ -650,27 +719,84 @@ def gnn_inputs(cfg: GNNConfig, shape: GraphShape, seed: int = 1, device=None,
     return batch
 
 
+def _flat_index(mesh, axes) -> tuple:
+    """(this rank's row-major index over mesh dimensions ``axes``, their
+    product)."""
+    sh = sharding.Sharding(mesh, (tuple(axes),))
+    return sh.index(0), sh.parts(0)
+
+
+def _gnn_piece(whole: dict, shape: GraphShape, mesh, receiver_partitioned: bool) -> dict:
+    """This rank's piece of a whole GNN batch (:func:`gnn_inputs`)."""
+    d, n_d = _flat_index(mesh, ("data",))
+    n = whole["positions"].shape[0]
+    if n % n_d:
+        raise ValueError(f"{n} nodes do not split over {n_d} data shards")
+    n_l = n // n_d
+    out = {k: whole[k][d * n_l:(d + 1) * n_l]
+           for k in ("positions", "node_attr", "node_mask", "graph_ids") if k in whole}
+    s, r, m = whole["senders"], whole["receivers"], whole["edge_mask"]
+    if receiver_partitioned:
+        real = m != 0
+        shard = torch.div(r.long(), n_l, rounding_mode="floor")
+        counts = torch.bincount(shard[real], minlength=n_d)
+        width = int(counts.max())
+        keep = (real & (shard == d)).nonzero().squeeze(1)
+        pad = width - keep.numel()
+        fill = lambda x, v: torch.cat([x[keep], torch.full((pad,), v, dtype=x.dtype,  # noqa: E731
+                                                           device=x.device)])
+        out.update(senders=fill(s, 0), receivers=fill(r, d * n_l), edge_mask=fill(m, 0))
+    else:
+        i, n_all = _flat_index(mesh, mesh.mesh_dim_names)
+        e_l = s.shape[0] // n_all
+        out.update({k: whole[k][i * e_l:(i + 1) * e_l]
+                    for k in ("senders", "receivers", "edge_mask")})
+    b, n_b = _flat_index(mesh, sharding.batch_axes(mesh))
+    g = whole["energy"].shape[0]
+    out["energy"] = whole["energy"][b * (g // n_b):(b + 1) * (g // n_b)] if g % n_b == 0 \
+        else whole["energy"]
+    return out
+
+
 def gnn_flops(cfg: GNNConfig, n_edges: int) -> float:
     """The reference's ``model_flops``: ~(paths x irrep_dim x h) MACs an edge."""
     return 2.0 * n_edges * 11 * 9 * cfg.d_hidden * cfg.n_layers
 
 
 def build_gnn_train(arch_id: str, cfg: GNNConfig, shape: GraphShape, *, params=None,
-                    batch=None, seed: int = 0, device=None) -> StepBundle:
+                    batch=None, seed: int = 0, device=None, mesh=None,
+                    sharded_interact: Optional[bool] = None) -> StepBundle:
     """``step(params, opt_state, batch)``: one NequIP train step (the
     per-graph energy MSE, its gradient and AdamW with lr 1e-3, as the
     reference).  A graph above 100,000 nodes runs in edge chunks of
     ``nequip.EDGE_CHUNK`` with each interaction block recomputed in the
-    backward (the reference shards it over a mesh instead).  ``args`` =
-    (params requiring grad, a fresh AdamW state, ``batch`` or
-    :func:`gnn_inputs`'s); ``model_flops`` is the reference's."""
+    backward.  ``args`` = (params requiring grad, a fresh AdamW state,
+    ``batch`` or :func:`gnn_inputs`'s); ``model_flops`` is the
+    reference's.
+
+    With ``mesh`` (a ``("data", "model")`` or ``("pod", "data", "model")``
+    mesh over this process's world) the step is the reference's over that
+    mesh: ``args`` are this rank's pieces of the parameters and AdamW state
+    (``param_specs`` under ``tree_specs``; the parameters drawn whole from
+    the one-device init's seed, then cut), of the batch
+    (:func:`gnn_inputs` with ``mesh``, or of ``batch``, a whole one) and
+    the step runs on pieces (``distributed/fsdp.py``).  Above
+    ``GNN_BIG_NODES`` nodes (the reference's rule; ``sharded_interact``
+    forces either way) the edges are receiver-partitioned and every block
+    runs ``nequip.make_sharded_interact`` in edge chunks, without remat, as
+    the reference's; otherwise each step gathers the batch and runs the
+    one-device loss on every rank."""
     dev = resolve_device(device)
     params = gnn_init(cfg, shape, seed, dev) if params is None else params
-    require_grad(params)
-    batch = gnn_inputs(cfg, shape, seed + 1, dev) if batch is None else batch
     _, e, n_graphs = gnn_sizes(shape)
     big = shape.n_nodes > GNN_BIG_NODES
     chunk = nequip.EDGE_CHUNK if big else None
+    if mesh is not None:
+        return _build_gnn_train_mesh(arch_id, cfg, shape, params, seed, dev, mesh,
+                                     big if sharded_interact is None else sharded_interact,
+                                     batch)
+    require_grad(params)
+    batch = gnn_inputs(cfg, shape, seed + 1, dev) if batch is None else batch
 
     def loss_fn(p, b):
         return nequip.energy_mse_loss(p, cfg, b, n_graphs=n_graphs, remat=big,
@@ -679,6 +805,60 @@ def build_gnn_train(arch_id: str, cfg: GNNConfig, shape: GraphShape, *, params=N
     step = train_step(loss_fn, optimizer.AdamWConfig(lr=1e-3))
     return StepBundle(f"{arch_id}:{shape.name}", step,
                       (params, optimizer.init_adamw(params), batch), gnn_flops(cfg, e))
+
+
+def shard_params(params, logical_specs, mesh):
+    """(this rank's pieces of ``params`` requiring grad, their shardings):
+    ``logical_specs`` under ``tree_specs`` on ``mesh``."""
+    shardings = sharding.tree_shardings(mesh, params, logical_specs)
+    return require_grad(fsdp.shard_tree(params, shardings)), shardings
+
+
+def gather_params(pieces, shardings):
+    """The whole parameters from this rank's pieces, differentiable (each
+    leaf all-gathered where it is sharded)."""
+    return tree_map(fsdp.gather, pieces, shardings)
+
+
+def _build_gnn_train_mesh(arch_id, cfg, shape, params, seed, dev, mesh, use_si,
+                          batch) -> StepBundle:
+    sharding.check_mesh_device(mesh, dev)
+    _, e, n_graphs = gnn_sizes(shape)
+    big = shape.n_nodes > GNN_BIG_NODES
+    pieces, shardings = shard_params(params, nequip.param_specs(cfg, shape.d_feat), mesh)
+    batch = (gnn_inputs(cfg, shape, seed + 1, dev, mesh=mesh, receiver_partitioned=use_si)
+             if batch is None else _gnn_piece(batch, shape, mesh, use_si))
+    batch_group = fsdp.mesh_group(mesh, sharding.batch_axes(mesh))
+    whole_energy = batch["energy"].shape[0] != n_graphs
+
+    def energy(b):
+        return fsdp.all_gather(b["energy"], batch_group) if whole_energy else b["energy"]
+
+    if use_si:
+        si = nequip.make_sharded_interact(mesh, "data", "model" if "model" in
+                                          sharding.mesh_dims(mesh) else None)
+
+        def loss_fn(p, b):
+            return nequip.energy_mse_loss(gather_params(p, shardings), cfg,
+                                          {**b, "energy": energy(b)}, n_graphs=n_graphs,
+                                          edge_chunk=nequip.EDGE_CHUNK, interact_fn=si)
+    else:
+        node_group = fsdp.mesh_group(mesh, ("data",))
+        every = fsdp.mesh_group(mesh, mesh.mesh_dim_names)
+        chunk = nequip.EDGE_CHUNK if big else None
+
+        def loss_fn(p, b):
+            whole = {k: fsdp.all_gather(v, every if k in ("senders", "receivers", "edge_mask")
+                                        else node_group)
+                     for k, v in b.items() if k != "energy"}
+            whole["energy"] = energy(b)
+            return nequip.energy_mse_loss(gather_params(p, shardings), cfg, whole,
+                                          n_graphs=n_graphs, remat=big, edge_chunk=chunk)
+
+    step = fsdp.sharded_adamw_step(loss_fn, optimizer.AdamWConfig(lr=1e-3), shardings, mesh)
+    return StepBundle(f"{arch_id}:{shape.name}", step,
+                      (pieces, optimizer.init_adamw(pieces), batch), gnn_flops(cfg, e),
+                      shardings=shardings)
 
 
 # ---------------------------------------------------------------------------
@@ -739,8 +919,8 @@ def build_lm_decode(arch_id: str, cfg: LMConfig, shape: LMShape, *, params=None,
     (``make_moe_fn``, each rank holding its experts: ``moe.expert_slice``).
     ``args`` are this rank's: its experts, its chunk of the cache, its rows
     of the tokens, and the logits are those rows'.  The dense weights are
-    whole on every rank in this slice (their TP / FSDP placement comes with
-    the mesh's parameter specs, ``tree_specs``, in training over a mesh)."""
+    whole on every rank (placing them by ``tree_specs`` is ROADMAP.md,
+    queue 1, item 2b)."""
     dev = resolve_device(device)
     params = _lm_params(cfg, params, seed, dev)
     b, s = (shape.global_batch if global_batch is None else global_batch), shape.seq_len
@@ -846,13 +1026,23 @@ def build_lm_adacur_serve(arch_id: str, cfg: LMConfig, *, params=None,
 
 
 def build_cell(arch_id: str, shape_name: str, *, params=None, global_batch=None,
-               seed: int = 0, device=None) -> StepBundle:
+               seed: int = 0, device=None, mesh=None) -> StepBundle:
     """The bundle of one (arch, shape) cell of a family the port serves
     (``registry.get`` raises for the others); ``adacur_serve`` is the LM
-    family's extra cell."""
+    family's extra cell.  With ``mesh``, the GNN cells and DLRM's
+    ``train_batch`` run over it; the other cells raise (ROADMAP.md, queue
+    1, item 2b)."""
     entry = registry.get(arch_id)
     cfg = entry.config
     kw = dict(params=params, seed=seed, device=device)
+    if mesh is not None:
+        kw["mesh"] = mesh
+        shape = registry.shapes_for(arch_id).get(shape_name)
+        if not (entry.family == "gnn" or (entry.family == "recsys" and shape is not None
+                                          and shape.kind == "train" and cfg.kind == "dlrm")):
+            raise NotImplementedError(
+                f"{arch_id}:{shape_name} over a mesh is not ported yet: ROADMAP.md, queue 1, "
+                "item 2b")
     if entry.family == "gnn":
         return build_gnn_train(arch_id, cfg, registry.shapes_for(arch_id)[shape_name], **kw)
     if entry.family == "lm":

@@ -22,8 +22,12 @@ of ``repro/models/gnn/nequip.py`` on one device.
   (``kernels/embedding_bag/ops.py::gather_rows`` / ``segment_sum``), so
   their gradients are deterministic as well.
 
-The sharded interact (``make_sharded_interact``) belongs to training over a
-mesh and is not ported.
+- Over a mesh, :func:`make_sharded_interact` is the reference's
+  receiver-partitioned, channel-parallel block: each rank holds a (node
+  shard, channel block) of the table, its edges have their receivers in
+  its node range, one all-gather over the node axis brings its channels of
+  every sender, the scatter stays shard-local, and only the channel-mixing
+  linears cross the channel axis (one reduce-scatter).
 """
 
 from __future__ import annotations
@@ -106,6 +110,17 @@ def init_nequip(cfg: GNNConfig, generator: torch.Generator, d_feat: int = 0,
     return to_device(params, dev)
 
 
+def param_specs(cfg: GNNConfig, d_feat: int = 0) -> dict:
+    """The logical axes of every leaf of :func:`init_nequip`'s tree (the
+    reference's second return value of ``init_nequip``)."""
+    layer = {"lin": {k: ("ch_in", "ch") for k in ("w_s", "w_v", "w_t", "w_gate")},
+             "radial": {"w1": ("rbf", "mlp"), "w2": ("mlp", "radial_out")}}
+    return {"embed": ("feat", "ch") if d_feat > 0 else ("species", "ch"),
+            "layers": [{"lin": dict(layer["lin"]), "radial": dict(layer["radial"])}
+                       for _ in range(cfg.n_layers)],
+            "readout1": ("ch_in", "ch"), "readout2": ("ch_in", "unit")}
+
+
 # ---------------------------------------------------------------------------
 # the edge graph and its geometry
 # ---------------------------------------------------------------------------
@@ -155,10 +170,12 @@ def edge_graph(senders: torch.Tensor, receivers: torch.Tensor, n_nodes: int,
                      _chunks(s_sorted, chunk))
 
 
-def _edge_geometry(positions, graph: EdgeGraph, cfg: GNNConfig):
+def _edge_geometry(positions, graph: EdgeGraph, cfg: GNNConfig, offset: int = 0):
     """(rhat (E, 3), y2 (E, 3, 3), rbf (E, n_rbf)) in the graph's order;
-    the positions' gathers are the bag kernel (differentiable)."""
-    rel = gather_rows(positions, graph.receivers) - gather_rows(positions, graph.senders)
+    the positions' gathers are the bag kernel (differentiable).  A graph of
+    one node shard numbers its receivers from ``offset`` in ``positions``."""
+    receivers = graph.receivers + offset if offset else graph.receivers
+    rel = gather_rows(positions, receivers) - gather_rows(positions, graph.senders)
     r = torch.sqrt(torch.sum(rel * rel, dim=-1) + 1e-12)
     rhat = rel / r[:, None]
     rbf = bessel_basis(r, cfg.n_rbf, cfg.cutoff)
@@ -313,6 +330,105 @@ class _SelfInteraction(torch.autograd.Function):
         return d_x, d_agg, d_w[0], d_w[1], d_w[2], d_wg
 
 
+class ShardedInteract:
+    """The interaction block over a mesh (:func:`make_sharded_interact`),
+    and what :func:`forward` needs around it: this rank's node range and
+    channel block, and the collectives over the two axes."""
+
+    def __init__(self, mesh, node_axis: str = "data", channel_axis: Optional[str] = "model"):
+        from ...distributed.fsdp import mesh_group
+        from ...distributed.sharding import mesh_coordinate, mesh_dims
+
+        dims, coord = mesh_dims(mesh), mesh_coordinate(mesh)
+        self.mesh, self.node_axis, self.channel_axis = mesh, node_axis, channel_axis
+        self.n_node_shards, self.node_shard = dims[node_axis], coord[node_axis]
+        self.tp = dims[channel_axis] if channel_axis else 1
+        self.crank = coord[channel_axis] if channel_axis else 0
+        self.node_group = mesh_group(mesh, (node_axis,))
+        self.channel_group = mesh_group(mesh, (channel_axis,)) if channel_axis else None
+
+    def channels(self, h: int) -> slice:
+        """This rank's block of ``h`` channels."""
+        if h % self.tp:
+            raise ValueError(f"{h} channels do not split over {self.tp} channel shards")
+        hl = h // self.tp
+        return slice(self.crank * hl, (self.crank + 1) * hl)
+
+    def gather_nodes(self, x: torch.Tensor) -> torch.Tensor:
+        from ...distributed.fsdp import all_gather
+
+        return all_gather(x, self.node_group, 0)
+
+    def sum_nodes(self, x: torch.Tensor) -> torch.Tensor:
+        from ...distributed.fsdp import all_reduce
+
+        return all_reduce(x, self.node_group)
+
+    def gather_channels(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        from ...distributed.fsdp import all_gather
+
+        return all_gather(x, self.channel_group, dim)
+
+    def __call__(self, lp, x: torch.Tensor, graph: EdgeGraph, rhat, y2, rbf) -> torch.Tensor:
+        """One block on this rank's (n_local, 13, h / tp) table: the
+        reference's ``make_sharded_interact`` body over
+        ``_interact_inner_tp``."""
+        from ...distributed.fsdp import reduce_scatter
+
+        n, _, hl = x.shape
+        h = hl * self.tp
+        # sender rows: every node's row of this rank's channels
+        full = self.gather_nodes(x.reshape(n, -1))
+        w2 = lp["radial"]["w2"]
+        w2 = w2.view(w2.shape[0], len(PATHS), h)[:, :, self.channels(h)].reshape(w2.shape[0], -1)
+        agg = message_passing(full, {"w1": lp["radial"]["w1"], "w2": w2}, rhat, y2, rbf,
+                              graph, hl).view(n, IRREP_ROWS, hl)
+        # channel-parallel mix: each rank's rows of w (its input channels in
+        # both halves of concat(old, aggregated)) make a partial product
+        # over every output channel; one reduce-scatter sums them over the
+        # channel axis and hands each rank its output block.  The v and t
+        # gate halves keep their own blocks (the reference's two
+        # psum_scatters), since the output channels lie tp-major.
+        lin, rows = lp["lin"], self.channels(h)
+
+        def part(w, r, cols=slice(None)):
+            return x[:, r] @ w[rows, cols] + agg[:, r] @ w[h + rows.start:h + rows.stop, cols]
+
+        pre = torch.cat([part(w, r) for r, w in zip(_IRREPS, (lin["w_s"], lin["w_v"], lin["w_t"]))]
+                        + [part(lin["w_gate"], slice(0, 1), slice(0, h)),
+                           part(lin["w_gate"], slice(0, 1), slice(h, 2 * h))], dim=1)
+        pre = pre.view(n, IRREP_ROWS + 2, self.tp, hl).permute(2, 0, 1, 3)
+        mine = reduce_scatter(pre.reshape(self.tp * n, IRREP_ROWS + 2, hl),
+                              self.channel_group, 0)
+        s, v, t = mine[:, 0:1], mine[:, 1:4], mine[:, 4:IRREP_ROWS]
+        g_v = torch.sigmoid(mine[:, IRREP_ROWS:IRREP_ROWS + 1])
+        g_t = torch.sigmoid(mine[:, IRREP_ROWS + 1:])
+        return torch.cat([x[:, 0:1] + F.silu(s), x[:, 1:4] + g_v * v, x[:, 4:] + g_t * t], dim=1)
+
+
+def make_sharded_interact(mesh, node_axis: str = "data",
+                          channel_axis: Optional[str] = "model") -> ShardedInteract:
+    """Receiver-partitioned, channel-parallel message passing — the
+    reference's ``make_sharded_interact`` (pod-scale graphs).
+
+    - ``node_axis``: a rank's edges have their receivers in its node range
+      (the graph-partitioning contract), so every scatter-add is
+      shard-local; the one node-axis collective is the all-gather of this
+      rank's channels of the sender features (its adjoint in the backward a
+      reduce-scatter).
+    - ``channel_axis``: the irrep channels are tensor-parallel — every
+      tensor-product path is channelwise, so each rank gathers and computes
+      only its h / tp channels (the radial weights sliced to them, the
+      tensor-product kernel at h / tp); only the channel-mixing linears
+      contract across ranks (one reduce-scatter a block).
+
+    The features stay sharded (node, channel) between blocks.  Pass the
+    result as :func:`forward`'s ``interact_fn``: the forward then takes this
+    rank's node shard (positions, attributes, masks) and its edge block in
+    global node ids."""
+    return ShardedInteract(mesh, node_axis, channel_axis)
+
+
 def features(x: torch.Tensor) -> dict:
     """The node table as the reference's {"s" (N, h), "v" (N, h, 3),
     "t" (N, h, 3, 3)}."""
@@ -326,12 +442,22 @@ def forward(params, cfg: GNNConfig, positions: torch.Tensor, node_attr: torch.Te
             edge_mask: Optional[torch.Tensor] = None,
             node_mask: Optional[torch.Tensor] = None,
             graph_ids: Optional[torch.Tensor] = None, n_graphs: int = 1,
-            remat: bool = False, edge_chunk: Optional[int] = None) -> torch.Tensor:
+            remat: bool = False, edge_chunk: Optional[int] = None,
+            interact_fn: Optional[ShardedInteract] = None) -> torch.Tensor:
     """Per-graph potential energies (n_graphs,) — ((1,) without graph_ids).
     ``edge_chunk`` cuts the edges into chunks of that many (the reference's
     ``_interact_inner_tp``; None: one chunk, its ``_interact``); ``remat``
     recomputes each interaction block in the backward
-    (``torch.utils.checkpoint``, the reference's ``jax.checkpoint``)."""
+    (``torch.utils.checkpoint``, the reference's ``jax.checkpoint``).
+
+    With ``interact_fn`` (:func:`make_sharded_interact`) the tensors are
+    this rank's: its node shard of ``positions``, ``node_attr``,
+    ``node_mask`` and ``graph_ids``, and its edge block (receivers in its
+    node range, ids global); the features live as (node shard, channel
+    block) and every rank returns the whole graph's energies.  The
+    reference's ``feat_spec`` (the features' sharding constraint) is the
+    interact's ``node_axis`` here."""
+    si = interact_fn
     n_nodes = positions.shape[0]
     h = cfg.d_hidden
     if node_attr.dim() == 1:
@@ -339,25 +465,38 @@ def forward(params, cfg: GNNConfig, positions: torch.Tensor, node_attr: torch.Te
             node_attr.long(), params["embed"].shape[0]).to(torch.int32))
     else:
         s = node_attr @ params["embed"]
+    offset = 0
+    if si is not None:
+        s = s[:, si.channels(h)]
+        h = s.shape[1]
+        offset = si.node_shard * n_nodes
+        positions = si.gather_nodes(positions)
+        receivers = receivers - offset
     x = torch.cat([s[:, None], s.new_zeros((n_nodes, IRREP_ROWS - 1, h))], dim=1)
     graph = edge_graph(senders, receivers, n_nodes, edge_chunk)
-    rhat, y2, rbf = _edge_geometry(positions, graph, cfg)
+    rhat, y2, rbf = _edge_geometry(positions, graph, cfg, offset)
     if edge_mask is not None:
         rbf = rbf * edge_mask[graph.order].to(rbf.dtype)[:, None]
+    block = _interact if si is None else si
     for lp in params["layers"]:
         if remat and torch.is_grad_enabled():
             from torch.utils.checkpoint import checkpoint
 
-            x = checkpoint(_interact, lp, x, graph, rhat, y2, rbf, use_reentrant=False)
+            x = checkpoint(block, lp, x, graph, rhat, y2, rbf, use_reentrant=False)
         else:
-            x = _interact(lp, x, graph, rhat, y2, rbf)
+            x = block(lp, x, graph, rhat, y2, rbf)
     # the scalars alone are kept for the readout's backward, not the table
-    node_e = (F.silu(x[:, 0].contiguous() @ params["readout1"]) @ params["readout2"])[:, 0]
+    s = x[:, 0].contiguous()
+    if si is not None:
+        s = si.gather_channels(s, 1)
+    node_e = (F.silu(s @ params["readout1"]) @ params["readout2"])[:, 0]
     if node_mask is not None:
         node_e = node_e * node_mask
     if graph_ids is None:
-        return torch.sum(node_e, dim=0, keepdim=True)
-    return segment_sum(node_e[:, None], graph_ids.to(torch.int32), n_graphs)[:, 0]
+        e = torch.sum(node_e, dim=0, keepdim=True)
+    else:
+        e = segment_sum(node_e[:, None], graph_ids.to(torch.int32), n_graphs)[:, 0]
+    return e if si is None else si.sum_nodes(e)
 
 
 def energy_and_forces(params, cfg: GNNConfig, positions, node_attr, senders, receivers, **kw):
@@ -370,10 +509,13 @@ def energy_and_forces(params, cfg: GNNConfig, positions, node_attr, senders, rec
 
 
 def energy_mse_loss(params, cfg: GNNConfig, batch: dict, n_graphs: int = 1,
-                    remat: bool = False, edge_chunk: Optional[int] = None) -> torch.Tensor:
-    """MSE on per-graph energies."""
+                    remat: bool = False, edge_chunk: Optional[int] = None,
+                    interact_fn: Optional[ShardedInteract] = None) -> torch.Tensor:
+    """MSE on per-graph energies (with ``interact_fn``, ``batch`` is this
+    rank's, and ``energy`` the whole batch's targets)."""
     e = forward(params, cfg, batch["positions"], batch["node_attr"], batch["senders"],
                 batch["receivers"], edge_mask=batch.get("edge_mask"),
                 node_mask=batch.get("node_mask"), graph_ids=batch.get("graph_ids"),
-                n_graphs=n_graphs, remat=remat, edge_chunk=edge_chunk)
+                n_graphs=n_graphs, remat=remat, edge_chunk=edge_chunk,
+                interact_fn=interact_fn)
     return torch.mean((e - batch["energy"]) ** 2)

@@ -176,6 +176,14 @@ def attention_block_init(generator: torch.Generator, d: int, n_heads: int) -> di
     return blk
 
 
+def attention_block_specs() -> dict:
+    """The logical axes of :func:`attention_block_init`'s leaves (the
+    reference's spec tree of its BST and BERT4Rec blocks)."""
+    return {"wq": ("embed", "heads", "head_dim"), "wk": ("embed", "heads", "head_dim"),
+            "wv": ("embed", "heads", "head_dim"), "wo": ("heads", "head_dim", "embed"),
+            "ln1": ("embed",), "ln1b": ("embed",)}
+
+
 def post_ln_attention(blk, x: torch.Tensor) -> torch.Tensor:
     """``layernorm(x + attention(x) @ wo)``: bidirectional multi-head
     self-attention through :func:`attention_ref`, as the reference's BST and
@@ -202,6 +210,13 @@ def mlp_apply(params, x, act: str):
     if act == "swiglu":
         return (F.silu(x @ params["wg"]) * (x @ params["wu"])) @ params["wd"]
     return gelu(x @ params["wu"]) @ params["wd"]
+
+
+def mlp_specs(act: str) -> dict:
+    """The logical axes of :func:`mlp_init`'s leaves."""
+    out = {"wg": ("embed", "mlp")} if act == "swiglu" else {}
+    out.update(wu=("embed", "mlp"), wd=("mlp", "embed"))
+    return out
 
 
 def mlp_init(generator, d_model: int, d_ff: int, act: str, dtype=torch.float32):

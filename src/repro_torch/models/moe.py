@@ -57,6 +57,15 @@ def moe_init(generator: torch.Generator, d_model: int, cfg: MoEConfig,
     return params
 
 
+def moe_specs(cfg: MoEConfig) -> dict:
+    """The logical axes of :func:`moe_init`'s leaves (the reference's)."""
+    specs = {"router": ("embed", "expert"), "wg": ("expert", "embed", "mlp"),
+             "wu": ("expert", "embed", "mlp"), "wd": ("expert", "mlp", "embed")}
+    if cfg.n_shared_experts:
+        specs["shared"] = layers.mlp_specs("swiglu")
+    return specs
+
+
 def _route(params, x: torch.Tensor, cfg: MoEConfig):
     """Top-k routing -> (experts (T, k) int64, normalized weights (T, k)
     fp32, the GShard aux loss E * sum_e(frac_tokens_e * mean_prob_e) over

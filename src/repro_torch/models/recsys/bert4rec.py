@@ -59,6 +59,16 @@ def init_bert4rec(cfg: RecSysConfig, generator: torch.Generator, device=None) ->
     return to_device(params, dev)
 
 
+def param_specs(cfg: RecSysConfig) -> Dict:
+    """The logical axes of every leaf of :func:`init_bert4rec`'s tree (the
+    reference's second return value of ``init_bert4rec``)."""
+    blk = dict(layers.attention_block_specs(), ffn_w1=("embed", "mlp"), ffn_b1=("mlp",),
+               ffn_w2=("mlp", "embed"), ffn_b2=("embed",), ln2=("embed",), ln2b=("embed",))
+    return {"item_emb": ("table_rows", "embed"), "pos_emb": ("seq", "embed"),
+            "blocks": [dict(blk) for _ in range(cfg.n_blocks)],
+            "score_head": ("embed", "unit")}
+
+
 def _block(blk, x: torch.Tensor) -> torch.Tensor:
     x = layers.post_ln_attention(blk, x)
     h = layers.gelu(x @ blk["ffn_w1"] + blk["ffn_b1"]) @ blk["ffn_w2"] + blk["ffn_b2"]

@@ -55,6 +55,18 @@ def init_bst(cfg: RecSysConfig, generator: torch.Generator, device=None) -> Dict
     return to_device(params, dev)
 
 
+def param_specs(cfg: RecSysConfig) -> Dict:
+    """The logical axes of every leaf of :func:`init_bst`'s tree (the
+    reference's second return value of ``init_bst``)."""
+    blk = dict(layers.attention_block_specs(), ffn_w1=("embed", "mlp"),
+               ffn_w2=("mlp", "embed"), ln2=("embed",), ln2b=("embed",))
+    specs = {"item_emb": ("table_rows", "embed"), "pos_emb": ("seq", "embed"),
+             "blocks": [dict(blk) for _ in range(cfg.n_blocks)]}
+    for i in range(len(cfg.mlp_dims) + 1):
+        specs[f"mlp{i}_w"], specs[f"mlp{i}_b"] = ("mlp_in", "mlp_out"), ("mlp_out",)
+    return specs
+
+
 def _block(blk, x: torch.Tensor) -> torch.Tensor:
     x = layers.post_ln_attention(blk, x)
     h = layers.leaky_relu(x @ blk["ffn_w1"]) @ blk["ffn_w2"]

@@ -48,6 +48,13 @@ def init_mind(cfg: RecSysConfig, generator: torch.Generator, device=None) -> Dic
     return to_device(params, dev)
 
 
+def param_specs(cfg: RecSysConfig) -> Dict:
+    """The logical axes of every leaf of :func:`init_mind`'s tree (the
+    reference's second return value of ``init_mind``)."""
+    return {"item_emb": ("table_rows", "embed"), "bilinear": ("embed", "embed_out"),
+            "b_init": ("interest", "seq"), "proj": ("embed", "embed_out")}
+
+
 def _squash(z: torch.Tensor) -> torch.Tensor:
     n2 = torch.sum(z * z, dim=-1, keepdim=True)
     return (n2 / (1.0 + n2)) * z / torch.sqrt(n2 + 1e-9)

@@ -104,6 +104,46 @@ def init_lm(cfg: LMConfig, generator: torch.Generator):
     return params
 
 
+def _norm_specs(cfg: LMConfig) -> dict:
+    return {"w": ("embed",), "b": ("embed",)} if cfg.norm == "layernorm" else {"w": ("embed",)}
+
+
+def _layer_specs(cfg: LMConfig, use_moe: bool = False) -> dict:
+    attn = {"wq": ("embed", "heads", "head_dim"), "wk": ("embed", "kv_heads", "head_dim"),
+            "wv": ("embed", "kv_heads", "head_dim"), "wo": ("heads", "head_dim", "embed")}
+    if cfg.qkv_bias:
+        attn.update(bq=("heads", "head_dim"), bk=("kv_heads", "head_dim"),
+                    bv=("kv_heads", "head_dim"))
+    if cfg.qk_norm:
+        attn.update(q_norm=("head_dim",), k_norm=("head_dim",))
+    out = {"attn": attn, "ln1": _norm_specs(cfg), "ln2": _norm_specs(cfg)}
+    if use_moe:
+        out["moe"] = moe_lib.moe_specs(cfg.moe)
+        return out
+    out["mlp"] = layers.mlp_specs(cfg.act)
+    if cfg.mlp_bias:
+        out["mlp"].update(bu=("mlp",), bd=("embed",))
+    return out
+
+
+def param_specs(cfg: LMConfig) -> dict:
+    """The logical axes of every leaf of :func:`init_lm`'s tree (the
+    reference's second return value of ``init_lm``, in the port's layout:
+    ``layers`` a list of per-layer trees, each without the reference's
+    leading "layers" axis; ``convert.stack_layer_specs`` gives the
+    reference's)."""
+    n_prefix = n_prefix_layers(cfg)
+    specs = {"embed": ("vocab", "embed")}
+    if n_prefix:
+        specs["prefix"] = [_layer_specs(cfg) for _ in range(n_prefix)]
+    specs["layers"] = [_layer_specs(cfg, cfg.moe is not None)
+                       for _ in range(cfg.n_layers - n_prefix)]
+    specs["final_norm"] = _norm_specs(cfg)
+    if not cfg.tie_embeddings:
+        specs["lm_head"] = ("embed", "vocab")
+    return specs
+
+
 def _project_qkv(cfg: LMConfig, attn, x, rope):
     """q, k, v (..., heads, hd) of x; ``rope`` = ``layers.rope_tables`` of
     the positions (computed once per forward)."""

@@ -61,9 +61,16 @@ def init_adamw(params) -> AdamWState:
                       tree_map(zeros, params), tree_map(zeros, params))
 
 
-def global_norm(tree) -> torch.Tensor:
+def global_norm(tree, shardings=None) -> torch.Tensor:
     """sqrt of the sum of every leaf's fp32 sum of squares, in flattening
-    order."""
+    order.  With ``shardings`` (a tree of ``distributed.sharding.Sharding``
+    shaped like ``tree``, whose leaves are this rank's pieces), summed over
+    the mesh with each piece counted once, however many ranks hold it
+    (``distributed.fsdp.norm_sq``)."""
+    if shardings is not None:
+        from ..distributed.fsdp import norm_sq
+
+        return torch.sqrt(norm_sq(tree, shardings))
     total = None
     for x in leaves(tree):
         sq = torch.sum(torch.square(x.float()))
@@ -72,10 +79,10 @@ def global_norm(tree) -> torch.Tensor:
 
 
 @torch.no_grad()
-def clip_by_global_norm(grads, max_norm: float):
+def clip_by_global_norm(grads, max_norm: float, shardings=None):
     """Scale every leaf in place by ``min(1, max_norm / (norm + 1e-9))``;
-    returns (grads, norm)."""
-    norm = global_norm(grads)
+    returns (grads, norm).  ``shardings``: as :func:`global_norm`."""
+    norm = global_norm(grads, shardings)
     scale = torch.clamp(max_norm / (norm + 1e-9), max=1.0)
     for g in leaves(grads):
         g.mul_(scale)
@@ -84,18 +91,21 @@ def clip_by_global_norm(grads, max_norm: float):
 
 @torch.no_grad()
 def adamw_update(cfg: AdamWConfig, params, grads, state: AdamWState,
-                 grad_transform: Optional[Callable] = None):
+                 grad_transform: Optional[Callable] = None, shardings=None):
     """One AdamW step, in place: ``params``, ``state.mu`` and ``state.nu``
     are overwritten (and ``grads`` scaled by the clip).  Returns ``(params,
     AdamWState(step + 1, mu, nu), {"grad_norm", "lr"})``.
-    ``grad_transform`` hooks a gradient compression (applied first)."""
+    ``grad_transform`` hooks a gradient compression (applied first).  Over a
+    mesh, ``params``, ``grads`` and the moments are this rank's pieces and
+    ``shardings`` their leaves' shardings: the update is elementwise, and
+    the clip's norm counts every piece once (:func:`global_norm`)."""
     if grad_transform is not None:
         grads = grad_transform(grads)
     grads = tree_map(lambda g: g if g.dtype == torch.float32 else g.float(), grads)
     if cfg.clip_norm > 0:
-        grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
+        grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm, shardings)
     else:
-        gnorm = global_norm(grads)
+        gnorm = global_norm(grads, shardings)
     step = state.step + 1
     lr = cosine_schedule(cfg, step)
     stepf = step.float()

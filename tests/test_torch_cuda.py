@@ -1420,7 +1420,8 @@ def _tp_inputs(dev, e, h, seed=0):
 TP_TOL = 1e-5      # kernel vs plain: max |d| <= this x the plain result's max |value|
 
 
-@pytest.mark.parametrize("e, h", [(1, 4), (1000, 4), (4096, 32), (777, 40), (262_144, 32)])
+@pytest.mark.parametrize("e, h", [(1, 4), (1000, 4), (4096, 32), (777, 40), (262_144, 32),
+                                  (4096, 8), (98_304, 16)])
 def test_tensor_product_kernel_matches_plain(dev, e, h):
     """The fused messages and their gradient against the plain version
     (fp32 in another order: fused multiply-adds), and bitwise over two
@@ -1444,6 +1445,41 @@ def test_tensor_product_kernel_matches_plain(dev, e, h):
     after = kernels.launch_counts()
     assert after["tensor_product"] == before["tensor_product"] + 2
     assert after["tensor_product_backward"] == before["tensor_product_backward"] + 3
+
+
+@pytest.mark.parametrize("rows, lo, local, b", [(4096, 1024, 1024, 5000),
+                                               (1 << 22, 3 << 20, 1 << 20, 65536)])
+def test_owned_rows_bag_on_a_row_shard_matches_plain(dev, rows, lo, local, b):
+    """DLRM's row-sharded lookup on one rank's piece (rows [lo, lo + local)
+    of a table of ``rows``): the bag kernel with the foreign ids masked, and
+    its backward kernel over the local rows only, against both plain
+    versions on the same inputs; the piece's gradient non-zero exactly on
+    the owned rows hit."""
+    from repro_torch.models.recsys.embedding import owned_rows_bag
+
+    g = torch.Generator(device=dev).manual_seed(rows)
+    piece = torch.randn((local, 128), generator=g, device=dev)
+    ids = torch.randint(0, 2 ** 31 - 1, (b,), generator=g, device=dev, dtype=torch.int32)
+    grad = torch.randn((b, 128), generator=g, device=dev)
+    before = kernels.launch_counts()
+    out, got = [], []
+    for d in (dev, "cpu"):
+        p = piece.to(d).requires_grad_()
+        o = owned_rows_bag(p, ids.to(d), lo, rows)
+        (dp,) = torch.autograd.grad(o, p, grad.to(d))
+        out.append(o.detach().cpu())
+        got.append(dp.cpu())
+    after = kernels.launch_counts()
+    assert after["embedding_bag"] == before["embedding_bag"] + 1
+    assert after["embedding_bag_backward"] == before["embedding_bag_backward"] + 1
+    assert torch.equal(out[0], out[1])
+    assert (got[0] - got[1]).abs().max() <= 1e-5 * got[1].abs().max()
+    local_ids = ids.long().cpu() % rows - lo
+    owned = (local_ids >= 0) & (local_ids < local)
+    assert not out[0][~owned].any() and int(owned.sum()) > 0
+    hit = torch.zeros(local, dtype=torch.bool)
+    hit[local_ids[owned]] = True
+    assert torch.equal(got[0].abs().amax(1) > 0, hit)
 
 
 def test_nequip_card_matches_cpu_and_is_deterministic(dev):

@@ -242,6 +242,39 @@ def test_training_entry_points_refuse_to_fall_back_to_the_cpu(monkeypatch, tmp_p
     assert CheckpointManager(str(tmp_path)).resume(state, "cpu")[0] == 1
 
 
+def test_mesh_train_entry_points_refuse_to_fall_back_to_the_cpu(monkeypatch, tmp_path):
+    """The production mesh, the GNN and DLRM train steps over a mesh,
+    ``build_cell(mesh=)`` and the elastic restore land on the card unless
+    the caller asks for the CPU: without a card they raise before any
+    process group exists."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import RecSysShape
+    from repro_torch.configs.shapes import GNN_SHAPES
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_production_mesh
+
+    class CardMesh:            # a card mesh's face
+        device_type = "cuda"
+        mesh_dim_names = ("data", "model")
+        shape = (1, 1)
+
+    state = {"w": torch.ones(4)}
+    CheckpointManager(str(tmp_path), save_every=1, async_save=False).maybe_save(1, state)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (lambda: make_production_mesh(shape=(1, 1)),
+                 lambda: steps.build_gnn_train("nequip", registry.smoke_config("nequip"),
+                                               GNN_SHAPES["molecule"], mesh=CardMesh()),
+                 lambda: steps.build_recsys_train("dlrm-mlperf",
+                                                  registry.smoke_config("dlrm-mlperf"),
+                                                  RecSysShape("t", "train", 4), mesh=CardMesh()),
+                 lambda: steps.build_cell("nequip", "molecule", mesh=CardMesh()),
+                 lambda: CheckpointManager(str(tmp_path)).resume(state, mesh=CardMesh())):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    assert not torch.distributed.is_initialized()
+
+
 def test_lm_entry_points_refuse_to_fall_back_to_the_cpu(monkeypatch):
     """The LM builders (prefill, decode, the paper pipeline with an LM as
     CE, ``build_cell``), ``init_cross_encoder`` of a model-zoo LM and

@@ -278,6 +278,8 @@ def test_cli_serves_under_torchrun_on_a_2x2_mesh(tmp_path):
          "--index-path", str(tmp_path / "index")],
         env=env, capture_output=True, text=True, timeout=SPAWN_TIMEOUT)
     assert out.returncode == 0, out.stderr[-4000:]
+    # every rank ends its world before it exits: no gloo thread aborts it
+    assert "terminate called" not in out.stderr, out.stderr[-4000:]
     assert "saved AnchorIndex" in out.stdout, out.stdout
     assert "[adacur/mesh 2x2] served 16 requests (0 errors)" in out.stdout, out.stdout
     assert "measured: 3200 CE calls over 4 ranks" in out.stdout, out.stdout
@@ -299,6 +301,7 @@ def faults(tmp_path_factory):
     for fr, ranks in enumerate(worlds):
         for r, (rc, o, e) in enumerate(ranks):
             assert rc == 0, f"fault on rank {fr}: rank {r} exited {rc}\n{o}\n{e[-4000:]}"
+            assert "terminate called" not in e, f"fault on rank {fr}: rank {r}\n{e[-4000:]}"
     return {fr: [torch.load(out / f"fault{fr}_rank{r}.pt", weights_only=False)
                  for r in range(2)] for fr in (0, 1)}
 
