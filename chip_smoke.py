@@ -196,14 +196,15 @@ Phases (one JSON line each):
     (B=512) and serve_bulk (B=262,144) steps of ``build_recsys_serve``:
     median ms a step, TFLOP/s against ``recsys_flops``, 26 bag launches a
     step, peak device memory.
-11. ``recsys_retrieval``: R_anc (500 anchor contexts x 1,000,448 padded
-    columns, 10^6 valid) built on the card from the same DLRM; 16
-    single-context searches through ``build_recsys_retrieval``'s step
-    (Algorithm 1, 500 CE calls each) with recall@{1,10,100} against the
-    exact DLRM top-100 over 10^6 items (printed, not gated: the weights are
-    random); the same 16 through ``engine_search`` with the dict query and
-    the fused kernels (approx_topk launches, top-k overlap printed); each
-    loop after one warm-up search, ``per_search_ms`` the mean of the 16.
+11. ``recsys_retrieval``: R_anc (500 anchor contexts) built on the card
+    from the same DLRM over the first 2^17 items; 16 single-context
+    searches through ``build_recsys_retrieval``'s step (Algorithm 1, 500
+    CE calls each) with recall@{1,10,100} against the exact DLRM top-100
+    there (printed, not gated: the weights are random); the 16 again over
+    10^6 candidates on a seeded standard-normal R_anc (1,000,448 padded
+    columns), and through ``engine_search`` with the dict query and the
+    fused kernels (approx_topk launches, top-k overlap printed); each loop
+    after one warm-up search, ``per_search_ms`` the mean of the 16.
 12. ``dlrm_cpu_vs_card``: full width, tables capped at 2^16 rows, 512
     contexts x 64 candidates through ``score_candidates`` on the card
     (kernel) and on the CPU (plain): max |dscore| <= 1e-4 x max |score|
@@ -218,9 +219,9 @@ Phases (one JSON line each):
     formula's 1.7x overstatement beside it; MIND's against its retrieval's
     products too), the chunk rows, peak memory, a profile (MIND's
     serve_bulk: one timed step, no warm-up or profile of its own).
-    retrieval_cand: BST over a real R_anc (500 anchor histories x
-    1,000,448 columns built on the card), BERT4Rec over a real R_anc of
-    the first 2^13 items and over a seeded standard-normal one at full N;
+    retrieval_cand: BST and BERT4Rec over a real R_anc (500 anchor
+    histories, built on the card) of the first 2^17 and 2^13 items, and
+    over a seeded standard-normal one at full N;
     16 single-context searches each, 500 CE calls and a well-formed
     top-100 a search (gated), recall@{1,10,100} against the exact top-100
     where R_anc is real; the same searches through ``engine_search`` with
@@ -293,7 +294,7 @@ Phases (one JSON line each):
     final hidden states' relative difference within the same bounds as
     (a) in bf16 (MoE: the flash encode on the ref encode's routing);
     ``build_lm_prefill`` at
-    prefill_32k (the largest batch, at most 8, that fits in 80% of the
+    prefill_32k (the largest batch, at most 4, that fits in 80% of the
     card; moonshot one sequence at the longest power-of-two length that
     fits), ``build_lm_decode`` at decode_32k (the largest batch that fits;
     moonshot one sequence at the longest cache that fits) and at long_500k
@@ -314,7 +315,8 @@ Phases (one JSON line each):
     reference's four distributed primitives on 4 gloo ranks
     (``mesh_worker``): (i) granite-moe-1b-a400m decode_32k on
     data 2 x model 2 (batch on data, the cache's sequence and the experts
-    on model: ``build_lm_decode(mesh=)``), its fp32 logits at 4 of 24
+    on model, the weights placed by ``tree_specs``: ``build_lm_decode(mesh=)``,
+    the weights' bytes a rank beside the parent's layout), its fp32 logits at 4 of 24
     layers and 4 rows on a seeded cache within 2e-4 of the largest |logit|
     of one rank's ``decode_step`` (gate), the bf16 step at B = 16 (of 128)
     timed; (ii) qwen3-8b's decode core at B = 1 over a 524,288-entry cache
@@ -351,8 +353,22 @@ Phases (one JSON line each):
     reference's layout, restored on data 4 x model 1 and, whole, on one
     rank: every leaf bitwise the saved one, and the next step's loss and
     gradients within (b)'s bars of the uninterrupted run's (gates).  The
-    drive's bag, bag backward and tensor-product launches join the
-    ``kernels`` line.
+    LM family over the same mesh, bf16 at full width, one 4,096-token
+    sequence a data rank (train_4k's batch 256 cut to 2): (d)
+    granite-moe-1b-a400m train_4k at 24 layers, tensor parallel only (the
+    reference's 2e9 rule), the MoE expert parallel with its combine
+    reduce-scattered into the residual's sequence chunks; (e) starcoder2-3b
+    train_4k at 4 of 30 layers, FSDP over data forced beside TP; each as
+    (a)-(b) (two runs bitwise on the card, gate), and each one's fp32 step
+    at 2 layers against the one-card step after the world (loss 1e-5
+    relative, every gradient 1e-4 of the largest; gate); (f)
+    granite-moe-1b-a400m prefill_32k at B = 2 (of 32) through flash on each
+    rank's heads, every flash call of the run held to its plain version
+    within ``FLASH_TOL`` (gate) and counted (one flash launch a layer a
+    rank, gate), and one mesh decode step from its cache; its fp32 gate at
+    4 of 24 layers and 2,048 tokens: logits, cache and a decode from it
+    within 2e-4 of one rank's (gate).  The drive's bag, bag backward,
+    tensor-product and (f)'s flash launches join the ``kernels`` line.
 
 Then the card's ``name, power.limit`` line, a ``kernels`` summary line (one
 entry per kernel and, for the two top-k kernels, per payload: ``approx_topk``
@@ -2430,11 +2446,18 @@ def phase_recsys_serve(dev, params, cfg):
     return results, launches
 
 
+DLRM_PREFIX = 1 << 17        # items of DLRM's real R_anc (10^6: 56 s on an H100 80GB HBM3, 700 W)
+
+
 def phase_recsys_retrieval(dev, params, cfg, n_search=16):
-    """ADACUR over 10^6 candidates with DLRM as the scorer; returns
-    (result, {kernel: launches})."""
+    """ADACUR with DLRM as the scorer: a real R_anc (500 anchor contexts)
+    built on the card over the first ``DLRM_PREFIX`` items, 16 searches
+    with recall against the exact top-100 there; then the 16 over 10^6
+    candidates on a seeded standard-normal R_anc (the searches' time) and
+    the engine; returns (result, {kernel: launches})."""
     import torch
 
+    from repro_torch.configs.base import replace as cfg_replace
     from repro_torch.configs.shapes import RECSYS_SHAPES
     from repro_torch.core import prng
     from repro_torch.eval.metrics import exact_topk
@@ -2445,36 +2468,48 @@ def phase_recsys_retrieval(dev, params, cfg, n_search=16):
     shape = RECSYS_SHAPES["retrieval_cand"]
     n_cand = shape.n_candidates
     t0 = time.perf_counter()
-    bundle = steps.build_recsys_retrieval(DLRM, cfg, shape, params=params)
+    bundle = steps.build_recsys_retrieval(DLRM, cfg, cfg_replace(shape, n_candidates=DLRM_PREFIX),
+                                          params=params)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     params, batch, _ = bundle.args
     r_anc = batch["r_anc"]
-    check(r_anc.shape == (steps.K_Q, embedding.padded_rows(n_cand))
+    check(r_anc.shape == (steps.K_Q, embedding.padded_rows(DLRM_PREFIX))
           and bool(torch.isfinite(r_anc).all()), "recsys_retrieval: R_anc malformed")
     ctx = steps.recsys_inputs(cfg, n_search, seed=7, device=dev)
     t0 = time.perf_counter()
-    exact = steps.anchor_scores(params, cfg, ctx, n_cand)[:, :n_cand]
+    exact = steps.anchor_scores(params, cfg, ctx, DLRM_PREFIX)[:, :DLRM_PREFIX]
     torch.cuda.synchronize()
     exact_s = time.perf_counter() - t0
     _, gt = exact_topk(exact, 100)
     del exact
-    res, ids, counts = retrieval_searches(bundle, r_anc, ctx, n_cand, gt)
+    real, _, real_counts = retrieval_searches(bundle, r_anc, ctx, DLRM_PREFIX, gt)
+    del bundle, r_anc
+    torch.cuda.empty_cache()
+    g = torch.Generator(device=dev)
+    g.manual_seed(13)
+    r_anc = torch.randn((steps.K_Q, embedding.padded_rows(n_cand)), generator=g, device=dev)
+    r_anc[:, n_cand:] = 0.0
+    bundle = steps.build_recsys_retrieval(DLRM, cfg, shape, params=params, r_anc=r_anc)
+    res, ids, counts = retrieval_searches(bundle, r_anc, ctx, n_cand)
     # one DLRM forward per CE request: 5 rounds + the rerank
     expect = 26 * (steps.RETRIEVAL_CFG.n_rounds + 1) * n_search
-    check(counts["embedding_bag"] == expect,
-          f"recsys_retrieval: {counts['embedding_bag']} bag launches, expected {expect}")
+    for n in (real_counts["embedding_bag"], counts["embedding_bag"]):
+        check(n == expect, f"recsys_retrieval: {n} bag launches, expected {expect}")
     engine, e_ids, e_counts = retrieval_engine("recsys_retrieval", cfg, params, r_anc, ctx,
-                                               n_cand, gt)
+                                               n_cand)
     engine["overlap_with_adacur_search"] = topk_overlap(ids, e_ids)
     prof = profile_call(lambda: bundle.step(params, dict(row_slice(ctx, 0), r_anc=r_anc),
                                             prng.PRNGKey(100)))
     return dict(
-        n_candidates=n_cand, k_q=steps.K_Q, r_anc_build_s=build_s,
-        r_anc_pairs=steps.K_Q * n_cand, exact_scores_s=exact_s, **res, errors=0,
-        bag_launches=counts["embedding_bag"], profile_search=prof, engine=engine,
-    ), {"embedding_bag": counts["embedding_bag"] + e_counts["embedding_bag"],
-        "approx_topk": e_counts["approx_topk"]}
+        n_candidates=n_cand, k_q=steps.K_Q,
+        real_r_anc=dict(n_candidates=DLRM_PREFIX, pairs=steps.K_Q * DLRM_PREFIX,
+                        build_s=build_s, exact_scores_s=exact_s, **real),
+        synthetic_r_anc_full_n=res, errors=0,
+        bag_launches=real_counts["embedding_bag"] + counts["embedding_bag"],
+        profile_search=prof, engine=engine,
+    ), {"embedding_bag": real_counts["embedding_bag"] + counts["embedding_bag"]
+        + e_counts["embedding_bag"], "approx_topk": e_counts["approx_topk"]}
 
 
 def phase_dlrm_cpu_vs_card(dev):
@@ -2526,6 +2561,7 @@ MIND_BULK_STEPS = 1          # MIND's serve_bulk is ~134 TFLOP a step: one timed
 RECSYS_TRAIN_WARMUP, RECSYS_TRAIN_TIMED = 2, 5
 RECSYS_SEARCHES = 16
 BERT4REC_PREFIX = 1 << 13    # items of BERT4Rec's real R_anc (5 x 10^8 pairs is ~3e16 FLOP)
+BST_PREFIX = 1 << 17         # items of BST's real R_anc (10^6: 126 s on an H100 80GB HBM3, 700 W)
 RECSYS_SERVE_MEM_GATE = 0.75  # a chunked serve step's peak / the card's memory, at most
 RECSYS_CPU_N_ITEMS = 2048    # card vs CPU: the published widths over a cut catalogue
 RECSYS_CPU_B = 8
@@ -2799,13 +2835,12 @@ def retrieval_engine(what, cfg, params, r_anc, queries: dict, n_cand: int, gt=No
 
 
 def seq_retrieval(dev, arch, cfg, params) -> tuple:
-    """ADACUR over the catalogue with BST or BERT4Rec as the exact scorer.
-    BST: a real R_anc (500 anchor histories x 1,000,448 columns) built on
-    the card, 16 searches with recall against the exact top-100 over 10^6
-    items, and the engine.  BERT4Rec: a real R_anc over the first
-    ``BERT4REC_PREFIX`` items (recall there), then a seeded standard-normal
-    R_anc at full N for the searches' time and the engine.  Returns
-    (result, approx_topk launches)."""
+    """ADACUR over the catalogue with BST or BERT4Rec as the exact scorer:
+    a real R_anc (500 anchor histories) built on the card over the first
+    ``BST_PREFIX`` / ``BERT4REC_PREFIX`` items, 16 searches with recall
+    against the exact top-100 there, then a seeded standard-normal R_anc
+    at full N for the searches' time and the engine.  Returns (result,
+    approx_topk launches)."""
     import torch
 
     from repro_torch.configs.base import replace as cfg_replace
@@ -2817,7 +2852,7 @@ def seq_retrieval(dev, arch, cfg, params) -> tuple:
     shape = RECSYS_SHAPES["retrieval_cand"]
     queries = {"history": steps.recsys_inputs(cfg, RECSYS_SEARCHES, seed=7,
                                               device=dev)["history"]}
-    real_n = shape.n_candidates if arch == "bst" else BERT4REC_PREFIX
+    real_n = BST_PREFIX if arch == "bst" else BERT4REC_PREFIX
     t0 = time.perf_counter()
     bundle = steps.build_recsys_retrieval(arch, cfg, cfg_replace(shape, n_candidates=real_n),
                                           params=params)
@@ -2837,7 +2872,7 @@ def seq_retrieval(dev, arch, cfg, params) -> tuple:
     out = dict(n_candidates=shape.n_candidates, k_q=steps.K_Q,
                real_r_anc=dict(n_candidates=real_n, pairs=steps.K_Q * real_n,
                                build_s=build_s, exact_scores_s=exact_s, **real))
-    if arch != "bst":
+    if real_n < shape.n_candidates:
         del bundle, r_anc
         torch.cuda.empty_cache()
         n_pad = -(-shape.n_candidates // 512) * 512
@@ -3730,7 +3765,7 @@ LM_LONG = ("starcoder2-3b", "granite-moe-1b-a400m")   # long_500k fits on one ca
 LM_GATE_LEN = 2048        # prompt tokens of the decode == prefill and flash vs ref gates
 LM_GATE_TOL = 2e-2        # the reference's own decode == encode bar (tests/test_arch_smoke.py)
 LM_FP32_ROOM = 8e9        # bytes gate (a)'s fp32 run keeps free beside its weights
-LM_PREFILL_MAX_B = 8      # prefill batches beyond this are cut for the phase's time
+LM_PREFILL_MAX_B = 4      # prefill batches beyond this are cut for the phase's time
 LM_DECODE_REPS = 3        # timed decode steps after a warm-up
 LM_FLASH_LEN = 32768      # gate (c): prefill_32k's sequence
 LM_FLASH_TAIL = 256       # its last query rows, the widest causal windows, reported apart
@@ -4717,6 +4752,9 @@ def start_worlds(tmp) -> float:
     for kind in ("sharded", "router_sharded", "mesh", "mesh_train"):
         _WORLDS[kind] = [torch.load(os.path.join(tmp, f"{kind}_rank{r}.pt"), weights_only=False)
                          for r in range(4)]
+    _WORLDS["mesh_lm_gates"] = {
+        name: torch.load(_mesh_lm_gate_path(tmp, name), weights_only=False)
+        for name, *_ in _mesh_lm_cases() if os.path.exists(_mesh_lm_gate_path(tmp, name))}
     return wall
 
 
@@ -4997,7 +5035,7 @@ ROUTER_SHARDED_SCENARIOS = (("baseline", "staged"), ("scorer_fault", "staged"),
 MESH_TOL = 2e-4                       # the reference's multidevice TOL
 MESH_DECODE_ARCH = "granite-moe-1b-a400m"
 MESH_DECODE_B = 16                    # decode_32k's batch 128 cut: 4 ranks share one card
-MESH_DECODE_REPS = 5
+MESH_DECODE_REPS = 2
 MESH_GATE_LAYERS = 4                  # the fp32 gate's depth (of 24) and batch
 MESH_GATE_B = 4
 MESH_LONG_LEN = 524_288               # long_500k's cache
@@ -5268,44 +5306,45 @@ def _seeded(shape, seed, dev, dtype=None):
 
 def _mesh_sp_ep_decode(mesh, dev, rank) -> dict:
     """(i): granite's decode_32k on (data 2 x model 2): batch on data, the
-    cache's sequence and the experts on model.  The fp32 gate at
+    cache's sequence and the experts on model, the weights placed by
+    ``tree_specs`` (``build_lm_decode(mesh=)``: FSDP over data, heads, MLP
+    columns, vocab and experts over model).  The fp32 gate at
     ``MESH_GATE_LAYERS`` layers and ``MESH_GATE_B`` rows on a seeded cache
     (capacity widened so no assignment drops: a data group's capacity
     counts its own tokens) against one rank's single-device
     ``decode_step``; then the published config in bf16 at
-    ``MESH_DECODE_B`` rows, timed."""
+    ``MESH_DECODE_B`` rows, timed, its weights' bytes a rank beside the
+    parent's layout (dense weights whole, experts split over model)."""
     import torch
     import torch.distributed as dist
 
     from repro_torch.configs import registry
     from repro_torch.configs.base import LMShape, replace
+    from repro_torch.distributed import sharding
     from repro_torch.distributed.collectives import _all_gather, _dims_group
-    from repro_torch.distributed.decode_attention import make_decode_core
     from repro_torch.launch import steps
-    from repro_torch.models import moe, transformer
+    from repro_torch.models import transformer
 
     base = registry.get(MESH_DECODE_ARCH).config
     s = registry.shapes_for(MESH_DECODE_ARCH)["decode_32k"].seq_len
     cfg = no_drop(replace(base, n_layers=MESH_GATE_LAYERS, dtype="float32"))
     di = dist.get_rank(_dims_group(mesh, ("data",)))
     b_loc = MESH_GATE_B // 2
-    core = make_decode_core(mesh, ("data",), ("model",), s, device=dev)
     params = transformer.init_lm(cfg, steps._generator(21, dev))
-    mine = dict(params, layers=[dict(lp, moe=moe.expert_slice(lp["moe"], mesh))
-                                for lp in params["layers"]])
+    gate = steps.build_lm_decode(MESH_DECODE_ARCH, cfg, LMShape("decode_32k", "decode", s,
+                                                                MESH_GATE_B),
+                                 params=params, device=dev, mesh=mesh)
     shape = (MESH_GATE_B, s, cfg.n_kv_heads, cfg.resolved_head_dim)
     full = [{kv: _seeded(shape, 100 + 2 * i + j, dev) for j, kv in enumerate(("k", "v"))}
             for i in range(cfg.n_layers)]
     rows = slice(di * b_loc, (di + 1) * b_loc)
-    cols = slice(core.offset, core.offset + core.local_len)
+    lc = gate.args[1]["layers"][0]["k"].shape[1]
+    mi = dist.get_rank(_dims_group(mesh, ("model",)))
+    cols = slice(mi * lc, (mi + 1) * lc)
     cache = {"layers": [{kv: c[kv][rows, cols].clone() for kv in c} for c in full]}
     token = steps.lm_tokens(cfg, (MESH_GATE_B,), 22, dev)
     pos = torch.tensor(s - 1, device=dev)
-    with torch.no_grad():
-        got = transformer.decode_step(mine, cache, token[rows], pos, cfg,
-                                      moe_fn=moe.make_moe_fn(mesh, cfg.moe, ("data",),
-                                                             device=dev),
-                                      decode_core=core)[0]
+    got = gate.step(gate.args[0], cache, token[rows], pos)[0]
     gathered = _all_gather(None, got, 0)              # rank order: data-major
     out = {}
     if rank == 0:
@@ -5325,7 +5364,7 @@ def _mesh_sp_ep_decode(mesh, dev, rank) -> dict:
                                 model_replicas_bitwise_equal=replicas_agree,
                                 capacity_factor=cfg.moe.capacity_factor)
         del want
-    del params, mine, full, gathered, got
+    del params, gate, full, gathered, got
     _empty(dev)
     dist.barrier()
     # the published config in bf16, batch cut to MESH_DECODE_B
@@ -5345,12 +5384,21 @@ def _mesh_sp_ep_decode(mesh, dev, rank) -> dict:
         secs.append(time.perf_counter() - t0)
     finite = bool(torch.isfinite(logits[:, :base.vocab_size].float()).all())
     ms = sorted(secs)[len(secs) // 2] * 1e3
+    # the parent's layout (every leaf whole but the experts, split over
+    # model), computed from the config: that layout is not built here
+    n_model = sharding.mesh_dims(mesh)["model"]
+    whole_gb = 2 * base.n_params() / 1e9
+    expert_gb = 2 * 3 * base.moe.n_experts * base.d_model * base.moe.d_expert * (
+        base.n_layers - transformer.n_prefix_layers(base)) / 1e9
     out["bf16"] = dict(batch=MESH_DECODE_B, batch_cut=f"128 -> {MESH_DECODE_B}",
                        seq_len=s, layers=base.n_layers, step_ms=ms, min_ms=min(secs) * 1e3,
                        tokens_per_s=MESH_DECODE_B / ms * 1e3, finite=finite,
                        peak_gb_this_rank=(torch.cuda.max_memory_allocated() / 1e9
                                           if dev.type == "cuda" else None),
-                       cache_gb_this_rank=tensor_bytes(bundle.args[1]) / 1e9)
+                       cache_gb_this_rank=tensor_bytes(bundle.args[1]) / 1e9,
+                       weights_gb_this_rank=tensor_bytes(bundle.args[0]) / 1e9,
+                       parent_weights_gb_this_rank_computed=(
+                           whole_gb - expert_gb * (1 - 1 / n_model)))
     del bundle, logits
     _empty(dev)
     return out
@@ -5822,11 +5870,12 @@ def _matches_record(grads, shardings, rec) -> bool:
     return True
 
 
-def _mesh_train_run(bundle) -> dict:
+def _mesh_train_run(bundle, on_card: bool = False) -> dict:
     """Two value-and-gradient calls at the initial state (bitwise equal; the
     second under the profiler, for the rank's busy share of a forward and
     backward), the first's gradients kept on the host for the parent (so
-    one set lives on the card at a time), the second's applied (the
+    one set lives on the card at a time; ``on_card``: kept on the card
+    and compared there, nothing recorded), the second's applied (the
     warm-up step), then the timed steps: step ms, TFLOP/s
     against ``model_flops``, peak memory and the collectives' bytes a
     step."""
@@ -5841,8 +5890,10 @@ def _mesh_train_run(bundle) -> dict:
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     loss_a, grads_a = vg(pieces, batch)
-    rec = _grads_record(grads_a, bundle.shardings)     # on the host: every bit of them
-    del grads_a
+    rec = None
+    if not on_card:
+        rec = _grads_record(grads_a, bundle.shardings)     # on the host: every bit of them
+        del grads_a
     secs["vg_a_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     held = {}
@@ -5852,8 +5903,13 @@ def _mesh_train_run(bundle) -> dict:
 
     prof = profile_trace(second)
     loss_b, grads_b = held.pop("vg")
-    bitwise = bool(torch.equal(loss_a, loss_b)) and _matches_record(grads_b, bundle.shardings,
-                                                                     rec)
+    if on_card:
+        bitwise = bool(torch.equal(loss_a, loss_b)) and all(
+            torch.equal(a, b) for a, b in zip(leaves(grads_a), leaves(grads_b)))
+        del grads_a
+    else:
+        bitwise = bool(torch.equal(loss_a, loss_b)) and _matches_record(
+            grads_b, bundle.shardings, rec)
     pieces, state, met = bundle.step.apply(pieces, grads_b, state)   # the warm-up step
     del grads_b
     losses = [float(loss_b)]
@@ -5868,7 +5924,8 @@ def _mesh_train_run(bundle) -> dict:
         steps_s.append(time.perf_counter() - t0)
         comm.append(collective_bytes.value)
     med = float(np.median(steps_s))
-    return dict(loss=float(loss_a), grads=rec, two_runs_bitwise=bitwise,
+    return dict(loss=float(loss_a), **({} if on_card else {"grads": rec}),
+                two_runs_bitwise=bitwise,
                 first_step_grad_norm=first_norm, losses=losses, steps=len(steps_s),
                 median_ms=med * 1e3, min_ms=min(steps_s) * 1e3, max_ms=max(steps_s) * 1e3,
                 model_flops=bundle.model_flops, tflops=bundle.model_flops / med / 1e12,
@@ -6006,11 +6063,225 @@ def _mesh_train_elastic(dev, mesh, rank, tmp) -> dict:
                 gap_4x1_against_one_rank=gap41_1)
 
 
+# the LM family over the mesh (slice 18): (d) granite-moe train_4k at full
+# depth, tensor parallel only by the reference's 2e9 rule, the MoE expert
+# parallel with its combine reduce-scattered; (e) starcoder2-3b train_4k,
+# FSDP over data forced beside TP; (f) granite-moe prefill_32k and one mesh
+# decode step from its cache
+MESH_LM_ARCH = "granite-moe-1b-a400m"     # (d) and (f)
+MESH_LM_FSDP_ARCH = "starcoder2-3b"       # (e)
+MESH_LM_FSDP_LAYERS = 4                   # (e)'s depth: 4 of 30 (reduced)
+MESH_LM_B = 2                             # train_4k's global batch 256 -> 2: a sequence a data rank
+MESH_LM_GATE_LAYERS = 2                   # the train gates' depth, full width, fp32
+MESH_LM_PREFILL_B = 2                     # prefill_32k's batch 32 -> 2
+MESH_LM_PREFILL_GATE_LAYERS = 4           # (f)'s fp32 gate: 4 of 24 layers at LM_GATE_LEN
+
+MESH_LM_SEED = 41
+
+
+def _mesh_lm_cases() -> tuple:
+    """(name, arch, config at its run depth, use_fsdp) of (d) and (e)."""
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import replace
+
+    return (("granite_train", MESH_LM_ARCH, registry.get(MESH_LM_ARCH).config, None),
+            ("starcoder2_train", MESH_LM_FSDP_ARCH,
+             replace(registry.get(MESH_LM_FSDP_ARCH).config, n_layers=MESH_LM_FSDP_LAYERS),
+             True))
+
+
+def _mesh_lm_gate_path(tmp: str, name: str) -> str:
+    return os.path.join(tmp, f"mesh_lm_gate_{name}.pt")
+
+
+def _mesh_lm_train(dev, mesh, rank, tmp) -> dict:
+    """(d) and (e) in bf16: ``_mesh_train_run`` (bitwise on the card), the
+    spec of a few leaves; then each one's fp32 gate, ``MESH_LM_GATE_LAYERS``
+    layers at full width on the same seeds: rank 0 saves the loss and
+    every gradient leaf whole for the parent's one-card step."""
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import replace
+    from repro_torch.launch import steps
+    from repro_torch.tree import leaves, leaves_with_paths
+
+    res = {}
+    for name, arch, cfg, use_fsdp in _mesh_lm_cases():
+        shape = registry.shapes_for(arch)["train_4k"]
+        t0 = time.perf_counter()
+        b = steps.build_lm_train(arch, cfg, shape, global_batch=MESH_LM_B, seed=MESH_LM_SEED,
+                                 device=dev, mesh=mesh, use_fsdp=use_fsdp)
+        _sync(dev)
+        init_s = time.perf_counter() - t0
+        specs = {k: sh.spec for k, sh in leaves_with_paths(b.shardings)
+                 if k in ("embed", "layers/0/attn/wq", "layers/0/attn/wk", "layers/0/mlp/wu",
+                          "layers/0/moe/wg", "layers/0/moe/router", "final_norm/w")}
+        res[name] = dict(_mesh_train_run(b, on_card=True), init_s=init_s,
+                         layers=cfg.n_layers, seq_len=shape.seq_len, global_batch=MESH_LM_B,
+                         params_b=cfg.n_params() / 1e9, specs=specs)
+        del b
+        _empty(dev)
+        t0 = time.perf_counter()
+        gcfg = replace(cfg, n_layers=MESH_LM_GATE_LAYERS, dtype="float32")
+        g = steps.build_lm_train(arch, gcfg, shape, global_batch=MESH_LM_B, seed=MESH_LM_SEED,
+                                 device=dev, mesh=mesh, use_fsdp=use_fsdp)
+        loss, grads = g.step.value_and_grad(g.args[0], g.args[2])
+        whole = {k: sh.gather(x.detach()).cpu()
+                 for (k, x), sh in zip(leaves_with_paths(grads), leaves(g.shardings))}
+        if rank == 0:
+            torch.save({"loss": float(loss), "grads": whole}, _mesh_lm_gate_path(tmp, name))
+        res[name].update(gate_loss=float(loss), gate_s=time.perf_counter() - t0)
+        del g, grads, whole
+        _empty(dev)
+    return res
+
+
+def _mesh_lm_prefill(dev, mesh, rank) -> dict:
+    """(f): granite-moe's prefill over the mesh.  The fp32 gate at
+    ``MESH_LM_PREFILL_GATE_LAYERS`` layers and ``LM_GATE_LEN`` tokens (no
+    assignment dropped: a data group's capacity counts its own tokens)
+    against one rank's prefill of the whole batch (this rank's rows and
+    sequence chunk of its logits and cache), then a mesh decode of the
+    last token again from the mesh cache against one rank's from its own;
+    then the published config in bf16 at prefill_32k, B = 2: one run, the
+    launch counts zeroed before it, with every flash call held to its
+    plain version (4,096-row tiles; the run's time less the checks'
+    synchronised seconds is the prefill's), and one timed decode step
+    from its cache (the last token
+    again: in bf16 the prefill's capacity drops, which one token's decode
+    does not have, move its logits, so that difference is printed, not
+    gated)."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import LMShape, replace
+    from repro_torch.distributed.collectives import collective_bytes
+    from repro_torch.distributed.decode_attention import make_decode_core
+    from repro_torch.kernels.flash_attention.ops import flash_attention_plain
+    from repro_torch.launch import steps
+    from repro_torch.models import moe, transformer
+    from repro_torch.testing import FLASH_TOL
+
+    base = registry.get(MESH_LM_ARCH).config
+    tp0 = transformer.tensor_parallel(mesh)
+    di = steps._flat_index(mesh, ("data",))[0]
+    out = {}
+
+    def decode(cfg, bundle, cache, token, s):
+        core = make_decode_core(mesh, ("data",), ("model",), s, device=dev)
+        moe_fn = moe.make_moe_fn(mesh, cfg.moe, ("data",), device=dev)
+        tp = transformer.tensor_parallel(mesh, bundle.shardings)
+        with torch.no_grad():
+            return transformer.decode_step(bundle.args[0], cache, token, s - 1, cfg,
+                                           decode_core=core, moe_fn=moe_fn, tp=tp)[0]
+
+    # the fp32 gate
+    t0 = time.perf_counter()
+    cfg = no_drop(replace(base, n_layers=MESH_LM_PREFILL_GATE_LAYERS, dtype="float32"))
+    gshape = LMShape("prefill_gate", "prefill", LM_GATE_LEN, MESH_LM_PREFILL_B)
+    mp = steps.build_lm_prefill(MESH_LM_ARCH, cfg, gshape, seed=MESH_LM_SEED, device=dev,
+                                mesh=mesh)
+    logits, cache = mp.step(*mp.args)
+    dec = decode(cfg, mp, cache, mp.args[1][:, -1], LM_GATE_LEN)
+    one = steps.build_lm_prefill(MESH_LM_ARCH, cfg, gshape, seed=MESH_LM_SEED, device=dev)
+    ol, oc = one.step(*one.args)
+    with torch.no_grad():
+        od = transformer.decode_step(one.args[0], oc, one.args[1][:, -1], LM_GATE_LEN - 1,
+                                     cfg)[0]
+    v, lc = cfg.vocab_size, LM_GATE_LEN // tp0.n
+    rows, chunk = slice(di, di + 1), slice(tp0.rank * lc, (tp0.rank + 1) * lc)
+    scale = float(ol[:, :v].abs().max())
+    cache_err, cache_max = 0.0, 0.0
+    for part in oc:
+        for c, w in zip(cache[part], oc[part]):
+            for kv in ("k", "v"):
+                cache_err = max(cache_err, float((c[kv] - w[kv][rows, chunk]).abs().max()))
+                cache_max = max(cache_max, float(w[kv].abs().max()))
+    out["fp32_gate"] = dict(
+        layers=f"{MESH_LM_PREFILL_GATE_LAYERS} of {base.n_layers}", tokens=LM_GATE_LEN,
+        batch=MESH_LM_PREFILL_B, max_abs_logit=scale,
+        logit_rel=float((logits[:, :v] - ol[rows, :v]).abs().max()) / scale,
+        cache_rel=cache_err / cache_max,
+        decode_rel=float((dec[:, :v] - od[rows, :v]).abs().max()) / float(od[:, :v].abs().max()),
+        tol=MESH_TOL, seconds=time.perf_counter() - t0)
+    del mp, logits, cache, one, ol, oc, dec, od
+    _empty(dev)
+    # the published config in bf16 at prefill_32k
+    shape = registry.shapes_for(MESH_LM_ARCH)["prefill_32k"]
+    t0 = time.perf_counter()
+    pb = steps.build_lm_prefill(MESH_LM_ARCH, base, shape, global_batch=MESH_LM_PREFILL_B,
+                                seed=MESH_LM_SEED, device=dev, mesh=mesh)
+    _sync(dev)
+    init_s = time.perf_counter() - t0
+    atol, rtol = FLASH_TOL["bfloat16"]
+    held = dict(calls=0, max_abs_err=0.0, within_tol=True, plain_s=0.0)
+    kernel = transformer.flash_attention
+
+    def checked(q, k, v, **kw):
+        o = kernel(q, k, v, **kw)
+        _sync(dev)
+        t0 = time.perf_counter()
+        ref = flash_attention_plain(q, k, v, causal=kw["causal"], block_q=4096,
+                                    block_k=4096).float()
+        err = (o.float() - ref).abs()
+        held["calls"] += 1
+        held["max_abs_err"] = max(held["max_abs_err"], float(err.max()))
+        held["within_tol"] &= bool((err <= atol + rtol * ref.abs()).all())
+        held["plain_s"] += time.perf_counter() - t0
+        return o
+
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    collective_bytes.reset()
+    transformer.flash_attention = checked
+    try:
+        t0 = time.perf_counter()
+        logits, cache = pb.step(*pb.args)
+        _sync(dev)
+        held_s = time.perf_counter() - t0
+    finally:
+        transformer.flash_attention = kernel
+    # the run's flash launches are the prefill's own (the plain version
+    # launches none); its time less the checks' synchronised seconds
+    launches = kernels.launch_counts()["flash_attention"]
+    prefill_bytes = collective_bytes.value
+    prefill_s = held_s - held["plain_s"]
+    t0 = time.perf_counter()
+    dl = decode(base, pb, cache, pb.args[1][:, -1], shape.seq_len)
+    _sync(dev)
+    decode_s = time.perf_counter() - t0
+    v = base.vocab_size
+    out["bf16"] = dict(
+        seq_len=shape.seq_len, batch=MESH_LM_PREFILL_B, batch_cut=f"32 -> {MESH_LM_PREFILL_B}",
+        layers=base.n_layers, init_s=init_s, held_run_s=held_s, prefill_ms=prefill_s * 1e3,
+        tokens_per_s=MESH_LM_PREFILL_B * shape.seq_len / prefill_s,
+        tflops=2.0 * base.n_active_params() * MESH_LM_PREFILL_B * shape.seq_len / prefill_s
+        / 1e12, collective_bytes=prefill_bytes, flash_launches=launches,
+        flash_held=dict(held, tol=[atol, rtol]),
+        peak_gb_this_rank=(torch.cuda.max_memory_allocated() / 1e9
+                           if dev.type == "cuda" else None),
+        cache_gb_this_rank=tensor_bytes(cache) / 1e9,
+        weights_gb_this_rank=tensor_bytes(pb.args[0]) / 1e9,
+        finite=bool(torch.isfinite(logits[:, :v].float()).all()),
+        decode_ms=decode_s * 1e3,
+        decode_finite=bool(torch.isfinite(dl[:, :v].float()).all()),
+        decode_vs_prefill_rel=float((dl[:, :v].float() - logits[:, :v].float()).abs().max())
+        / float(logits[:, :v].float().abs().max()))
+    del pb, logits, cache, dl
+    _empty(dev)
+    return out
+
+
 def mesh_train_worker(out_dir: str, device=None) -> dict:
     """The ``mesh_train`` rank: (a) NequIP minibatch_lg through
     ``make_sharded_interact``, (b) dlrm-mlperf at full width with
     row-sharded tables, both on data 2 x model 2, then (c) the elastic
-    round trip; the kernels' launches of (a) and (b) counted."""
+    round trip; the kernels' launches of (a) and (b) counted; then the LM
+    family: (d) and (e) (``_mesh_lm_train``) and (f) (``_mesh_lm_prefill``,
+    whose counted run's flash launches it records)."""
     import torch
     import torch.distributed as dist
 
@@ -6052,6 +6323,14 @@ def mesh_train_worker(out_dir: str, device=None) -> dict:
     t0 = time.perf_counter()
     res["elastic"] = _mesh_train_elastic(dev, mesh, rank, out_dir)
     secs["elastic"] = time.perf_counter() - t0
+    dist.barrier()
+    t0 = time.perf_counter()
+    res["lm"] = _mesh_lm_train(dev, mesh, rank, out_dir)
+    secs["lm_train"] = time.perf_counter() - t0
+    dist.barrier()
+    t0 = time.perf_counter()
+    res["lm_prefill"] = _mesh_lm_prefill(dev, mesh, rank)
+    secs["lm_prefill"] = time.perf_counter() - t0
     res["seconds"] = secs
     return res
 
@@ -6090,6 +6369,98 @@ def _table_rows_hit(world_ranks, one_grads) -> bool:
         if not torch.equal(got, want):
             return False
     return True
+
+
+def _mesh_lm_one_card(dev, cfg, arch, rec) -> dict:
+    """(d) / (e)'s fp32 gate on one card, after the world: the port's
+    one-device loss and gradients at ``MESH_LM_GATE_LAYERS`` layers on the
+    world's seeds, the mean over the data shards' sequences (the MoE's aux
+    and capacity are a data shard's, as the reference's mesh computes
+    them), against rank 0's record."""
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import replace
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer
+    from repro_torch.tree import leaves, leaves_with_paths, unflatten_like
+
+    gcfg = replace(cfg, n_layers=MESH_LM_GATE_LAYERS, dtype="float32")
+    shape = registry.shapes_for(arch)["train_4k"]
+    params = steps.require_grad(transformer.init_lm(gcfg, steps._generator(MESH_LM_SEED, dev)))
+    batch = steps.lm_train_inputs(gcfg, MESH_LM_B, shape.seq_len, MESH_LM_SEED + 1, dev)
+    loss_fn = steps._lm_loss_fn(gcfg)
+    ps, total, acc = leaves(params), 0.0, None
+    for d in range(MESH_LM_B):
+        loss = loss_fn(params, {k: v[d:d + 1] for k, v in batch.items()})
+        gs = torch.autograd.grad(loss, ps)
+        total += float(loss.detach()) / MESH_LM_B
+        acc = [g / MESH_LM_B for g in gs] if acc is None else [
+            a + g / MESH_LM_B for a, g in zip(acc, gs)]
+    one = dict(leaves_with_paths(unflatten_like(params, acc)))
+    top = max(float(g.abs().max()) for g in one.values())
+    gap, worst = 0.0, None
+    for key, g in rec["grads"].items():
+        d = float((g.to(dev) - one[key]).abs().max())
+        if d > gap:
+            gap, worst = d, key
+    rel = abs(rec["loss"] - total) / abs(total)
+    del params, one, acc
+    torch.cuda.empty_cache()
+    return dict(layers=f"{MESH_LM_GATE_LAYERS} of {registry.get(arch).config.n_layers}",
+                loss_rel=rel, grad_gap=gap, grad_max=top, worst_leaf=worst,
+                leaves=len(rec["grads"]),
+                within=rel <= MESH_TRAIN_TOL and gap <= MESH_TRAIN_GRAD_TOL * top)
+
+
+def _mesh_lm_held(dev, ranks, gates) -> tuple:
+    """(d)-(f) held: every rank's two runs bitwise and losses finite, the
+    fp32 gates against one card (``_mesh_lm_one_card``) and one rank's
+    prefill, every flash call of (f)'s held run within ``FLASH_TOL`` and
+    its counted run's flash launches one a layer.  Returns (the rows,
+    faults)."""
+    faults, rows = [], {}
+    keep = ("median_ms", "min_ms", "max_ms", "tflops", "model_flops", "max_memory_allocated_gb",
+            "device_busy_share", "collective_bytes_per_step", "losses", "first_step_grad_norm",
+            "params_local_gb", "profiled_forward_backward_ms", "vg_a_s",
+            "vg_b_profiled_and_warmup_s", "init_s", "gate_s")
+    for name, arch, cfg, use_fsdp in _mesh_lm_cases():
+        runs = [r["lm"][name] for r in ranks]
+        faults += [f"{name}: rank {i}'s two runs differ" for i, r in enumerate(runs)
+                   if not r["two_runs_bitwise"]]
+        faults += [f"{name}: rank {i}'s losses not finite: {r['losses']}"
+                   for i, r in enumerate(runs)
+                   if not all(x == x and abs(x) < float("inf") for x in r["losses"])]
+        if name not in gates:
+            faults.append(f"{name}: rank 0 saved no fp32 gate")
+            held = None
+        else:
+            held = _mesh_lm_one_card(dev, cfg, arch, gates.pop(name))
+            if not held["within"]:
+                faults.append(f"{name}: against one card {held}")
+        rows[name] = dict(arch=arch, layers=runs[0]["layers"], seq_len=runs[0]["seq_len"],
+                          global_batch=runs[0]["global_batch"], params_b=runs[0]["params_b"],
+                          fsdp="forced" if use_fsdp else "by the 2e9 rule (TP only)",
+                          specs=runs[0]["specs"], fp32_gate=held,
+                          gate_losses=[r["gate_loss"] for r in runs],
+                          two_runs_bitwise=all(r["two_runs_bitwise"] for r in runs),
+                          per_rank=[{k: r[k] for k in keep if k in r} for r in runs])
+    pre = [r["lm_prefill"] for r in ranks]
+    for i, p in enumerate(pre):
+        g = p["fp32_gate"]
+        if not max(g["logit_rel"], g["cache_rel"], g["decode_rel"]) <= MESH_TOL:
+            faults.append(f"prefill rank {i}: against one rank {g}")
+        b = p["bf16"]
+        if not (b["flash_held"]["within_tol"] and b["flash_held"]["calls"] > 0):
+            faults.append(f"prefill rank {i}: flash against its plain version {b['flash_held']}")
+        if b["flash_launches"] != b["layers"]:
+            faults.append(f"prefill rank {i}: {b['flash_launches']} flash launches, not "
+                          f"{b['layers']}")
+        if not (b["finite"] and b["decode_finite"]):
+            faults.append(f"prefill rank {i}: logits not finite")
+    rows["granite_prefill"] = dict(arch=MESH_LM_ARCH, fp32_gate=[p["fp32_gate"] for p in pre],
+                                   bf16=[p["bf16"] for p in pre])
+    return rows, faults
 
 
 def phase_mesh_train(dev) -> tuple:
@@ -6139,6 +6510,9 @@ def phase_mesh_train(dev) -> tuple:
               "tensor_product_backward"):
         if not launches.get(k):
             faults.append(f"the drive launched no {k}")
+    lm, lm_faults = _mesh_lm_held(dev, ranks, _WORLDS.pop("mesh_lm_gates", {}))
+    faults += lm_faults
+    launches["flash_attention"] = sum(r["lm_prefill"]["bf16"]["flash_launches"] for r in ranks)
 
     def run_row(model):
         keep = ("median_ms", "min_ms", "max_ms", "tflops", "model_flops",
@@ -6156,7 +6530,7 @@ def phase_mesh_train(dev) -> tuple:
                   gnn=dict(arch=GNN_ARCH, shape="minibatch_lg", **run_row("gnn")),
                   dlrm=dict(model=DLRM, table_rows_cap=dlrm_mlperf.TRAIN_ROW_CAP,
                             batch=RECSYS_SHAPES["train_batch"].batch, **run_row("dlrm")),
-                  elastic=[r["elastic"] for r in ranks], launches=launches,
+                  elastic=[r["elastic"] for r in ranks], lm=lm, launches=launches,
                   nvidia_smi=smi_line())
     if faults:
         emit({"phase": "mesh_train", **result})
@@ -6325,7 +6699,7 @@ def main() -> int:
                                              + rs_launches["persistent_round"])
             launches.update(flash_attention=ce_launches["flash_attention"]
                             + sum(sharded["real_ce_mesh"]["flash_launches_per_rank"])
-                            + lm_flash + mesh_flash,
+                            + lm_flash + mesh_flash + mt_launches["flash_attention"],
                             embedding_bag=rs_bags + rr_launches["embedding_bag"]
                             + train_launches["embedding_bag"] + gnn_launches["embedding_bag"]
                             + mt_launches["embedding_bag"],

@@ -25,9 +25,10 @@ rank backpropagates is its share of the whole step's loss (its local loss
 over the world size, :func:`world_size`), and each collective's adjoint is
 exact — ``all_gather`` and ``reduce_scatter`` (a sum) are each other's,
 ``all_reduce`` (a sum) its own — so the pieces' summed gradients are the
-one-device step's.  ``reduce_scatter`` is an ``all_to_all_single`` and a
-local sum in rank order (gloo on CUDA tensors has no reduce-scatter), so
-two runs give the same bits.  Each counts its call and the bytes this
+one-device step's.  ``reduce_scatter`` is an ``all_to_all_single`` in the
+input's dtype and a local fp32 sum in rank order, cast back once (gloo on
+CUDA tensors has no reduce-scatter), so two runs give the same bits and a
+bf16 sum over any number of ranks rounds once.  Each counts its call and the bytes this
 rank hands it in ``collectives.collective_calls`` / ``collective_bytes``;
 the all-gather is ``collectives._all_gather``.
 """
@@ -59,10 +60,10 @@ def _reduce_scatter_raw(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     dist.all_to_all_single(out, xt, group=group)
     _count(xt)
     blocks = out.view(n, xt.shape[0] // n, *xt.shape[1:])
-    acc = blocks[0].clone()
+    acc = blocks[0].to(torch.float32, copy=True)
     for j in range(1, n):                 # rank order: the same bits every run
         acc += blocks[j]
-    return acc.movedim(0, dim)
+    return acc.to(x.dtype).movedim(0, dim)
 
 
 def _all_reduce_raw(x: torch.Tensor, group) -> torch.Tensor:
@@ -148,15 +149,52 @@ def mesh_group(mesh, axes: Sequence[str]):
     return _dims_group(mesh, axes)
 
 
-def gather(piece: torch.Tensor, sharding: Sharding) -> torch.Tensor:
+def gather(piece: torch.Tensor, sharding: Sharding, keep: Sequence[str] = ()) -> torch.Tensor:
     """The whole leaf from this rank's piece, differentiable: its gradient
     comes back reduce-scattered over the leaf's sharded dimensions (sum it
-    over the replicated ones with :func:`sync_grads`)."""
+    over the replicated ones with :func:`sync_grads`).  A dimension split
+    over a mesh dimension in ``keep`` stays this rank's piece (the
+    tensor-parallel layer gathers only over ``data``, ``keep=("model",)``);
+    a tensor dimension split over kept and other mesh dimensions at once
+    raises."""
     x = piece
     for d in range(len(sharding.spec)):
-        if sharding.parts(d) > 1:
-            x = all_gather(x, mesh_group(sharding.mesh, sharding.dim_axes(d)), d)
+        axes = sharding.dim_axes(d)
+        if sharding.parts(d) == 1 or not set(axes) - set(keep):
+            continue
+        if set(axes) & set(keep):
+            raise ValueError(f"dimension {d} of {sharding.spec} mixes kept mesh dimensions "
+                             f"{tuple(keep)} with others")
+        x = all_gather(x, mesh_group(sharding.mesh, axes), d)
     return x
+
+
+def all_reduce_max(x: torch.Tensor, group) -> torch.Tensor:
+    """The elementwise max of ``x`` over ``group``, without a gradient."""
+    if _size(group) == 1:
+        return x.detach()
+    y = x.detach().contiguous().clone()
+    dist.all_reduce(y, op=dist.ReduceOp.MAX, group=group)
+    _count(y)
+    return y
+
+
+def all_to_all(x: torch.Tensor, group, split_dim: int, cat_dim: int) -> torch.Tensor:
+    """``x`` cut into the group's size along ``split_dim``, block j sent to
+    rank j, the blocks received concatenated along ``cat_dim`` in rank
+    order (a layout change, e.g. heads to sequence); without a gradient."""
+    n = _size(group)
+    if n == 1:
+        return x
+    if x.shape[split_dim] % n:
+        raise ValueError(f"dimension {split_dim} of {tuple(x.shape)} does not split over "
+                         f"{n} ranks")
+    xt = x.detach().movedim(split_dim, 0).contiguous()
+    out = torch.empty_like(xt)
+    dist.all_to_all_single(out, xt, group=group)
+    _count(xt)
+    blocks = out.view(n, xt.shape[0] // n, *xt.shape[1:]).movedim(1, split_dim + 1)
+    return torch.cat(list(blocks), dim=cat_dim)
 
 
 def shard_tree(tree, shardings):
@@ -164,64 +202,97 @@ def shard_tree(tree, shardings):
     return tree_map(lambda x, s: s.local(x).contiguous().clone(), tree, shardings)
 
 
-def sync_grads(pieces, shardings) -> list:
-    """Each piece's gradient (zeros where a leaf got none) summed over the
-    mesh dimensions its leaf is replicated on: one ``all_reduce`` per
-    group of such dimensions, over the gradients concatenated in leaf
-    order.  Returns the gradients in leaf order."""
+SYNC_BUCKET = 1 << 26      # fp32 elements an all-reduce of sync_grads carries, at most
+
+
+def sync_grads(pieces, shardings, grads: Optional[list] = None) -> list:
+    """Each piece's gradient (``grads`` in leaf order, else the pieces'
+    ``.grad``, zeros where a leaf got none) summed over the mesh
+    dimensions its leaf is replicated on, in fp32: per group of such
+    dimensions, the gradients concatenated in leaf order and all-reduced
+    in buckets of at most ``SYNC_BUCKET`` elements (a larger leaf alone),
+    so the fp32 copies of a bf16 model stay small.  Returns the gradients
+    in leaf order, each in its own dtype."""
     ps, ss = leaves(pieces), leaves(shardings)
-    grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in ps]
-    buckets = {}
+    if grads is None:
+        grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in ps]
+    grads = list(grads)
+    groups = {}
     for i, s in enumerate(ss):
-        buckets.setdefault(s.replicated_axes, []).append(i)
+        groups.setdefault(s.replicated_axes, []).append(i)
     mesh = ss[0].mesh if ss else None
-    for axes, idx in buckets.items():
+    for axes, idx in groups.items():
         group = mesh_group(mesh, axes)
         if group is None:
             continue
-        flat = torch.cat([grads[i].reshape(-1).float() for i in idx])
-        flat = _all_reduce_raw(flat, group)
-        off = 0
+        buckets, size = [[]], 0
         for i in idx:
-            n = grads[i].numel()
-            grads[i] = flat[off:off + n].view_as(grads[i]).to(grads[i].dtype)
-            off += n
+            if buckets[-1] and size + grads[i].numel() > SYNC_BUCKET:
+                buckets.append([])
+                size = 0
+            buckets[-1].append(i)
+            size += grads[i].numel()
+        for bucket in buckets:
+            flat = _all_reduce_raw(torch.cat([grads[i].reshape(-1).float() for i in bucket]),
+                                   group)
+            off = 0
+            for i in bucket:
+                n = grads[i].numel()
+                grads[i] = flat[off:off + n].view_as(grads[i]).to(grads[i].dtype)
+                off += n
     return grads
 
 
-def sharded_value_and_grad(loss_fn: Callable, shardings, mesh):
+def sharded_value_and_grad(loss_fn: Callable, shardings, mesh, n_micro: int = 1):
     """``vg(pieces, batch) -> (loss, grads)``: ``loss_fn(pieces, batch)`` is
     this rank's loss (the mean over its batch shard, or the whole step's
     loss where every rank computes it); its share (over the world size) is
     backpropagated and each piece's gradient summed over the dimensions its
     leaf is replicated on (:func:`sync_grads`).  ``loss`` is the mean of
     the ranks' losses, ``grads`` this rank's pieces of the one-device
-    step's gradients; the pieces' ``.grad`` are left None."""
+    step's gradients; the pieces' ``.grad`` are left None.  With
+    ``n_micro`` > 1 each rank's batch is cut into that many microbatches
+    along every leaf's leading axis and ``optimizer.accumulate_grads``
+    adds their gradients in fp32 in microbatch order, as the reference
+    does (``grads`` are then fp32 whatever the model's dtype); one
+    :func:`sync_grads` follows, and the loss is the microbatches' mean."""
+    from ..training import optimizer
+
     world = world_size(mesh)
     everyone = mesh_group(mesh, mesh.mesh_dim_names)
 
     def vg(pieces, batch):
-        for p in leaves(pieces):
+        ps = leaves(pieces)
+        for p in ps:
             p.grad = None
-        loss = loss_fn(pieces, batch)
-        (loss / world).backward()
-        grads = unflatten_like(pieces, sync_grads(pieces, shardings))
-        for p in leaves(pieces):
-            p.grad = None
-        return _all_reduce_raw(loss.detach().reshape(1), everyone)[0] / world, grads
+        if n_micro == 1:
+            loss = loss_fn(pieces, batch)
+            (loss / world).backward()
+            grads = sync_grads(pieces, shardings)
+            for p in ps:
+                p.grad = None
+        else:
+            micro = tree_map(
+                lambda x: x.reshape((n_micro, x.shape[0] // n_micro) + x.shape[1:]), batch)
+            acc, loss = optimizer.accumulate_grads(
+                lambda p, mb: loss_fn(p, mb) / world, pieces, micro, n_micro)
+            grads = sync_grads(pieces, shardings, leaves(acc))
+            loss = loss * world
+        loss = _all_reduce_raw(loss.detach().reshape(1), everyone)[0] / world
+        return loss, unflatten_like(pieces, grads)
 
     return vg
 
 
-def sharded_adamw_step(loss_fn: Callable, opt_cfg, shardings, mesh):
+def sharded_adamw_step(loss_fn: Callable, opt_cfg, shardings, mesh, n_micro: int = 1):
     """``step(pieces, opt_state, batch) -> (pieces, opt_state, {"loss",
-    "grad_norm", "lr"})``: :func:`sharded_value_and_grad`, then the clip by
-    the global norm over every piece once and AdamW on the pieces in
-    place.  ``step.value_and_grad`` is the first half alone and
-    ``step.apply(pieces, grads, opt_state)`` the second."""
+    "grad_norm", "lr"})``: :func:`sharded_value_and_grad` (over ``n_micro``
+    microbatches), then the clip by the global norm over every piece once
+    and AdamW on the pieces in place.  ``step.value_and_grad`` is the first
+    half alone and ``step.apply(pieces, grads, opt_state)`` the second."""
     from ..training import optimizer
 
-    vg = sharded_value_and_grad(loss_fn, shardings, mesh)
+    vg = sharded_value_and_grad(loss_fn, shardings, mesh, n_micro)
 
     def apply(pieces, grads, opt_state):
         return optimizer.adamw_update(opt_cfg, pieces, grads, opt_state, shardings=shardings)

@@ -52,19 +52,22 @@ tensors (the reference's are abstract shapes for its dry run): weights
 drawn from a seed as ``_recsys_init`` does with ``PRNGKey(0)``, inputs
 from a seeded generator (DLRM's raw sparse ids in [0, 2^31), item ids in
 [0, n_items); a GNN batch's graph from ``models/gnn/sampler.py``).  The
-serving steps run under ``torch.no_grad()``.  Everything over a mesh
-(training, the sharded interact) is a later slice (ROADMAP.md, queue 1).
+serving steps run under ``torch.no_grad()``.  With ``mesh=`` the GNN,
+LM and DLRM train builders, ``build_lm_prefill`` and ``build_lm_decode``
+run over a ``torch.distributed`` mesh, one process a rank (each builder's
+doc); the other recsys kinds and ``build_lm_adacur_serve`` over a mesh
+wait (ROADMAP.md, queue 1, item 2c).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import time
 from dataclasses import dataclass
 from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
-import torch.distributed as dist
 
 from ..configs import registry
 from ..configs.base import (AdaCURConfig, GNNConfig, GraphShape, LMConfig, LMShape,
@@ -73,7 +76,7 @@ from ..core import adacur, prng
 from ..core.scorer import ScorerStats
 from ..device import resolve_device
 from ..distributed import fsdp, sharding
-from ..models import cross_encoder, transformer
+from ..models import cross_encoder, moe as moe_lib, transformer
 from ..models.gnn import nequip, sampler
 from ..models.recsys import bert4rec, bst, dlrm, embedding, mind
 from ..training import optimizer
@@ -449,7 +452,7 @@ def build_recsys_train(arch_id: str, cfg: RecSysConfig, shape: RecSysShape, *,
         if _kind(cfg) != "dlrm" or n_micro != 1:
             raise NotImplementedError(
                 f"{cfg.kind} training over a mesh (and microbatches over one) is not "
-                "ported yet: ROADMAP.md, queue 1, item 2b")
+                "ported yet: ROADMAP.md, queue 1, item 2c")
         return _build_dlrm_train_mesh(arch_id, cfg, shape, params, seed, device, mesh, opt_cfg,
                                       batch)
     loss_fn = _recsys_loss(cfg)
@@ -478,16 +481,9 @@ def _build_dlrm_train_mesh(arch_id, cfg, shape, params, seed, device, mesh,
     sharding.check_mesh_device(mesh, dev)
     specs = dlrm.param_specs(cfg)
     if params is None:
-        logical, placed = sharding.logical_by_path(specs), {}
-
-        def place(path, leaf):
-            placed[path] = sharding.Sharding(
-                mesh, sharding.spec_for(mesh, logical[path], tuple(leaf.shape)))
-            return placed[path].local(leaf).contiguous().clone()
-
-        pieces = dlrm.init_dlrm(cfg, _generator(seed, dev), dev, place=place)
-        shardings = unflatten_like(pieces, [placed[k] for k, _ in leaves_with_paths(pieces)])
-        require_grad(pieces)
+        pieces, shardings = init_pieces(
+            lambda place: dlrm.init_dlrm(cfg, _generator(seed, dev), dev, place=place),
+            specs, mesh)
     else:
         pieces, shardings = shard_params(params, specs, mesh)
     batch = batch_shard(recsys_train_inputs(cfg, shape.batch, seed + 1, dev)
@@ -508,36 +504,69 @@ def _build_dlrm_train_mesh(arch_id, cfg, shape, params, seed, device, mesh,
 
 
 def _chunked_nll(params, h: torch.Tensor, targets: torch.Tensor, cfg: LMConfig,
-                 chunk: int = 512) -> torch.Tensor:
+                 chunk: int = 512, tp=None) -> torch.Tensor:
     """Mean next-token NLL over sequence chunks: each chunk's (B, chunk, V)
     logits are recomputed in the backward (``torch.utils.checkpoint``, the
     reference's ``jax.checkpoint``), so the full logits never live at once;
-    the chunk sums add in sequence order."""
+    the chunk sums add in sequence order.
+
+    With ``tp`` (over a mesh: ``params`` this rank's pieces, ``h`` in the
+    residual's layout, ``targets`` the data shard's) a vocab piece's
+    logits give each position's max, sum of exponentials and target
+    logit, which meet over ``model`` (the reference's vocab-sharded loss
+    region, ``repro/launch/steps.py:101-132``): the whole sequence's NLL on every model
+    rank, no rank holding more than its vocab piece's logits.  A vocab
+    whole over ``model`` scores the rank's sequence chunk and the sums
+    meet over ``model``.  Every model rank returns its data shard's
+    mean."""
     from torch.utils.checkpoint import checkpoint
 
-    b, l, d = h.shape
-    chunk = min(chunk, l)
-    if l % chunk:
-        raise ValueError(f"sequence length {l} is not a multiple of the loss chunk {chunk}")
+    b, l = targets.shape
+    tp = transformer.ONE_RANK if tp is None else dataclasses.replace(
+        tp, seq=tp.n > 1 and l % tp.n == 0)
+    head = transformer.lm_head(params, cfg, tp)
+    width = head.shape[-1]
+    split = width != transformer.padded_vocab(cfg)
+    if split:
+        h = tp.expand(h)
+    else:
+        targets = tp.chunk(targets)
+    lc = h.shape[1]
+    chunk = min(chunk, lc)
+    if lc % chunk:
+        raise ValueError(f"sequence length {lc} is not a multiple of the loss chunk {chunk}")
+    lo = tp.heads(transformer.padded_vocab(cfg), width).start
 
     def one(hc, tc):
-        logits = transformer.lm_logits(params, hc, cfg)
-        logp = torch.log_softmax(logits.float(), dim=-1)
-        return -torch.gather(logp, -1, tc[..., None].long()).sum()
+        logits = transformer.head_logits(head, hc, cfg, tp).float()
+        if not split:
+            logp = torch.log_softmax(logits, dim=-1)
+            return -torch.gather(logp, -1, tc[..., None].long()).sum()
+        m = fsdp.all_reduce_max(logits.amax(-1), tp.group)
+        t = tc.long() - lo
+        mine = (t >= 0) & (t < width)
+        tl = torch.gather(logits, -1, t.clamp(0, width - 1)[..., None])[..., 0]
+        stats = fsdp.all_reduce(torch.stack([torch.exp(logits - m[..., None]).sum(-1),
+                                             torch.where(mine, tl, 0.0)]), tp.group)
+        return (torch.log(stats[0]) + m - stats[1]).sum()
 
     total = torch.zeros((), dtype=torch.float32, device=h.device)
-    for i in range(l // chunk):
+    for i in range(lc // chunk):
         sl = slice(i * chunk, (i + 1) * chunk)
         total = total + checkpoint(one, h[:, sl], targets[:, sl], use_reentrant=False)
+    if not split and tp.seq:
+        total = fsdp.all_reduce(total.reshape(1), tp.group)[0]
     return total / (b * l)
 
 
-def _lm_loss_fn(cfg: LMConfig):
+def _lm_loss_fn(cfg: LMConfig, moe_fn=None, tp=None):
     """Next-token NLL, plus ``aux_loss_coef`` x the MoE layers' summed
-    load-balance loss for a MoE config (the reference's ``_lm_loss_fn``)."""
+    load-balance loss for a MoE config (the reference's ``_lm_loss_fn``);
+    over a mesh with the expert-parallel ``moe_fn`` and this rank's
+    :class:`transformer.TensorParallel`."""
     def loss_fn(params, batch):
-        h, aux = transformer.encode(params, batch["tokens"], cfg)
-        loss = _chunked_nll(params, h, batch["targets"], cfg)
+        h, aux = transformer.encode(params, batch["tokens"], cfg, moe_fn=moe_fn, tp=tp)
+        loss = _chunked_nll(params, h, batch["targets"], cfg, tp=tp)
         if cfg.moe is not None:
             loss = loss + cfg.moe.aux_loss_coef * aux
         return loss
@@ -560,27 +589,106 @@ def lm_train_inputs(cfg: LMConfig, batch: int, seq_len: int, seed: int = 1,
     return {"tokens": tokens, "targets": torch.roll(tokens, -1, dims=1)}
 
 
+FSDP_MIN_PARAMS = 2e9      # below it the train step keeps ``embed`` whole (the reference's rule)
+MICRO_MIN_PARAMS = 4e10    # above it the train step takes 4 microbatches (ditto)
+
+
+def lm_train_rules(cfg: LMConfig, use_fsdp: Optional[bool] = None) -> Optional[dict]:
+    """The LM train step's sharding rules: the reference's defaults (FSDP
+    over ``data``, TP and EP over ``model``), with ``embed`` whole (tensor
+    parallel only) for a config of fewer than 2e9 parameters by its
+    ``n_params()``, as the reference reads it; ``use_fsdp`` overrides the
+    rule either way."""
+    if use_fsdp is None:
+        use_fsdp = cfg.n_params() >= FSDP_MIN_PARAMS
+    return None if use_fsdp else dict(sharding.DEFAULT_RULES, embed=(None,))
+
+
+def _lm_pieces(cfg: LMConfig, params, seed: int, dev, mesh, rules=None, grad: bool = True):
+    """This rank's pieces of an LM's parameters and their shardings:
+    ``params`` cut, or drawn from ``seed`` piece by piece."""
+    specs = transformer.param_specs(cfg)
+    if params is None:
+        pieces, shardings = init_pieces(
+            lambda place: transformer.init_lm(cfg, _generator(seed, dev), place), specs, mesh,
+            rules)
+    else:
+        pieces, shardings = shard_params(params, specs, mesh, rules)
+    if not grad:
+        for p in leaves(pieces):
+            p.requires_grad_(False)
+    return pieces, shardings
+
+
+def _lm_moe_fn(cfg: LMConfig, mesh, batch_axes, dev, scatter_tokens: bool = False):
+    if cfg.moe is None or "model" not in sharding.mesh_dims(mesh):
+        return None
+    return moe_lib.make_moe_fn(mesh, cfg.moe, batch_axes, scatter_tokens=scatter_tokens,
+                               device=dev)
+
+
 def build_lm_train(arch_id: str, cfg: LMConfig, shape: LMShape, *, params=None,
                    global_batch: Optional[int] = None, n_micro: Optional[int] = None,
-                   seed: int = 0, device=None) -> StepBundle:
+                   seed: int = 0, device=None, mesh=None, batch=None,
+                   use_fsdp: Optional[bool] = None) -> StepBundle:
     """``step(params, opt_state, batch)``: one LM train step (chunked NLL,
-    its gradient, AdamW at the reference's defaults).  ``global_batch``
-    cuts the shape's batch to what one card holds; ``n_micro`` defaults to
-    the reference's rule (4 microbatches above 4e10 parameters).
-    ``model_flops`` = 6 x active parameters x tokens."""
+    its gradient, AdamW at the reference's defaults), each layer
+    recomputed in the backward when ``cfg.remat`` (the default).
+    ``global_batch`` cuts the shape's batch to what one card holds;
+    ``n_micro`` defaults to the reference's rule (4 microbatches above
+    4e10 parameters).  ``model_flops`` = 6 x active parameters x tokens.
+
+    With ``mesh`` (a ``("data", "model")`` or ``("pod", "data", "model")``
+    mesh over this process's world) the step is the reference's over it:
+    ``args`` are this rank's pieces of the parameters (drawn from ``seed``
+    piece by piece, or cut from ``params``) and AdamW state under
+    ``tree_specs`` by :func:`lm_train_rules` (``use_fsdp`` overrides the
+    2e9 rule), and its data shard of the batch (``batch``, whole, or a
+    seeded one); the forward is the tensor-parallel one
+    (``transformer.TensorParallel``), the MoE expert-parallel with its
+    combine reduce-scattered into the residual's chunks where the residual
+    is split by sequence (the sequence divides ``model``; else
+    all-reduced: the reference's rule, B_local x L dividing ``model``,
+    also scatters where its own residual stays whole and GSPMD gathers it
+    back), the loss vocab-parallel.  Each rank's ``n_micro``
+    microbatches accumulate before one gradient sync
+    (``fsdp.sharded_adamw_step``)."""
     dev = resolve_device(device)
     b = shape.global_batch if global_batch is None else global_batch
     if n_micro is None:
-        n_micro = 4 if cfg.n_params() > 4e10 else 1
+        n_micro = 4 if cfg.n_params() > MICRO_MIN_PARAMS else 1
+    if mesh is not None:
+        return _build_lm_train_mesh(arch_id, cfg, shape, params, b, n_micro, seed, dev, mesh,
+                                    batch, use_fsdp)
     if b % n_micro:
         raise ValueError(f"global batch {b} does not split into {n_micro} microbatches")
     params = transformer.init_lm(cfg, _generator(seed, dev)) if params is None else params
     require_grad(params)
-    batch = lm_train_inputs(cfg, b, shape.seq_len, seed + 1, dev)
+    batch = lm_train_inputs(cfg, b, shape.seq_len, seed + 1, dev) if batch is None else batch
     step = train_step(_lm_loss_fn(cfg), optimizer.AdamWConfig(), n_micro)
     return StepBundle(f"{arch_id}:{shape.name}", step,
                       (params, optimizer.init_adamw(params), batch),
                       6.0 * cfg.n_active_params() * b * shape.seq_len)
+
+
+def _build_lm_train_mesh(arch_id, cfg, shape, params, b, n_micro, seed, dev, mesh, batch,
+                         use_fsdp) -> StepBundle:
+    sharding.check_mesh_device(mesh, dev)
+    _, n_b = _flat_index(mesh, sharding.batch_axes(mesh))
+    if b % (n_b * n_micro):
+        raise ValueError(f"global batch {b} does not split into {n_b} batch shards of "
+                         f"{n_micro} microbatches")
+    pieces, shardings = _lm_pieces(cfg, params, seed, dev, mesh, lm_train_rules(cfg, use_fsdp))
+    batch = batch_shard(lm_train_inputs(cfg, b, shape.seq_len, seed + 1, dev)
+                        if batch is None else batch, mesh)
+    tp = transformer.tensor_parallel(mesh, shardings)
+    moe_fn = _lm_moe_fn(cfg, mesh, sharding.batch_axes(mesh), dev,
+                        tp.n > 1 and shape.seq_len % tp.n == 0)
+    step = fsdp.sharded_adamw_step(_lm_loss_fn(cfg, moe_fn, tp), optimizer.AdamWConfig(),
+                                   shardings, mesh, n_micro)
+    return StepBundle(f"{arch_id}:{shape.name}", step,
+                      (pieces, optimizer.init_adamw(pieces), batch),
+                      6.0 * cfg.n_active_params() * b * shape.seq_len, shardings=shardings)
 
 
 # ---------------------------------------------------------------------------
@@ -807,11 +915,30 @@ def build_gnn_train(arch_id: str, cfg: GNNConfig, shape: GraphShape, *, params=N
                       (params, optimizer.init_adamw(params), batch), gnn_flops(cfg, e))
 
 
-def shard_params(params, logical_specs, mesh):
+def shard_params(params, logical_specs, mesh, rules=None):
     """(this rank's pieces of ``params`` requiring grad, their shardings):
-    ``logical_specs`` under ``tree_specs`` on ``mesh``."""
-    shardings = sharding.tree_shardings(mesh, params, logical_specs)
+    ``logical_specs`` under ``tree_specs`` on ``mesh`` (the reference's
+    ``DEFAULT_RULES``, or ``rules``)."""
+    shardings = sharding.tree_shardings(mesh, params, logical_specs, rules)
     return require_grad(fsdp.shard_tree(params, shardings)), shardings
+
+
+def init_pieces(init: Callable, logical_specs, mesh, rules=None):
+    """(this rank's pieces requiring grad, their shardings) of the
+    parameters ``init(place)`` draws, each leaf cut to its piece under
+    ``tree_specs`` by the ``place(path, leaf)`` hook as it is drawn, so no
+    rank keeps a whole leaf it does not hold.  The pieces equal
+    :func:`shard_params`' of the same draws."""
+    logical, placed = sharding.logical_by_path(logical_specs), {}
+
+    def place(path, leaf):
+        placed[path] = sharding.Sharding(
+            mesh, sharding.spec_for(mesh, logical[path], tuple(leaf.shape), rules))
+        return placed[path].local(leaf).contiguous().clone()
+
+    pieces = init(place)
+    shardings = unflatten_like(pieces, [placed[k] for k, _ in leaves_with_paths(pieces)])
+    return require_grad(pieces), shardings
 
 
 def gather_params(pieces, shardings):
@@ -872,33 +999,80 @@ def _lm_params(cfg: LMConfig, params, seed: int, device):
     return transformer.init_lm(cfg, _generator(seed, resolve_device(device)))
 
 
+def _lm_batch_axes(mesh, b: int) -> tuple:
+    """The batch dimensions a batch of ``b`` rows splits over: every batch
+    axis when they divide it, else none (the reference's ``_even``)."""
+    bp = sharding.batch_axes(mesh)
+    return bp if bp and b % sharding.axis_size(mesh, bp) == 0 else ()
+
+
+def _rows(x: torch.Tensor, mesh, batch_axes) -> torch.Tensor:
+    """This rank's rows of ``x`` split over ``batch_axes``."""
+    if not batch_axes:
+        return x
+    i, n = _flat_index(mesh, batch_axes)
+    rl = x.shape[0] // n
+    return x[i * rl:(i + 1) * rl]
+
+
 def build_lm_prefill(arch_id: str, cfg: LMConfig, shape: LMShape, *, params=None,
                      global_batch: Optional[int] = None, seed: int = 0,
-                     device=None) -> StepBundle:
+                     device=None, mesh=None, tokens=None) -> StepBundle:
     """``step(params, tokens) -> (logits (B, padded vocab) of the last
     position, cache)``: one prefill of (B, seq_len) tokens through the flash
     kernel (``attn_impl="flash"``; the reference's builder uses ``ref``,
     the same function for unpadded tokens), the cache every layer's (k, v)
     in ``init_cache``'s layout, seq_len entries long.  ``global_batch`` cuts
-    the shape's batch to what one card holds.  ``model_flops`` = 2 x active
-    parameters x tokens."""
+    the shape's batch to what one card holds; ``tokens`` (whole) replaces
+    the seeded ones.  ``model_flops`` = 2 x active parameters x tokens.
+
+    With ``mesh`` the step is the reference's over it: ``args`` are this
+    rank's pieces of the parameters under ``tree_specs`` (the reference's
+    rules) and its rows of the tokens (the batch over the batch dimensions
+    when they divide it), flash runs on the rank's heads
+    (``transformer.TensorParallel``), the MoE is expert-parallel, the
+    logits are the rank's rows, whole, and the cache is in
+    ``make_decode_core``'s layout (this rank's rows and sequence chunk
+    over ``model``, every kv head), so a mesh decode continues from it."""
     dev = resolve_device(device)
-    params = _lm_params(cfg, params, seed, dev)
     b = shape.global_batch if global_batch is None else global_batch
+    tokens = lm_tokens(cfg, (b, shape.seq_len), seed + 1, dev) if tokens is None else tokens
+    tp, moe_fn = None, None
+    if mesh is None:
+        params = _lm_params(cfg, params, seed, dev)
+        shardings = None
+    else:
+        sharding.check_mesh_device(mesh, dev)
+        params, shardings = _lm_pieces(cfg, params, seed, dev, mesh, grad=False)
+        batch_axes = _lm_batch_axes(mesh, b)
+        tokens = _rows(tokens, mesh, batch_axes)
+        tp = transformer.tensor_parallel(mesh, shardings)
+        moe_fn = _lm_moe_fn(cfg, mesh, batch_axes, dev)
+
+    def layout(x):
+        return x if tp is None else transformer.decode_layout(tp, x, cfg.n_kv_heads)
 
     @torch.no_grad()
     def step(params, tokens):
         h, _, (prefix_kv, layers_kv) = transformer.encode(params, tokens, cfg, return_kv=True,
-                                                          attn_impl="flash")
-        last = transformer.lm_logits(params, h[:, -1:, :], cfg)[:, 0]
-        cache = {"layers": [{"k": k, "v": v} for k, v in layers_kv]}
+                                                          attn_impl="flash", moe_fn=moe_fn,
+                                                          tp=tp)
+        if tp is None:
+            last = transformer.lm_logits(params, h[:, -1:, :], cfg)[:, 0]
+        else:
+            # the last position lives on the last model rank when the
+            # sequence is split: every rank takes it from there
+            end = h[:, -1] if h.shape[1] == tokens.shape[1] else tp.whole(
+                h[:, -1:], 1, tp.n)[:, -1]
+            last = tp.whole(transformer.lm_logits(params, end, cfg, tp), -1,
+                            transformer.padded_vocab(cfg))
+        cache = {"layers": [{"k": layout(k), "v": layout(v)} for k, v in layers_kv]}
         if prefix_kv:
-            cache["prefix"] = [{"k": k, "v": v} for k, v in prefix_kv]
+            cache["prefix"] = [{"k": layout(k), "v": layout(v)} for k, v in prefix_kv]
         return last, cache
 
-    tokens = lm_tokens(cfg, (b, shape.seq_len), seed + 1, dev)
     return StepBundle(f"{arch_id}:{shape.name}", step, (params, tokens),
-                      2.0 * cfg.n_active_params() * b * shape.seq_len)
+                      2.0 * cfg.n_active_params() * b * shape.seq_len, shardings=shardings)
 
 
 def build_lm_decode(arch_id: str, cfg: LMConfig, shape: LMShape, *, params=None,
@@ -915,42 +1089,35 @@ def build_lm_decode(arch_id: str, cfg: LMConfig, shape: LMShape, *, params=None,
     the reference's mesh decode: the cache's sequence over ``model`` and
     the batch over the batch dimensions (``pod``, ``data``) that divide it
     (at ``long_500k``, batch 1, the sequence over every dimension), through
-    ``make_decode_core``, and for a MoE config the experts over ``model``
-    (``make_moe_fn``, each rank holding its experts: ``moe.expert_slice``).
-    ``args`` are this rank's: its experts, its chunk of the cache, its rows
-    of the tokens, and the logits are those rows'.  The dense weights are
-    whole on every rank (placing them by ``tree_specs`` is ROADMAP.md,
-    queue 1, item 2b)."""
+    ``make_decode_core``; the parameters are this rank's pieces under
+    ``tree_specs`` (the reference's rules: FSDP over ``data``, heads, MLP
+    columns, vocab and experts over ``model``), the dense blocks
+    tensor-parallel and the MoE expert-parallel (``make_moe_fn``).
+    ``args`` are this rank's: its pieces, its chunk of the cache, its rows
+    of the tokens, and the logits are those rows', whole."""
     dev = resolve_device(device)
-    params = _lm_params(cfg, params, seed, dev)
     b, s = (shape.global_batch if global_batch is None else global_batch), shape.seq_len
     token = lm_tokens(cfg, (b,), seed + 1, dev)
     pos = torch.tensor(s - 1, dtype=torch.int32, device=dev)
-    hooks = {}
-    if mesh is not None:
-        from ..distributed import sharding
-        from ..distributed.collectives import _dims_group
+    hooks, shardings = {}, None
+    if mesh is None:
+        params = _lm_params(cfg, params, seed, dev)
+    else:
         from ..distributed.decode_attention import make_decode_core
-        from ..models import moe as moe_lib
 
-        dims = sharding.mesh_dims(mesh)
-        bp = sharding.batch_axes(mesh)
+        sharding.check_mesh_device(mesh, dev)
+        params, shardings = _lm_pieces(cfg, params, seed, dev, mesh, grad=False)
         if shape.name == "long_500k":
-            batch_axes, seq_axes = (), bp + ("model",)
+            batch_axes, seq_axes = (), sharding.batch_axes(mesh) + ("model",)
         else:
-            batch_axes = tuple(a for a in bp if b % dims[a] == 0)
+            dims = sharding.mesh_dims(mesh)
+            batch_axes = tuple(a for a in sharding.batch_axes(mesh) if b % dims[a] == 0)
             seq_axes = ("model",)
         hooks["decode_core"] = make_decode_core(mesh, batch_axes, seq_axes, s, device=dev)
-        if cfg.moe is not None:
-            hooks["moe_fn"] = moe_lib.make_moe_fn(mesh, cfg.moe, batch_axes, device=dev)
-            params = dict(params)
-            for part in ("prefix", "layers"):
-                params[part] = [dict(lp, moe=moe_lib.expert_slice(lp["moe"], mesh))
-                                if "moe" in lp else lp for lp in params.get(part, [])]
-        n_b = sharding.axis_size(mesh, batch_axes) if batch_axes else 1
-        lo = (dist.get_rank(_dims_group(mesh, batch_axes)) * (b // n_b)) if batch_axes else 0
-        token = token[lo:lo + b // n_b]
-        b, s = b // n_b, hooks["decode_core"].local_len
+        hooks["moe_fn"] = _lm_moe_fn(cfg, mesh, batch_axes, dev)
+        hooks["tp"] = transformer.tensor_parallel(mesh, shardings)
+        token = _rows(token, mesh, batch_axes)
+        b, s = token.shape[0], hooks["decode_core"].local_len
 
     @torch.no_grad()
     def step(params, cache, token, pos):
@@ -958,7 +1125,7 @@ def build_lm_decode(arch_id: str, cfg: LMConfig, shape: LMShape, *, params=None,
 
     cache = transformer.init_cache(cfg, b, s, device=dev)
     return StepBundle(f"{arch_id}:{shape.name}", step, (params, cache, token, pos),
-                      2.0 * cfg.n_active_params() * b)
+                      2.0 * cfg.n_active_params() * b, shardings=shardings)
 
 
 ADACUR_SERVE_CFG = AdaCURConfig(
@@ -1029,20 +1196,22 @@ def build_cell(arch_id: str, shape_name: str, *, params=None, global_batch=None,
                seed: int = 0, device=None, mesh=None) -> StepBundle:
     """The bundle of one (arch, shape) cell of a family the port serves
     (``registry.get`` raises for the others); ``adacur_serve`` is the LM
-    family's extra cell.  With ``mesh``, the GNN cells and DLRM's
-    ``train_batch`` run over it; the other cells raise (ROADMAP.md, queue
-    1, item 2b)."""
+    family's extra cell.  With ``mesh``, the GNN cells, the LM cells but
+    ``adacur_serve`` and DLRM's ``train_batch`` run over it; the other
+    cells raise (ROADMAP.md, queue 1, item 2c)."""
     entry = registry.get(arch_id)
     cfg = entry.config
     kw = dict(params=params, seed=seed, device=device)
     if mesh is not None:
         kw["mesh"] = mesh
         shape = registry.shapes_for(arch_id).get(shape_name)
-        if not (entry.family == "gnn" or (entry.family == "recsys" and shape is not None
-                                          and shape.kind == "train" and cfg.kind == "dlrm")):
+        if not (entry.family == "gnn"
+                or (entry.family == "lm" and shape_name != "adacur_serve")
+                or (entry.family == "recsys" and shape is not None and shape.kind == "train"
+                    and cfg.kind == "dlrm")):
             raise NotImplementedError(
                 f"{arch_id}:{shape_name} over a mesh is not ported yet: ROADMAP.md, queue 1, "
-                "item 2b")
+                "item 2c")
     if entry.family == "gnn":
         return build_gnn_train(arch_id, cfg, registry.shapes_for(arch_id)[shape_name], **kw)
     if entry.family == "lm":

@@ -35,6 +35,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from ..configs.base import MoEConfig
+from ..distributed import fsdp
 from ..distributed.collectives import _dims_group
 from ..distributed.sharding import check_mesh_device
 from ..kernels.approx_topk.select import stable_topk
@@ -66,11 +67,12 @@ def moe_specs(cfg: MoEConfig) -> dict:
     return specs
 
 
-def _route(params, x: torch.Tensor, cfg: MoEConfig):
+def _route(params, x: torch.Tensor, cfg: MoEConfig, logits=None):
     """Top-k routing -> (experts (T, k) int64, normalized weights (T, k)
     fp32, the GShard aux loss E * sum_e(frac_tokens_e * mean_prob_e) over
-    primary experts)."""
-    logits = x.float() @ params["router"].float()                # (T, E)
+    primary experts); ``logits`` (T, E) when the caller has them."""
+    if logits is None:
+        logits = x.float() @ params["router"].float()            # (T, E)
     probs = torch.softmax(logits, dim=-1)
     top_p, top_e = stable_topk(probs, cfg.top_k)                 # ties -> lower id
     top_p = top_p / (top_p.sum(-1, keepdim=True) + 1e-9)
@@ -161,22 +163,31 @@ def expert_slice(params, mesh, ep_axis: str = "model") -> dict:
 
 def make_moe_fn(mesh, cfg: MoEConfig, batch_axes, ep_axis: str = "model",
                 capacity_factor: float = None, scatter_tokens: bool = False, device=None):
-    """The expert-parallel MoE for ``transformer._mlp_block``:
-    ``moe_fn(params, x) -> (y, aux)`` with this rank's experts
-    (``expert_slice``) and its tokens x (T_local, d): tokens split over
-    ``batch_axes`` (the caller hands each rank its rows) and whole over
-    ``ep_axis``, so dispatch needs no collective.  Each rank runs its
-    experts on the tokens routed to them, and the combine is one all-reduce
-    over ``ep_axis`` (y (T_local, d)); with ``scatter_tokens`` it is a
-    reduce-scatter, y is this rank's chunk of T_local / n_ep token rows
-    (row-major over ``ep_axis``), and the shared experts run once on that
-    chunk.  ``aux`` (per data group, GShard's definition) is averaged over
-    every mesh dimension.
+    """The expert-parallel MoE for ``transformer._ffn``:
+    ``moe_fn(params, x, order=None) -> (y, aux)`` with this rank's experts
+    (``expert_slice``, or its pieces under ``tree_specs``) and its tokens x
+    (T_local, d): tokens split over ``batch_axes`` (the caller hands each
+    rank its rows) and whole over ``ep_axis``, so dispatch needs no
+    collective.  Each rank runs its experts on the tokens routed to them,
+    and the combine is one all-reduce over ``ep_axis`` (y (T_local, d));
+    with ``scatter_tokens`` it is a reduce-scatter, y is this rank's block
+    of T_local / n_ep token rows (row-major over ``ep_axis``, in ``order``
+    when given: a permutation of the rows, ``transformer.seq_order``, so
+    that the blocks are the residual's sequence chunks), and whole shared
+    experts run once on that block.  Routing and capacity see the rows in
+    their own order either way.  ``aux`` (per data group, GShard's
+    definition) is averaged over every mesh dimension.  Every collective is
+    differentiable (``distributed.fsdp``), so the MoE trains.
+
+    Pieces split over ``ep_axis`` beyond the experts (``tree_specs`` puts
+    the router's expert columns and the shared experts' hidden columns on
+    ``model``) are used in place: the router's logits are all-gathered,
+    and the shared experts' partial sums join the combine.
 
     The local path adds a token's slots in ascending slot order; the
-    all-reduce adds the ranks' partial sums in its own order, so y equals
-    the single-device MoE to fp32 rounding, not bit for bit.  The partial
-    sums are fp32 and y is cast to x's dtype once.  ``device`` is the card
+    combine adds the ranks' partial sums in rank order, so y equals the
+    single-device MoE to fp32 rounding, not bit for bit.  The partial sums
+    are fp32 and y is cast to x's dtype once.  ``device`` is the card
     unless the caller passes ``"cpu"`` (the device rule)."""
     check_mesh_device(mesh, device)
     ep_group = _dims_group(mesh, (ep_axis,))
@@ -184,39 +195,44 @@ def make_moe_fn(mesh, cfg: MoEConfig, batch_axes, ep_axis: str = "model",
     n_ep, ep_rank = dist.get_world_size(ep_group), dist.get_rank(ep_group)
     n_all = dist.get_world_size(all_group)
 
-    def moe_fn(params, x):
+    def moe_fn(params, x, order=None):
         y, aux = moe_apply_ep(params, x, cfg, ep_group, ep_rank, n_ep, capacity_factor,
-                              scatter_tokens)
-        aux = aux.reshape(1).clone()
-        dist.all_reduce(aux, group=all_group)
-        return y, (aux / n_all)[0]
+                              scatter_tokens, order)
+        return y, fsdp.all_reduce(aux.reshape(1), all_group)[0] / n_all
 
+    moe_fn.scatter_tokens = scatter_tokens
     return moe_fn
 
 
 def moe_apply_ep(params, x: torch.Tensor, cfg: MoEConfig, ep_group, ep_rank: int, n_ep: int,
-                 capacity_factor: float = None, scatter_tokens: bool = False):
+                 capacity_factor: float = None, scatter_tokens: bool = False, order=None):
     """The expert-parallel body on one rank: its experts (global ids from
     ``ep_rank * E_local``) over its tokens x (T_local, d), combined over
     ``ep_group`` -> (y, this data group's aux)."""
     t, d = x.shape
-    top_e, top_p, aux = _route(params, x, cfg)
+    logits = None
+    if params["router"].shape[1] != cfg.n_experts:     # the rank's expert columns
+        logits = fsdp.all_gather(x.float() @ params["router"].float(), ep_group, 1)
+    top_e, top_p, aux = _route(params, x, cfg, logits)
     cap = _capacity(t, cfg, capacity_factor or cfg.capacity_factor)
     y = _dispatch_compute_combine(x, top_e, top_p, params["wg"], params["wu"], params["wd"],
                                   cap, expert_offset=ep_rank * params["wg"].shape[0])
+    shared = params.get("shared")
+    split_shared = shared is not None and shared["wu"].shape[1] != (
+        cfg.d_expert * cfg.n_shared_experts)
+    if split_shared:                       # its hidden columns: a partial sum as well
+        y = y + layers.mlp_apply(shared, x, "swiglu").float()
     if scatter_tokens:
         if t % n_ep:
             raise ValueError(f"{t} tokens do not scatter over {n_ep} ranks")
         chunk = t // n_ep
-        part = torch.empty((chunk, d), dtype=y.dtype, device=y.device)
-        dist.reduce_scatter_tensor(part, y.contiguous(), group=ep_group)
-        y = part.to(x.dtype)
-        if "shared" in params:
-            y = y + layers.mlp_apply(params["shared"],
-                                     x[ep_rank * chunk:(ep_rank + 1) * chunk], "swiglu")
+        if order is not None:
+            y, x = y[order], x[order]
+        y = fsdp.reduce_scatter(y, ep_group, 0).to(x.dtype)
+        if shared is not None and not split_shared:
+            y = y + layers.mlp_apply(shared, x[ep_rank * chunk:(ep_rank + 1) * chunk], "swiglu")
     else:
-        dist.all_reduce(y, group=ep_group)
-        y = y.to(x.dtype)
-        if "shared" in params:
-            y = y + layers.mlp_apply(params["shared"], x, "swiglu")
+        y = fsdp.all_reduce(y, ep_group).to(x.dtype)
+        if shared is not None and not split_shared:
+            y = y + layers.mlp_apply(shared, x, "swiglu")
     return y, aux

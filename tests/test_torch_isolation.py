@@ -187,11 +187,13 @@ def test_sharded_entry_points_refuse_to_fall_back_to_the_cpu(monkeypatch, tmp_pa
 def test_mesh_entry_points_refuse_to_fall_back_to_the_cpu(monkeypatch, tmp_path):
     """The sequence-parallel decode core, the expert-parallel MoE, the
     pipeline, the cross-pod reduce, the sharded save of an index over a
-    card mesh and the replica meshes the router serves land on the card
-    unless the caller asks for the CPU: without a card they raise before any
-    process group exists."""
-    from repro_torch.configs.base import MoEConfig
+    card mesh, the replica meshes the router serves and the LM prefill and
+    decode over a mesh land on the card unless the caller asks for the
+    CPU: without a card they raise before any process group exists."""
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import LMShape, MoEConfig
     from repro_torch.core.index import AnchorIndex
+    from repro_torch.launch import steps
     from repro_torch.distributed.cross_pod import make_hierarchical_grad_reduce
     from repro_torch.distributed.decode_attention import make_decode_core
     from repro_torch.distributed.pipeline import pipeline_forward
@@ -211,7 +213,11 @@ def test_mesh_entry_points_refuse_to_fall_back_to_the_cpu(monkeypatch, tmp_path)
                  lambda: pipeline_forward(CardMesh(), lambda p, x: x, "data", 2),
                  lambda: make_hierarchical_grad_reduce(CardMesh()),
                  lambda: sharded.save(str(tmp_path / "sharded")),
-                 lambda: make_replica_meshes(2, 1, 1)):
+                 lambda: make_replica_meshes(2, 1, 1),
+                 lambda: steps.build_lm_prefill("g", registry.smoke_config(
+                     "granite-moe-1b-a400m"), LMShape("p", "prefill", 8, 2), mesh=CardMesh()),
+                 lambda: steps.build_lm_decode("g", registry.smoke_config(
+                     "granite-moe-1b-a400m"), LMShape("d", "decode", 8, 2), mesh=CardMesh())):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
     assert not torch.distributed.is_initialized()
@@ -219,9 +225,11 @@ def test_mesh_entry_points_refuse_to_fall_back_to_the_cpu(monkeypatch, tmp_path)
 
 
 def test_training_entry_points_refuse_to_fall_back_to_the_cpu(monkeypatch, tmp_path):
-    """The train builders, the trainer CLI, a checkpoint's restore into a
-    training tree and ``CheckpointManager.resume`` land on the card unless
-    the caller asks for the CPU: without a card they raise."""
+    """The train builders (the LM's over a mesh too), the trainer CLI, a
+    checkpoint's restore into a training tree and
+    ``CheckpointManager.resume`` land on the card unless the caller asks
+    for the CPU: without a card they raise, before any process group
+    exists."""
     from repro_torch.checkpoint import CheckpointManager
     from repro_torch.configs import registry
     from repro_torch.configs.base import LMShape, RecSysShape
@@ -235,6 +243,16 @@ def test_training_entry_points_refuse_to_fall_back_to_the_cpu(monkeypatch, tmp_p
         steps.build_recsys_train("dlrm-mlperf", cfg, RecSysShape("t", "train", 4))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         steps.build_lm_train("ce-tiny", registry.CE_TINY, LMShape("t", "train", 8, 2))
+
+    class CardMesh:            # a card mesh's face
+        device_type = "cuda"
+        mesh_dim_names = ("data", "model")
+        shape = (2, 2)
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        steps.build_lm_train("g", registry.smoke_config("granite-moe-1b-a400m"),
+                             LMShape("t", "train", 8, 2), mesh=CardMesh())
+    assert not torch.distributed.is_initialized()
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train.main(["--steps", "1", "--ckpt-dir", str(tmp_path / "cli")])
     with pytest.raises(RuntimeError, match="device='cpu'"):

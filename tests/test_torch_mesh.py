@@ -69,6 +69,12 @@ ROUTER_REQUESTS = 32
 # so the threshold leaves a loaded CPU's batches 8x that, and the stall is
 # still over 15x them
 STALL_S, STRAGGLER_THRESHOLD = 1.0, 8.0
+# the straggler's first requests arrive back to back: the router sends a
+# request to the replica with the shorter queue (replica 0 on a tie), so the
+# straggler gets one only while replica 0 has one queued, and spaced
+# arrivals that replica 0 keeps up with would never reach it; within a
+# burst of three replica 0 holds one (its batch outlasts three submits)
+STRAGGLER_BURST = 3
 SWAP_OFFSET = 10_000
 # "fault_held": the fault, with the faulty rank holding its groups open;
 # "idle": both replicas idle past their control groups' timeout mid-traffic
@@ -370,8 +376,9 @@ def _router_case(d, scenario, res):
         router = Router([svc, remote], queue_limit=256, plan=router_plan, **kw)
         if scenario == "straggler":   # the fleet baseline: healthy CPU batches
             router.replicas[0].watchdog.window.extend([STALL_S / 10] * 20)
+            out["watch"] = _record_watchdogs(router)
         qids = _qids(ROUTER_REQUESTS, seed=SCENARIOS.index(scenario))
-        tickets = []
+        tickets, submit_t = [], []
         for i, q in enumerate(qids):
             if idle and i == len(qids) // 2:
                 for t in tickets:       # the first half answered, then no traffic
@@ -380,8 +387,13 @@ def _router_case(d, scenario, res):
                 time.sleep(IDLE_S)
                 out["idle_s"] = time.monotonic() - out["idle_s"]
             tickets.append(router.submit(q))
-            if scenario == "straggler":
+            submit_t.append(time.monotonic() - t0)
+            if scenario == "straggler" and i >= STRAGGLER_BURST - 1:
                 time.sleep(0.02)
+            if scenario == "swap" and i == 0:
+                # one answer from the old index: back-to-back submits can
+                # reach the swap before a replica thread starts a batch
+                router.result(tickets[0], timeout=60.0)
         if scenario != "close":
             for t in tickets:
                 router.result(t, timeout=60.0)
@@ -400,6 +412,7 @@ def _router_case(d, scenario, res):
                                                               o.response.batch_row))
                        for o in outs],
                    stats=dict(router.stats), quarantined=list(router.quarantined),
+                   submit_t=submit_t, tried=[list(t.replicas_tried) for t in tickets],
                    log=svc.batch_log, link_keepalives=remote.keepalives)
     elif rank == rm.leader:
         try:
@@ -418,6 +431,26 @@ def _router_case(d, scenario, res):
     dist.destroy_process_group = destroy
     del held
     dist.barrier()                                     # the world outlives every replica
+
+
+def _record_watchdogs(router) -> list:
+    """Every watchdog observation of ``router``'s replicas, in order:
+    {replica, step, seconds, median, threshold, straggler, t}, the median
+    and threshold as they stood before the observation."""
+    rec, t0 = [], time.monotonic()
+    for rep in router.replicas:
+        wd = rep.watchdog
+
+        def observe(step, seconds, wd=wd, rid=rep.rid, orig=rep.watchdog.observe):
+            med = wd._median()
+            st = orig(step, seconds)
+            rec.append(dict(replica=rid, step=step, seconds=seconds, median=med,
+                            threshold=wd.threshold * med, straggler=st.straggler,
+                            t=time.monotonic() - t0))
+            return st
+
+        wd.observe = observe
+    return rec
 
 
 def _namespace_scorer():
@@ -971,6 +1004,13 @@ def test_a_fault_whose_groups_are_held_open_is_bounded_by_their_timeout(world):
 
 def test_a_straggler_replica_is_quarantined_and_hedged_around(world):
     lead = world["ranks"][0]["router"]["straggler"]
+    for w in lead["watch"]:       # the watchdogs' record, shown when the test fails
+        print("straggler watch", {k: round(v, 4) if isinstance(v, float) else v
+                                  for k, v in w.items()})
+    print("straggler outcomes", [(o["replica"], o["hedged"], o["attempts"])
+                                 for o in lead["outcomes"]])
+    print("straggler dispatches", [(round(t, 4), tried)
+                                   for t, tried in zip(lead["submit_t"], lead["tried"])])
     assert lead["quarantined"] == [1], [round(bl["seconds"], 3) for bl in lead["log"]]
     assert all(o["status"] == "ok" for o in lead["outcomes"])
     assert lead["stats"]["hedges"] > 0

@@ -500,9 +500,9 @@ def test_build_cell_refuses_the_cells_left_for_later():
     from repro_torch.launch import steps
 
     stub = _Stub((2, 2), ("data", "model"))
-    for arch, shape in (("qwen3-8b", "train_4k"), ("bst", "train_batch"),
-                        ("dlrm-mlperf", "serve_p99")):
-        with pytest.raises(NotImplementedError, match="item 2b"):
+    for arch, shape in (("bst", "train_batch"), ("dlrm-mlperf", "serve_p99"),
+                        ("qwen3-8b", "adacur_serve"), ("granite-moe-1b-a400m", "adacur_serve")):
+        with pytest.raises(NotImplementedError, match="item 2c"):
             steps.build_cell(arch, shape, mesh=stub, device="cpu")
 
 
